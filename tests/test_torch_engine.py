@@ -1,0 +1,129 @@
+"""The port's engine (chitu_tpu_torch/engine.py) on the CPU: the flows the
+verify recipe drives on the JAX engine, and greedy tokens equal to the
+JAX engine's on the same weights."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from chitu_tpu.config import load_config as jload
+from chitu_tpu.engine import Engine as JEngine
+from chitu_tpu.task import SampleParams as JSampleParams
+from chitu_tpu_torch import SampleParams, load_config
+from chitu_tpu_torch.engine import Engine
+from chitu_tpu_torch.models.llama import params_from_numpy
+
+TINY = [
+    "models=micro-llama-debug", "infer.max_seq_len=128", "infer.max_reqs=4",
+    "infer.page_size=16", "request.max_new_tokens=8",
+    "infer.stop_with_eos=false",
+]
+GREEDY = SampleParams(temperature=0.0, max_new_tokens=8)
+
+
+def _engine(*extra, **kw):
+    return Engine(load_config(overrides=TINY + list(extra)), device="cpu", **kw)
+
+
+def test_greedy_deterministic():
+    eng = _engine()
+    a = eng.generate("hello world", GREEDY)
+    b = eng.generate("hello world", GREEDY)
+    assert len(a) == 8 and a == b
+
+
+def test_mixed_burst_beyond_max_reqs_returns_everything():
+    eng = _engine()
+    params = [
+        GREEDY,
+        SampleParams(temperature=0.8, top_k=16, top_p=0.9, max_new_tokens=5),
+        SampleParams(temperature=1.0, frequency_penalty=0.5, max_new_tokens=7),
+    ]
+    reqs = [
+        eng.submit(f"prompt number {i} " * (1 + i % 3), params[i % 3])
+        for i in range(9)  # > max_reqs = 4
+    ]
+    eng.run_until_complete()
+    for i, r in enumerate(reqs):
+        assert len(r.async_stream.tokens) == params[i % 3].max_new_tokens
+        assert r.finish_reason == "length"
+    assert eng.cache.allocator.num_free() == eng.cache.num_pages
+    assert len(eng.pool) == 0
+    assert len(eng.executor.slots.free) == 4
+    assert int(eng.executor.counts.sum()) == 0  # freed slots' counts reset
+
+
+def test_overlong_prompt_rejected_cleanly():
+    eng = _engine()
+    with pytest.raises(ValueError, match="exceeds max_seq_len"):
+        eng.submit("", GREEDY, prompt_tokens=[5] * 200)
+    assert len(eng.pool) == 0
+    assert eng.generate("still serving", GREEDY)  # the engine still works
+
+
+def test_chunked_prefill_matches_unchunked():
+    prompt = "word " * 18  # ~90 tokens > a chunk of 32
+    want = _engine().generate(prompt, GREEDY)
+    got = _engine("infer.prefill_chunk=32").generate(prompt, GREEDY)
+    assert got == want and len(got) == 8
+
+
+def test_hybrid_step_matches_phase_separated():
+    p = SampleParams(temperature=0.0, max_new_tokens=24)
+
+    def run(hybrid):
+        eng = _engine(f"infer.hybrid_step={hybrid}", "infer.decode_window=4")
+        r1 = eng.submit("first request starts decoding", p)
+        eng.step()
+        eng.step()
+        r2 = eng.submit("second arrives mid flight", p)
+        r3 = eng.submit("third also shows up", p)
+        eng.run_until_complete()
+        return [list(r.async_stream.tokens) for r in (r1, r2, r3)]
+
+    assert run("true") == run("false")
+
+
+PARITY = TINY[:-2] + [
+    "models.dim=256", "models.n_heads=4", "models.n_kv_heads=2",
+    "models.head_dim=128", "models.inter_dim=512", "infer.stop_with_eos=false",
+]
+
+
+def test_greedy_tokens_match_jax_engine():
+    """Same f32 weights in both engines (the pools are bf16 in both), the
+    same prompts submitted together: greedy tokens must be equal."""
+    jeng = JEngine(jload(overrides=PARITY))
+    tree = jeng.model.init_params(jax.random.PRNGKey(3), jnp.float32)
+    jeng.params = jeng.executor.params = tree
+    teng = Engine(
+        load_config(overrides=PARITY), device="cpu",
+        params=params_from_numpy(jax.tree_util.tree_map(np.asarray, tree)),
+    )
+    prompts = ["the quick brown fox", "a", "paged attention " * 5]
+    jr = [
+        jeng.submit(p, JSampleParams(temperature=0.0, max_new_tokens=8))
+        for p in prompts
+    ]
+    tr = [teng.submit(p, GREEDY) for p in prompts]
+    jeng.run_until_complete()
+    teng.run_until_complete()
+    want = [list(r.async_stream.tokens) for r in jr]
+    got = [list(r.async_stream.tokens) for r in tr]
+    assert all(len(t) == 8 for t in got)
+    assert got == want
+
+
+@pytest.mark.parametrize(
+    "override",
+    [
+        "infer.tp_size=2", "quant.method=soft_fp8", "infer.kv_dtype=fp8",
+        "infer.spec_decode=ngram", "infer.prefix_cache=true",
+        "models=tiny-mixtral-debug", "models=tiny-deepseek-debug",
+    ],
+)
+def test_unported_configurations_raise(override):
+    cfg = load_config(overrides=TINY + [override])
+    with pytest.raises(NotImplementedError, match="ROADMAP|slice"):
+        Engine(cfg, device="cpu")
