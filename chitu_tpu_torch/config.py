@@ -15,6 +15,12 @@ The cards are read by `read_yaml`, a small reader for the subset of YAML
 they use (two-level `key: value` maps, comments, quoted strings), so the
 engine needs no PyYAML. Scalars resolve the way `yaml.safe_load` resolves
 them (YAML 1.1 rules: ``1e-05`` without a dot stays a string).
+
+The dataclass tree is the JAX package's, field for field, so that the same
+overrides give equal trees in both packages; the field comments describe
+the JAX engine. Fields this port does not read yet (attn_type, op_impl,
+the ring, speculative and quantization settings) are kept for that
+equality; the engine raises for the values it cannot serve.
 """
 
 from __future__ import annotations

@@ -415,7 +415,9 @@ def attend_prefill_packed_fused(
     T, H, D = q.shape
     L, P, page, M = pool.shape
     NB = block_seg.shape[0]
-    assert page == page_size and D == head_dim and T % NB == 0
+    assert page == page_size and D == head_dim
+    if T % NB:
+        raise ValueError(f"{T} packed tokens do not split into {NB} blocks")
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if not q.is_cuda:
         return attend_prefill_packed_fused_plain(
