@@ -276,7 +276,7 @@ class Engine:
         self, message, params: Optional[SampleParams] = None,
         prompt_tokens: Optional[List[int]] = None,
     ) -> List[int]:
-        """Synchronous one-shot generation (test/driver convenience)."""
+        """Synchronous one-shot generation (for tests and scripts)."""
         req = self.submit(message, params, prompt_tokens=prompt_tokens)
         task_id = f"task-{req.request_id}"
         while task_id in self.pool:
