@@ -8,12 +8,18 @@ Phases, each fatal on failure:
    `chitu_tpu_torch/csrc/` (nvcc, sm_90a) and report the build time.
 2. Kernels: B1 attend_decode_fused, B2 attend_prefill_packed_fused and
    B5 attend_prefill at the shapes Llama-3-8B-Instruct serving gives them,
-   each case held against its plain PyTorch version on the same inputs
-   (pool bytes equal, outputs within atol=rtol=2e-2 in bf16) and timed
-   with CUDA events (median of 30): the kernel, its plain version, and
-   `scaled_dot_product_attention` on the gathered K/V as the library
-   yardstick. The bound is the larger of bytes moved / 3.35 TB/s and
-   attention FLOPs / 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
+   each case held against its plain PyTorch version on the same inputs:
+   pool bytes equal, and for every (token, head) output row
+   ||kernel - plain|| <= 1e-2 * ||plain|| (bf16 outputs; a relative limit,
+   because at these contexts the outputs are averages over hundreds of
+   keys and far below 1 in size). Times: the kernel and
+   `scaled_dot_product_attention` on the gathered K/V (the library
+   yardstick) as device time, 30 calls captured in one CUDA graph and
+   replayed between two CUDA events (median of 20 replays, divided by 30),
+   so the host's launch cost is not in them; the plain version, which
+   syncs with the host and cannot be captured, as the median of 20 calls,
+   each between two events. The bound is the larger of bytes moved / 3.35 TB/s
+   and attention FLOPs / 989 TFLOP/s (H100 SXM data sheet, bf16 dense).
 3. Engine: `Engine` at the full width and depth of Llama-3-8B-Instruct
    with random weights on the GPU serves one lone prompt, then a burst of
    six mixed-length prompts (one longer than the 512-token slab) that
@@ -36,8 +42,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense
-TOL = 2e-2
-REPS = 30
+ROW_RTOL = 1e-2
+REPS = 20  # timings per case; the median is reported
+GRAPH_CALLS = 30  # calls per captured graph
 
 
 def card_line() -> str:
@@ -49,22 +56,42 @@ def card_line() -> str:
     return out[0]
 
 
-def time_ms(torch, fn, reps=REPS):
-    """Median CUDA-event time of fn() over `reps` runs, after 3 warm-ups."""
+def _events_ms(torch, fn):
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b)
+
+
+def device_ms(torch, fn):
+    """Device time of one fn() call: GRAPH_CALLS calls captured in one
+    CUDA graph, replayed between two events; median of REPS replays."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capture, as torch asks
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            fn()
+    graph.replay()
+    times = sorted(_events_ms(torch, graph.replay) for _ in range(REPS))
+    return times[REPS // 2] / GRAPH_CALLS
+
+
+def call_ms(torch, fn):
+    """Median over REPS calls of one fn() call between two events, after
+    3 warm-ups (host time included)."""
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    times.sort()
-    return times[len(times) // 2]
+    times = sorted(_events_ms(torch, fn) for _ in range(REPS))
+    return times[REPS // 2]
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -108,15 +135,21 @@ def kernel_cases(torch, tk, plain, dev):
         return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
     def compare(name, out_k, out_p, rows, pool_kernel, pool_plain):
+        """-> (max abs err, max per-row relative err) over the live rows;
+        raises unless every (token, head) row is within ROW_RTOL."""
         if pool_kernel is not None and not torch.equal(pool_kernel, pool_plain):
             raise AssertionError(f"{name}: pool bytes differ from the plain version")
         a, b = out_k[rows].float(), out_p[rows].float()
         if not torch.isfinite(a).all():
             raise AssertionError(f"{name}: non-finite kernel output")
         err = (a - b).abs().max().item()
-        if not torch.allclose(a, b, atol=TOL, rtol=TOL):
-            raise AssertionError(f"{name}: max abs err {err} over tolerance {TOL}")
-        return err
+        rel = ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max().item()
+        if not rel <= ROW_RTOL:
+            raise AssertionError(
+                f"{name}: per-row relative err {rel} over {ROW_RTOL} "
+                f"(max abs err {err})"
+            )
+        return err, rel
 
     # ---- B1: decode rows of mixed context up to 2048, dead rows --------
     bts = torch.arange(P, device=dev, dtype=torch.int32).reshape(B, MP)
@@ -139,11 +172,10 @@ def kernel_cases(torch, tk, plain, dev):
         args = (LAYER, k, v, bts, seq, valid, PAGE, KV, D)
         out_k = tk.attend_decode_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_decode_fused_plain(q, pool_p, *args, **kw)
-        err = compare(name, out_k, out_p, live, pool_k, pool_p)
-        ms = time_ms(torch, lambda: tk.attend_decode_fused(q, pool_k, *args, **kw))
-        plain_ms = time_ms(
-            torch, lambda: tk.attend_decode_fused_plain(q, pool_p, *args, **kw),
-            reps=5,
+        err, rel = compare(name, out_k, out_p, live, pool_k, pool_p)
+        ms = device_ms(torch, lambda: tk.attend_decode_fused(q, pool_k, *args, **kw))
+        plain_ms = call_ms(
+            torch, lambda: tk.attend_decode_fused_plain(q, pool_p, *args, **kw)
         )
         # library: SDPA over the gathered context incl. the new token
         kg, vg = gathered_kv(bts)
@@ -154,7 +186,7 @@ def kernel_cases(torch, tk, plain, dev):
             mask &= cols > seq[:, None].long() - window
         lib_ms = None
         if not softcap:
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
                 q[:, :, None, :], kg, vg, attn_mask=mask[:, None, None, :],
                 scale=scale, enable_gqa=True,
             ))
@@ -168,7 +200,7 @@ def kernel_cases(torch, tk, plain, dev):
         yield dict(name=name, kernel="attend_decode_fused", route="cuda",
                    source="chitu_tpu_torch/csrc/attention.cu",
                    replaces="chitu_tpu/ops/pallas_attention.py:727",
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                   max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                    bound_by=by, library_ms=lib_ms,
                    shape=f"B={B} H={H} KV={KV} D={D} page={PAGE} mp={MP} "
                          f"ctx_rows={ctx}")
@@ -207,15 +239,16 @@ def kernel_cases(torch, tk, plain, dev):
         args = (LAYER, k, v, bts_p, block_seg, block_q, total, PAGE, KV, D)
         out_k = tk.attend_prefill_packed_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_prefill_packed_fused_plain(q, pool_p, *args, **kw)
-        err = compare(name, out_k, out_p, tok_live, pool_k, pool_p)
+        err, rel = compare(name, out_k, out_p, tok_live, pool_k, pool_p)
         dead = ~torch.repeat_interleave(block_seg >= 0, TQ)
         if out_k[dead].abs().max().item() != 0.0:
             raise AssertionError(f"{name}: dead blocks not zero")
-        ms = time_ms(torch, lambda: tk.attend_prefill_packed_fused(q, pool_k, *args, **kw))
-        plain_ms = time_ms(
+        ms = device_ms(
+            torch, lambda: tk.attend_prefill_packed_fused(q, pool_k, *args, **kw)
+        )
+        plain_ms = call_ms(
             torch,
             lambda: tk.attend_prefill_packed_fused_plain(q, pool_p, *args, **kw),
-            reps=5,
         )
         # library: SDPA over each segment's gathered context, padded to
         # one batch with per-segment causal masks
@@ -239,7 +272,7 @@ def kernel_cases(torch, tk, plain, dev):
             off += (n + TQ - 1) // TQ * TQ
         lib_ms = None
         if not softcap:
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
                 qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True,
             ))
         n_new = sum(n for _, n in segs)
@@ -250,7 +283,7 @@ def kernel_cases(torch, tk, plain, dev):
         yield dict(name=name, kernel="attend_prefill_packed_fused",
                    route="cuda", source="chitu_tpu_torch/csrc/attention.cu",
                    replaces="chitu_tpu/ops/pallas_attention.py:1424",
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                   max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                    bound_by=by, library_ms=lib_ms,
                    shape=f"T={T} Tq={TQ} NB={NB} segs={segs} H={H} KV={KV} D={D}")
 
@@ -269,9 +302,9 @@ def kernel_cases(torch, tk, plain, dev):
         out_k = tk.attend_prefill(q, *args, **kw)
         out_p = plain.attend_prefill(q, *args, **kw)
         rows = torch.ones(T, dtype=torch.bool, device=dev)
-        err = compare(name, out_k, out_p, rows, None, None)
-        ms = time_ms(torch, lambda: tk.attend_prefill(q, *args, **kw))
-        plain_ms = time_ms(torch, lambda: plain.attend_prefill(q, *args, **kw), reps=5)
+        err, rel = compare(name, out_k, out_p, rows, None, None)
+        ms = device_ms(torch, lambda: tk.attend_prefill(q, *args, **kw))
+        plain_ms = call_ms(torch, lambda: plain.attend_prefill(q, *args, **kw))
         kg, vg = gathered_kv(bt[None])
         S = kg.shape[2]
         cols = torch.arange(S, device=dev)[None, :]
@@ -281,7 +314,7 @@ def kernel_cases(torch, tk, plain, dev):
         pairs = int(mask.sum().item())
         lib_ms = None
         if not softcap:
-            lib_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(
+            lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
                 q.transpose(0, 1)[None], kg, vg, attn_mask=mask[None, None],
                 scale=scale, enable_gqa=True,
             ))
@@ -290,7 +323,7 @@ def kernel_cases(torch, tk, plain, dev):
         yield dict(name=name, kernel="attend_prefill", route="cuda",
                    source="chitu_tpu_torch/csrc/attention.cu",
                    replaces="chitu_tpu/ops/pallas_attention.py:1137",
-                   max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
+                   max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                    bound_by=by, library_ms=lib_ms,
                    shape=f"T={T} q_pos0={start} total={totl} H={H} KV={KV} D={D}")
 
@@ -402,7 +435,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t0 = time.time()
-    tk.build_kernels(verbose="--ptxas" in sys.argv)
+    tk.build_kernels()
     print(f"kernel build {time.time() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda", 0)

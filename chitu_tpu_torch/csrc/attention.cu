@@ -548,29 +548,24 @@ int launch_prefill(const void* q, const void* pool, const void* bts,
 }  // namespace
 
 constexpr int kUnsupported = 100000;
+// the one head size built; others wait for the expanded variants
+constexpr int kHeadDim = 128;
 
 extern "C" int chitu_attend_decode_fused(
     const void* q, void* pool, const void* k, const void* v,
     const void* block_tables, const void* seq_lens, const void* valid,
     void* out, int B, int layer, int P, int page, int M, int mp, int KV,
     int G, int D, float scale, int window, float softcap, void* stream) {
-  if (G > DEC_WARPS * DEC_HPW) return kUnsupported;
+  if (G > DEC_WARPS * DEC_HPW || D != kHeadDim) return kUnsupported;
   dim3 grid(B, KV);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define DEC_ARGS                                                           \
-  static_cast<const bf16*>(q), static_cast<bf16*>(pool),                   \
-      static_cast<const bf16*>(k), static_cast<const bf16*>(v),            \
-      static_cast<const int*>(block_tables),                               \
-      static_cast<const int*>(seq_lens), static_cast<const uint8_t*>(valid), \
-      static_cast<bf16*>(out), layer, P, page, M, mp, KV, G, scale, window, \
-      softcap
-  if (D == 128)
-    decode_fused_kernel<128><<<grid, DEC_WARPS * 32, 0, s>>>(DEC_ARGS);
-  else if (D == 64)
-    decode_fused_kernel<64><<<grid, DEC_WARPS * 32, 0, s>>>(DEC_ARGS);
-  else
-    return kUnsupported;
-#undef DEC_ARGS
+  decode_fused_kernel<kHeadDim>
+      <<<grid, DEC_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q), static_cast<bf16*>(pool),
+          static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+          static_cast<const int*>(block_tables),
+          static_cast<const int*>(seq_lens),
+          static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), layer,
+          P, page, M, mp, KV, G, scale, window, softcap);
   return int(cudaGetLastError());
 }
 
@@ -581,17 +576,11 @@ extern "C" int chitu_attend_prefill(const void* q, const void* pool,
                                     int mp, int KV, int G, int D, int total,
                                     float scale, int window, float softcap,
                                     void* stream) {
-  if (BQ * G > PF_ROWS || T % BQ) return kUnsupported;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D == 128)
-    return launch_prefill<128>(q, pool, block_table, q_pos, nullptr, nullptr,
-                               nullptr, total, out, 0, T, T, BQ, layer, P,
-                               page, M, mp, KV, G, scale, window, softcap, s);
-  if (D == 64)
-    return launch_prefill<64>(q, pool, block_table, q_pos, nullptr, nullptr,
-                              nullptr, total, out, 0, T, T, BQ, layer, P,
-                              page, M, mp, KV, G, scale, window, softcap, s);
-  return kUnsupported;
+  if (BQ * G > PF_ROWS || T % BQ || D != kHeadDim) return kUnsupported;
+  return launch_prefill<kHeadDim>(
+      q, pool, block_table, q_pos, nullptr, nullptr, nullptr, total, out, 0,
+      T, T, BQ, layer, P, page, M, mp, KV, G, scale, window, softcap,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int chitu_attend_prefill_packed_fused(
@@ -601,8 +590,8 @@ extern "C" int chitu_attend_prefill_packed_fused(
     int mp, int KV, int G, int D, float scale, int window, float softcap,
     void* stream) {
   const int Tq = T / NB;
-  if (BQ * G > PF_ROWS || Tq * NB != T || Tq % BQ) return kUnsupported;
-  if (D != 128 && D != 64) return kUnsupported;
+  if (BQ * G > PF_ROWS || Tq * NB != T || Tq % BQ || D != kHeadDim)
+    return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   append_packed_kernel<<<T, 128, 0, s>>>(
       static_cast<bf16*>(pool), static_cast<const bf16*>(k),
@@ -612,11 +601,8 @@ extern "C" int chitu_attend_prefill_packed_fused(
       static_cast<const int*>(total_lens), Tq, layer, P, page, M, mp, KV * D);
   const int err = int(cudaGetLastError());
   if (err) return err;
-  if (D == 128)
-    return launch_prefill<128>(q, pool, bts, nullptr, block_seg, block_qstart,
-                               total_lens, 0, out, 1, T, Tq, BQ, layer, P,
-                               page, M, mp, KV, G, scale, window, softcap, s);
-  return launch_prefill<64>(q, pool, bts, nullptr, block_seg, block_qstart,
-                            total_lens, 0, out, 1, T, Tq, BQ, layer, P, page,
-                            M, mp, KV, G, scale, window, softcap, s);
+  return launch_prefill<kHeadDim>(q, pool, bts, nullptr, block_seg,
+                                  block_qstart, total_lens, 0, out, 1, T, Tq,
+                                  BQ, layer, P, page, M, mp, KV, G, scale,
+                                  window, softcap, s);
 }

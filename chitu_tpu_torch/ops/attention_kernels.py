@@ -134,30 +134,28 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build_kernels(verbose: bool = False) -> str:
+def build_kernels() -> str:
     """Compile csrc/ into build/attention-<hash>.so unless that exact
-    build exists; returns its path. `verbose` adds ptxas's register and
-    shared-memory report to the compiler output, which is printed."""
+    build exists; returns its path."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for src in SOURCES:
         with open(src, "rb") as f:
             h.update(f.read())
     so = os.path.join(BUILD_DIR, f"attention-{h.hexdigest()[:16]}.so")
-    if os.path.exists(so) and not verbose:
+    if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, *SOURCES]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
+        capture_output=True, text=True,
+    )
     if res.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
             f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
         )
-    if verbose:
-        print(res.stdout + res.stderr, flush=True)
     os.replace(tmp, so)
     return so
 
@@ -227,9 +225,11 @@ def _rows_block(G: int, Tq: int) -> int:
 
 
 def _check_geometry(D: int, M: int, kv_heads: int, H: int):
-    if D not in (64, 128):
+    if D != 128:
         raise NotImplementedError(
-            f"head_dim {D}: the CUDA kernels take head_dim 64 or 128"
+            f"head_dim {D}: the CUDA kernels take head_dim 128 only; other "
+            "head sizes wait for the expanded variants (ROADMAP queue B, "
+            "item 5)"
         )
     if H % kv_heads or M < 2 * kv_heads * D:
         raise ValueError(f"pool minor {M} cannot hold {kv_heads} K/V heads of {D}")

@@ -1,8 +1,10 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small geometries beside the Llama-3-8B ones chip_smoke.py covers:
-head_dim 64 and 128, 1 to 8 query heads per KV head, pages of 16 and 64,
-window and softcap. Pool bytes must be equal; outputs agree to
-atol=rtol=2e-2 in bf16 (the kernels sum in f32 in another order).
+head_dim 128 (the one head size the kernels take), 1 to 8 query heads per
+KV head, pages of 16 and 64, window and softcap. Pool bytes must be
+equal; every (token, head) output row must satisfy
+||kernel - plain|| <= 1e-2 * ||plain|| in bf16 (the kernels sum in f32 in
+another order; bf16 rounding alone leaves about 2e-3).
 
 Needs an NVIDIA GPU: skipped elsewhere. On the card (no JAX there, so
 without the suite's conftest):
@@ -18,9 +20,9 @@ from chitu_tpu_torch.ops import attention as plain
 from chitu_tpu_torch.ops import attention_kernels as tk
 
 pytestmark = pytest.mark.cuda
-TOL = 2e-2
+ROW_RTOL = 1e-2
 GEOMS = [  # (H, KV, D, page)
-    (8, 4, 128, 16), (4, 4, 64, 64), (16, 2, 128, 64), (6, 3, 64, 16),
+    (8, 4, 128, 16), (4, 4, 128, 64), (16, 2, 128, 64), (6, 3, 128, 16),
 ]
 WS = [(0, 0.0), (40, 0.0), (0, 20.0)]
 
@@ -46,7 +48,9 @@ def _check(out_k, out_p, rows=None):
     a, b = out_k.float(), out_p.float()
     if rows is not None:
         a, b = a[rows], b[rows]
-    torch.testing.assert_close(a, b, atol=TOL, rtol=TOL)
+    assert torch.isfinite(a).all()
+    rel = (a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)
+    assert rel.max().item() <= ROW_RTOL, rel.max().item()
 
 
 @pytest.mark.parametrize("window,softcap", WS)
@@ -123,16 +127,16 @@ def test_prefill_packed_fused(dev, H, KV, D, page, window, softcap):
 
 def test_wrappers_reject_bad_inputs(dev):
     rand = _gen(dev, 3)
-    pool = _pool(rand, 2, 64, 16, 8)
-    q = rand(3, 4, 64)
+    pool = _pool(rand, 2, 128, 16, 8)
+    q = rand(3, 4, 128)
     bt = torch.zeros((3, 2), device=dev, dtype=torch.int64)  # wrong dtype
     seq = torch.zeros((3,), device=dev, dtype=torch.int32)
     valid = torch.ones((3,), device=dev, dtype=torch.bool)
-    k = rand(3, 2, 64)
+    k = rand(3, 2, 128)
     with pytest.raises(TypeError):
-        tk.attend_decode_fused(q, pool, 0, k, k, bt, seq, valid, 16, 2, 64)
-    with pytest.raises(NotImplementedError):  # head_dim 32 has no kernel
+        tk.attend_decode_fused(q, pool, 0, k, k, bt, seq, valid, 16, 2, 128)
+    with pytest.raises(NotImplementedError):  # head_dim 64 has no kernel yet
         tk.attend_decode_fused(
-            rand(3, 4, 32), rand(2, 8, 16, 128), 0, rand(3, 2, 32),
-            rand(3, 2, 32), bt.int(), seq, valid, 16, 2, 32,
+            rand(3, 4, 64), rand(2, 8, 16, 256), 0, rand(3, 2, 64),
+            rand(3, 2, 64), bt.int(), seq, valid, 16, 2, 64,
         )
