@@ -7,6 +7,11 @@ and chitu/backend.py:86-405), for one GPU: tokenizer -> model -> weights
 loop mirrors `chitu_run` (reference: chitu_main.py:100-121): schedule ->
 step -> update.
 
+With `quant.method` set and `quant.quant_on_load`, the projection weights
+are quantized after init or load (`quantize.quantize_params`), and W4A16
+storage is then packed two nibbles a byte on the device; a parameter dict
+may also hold `QTensor`s already.
+
 The engine runs on CUDA unless `device="cpu"` is passed; with no GPU and
 no explicit device it raises. Configurations that later slices bring
 raise NotImplementedError naming the ROADMAP slice.
@@ -25,6 +30,12 @@ from chitu_tpu_torch.config import EngineConfig
 from chitu_tpu_torch.executor import Executor
 from chitu_tpu_torch.kvcache import PagedKVCache
 from chitu_tpu_torch.models import build_model
+from chitu_tpu_torch.ops.linear import set_fp8_act
+from chitu_tpu_torch.quantize.transforms import (
+    KIND_BY_METHOD,
+    pack_int4_storage,
+    quantize_params,
+)
 from chitu_tpu_torch.scheduler import Scheduler
 from chitu_tpu_torch.task import (
     SampleParams,
@@ -53,16 +64,27 @@ class EngineState(enum.Enum):
     TERMINATED = 3
 
 
-def check_supported(cfg: EngineConfig):
-    """Raise for configurations this slice does not carry yet."""
+def check_supported(cfg: EngineConfig, have_params: bool = False):
+    """Raise for configurations the port does not carry yet."""
     infer = cfg.infer
+    quant = cfg.quant
+    if quant.method not in ("none", "") and quant.method not in KIND_BY_METHOD:
+        raise ValueError(f"unknown quant method {quant.method!r}")
     todo = []
     if infer.tp_size > 1 or infer.pp_size > 1 or infer.dp_size > 1:
         todo.append("tp/pp/dp > 1 (slice 7: multi-GPU)")
     if infer.ring_prefill or infer.ring_kv:
         todo.append("ring prefill / ring KV (slice 7: multi-GPU)")
-    if cfg.quant.method != "none":
-        todo.append(f"quant.method={cfg.quant.method} (slices 2 and 5)")
+    if (
+        quant.method not in ("none", "")
+        and not quant.quant_on_load
+        and not have_params
+    ):
+        todo.append(
+            f"quant.method={quant.method} from a quantized checkpoint "
+            "(slice 1, item 9: loader.py, and the AWQ/GPTQ unpack of slice "
+            "5); set quant.quant_on_load=true to quantize on load"
+        )
     if infer.kv_dtype != "bf16":
         todo.append(f"kv_dtype={infer.kv_dtype} (slice 5)")
     if infer.spec_decode:
@@ -87,7 +109,8 @@ class Engine:
         params: Optional[Dict[str, torch.Tensor]] = None,
     ):
         init_logger()
-        check_supported(cfg)
+        check_supported(cfg, have_params=params is not None)
+        set_fp8_act(cfg.quant.fp8_act)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.state = EngineState.RUNNING
@@ -111,6 +134,14 @@ class Engine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.infer.seed)
             self.model.init_params(gen, _DTYPES[cfg.dtype])
+        if cfg.quant.method not in ("none", "") and cfg.quant.quant_on_load:
+            # destructive walk over the popped tree: each dense leaf is
+            # freed as it is replaced; int4 storage is packed afterwards,
+            # on the device
+            tree = quantize_params(
+                self.model.params_tree(pop=True), cfg.quant, self.model
+            )
+            self.model.load_params(pack_int4_storage(tree))
         logger.info("params ready in %.1fs", time.time() - t0)
 
         spec = self.model.kv_cache_spec()

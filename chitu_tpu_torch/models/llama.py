@@ -9,8 +9,12 @@ merge_tp == 1, held as frozen parameters of an `nn.Module`. The layer loop
 is a Python loop; each layer's projections are `torch.matmul` on views of
 the stacked weights, and attention goes through the kernel wrappers of
 `ops/attention_kernels.py` (CUDA kernels on the card, their plain
-versions on the CPU). The KV pool in `cache["kv"]` is updated IN PLACE
-and returned for symmetry with the JAX functions.
+versions on the CPU). A projection weight may be a `QTensor` (on-load
+quantization, or a quantized JAX tree carried across): `ops.linear`
+sends it to the dequant GEMM, and W8A8 projections take per-token int8
+activations from the fused norm+quant kernel. The KV pool in
+`cache["kv"]` is updated IN PLACE and returned for symmetry with the JAX
+functions.
 
 Not ported yet: `verify_draft` (speculative decoding), the ring and
 tensor-parallel paths, and the unmerged weight layout (an unmerged JAX
@@ -32,7 +36,15 @@ from chitu_tpu_torch.models.common import apply_rope, rms_norm, rope_tables
 from chitu_tpu_torch.ops import attention as attn_ops
 from chitu_tpu_torch.ops import attention_kernels as kernels
 from chitu_tpu_torch.ops.linear import linear, matmul_out_dtype
+from chitu_tpu_torch.ops.norm_quant import quant_acts, rms_norm_quant
+from chitu_tpu_torch.ops.qtensor import (
+    TENSOR_FIELDS,
+    QTensor,
+    QuantKind,
+    unpack_int4,
+)
 from chitu_tpu_torch.utils import resolve_device
+
 
 def _ffn_dim(args) -> int:
     """FFN hidden size (reference: model_llama.py:131-158)."""
@@ -48,36 +60,123 @@ def _ffn_dim(args) -> int:
 def _to_torch(a) -> torch.Tensor:
     """numpy array -> tensor; bf16 `ml_dtypes` arrays go through a uint16
     view because `torch.from_numpy` rejects them."""
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":
-        return torch.from_numpy(
-            np.ascontiguousarray(a).view(np.uint16)
-        ).view(torch.bfloat16)
     a = np.ascontiguousarray(a)
-    return torch.from_numpy(a if a.flags.writeable else a.copy())
+    a = a if a.flags.writeable else a.copy()
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
 
 
-def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
+def _is_q(leaf) -> bool:
+    """A quantized leaf of the JAX tree: a mapping or an object carrying
+    the QTensor fields as numpy arrays."""
+    if isinstance(leaf, dict):
+        return "data" in leaf and "scale" in leaf
+    return not isinstance(leaf, np.ndarray) and all(
+        hasattr(leaf, n) for n in ("data", "scale", "kind")
+    )
+
+
+def qtensor_from_numpy(leaf) -> QTensor:
+    """One quantized leaf of the JAX tree (see `params_from_numpy`) -> a
+    `QTensor`, field by field and byte for byte."""
+    get = leaf.get if isinstance(leaf, dict) else lambda k, d=None: getattr(leaf, k, d)
+    kind = get("kind", QuantKind.SOFT_FP8)
+    kind = QuantKind(getattr(kind, "value", kind))
+    kw = {}
+    for name in TENSOR_FIELDS:
+        a = get(name)
+        if a is None:
+            kw[name] = None
+            continue
+        a = np.asarray(a)
+        fp8 = a.dtype.name == "float8_e4m3fn" or (
+            name == "data" and a.dtype == np.uint8
+            and kind in (QuantKind.SOFT_FP8, QuantKind.FP8)
+        )
+        if fp8:  # e4m3 crosses as its bytes
+            a = np.ascontiguousarray(a).view(np.uint8)
+            kw[name] = _to_torch(a).view(torch.float8_e4m3fn)
+        else:
+            kw[name] = _to_torch(a)
+    return QTensor(kind=kind, block=int(get("block", 128)), **kw)
+
+
+def _leaf(a):
+    return qtensor_from_numpy(a) if _is_q(a) else _to_torch(a)
+
+
+def _cat_out(parts):
+    """Concatenate projection weights along the out dim: dense tensors, or
+    QTensors of one kind whose scales concatenate exactly."""
+    if not any(isinstance(p, QTensor) for p in parts):
+        return torch.cat(parts, dim=-1)
+    q0 = parts[0]
+    if not all(
+        isinstance(p, QTensor) and p.kind == q0.kind and p.block == q0.block
+        and p.in_perm is None and p.oc_idx is None for p in parts
+    ):
+        raise NotImplementedError(
+            "an unmerged quantized tree with mixed kinds, act-order "
+            "permutations or outlier rows cannot be merged into wqkv / "
+            "w_gate_up; quantize the merged layout instead"
+        )
+    repack = all(p.packed for p in parts)
+    parts = [unpack_int4(p) if p.packed else p for p in parts]
+    blockwise = (
+        q0.kind in (QuantKind.SOFT_FP8, QuantKind.FP8)
+        and q0.scale.shape[-1] != q0.data.shape[-1]
+    )
+    if blockwise and any(p.data.shape[-1] % p.block for p in parts[:-1]):
+        raise NotImplementedError(
+            "blockwise fp8 scales merge exactly only when each part's out "
+            "dim fills its last block"
+        )
+    cat = lambda name: torch.cat([getattr(p, name) for p in parts], dim=-1)
+    q = QTensor(
+        data=cat("data").view(torch.uint8).contiguous().view(q0.data.dtype)
+        if q0.data.dtype == torch.float8_e4m3fn
+        else cat("data"),
+        scale=cat("scale"),
+        zeros=cat("zeros") if q0.zeros is not None else None,
+        kind=q0.kind, block=q0.block,
+    )
+    if repack:
+        from chitu_tpu_torch.quantize.transforms import pack_int4_storage
+
+        q = pack_int4_storage({"w": q})["w"]
+    return q
+
+
+def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     """The JAX package's llama parameter tree, as numpy arrays
     ({"embed", "norm", "layers": {...}, "lm_head"}), -> this module's
-    tensors by name. An unmerged tree (wq/wk/wv, w_gate/w_up) is merged
-    into the wqkv / w_gate_up leaves."""
+    tensors by name. A quantized leaf (the JAX `QTensor` with numpy
+    fields, or a mapping of its fields; e4m3 data as `ml_dtypes` arrays or
+    a uint8 view) becomes a `QTensor`, byte for byte: blockwise or rowwise
+    scales, packed or unpacked int4. An unmerged tree (wq/wk/wv,
+    w_gate/w_up) is merged into the wqkv / w_gate_up leaves."""
     layers = tree["layers"]
-    out = {k: _to_torch(tree[k]) for k in ("embed", "norm", "lm_head") if k in tree}
+    out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head") if k in tree}
     for k in ("attn_norm", "ffn_norm", "wo", "w_down"):
-        out[k] = _to_torch(layers[k])
+        out[k] = _leaf(layers[k])
     if "wqkv" in layers:
-        out["wqkv"] = _to_torch(layers["wqkv"])
-        out["w_gate_up"] = _to_torch(layers["w_gate_up"])
+        out["wqkv"] = _leaf(layers["wqkv"])
+        out["w_gate_up"] = _leaf(layers["w_gate_up"])
         if "b_qkv" in layers:
-            out["b_qkv"] = _to_torch(layers["b_qkv"])
+            out["b_qkv"] = _leaf(layers["b_qkv"])
     else:
-        cat = lambda *ks: torch.cat([_to_torch(layers[k]) for k in ks], dim=-1)
+        cat = lambda *ks: _cat_out([_leaf(layers[k]) for k in ks])
         out["wqkv"] = cat("wq", "wk", "wv")
         out["w_gate_up"] = cat("w_gate", "w_up")
         if "bq" in layers:
             out["b_qkv"] = cat("bq", "bk", "bv")
     return out
+
+
+_LAYER_LEAVES = (
+    "attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down", "b_qkv",
+)
 
 
 @register_model("hf-llama")
@@ -165,9 +264,16 @@ class LlamaForCausalLM(nn.Module):
             self.register_parameter(name, nn.Parameter(t, requires_grad=False))
         return self
 
-    def load_params(self, tensors: Dict[str, torch.Tensor]):
-        """Install named tensors (e.g. from `params_from_numpy`) as this
-        module's weights on its device, checking every shape."""
+    def load_params(self, tensors: Dict[str, Any]):
+        """Install named weights (from `params_from_numpy`, or the nested
+        tree `params_tree` returns) on this module's device, checking
+        every logical shape. Dense tensors become frozen parameters,
+        `QTensor`s plain attributes."""
+        if "layers" in tensors:
+            tensors = {
+                **{k: v for k, v in tensors.items() if k != "layers"},
+                **tensors["layers"],
+            }
         shapes = self._shapes()
         missing = set(shapes) - set(tensors)
         if missing:
@@ -176,11 +282,38 @@ class LlamaForCausalLM(nn.Module):
             t = tensors[name]
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-            self.register_parameter(
-                name,
-                nn.Parameter(t.to(self.device).contiguous(), requires_grad=False),
-            )
+            self._drop(name)
+            if isinstance(t, QTensor):
+                setattr(self, name, t.to(self.device).contiguous())
+            else:
+                self.register_parameter(
+                    name,
+                    nn.Parameter(
+                        t.detach().to(self.device).contiguous(),
+                        requires_grad=False,
+                    ),
+                )
         return self
+
+    def _drop(self, name: str):
+        if name in self._parameters:
+            del self._parameters[name]
+        elif name in self.__dict__:
+            del self.__dict__[name]
+
+    def params_tree(self, pop: bool = False) -> Dict[str, Any]:
+        """The weights as the nested tree the quantization transforms walk
+        ({"embed", "norm", "lm_head", "layers": {...}}). With `pop` the
+        module gives them up, so a transform can free each dense leaf as
+        it replaces it; `load_params` installs the result."""
+        tree: Dict[str, Any] = {"layers": {}}
+        for name in self._shapes():
+            t = getattr(self, name)
+            t = t.data if isinstance(t, nn.Parameter) else t
+            if pop:
+                self._drop(name)
+            (tree["layers"] if name in _LAYER_LEAVES else tree)[name] = t
+        return tree
 
     # -- forward ------------------------------------------------------------
 
@@ -190,7 +323,7 @@ class LlamaForCausalLM(nn.Module):
         a = self.args
         T = h.shape[0]
         H, KV, Dh = a.n_heads, a.n_kv_heads, self.head_dim
-        x = rms_norm(h, self.attn_norm[layer], a.norm_eps)
+        x = self._norm_acts(h, self.attn_norm[layer], self.wqkv)
         qkv = linear(
             x, self.wqkv, getattr(self, "b_qkv", None), layer=layer
         )
@@ -202,11 +335,27 @@ class LlamaForCausalLM(nn.Module):
         o = attend(q, k, v, layer)
         h = h + linear(o.reshape(T, -1), self.wo, layer=layer)
 
-        x = rms_norm(h, self.ffn_norm[layer], a.norm_eps)
+        x = self._norm_acts(h, self.ffn_norm[layer], self.w_gate_up)
         gu = linear(x, self.w_gate_up, layer=layer)
         Fd = self.inter_dim
-        hid = (F.silu(gu[:, :Fd]) * gu[:, Fd:]).to(x.dtype)
+        hid = (F.silu(gu[:, :Fd]) * gu[:, Fd:]).to(h.dtype)
+        hid = self._maybe_quant_acts(hid, self.w_down)
         return h + linear(hid, self.w_down, layer=layer)
+
+    @staticmethod
+    def _w8a8(proj_w) -> bool:
+        return isinstance(proj_w, QTensor) and proj_w.kind == QuantKind.W8A8
+
+    def _norm_acts(self, h, norm_w, proj_w):
+        """RMSNorm, fused with per-token int8 activation quantization when
+        the consuming projection is W8A8."""
+        if self._w8a8(proj_w):
+            return rms_norm_quant(h, norm_w, self.args.norm_eps)
+        return rms_norm(h, norm_w, self.args.norm_eps)
+
+    def _maybe_quant_acts(self, x, proj_w):
+        """Mid-FFN activation quantization feeding a W8A8 down-projection."""
+        return quant_acts(x.contiguous()) if self._w8a8(proj_w) else x
 
     def _run_layers(self, h, cos, sin, attend):
         for layer in range(self.args.n_layers):
@@ -215,6 +364,8 @@ class LlamaForCausalLM(nn.Module):
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.args.tie_word_embeddings else self.lm_head
+        if isinstance(head, QTensor):  # quant.quantize_head
+            return linear(h, head, out_dtype=torch.float32)
         return matmul_out_dtype(h, head, torch.float32)
 
     def _rope_rows(self, pos: torch.Tensor):

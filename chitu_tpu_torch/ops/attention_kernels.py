@@ -2,9 +2,8 @@
 plain PyTorch versions, and the slab-geometry gates.
 
 Counterpart of `chitu_tpu/ops/pallas_attention.py`. Three kernels from
-`csrc/attention.cu`, built with nvcc into one shared library with a plain
-C interface at first use (into `chitu_tpu_torch/build/`) and bound with
-ctypes:
+`csrc/attention.cu`, built and loaded by `ops/cuda_build.py` (nvcc, a
+plain C interface, ctypes):
 
 - `attend_decode_fused` (B1): in-kernel KV append + one-token paged decode
   attention; plain version `append_decode` + oracle `attend_decode`.
@@ -23,38 +22,32 @@ updated IN PLACE by B1 and B2 (the JAX kernels alias it and return it).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import math
-import os
-import shutil
-import subprocess
-import tempfile
-from typing import Dict, Optional
+from typing import Optional
 
 import torch
 
 from chitu_tpu_torch.ops import attention as plain
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "attention.cu"),)
-BUILD_DIR = os.path.join(_PKG, "build")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+from chitu_tpu_torch.ops import cuda_build
+from chitu_tpu_torch.ops.cuda_build import (  # noqa: F401
+    LAUNCHES,
+    reset_launch_counts,
 )
+from chitu_tpu_torch.ops.cuda_build import check as _check
+from chitu_tpu_torch.ops.cuda_build import ptr as _ptr
+from chitu_tpu_torch.ops.cuda_build import raise_on as _raise_on
+from chitu_tpu_torch.ops.cuda_build import stream as _stream
 
-# launches of each kernel since the last reset_launch_counts(); a wrapper
-# adds one where it launches its kernel and nowhere else
-LAUNCHES: Dict[str, int] = {
-    "attend_decode_fused": 0,
-    "attend_prefill_packed_fused": 0,
-    "attend_prefill": 0,
-}
+for _name in (
+    "attend_decode_fused", "attend_prefill_packed_fused", "attend_prefill",
+):
+    LAUNCHES.setdefault(_name, 0)
 
 
-def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+def build_kernels():
+    """Compile every CUDA source of the package (one nvcc each, all at
+    once) unless its exact build exists; returns the libraries' paths."""
+    return cuda_build.build_all()
 
 
 # ---------------------------------------------------------------------------
@@ -118,52 +111,16 @@ def prefill_packed_fused_ok(
 
 
 # ---------------------------------------------------------------------------
-# Build and binding
+# Binding
 # ---------------------------------------------------------------------------
 
 _LIB = None
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    cands = [os.path.join(home, "bin", "nvcc")] if home else []
-    cands += [shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]
-    for c in cands:
-        if c and os.path.exists(c):
-            return c
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build_kernels() -> str:
-    """Compile csrc/ into build/attention-<hash>.so unless that exact
-    build exists; returns its path."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in SOURCES:
-        with open(src, "rb") as f:
-            h.update(f.read())
-    so = os.path.join(BUILD_DIR, f"attention-{h.hexdigest()[:16]}.so")
-    if os.path.exists(so):
-        return so
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    res = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *SOURCES],
-        capture_output=True, text=True,
-    )
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}"
-        )
-    os.replace(tmp, so)
-    return so
-
-
 def _lib():
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(build_kernels())
+        lib = cuda_build.load("attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.chitu_attend_decode_fused.argtypes = (
             [P] * 8 + [I] * 9 + [F, I, F, P]
@@ -182,37 +139,6 @@ def _lib():
             fn.restype = ctypes.c_int
         _LIB = lib
     return _LIB
-
-
-def _check(name: str, t: torch.Tensor, dtype, device, shape=None):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
-    if shape is not None and tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
-
-
-def _raise_on(rc: int, kernel: str):
-    if rc == 100000:
-        raise NotImplementedError(f"{kernel}: geometry not supported by the kernel")
-    if rc:
-        raise RuntimeError(
-            f"{kernel} launch failed: {torch.cuda.get_device_name()} "
-            f"cudaError {rc}"
-        )
-
-
-def _stream(device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
 
 
 def _rows_block(G: int, Tq: int) -> int:

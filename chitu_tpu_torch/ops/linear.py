@@ -1,40 +1,125 @@
-"""Linear projections over stacked layer weights.
+"""Linear projections over stacked layer weights, dense or quantized.
 
-Counterpart of `chitu_tpu/ops/linear.py`, dense only: the JAX package
-leaves `x @ w[layer]` to XLA (linear.py:126-127), and the port leaves it
-to `torch.matmul`. Quantized weights (`QTensor` in the JAX package) are
-not ported yet and raise.
+Counterpart of `chitu_tpu/ops/linear.py`: the one entry point every model
+layer uses, dispatching on the weight's type. A dense tensor goes to
+`torch.matmul` (the JAX package leaves `x @ w[layer]` to XLA). A `QTensor`
+goes to the dequant GEMM (`ops/quant_gemm_kernels.quant_gemm`) or, for
+W8A8, through per-token int8 activations to the int8 GEMM: the CUDA
+kernels for tensors on the card, their plain versions for tensors on the
+CPU, and no third route.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
+from chitu_tpu_torch.ops.norm_quant import QuantizedActs, quant_acts
+from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
+from chitu_tpu_torch.ops.quant_gemm_kernels import int8_gemm, quant_gemm
+
+# activation handling for QuantKind.FP8 weights (quant.fp8_act): "e4m3"
+# rounds the activations through the fp8 grid with dynamic blockwise
+# scales; "int8" leaves them as they are, exactly as the JAX package does
+# (there the mode is read at one place only, to switch e4m3 on)
+_FP8_ACT = "int8"
+
+
+def set_fp8_act(mode: str):
+    global _FP8_ACT
+    if mode not in ("int8", "e4m3"):
+        raise ValueError(f"fp8_act={mode!r}: expected 'int8' or 'e4m3'")
+    _FP8_ACT = mode
+
+
+def get_fp8_act() -> str:
+    return _FP8_ACT
+
+
+def _at(t, layer, stacked_dim):
+    """`t[layer]` (a view) when t is stacked, else t."""
+    if t is not None and layer is not None and t.dim() == stacked_dim:
+        return t[layer]
+    return t
+
 
 def linear(
-    x: torch.Tensor,
-    w: torch.Tensor,
+    x: Union[torch.Tensor, QuantizedActs],
+    w: Union[torch.Tensor, QTensor],
     bias: Optional[torch.Tensor] = None,
+    out_dtype: Optional[torch.dtype] = None,
     layer: Optional[int] = None,
 ) -> torch.Tensor:
-    """y = x @ w (+ bias). x: [..., in]; w: [in, out] or stacked
-    [L, in, out] with `layer` selecting the slice (a view, no copy).
-    Accumulates in f32 and rounds once to x.dtype, as the JAX
-    `jnp.dot(..., preferred_element_type=f32)` does."""
-    if not isinstance(w, torch.Tensor):
-        raise NotImplementedError(
-            "quantized weights are not ported yet (ROADMAP queue A, slice 2)"
-        )
-    if layer is not None and w.dim() == 3:
-        w = w[layer]
-    y = torch.matmul(x, w.to(x.dtype))
+    """y = x @ w (+ bias). x: [..., in] or per-token int8 `QuantizedActs`;
+    w: [in, out] or stacked [L, in, out] with `layer` selecting the slice
+    (a view, no copy), dense or quantized. A quantized product is summed in
+    f32, the bias added in f32, and the result rounded once to
+    `out_dtype` (default: x's dtype, bf16 for int8 activations)."""
+    bias = _at(bias, layer, 2)
+    if isinstance(w, QTensor):
+        if out_dtype is None:
+            out_dtype = (
+                torch.bfloat16 if isinstance(x, QuantizedActs) else x.dtype
+            )
+        return _quantized_matmul(x, w, layer, bias, out_dtype)
+    if isinstance(x, QuantizedActs):
+        # dense weight: reconstruct bf16 activations
+        x = x.dequantize(torch.bfloat16)
+        out_dtype = out_dtype or torch.bfloat16
+    w = _at(w, layer, 3)
+    if out_dtype is not None and out_dtype != x.dtype:
+        y = matmul_out_dtype(x, w.to(x.dtype), out_dtype)
+    else:
+        y = torch.matmul(x, w.to(x.dtype))
     if bias is not None:
-        if layer is not None and bias.dim() == 2:
-            bias = bias[layer]
         y = y + bias.to(y.dtype)
     return y
+
+
+def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype) -> torch.Tensor:
+    if w.oc_idx is not None:
+        # LLM.int8 outlier decomposition: a small dense product over the
+        # few outlier input channels (their int8 rows are zero), in f32
+        idx = _at(w.oc_idx, layer, 2).long()
+        ocw = _at(w.oc_w, layer, 3)
+        if isinstance(x, QuantizedActs):
+            xo = (x.data[..., idx].float() * x.scale[:, None]).to(torch.bfloat16)
+        else:
+            xo = x[..., idx]
+        extra = torch.matmul(xo.float(), ocw.float())
+        y = _quantized_matmul(
+            x, w.without("oc_idx", "oc_w"), layer, None, torch.float32
+        ) + extra
+        if bias is not None:
+            y = y + bias.float()
+        return y.to(out_dtype)
+    if isinstance(x, QuantizedActs):
+        if w.kind != QuantKind.W8A8:
+            raise TypeError(
+                f"int8 activations need a W8A8 weight, got {w.kind}"
+            )
+        w = w[layer] if layer is not None and w.data.dim() == 3 else w
+        return int8_gemm(x.data, x.scale, w, bias, out_dtype)
+    if w.kind == QuantKind.FP8 and _FP8_ACT == "e4m3":
+        from chitu_tpu_torch.quantize.transforms import fp8_act_roundtrip
+
+        x = fp8_act_roundtrip(x)
+    if w.in_perm is not None:
+        # act-order GPTQ: rows are group-sorted in storage; gather x to
+        # match (exact: y = x[:, perm] @ w_sorted)
+        x = x[..., _at(w.in_perm, layer, 2).long()]
+        w = w.without("in_perm")
+    w = w[layer] if layer is not None and w.data.dim() == 3 else w
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if w.kind == QuantKind.W8A8:
+        # dynamic per-token int8 activations, then the int8 GEMM
+        xa = quant_acts(x2)
+        y = int8_gemm(xa.data, xa.scale, w, bias, out_dtype)
+    else:
+        y = quant_gemm(x2, w, bias, out_dtype)
+    return y.reshape(*lead, y.shape[-1])
 
 
 def matmul_out_dtype(

@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """Where a decode step's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 scripts/torch_decode_profile.py [batch] [prompt_len]
+    python3 scripts/torch_decode_profile.py [batch] [prompt_len] [quant_method]
 
 Builds the Llama-3-8B-Instruct engine at full width and depth with random
-weights, puts `batch` greedy requests of `prompt_len` random tokens into
+weights (quantized on load when a `quant.method` such as soft_fp8 is
+named), puts `batch` greedy requests of `prompt_len` random tokens into
 decode, then times decode steps twice: plain wall clock (decode tokens
 per second at that batch), and under `torch.profiler` to split device
-kernel time into the port's attention kernels, GEMMs and everything else.
+kernel time into the port's attention kernels, its quantized GEMMs and
+activation quantizers, library GEMMs and everything else.
 The device's busy share is kernel time per step over the unprofiled wall
 time per step (the kernels run on one stream, so they do not overlap);
 its idle share is the rest. Prints one JSON line
@@ -27,6 +29,10 @@ def category(name: str) -> str:
     if any(k in name for k in ("decode_fused_kernel", "prefill_attend_kernel",
                                 "append_packed_kernel")):
         return "attention_kernels"
+    if "quant_gemm_" in name or "int8_gemm_kernel" in name:
+        return "quant_gemm_kernels"
+    if "norm_quant_kernel" in name:
+        return "act_quant_kernels"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "gemm"
@@ -44,6 +50,7 @@ def main():
 
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 16
     plen = int(sys.argv[2]) if len(sys.argv) > 2 else 256
+    method = sys.argv[3] if len(sys.argv) > 3 else "none"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -51,8 +58,13 @@ def main():
     cfg = load_config(overrides=[
         "models=Llama-3-8B-Instruct", "infer.stop_with_eos=false",
         "infer.adaptive_window=false", f"infer.max_reqs={max(batch, 1)}",
+        f"quant.method={method}", f"quant.quant_on_load={str(method != 'none').lower()}",
     ])
+    t0 = time.perf_counter()
     eng = Engine(cfg)
+    torch.cuda.synchronize()
+    bringup = time.perf_counter() - t0
+    weights_gib = torch.cuda.memory_allocated() / 2**30 - eng.cache.bytes() / 2**30
     rng = np.random.default_rng(0)
     V = cfg.models.vocab_size
     p = SampleParams(temperature=0.0, max_new_tokens=4096)
@@ -96,7 +108,9 @@ def main():
         cats[category(k)] = cats.get(category(k), 0.0) + t
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps(dict(
-        card=card, batch=batch, prompt_len=plen, window=window,
+        card=card, batch=batch, prompt_len=plen, window=window, quant=method,
+        bringup_s=bringup, weights_gib=weights_gib,
+        peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         steps_timed=steps, steps_profiled=psteps,
         decode_ms_per_step=wall / steps * 1e3,
         decode_tokens_per_s=batch * steps / wall,

@@ -6,6 +6,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from chitu_tpu.config import load_config as jload
 from chitu_tpu.engine import Engine as JEngine
@@ -113,6 +114,85 @@ def test_greedy_tokens_match_jax_engine():
     got = [list(r.async_stream.tokens) for r in tr]
     assert all(len(t) == 8 for t in got)
     assert got == want
+
+
+def test_greedy_tokens_match_jax_engine_soft_fp8():
+    """A soft-fp8 tree quantized by the JAX package from f32 weights, the
+    same tree in both engines (activations f32, pools bf16): greedy tokens
+    must be equal."""
+    from chitu_tpu.quantize import quantize_params as jquantize
+
+    ovr = PARITY + ["quant.method=soft_fp8", "quant.quant_on_load=true"]
+    jcfg = jload(overrides=ovr)
+    jeng = JEngine(jcfg)
+    tree = jquantize(
+        jeng.model.init_params(jax.random.PRNGKey(5), jnp.float32),
+        jcfg.quant, jeng.model,
+    )
+    jeng.params = jeng.executor.params = tree
+    teng = Engine(
+        load_config(overrides=ovr), device="cpu",
+        params=params_from_numpy(jax.tree_util.tree_map(np.asarray, tree)),
+    )
+    from chitu_tpu_torch.ops.qtensor import QTensor
+
+    assert isinstance(teng.model.wqkv, QTensor)
+    prompts = ["soft fp8 stores bytes", "b", "and computes in bf16 " * 4]
+    jr = [
+        jeng.submit(p, JSampleParams(temperature=0.0, max_new_tokens=8))
+        for p in prompts
+    ]
+    tr = [teng.submit(p, GREEDY) for p in prompts]
+    jeng.run_until_complete()
+    teng.run_until_complete()
+    want = [list(r.async_stream.tokens) for r in jr]
+    got = [list(r.async_stream.tokens) for r in tr]
+    assert all(len(t) == 8 for t in got)
+    assert got == want
+
+
+@pytest.mark.parametrize(
+    "method",
+    ["soft_fp8", "fp8", "w8a16", "w8a8", "simple_w8a8", "w4a16", "w4a16_awq",
+     "w4a16_gptq", "awq", "gptq", "llmint8"],
+)
+def test_quant_on_load_every_method(method):
+    """Every method name of the JAX package's `_KIND_BY_METHOD` is accepted
+    with quant_on_load: the projections become QTensors of its kind
+    (int4 packed where the width allows), norms / embeddings / biases stay
+    dense, greedy generation is deterministic and everything is returned."""
+    from chitu_tpu.quantize.transforms import _KIND_BY_METHOD as JKINDS
+    from chitu_tpu_torch.ops.qtensor import QTensor
+
+    assert method in JKINDS
+    eng = _engine(
+        f"quant.method={method}", "quant.quant_on_load=true",
+        "quant.fp8_act=e4m3", "quant.quantize_head=true",
+        "models.dim=256", "models.n_heads=4", "models.n_kv_heads=2",
+        "models.head_dim=128", "models.inter_dim=512",
+    )
+    m = eng.model
+    for name in ("wqkv", "wo", "w_gate_up", "w_down"):
+        q = getattr(m, name)
+        assert isinstance(q, QTensor) and q.kind.value == JKINDS[method].value
+        assert q.shape == m._shapes()[name]
+        assert (q.oc_idx is not None) == (method == "llmint8")
+    if JKINDS[method].value == "w4a16":
+        assert m.wqkv.packed and m.w_gate_up.packed and not m.wo.packed
+    for name in ("embed", "norm", "attn_norm", "ffn_norm"):
+        assert isinstance(getattr(m, name), torch.nn.Parameter)
+    if not eng.cfg.models.tie_word_embeddings:
+        assert isinstance(m.lm_head, QTensor) == (method != "llmint8")
+    a = eng.generate("hello world", GREEDY)
+    assert len(a) == 8 and a == eng.generate("hello world", GREEDY)
+    assert eng.cache.allocator.num_free() == eng.cache.num_pages
+    assert len(eng.pool) == 0
+
+
+def test_unknown_quant_method_rejected():
+    cfg = load_config(overrides=TINY + ["quant.method=int3", "quant.quant_on_load=true"])
+    with pytest.raises(ValueError, match="unknown quant method"):
+        Engine(cfg, device="cpu")
 
 
 @pytest.mark.parametrize(
