@@ -112,6 +112,15 @@ class Engine:
         check_supported(cfg, have_params=params is not None)
         set_fp8_act(cfg.quant.fp8_act)
         self.device = resolve_device(device)
+        if (
+            self.device.type == "cuda"
+            and cfg.quant.method not in ("none", "")
+            and cfg.dtype != "bfloat16"
+        ):
+            raise NotImplementedError(
+                f"dtype={cfg.dtype} with quant.method={cfg.quant.method}: the "
+                "quantized CUDA kernels take bfloat16 activations"
+            )
         self.cfg = cfg
         self.state = EngineState.RUNNING
         self.tokenizer = build_tokenizer(cfg.models, cfg.infer)
