@@ -33,6 +33,22 @@ Phases, each fatal on failure:
    beforehand, `torch._int_mm` (timed only). Bound: bytes of weights,
    scales, x and y / 3.35 TB/s against 2TKN / 989 TFLOP/s (bf16) or
    / 1979 TOP/s (int8).
+   The grouped expert GEMM of the MoE path (B8 `grouped_gemm`) at the
+   expert stacks of Mixtral-8x7B (8 experts; `[4096 -> 28672]` gate/up
+   merged in e4m3, `[4096 -> 14336]` in bf16, `[14336 -> 4096]` in both)
+   and of moe-16x-bench (16 experts; `[2048 -> 2816]` e4m3, `[2048 ->
+   1408]` bf16, `[1408 -> 2048]` both), top-2 routing from a numpy seed
+   through the port's own `sorted_dispatch`, at the geometry of a 16-token
+   decode step (bm 16; 10 or 18 blocks, some dead), of a 512-token slab
+   (bm 256 or 128) and of one request (T 1, where K is split); layer 1 of
+   a two-layer stack, rowwise scales, an unstacked weight, the other row
+   tiles (bm 32, 64) and a skewed routing where every token picks the
+   same two experts. Limits: every row of a live block within 1e-2 of the
+   plain row's norm, dead blocks exactly zero on memory that held other
+   values, two launches bit-equal. Library yardstick: one `torch.matmul`
+   per live expert over its rows on bf16 weights dequantized beforehand
+   (timed only). Bound: bytes of the live experts' weights and scales, xs
+   and out / 3.35 TB/s against 2 x assigned rows x K x N / 989 TFLOP/s.
 3. Engine: `Engine` at the full width and depth of Llama-3-8B-Instruct
    with random weights on the GPU serves one lone prompt, then a burst of
    six mixed-length prompts (one longer than the 512-token slab) that
@@ -55,6 +71,21 @@ Phases, each fatal on failure:
    full depth either: through 32 layers of random weights a last-bit
    difference grows to 5-6 % of a logits row, whichever of two sound
    implementations made it.)
+   Then MoE serving, the same lone prompt and burst of six at full width:
+   Mixtral-8x7B-Instruct-v0.1 in bf16 at 8 layers (a layer of its experts
+   is 2.82 GB in bf16, so the 32 layers do not fit 80 GB) and in soft-fp8
+   at 20 layers (the engine draws the bf16 tree, 2.82 GB a layer, before
+   it quantizes leaf by leaf; the printed peak of bring-up says how close
+   to the card's 80 GB that comes); moe-16x-bench in bf16 and in soft-fp8
+   at its full 24 layers; and Mixtral-8x7B in fp8 with e4m3 activations
+   at 4 layers, where the 64-token prefill runs with every grouped-GEMM
+   call shadowed by its plain version too (logits reported, not held:
+   besides the step-function activations, a router that picks another
+   second expert for one token changes that token's whole row). Each MoE
+   phase requires the grouped GEMM and the three attention kernels to
+   have launched, and the dequant GEMM under a quant method. The earlier
+   phases run at the depth they had: the whole run takes about two
+   minutes of its twenty.
 4. One `kernels` JSON line, then the device JSON as the last line.
 
 It imports nothing of JAX or of `chitu_tpu`, exits non-zero without a
@@ -548,6 +579,150 @@ def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 2c: the grouped expert GEMM of the MoE path
+# ---------------------------------------------------------------------------
+
+MOE_SRC = "chitu_tpu_torch/csrc/moe_gemm.cu"
+# (label, experts, K, N, e4m3?) of the expert stacks the engines hold:
+# Mixtral-8x7B gate/up merged in e4m3 and split in bf16, down in both;
+# moe-16x-bench likewise
+MOE_STACKS = [
+    ("mixtral", 8, 4096, 28672, True), ("mixtral", 8, 4096, 14336, False),
+    ("mixtral", 8, 14336, 4096, True), ("mixtral", 8, 14336, 4096, False),
+    ("moe16x", 16, 2048, 2816, True), ("moe16x", 16, 2048, 1408, False),
+    ("moe16x", 16, 1408, 2048, True), ("moe16x", 16, 1408, 2048, False),
+]
+
+
+def check_grouped(torch, name, got, again, want, live_rows):
+    """The limits every grouped-GEMM result is held to: every row of a
+    live block within ROW_RTOL of the plain row's norm, every other row
+    exactly zero, and a second launch bit-equal. -> (max abs err, max row
+    relative err)."""
+    if not torch.equal(got, again):
+        raise AssertionError(f"{name}: two launches differ")
+    dead = got[~live_rows]
+    if dead.numel() and dead.abs().max().item() != 0.0:
+        raise AssertionError(f"{name}: dead blocks not zero")
+    return _row_rel(torch, name, got[live_rows], want[live_rows], ROW_RTOL)
+
+
+def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
+    """One result dict per case of `grouped_gemm`; the first (the merged
+    e4m3 gate/up stack of Mixtral-8x7B at the 16-token decode geometry) is
+    the one reported in the kernels line."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    rng = np.random.default_rng(2)
+    bf = torch.bfloat16
+    k = 2
+
+    def stack(L, E, K, N, fp8, rowwise=False):
+        """[L, E, K, N] experts, made one layer at a time."""
+        w = torch.empty((L, E, K, N), dtype=bf, device=dev)
+        for l in range(L):
+            w[l] = (torch.randn((E, K, N), generator=g, device=dev) * 0.02).to(bf)
+        if not fp8:
+            return w
+        q = qt.quantize_stacked(
+            w, lambda t: qt.quantize_weight(t, QuantKind.SOFT_FP8))
+        if rowwise:
+            q = qt.expand_fp8_scales_rowwise({"w": q})["w"]
+            assert q.scale.shape == (L, E, K // 128, N)
+        return q
+
+    def routing(T, E, skewed=False):
+        """sel [T, k]: k distinct experts a token from the numpy seed, or
+        (skewed) the same two for every token."""
+        if skewed:
+            sel = np.tile(np.array([[0, 3]]), (T, 1))
+        else:
+            sel = np.stack([rng.permutation(E)[:k] for _ in range(T)])
+        return torch.tensor(sel, dtype=torch.int32, device=dev)
+
+    def case(label, w, T, layer=0, skewed=False, timed=True, tag=""):
+        data = w.data if hasattr(w, "kind") else w
+        fp8 = hasattr(w, "kind")
+        E, K, N = data.shape[-3:]
+        bm, NB = moe.dispatch_geometry(T, k, E)
+        sel = routing(T, E, skewed)
+        row_assign, block_expert = moe.sorted_dispatch(sel, E, bm)
+        x = (torch.randn((T, K), generator=g, device=dev)).to(bf)
+        A = T * k
+        tok = torch.where(row_assign < A, row_assign.clamp(max=A - 1) // k, 0)
+        xs = x[tok.long()].contiguous()
+        be = block_expert.tolist()
+        live = [e for e in be if e >= 0]
+        live_rows = torch.repeat_interleave(block_expert >= 0, bm)
+        mode = ("e4m3_rowwise" if fp8 and w.scale.shape[-1] == N
+                else "e4m3_blockwise" if fp8 else "bf16")
+        name = (f"grouped_gemm[{label},{mode},T={T},{K}->{N}"
+                f"{',layer1' if layer else ''}{tag}]")
+        run = lambda: mg.grouped_matmul(xs, w, layer, block_expert, bm)
+        junk = torch.full((NB * bm, N), 7.0, dtype=bf, device=dev)
+        del junk  # the output lands on this memory: dead rows must be written
+        got, again = run(), run()
+        want = mg.grouped_matmul_plain(xs, w, layer, block_expert, bm)
+        err, rel = check_grouped(torch, name, got, again, want, live_rows)
+        experts = sorted(set(live))
+        wbytes = len(experts) * K * N * (1 if fp8 else 2)
+        if fp8:
+            wbytes += len(experts) * w.scale[0, 0].numel() * 4
+        nbytes = wbytes + xs.numel() * 2 + NB * bm * N * 2
+        bnd, by = bound_ms(nbytes, 2.0 * A * K * N)
+        res = dict(name=name, kernel="grouped_gemm", route="cuda",
+                   source=MOE_SRC,
+                   replaces="chitu_tpu/ops/pallas_moe_gemm.py:287",
+                   max_abs_err=err, max_row_rel_err=rel, bound_ms=bnd,
+                   bound_by=by, ms=None, plain_ms=None, library_ms=None,
+                   shape=f"T={T} k={k} E={E} bm={bm} NB={NB} live_blocks="
+                         f"{len(live)} live_experts={len(experts)} K={K} N={N} "
+                         f"mode={mode} weight_bytes_read={wbytes}")
+        if timed:
+            res["ms"] = device_ms_sized(torch, run)
+            res["plain_ms"] = call_ms(
+                torch,
+                lambda: mg.grouped_matmul_plain(xs, w, layer, block_expert, bm),
+                reps=3)
+            # library: one matmul per live expert over its rows, on bf16
+            # weights dequantized beforehand
+            dense = {e: mg.expert_weight(w, layer, e) for e in experts}
+            spans = [(e, be.index(e) * bm, (be.index(e) + be.count(e)) * bm)
+                     for e in experts]
+            out = torch.empty((NB * bm, N), dtype=bf, device=dev)
+
+            def library():
+                for e, lo, hi in spans:
+                    torch.matmul(xs[lo:hi], dense[e], out=out[lo:hi])
+
+            res["library_ms"] = device_ms_sized(torch, library)
+            del dense
+        return res
+
+    for label, E, K, N, fp8 in MOE_STACKS:
+        w = stack(2, E, K, N, fp8)
+        for T in (16, 512, 1):  # decode batch, prefill slab, one request
+            yield case(label, w, T, layer=1 if T == 1 else 0)
+        if (label, fp8) == ("mixtral", True):
+            # the other row tiles (bm 32 and 64), and the skewed routing
+            # that the capacity route would drop
+            for T in (64, 128):
+                yield case(label, w, T, timed=False)
+            yield case(label, w, 16, skewed=True, timed=False, tag=",skewed")
+            yield case(label, w, 512, skewed=True, timed=False, tag=",skewed")
+        del w
+        torch.cuda.empty_cache()
+    w = stack(2, 8, 4096, 14336, True, rowwise=True)
+    for T in (16, 512):
+        yield case("mixtral", w, T, layer=1)
+    del w
+    w = stack(1, 8, 4096, 14336, False)[0]  # an unstacked [E, K, N] weight
+    yield case("mixtral", w, 16, timed=False, tag=",unstacked")
+    del w
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the engine at full width
 # ---------------------------------------------------------------------------
 
@@ -559,10 +734,13 @@ ATTN_KERNELS = ("attend_decode_fused", "attend_prefill_packed_fused",
 def _swap_targets():
     """(module, name) of every call the model makes into this slice's
     kernels, each with its plain version."""
-    from chitu_tpu_torch.models import llama
-    from chitu_tpu_torch.ops import linear, norm_quant, quant_gemm_kernels
+    from chitu_tpu_torch.models import llama, moe
+    from chitu_tpu_torch.ops import (
+        linear, moe_gemm_kernels, norm_quant, quant_gemm_kernels,
+    )
 
     return [
+        (moe, "grouped_matmul", moe_gemm_kernels.grouped_matmul_plain),
         (linear, "quant_gemm", quant_gemm_kernels.quant_gemm_plain),
         (linear, "int8_gemm", quant_gemm_kernels.int8_gemm_plain),
         (linear, "quant_acts", norm_quant.quant_acts_plain),
@@ -588,7 +766,7 @@ def _swapped(make):
 
 def plain_versions():
     """Route the model through the plain PyTorch versions of the
-    quantized GEMMs and activation quantizers on the card. Attention stays
+    quantized and grouped GEMMs and activation quantizers on the card. Attention stays
     on its kernel (it is held against its own plain version in phase 2)."""
     return _swapped(lambda kernel_fn, plain_fn, name: plain_fn)
 
@@ -602,8 +780,8 @@ def shadowed(torch, errs):
     def make(kernel_fn, plain_fn, name):
         def both(*args, **kw):
             got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
-            if name.endswith("gemm"):
-                limit = ROW_RTOL if name == "quant_gemm" else 1e-5
+            if name.endswith(("gemm", "matmul")):
+                limit = 1e-5 if name == "int8_gemm" else ROW_RTOL
                 _, e = _row_rel(torch, f"{name} in the model", got, want, limit)
             else:
                 rel = ((got.scale - want.scale).abs() / want.scale).max().item()
@@ -657,14 +835,15 @@ def logits_against_plain(torch, np, eng, label):
         raise AssertionError(f"{label}: logits shape {tuple(got.shape)}")
     if not errs:
         raise AssertionError(f"{label}: the prefill reached no quantized kernel")
-    limit = float("inf") if label in STEP_ACTS else LOGITS_RTOL
+    limit = float("inf") if label.endswith(STEP_ACTS) else LOGITS_RTOL
     _, rel = _row_rel(torch, f"{label} prefill logits", got, want, limit)
     return errs, rel
 
 
 def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
                  lens=(40, 100, 200, 130, 60, 700), new_tokens=32,
-                 need=ATTN_KERNELS, check_plain=False):
+                 need=ATTN_KERNELS, check_plain=False,
+                 model="Llama-3-8B-Instruct"):
     """Bring up an engine, serve one lone prompt and then a burst that
     arrives while it decodes, check everything came back, and return the
     kernel launch counts of that run (zeroed just before it)."""
@@ -672,8 +851,7 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
     from chitu_tpu_torch.engine import Engine
 
     cfg = load_config(overrides=[
-        "models=Llama-3-8B-Instruct", "infer.stop_with_eos=false",
-        *overrides,
+        f"models={model}", "infer.stop_with_eos=false", *overrides,
     ])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
@@ -773,7 +951,22 @@ QUANT_PHASES = [
     ("llmint8", ["quant.method=llmint8"], ("quant_gemm",)),
 ]
 KERNEL_ORDER = ATTN_KERNELS + (
-    "quant_gemm", "int8_gemm", "rms_norm_quant", "quant_acts")
+    "quant_gemm", "int8_gemm", "rms_norm_quant", "quant_acts", "grouped_gemm")
+MIXTRAL = "Mixtral-8x7B-Instruct-v0.1"
+MOE_PHASES = [
+    # (label, model card, overrides, kernels beyond attention that must have
+    # launched). Full width always; the depth is what 80 GB holds: a layer
+    # of Mixtral-8x7B experts is 2.82 GB in bf16, and a quantized engine
+    # draws the bf16 tree before it quantizes leaf by leaf.
+    ("mixtral_bf16", MIXTRAL, ["models.n_layers=8"], ("grouped_gemm",)),
+    ("mixtral_soft_fp8", MIXTRAL,
+     ["models.n_layers=20", "quant.method=soft_fp8",
+      "quant.quant_on_load=true"], ("grouped_gemm", "quant_gemm")),
+    ("moe16x_bf16", "moe-16x-bench", [], ("grouped_gemm",)),
+    ("moe16x_soft_fp8", "moe-16x-bench",
+     ["quant.method=soft_fp8", "quant.quant_on_load=true"],
+     ("grouped_gemm", "quant_gemm")),
+]
 
 
 def main():
@@ -784,8 +977,10 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, HERE)
+    from chitu_tpu_torch.models import moe
     from chitu_tpu_torch.ops import attention as plain
     from chitu_tpu_torch.ops import attention_kernels as tk
+    from chitu_tpu_torch.ops import moe_gemm_kernels as mg
     from chitu_tpu_torch.ops import norm_quant as nq
     from chitu_tpu_torch.ops import quant_gemm_kernels as qg
     from chitu_tpu_torch.ops.qtensor import QuantKind
@@ -806,7 +1001,8 @@ def main():
     t0 = time.time()
     with torch.no_grad():
         for cases in (kernel_cases(torch, tk, plain, dev),
-                      quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev)):
+                      quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev),
+                      moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev)):
             for res in cases:
                 res["card"] = card
                 print("case " + json.dumps(res), flush=True)
@@ -834,6 +1030,20 @@ def main():
         if label == "w8a8":
             for k in need:
                 launches[k] = got[k]
+    # MoE serving: the grouped GEMM's launches are those of the soft-fp8
+    # Mixtral-8x7B burst
+    for label, model, ovr, need in MOE_PHASES:
+        got = engine_phase(torch, np, tk, card, label, ovr,
+                           need=ATTN_KERNELS + need, model=model)
+        if label == "mixtral_soft_fp8":
+            launches["grouped_gemm"] = got["grouped_gemm"]
+    engine_phase(
+        torch, np, tk, card, "mixtral_fp8_e4m3",
+        ["quant.method=fp8", "quant.fp8_act=e4m3"] + quant + ["models.n_layers=4"],
+        lens=(40, 100, 200), new_tokens=8,
+        need=ATTN_KERNELS + ("grouped_gemm", "quant_gemm"), check_plain=True,
+        model=MIXTRAL,
+    )
 
     rows = []
     for kname in KERNEL_ORDER:

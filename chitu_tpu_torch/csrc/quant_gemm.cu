@@ -44,21 +44,14 @@
 // produces the two 64-column output ranges they hold, so each byte is read
 // once.
 
-#include <cuda_bf16.h>
-#include <cuda_fp16.h>
-#include <cuda_fp8.h>
 #include <cuda_pipeline.h>
-#include <cuda_runtime.h>
 #include <mma.h>
-#include <stdint.h>
+
+#include "gemm_common.cuh"
 
 using namespace nvcuda;
 
 namespace {
-
-constexpr int THREADS = 256;
-constexpr int BN = 128;
-constexpr int NOT_SUPPORTED = 100000;
 
 enum { MODE_FP8 = 0, MODE_INT8 = 1, MODE_INT4 = 2, MODE_INT4P = 3 };
 enum { SCALE_BLOCK = 0, SCALE_ROW = 1, SCALE_CHAN = 2 };
@@ -81,22 +74,6 @@ struct GemmArgs {
   int* counters;
   int splits;
 };
-
-union Bytes16 {
-  uint4 v;
-  uint8_t b[16];
-};
-
-union Words4 {
-  uint4 v;
-  uint32_t u[4];
-};
-
-// two floats -> two bf16 (round to nearest even) in one word, a in the low half
-__device__ __forceinline__ uint32_t pack_bf16x2(float a, float b) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(a, b);  // one cvt.rn.bf16x2.f32
-  return *reinterpret_cast<uint32_t*>(&h);
-}
 
 // logical output column of local column j of block column bx
 template <int MODE>
@@ -151,19 +128,13 @@ __device__ __forceinline__ void store_bf16(__nv_bfloat16* row, int cc,
 // stored values of one chunk -> 16 floats (before zero and scale)
 template <int MODE>
 __device__ __forceinline__ void decode_chunk(uint4 raw, float* f) {
+  if (MODE == MODE_FP8) {
+    decode_e4m3x16(raw, f);
+    return;
+  }
   Bytes16 u;
   u.v = raw;
-  if (MODE == MODE_FP8) {
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      __nv_fp8x2_storage_t pair =
-          (__nv_fp8x2_storage_t)(u.b[2 * i] | ((unsigned)u.b[2 * i + 1] << 8));
-      __half2_raw hr = __nv_cvt_fp8x2_to_halfraw2(pair, __NV_E4M3);
-      float2 v = __half22float2(*reinterpret_cast<__half2*>(&hr));
-      f[2 * i] = v.x;
-      f[2 * i + 1] = v.y;
-    }
-  } else if (MODE == MODE_INT4P) {
+  if (MODE == MODE_INT4P) {
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       f[i] = (float)(u.b[i] & 0xF);
@@ -419,12 +390,6 @@ quant_gemm_pipe_kernel(GemmArgs a) {
 
 constexpr int WS_TILES = 512;  // partial tiles the split-K workspace holds
 
-template <typename K>
-int allow_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // quant blocks of `block` rows tile with K tiles of bk rows
 inline bool blocks_tile(int block, int bk) {
   return block % bk == 0 || (bk % block == 0 && bk / block <= P_GROUPS);
@@ -618,8 +583,6 @@ int8_gemm_kernel(Int8Args a) {
     }
   }
 }
-
-inline int aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
 }  // namespace
 

@@ -10,7 +10,11 @@ step -> update.
 With `quant.method` set and `quant.quant_on_load`, the projection weights
 are quantized after init or load (`quantize.quantize_params`), and W4A16
 storage is then packed two nibbles a byte on the device; a parameter dict
-may also hold `QTensor`s already.
+may also hold `QTensor`s already. Quantized MoE gate and up expert stacks
+are then merged into one leaf (`quantize.merge_moe_gate_up`), as the JAX
+engine does. A configuration that lands on a known slow path (MoE experts
+on the capacity route) is named once in a warning at bring-up
+(`Engine.degraded`).
 
 The engine runs on CUDA unless `device="cpu"` is passed; with no GPU and
 no explicit device it raises. Configurations that later slices bring
@@ -33,6 +37,7 @@ from chitu_tpu_torch.models import build_model
 from chitu_tpu_torch.ops.linear import set_fp8_act
 from chitu_tpu_torch.quantize.transforms import (
     KIND_BY_METHOD,
+    merge_moe_gate_up,
     pack_int4_storage,
     quantize_params,
 )
@@ -143,14 +148,18 @@ class Engine:
             gen = torch.Generator(device=self.device)
             gen.manual_seed(cfg.infer.seed)
             self.model.init_params(gen, _DTYPES[cfg.dtype])
-        if cfg.quant.method not in ("none", "") and cfg.quant.quant_on_load:
-            # destructive walk over the popped tree: each dense leaf is
-            # freed as it is replaced; int4 storage is packed afterwards,
-            # on the device
-            tree = quantize_params(
-                self.model.params_tree(pop=True), cfg.quant, self.model
-            )
-            self.model.load_params(pack_int4_storage(tree))
+        quantize = cfg.quant.method not in ("none", "") and cfg.quant.quant_on_load
+        if quantize or margs.moe is not None:
+            tree = self.model.params_tree(pop=True)
+            if quantize:
+                # destructive walk over the popped tree: each dense leaf
+                # is freed as it is replaced; int4 storage is packed
+                # afterwards, on the device
+                tree = pack_int4_storage(
+                    quantize_params(tree, cfg.quant, self.model)
+                )
+            # one grouped GEMM per MoE layer for gate + up
+            self.model.load_params(merge_moe_gate_up(tree))
         logger.info("params ready in %.1fs", time.time() - t0)
 
         spec = self.model.kv_cache_spec()
@@ -217,6 +226,32 @@ class Engine:
                 for t in pool.snapshot()
             ),
         )
+        # known slow layouts get one loud warning at bring-up instead of
+        # silently serving slow
+        self.degraded = self.degraded_paths()
+        for msg in self.degraded:
+            logger.warning("degraded path: %s", msg)
+
+    def degraded_paths(self) -> List[str]:
+        """Conditions where this configuration lands on a known
+        structurally slow path, one sentence each."""
+        out = []
+        if getattr(self.model.args, "moe", None) is not None:
+            from chitu_tpu_torch.models.moe import _sorted_eligible
+
+            ws = tuple(
+                getattr(self.model, k)
+                for k in ("w_gu", "w_gate", "w_up", "w_down")
+                if getattr(self.model, k, None) is not None
+            )
+            if not ws or not _sorted_eligible(ws):
+                out.append(
+                    "MoE runs the capacity-einsum fallback (experts not "
+                    "eligible for the grouped kernel): quantized experts "
+                    "DEQUANTIZE per step and tokens beyond capacity drop "
+                    "under skewed routing."
+                )
+        return out
 
     # -- request API --------------------------------------------------------
 

@@ -149,40 +149,55 @@ def _cat_out(parts):
 
 
 def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The JAX package's llama parameter tree, as numpy arrays
-    ({"embed", "norm", "layers": {...}, "lm_head"}), -> this module's
-    tensors by name. A quantized leaf (the JAX `QTensor` with numpy
-    fields, or a mapping of its fields; e4m3 data as `ml_dtypes` arrays or
-    a uint8 view) becomes a `QTensor`, byte for byte: blockwise or rowwise
-    scales, packed or unpacked int4. An unmerged tree (wq/wk/wv,
-    w_gate/w_up) is merged into the wqkv / w_gate_up leaves."""
+    """The JAX package's llama or Mixtral parameter tree, as numpy arrays
+    ({"embed", "norm", "layers": {...}, "lm_head"}), -> the tensors of
+    this package's module by name. A quantized leaf (the JAX `QTensor`
+    with numpy fields, or a mapping of its fields; e4m3 data as
+    `ml_dtypes` arrays or a uint8 view) becomes a `QTensor`, byte for
+    byte: blockwise or rowwise scales, packed or unpacked int4. Unmerged
+    attention and dense-FFN leaves (wq/wk/wv, w_gate/w_up) are merged into
+    the wqkv / w_gate_up leaves. The family shows in the tree: a Mixtral
+    tree has a router (`moe_gate`), and its expert stacks `[L, E, in, out]`
+    cross as they are, dense or quantized, split (`w_gate`, `w_up`) or
+    merged (`w_gu`)."""
     layers = tree["layers"]
+    moe = "moe_gate" in layers
     out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head") if k in tree}
     for k in ("attn_norm", "ffn_norm", "wo", "w_down"):
         out[k] = _leaf(layers[k])
+    cat = lambda *ks: _cat_out([_leaf(layers[k]) for k in ks])
     if "wqkv" in layers:
         out["wqkv"] = _leaf(layers["wqkv"])
-        out["w_gate_up"] = _leaf(layers["w_gate_up"])
         if "b_qkv" in layers:
             out["b_qkv"] = _leaf(layers["b_qkv"])
     else:
-        cat = lambda *ks: _cat_out([_leaf(layers[k]) for k in ks])
         out["wqkv"] = cat("wq", "wk", "wv")
-        out["w_gate_up"] = cat("w_gate", "w_up")
         if "bq" in layers:
             out["b_qkv"] = cat("bq", "bk", "bv")
+    if moe:
+        for k in ("moe_gate", "w_gate", "w_up", "w_gu"):
+            if k in layers:
+                out[k] = _leaf(layers[k])
+    elif "w_gate_up" in layers:
+        out["w_gate_up"] = _leaf(layers["w_gate_up"])
+    else:
+        out["w_gate_up"] = cat("w_gate", "w_up")
     return out
 
 
 _LAYER_LEAVES = (
     "attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down", "b_qkv",
-)
+)  # the leaves that live under "layers" in the nested tree
 
 
 @register_model("hf-llama")
 class LlamaForCausalLM(nn.Module):
     """Llama-family module: frozen stacked weights + the four forwards
-    (prefill, prefill_packed, step_hybrid, decode)."""
+    (prefill, prefill_packed, step_hybrid, decode). A family with another
+    FFN (MoE) subclasses it: it extends `_shapes` and `LAYER_LEAVES` and
+    overrides `_ffn`."""
+
+    LAYER_LEAVES = _LAYER_LEAVES
 
     def __init__(self, args, cfg, device=None):
         super().__init__()
@@ -312,7 +327,7 @@ class LlamaForCausalLM(nn.Module):
             t = t.data if isinstance(t, nn.Parameter) else t
             if pop:
                 self._drop(name)
-            (tree["layers"] if name in _LAYER_LEAVES else tree)[name] = t
+            (tree["layers"] if name in self.LAYER_LEAVES else tree)[name] = t
         return tree
 
     # -- forward ------------------------------------------------------------
@@ -334,7 +349,11 @@ class LlamaForCausalLM(nn.Module):
         k = apply_rope(k, cos, sin, self.rotary_layout)
         o = attend(q, k, v, layer)
         h = h + linear(o.reshape(T, -1), self.wo, layer=layer)
+        return self._ffn(h, layer)
 
+    def _ffn(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+        """The FFN half of a layer, norm and residual included: SwiGLU
+        here; the MoE families override it."""
         x = self._norm_acts(h, self.ffn_norm[layer], self.w_gate_up)
         gu = linear(x, self.w_gate_up, layer=layer)
         Fd = self.inter_dim

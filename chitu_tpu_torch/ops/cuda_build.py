@@ -3,8 +3,9 @@ kernel wrapper module.
 
 Each source under `chitu_tpu_torch/csrc/` has a plain C interface and is
 compiled by nvcc for sm_90a into its own shared library,
-`chitu_tpu_torch/build/<name>-<hash of flags and source>.so`, at first
-use, and loaded with ctypes. `build_all()` starts one nvcc per source, all
+`chitu_tpu_torch/build/<name>-<hash of flags, source and headers>.so`, at
+first use, and loaded with ctypes. The headers (`csrc/*.cuh`) are shared
+between sources, so all of them enter every hash. `build_all()` starts one nvcc per source, all
 at once. `LAUNCHES` counts kernel launches by wrapper name: a wrapper adds
 one where it launches its kernel and nowhere else.
 """
@@ -24,7 +25,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("attention", "quant_gemm", "norm_quant")
+SOURCES = ("attention", "quant_gemm", "norm_quant", "moe_gemm")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -54,8 +55,12 @@ def _nvcc() -> str:
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC, name + ".cu")
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    with open(src, "rb") as f:
-        h.update(f.read())
+    headers = sorted(
+        os.path.join(CSRC, n) for n in os.listdir(CSRC) if n.endswith(".cuh")
+    )
+    for path in (src, *headers):
+        with open(path, "rb") as f:
+            h.update(f.read())
     return src, os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 

@@ -37,6 +37,22 @@ def get_fp8_act() -> str:
     return _FP8_ACT
 
 
+def maybe_fp8_act(x: torch.Tensor, w) -> torch.Tensor:
+    """Round x through the e4m3 grid when it feeds an FP8 weight under
+    `quant.fp8_act="e4m3"`, else x as it is. `linear` applies it itself;
+    callers that bypass `linear` (the grouped expert GEMMs of the MoE
+    path) call it on their own inputs."""
+    if (
+        isinstance(w, QTensor)
+        and w.kind == QuantKind.FP8
+        and _FP8_ACT == "e4m3"
+    ):
+        from chitu_tpu_torch.quantize.transforms import fp8_act_roundtrip
+
+        return fp8_act_roundtrip(x)
+    return x
+
+
 def _at(t, layer, stacked_dim):
     """`t[layer]` (a view) when t is stacked, else t."""
     if t is not None and layer is not None and t.dim() == stacked_dim:
@@ -101,10 +117,7 @@ def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype) -> torch.Tensor:
             )
         w = w[layer] if layer is not None and w.data.dim() == 3 else w
         return int8_gemm(x.data, x.scale, w, bias, out_dtype)
-    if w.kind == QuantKind.FP8 and _FP8_ACT == "e4m3":
-        from chitu_tpu_torch.quantize.transforms import fp8_act_roundtrip
-
-        x = fp8_act_roundtrip(x)
+    x = maybe_fp8_act(x, w)
     if w.in_perm is not None:
         # act-order GPTQ: rows are group-sorted in storage; gather x to
         # match (exact: y = x[:, perm] @ w_sorted)

@@ -38,7 +38,11 @@ TENSOR_FIELDS = ("data", "scale", "zeros", "in_perm", "oc_idx", "oc_w")
 @dataclass
 class QTensor:
     """A quantized weight. The logical layout is [in, out] (`x @ w`),
-    optionally stacked [L, in, out]; `data` holds the storage:
+    optionally stacked [L, in, out] (a projection of every layer) or
+    [L, E, in, out] (the experts of every layer; scales [L, E, in/B, out/B]
+    blockwise or [L, E, in/B, out] rowwise). Indexing takes leading dims
+    off every field at once: `q[layer]`, `q[layer, expert]`. `data` holds
+    the storage:
 
     - SOFT_FP8 / FP8: data [in, out] float8_e4m3fn, scale
       [ceil(in/B), ceil(out/B)] f32 blockwise, or [ceil(in/B), out] rowwise
@@ -92,7 +96,7 @@ class QTensor:
         return QTensor(**kw)
 
     def __getitem__(self, idx) -> "QTensor":
-        """Index the leading (stacked-layer) dim: every field is a view."""
+        """Index the leading (layer, expert) dims: every field is a view."""
         return self._map(lambda t: t[idx])
 
     def to(self, device) -> "QTensor":
@@ -121,12 +125,8 @@ class QTensor:
             base = self.without("oc_idx", "oc_w").dequantize(dtype)
             # the dense outlier rows go back where their int8 rows are 0
             ocw = self.oc_w.to(dtype)
-            if self.oc_idx.dim() == 1:
-                base[..., self.oc_idx.long(), :] += ocw
-            else:
-                for l in range(self.oc_idx.shape[0]):
-                    base[l, self.oc_idx[l].long(), :] += ocw[l]
-            return base
+            idx = self.oc_idx.long()[..., None].expand(ocw.shape)
+            return base.scatter_add_(-2, idx, ocw)
         if self.in_perm is not None:
             # rows are stored group-sorted; put them back in input order
             base = self.without("in_perm").dequantize(dtype)

@@ -16,13 +16,17 @@ Schemes:
 - w4a16: 4-bit weight, group-128 scale + zero along the in dim
 - llmint8: w8a16 with the largest input channels kept dense
 
+`merge_moe_gate_up` then joins quantized gate and up stacks (the MoE
+experts' `[L, E, D, F]` pairs and two per-layer pairs of the MLA family)
+into one leaf, so each layer runs one GEMM for both.
+
 Not ported: `requantize_fp8_storage` (a workaround for a chip without an
-fp8 datapath; this card converts e4m3 natively) and `merge_moe_gate_up`
-(MoE families).
+fp8 datapath; this card converts e4m3 natively).
 """
 
 from __future__ import annotations
 
+import itertools
 from dataclasses import replace
 from typing import Any, Optional, Set
 
@@ -132,19 +136,20 @@ def quantize_llmint8(w: torch.Tensor, frac: float = OUTLIER_FRAC) -> QTensor:
 
 def quantize_stacked(w: torch.Tensor, qfn) -> QTensor:
     """Apply `qfn` (one [in, out] weight -> QTensor) to a stacked
-    [L, in, out] leaf one layer at a time, so the f32 intermediates stay
-    one layer large, and stack the results."""
+    [L, in, out] or [L, E, in, out] leaf one matrix at a time, so the f32
+    intermediates stay one matrix large, and stack the results."""
+    lead = tuple(w.shape[:-2])
     out = None
-    for l in range(w.shape[0]):
-        q = qfn(w[l])
+    for idx in itertools.product(*map(range, lead)):
+        q = qfn(w[idx])
         if out is None:
             out = q._map(
-                lambda t: torch.empty((w.shape[0], *t.shape), dtype=t.dtype,
+                lambda t: torch.empty((*lead, *t.shape), dtype=t.dtype,
                                       device=t.device)
             )
         for name in TENSOR_FIELDS:
             if getattr(q, name) is not None:
-                getattr(out, name)[l].copy_(getattr(q, name))
+                getattr(out, name)[idx].copy_(getattr(q, name))
     return out
 
 
@@ -295,8 +300,70 @@ def quantize_params(
             eligible = eligible and name in keys
         if not eligible:
             return tree
-        if tree.dim() == 3:
+        if tree.dim() >= 3:
             return quantize_stacked(tree.detach(), qfn)
         return qfn(tree.detach())
+
+    return walk(params)
+
+
+def merge_moe_gate_up(params: Any, tp: int = 1) -> Any:
+    """Concatenate MoE expert gate / up stacks into one [.., D, 2F] leaf,
+    in place, so each MoE layer runs one grouped GEMM for gate + up (the
+    reference's fused_moe w13 merge,
+    chitu/models/model_deepseek_v3.py:1167-1288): the 4-D pairs
+    `w_gate`/`w_up` -> `w_gu` and `exp_gate`/`exp_up` -> `exp_gu`, and the
+    per-layer 3-D pairs of the MLA family, `wq_a`/`wkv_a` -> `wq_kv_a` and
+    (on one device, `tp` <= 1: `shared_gu` is column-sharded otherwise)
+    `shared_gate`/`shared_up` -> `shared_gu`. One eligibility rule for all:
+    quantized stacks of one fp8 or int8 kind only. Dense stacks stay
+    split, as in the JAX package. W4A16 never merges (its nibble packing
+    is relative to column tiles), nor do act-order or outlier leaves.
+    Per-channel scales concatenate exactly; per-block scales only when
+    the gate's out dim fills its last block, else the up half's scale
+    grid would shift."""
+
+    def mergeable(a, b, ndim=4):
+        if not (isinstance(a, QTensor) and isinstance(b, QTensor)):
+            return False
+        return (
+            a.kind == b.kind
+            and a.kind in (QuantKind.SOFT_FP8, QuantKind.FP8,
+                           QuantKind.W8A16, QuantKind.W8A8)
+            and a.data.dim() == ndim
+            and a.in_perm is None and b.in_perm is None
+            and a.oc_idx is None and b.oc_idx is None
+            and (
+                a.scale.dim() < a.data.dim()  # per-channel: exact concat
+                or a.data.shape[-1] % a.block == 0
+            )
+        )
+
+    def cat(a, b):
+        data = torch.cat([a.data.view(torch.uint8), b.data.view(torch.uint8)], dim=-1)
+        return QTensor(
+            data=data.view(a.data.dtype),
+            scale=torch.cat([a.scale, b.scale], dim=-1),
+            kind=a.kind, block=a.block,
+        )
+
+    def walk(tree):
+        if not isinstance(tree, dict):
+            return tree
+        for key in list(tree.keys()):
+            tree[key] = walk(tree[key])
+        pairs = [
+            ("exp_gate", "exp_up", "exp_gu", 4),
+            ("w_gate", "w_up", "w_gu", 4),
+            ("wq_a", "wkv_a", "wq_kv_a", 3),
+        ]
+        if tp <= 1:
+            pairs.append(("shared_gate", "shared_up", "shared_gu", 3))
+        for gate, up, merged, ndim in pairs:
+            if gate in tree and up in tree and mergeable(
+                tree[gate], tree[up], ndim
+            ):
+                tree[merged] = cat(tree.pop(gate), tree.pop(up))
+        return tree
 
     return walk(params)

@@ -1,15 +1,22 @@
 #!/usr/bin/env python3
 """Where a decode step's time goes in the PyTorch/CUDA port, on one GPU.
 
-    python3 scripts/torch_decode_profile.py [batch] [prompt_len] [quant_method]
+    python3 scripts/torch_decode_profile.py [batch] [prompt_len] \
+        [quant_method] [model card] [layers]
 
-Builds the Llama-3-8B-Instruct engine at full width and depth with random
+Builds the engine of a model card (default Llama-3-8B-Instruct) at full
+width and at `layers` deep (default: the card's depth) with random
 weights (quantized on load when a `quant.method` such as soft_fp8 is
 named), puts `batch` greedy requests of `prompt_len` random tokens into
 decode, then times decode steps twice: plain wall clock (decode tokens
 per second at that batch), and under `torch.profiler` to split device
 kernel time into the port's attention kernels, its quantized GEMMs and
-activation quantizers, library GEMMs and everything else.
+activation quantizers, the grouped expert GEMM, the MoE glue (every other
+kernel launched between the router and the combine: router, dispatch,
+gather, SwiGLU, combine), library GEMMs and everything else. The glue is
+told apart by where it is launched, not by name: the model's calls to
+`route` and `moe_ffn_auto` run inside a profiler range, and a kernel
+counts as glue when the operator that launched it lies in that range.
 The device's busy share is kernel time per step over the unprofiled wall
 time per step (the kernels run on one stream, so they do not overlap);
 its idle share is the rest. Prints one JSON line
@@ -31,12 +38,54 @@ def category(name: str) -> str:
         return "attention_kernels"
     if "quant_gemm_" in name or "int8_gemm_kernel" in name:
         return "quant_gemm_kernels"
+    if "moe_gemm_kernel" in name:
+        return "grouped_gemm_kernel"
     if "norm_quant_kernel" in name:
         return "act_quant_kernels"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "matmul")):
         return "gemm"
     return "other"
+
+
+GLUE = "moe_router_dispatch_combine"
+
+
+def range_moe_calls(torch):
+    """Run the Mixtral module's calls into `models.moe` inside a profiler
+    range named GLUE."""
+    from chitu_tpu_torch.models import mixtral
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with torch.profiler.record_function(GLUE):
+                return fn(*a, **kw)
+
+        return call
+
+    mixtral.route = ranged(mixtral.route)
+    mixtral.moe_ffn_auto = ranged(mixtral.moe_ffn_auto)
+
+
+def glue_us(prof):
+    """Device time, by name category, of the kernels launched inside a
+    GLUE range other than the grouped GEMM itself."""
+    out = {}
+    for e in prof.events():
+        kernels = getattr(e, "kernels", None)
+        if not kernels:
+            continue
+        p, inside = e, False
+        while p is not None and not inside:
+            inside = p.name == GLUE
+            p = p.cpu_parent
+        if not inside:
+            continue
+        for k in kernels:
+            c = category(k.name)
+            if c != "grouped_gemm_kernel":
+                out[c] = out.get(c, 0.0) + k.duration
+    return out
 
 
 def main():
@@ -51,15 +100,21 @@ def main():
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else 16
     plen = int(sys.argv[2]) if len(sys.argv) > 2 else 256
     method = sys.argv[3] if len(sys.argv) > 3 else "none"
+    model = sys.argv[4] if len(sys.argv) > 4 else "Llama-3-8B-Instruct"
+    depth = [f"models.n_layers={int(sys.argv[5])}"] if len(sys.argv) > 5 else []
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
     cfg = load_config(overrides=[
-        "models=Llama-3-8B-Instruct", "infer.stop_with_eos=false",
+        f"models={model}", "infer.stop_with_eos=false",
         "infer.adaptive_window=false", f"infer.max_reqs={max(batch, 1)}",
         f"quant.method={method}", f"quant.quant_on_load={str(method != 'none').lower()}",
+        *depth,
     ])
+    moe = cfg.models.moe is not None
+    if moe:
+        range_moe_calls(torch)
     t0 = time.perf_counter()
     eng = Engine(cfg)
     torch.cuda.synchronize()
@@ -100,15 +155,28 @@ def main():
     kern = {}  # device kernels only (operator rows also carry device time)
     for e in prof.key_averages():
         t = getattr(e, "self_device_time_total", 0.0) or 0.0
-        if t > 0 and e.device_type == DeviceType.CUDA:
+        # the GLUE range has a device-side twin that is no kernel
+        if t > 0 and e.device_type == DeviceType.CUDA and e.key != GLUE:
             kern[e.key] = kern.get(e.key, 0.0) + t
     busy_us = sum(kern.values())
     cats = {}
     for k, t in kern.items():
         cats[category(k)] = cats.get(category(k), 0.0) + t
+    if moe:
+        # move the glue out of the name categories its kernels fell into
+        glue = glue_us(prof)
+        for c, t in glue.items():
+            cats[c] = cats.get(c, 0.0) - t
+        cats[GLUE] = sum(glue.values()) if glue else None
+    launches = sum(
+        e.count for e in prof.key_averages()
+        if e.key in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC",
+                     "cuLaunchKernelEx")
+    )
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps(dict(
-        card=card, batch=batch, prompt_len=plen, window=window, quant=method,
+        card=card, model=cfg.models.name, layers=cfg.models.n_layers,
+        batch=batch, prompt_len=plen, window=window, quant=method,
         bringup_s=bringup, weights_gib=weights_gib,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         steps_timed=steps, steps_profiled=psteps,
@@ -118,7 +186,10 @@ def main():
         device_kernel_ms_per_step=busy_us / psteps / 1e3,
         # kernel time per step over the unprofiled wall time per step
         device_busy_share=(busy_us / psteps / 1e3) / (wall / steps * 1e3),
-        device_ms_per_step={k: v / psteps / 1e3 for k, v in cats.items()},
+        device_idle_share=1.0 - (busy_us / psteps / 1e3) / (wall / steps * 1e3),
+        kernel_launches_per_step=launches / psteps,
+        device_ms_per_step={
+            k: None if v is None else v / psteps / 1e3 for k, v in cats.items()},
         top_kernels_ms_per_step=[(k[:80], v / psteps / 1e3) for k, v in top],
     )), flush=True)
     eng.terminate()

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Shows that the limits `chip_smoke.py` holds the quantized kernels to
-reject broken kernels. Needs an NVIDIA GPU and nvcc.
+"""Shows that the limits `chip_smoke.py` holds the quantized and grouped
+GEMM kernels to reject broken kernels. Needs an NVIDIA GPU and nvcc.
 
     python3 scripts/torch_kernel_faults.py
 
@@ -8,7 +8,9 @@ For each planted fault it copies `chitu_tpu_torch/csrc/` into a temporary
 directory, edits one line of one source there (the repository's sources
 are never touched), builds that copy, points the wrappers at it and runs
 the comparison with the plain version that `chip_smoke.py` runs for the
-mode the fault touches, at a Llama-3-8B projection shape. It prints one
+mode the fault touches, at a Llama-3-8B projection shape (the grouped GEMM:
+layer 1 of a two-layer Mixtral-8x7B `[4096 -> 14336]` expert stack at the
+16-token decode geometry, where two of ten blocks are dead). It prints one
 JSON line per fault with the measured error beside the limit, first for
 the sound kernel and then for the broken one, and exits non-zero if a
 sound kernel fails its limit or a fault passes it.
@@ -45,6 +47,22 @@ FAULTS = [
      "(float)cw[idx] * a.w_scale[n]", "int8"),
     ("truncation instead of round-half-to-even", "norm_quant.cu",
      "rintf(y / s)", "truncf(y / s)", "acts"),
+    ("expert index off by one", "moe_gemm.cu",
+     "const uint8_t* w = a.w + (size_t)e * a.K * a.N * wbytes;",
+     "const uint8_t* w = a.w + (size_t)((e + 1) % a.E) * a.K * a.N * wbytes;",
+     "moe_bf16"),
+    ("layer offset dropped", "moe_gemm.cu",
+     "a.w = (const uint8_t*)w + (size_t)layer * E * K * N * (fp8 ? 1 : 2);",
+     "a.w = (const uint8_t*)w;", "moe_bf16"),
+    ("dead block left unzeroed", "moe_gemm.cu",
+     "if (split == 0) {", "if (split < 0) {", "moe_dead"),
+    ("expert scale block index off by one", "moe_gemm.cu",
+     "(a.scale_rowwise ? n : n / QBLK);",
+     "(a.scale_rowwise ? n : (n / QBLK > 0 ? n / QBLK - 1 : 0));", "moe_e4m3"),
+    ("last K tile of the grouped GEMM skipped", "moe_gemm.cu",
+     "const int t_cnt = base + (split < rem ? 1 : 0);",
+     "const int t_cnt = base + (split < rem ? 1 : 0) - (split == nsplit - 1 ? 1 : 0);",
+     "moe_e4m3"),
 ]
 
 
@@ -53,7 +71,9 @@ def main():
 
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
+    from chitu_tpu_torch.models import moe
     from chitu_tpu_torch.ops import cuda_build
+    from chitu_tpu_torch.ops import moe_gemm_kernels as mg
     from chitu_tpu_torch.ops import norm_quant as nq
     from chitu_tpu_torch.ops import quant_gemm_kernels as qg
     from chitu_tpu_torch.ops.qtensor import QuantKind
@@ -77,6 +97,22 @@ def main():
     xa = nq.quant_acts_plain(x)
     nw = (1.0 + 0.1 * randn(K).float()).to(bf)
 
+    # the grouped GEMM: layer 1 of [2, 8, 4096, 14336], 16 tokens, top-2
+    E, k, Tm = 8, 2, 16
+    wm = torch.empty((2, E, K, 14336), dtype=bf, device=dev)
+    for l in range(2):
+        wm[l] = randn(E, K, 14336, k=0.02)
+    wm8 = qt.quantize_stacked(
+        wm, lambda t: qt.quantize_weight(t, QuantKind.SOFT_FP8))
+    sel = torch.stack(
+        [torch.randperm(E, generator=g, device=dev)[:k] for _ in range(Tm)]
+    ).to(torch.int32)
+    bm, NB = moe.dispatch_geometry(Tm, k, E)
+    row_assign, block_expert = moe.sorted_dispatch(sel, E, bm)
+    xs = randn(NB * bm, K)
+    live = torch.repeat_interleave(block_expert >= 0, bm)
+    assert int((~live).sum()) > 0
+
     def row_rel(a, b):
         a, b = a.float(), b.float()
         return ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max().item()
@@ -87,6 +123,15 @@ def main():
             got, want = nq.rms_norm_quant(x, nw, 1e-5), nq.rms_norm_quant_plain(x, nw, 1e-5)
             d = (got.data.int() - want.data.int()).abs()
             return (d != 0).float().mean().item(), 1e-3, "share of int8 values off"
+        if kind.startswith("moe"):
+            wq = wm if kind == "moe_bf16" else wm8
+            junk = torch.full((NB * bm, 14336), 7.0, dtype=bf, device=dev)
+            del junk  # the output lands on this memory: dead rows must be written
+            got = mg.grouped_matmul(xs, wq, 1, block_expert, bm)
+            if kind == "moe_dead":
+                return got[~live].float().abs().max().item(), 0.0, "largest value in a dead block"
+            want = mg.grouped_matmul_plain(xs, wq, 1, block_expert, bm)
+            return row_rel(got[live], want[live]), ROW_RTOL, "row relative error"
         if kind == "int8":
             q = weights["int8"]
             return (row_rel(qg.int8_gemm(xa.data, xa.scale, q),
@@ -99,7 +144,7 @@ def main():
     def use_sources(csrc):
         cuda_build.CSRC = csrc
         cuda_build._LIBS.clear()
-        qg._LIB = nq._LIB = None
+        qg._LIB = nq._LIB = mg._LIB = None
 
     sound_dir = cuda_build.CSRC
     ok = True

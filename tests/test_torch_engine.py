@@ -200,7 +200,7 @@ def test_unknown_quant_method_rejected():
     [
         "infer.tp_size=2", "quant.method=soft_fp8", "infer.kv_dtype=fp8",
         "infer.spec_decode=ngram", "infer.prefix_cache=true",
-        "models=tiny-mixtral-debug", "models=tiny-deepseek-debug",
+        "infer.ring_prefill=true", "models=tiny-deepseek-debug",
     ],
 )
 def test_unported_configurations_raise(override):

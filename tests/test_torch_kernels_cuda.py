@@ -1,5 +1,5 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-small geometries beside the Llama-3-8B ones chip_smoke.py covers:
+small geometries beside the Llama-3-8B and Mixtral ones chip_smoke.py covers:
 head_dim 128 (the one head size the kernels take), 1 to 8 query heads per
 KV head, pages of 16 and 64, window and softcap. Pool bytes must be
 equal; every (token, head) output row must satisfy
@@ -297,3 +297,73 @@ def test_quant_wrappers_reject_bad_inputs(dev):
     odd = qt.quantize_weight(rand(192, 128).float(), QuantKind.W4A16, 96)
     with pytest.raises(NotImplementedError):  # 96-row blocks do not tile K
         qg.quant_gemm(rand(4, 192), odd)
+
+
+# ---------------------------------------------------------------------------
+# B8: the grouped expert GEMM against its plain version, small stacks
+# ---------------------------------------------------------------------------
+
+
+def _moe_case(dev, mode, T, E, K, N, k=2, L=2, seed=5):
+    from chitu_tpu_torch.models import moe
+    from chitu_tpu_torch.ops.qtensor import QuantKind
+    from chitu_tpu_torch.quantize import transforms as qt
+
+    rand = _gen(dev, seed)
+    w = (rand(L, E, K, N).float() * 0.05).to(torch.bfloat16)
+    if mode != "bf16":
+        w = qt.quantize_stacked(
+            w, lambda t: qt.quantize_weight(t, QuantKind.SOFT_FP8))
+        if mode == "e4m3_rowwise":
+            w = qt.expand_fp8_scales_rowwise({"w": w})["w"]
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    sel = torch.stack(
+        [torch.randperm(E, generator=g, device=dev)[:k] for _ in range(T)]
+    ).to(torch.int32)
+    bm, NB = moe.dispatch_geometry(T, k, E)
+    _, block_expert = moe.sorted_dispatch(sel, E, bm)
+    return w, rand(NB * bm, K), block_expert, bm
+
+
+@pytest.mark.parametrize("T", [1, 16, 64, 128, 256, 512])  # bm 16 .. 256
+@pytest.mark.parametrize("mode", ["bf16", "e4m3_blockwise", "e4m3_rowwise"])
+def test_grouped_gemm(dev, mode, T):
+    from chitu_tpu_torch.ops import moe_gemm_kernels as mg
+
+    w, xs, block_expert, bm = _moe_case(dev, mode, T, 8, 256, 384)
+    n0 = tk.LAUNCHES["grouped_gemm"]
+    junk = torch.full((xs.shape[0], 384), 7.0, dtype=torch.bfloat16, device=dev)
+    del junk  # the output lands on this memory: dead rows must be written
+    got = mg.grouped_matmul(xs, w, 1, block_expert, bm)
+    again = mg.grouped_matmul(xs, w, 1, block_expert, bm)
+    want = mg.grouped_matmul_plain(xs, w, 1, block_expert, bm)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["grouped_gemm"] == n0 + 2
+    assert torch.equal(got, again)  # split-K adds in a fixed order
+    live = torch.repeat_interleave(block_expert >= 0, bm)
+    assert not got[~live].any()
+    _check(got, want, live)
+
+
+def test_grouped_gemm_rejects_bad_inputs(dev):
+    from chitu_tpu_torch.ops import moe_gemm_kernels as mg
+    from chitu_tpu_torch.ops.qtensor import QuantKind
+    from chitu_tpu_torch.quantize import transforms as qt
+
+    w, xs, block_expert, bm = _moe_case(dev, "bf16", 16, 8, 256, 384)
+    with pytest.raises(IndexError):
+        mg.grouped_matmul(xs, w, 2, block_expert, bm)
+    with pytest.raises(TypeError):
+        mg.grouped_matmul(xs.float(), w, 0, block_expert, bm)
+    with pytest.raises(ValueError):
+        mg.grouped_matmul(xs[:-1], w, 0, block_expert, bm)
+    with pytest.raises(TypeError):
+        mg.grouped_matmul(xs, w, 0, block_expert.long(), bm)
+    with pytest.raises(NotImplementedError):
+        mg.grouped_matmul(xs, w, 0, block_expert, 48)
+    with pytest.raises(NotImplementedError):  # N no multiple of 128
+        mg.grouped_matmul(xs, w[..., :200].contiguous(), 0, block_expert, bm)
+    w8 = qt.quantize_stacked(w, lambda t: qt.quantize_weight(t, QuantKind.W8A16))
+    with pytest.raises(NotImplementedError):  # int8 experts: the capacity route
+        mg.grouped_matmul(xs, w8, 0, block_expert, bm)
