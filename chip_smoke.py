@@ -51,8 +51,9 @@ Phases, each fatal on failure:
    and out / 3.35 TB/s against 2 x assigned rows x K x N / 989 TFLOP/s.
 3. Engine: `Engine` at the full width and depth of Llama-3-8B-Instruct
    with random weights on the GPU serves one lone prompt, then a burst of
-   six mixed-length prompts (one longer than the 512-token slab) that
-   arrives while the first decodes; 32 new tokens each. Checks that every
+   six mixed-length prompts (one longer than the 512-token slab) in two
+   waves, the second arriving while the first decodes (a hybrid step); 32
+   new tokens each. Checks that every
    request completes, the pages and slots come back, and two identical
    greedy generates agree. The kernel launch counters are zeroed just
    before this phase and read just after: every kernel must have run.
@@ -84,9 +85,37 @@ Phases, each fatal on failure:
    second expert for one token changes that token's whole row). Each MoE
    phase requires the grouped GEMM and the three attention kernels to
    have launched, and the dequant GEMM under a quant method. The earlier
-   phases run at the depth they had: the whole run takes about two
-   minutes of its twenty.
-4. One `kernels` JSON line, then the device JSON as the last line.
+   phases run at the depth they had.
+   The MLA kernels of DeepSeek serving: B9 `absorb_matmul` at
+   DeepSeek-R1's `wkv_b` [2, 512, 128*256] (layer 1) and
+   deepseek-mid-bench's (32 heads), uk (reading q_nope as a view of the
+   query rows) and uv at T 16, 1 and 128, two launches bit-equal; the
+   merged latent row (128 heads on one KV head of 576 live lanes, 512 value
+   lanes, 640-lane rows) through B4 `attend_decode` and B1 (16 rows of
+   context up to 2047, the new token appended by the plain append before
+   B4), B3 `attend_prefill_packed` (a 512-token slab of three prompts) and
+   B5 (a 512-token chunk at q_pos 512); B4 and B3 again at Llama-3-8B's
+   split geometry; B8 at DeepSeek-R1's expert stacks (256 experts, top-8:
+   `[7168 -> 4096]` merged e4m3, `[2048 -> 7168]` e4m3 and bf16; T 16, 512
+   and 1). Same limits as above; each checked output lands on memory
+   filled with 7.0 just before (a tile left unwritten cannot pass). Library
+   yardsticks, timed only: SDPA on
+   the gathered latent rows (K = V = the 576 lanes), one `torch.einsum` on
+   the layer's half of `wkv_b`. Bounds: bytes of the leaf half, x and out
+   for B9; for the latent row the 576 live lanes of each context row read
+   once against 2 x H x (576 + 512) FLOPs a (query, key) pair.
+   Then DeepSeek serving, the same lone prompt and burst of six at full
+   width: DeepSeek-R1 in bf16 and in soft-fp8 at 5 of 61 layers (3 dense,
+   2 MoE: a layer of its experts is 22.5 GB in bf16 and the engine draws
+   the bf16 tree before it quantizes, so 5 layers, 53 GB, is what 80 GB
+   holds; the printed bring-up peak and resident memory say how close);
+   deepseek-mid-bench at its full 16 layers in bf16 and soft-fp8; and
+   DeepSeek-R1 in fp8 with e4m3 activations at 4 layers, the 64-token
+   prefill shadowed call by call (B9 too; logits reported, not held). Each
+   DeepSeek phase requires B1, B3, B4, B5, B9 and B8 to have launched, and
+   the dequant GEMM under a quant method.
+4. One `kernels` JSON line (eleven rows: B3, B4 and B9 with the launches
+   of the DeepSeek-R1 bf16 burst), then the device JSON as the last line.
 
 It imports nothing of JAX or of `chitu_tpu`, exits non-zero without a
 CUDA device, and fails when run outside a checkout of the repository.
@@ -95,6 +124,7 @@ CUDA device, and fails when run outside a checkout of the repository.
 import contextlib
 import gc
 import json
+import math
 import os
 import subprocess
 import sys
@@ -178,6 +208,35 @@ def bound_ms(nbytes: float, flops: float, peak: float = BF16_FLOP_PER_S):
 # ---------------------------------------------------------------------------
 
 
+def poison(torch, shape, dev):
+    """Fill a bf16 block of an output's size with 7.0 and free it: the
+    caching allocator hands it to the next launch's output, so a kernel
+    that leaves part of its output unwritten shows stale 7.0s, not the
+    previous launch's right answer."""
+    junk = torch.full(shape, 7.0, dtype=torch.bfloat16, device=dev)
+    del junk
+
+
+def compare_rows(torch, name, out_k, out_p, rows, pool_kernel=None,
+                 pool_plain=None):
+    """-> (max abs err, max per-row relative err) over the live rows;
+    raises unless every (token, head) row is within ROW_RTOL and the pools
+    (where given) are equal."""
+    if pool_kernel is not None and not torch.equal(pool_kernel, pool_plain):
+        raise AssertionError(f"{name}: pool bytes differ from the plain version")
+    a, b = out_k[rows].float(), out_p[rows].float()
+    if not torch.isfinite(a).all():
+        raise AssertionError(f"{name}: non-finite kernel output")
+    err = (a - b).abs().max().item()
+    rel = ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max().item()
+    if not rel <= ROW_RTOL:
+        raise AssertionError(
+            f"{name}: per-row relative err {rel} over {ROW_RTOL} "
+            f"(max abs err {err})"
+        )
+    return err, rel
+
+
 def kernel_cases(torch, tk, plain, dev):
     """Yields one result dict per case; the first case of each kernel is
     the one reported in the kernels line."""
@@ -207,23 +266,6 @@ def kernel_cases(torch, tk, plain, dev):
         k, v = plain.unpack_pool(rows, KV, D)
         return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
 
-    def compare(name, out_k, out_p, rows, pool_kernel, pool_plain):
-        """-> (max abs err, max per-row relative err) over the live rows;
-        raises unless every (token, head) row is within ROW_RTOL."""
-        if pool_kernel is not None and not torch.equal(pool_kernel, pool_plain):
-            raise AssertionError(f"{name}: pool bytes differ from the plain version")
-        a, b = out_k[rows].float(), out_p[rows].float()
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"{name}: non-finite kernel output")
-        err = (a - b).abs().max().item()
-        rel = ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max().item()
-        if not rel <= ROW_RTOL:
-            raise AssertionError(
-                f"{name}: per-row relative err {rel} over {ROW_RTOL} "
-                f"(max abs err {err})"
-            )
-        return err, rel
-
     # ---- B1: decode rows of mixed context up to 2048, dead rows --------
     bts = torch.arange(P, device=dev, dtype=torch.int32).reshape(B, MP)
     seq = randint(1, MP * PAGE - PAGE, B).to(torch.int32)
@@ -245,7 +287,7 @@ def kernel_cases(torch, tk, plain, dev):
         args = (LAYER, k, v, bts, seq, valid, PAGE, KV, D)
         out_k = tk.attend_decode_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_decode_fused_plain(q, pool_p, *args, **kw)
-        err, rel = compare(name, out_k, out_p, live, pool_k, pool_p)
+        err, rel = compare_rows(torch, name, out_k, out_p, live, pool_k, pool_p)
         ms = device_ms(torch, lambda: tk.attend_decode_fused(q, pool_k, *args, **kw))
         plain_ms = call_ms(
             torch, lambda: tk.attend_decode_fused_plain(q, pool_p, *args, **kw)
@@ -312,7 +354,7 @@ def kernel_cases(torch, tk, plain, dev):
         args = (LAYER, k, v, bts_p, block_seg, block_q, total, PAGE, KV, D)
         out_k = tk.attend_prefill_packed_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_prefill_packed_fused_plain(q, pool_p, *args, **kw)
-        err, rel = compare(name, out_k, out_p, tok_live, pool_k, pool_p)
+        err, rel = compare_rows(torch, name, out_k, out_p, tok_live, pool_k, pool_p)
         dead = ~torch.repeat_interleave(block_seg >= 0, TQ)
         if out_k[dead].abs().max().item() != 0.0:
             raise AssertionError(f"{name}: dead blocks not zero")
@@ -375,7 +417,7 @@ def kernel_cases(torch, tk, plain, dev):
         out_k = tk.attend_prefill(q, *args, **kw)
         out_p = plain.attend_prefill(q, *args, **kw)
         rows = torch.ones(T, dtype=torch.bool, device=dev)
-        err, rel = compare(name, out_k, out_p, rows, None, None)
+        err, rel = compare_rows(torch, name, out_k, out_p, rows, None, None)
         ms = device_ms(torch, lambda: tk.attend_prefill(q, *args, **kw))
         plain_ms = call_ms(torch, lambda: plain.attend_prefill(q, *args, **kw))
         kg, vg = gathered_kv(bt[None])
@@ -399,6 +441,314 @@ def kernel_cases(torch, tk, plain, dev):
                    max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                    bound_by=by, library_ms=lib_ms,
                    shape=f"T={T} q_pos0={start} total={totl} H={H} KV={KV} D={D}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2d: DeepSeek's MLA kernels: B9, the latent row of B1, B3, B4 and B5,
+# and B3 / B4 on Llama-3-8B's split geometry
+# ---------------------------------------------------------------------------
+
+ATTN_SRC = "chitu_tpu_torch/csrc/attention.cu"
+ABSORB_SRC = "chitu_tpu_torch/csrc/absorb.cu"
+# DeepSeek-R1's softmax scale: 1/sqrt(192) times the YaRN mscale squared
+# (factor 40, mscale_all_dim 1), as the model computes it
+R1_SCALE = 192 ** -0.5 * (0.1 * 1.0 * math.log(40.0) + 1.0) ** 2
+
+
+def absorb_cases(torch, ab, dev):
+    """B9 at DeepSeek-R1's wkv_b [2, 512, 128*256] (layer 1) and
+    deepseek-mid-bench's (32 heads): uk and uv at T 16, 1 and 128. The
+    first case (R1, uk, T 16) is the one reported in the kernels line."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bf = torch.bfloat16
+    C, dn, dv, dr = 512, 128, 128, 64
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    for label, H in (("R1", 128), ("mid", 32)):
+        w = randn(2, C, H * (dn + dv), s=0.02)
+        wl = w[1].view(C, H, dn + dv)
+        for T in (16, 1, 128):
+            for kind in ("uk", "uv"):
+                # uk reads q_nope as the model passes it: a view of the
+                # [T, H, dn + rope] query rows
+                x = randn(T, H, dn + dr)[..., :dn] if kind == "uk" else randn(T, H, C)
+                name = f"absorb_matmul[{label},{kind},T={T}]"
+                run = lambda: ab.absorb_matmul(x, w, 1, kind, dn, dv)
+                poison(torch, (T, H, C if kind == "uk" else dv), dev)
+                got, again = run(), run()
+                want = ab.absorb_matmul_plain(x, w, 1, kind, dn, dv)
+                if not torch.equal(got, again):
+                    raise AssertionError(f"{name}: two launches differ")
+                err, rel = compare_rows(torch, name, got, want, slice(None))
+                half = wl[..., :dn] if kind == "uk" else wl[..., dn:]
+                eq = "thd,chd->thc" if kind == "uk" else "thc,chd->thd"
+                nbytes = half.numel() * 2 + x.numel() * 2 + got.numel() * 2
+                bnd, by = bound_ms(nbytes, 2.0 * T * H * C * (dn if kind == "uk" else dv))
+                yield dict(
+                    name=name, kernel="absorb_matmul", route="cuda",
+                    source=ABSORB_SRC,
+                    replaces="chitu_tpu/ops/pallas_absorb.py:103",
+                    max_abs_err=err, max_row_rel_err=rel,
+                    ms=device_ms(torch, run),
+                    plain_ms=call_ms(torch, lambda: ab.absorb_matmul_plain(
+                        x, w, 1, kind, dn, dv)),
+                    bound_ms=bnd, bound_by=by,
+                    library_ms=device_ms(torch, lambda: torch.einsum(eq, x, half)),
+                    shape=f"T={T} H={H} C={C} dn={dn} dv={dv} kind={kind} "
+                          f"leaf_half_bytes={half.numel() * 2}")
+        del w
+    torch.cuda.empty_cache()
+
+
+def mla_attention_cases(torch, tk, plain, dev):
+    """The latent row (DeepSeek-R1: 128 heads on one KV head of 576 live
+    lanes, 512 value lanes, pages of 64, rows of 640) through B4, B1, B3
+    and B5, then B4 and B3 at Llama-3-8B's split geometry. The first case
+    of B3 and of B4 (latent) is the one reported in the kernels line: their
+    main path is DeepSeek serving."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    bf = torch.bfloat16
+    H, QK, DV, M, PAGE, L, LAYER = 128, 576, 512, 640, 64, 2, 1
+    B, MP = 16, 33
+    P = B * MP
+    kw = dict(kv_heads=1, head_dim=QK, split_kv=False, v_dim=DV, scale=R1_SCALE)
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    pool0 = randn(L, P, PAGE, M, s=0.5)
+    pool0[..., QK:] = 0  # the pad lanes of a latent row
+
+    def gathered(pool, bts):
+        """[R, mp*page] latent rows -> K = V [R, 1, S, 576]."""
+        return plain._gather(pool, LAYER, bts)[..., :QK][:, None].contiguous()
+
+    def case(name, kernel, err, rel, ms, plain_ms, lib_ms, nbytes, flops, shape,
+             src=ATTN_SRC, replaces=""):
+        bnd, by = bound_ms(nbytes, flops)
+        return dict(name=name, kernel=kernel, route="cuda", source=src,
+                    replaces=replaces, max_abs_err=err, max_row_rel_err=rel,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                    library_ms=lib_ms, shape=shape)
+
+    # ---- decode rows of mixed context up to 2047 (B4, then B1) ----------
+    bts = torch.arange(P, device=dev, dtype=torch.int32).reshape(B, MP)
+    seq = torch.randint(1, MP * PAGE - PAGE, (B,), generator=g,
+                        device=dev).to(torch.int32)
+    seq[0] = 2047
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    q = randn(B, H, QK)
+    knew = randn(B, 1, QK)
+    pool_a = pool0.clone()
+    plain.append_decode(pool_a, LAYER, knew, None, bts, seq, valid, PAGE)
+    ctx = int((seq + 1).sum().item())  # latent rows read, new token's included
+    cols = torch.arange(MP * PAGE, device=dev)[None, :]
+    kg = gathered(pool_a, bts)
+    mask = (cols <= seq[:, None].long())[:, None, None, :]
+    sdpa_dec = lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kg, kg, attn_mask=mask, scale=R1_SCALE,
+        enable_gqa=True)
+    lib_dec = device_ms(torch, sdpa_dec)
+    flops = 2.0 * H * (QK + DV) * ctx
+    dec_bytes = ctx * QK * 2 + q.numel() * 2 + B * H * DV * 2
+
+    args = (pool_a, LAYER, bts, seq, PAGE)
+    poison(torch, (B, H, DV), dev)
+    out_k = tk.attend_decode(q, *args, **kw)
+    out_p = tk._vlanes(plain.attend_decode(
+        q, *args, 1, QK, scale=R1_SCALE, split_kv=False), DV)
+    if not torch.equal(out_k, tk.attend_decode(q, *args, **kw)):
+        raise AssertionError("attend_decode[latent]: two launches differ")
+    err, rel = compare_rows(torch, "attend_decode[latent]", out_k, out_p, valid)
+    yield case(
+        "attend_decode[latent,R1]", "attend_decode", err, rel,
+        device_ms(torch, lambda: tk.attend_decode(q, *args, **kw)),
+        call_ms(torch, lambda: plain.attend_decode(
+            q, *args, 1, QK, scale=R1_SCALE, split_kv=False)),
+        lib_dec, dec_bytes, flops,
+        f"B={B} H={H} live={QK} value={DV} page={PAGE} mp={MP} ctx_rows={ctx}",
+        replaces="chitu_tpu/ops/pallas_attention.py:327")
+
+    valid_f = valid.clone()
+    valid_f[3] = False  # a row that appends nothing
+    pool_k, pool_p = pool0.clone(), pool0.clone()
+    fargs = (LAYER, knew, None, bts, seq, valid_f, PAGE)
+    poison(torch, (B, H, DV), dev)
+    out_k = tk.attend_decode_fused(q, pool_k, *fargs, **kw)
+    out_p = tk.attend_decode_fused_plain(q, pool_p, *fargs, **kw)
+    err, rel = compare_rows(torch, "attend_decode_fused[latent]", out_k, out_p,
+                            valid_f, pool_k, pool_p)
+    yield case(
+        "attend_decode_fused[latent,R1]", "attend_decode_fused", err, rel,
+        device_ms(torch, lambda: tk.attend_decode_fused(q, pool_k, *fargs, **kw)),
+        call_ms(torch, lambda: tk.attend_decode_fused_plain(q, pool_p, *fargs, **kw)),
+        lib_dec, dec_bytes + B * M * 2, flops,
+        f"B={B} H={H} live={QK} value={DV} page={PAGE} mp={MP} ctx_rows={ctx}",
+        replaces="chitu_tpu/ops/pallas_attention.py:727")
+
+    # ---- B3: a 512-token slab of three prompts ---------------------------
+    T = 512
+    TQ = tk.packed_q_block(H, M, PAGE, M, kv_heads=H, split_kv=False)
+    NB = T // TQ
+    segs = [(0, 200), (256, 150), (0, 100)]  # (start, new tokens)
+    mp_p = 8
+    bts_p = torch.full((B, mp_p), -1, dtype=torch.int32, device=dev)
+    block_seg = torch.full((NB,), -1, dtype=torch.int32, device=dev)
+    block_q = torch.zeros((NB,), dtype=torch.int32, device=dev)
+    total = torch.zeros((B,), dtype=torch.int32, device=dev)
+    tok_live = torch.zeros((T,), dtype=torch.bool, device=dev)
+    off = 0
+    for r, (s0, n) in enumerate(segs):
+        bts_p[r] = torch.arange(r * mp_p, (r + 1) * mp_p, device=dev)
+        nb = (n + TQ - 1) // TQ
+        block_seg[off // TQ : off // TQ + nb] = r
+        block_q[off // TQ : off // TQ + nb] = s0 + torch.arange(nb, device=dev) * TQ
+        total[r] = s0 + n
+        tok_live[off : off + n] = True
+        off += nb * TQ
+    q = randn(T, H, QK)
+    pargs = (pool0, LAYER, bts_p, block_seg, block_q, total, PAGE)
+    poison(torch, (T, H, DV), dev)
+    out_k = tk.attend_prefill_packed(q, *pargs, **kw)
+    out_p = tk.attend_prefill_packed_plain(q, *pargs, **kw)
+    if not torch.equal(out_k, tk.attend_prefill_packed(q, *pargs, **kw)):
+        raise AssertionError("attend_prefill_packed[latent]: two launches differ")
+    err, rel = compare_rows(torch, "attend_prefill_packed[latent]", out_k,
+                            out_p, tok_live)
+    dead = ~torch.repeat_interleave(block_seg >= 0, TQ)
+    if out_k[dead].abs().max().item() != 0.0:
+        raise AssertionError("attend_prefill_packed[latent]: dead blocks not zero")
+    # library: SDPA over each segment's gathered rows, padded to one batch
+    kg = gathered(pool0, bts_p[: len(segs)])
+    S = kg.shape[2]
+    nmax = max(n for _, n in segs)
+    qs = torch.zeros((len(segs), H, nmax, QK), dtype=bf, device=dev)
+    mask = torch.zeros((len(segs), 1, nmax, S), dtype=torch.bool, device=dev)
+    off, pairs = 0, 0
+    for r, (s0, n) in enumerate(segs):
+        qs[r, :, :n] = q[off : off + n].transpose(0, 1)
+        qp = s0 + torch.arange(n, device=dev)[:, None]
+        mr = torch.arange(S, device=dev)[None, :] <= qp
+        mask[r, 0, :n] = mr
+        mask[r, 0, n:, 0] = True
+        pairs += int(mr.sum().item())
+        off += (n + TQ - 1) // TQ * TQ
+    n_new = sum(n for _, n in segs)
+    ctx_rows = sum(s0 + n for s0, n in segs)
+    yield case(
+        "attend_prefill_packed[latent,R1]", "attend_prefill_packed", err, rel,
+        device_ms(torch, lambda: tk.attend_prefill_packed(q, *pargs, **kw)),
+        call_ms(torch, lambda: tk.attend_prefill_packed_plain(q, *pargs, **kw),
+                reps=5),
+        device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qs, kg, kg, attn_mask=mask, scale=R1_SCALE, enable_gqa=True)),
+        ctx_rows * QK * 2 + n_new * H * (QK + DV) * 2,
+        2.0 * H * (QK + DV) * pairs,
+        f"T={T} Tq={TQ} NB={NB} segs={segs} H={H} live={QK} value={DV}",
+        replaces="chitu_tpu/ops/pallas_attention.py:1709")
+
+    # ---- B5: a 512-token chunk at q_pos 512 ------------------------------
+    start = 512
+    totl = start + T
+    bt = torch.arange(16, device=dev, dtype=torch.int32) + 100
+    q_pos = (start + torch.arange(T, device=dev)).to(torch.int32)
+    sargs = (pool0, LAYER, bt, q_pos, totl, PAGE)
+    poison(torch, (T, H, DV), dev)
+    out_k = tk.attend_prefill(q, *sargs, **kw)
+    out_p = tk._vlanes(plain.attend_prefill(
+        q, *sargs, 1, QK, scale=R1_SCALE, split_kv=False), DV)
+    err, rel = compare_rows(torch, "attend_prefill[latent]", out_k, out_p,
+                            slice(None))
+    kg = gathered(pool0, bt[None])
+    mask = (torch.arange(kg.shape[2], device=dev)[None, :]
+            <= q_pos[:, None].long()) & (torch.arange(kg.shape[2], device=dev)[None, :] < totl)
+    pairs = int(mask.sum().item())
+    yield case(
+        "attend_prefill[latent,R1]", "attend_prefill", err, rel,
+        device_ms(torch, lambda: tk.attend_prefill(q, *sargs, **kw)),
+        call_ms(torch, lambda: plain.attend_prefill(
+            q, *sargs, 1, QK, scale=R1_SCALE, split_kv=False), reps=5),
+        device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q.transpose(0, 1)[None], kg, kg, attn_mask=mask[None, None],
+            scale=R1_SCALE, enable_gqa=True)),
+        totl * QK * 2 + T * H * (QK + DV) * 2, 2.0 * H * (QK + DV) * pairs,
+        f"T={T} q_pos0={start} total={totl} H={H} live={QK} value={DV}",
+        replaces="chitu_tpu/ops/pallas_attention.py:1137")
+    del pool0, pool_a, pool_k, pool_p
+
+    # ---- B4 and B3 at Llama-3-8B's split geometry ------------------------
+    H, KV, D = 32, 8, 128
+    M = 2 * KV * D
+    scale = D ** -0.5
+    pool = randn(L, P, PAGE, M, s=0.5)
+    q = randn(B, H, D)
+    plain.append_decode(pool, LAYER, randn(B, KV, D), randn(B, KV, D), bts,
+                        seq, valid, PAGE)
+    dargs = (pool, LAYER, bts, seq, PAGE, KV, D)
+    out_k = tk.attend_decode(q, *dargs, scale=scale)
+    out_p = plain.attend_decode(q, *dargs, scale=scale)
+    err, rel = compare_rows(torch, "attend_decode[split]", out_k, out_p, valid)
+    rows = plain._gather(pool, LAYER, bts)
+    kg2, vg2 = (t.transpose(1, 2).contiguous()
+                for t in plain.unpack_pool(rows, KV, D))
+    mask = (cols <= seq[:, None].long())[:, None, None, :]
+    yield case(
+        "attend_decode[split,Llama-3-8B]", "attend_decode", err, rel,
+        device_ms(torch, lambda: tk.attend_decode(q, *dargs, scale=scale)),
+        call_ms(torch, lambda: plain.attend_decode(q, *dargs, scale=scale)),
+        device_ms(torch, lambda: F.scaled_dot_product_attention(
+            q[:, :, None, :], kg2, vg2, attn_mask=mask, scale=scale,
+            enable_gqa=True)),
+        ctx * 2 * KV * D * 2 + 2 * q.numel() * 2, 4.0 * H * D * ctx,
+        f"B={B} H={H} KV={KV} D={D} page={PAGE} mp={MP} ctx_rows={ctx}",
+        replaces="chitu_tpu/ops/pallas_attention.py:327")
+
+    TQ = tk.packed_q_block(H, M, PAGE, D, kv_heads=KV)
+    NB = T // TQ
+    segs = [(0, 100), (256, 150), (0, 60)]  # B2's slab: 64-token q blocks
+    block_seg = torch.full((NB,), -1, dtype=torch.int32, device=dev)
+    block_q = torch.zeros((NB,), dtype=torch.int32, device=dev)
+    total = torch.zeros((B,), dtype=torch.int32, device=dev)
+    tok_live = torch.zeros((T,), dtype=torch.bool, device=dev)
+    off = 0
+    for r, (s0, n) in enumerate(segs):
+        nb = (n + TQ - 1) // TQ
+        block_seg[off // TQ : off // TQ + nb] = r
+        block_q[off // TQ : off // TQ + nb] = s0 + torch.arange(nb, device=dev) * TQ
+        total[r] = s0 + n
+        tok_live[off : off + n] = True
+        off += nb * TQ
+    n_new = sum(n for _, n in segs)
+    ctx_rows = sum(s0 + n for s0, n in segs)
+    q = randn(T, H, D)
+    pargs = (pool, LAYER, bts_p, block_seg, block_q, total, PAGE, KV, D)
+    out_k = tk.attend_prefill_packed(q, *pargs, scale=scale)
+    out_p = tk.attend_prefill_packed_plain(q, *pargs, scale=scale)
+    err, rel = compare_rows(torch, "attend_prefill_packed[split]", out_k,
+                            out_p, tok_live)
+    yield case(
+        "attend_prefill_packed[split,Llama-3-8B]", "attend_prefill_packed",
+        err, rel,
+        device_ms(torch, lambda: tk.attend_prefill_packed(q, *pargs, scale=scale)),
+        call_ms(torch, lambda: tk.attend_prefill_packed_plain(
+            q, *pargs, scale=scale), reps=5),
+        None, ctx_rows * 2 * KV * D * 2 + 2 * n_new * H * D * 2,
+        4.0 * H * D * pairs_split(segs),
+        f"T={T} Tq={TQ} NB={NB} segs={segs} H={H} KV={KV} D={D}",
+        replaces="chitu_tpu/ops/pallas_attention.py:1709")
+    del pool
+    torch.cuda.empty_cache()
+
+
+def pairs_split(segs):
+    """Causal (query, key) pairs of packed segments [(start, new tokens)]."""
+    return sum(n * s0 + n * (n + 1) // 2 for s0, n in segs)
 
 
 # ---------------------------------------------------------------------------
@@ -592,6 +942,12 @@ MOE_STACKS = [
     ("moe16x", 16, 2048, 2816, True), ("moe16x", 16, 2048, 1408, False),
     ("moe16x", 16, 1408, 2048, True), ("moe16x", 16, 1408, 2048, False),
 ]
+# DeepSeek-R1's experts (256, top-8): gate/up merged in e4m3, down in e4m3
+# and bf16; one layer a stack (a bf16 layer of them is 15 GB)
+R1_MOE_STACKS = [
+    ("R1", 256, 7168, 4096, True), ("R1", 256, 2048, 7168, True),
+    ("R1", 256, 2048, 7168, False),
+]
 
 
 def check_grouped(torch, name, got, again, want, live_rows):
@@ -615,13 +971,12 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
     g.manual_seed(2)
     rng = np.random.default_rng(2)
     bf = torch.bfloat16
-    k = 2
 
     def stack(L, E, K, N, fp8, rowwise=False):
         """[L, E, K, N] experts, made one layer at a time."""
         w = torch.empty((L, E, K, N), dtype=bf, device=dev)
         for l in range(L):
-            w[l] = (torch.randn((E, K, N), generator=g, device=dev) * 0.02).to(bf)
+            w[l].normal_(0.0, 0.02, generator=g)
         if not fp8:
             return w
         q = qt.quantize_stacked(
@@ -631,7 +986,7 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
             assert q.scale.shape == (L, E, K // 128, N)
         return q
 
-    def routing(T, E, skewed=False):
+    def routing(T, E, k, skewed=False):
         """sel [T, k]: k distinct experts a token from the numpy seed, or
         (skewed) the same two for every token."""
         if skewed:
@@ -640,12 +995,12 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
             sel = np.stack([rng.permutation(E)[:k] for _ in range(T)])
         return torch.tensor(sel, dtype=torch.int32, device=dev)
 
-    def case(label, w, T, layer=0, skewed=False, timed=True, tag=""):
+    def case(label, w, T, layer=0, skewed=False, timed=True, tag="", k=2):
         data = w.data if hasattr(w, "kind") else w
         fp8 = hasattr(w, "kind")
         E, K, N = data.shape[-3:]
         bm, NB = moe.dispatch_geometry(T, k, E)
-        sel = routing(T, E, skewed)
+        sel = routing(T, E, k, skewed)
         row_assign, block_expert = moe.sorted_dispatch(sel, E, bm)
         x = (torch.randn((T, K), generator=g, device=dev)).to(bf)
         A = T * k
@@ -720,6 +1075,14 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
     yield case("mixtral", w, 16, timed=False, tag=",unstacked")
     del w
     torch.cuda.empty_cache()
+    # DeepSeek-R1's geometry: at T 16 and top-8 of 256, bm 16 and 136
+    # blocks, up to 128 live experts with one row or two each
+    for label, E, K, N, fp8 in R1_MOE_STACKS:
+        w = stack(1, E, K, N, fp8)
+        for T in (16, 512, 1):
+            yield case(label, w, T, k=8)
+        del w
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -733,13 +1096,15 @@ ATTN_KERNELS = ("attend_decode_fused", "attend_prefill_packed_fused",
 
 def _swap_targets():
     """(module, name) of every call the model makes into this slice's
-    kernels, each with its plain version."""
-    from chitu_tpu_torch.models import llama, moe
+    GEMM and quantizer kernels, each with its plain version."""
+    from chitu_tpu_torch.models import deepseek_v3, llama, moe
     from chitu_tpu_torch.ops import (
-        linear, moe_gemm_kernels, norm_quant, quant_gemm_kernels,
+        absorb_kernels, linear, moe_gemm_kernels, norm_quant,
+        quant_gemm_kernels,
     )
 
     return [
+        (deepseek_v3, "absorb_matmul", absorb_kernels.absorb_matmul_plain),
         (moe, "grouped_matmul", moe_gemm_kernels.grouped_matmul_plain),
         (linear, "quant_gemm", quant_gemm_kernels.quant_gemm_plain),
         (linear, "int8_gemm", quant_gemm_kernels.int8_gemm_plain),
@@ -766,8 +1131,9 @@ def _swapped(make):
 
 def plain_versions():
     """Route the model through the plain PyTorch versions of the
-    quantized and grouped GEMMs and activation quantizers on the card. Attention stays
-    on its kernel (it is held against its own plain version in phase 2)."""
+    quantized, grouped and absorb GEMMs and activation quantizers on the
+    card. Attention stays on its kernel (it is held against its own plain
+    version in phase 2)."""
     return _swapped(lambda kernel_fn, plain_fn, name: plain_fn)
 
 
@@ -822,7 +1188,7 @@ def logits_against_plain(torch, np, eng, label):
                         dtype=torch.int32, device=dev)
     mp = cfg.infer.max_seq_len // cfg.infer.page_size + 1
     bt = torch.arange(mp, dtype=torch.int32, device=dev)  # free pages
-    cache = {"kv": eng.cache.arrays["kv"]}
+    cache = dict(eng.cache.arrays)
     args = (cache, toks, bt, 0, 64, cfg.infer.page_size)
     errs = {}
     with torch.no_grad():
@@ -862,7 +1228,9 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
           f"({cfg.models.name}, {cfg.models.n_layers} layers, random weights, "
           f"quant {cfg.quant.method}, KV pool {eng.cache.bytes() / 2**30:.2f} GiB, "
           f"peak during bring-up "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB)", flush=True)
+          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, resident "
+          f"after it {torch.cuda.memory_allocated() / 2**30:.1f} GiB)",
+          flush=True)
     rng = np.random.default_rng(0)
     V = cfg.models.vocab_size
 
@@ -879,7 +1247,12 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
     reqs = [eng.submit("", greedy, prompt_tokens=prompt(300))]
     eng.step()  # the lone prompt prefills alone (B5)
     eng.step()  # ... and decodes (B1)
+    # the burst in two waves: the first prefills, the second arrives while
+    # the first decodes, so a hybrid step carries both (DeepSeek: B4 + B3)
+    half = len(lens) // 2
     for i, n in enumerate(lens):
+        if i == half:
+            eng.step()
         reqs.append(eng.submit("", greedy if i % 2 == 0 else sampled,
                                prompt_tokens=prompt(n)))
     eng.run_until_complete()
@@ -951,7 +1324,8 @@ QUANT_PHASES = [
     ("llmint8", ["quant.method=llmint8"], ("quant_gemm",)),
 ]
 KERNEL_ORDER = ATTN_KERNELS + (
-    "quant_gemm", "int8_gemm", "rms_norm_quant", "quant_acts", "grouped_gemm")
+    "quant_gemm", "int8_gemm", "rms_norm_quant", "quant_acts", "grouped_gemm",
+    "attend_prefill_packed", "attend_decode", "absorb_matmul")
 MIXTRAL = "Mixtral-8x7B-Instruct-v0.1"
 MOE_PHASES = [
     # (label, model card, overrides, kernels beyond attention that must have
@@ -969,6 +1343,24 @@ MOE_PHASES = [
 ]
 
 
+# DeepSeek serving: the kernels each phase must launch. Full width always;
+# the depth is what 80 GB holds: a layer of DeepSeek-R1's experts is
+# 22.5 GB in bf16, and a quantized engine draws the bf16 tree first, so
+# 5 layers (3 dense, 2 MoE: 53 GB) in bf16 and in soft-fp8; 6 would be 76.
+MLA_KERNELS = ("attend_decode_fused", "attend_prefill_packed",
+               "attend_decode", "attend_prefill", "absorb_matmul",
+               "grouped_gemm")
+R1 = "DeepSeek-R1"
+SOFT = ["quant.method=soft_fp8", "quant.quant_on_load=true"]
+MLA_PHASES = [
+    # (label, model card, overrides, kernels beyond MLA_KERNELS)
+    ("r1_bf16", R1, ["models.n_layers=5"], ()),
+    ("r1_soft_fp8", R1, ["models.n_layers=5"] + SOFT, ("quant_gemm",)),
+    ("mid_bf16", "deepseek-mid-bench", [], ()),
+    ("mid_soft_fp8", "deepseek-mid-bench", SOFT, ("quant_gemm",)),
+]
+
+
 def main():
     import numpy as np
     import torch
@@ -978,6 +1370,7 @@ def main():
         sys.exit(2)
     sys.path.insert(0, HERE)
     from chitu_tpu_torch.models import moe
+    from chitu_tpu_torch.ops import absorb_kernels as ab
     from chitu_tpu_torch.ops import attention as plain
     from chitu_tpu_torch.ops import attention_kernels as tk
     from chitu_tpu_torch.ops import moe_gemm_kernels as mg
@@ -986,6 +1379,7 @@ def main():
     from chitu_tpu_torch.ops.qtensor import QuantKind
     from chitu_tpu_torch.quantize import transforms as qt
 
+    t_main = time.time()
     name = torch.cuda.get_device_name(0)
     card = card_line()
     print(f"device {name}; torch {torch.__version__} cuda {torch.version.cuda}",
@@ -1002,7 +1396,9 @@ def main():
     with torch.no_grad():
         for cases in (kernel_cases(torch, tk, plain, dev),
                       quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev),
-                      moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev)):
+                      moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev),
+                      absorb_cases(torch, ab, dev),
+                      mla_attention_cases(torch, tk, plain, dev)):
             for res in cases:
                 res["card"] = card
                 print("case " + json.dumps(res), flush=True)
@@ -1044,7 +1440,22 @@ def main():
         need=ATTN_KERNELS + ("grouped_gemm", "quant_gemm"), check_plain=True,
         model=MIXTRAL,
     )
+    # DeepSeek serving: B3, B4 and B9 report the launches of the bf16
+    # DeepSeek-R1 burst
+    for label, model, ovr, need in MLA_PHASES:
+        got = engine_phase(torch, np, tk, card, label, ovr,
+                           need=MLA_KERNELS + need, model=model)
+        if label == "r1_bf16":
+            for k in ("attend_prefill_packed", "attend_decode", "absorb_matmul"):
+                launches[k] = got[k]
+    engine_phase(
+        torch, np, tk, card, "r1_fp8_e4m3",
+        ["quant.method=fp8", "quant.fp8_act=e4m3"] + quant + ["models.n_layers=4"],
+        lens=(40, 100, 200), new_tokens=8,
+        need=MLA_KERNELS + ("quant_gemm",), check_plain=True, model=R1,
+    )
 
+    print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []
     for kname in KERNEL_ORDER:
         r = first[kname]

@@ -1,20 +1,26 @@
 // Paged-KV attention kernels for Hopper (sm_90a), plain C interface.
 //
-// Three kernels, each the counterpart of one Pallas TPU kernel of
+// Five entry points, each the counterpart of one Pallas TPU kernel of
 // chitu_tpu/ops/pallas_attention.py (their Python wrappers and plain
 // PyTorch versions live in chitu_tpu_torch/ops/attention_kernels.py):
 //
-//   B1 decode_fused_kernel   <- attend_decode_fused (_decode_fused_kernel)
+//   B1 decode_kernel (fused)  <- attend_decode_fused (_decode_fused_kernel)
 //   B2 append_packed_kernel + prefill_attend_kernel (packed mode)
-//                            <- attend_prefill_packed_fused
-//                               (_prefill_packed_fused_kernel)
+//                             <- attend_prefill_packed_fused
+//                                (_prefill_packed_fused_kernel)
+//   B3 prefill_attend_kernel (packed mode) alone
+//                             <- attend_prefill_packed (_prefill_packed_kernel)
+//   B4 decode_kernel (not fused) <- attend_decode (_decode_kernel)
 //   B5 prefill_attend_kernel (single-sequence mode)
-//                            <- attend_prefill (_prefill_grouped_kernel)
+//                             <- attend_prefill (_prefill_grouped_kernel)
 //
-// Pool layout (as in the JAX package): [L, P, page, M] bf16 with
-// K-half-then-V-half rows [K_0..K_{KV-1} V_0..V_{KV-1} | pad], M =
-// pad128(2*KV*D). Offsets into the pool are 64-bit: a full-size pool holds
-// more than 2^31 elements.
+// and, for B1, B3, B4 and B5 on the MLA merged latent row, latent_kernel
+// (below). Two pool layouts, as in the JAX package, [L, P, page, M] bf16:
+// split K/V rows [K_0..K_{KV-1} V_0..V_{KV-1} | pad], M = pad128(2*KV*D),
+// at head_dim 128; and the merged latent row [c_kv (512) | k_pe (64) | pad]
+// of DeepSeek's MLA absorb, M = 640, one KV "head" that every query head
+// reads, whose first 512 lanes are also the value. Offsets into the pool
+// are 64-bit: a full-size pool holds more than 2^31 elements.
 //
 // What bounds them on the card: the bytes of context K/V read from the
 // pool (each page row of the KV head's K and V slices; q and out are small
@@ -31,14 +37,17 @@
 // The TPU grid runs in order, and the fused packed-prefill kernel relies on
 // that: block b+1 of a segment reads the rows block b appended. Blocks on
 // Hopper run in any order, so B2 is two launches on one stream: the append
-// of every live row, then the attention. The decode kernel never reads
+// of every live row, then the attention (B3 is that second launch alone:
+// its rows were appended before it). The fused decode kernel never reads
 // back the row it writes: the new token's column comes from the input k/v,
-// as on the TPU (pallas_attention.py:652-679).
+// as on the TPU (pallas_attention.py:652-679); B4 reads it from the pool,
+// where the plain append of the same step wrote it.
 //
 // Every entry returns cudaGetLastError() after its launch (0 = launched);
 // the wrappers raise on anything else.
 
 #include <cuda_bf16.h>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -153,12 +162,13 @@ __device__ __forceinline__ void tile_scores(const bf16* ks, const float* qrow,
 }
 
 // ---------------------------------------------------------------------------
-// B1: fused append + one-token decode attention.
+// B1 (fused) and B4: one-token decode attention.
 // Grid (B, KV), 4 warps. Warp w serves query heads g = w, w+4, ... of the
 // KV head: per 64-key tile its lanes score keys lane and lane+32, then
 // accumulate P.V with each lane owning D/32 dims. Keys are positions
-// [lo, tot]: rows < tot from the pool, the new token (position tot) from
-// k/v.
+// [lo, tot]. Fused (B1): rows < tot from the pool, the new token (position
+// tot) from k/v, and the row is appended after the reads. Not fused (B4):
+// every row from the pool, the new token's included.
 // ---------------------------------------------------------------------------
 
 constexpr int DEC_WARPS = 4;
@@ -166,14 +176,13 @@ constexpr int DEC_HPW = 4;  // heads per warp -> G <= 16
 
 template <int D>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
-decode_fused_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
-                    const bf16* __restrict__ knew,
-                    const bf16* __restrict__ vnew,
-                    const int* __restrict__ block_tables,
-                    const int* __restrict__ seq_lens,
-                    const uint8_t* __restrict__ valid, bf16* __restrict__ out,
-                    int layer, int P, int page, int M, int mp, int KV, int G,
-                    float scale, int window, float softcap) {
+decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
+              const bf16* __restrict__ knew, const bf16* __restrict__ vnew,
+              const int* __restrict__ block_tables,
+              const int* __restrict__ seq_lens,
+              const uint8_t* __restrict__ valid, bf16* __restrict__ out,
+              int fused, int layer, int P, int page, int M, int mp, int KV,
+              int G, float scale, int window, float softcap) {
   constexpr int DPL = D / 32;
   constexpr int CH = D / 8;  // 16-byte chunks in one head's row slice
   constexpr int NT = DEC_WARPS * 32;
@@ -211,7 +220,7 @@ decode_fused_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
     stage_tile<D, NT>(ks, vs, n, tid,
                       [&](int r, const uint4*& kp, const uint4*& vp) {
       const int pos = t0 + r;
-      if (pos < tot) {
+      if (pos < tot || !fused) {
         const int pi = pos / page;
         const int pid = pi < mp ? max(bt[pi], 0) : 0;
         const bf16* row = pool + row_offset(layer, P, page, M, pid, pos % page);
@@ -233,7 +242,8 @@ decode_fused_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
           const int j = lane + 32 * kk, pos = t0 + j;
-          const bool ok = j < n && (pos == tot || pos / page < mp);
+          const bool ok =
+              j < n && ((fused && pos == tot) || pos / page < mp);
           sv[kk] = ok ? capped(sv[kk] * scale, softcap) : -INFINITY;
         }
         float p0, p1;
@@ -267,7 +277,7 @@ decode_fused_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
 
   // append the new token's row (after this block's reads; no other block
   // reads slot `tot` of this row)
-  if (valid[b]) {
+  if (fused && valid[b]) {
     const int pi = tot / page;
     const int pid = pi < mp ? bt[pi] : -1;
     if (pid >= 0 && pid < P) {
@@ -545,6 +555,325 @@ int launch_prefill(const void* q, const void* pool, const void* bts,
   return int(cudaGetLastError());
 }
 
+
+// ---------------------------------------------------------------------------
+// The MLA merged latent row (B1, B3, B4 and B5 with split_kv=False).
+// One KV "head" of LQK = 576 live lanes ([c_kv | k_pe]) is shared by all H
+// query heads, and its first LDV = 512 lanes are the value. Scores and
+// values are products with inner dimensions of 576 and 64, so both run on
+// the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums); the online
+// softmax runs in f32 in between, as in the split kernels.
+//
+// Grid (row blocks, H / HT): a block owns LR = 32 query rows, HT heads
+// (32, or 16 when H is no multiple of 32) of LR / HT query tokens (decode:
+// one batch row and HT heads). It stages each 64-key tile of the latent
+// rows ONCE (64 x 576 bf16, 72 KB) and uses it for both the scores and the
+// values. What bounds it: the context bytes at a decode batch, the
+// tensor-core rate at prefill. Every head tile re-reads the context (H / HT
+// times: 4x for DeepSeek-R1's 128 heads), which L2 absorbs at the contexts
+// served here. Per tile, 8 warps: scores S[32 x 64] = Q K^T, warp w the
+// 16 x 16 block (w / 4, w % 4), to shared memory; softmax, warp w rows
+// 4w..4w+3 (probabilities rounded to bf16 for the next product); then
+// O[32 x 512] += P V, warp w the 16 x 128 block (w / 4, w % 4) in
+// registers, rescaled row by row (the accumulator's row of each register
+// is fixed by the mma layout). Not done yet: split K over a long context at
+// batch 1, TMA and wgmma.
+// ---------------------------------------------------------------------------
+
+constexpr int LQK = 576;        // live lanes of a latent row (score dims)
+constexpr int LDV = 512;        // value lanes (kv_lora_rank)
+constexpr int LR = 32;          // query rows a block
+constexpr int LWARPS = 8;
+constexpr int LLD = LQK + 8;    // row stride of the q and K=V tiles (bf16)
+constexpr int LSLD = BK + 4;    // row stride of the score tile (f32)
+constexpr int LPLD = BK + 8;    // row stride of the probability tile (bf16)
+constexpr size_t LATENT_SMEM =
+    size_t(LR) * LLD * 2 + size_t(BK) * LLD * 2 + size_t(LR) * LSLD * 4 +
+    size_t(LR) * LPLD * 2 + 2 * LR * 4;
+
+enum LatentMode { L_DECODE_FUSED = 0, L_DECODE = 1, L_PREFILL = 2, L_PACKED = 3 };
+
+__device__ __forceinline__ void mma_bf16_16816(float* c, uint32_t a0,
+                                               uint32_t a1, uint32_t a2,
+                                               uint32_t a3, uint32_t b0,
+                                               uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t lds32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// B fragments of two n8 tiles (columns n0..n0+15) for rows k0..k0+15 of a
+// row-major [k][n] bf16 tile, transposed on the way: lane l addresses row
+// k0 + (l & 15), column n0 + 8 * (l >> 4).
+__device__ __forceinline__ void ldsm_x4_trans(const bf16* p, uint32_t& r0,
+                                              uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+      : "r"(a));
+}
+
+__global__ void __launch_bounds__(LWARPS * 32)
+latent_kernel(int mode, const bf16* __restrict__ q, bf16* __restrict__ pool,
+              const bf16* __restrict__ knew, const int* __restrict__ bts,
+              const int* __restrict__ pos_in,  // seq_lens [B] or q_pos [T]
+              const uint8_t* __restrict__ valid,
+              const int* __restrict__ block_seg,
+              const int* __restrict__ block_qstart,
+              const int* __restrict__ total_lens, int total_scalar,
+              bf16* __restrict__ out, int Tq, int H, int HT, int layer, int P,
+              int page, int M, int mp, float scale, int window,
+              float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* qs = reinterpret_cast<bf16*>(smem);                // [LR][LLD]
+  bf16* ks = qs + LR * LLD;                                // [BK][LLD]
+  float* ss = reinterpret_cast<float*>(ks + BK * LLD);     // [LR][LSLD]
+  bf16* ps = reinterpret_cast<bf16*>(ss + LR * LSLD);      // [LR][LPLD]
+  float* alpha_s = reinterpret_cast<float*>(ps + LR * LPLD);  // [LR]
+  float* l_s = alpha_s + LR;                                  // [LR]
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int h0 = blockIdx.y * HT;
+  const bool decode = mode == L_DECODE_FUSED || mode == L_DECODE;
+  const int BQ = decode ? 1 : LR / HT;  // query tokens of the block
+  const int R = BQ * HT;                // live rows
+  const int t_base = blockIdx.x * BQ;   // first token (decode: batch row)
+
+  // the block's context: keys [kstart, kend); row r's query position is
+  // q_start + r / HT (decode: tot for every row)
+  int q_start, total, kstart, kend;
+  const int* bt;
+  if (decode) {
+    q_start = pos_in[t_base];
+    total = q_start + 1;
+    kstart = window > 0 ? max(q_start + 1 - window, 0) : 0;
+    kend = total;
+    bt = bts + int64_t(t_base) * mp;
+  } else {
+    if (mode == L_PACKED) {
+      const int blk = t_base / Tq;
+      const int seg = block_seg[blk];
+      if (seg < 0) {  // dead block: zero output, nothing read
+        for (int e = tid; e < R * LDV; e += LWARPS * 32) {
+          const int r = e / LDV;
+          out[(int64_t(t_base + r / HT) * H + h0 + r % HT) * LDV + e % LDV] =
+              __float2bfloat16(0.f);
+        }
+        return;
+      }
+      q_start = block_qstart[blk] + t_base % Tq;
+      total = total_lens[seg];
+      bt = bts + int64_t(seg) * mp;
+    } else {
+      q_start = pos_in[0] + t_base;
+      total = total_scalar;
+      bt = bts;
+    }
+    kend = min(q_start + BQ, total);
+    kstart = window > 0 ? max(q_start - window + 1, 0) : 0;
+  }
+
+  // stage the block's queries (rows >= R are zero)
+  for (int e = tid; e < LR * (LQK / 8); e += LWARPS * 32) {
+    const int r = e / (LQK / 8), c = e % (LQK / 8);
+    uint4 v = make_uint4(0u, 0u, 0u, 0u);
+    if (r < R)
+      v = reinterpret_cast<const uint4*>(
+          q + (int64_t(t_base + r / HT) * H + h0 + r % HT) * LQK)[c];
+    *reinterpret_cast<uint4*>(qs + r * LLD + c * 8) = v;
+  }
+
+  float m[4], l[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+  }
+  float acc[16][4];
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+
+  const int sm = (warp >> 2) * 16;  // score / value row tile of this warp
+  const int sn = (warp & 3) * 16;   // score key columns
+  const int vd = (warp & 3) * 128;  // value lanes
+
+  for (int t0 = kstart; t0 < kend; t0 += BK) {
+    const int n = min(BK, kend - t0);
+    __syncthreads();  // the previous tile is consumed (and qs is staged)
+    for (int e = tid; e < BK * (LQK / 8); e += LWARPS * 32) {
+      const int r = e / (LQK / 8), c = e % (LQK / 8);
+      bf16* dst = ks + r * LLD + c * 8;
+      const int pos = t0 + r;
+      if (r >= n) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+      } else if (mode == L_DECODE_FUSED && pos == q_start) {
+        *reinterpret_cast<uint4*>(dst) =
+            reinterpret_cast<const uint4*>(knew + int64_t(t_base) * LQK)[c];
+      } else {
+        const int pi = pos / page;
+        const int pid = pi < mp ? max(bt[pi], 0) : 0;
+        __pipeline_memcpy_async(
+            dst, pool + row_offset(layer, P, page, M, pid, pos % page) + c * 8,
+            16);
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+
+    // scores: the warp's 16 x 16 block, 36 k-steps over the live lanes
+    float sc[2][4];
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
+    const bf16* qa = qs + (sm + g) * LLD + 2 * t4;
+    const bf16* kb = ks + (sn + g) * LLD + 2 * t4;
+#pragma unroll 4
+    for (int k0 = 0; k0 < LQK; k0 += 16) {
+      const uint32_t a0 = lds32(qa + k0), a1 = lds32(qa + 8 * LLD + k0);
+      const uint32_t a2 = lds32(qa + k0 + 8), a3 = lds32(qa + 8 * LLD + k0 + 8);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const bf16* kp = kb + j * 8 * LLD + k0;
+        mma_bf16_16816(sc[j], a0, a1, a2, a3, lds32(kp), lds32(kp + 8));
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      float* s0 = ss + (sm + g) * LSLD + sn + j * 8 + 2 * t4;
+      s0[0] = sc[j][0];
+      s0[1] = sc[j][1];
+      s0[8 * LSLD] = sc[j][2];
+      s0[8 * LSLD + 1] = sc[j][3];
+    }
+    __syncthreads();
+
+    // online softmax: warp w rows 4w..4w+3, keys lane and lane + 32
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = warp * 4 + i;
+      const int qp = decode ? q_start : q_start + r / HT;
+      float sv[2];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int j = lane + 32 * kk, kp = t0 + j;
+        bool ok = j < n && kp <= qp && kp < total;
+        if (!(mode == L_DECODE_FUSED && kp == q_start)) ok = ok && kp / page < mp;
+        if (window > 0) ok = ok && kp > qp - window;
+        sv[kk] = ok ? capped(ss[r * LSLD + j] * scale, softcap) : -INFINITY;
+      }
+      float p0, p1;
+      const float alpha = online_update(m[i], l[i], sv[0], sv[1], p0, p1);
+      ps[r * LPLD + lane] = __float2bfloat16(p0);
+      ps[r * LPLD + lane + 32] = __float2bfloat16(p1);
+      if (lane == 0) alpha_s[r] = alpha;
+    }
+    __syncthreads();
+
+    // O += P V: the warp's 16 x 128 block, rescaled first
+    const float al0 = alpha_s[sm + g], al1 = alpha_s[sm + g + 8];
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      acc[j][0] *= al0;
+      acc[j][1] *= al0;
+      acc[j][2] *= al1;
+      acc[j][3] *= al1;
+    }
+    const bf16* pa = ps + (sm + g) * LPLD + 2 * t4;
+#pragma unroll
+    for (int k0 = 0; k0 < BK; k0 += 16) {
+      const uint32_t a0 = lds32(pa + k0), a1 = lds32(pa + 8 * LPLD + k0);
+      const uint32_t a2 = lds32(pa + k0 + 8), a3 = lds32(pa + 8 * LPLD + k0 + 8);
+      const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 8 * (lane >> 4);
+#pragma unroll
+      for (int jj = 0; jj < 8; ++jj) {
+        uint32_t b0, b1, b2, b3;
+        ldsm_x4_trans(vb + jj * 16, b0, b1, b2, b3);
+        mma_bf16_16816(acc[2 * jj], a0, a1, a2, a3, b0, b1);
+        mma_bf16_16816(acc[2 * jj + 1], a0, a1, a2, a3, b2, b3);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    if (lane == 0) l_s[warp * 4 + i] = l[i];
+  __syncthreads();
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int r = sm + g + 8 * half;
+    if (r < R) {
+      const float inv = l_s[r] > 0.f ? 1.f / l_s[r] : 0.f;
+      bf16* op = out + (int64_t(t_base + r / HT) * H + h0 + r % HT) * LDV + vd +
+                 2 * t4;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(
+            acc[j][2 * half] * inv, acc[j][2 * half + 1] * inv);
+    }
+  }
+
+  // B1: append the new latent row [c_kv | k_pe | 0-pad] after the reads (no
+  // block reads slot `tot` of this batch row from the pool)
+  if (mode == L_DECODE_FUSED && blockIdx.y == 0 && valid[t_base]) {
+    const int pi = q_start / page;
+    const int pid = pi < mp ? bt[pi] : -1;
+    if (pid >= 0 && pid < P) {
+      bf16* row = pool + row_offset(layer, P, page, M, pid, q_start % page);
+      for (int c = tid; c < M / 8; c += LWARPS * 32) {
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (c < LQK / 8)
+          v = reinterpret_cast<const uint4*>(knew + int64_t(t_base) * LQK)[c];
+        reinterpret_cast<uint4*>(row)[c] = v;
+      }
+    }
+  }
+}
+
+int launch_latent(int mode, const void* q, void* pool, const void* knew,
+                  const void* bts, const void* pos_in, const void* valid,
+                  const void* block_seg, const void* block_qstart,
+                  const void* total_lens, int total, void* out, int nrows,
+                  int Tq, int H, int layer, int P, int page, int M, int mp,
+                  float scale, int window, float softcap,
+                  cudaStream_t stream) {
+  const int HT = H % 32 == 0 ? 32 : 16;
+  const bool decode = mode == L_DECODE_FUSED || mode == L_DECODE;
+  const int BQ = decode ? 1 : LR / HT;
+  if (H % 16 || M < LQK || nrows % BQ || (mode == L_PACKED && Tq % BQ))
+    return 100000;
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        latent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(LATENT_SMEM));
+    if (e != cudaSuccess) return int(e);
+    attr_set = true;
+  }
+  dim3 grid(nrows / BQ, H / HT);
+  latent_kernel<<<grid, LWARPS * 32, LATENT_SMEM, stream>>>(
+      mode, static_cast<const bf16*>(q), static_cast<bf16*>(pool),
+      static_cast<const bf16*>(knew), static_cast<const int*>(bts),
+      static_cast<const int*>(pos_in), static_cast<const uint8_t*>(valid),
+      static_cast<const int*>(block_seg),
+      static_cast<const int*>(block_qstart),
+      static_cast<const int*>(total_lens), total, static_cast<bf16*>(out), Tq,
+      H, HT, layer, P, page, M, mp, scale, window, softcap);
+  return int(cudaGetLastError());
+}
+
 }  // namespace
 
 constexpr int kUnsupported = 100000;
@@ -558,14 +887,33 @@ extern "C" int chitu_attend_decode_fused(
     int G, int D, float scale, int window, float softcap, void* stream) {
   if (G > DEC_WARPS * DEC_HPW || D != kHeadDim) return kUnsupported;
   dim3 grid(B, KV);
-  decode_fused_kernel<kHeadDim>
+  decode_kernel<kHeadDim>
       <<<grid, DEC_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const bf16*>(q), static_cast<bf16*>(pool),
           static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const int*>(block_tables),
           static_cast<const int*>(seq_lens),
-          static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), layer,
-          P, page, M, mp, KV, G, scale, window, softcap);
+          static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), 1,
+          layer, P, page, M, mp, KV, G, scale, window, softcap);
+  return int(cudaGetLastError());
+}
+
+extern "C" int chitu_attend_decode(const void* q, const void* pool,
+                                   const void* block_tables,
+                                   const void* seq_lens, void* out, int B,
+                                   int layer, int P, int page, int M, int mp,
+                                   int KV, int G, int D, float scale,
+                                   int window, float softcap, void* stream) {
+  if (G > DEC_WARPS * DEC_HPW || D != kHeadDim) return kUnsupported;
+  dim3 grid(B, KV);
+  decode_kernel<kHeadDim>
+      <<<grid, DEC_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const bf16*>(q),
+          const_cast<bf16*>(static_cast<const bf16*>(pool)), nullptr,
+          nullptr, static_cast<const int*>(block_tables),
+          static_cast<const int*>(seq_lens), nullptr,
+          static_cast<bf16*>(out), 0, layer, P, page, M, mp, KV, G, scale,
+          window, softcap);
   return int(cudaGetLastError());
 }
 
@@ -605,4 +953,39 @@ extern "C" int chitu_attend_prefill_packed_fused(
                                   block_qstart, total_lens, 0, out, 1, T, Tq,
                                   BQ, layer, P, page, M, mp, KV, G, scale,
                                   window, softcap, s);
+}
+
+extern "C" int chitu_attend_prefill_packed(
+    const void* q, const void* pool, const void* bts, const void* block_seg,
+    const void* block_qstart, const void* total_lens, void* out, int T,
+    int NB, int BQ, int layer, int P, int page, int M, int mp, int KV, int G,
+    int D, float scale, int window, float softcap, void* stream) {
+  const int Tq = T / NB;
+  if (BQ * G > PF_ROWS || Tq * NB != T || Tq % BQ || D != kHeadDim)
+    return kUnsupported;
+  return launch_prefill<kHeadDim>(q, pool, bts, nullptr, block_seg,
+                                  block_qstart, total_lens, 0, out, 1, T, Tq,
+                                  BQ, layer, P, page, M, mp, KV, G, scale,
+                                  window, softcap,
+                                  static_cast<cudaStream_t>(stream));
+}
+
+// The merged latent row (kv_heads 1, live width 576, value width 512):
+// mode 0 B1 (fused append + decode), 1 B4 (decode), 2 B5 (one sequence's
+// chunk, pos_in = q_pos), 3 B3 (packed slab). nrows: batch rows (decode) or
+// query tokens (prefill); q [nrows, H, 576], out [nrows, H, 512], knew
+// [nrows, 576] (mode 0 only).
+extern "C" int chitu_attend_latent(
+    int mode, const void* q, void* pool, const void* knew, const void* bts,
+    const void* pos_in, const void* valid, const void* block_seg,
+    const void* block_qstart, const void* total_lens, int total, void* out,
+    int nrows, int NB, int H, int layer, int P, int page, int M, int mp,
+    float scale, int window, float softcap, void* stream) {
+  if (mode < 0 || mode > 3) return kUnsupported;
+  const int Tq = mode == 3 ? nrows / NB : nrows;
+  if (mode == 3 && Tq * NB != nrows) return kUnsupported;
+  return launch_latent(mode, q, pool, knew, bts, pos_in, valid, block_seg,
+                       block_qstart, total_lens, total, out, nrows, Tq, H,
+                       layer, P, page, M, mp, scale, window, softcap,
+                       static_cast<cudaStream_t>(stream));
 }

@@ -75,6 +75,10 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
     quant = cfg.quant
     if quant.method not in ("none", "") and quant.method not in KIND_BY_METHOD:
         raise ValueError(f"unknown quant method {quant.method!r}")
+    if cfg.models.type == "deepseek-v3" and infer.mla_absorb == "none":
+        from chitu_tpu_torch.models.deepseek_v3 import MLA_NONE_TODO
+
+        raise NotImplementedError(MLA_NONE_TODO)
     todo = []
     if infer.tp_size > 1 or infer.pp_size > 1 or infer.dp_size > 1:
         todo.append("tp/pp/dp > 1 (slice 7: multi-GPU)")
@@ -202,6 +206,8 @@ class Engine:
             spec["head_dim"],
             dtype=torch.bfloat16,
             device=self.device,
+            kv_dim=spec.get("kv_dim", 0),
+            layer_groups=spec.get("layer_groups"),
         )
         if cache_type == "nop":
             from chitu_tpu_torch.kvcache import NopAllocator
@@ -239,10 +245,17 @@ class Engine:
         if getattr(self.model.args, "moe", None) is not None:
             from chitu_tpu_torch.models.moe import _sorted_eligible
 
+            # the MoE group's stacks (DeepSeek's `moe_layers`), else the
+            # module's own (Mixtral)
+            group = getattr(self.model, "moe_layers", None)
+            get = group.get if group is not None else (
+                lambda k: getattr(self.model, k, None)
+            )
             ws = tuple(
-                getattr(self.model, k)
-                for k in ("w_gu", "w_gate", "w_up", "w_down")
-                if getattr(self.model, k, None) is not None
+                get(k)
+                for k in ("exp_gu", "exp_gate", "exp_up", "exp_down",
+                          "w_gu", "w_gate", "w_up", "w_down")
+                if get(k) is not None
             )
             if not ws or not _sorted_eligible(ws):
                 out.append(

@@ -97,10 +97,13 @@ class Executor:
         """Query-block granularity for packed varlen prefill (each
         request's tokens pad to a multiple of this)."""
         if not hasattr(self, "_tq_cache"):
-            M = self.cache.arrays["kv"].shape[-1]
+            M = next(iter(self.cache.arrays.values())).shape[-1]
             self._tq_cache = packed_q_block(
                 self.model.args.n_heads, M, self.page, self.model.head_dim,
                 kv_heads=self.model.args.n_kv_heads,
+                # merged-MLA (absorb) pools are 1-"head" latent rows: the
+                # grouped GQA layout does not apply there
+                split_kv=not getattr(self.model, "absorb", False),
             )
         return self._tq_cache
 
@@ -342,7 +345,7 @@ class Executor:
             for a in (tokens, seg_ids, pos, bts, total_lens, last_idx,
                       block_seg, block_qstart)
         ]
-        cache = {"kv": self.cache.arrays["kv"]}
+        cache = dict(self.cache.arrays)
 
         if piggyback:
             # fixed B as well: the decode rows are a small fraction of the
@@ -388,7 +391,7 @@ class Executor:
         pos = t.prefilled_len
         tokens = tokens if tokens is not None else t.tokens
         logits = None
-        cache = {"kv": self.cache.arrays["kv"]}
+        cache = dict(self.cache.arrays)
         while pos < len(tokens):
             n = min(len(tokens) - pos, chunk_cap)
             T = _bucket(n, self.prefill_buckets)
@@ -474,7 +477,7 @@ class Executor:
         remaining, done). `greedy` / `nopen` are host-known batch
         properties (every row greedy / no row penalized) that skip the
         sampler's top-k machinery and the counts update."""
-        cache = {"kv": self.cache.arrays["kv"]}
+        cache = dict(self.cache.arrays)
         done = done | ~valid
         outs = []
         for _ in range(window):

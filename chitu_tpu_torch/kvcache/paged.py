@@ -2,9 +2,9 @@
 
 Counterpart of `chitu_tpu/kvcache/paged.py` (reference:
 chitu/cache_manager.py:12-225 PagedKVCacheManager). Device state is one
-pool tensor, [L, num_pages, page, M], which the attention
-kernels and the plain appends update IN PLACE (the JAX pools are donated
-and replaced instead). Host state is a free-page list + per-request page
+pool tensor per layer group, [L_group, num_pages, page, M], which the
+attention kernels and the plain appends update IN PLACE (the JAX pools are
+donated and replaced instead). Host state is a free-page list + per-request page
 lists, and a slot allocator for per-request device state (the sampling
 counts row).
 
@@ -19,7 +19,7 @@ from typing import Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from chitu_tpu_torch.models.common import kv_pool_minor
+from chitu_tpu_torch.models.common import kv_pool_minor, pad_kv_minor
 
 
 class PageAllocator:
@@ -117,11 +117,15 @@ class SlotAllocator:
 
 
 class PagedKVCache:
-    """Device pool + allocator for one model.
+    """Device pools + allocator for one model.
 
-    Pool layout: `arrays["kv"]` [L, num_pages, page, M] with
-    M = pad128(2*KV*D), K-half then V-half rows (ops/attention.pack_kv).
-    The merged MLA pool and layer groups come with the DeepSeek slice.
+    Pool layout: [L, num_pages, page, M]. Split K/V rows (GQA/MHA):
+    M = pad128(2*KV*D), K-half then V-half (ops/attention.pack_kv). The MLA
+    merged latent row, where `kv_heads == 0`: M = pad128(kv_dim) (640 lanes
+    for kv_dim 576, as in the JAX pool, so pool bytes compare directly).
+    `layer_groups` ({name: layers}) gives one pool array per group (the
+    DeepSeek dense-first and MoE stacks: `kv_dense`, `kv_moe`); without it
+    there is one array, `kv`. Every group shares the page allocator.
     """
 
     def __init__(
@@ -133,19 +137,28 @@ class PagedKVCache:
         head_dim: int,
         dtype=torch.bfloat16,
         device=None,
+        kv_dim: int = 0,
+        layer_groups: Optional[Dict[str, int]] = None,
     ):
         self.n_layers = n_layers
         self.num_pages = num_pages
         self.page_size = page_size
         self.kv_heads = kv_heads
         self.head_dim = head_dim
+        self.merged = kv_heads == 0
         self.allocator = PageAllocator(num_pages, page_size)
-        self.minor = kv_pool_minor(kv_heads, head_dim)
+        self.minor = (
+            pad_kv_minor(1, kv_dim)
+            if self.merged
+            else kv_pool_minor(kv_heads, head_dim)
+        )
+        groups = layer_groups or {"kv": n_layers}
         self.arrays = {
-            "kv": torch.zeros(
-                (n_layers, num_pages, page_size, self.minor), dtype=dtype,
+            name: torch.zeros(
+                (n, num_pages, page_size, self.minor), dtype=dtype,
                 device=device,
             )
+            for name, n in groups.items()
         }
 
     def bytes(self) -> int:

@@ -2,9 +2,10 @@
 
 Counterpart of `chitu_tpu/models/__init__.py` (reference:
 chitu/backend.py:72-84). Ported: the llama family (hf-llama / llama
-cards: Llama-3, Qwen2, R1-Distill, Meta-Llama) and Mixtral (mixtral cards:
-Mixtral-8x7B, moe-16x-bench); the MLA family (deepseek-v3) raises until
-its slice lands.
+cards: Llama-3, Qwen2, R1-Distill, Meta-Llama), Mixtral (mixtral cards:
+Mixtral-8x7B, moe-16x-bench) and the MLA family (deepseek-v3 cards:
+DeepSeek-R1, deepseek-mid-bench, deepseek-mini-bench, tiny-deepseek-debug;
+`mla_absorb=absorb` only).
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ def register_model(type_name: str):
 def build_model(model_args, cfg, device=None):
     """Instantiate the model-family module for a model card."""
     # import for registration side effects
-    from chitu_tpu_torch.models import llama, mixtral  # noqa: F401
+    from chitu_tpu_torch.models import deepseek_v3, llama, mixtral  # noqa: F401
 
     t = model_args.type
     if t in ("hf-llama", "llama"):
@@ -33,10 +34,7 @@ def build_model(model_args, cfg, device=None):
     elif t == "mixtral":
         cls = _REGISTRY["mixtral"]
     elif t == "deepseek-v3":
-        raise NotImplementedError(
-            f"model type {t!r} is not ported yet (ROADMAP queue A, slice "
-            "4: the MLA family)"
-        )
+        cls = _REGISTRY["deepseek-v3"]
     else:
         raise ValueError(f"unknown model type {t!r}")
     return cls(model_args, cfg, device=device)

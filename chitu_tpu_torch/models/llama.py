@@ -149,8 +149,9 @@ def _cat_out(parts):
 
 
 def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
-    """The JAX package's llama or Mixtral parameter tree, as numpy arrays
-    ({"embed", "norm", "layers": {...}, "lm_head"}), -> the tensors of
+    """The JAX package's llama, Mixtral or DeepSeek parameter tree, as
+    numpy arrays ({"embed", "norm", "layers": {...}, "lm_head"}, or
+    DeepSeek's "dense_layers" and "moe_layers" stacks), -> the tensors of
     this package's module by name. A quantized leaf (the JAX `QTensor`
     with numpy fields, or a mapping of its fields; e4m3 data as
     `ml_dtypes` arrays or a uint8 view) becomes a `QTensor`, byte for
@@ -159,7 +160,14 @@ def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
     the wqkv / w_gate_up leaves. The family shows in the tree: a Mixtral
     tree has a router (`moe_gate`), and its expert stacks `[L, E, in, out]`
     cross as they are, dense or quantized, split (`w_gate`, `w_up`) or
-    merged (`w_gu`)."""
+    merged (`w_gu`). A DeepSeek tree crosses leaf for leaf into the same
+    nested form, `gate_bias` in f32, split or merged leaves (`wq_kv_a`,
+    `shared_gu`, `exp_gu`) as they are."""
+    if "dense_layers" in tree:
+        out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head")}
+        for stack in ("dense_layers", "moe_layers"):
+            out[stack] = {k: _leaf(v) for k, v in tree[stack].items()}
+        return out
     layers = tree["layers"]
     moe = "moe_gate" in layers
     out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head") if k in tree}

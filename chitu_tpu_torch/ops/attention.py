@@ -7,10 +7,14 @@ These functions are the port's plain versions — the CPU path of the
 kernel wrappers in `ops/attention_kernels.py`, and what the CUDA kernels
 are held against.
 
-KV pool layout, as in the JAX package: [L, num_pages, page, M] with
-M = pad128(2*KV*D) and K-half-then-V-half rows [K_0..K_{KV-1} V_0..V_{KV-1}
-| pad]. Appends update the pool IN PLACE and return it (the JAX functions
-return a new pool).
+KV pool layouts, as in the JAX package, [L, num_pages, page, M]:
+- split K/V (`split_kv=True`, GQA/MHA models): M = pad128(2*KV*D) and
+  K-half-then-V-half rows [K_0..K_{KV-1} V_0..V_{KV-1} | pad];
+- the merged latent row (`split_kv=False`, MLA absorb): M = pad128(kv_dim)
+  and rows [c_kv | k_pe | pad] where K and V are the same row (one KV
+  "head" shared by every query head).
+Appends update the pool IN PLACE and return it (the JAX functions return a
+new pool).
 
 Causal alignment is bottom-right: query token i of a chunk starting at
 absolute position p attends to absolute positions <= p+i
@@ -34,24 +38,35 @@ from chitu_tpu_torch.models.common import (
 )
 
 
-def pack_kv(k: torch.Tensor, v: torch.Tensor, minor: int) -> torch.Tensor:
+def pack_kv(
+    k: torch.Tensor, v: Optional[torch.Tensor], minor: int
+) -> torch.Tensor:
     """[N, KV, D] k and v -> [N, minor] page-row values:
-    [K_0..K_{KV-1} V_0..V_{KV-1} | pad]."""
+    [K_0..K_{KV-1} V_0..V_{KV-1} | pad]; merged latent rows (v=None):
+    [k_flat | pad]."""
     N = k.shape[0]
-    flat = torch.cat([k.reshape(N, -1), v.reshape(N, -1)], dim=-1)
+    if v is None:
+        flat = k.reshape(N, -1)
+    else:
+        flat = torch.cat([k.reshape(N, -1), v.reshape(N, -1)], dim=-1)
     if flat.shape[-1] < minor:
         flat = torch.nn.functional.pad(flat, (0, minor - flat.shape[-1]))
     return flat
 
 
-def unpack_pool(gathered: torch.Tensor, kv_heads: int, head_dim: int):
+def unpack_pool(
+    gathered: torch.Tensor, kv_heads: int, head_dim: int,
+    split_kv: bool = True,
+):
     """[B, S, M] pool rows -> (k [B, S, KV, D], v [B, S, KV, D]) in bf16,
     as the JAX oracle reads the pool (kv_decode's default); the inverse
-    of pack_kv."""
+    of pack_kv. Merged latent rows (`split_kv=False`) give (k, k)."""
     gathered = kv_decode(gathered)
     B, S, M = gathered.shape
     n = kv_heads * head_dim
     k = gathered[..., :n].reshape(B, S, kv_heads, head_dim)
+    if not split_kv:
+        return k, k
     v = gathered[..., n : 2 * n].reshape(B, S, kv_heads, head_dim)
     return k, v
 
@@ -70,7 +85,7 @@ def append_prefill(
     pool: torch.Tensor,  # [L, P, page, M] (whole stacked pool)
     layer: int,
     k: torch.Tensor,  # [T, KV, D]
-    v: torch.Tensor,
+    v: Optional[torch.Tensor],  # None: merged latent rows
     block_table: torch.Tensor,  # [mp] int32
     q_pos: torch.Tensor,  # [T] absolute positions
     valid_len: int,
@@ -89,7 +104,7 @@ def append_decode(
     pool: torch.Tensor,  # [L, P, page, M]
     layer: int,
     k: torch.Tensor,  # [B, KV, D]
-    v: torch.Tensor,
+    v: Optional[torch.Tensor],  # None: merged latent rows
     block_tables: torch.Tensor,  # [B, mp]
     seq_lens: torch.Tensor,  # [B]
     valid: torch.Tensor,  # [B] bool
@@ -104,7 +119,7 @@ def append_prefill_packed(
     pool: torch.Tensor,  # [L, P, page, M]
     layer: int,
     k: torch.Tensor,  # [T, KV, D] packed tokens
-    v: torch.Tensor,
+    v: Optional[torch.Tensor],  # None: merged latent rows
     block_tables: torch.Tensor,  # [R, mp]
     seg_ids: torch.Tensor,  # [T] int32 (-1 = padding token)
     pos: torch.Tensor,  # [T] absolute position within its sequence
@@ -132,10 +147,11 @@ def attend_prefill(
     scale: Optional[float] = None,
     window: int = 0,
     softcap: float = 0.0,
+    split_kv: bool = True,
 ) -> torch.Tensor:
     """Chunk attention against the paged context (append must precede)."""
     gathered = _gather(pool, layer, block_table[None])
-    k, v = unpack_pool(gathered, kv_heads, head_dim)
+    k, v = unpack_pool(gathered, kv_heads, head_dim, split_kv)
     S = k.shape[1]
     cols = torch.arange(S, device=q.device)[None, :]
     mask = (cols <= q_pos[:, None]) & (cols < total_len)
@@ -146,10 +162,10 @@ def attend_prefill(
 
 def _oracle_prefill_packed(
     q, pool, layer, block_tables, seg_ids, pos, total_lens,
-    kv_heads, head_dim, scale=None, window=0, softcap=0.0,
+    kv_heads, head_dim, scale=None, window=0, softcap=0.0, split_kv=True,
 ):
     gathered = _gather(pool, layer, block_tables)  # [R, S, M]
-    k, v = unpack_pool(gathered, kv_heads, head_dim)
+    k, v = unpack_pool(gathered, kv_heads, head_dim, split_kv)
     seg_safe = torch.clamp(seg_ids, min=0).long()
     kt = k[seg_safe]  # [T, S, KV, D]
     vt = v[seg_safe]
@@ -191,12 +207,13 @@ def attend_prefill_packed(
     scale: Optional[float] = None,
     window: int = 0,
     softcap: float = 0.0,
+    split_kv: bool = True,
 ) -> torch.Tensor:
     """R ragged prompts' chunk attention in one call (reference packed
     varlen prefill: chitu/utils.py:84-100, executor.py:118-131)."""
     return _oracle_prefill_packed(
         q, pool, layer, block_tables, seg_ids, pos, total_lens,
-        kv_heads, head_dim, scale, window, softcap,
+        kv_heads, head_dim, scale, window, softcap, split_kv,
     )
 
 
@@ -212,10 +229,11 @@ def attend_decode(
     scale: Optional[float] = None,
     window: int = 0,
     softcap: float = 0.0,
+    split_kv: bool = True,
 ) -> torch.Tensor:
     """One-token decode attention (new token's K/V already appended)."""
     gathered = _gather(pool, layer, block_tables)
-    k, v = unpack_pool(gathered, kv_heads, head_dim)
+    k, v = unpack_pool(gathered, kv_heads, head_dim, split_kv)
     S = k.shape[1]
     cols = torch.arange(S, device=q.device)[None, :]
     mask = cols <= seq_lens[:, None]

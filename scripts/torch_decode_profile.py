@@ -10,10 +10,11 @@ weights (quantized on load when a `quant.method` such as soft_fp8 is
 named), puts `batch` greedy requests of `prompt_len` random tokens into
 decode, then times decode steps twice: plain wall clock (decode tokens
 per second at that batch), and under `torch.profiler` to split device
-kernel time into the port's attention kernels, its quantized GEMMs and
-activation quantizers, the grouped expert GEMM, the MoE glue (every other
-kernel launched between the router and the combine: router, dispatch,
-gather, SwiGLU, combine), library GEMMs and everything else. The glue is
+kernel time into the port's attention kernels (the DeepSeek latent-row
+kernel on its own), the MLA absorb projections (B9), its quantized GEMMs
+and activation quantizers, the grouped expert GEMM, the MoE glue (every
+other kernel launched between the router and the combine: router,
+dispatch, gather, SwiGLU, combine), library GEMMs and everything else. The glue is
 told apart by where it is launched, not by name: the model's calls to
 `route` and `moe_ffn_auto` run inside a profiler range, and a kernel
 counts as glue when the operator that launched it lies in that range.
@@ -33,7 +34,11 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def category(name: str) -> str:
-    if any(k in name for k in ("decode_fused_kernel", "prefill_attend_kernel",
+    if "latent_kernel" in name:
+        return "latent_attention_kernel"
+    if "absorb_kernel" in name:
+        return "absorb_matmul_kernel"
+    if any(k in name for k in ("decode_kernel", "prefill_attend_kernel",
                                 "append_packed_kernel")):
         return "attention_kernels"
     if "quant_gemm_" in name or "int8_gemm_kernel" in name:
@@ -51,10 +56,12 @@ def category(name: str) -> str:
 GLUE = "moe_router_dispatch_combine"
 
 
-def range_moe_calls(torch):
-    """Run the Mixtral module's calls into `models.moe` inside a profiler
-    range named GLUE."""
-    from chitu_tpu_torch.models import mixtral
+def range_moe_calls(torch, model_type: str):
+    """Run the model module's calls into `models.moe` (Mixtral's or
+    DeepSeek's) inside a profiler range named GLUE."""
+    from chitu_tpu_torch.models import deepseek_v3, mixtral
+
+    mod = deepseek_v3 if model_type == "deepseek-v3" else mixtral
 
     def ranged(fn):
         def call(*a, **kw):
@@ -63,8 +70,8 @@ def range_moe_calls(torch):
 
         return call
 
-    mixtral.route = ranged(mixtral.route)
-    mixtral.moe_ffn_auto = ranged(mixtral.moe_ffn_auto)
+    mod.route = ranged(mod.route)
+    mod.moe_ffn_auto = ranged(mod.moe_ffn_auto)
 
 
 def glue_us(prof):
@@ -114,7 +121,7 @@ def main():
     ])
     moe = cfg.models.moe is not None
     if moe:
-        range_moe_calls(torch)
+        range_moe_calls(torch, cfg.models.type)
     t0 = time.perf_counter()
     eng = Engine(cfg)
     torch.cuda.synchronize()

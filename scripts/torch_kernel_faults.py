@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Shows that the limits `chip_smoke.py` holds the quantized and grouped
-GEMM kernels to reject broken kernels. Needs an NVIDIA GPU and nvcc.
+"""Shows that the limits `chip_smoke.py` holds the quantized, grouped and
+absorb GEMM kernels and the latent-row attention kernel to reject broken
+kernels. Needs an NVIDIA GPU and nvcc.
 
     python3 scripts/torch_kernel_faults.py
 
@@ -10,7 +11,10 @@ are never touched), builds that copy, points the wrappers at it and runs
 the comparison with the plain version that `chip_smoke.py` runs for the
 mode the fault touches, at a Llama-3-8B projection shape (the grouped GEMM:
 layer 1 of a two-layer Mixtral-8x7B `[4096 -> 14336]` expert stack at the
-16-token decode geometry, where two of ten blocks are dead). It prints one
+16-token decode geometry, where two of ten blocks are dead; B9: layer 1
+of DeepSeek-R1's `wkv_b` [2, 512, 128*256] at T 16, uk reading q_nope as a
+view of the [T, 128, 192] query rows; the latent row: B4 at DeepSeek-R1's
+16-row decode geometry, contexts 1 to 2048). It prints one
 JSON line per fault with the measured error beside the limit, first for
 the sound kernel and then for the broken one, and exits non-zero if a
 sound kernel fails its limit or a fault passes it.
@@ -63,6 +67,25 @@ FAULTS = [
      "const int t_cnt = base + (split < rem ? 1 : 0);",
      "const int t_cnt = base + (split < rem ? 1 : 0) - (split == nsplit - 1 ? 1 : 0);",
      "moe_e4m3"),
+    ("B9 head stride off by one head", "absorb.cu",
+     "w + int64_t(layer) * C * HS + int64_t(h) * S;",
+     "w + int64_t(layer) * C * HS + int64_t((h + 1) % H) * S;", "absorb_uk"),
+    ("B9 uv dn offset dropped", "absorb.cu",
+     "wl + int64_t(k0 + k) * HS + dn + nt * BN + c * 8, 16);",
+     "wl + int64_t(k0 + k) * HS + nt * BN + c * 8, 16);", "absorb_uv"),
+    ("B9 layer offset dropped", "absorb.cu",
+     "w + int64_t(layer) * C * HS + int64_t(h) * S;",
+     "w + int64_t(h) * S;", "absorb_uk"),
+    ("latent V read from the k_pe lanes", "attention.cu",
+     "const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 8 * (lane >> 4);",
+     "const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 64 + 8 * (lane >> 4);",
+     "latent_decode"),
+    ("latent last head tile skipped", "attention.cu",
+     "dim3 grid(nrows / BQ, H / HT);", "dim3 grid(nrows / BQ, H / HT - 1);",
+     "latent_decode"),
+    ("B4 new-token column not read", "attention.cu",
+     "    kend = total;\n", "    kend = mode == L_DECODE ? q_start : total;\n",
+     "latent_decode"),
 ]
 
 
@@ -72,6 +95,9 @@ def main():
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
     from chitu_tpu_torch.models import moe
+    from chitu_tpu_torch.ops import absorb_kernels as ab
+    from chitu_tpu_torch.ops import attention as plain
+    from chitu_tpu_torch.ops import attention_kernels as tk
     from chitu_tpu_torch.ops import cuda_build
     from chitu_tpu_torch.ops import moe_gemm_kernels as mg
     from chitu_tpu_torch.ops import norm_quant as nq
@@ -113,6 +139,26 @@ def main():
     live = torch.repeat_interleave(block_expert >= 0, bm)
     assert int((~live).sum()) > 0
 
+    # B9 at DeepSeek-R1's wkv_b, T 16
+    Ha, C, dn, dv = 128, 512, 128, 128
+    wkv = randn(2, C, Ha * (dn + dv), k=0.02)
+    q_nope = randn(16, Ha, dn + 64)[..., :dn]
+    o_lat = randn(16, Ha, C)
+
+    # the latent row at DeepSeek-R1's decode geometry: 16 rows, H 128
+    B, MP, PAGE, QK = 16, 33, 64, tk.LATENT_QK
+    lpool = randn(2, B * MP, PAGE, 640, k=0.5)
+    lpool[..., QK:] = 0
+    lbt = torch.arange(B * MP, device=dev, dtype=torch.int32).reshape(B, MP)
+    lseq = torch.randint(0, MP * PAGE - PAGE, (B,), generator=g,
+                         device=dev).to(torch.int32)
+    lseq[0], lseq[1] = 2047, 0
+    plain.append_decode(lpool, 1, randn(B, 1, QK), None, lbt, lseq,
+                        torch.ones(B, dtype=torch.bool, device=dev), PAGE)
+    lq = randn(B, Ha, QK)
+    lkw = dict(kv_heads=1, head_dim=QK, split_kv=False, v_dim=tk.LATENT_DV,
+               scale=0.1352)
+
     def row_rel(a, b):
         a, b = a.float(), b.float()
         return ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max().item()
@@ -132,6 +178,24 @@ def main():
                 return got[~live].float().abs().max().item(), 0.0, "largest value in a dead block"
             want = mg.grouped_matmul_plain(xs, wq, 1, block_expert, bm)
             return row_rel(got[live], want[live]), ROW_RTOL, "row relative error"
+        if kind.startswith("absorb"):
+            xin = q_nope if kind == "absorb_uk" else o_lat
+            k_ = kind[-2:]
+            junk = torch.full((16, Ha, C if k_ == "uk" else dv), 7.0,
+                              dtype=bf, device=dev)
+            del junk
+            return (row_rel(ab.absorb_matmul(xin, wkv, 1, k_, dn, dv),
+                            ab.absorb_matmul_plain(xin, wkv, 1, k_, dn, dv)),
+                    ROW_RTOL, "row relative error")
+        if kind == "latent_decode":
+            # the output lands on memory that held 7.0s (see chip_smoke.poison)
+            junk = torch.full((B, Ha, tk.LATENT_DV), 7.0, dtype=bf, device=dev)
+            del junk
+            got = tk.attend_decode(lq, lpool, 1, lbt, lseq, PAGE, **lkw)
+            want = tk._vlanes(plain.attend_decode(
+                lq, lpool, 1, lbt, lseq, PAGE, 1, QK, scale=lkw["scale"],
+                split_kv=False), tk.LATENT_DV)
+            return row_rel(got, want), ROW_RTOL, "row relative error"
         if kind == "int8":
             q = weights["int8"]
             return (row_rel(qg.int8_gemm(xa.data, xa.scale, q),
@@ -144,7 +208,7 @@ def main():
     def use_sources(csrc):
         cuda_build.CSRC = csrc
         cuda_build._LIBS.clear()
-        qg._LIB = nq._LIB = mg._LIB = None
+        qg._LIB = nq._LIB = mg._LIB = ab._LIB = tk._LIB = None
 
     sound_dir = cuda_build.CSRC
     ok = True

@@ -204,6 +204,9 @@ def test_unknown_quant_method_rejected():
     ],
 )
 def test_unported_configurations_raise(override):
-    cfg = load_config(overrides=TINY + [override])
+    # the DeepSeek card serves since slice 4; what still raises there is
+    # its dense MLA path
+    extra = ["infer.mla_absorb=none"] if "deepseek" in override else []
+    cfg = load_config(overrides=TINY + [override] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP|slice"):
         Engine(cfg, device="cpu")

@@ -1,7 +1,9 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
-small geometries beside the Llama-3-8B and Mixtral ones chip_smoke.py covers:
-head_dim 128 (the one head size the kernels take), 1 to 8 query heads per
-KV head, pages of 16 and 64, window and softcap. Pool bytes must be
+small geometries beside the Llama-3-8B, Mixtral and DeepSeek ones
+chip_smoke.py covers: head_dim 128 (the one split head size the kernels
+take), 1 to 8 query heads per KV head, pages of 16 and 64, window and
+softcap; the MLA latent row (576 live lanes, 512 value lanes) at 16, 32 and
+128 heads; B9 at 4 and 32 heads, T 1 to 128. Pool bytes must be
 equal; every (token, head) output row must satisfy
 ||kernel - plain|| <= 1e-2 * ||plain|| in bf16 (the kernels sum in f32 in
 another order; bf16 rounding alone leaves about 2e-3).
@@ -367,3 +369,196 @@ def test_grouped_gemm_rejects_bad_inputs(dev):
     w8 = qt.quantize_stacked(w, lambda t: qt.quantize_weight(t, QuantKind.W8A16))
     with pytest.raises(NotImplementedError):  # int8 experts: the capacity route
         mg.grouped_matmul(xs, w8, 0, block_expert, bm)
+
+
+# ---------------------------------------------------------------------------
+# B3 and B4 (split K/V), the merged latent row of B1, B3, B4 and B5, and
+# B9, against their plain versions. Same row limit as above.
+# ---------------------------------------------------------------------------
+
+from chitu_tpu_torch.ops import absorb_kernels as ab  # noqa: E402
+
+
+@pytest.mark.parametrize("window,softcap", WS)
+@pytest.mark.parametrize("H,KV,D,page", GEOMS)
+def test_decode_after_append(dev, H, KV, D, page, window, softcap):
+    rand = _gen(dev, 6)
+    B, mp = 5, 8
+    pool = _pool(rand, KV, D, page, B * mp)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, page, 3 * page + 5, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    valid = torch.ones((B,), device=dev, dtype=torch.bool)
+    plain.append_decode(pool, 1, rand(B, KV, D), rand(B, KV, D), bt, seq,
+                        valid, page)
+    q = rand(B, H, D)
+    args = (pool, 1, bt, seq, page, KV, D)
+    kw = dict(window=window, softcap=softcap)
+    n0 = tk.LAUNCHES["attend_decode"]
+    out_k = tk.attend_decode(q, *args, **kw)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["attend_decode"] == n0 + 1
+    _check(out_k, plain.attend_decode(q, *args, **kw))
+
+
+def _slab(dev, Tq, NB, mp, segs):
+    bts = torch.full((4, mp), -1, device=dev, dtype=torch.int32)
+    bseg = torch.full((NB,), -1, device=dev, dtype=torch.int32)
+    bq = torch.zeros((NB,), device=dev, dtype=torch.int32)
+    total = torch.zeros((4,), device=dev, dtype=torch.int32)
+    live = torch.zeros((Tq * NB,), device=dev, dtype=torch.bool)
+    off = 0
+    for r, (s, n) in enumerate(segs):
+        bts[r] = torch.arange(r * mp, (r + 1) * mp, device=dev)
+        nb = (n + Tq - 1) // Tq
+        bseg[off // Tq : off // Tq + nb] = r
+        bq[off // Tq : off // Tq + nb] = s + Tq * torch.arange(nb, device=dev)
+        total[r] = s + n
+        live[off : off + n] = True
+        off += nb * Tq
+    return bts, bseg, bq, total, live
+
+
+@pytest.mark.parametrize("window,softcap", WS)
+@pytest.mark.parametrize("H,KV,D,page", GEOMS)
+def test_prefill_packed_after_append(dev, H, KV, D, page, window, softcap):
+    rand = _gen(dev, 7)
+    Tq, NB, mp = 16, 6, 8
+    bts, bseg, bq, total, live = _slab(
+        dev, Tq, NB, mp, [(0, 20), (page, 17), (0, 3)])
+    pool = _pool(rand, KV, D, page, 4 * mp)
+    q = rand(Tq * NB, H, D)
+    args = (pool, 1, bts, bseg, bq, total, page, KV, D)
+    kw = dict(window=window, softcap=softcap)
+    out_k = tk.attend_prefill_packed(q, *args, **kw)
+    out_p = tk.attend_prefill_packed_plain(q, *args, **kw)
+    torch.cuda.synchronize()
+    _check(out_k, out_p, live)
+    dead = ~torch.repeat_interleave(bseg >= 0, Tq)
+    assert out_k[dead].abs().max().item() == 0.0
+
+
+LAT = dict(kv_heads=1, head_dim=tk.LATENT_QK, split_kv=False,
+           v_dim=tk.LATENT_DV, scale=0.1352)
+LAT_M = 640
+
+
+def _latent_pool(rand, page, P):
+    pool = rand(2, P, page, LAT_M)
+    pool[..., tk.LATENT_QK:] = 0
+    return pool
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("H,page", [(128, 64), (32, 16), (16, 64)])
+def test_latent_decode_fused(dev, H, page, window):
+    rand = _gen(dev, 8)
+    B, mp = 5, 8
+    pool = _latent_pool(rand, page, B * mp)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, page, 3 * page + 5, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    valid = torch.tensor([True, True, False, True, True], device=dev)
+    q, k = rand(B, H, tk.LATENT_QK), rand(B, 1, tk.LATENT_QK)
+    pk, pp = pool.clone(), pool.clone()
+    args = (1, k, None, bt, seq, valid, page)
+    out_k = tk.attend_decode_fused(q, pk, *args, window=window, **LAT)
+    out_p = tk.attend_decode_fused_plain(q, pp, *args, window=window, **LAT)
+    torch.cuda.synchronize()
+    assert out_k.shape == (B, H, tk.LATENT_DV)
+    assert torch.equal(pk, pp)
+    _check(out_k, out_p, valid)
+
+
+@pytest.mark.parametrize("window", [0, 40])
+@pytest.mark.parametrize("H,page", [(128, 64), (32, 16), (16, 64)])
+def test_latent_decode(dev, H, page, window):
+    rand = _gen(dev, 9)
+    B, mp = 5, 8
+    pool = _latent_pool(rand, page, B * mp)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, page, 3 * page + 5, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    valid = torch.ones((B,), device=dev, dtype=torch.bool)
+    plain.append_decode(pool, 1, rand(B, 1, tk.LATENT_QK), None, bt, seq,
+                        valid, page)
+    q = rand(B, H, tk.LATENT_QK)
+    out_k = tk.attend_decode(q, pool, 1, bt, seq, page, window=window, **LAT)
+    out_p = plain.attend_decode(
+        q, pool, 1, bt, seq, page, 1, tk.LATENT_QK, scale=LAT["scale"],
+        window=window, split_kv=False)[..., : tk.LATENT_DV]
+    _check(out_k, out_p)
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("H,page", [(128, 64), (32, 16), (16, 64)])
+def test_latent_prefill(dev, H, page, window):
+    rand = _gen(dev, 10)
+    mp, T, start = 16, 32, 40
+    pool = _latent_pool(rand, page, mp + 4)
+    bt = torch.arange(mp, device=dev, dtype=torch.int32) + 4
+    q_pos = torch.arange(start, start + T, device=dev, dtype=torch.int32)
+    q = rand(T, H, tk.LATENT_QK)
+    args = (pool, 1, bt, q_pos, start + T, page)
+    _check(tk.attend_prefill(q, *args, window=window, **LAT),
+           plain.attend_prefill(q, *args, 1, tk.LATENT_QK, scale=LAT["scale"],
+                                window=window, split_kv=False)[..., :512])
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("H,page,Tq", [(128, 64, 8), (32, 16, 16), (16, 64, 8)])
+def test_latent_prefill_packed(dev, H, page, Tq, window):
+    rand = _gen(dev, 11)
+    NB, mp = 12, 8
+    bts, bseg, bq, total, live = _slab(
+        dev, Tq, NB, mp, [(0, 20), (page, 17), (0, 3)])
+    pool = _latent_pool(rand, page, 4 * mp)
+    q = rand(Tq * NB, H, tk.LATENT_QK)
+    args = (pool, 1, bts, bseg, bq, total, page)
+    out_k = tk.attend_prefill_packed(q, *args, window=window, **LAT)
+    out_p = tk.attend_prefill_packed_plain(q, *args, window=window, **LAT)
+    torch.cuda.synchronize()
+    _check(out_k, out_p, live)
+    dead = ~torch.repeat_interleave(bseg >= 0, Tq)
+    assert out_k[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("T", [1, 5, 16, 100, 128])
+@pytest.mark.parametrize("kind", ["uk", "uv"])
+@pytest.mark.parametrize("H", [4, 32])
+def test_absorb_matmul(dev, H, kind, T):
+    rand = _gen(dev, 12)
+    L, C, dn, dv = 2, 512, 128, 128
+    w = rand(L, C, H * (dn + dv)) * 0.05
+    if kind == "uk":
+        # q_nope as the model passes it: a view of [T, H, dn + rope] rows
+        x = rand(T, H, dn + 64)[..., :dn]
+    else:
+        x = rand(T, H, C)
+    n0 = ab.LAUNCHES["absorb_matmul"]
+    got = ab.absorb_matmul(x, w, 1, kind, dn, dv)
+    again = ab.absorb_matmul(x, w, 1, kind, dn, dv)
+    want = ab.absorb_matmul_plain(x, w, 1, kind, dn, dv)
+    torch.cuda.synchronize()
+    assert ab.LAUNCHES["absorb_matmul"] == n0 + 2
+    assert torch.equal(got, again)
+    _check(got, want)
+
+
+def test_latent_and_absorb_reject_bad_inputs(dev):
+    rand = _gen(dev, 13)
+    pool = _latent_pool(rand, 16, 8)
+    bt = torch.zeros((3, 2), device=dev, dtype=torch.int32)
+    seq = torch.zeros((3,), device=dev, dtype=torch.int32)
+    with pytest.raises(NotImplementedError):  # 24 heads: no head tile
+        tk.attend_decode(rand(3, 24, 576), pool, 0, bt, seq, 16, **LAT)
+    with pytest.raises(NotImplementedError):  # another latent width
+        tk.attend_decode(rand(3, 32, 80), pool, 0, bt, seq, 16, 1, 80,
+                         split_kv=False, v_dim=64)
+    w = rand(2, 512, 4 * 256)
+    with pytest.raises(NotImplementedError):  # T beyond the gate
+        ab.absorb_matmul(rand(129, 4, 128), w, 0, "uk", 128, 128)
+    with pytest.raises(TypeError):
+        ab.absorb_matmul(rand(4, 4, 128).float(), w, 0, "uk", 128, 128)
+    with pytest.raises(ValueError):
+        ab.absorb_matmul(rand(4, 4, 128), w, 0, "uv", 128, 128)

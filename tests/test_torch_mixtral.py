@@ -228,6 +228,9 @@ def test_engine_generates_with_every_expert_layout(method, act, merged, capacity
 
 
 def test_deepseek_still_raises():
-    cfg = tload(overrides=["models=tiny-deepseek-debug", "infer.max_seq_len=128"])
-    with pytest.raises(NotImplementedError, match="slice 4"):
+    """The DeepSeek card serves since slice 4; its dense MLA path
+    (`mla_absorb=none`) still raises, naming its ROADMAP item."""
+    cfg = tload(overrides=["models=tiny-deepseek-debug", "infer.max_seq_len=128",
+                           "infer.mla_absorb=none"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue B, item 5"):
         Engine(cfg, device="cpu")
