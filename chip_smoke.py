@@ -114,8 +114,39 @@ Phases, each fatal on failure:
    prefill shadowed call by call (B9 too; logits reported, not held). Each
    DeepSeek phase requires B1, B3, B4, B5, B9 and B8 to have launched, and
    the dequant GEMM under a quant method.
-4. One `kernels` JSON line (eleven rows: B3, B4 and B9 with the launches
-   of the DeepSeek-R1 bf16 burst), then the device JSON as the last line.
+   Slice 5's variants, each against its plain version at the same limits:
+   the e4m3 KV pool (int8 lanes of e4m3 bits) under B1, B2 and B5 at
+   Llama-3-8B's shapes and under the latent B1, B3, B4 and B5 at
+   DeepSeek-R1's, the appends fed e4m3 edge values (ties, subnormals,
+   +-448, +-464) and, in a second launch, values beyond the range (the
+   pool bytes must equal the plain append's, NaN codes included), and B4
+   over one-token contexts holding every finite code, which must decode
+   exactly; the split layout at head size 192 with 128 heads on 128
+   (DeepSeek-R1's dense MLA, V in 128 of the 192 lanes) under B1, B4, B5
+   and B3 (a 256-token slab), and at 64 (tiny-llama-debug: 32 heads on 4)
+   under B1 and B5; B13 `dense_matmul_stacked` at Llama-3-8B's four
+   stacked shapes, T 16 and 512 (yardstick: one `torch.mm` on the layer's
+   view with an f32 output). Library yardsticks for attention: SDPA on
+   the gathered, decoded K/V (the split B3 too). Bounds count a pool
+   element as one byte in e4m3.
+   Then slice 5's serving, each the same lone prompt and two-wave burst
+   at full width, then a short shadowed burst in which every attention
+   and B13 call also runs its plain version on equal inputs (the appending
+   kernels' on a copy of the layer's pool slice, which must come out
+   byte-equal): Llama-3-8B with `infer.kv_dtype=fp8` at 32 layers,
+   DeepSeek-R1 with `infer.kv_dtype=fp8` at 5 layers, DeepSeek-R1 with
+   `infer.mla_absorb=none` at 4 layers (3 dense, 1 MoE: its pool holds 96
+   KiB a token a layer), Llama-3-8B with the dense kernel switched on
+   (`linear.set_dense_kernel`) at 4 layers, and the debug cards
+   tiny-llama-debug (head size 64) and micro-llama-debug (32) at their
+   own widths. Each requires its variants' launches.
+4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
+   and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
+   for each variant with the launches of the phase that is its main path:
+   latent B1/B5 from R1 bf16, e4m3 from the fp8-KV phases, d192 from R1
+   dense, d64 from tiny-llama-debug, B13 from the dense-kernel phase),
+   then the card's name and power limit, then the device JSON as the last
+   line.
 
 It imports nothing of JAX or of `chitu_tpu`, exits non-zero without a
 CUDA device, and fails when run outside a checkout of the repository.
@@ -217,6 +248,83 @@ def poison(torch, shape, dev):
     del junk
 
 
+# e4m3 encodings the appends must get right, all within e4m3's range:
+# +-448, +-464 (a tie down to 448), the smallest subnormal and its half (a
+# tie to zero), a subnormal tie, mantissa ties either way, signed zeros and
+# underflows
+E4M3_EDGES = [448.0, -448.0, 464.0, -464.0, 2.0 ** -9, -(2.0 ** -9),
+              2.0 ** -10, -(2.0 ** -10), 3 * 2.0 ** -10, 1.0625, 1.1875,
+              -0.0, 0.0, 1e-8, -1e-8, 0.01171875]
+# beyond the range: NaN codes (sign | 0x7F), never a saturated 448
+E4M3_OVERFLOW = [466.0, -466.0, 1000.0, -600.0, float("inf"),
+                 float("-inf"), float("nan")]
+
+
+def with_values(torch, x, vals):
+    """x with its first len(vals) elements replaced by vals."""
+    x = x.clone()
+    x.view(-1)[: len(vals)] = torch.tensor(vals, dtype=x.dtype, device=x.device)
+    return x
+
+
+def overflow_append_check(torch, tk, name, pool0, kernel_fn, plain_fn, k, v):
+    """An appending kernel fed values beyond e4m3's range (and the edge
+    values) writes the plain append's bytes: NaN codes with the value's
+    sign. Only the pools are compared (the rows holding NaN are not
+    attended)."""
+    kk = with_values(torch, k, E4M3_OVERFLOW + E4M3_EDGES)
+    vv = None if v is None else with_values(torch, v, E4M3_EDGES + E4M3_OVERFLOW)
+    pool_k, pool_p = pool0.clone(), pool0.clone()
+    kernel_fn(pool_k, kk, vv)
+    plain_fn(pool_p, kk, vv)
+    torch.cuda.synchronize()
+    if not torch.equal(pool_k, pool_p):
+        n = int((pool_k != pool_p).sum().item())
+        raise AssertionError(f"{name}: {n} pool bytes differ from the plain "
+                             "append on out-of-range values")
+    if not ((pool_k == 127).any() and (pool_k == -1).any()):
+        raise AssertionError(f"{name}: no NaN codes written")
+    del pool_k, pool_p
+
+
+def e4m3_decode_exact(torch, tk, dev, latent=False):
+    """B4 over an e4m3 pool where each row's context is one token whose
+    value lanes cycle through the 254 finite e4m3 codes (subnormals and
+    both signs): a softmax over one key is exactly 1, so the output must
+    be the decoded values exactly (e4m3 is exact in bf16). -> the number
+    of output values that differ from `kv_decode` of the codes."""
+    from chitu_tpu_torch.models.common import kv_decode
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    B, PAGE = 8, 64
+    codes = torch.arange(-128, 128, device=dev)
+    codes = codes[(codes != 127) & (codes != -1)].to(torch.int8)
+    if latent:
+        H, KV, D, M, n = 128, 1, tk.LATENT_QK, 640, tk.LATENT_DV
+        lanes = slice(0, n)
+        kw = dict(kv_heads=1, head_dim=D, split_kv=False, v_dim=n, scale=0.1)
+    else:
+        H, KV, D = 32, 8, 128
+        M, n = 2 * KV * D, KV * D
+        lanes = slice(n, 2 * n)
+        kw = dict(kv_heads=KV, head_dim=D)
+    vals = codes.repeat(B * n // codes.numel() + 1)[: B * n].view(B, n)
+    vals = torch.roll(vals, shifts=37, dims=1)
+    pool = torch.zeros((1, B, PAGE, M), dtype=torch.int8, device=dev)
+    pool[0, :, 0, lanes] = vals
+    q = torch.randn((B, H, D), generator=g, device=dev).to(torch.bfloat16)
+    out = tk.attend_decode(
+        q, pool, 0, torch.arange(B, dtype=torch.int32, device=dev)[:, None],
+        torch.zeros(B, dtype=torch.int32, device=dev), PAGE, **kw)
+    want = kv_decode(vals).float()  # [B, n]
+    if latent:
+        want = want[:, None, :].expand(B, H, n)
+    else:
+        want = want.view(B, KV, 1, D).expand(B, KV, H // KV, D).reshape(B, H, D)
+    return int((out.float() != want).sum().item())
+
+
 def compare_rows(torch, name, out_k, out_p, rows, pool_kernel=None,
                  pool_plain=None):
     """-> (max abs err, max per-row relative err) over the live rows;
@@ -237,14 +345,23 @@ def compare_rows(torch, name, out_k, out_p, rows, pool_kernel=None,
     return err, rel
 
 
-def kernel_cases(torch, tk, plain, dev):
+def kernel_cases(torch, tk, plain, dev, kv="bf16"):
     """Yields one result dict per case; the first case of each kernel is
-    the one reported in the kernels line."""
+    the one reported in the kernels line. kv="e4m3": the same cases on an
+    int8 pool of e4m3 bits (no window/softcap variants), the new rows fed
+    e4m3 edge values and, in a second launch, values beyond e4m3's range
+    (the pool bytes must still equal the plain append's)."""
     import torch.nn.functional as F
+
+    from chitu_tpu_torch.models.common import kv_encode
 
     g = torch.Generator(device=dev)
     g.manual_seed(0)
     H, KV, D, PAGE, L, LAYER = 32, 8, 128, 64, 2, 1
+    fp8 = kv == "e4m3"
+    tag = "[e4m3]" if fp8 else ""
+    esz = 1 if fp8 else 2  # bytes of a pool element
+    variants = ((0, 0.0),) if fp8 else ((0, 0.0), (512, 30.0))
     M = 2 * KV * D
     G = H // KV
     B, MP = 16, 33  # max_reqs rows, max_seq_len 2048 // 64 + 1 pages
@@ -259,6 +376,15 @@ def kernel_cases(torch, tk, plain, dev):
         return torch.randint(lo, hi, (n,), generator=g, device=dev)
 
     pool0 = randn(L, P, PAGE, M, s=0.5)
+    if fp8:
+        pool0 = kv_encode(pool0, torch.int8)
+        bad = e4m3_decode_exact(torch, tk, dev)
+        if bad:
+            raise AssertionError(f"attend_decode[e4m3]: {bad} decoded values "
+                                 "differ from the e4m3 codes' values")
+
+    def edges(x):
+        return with_values(torch, x, E4M3_EDGES) if fp8 else x
 
     def gathered_kv(bts):
         """[R, mp*page] rows of the kernel's layer -> K, V [R, KV, S, D]."""
@@ -276,15 +402,25 @@ def kernel_cases(torch, tk, plain, dev):
     bts[B - 1] = -1
     seq[B - 1] = 0
     q = randn(B, H, D)
-    k = randn(B, KV, D)
-    v = randn(B, KV, D)
+    k = edges(randn(B, KV, D))
+    v = edges(randn(B, KV, D))
     live = valid.clone()
-    for window, softcap in ((0, 0.0), (512, 30.0)):
-        name = "attend_decode_fused" + ("" if not window else "[window,softcap]")
+    if fp8:
+        overflow_append_check(
+            torch, tk, "attend_decode_fused[e4m3]", pool0,
+            lambda pk, kk, vv: tk.attend_decode_fused(
+                q, pk, LAYER, kk, vv, bts, seq, valid, PAGE, KV, D),
+            lambda pp, kk, vv: tk.attend_decode_fused_plain(
+                q, pp, LAYER, kk, vv, bts, seq, valid, PAGE, KV, D),
+            k, v)
+    for window, softcap in variants:
+        name = "attend_decode_fused" + (
+            tag if not window else "[window,softcap]")
         kw = dict(scale=scale, window=window, softcap=softcap)
         pool_k = pool0.clone()
         pool_p = pool0.clone()
         args = (LAYER, k, v, bts, seq, valid, PAGE, KV, D)
+        poison(torch, q.shape, dev)
         out_k = tk.attend_decode_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_decode_fused_plain(q, pool_p, *args, **kw)
         err, rel = compare_rows(torch, name, out_k, out_p, live, pool_k, pool_p)
@@ -308,11 +444,12 @@ def kernel_cases(torch, tk, plain, dev):
         lo = (seq - window + 1).clamp(min=0) if window else torch.zeros_like(seq)
         ctx = (seq - lo).clamp(min=0).sum().item()  # pool rows read
         n_live = int(valid.sum().item())
-        nbytes = (ctx * 2 * KV * D * 2 + 2 * q.numel() * 2
-                  + 2 * k.numel() * 2 + n_live * M * 2)
+        nbytes = (ctx * 2 * KV * D * esz + 2 * q.numel() * 2
+                  + 2 * k.numel() * 2 + n_live * M * esz)
         flops = 4 * H * D * (ctx + B)
         bnd, by = bound_ms(nbytes, flops)
-        yield dict(name=name, kernel="attend_decode_fused", route="cuda",
+        yield dict(name=name, kernel="attend_decode_fused", variant=kv,
+                   route="cuda",
                    source="chitu_tpu_torch/csrc/attention.cu",
                    replaces="chitu_tpu/ops/pallas_attention.py:727",
                    max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
@@ -342,16 +479,26 @@ def kernel_cases(torch, tk, plain, dev):
         tok_live[off : off + n] = True
         off += nb * TQ
     q = randn(T, H, D)
-    k = randn(T, KV, D)
-    v = randn(T, KV, D)
-    for window, softcap in ((0, 0.0), (128, 30.0)):
+    k = edges(randn(T, KV, D))
+    v = edges(randn(T, KV, D))
+    pargs = (LAYER, bts_p, block_seg, block_q, total, PAGE, KV, D)
+    if fp8:
+        overflow_append_check(
+            torch, tk, "attend_prefill_packed_fused[e4m3]", pool0,
+            lambda pk, kk, vv: tk.attend_prefill_packed_fused(
+                q, pk, pargs[0], kk, vv, *pargs[1:]),
+            lambda pp, kk, vv: tk.attend_prefill_packed_fused_plain(
+                q, pp, pargs[0], kk, vv, *pargs[1:]),
+            k, v)
+    for window, softcap in (variants[:1] if fp8 else ((0, 0.0), (128, 30.0))):
         name = "attend_prefill_packed_fused" + (
-            "" if not window else "[window,softcap]"
+            tag if not window else "[window,softcap]"
         )
         kw = dict(scale=scale, window=window, softcap=softcap)
         pool_k = pool0.clone()
         pool_p = pool0.clone()
         args = (LAYER, k, v, bts_p, block_seg, block_q, total, PAGE, KV, D)
+        poison(torch, q.shape, dev)
         out_k = tk.attend_prefill_packed_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_prefill_packed_fused_plain(q, pool_p, *args, **kw)
         err, rel = compare_rows(torch, name, out_k, out_p, tok_live, pool_k, pool_p)
@@ -392,11 +539,12 @@ def kernel_cases(torch, tk, plain, dev):
             ))
         n_new = sum(n for _, n in segs)
         ctx = sum(s + n for s, n in segs)
-        nbytes = (ctx * 2 * KV * D * 2 + 2 * q.numel() * 2 + n_new * M * 2
-                  + n_new * 2 * KV * D * 2)
+        nbytes = (ctx * 2 * KV * D * esz + 2 * q.numel() * 2
+                  + n_new * M * esz + n_new * 2 * KV * D * 2)
         bnd, by = bound_ms(nbytes, 4 * H * D * pairs)
         yield dict(name=name, kernel="attend_prefill_packed_fused",
-                   route="cuda", source="chitu_tpu_torch/csrc/attention.cu",
+                   variant=kv, route="cuda",
+                   source="chitu_tpu_torch/csrc/attention.cu",
                    replaces="chitu_tpu/ops/pallas_attention.py:1424",
                    max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
                    bound_by=by, library_ms=lib_ms,
@@ -410,10 +558,11 @@ def kernel_cases(torch, tk, plain, dev):
     q_pos = (start + torch.arange(T, device=dev)).to(torch.int32)
     q = randn(T, H, D)
     pool_k = pool0
-    for window, softcap in ((0, 0.0), (256, 30.0)):
-        name = "attend_prefill" + ("" if not window else "[window,softcap]")
+    for window, softcap in (variants[:1] if fp8 else ((0, 0.0), (256, 30.0))):
+        name = "attend_prefill" + (tag if not window else "[window,softcap]")
         kw = dict(scale=scale, window=window, softcap=softcap)
         args = (pool0, LAYER, bt, q_pos, totl, PAGE, KV, D)
+        poison(torch, q.shape, dev)
         out_k = tk.attend_prefill(q, *args, **kw)
         out_p = plain.attend_prefill(q, *args, **kw)
         rows = torch.ones(T, dtype=torch.bool, device=dev)
@@ -433,9 +582,10 @@ def kernel_cases(torch, tk, plain, dev):
                 q.transpose(0, 1)[None], kg, vg, attn_mask=mask[None, None],
                 scale=scale, enable_gqa=True,
             ))
-        nbytes = totl * 2 * KV * D * 2 + 2 * q.numel() * 2
+        nbytes = totl * 2 * KV * D * esz + 2 * q.numel() * 2
         bnd, by = bound_ms(nbytes, 4 * H * D * pairs)
-        yield dict(name=name, kernel="attend_prefill", route="cuda",
+        yield dict(name=name, kernel="attend_prefill", variant=kv,
+                   route="cuda",
                    source="chitu_tpu_torch/csrc/attention.cu",
                    replaces="chitu_tpu/ops/pallas_attention.py:1137",
                    max_abs_err=err, max_row_rel_err=rel, ms=ms, plain_ms=plain_ms, bound_ms=bnd,
@@ -503,13 +653,17 @@ def absorb_cases(torch, ab, dev):
     torch.cuda.empty_cache()
 
 
-def mla_attention_cases(torch, tk, plain, dev):
+def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
     """The latent row (DeepSeek-R1: 128 heads on one KV head of 576 live
     lanes, 512 value lanes, pages of 64, rows of 640) through B4, B1, B3
     and B5, then B4 and B3 at Llama-3-8B's split geometry. The first case
     of B3 and of B4 (latent) is the one reported in the kernels line: their
-    main path is DeepSeek serving."""
+    main path is DeepSeek serving. kv="e4m3": the latent cases on an int8
+    pool of e4m3 bits (B1's new rows fed e4m3 edge values, and values
+    beyond the range in a second launch), without the split ones."""
     import torch.nn.functional as F
+
+    from chitu_tpu_torch.models.common import kv_decode, kv_encode
 
     g = torch.Generator(device=dev)
     g.manual_seed(4)
@@ -518,24 +672,34 @@ def mla_attention_cases(torch, tk, plain, dev):
     B, MP = 16, 33
     P = B * MP
     kw = dict(kv_heads=1, head_dim=QK, split_kv=False, v_dim=DV, scale=R1_SCALE)
+    fp8 = kv == "e4m3"
+    variant = "latent,e4m3" if fp8 else "latent"
+    esz = 1 if fp8 else 2
 
     def randn(*shape, s=1.0):
         return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
 
     pool0 = randn(L, P, PAGE, M, s=0.5)
     pool0[..., QK:] = 0  # the pad lanes of a latent row
+    if fp8:
+        pool0 = kv_encode(pool0, torch.int8)
+        bad = e4m3_decode_exact(torch, tk, dev, latent=True)
+        if bad:
+            raise AssertionError(f"attend_decode[latent,e4m3]: {bad} decoded "
+                                 "values differ from the e4m3 codes' values")
 
     def gathered(pool, bts):
-        """[R, mp*page] latent rows -> K = V [R, 1, S, 576]."""
-        return plain._gather(pool, LAYER, bts)[..., :QK][:, None].contiguous()
+        """[R, mp*page] latent rows -> K = V [R, 1, S, 576] (bf16)."""
+        rows = kv_decode(plain._gather(pool, LAYER, bts))
+        return rows[..., :QK][:, None].contiguous()
 
     def case(name, kernel, err, rel, ms, plain_ms, lib_ms, nbytes, flops, shape,
-             src=ATTN_SRC, replaces=""):
+             src=ATTN_SRC, replaces="", variant=variant):
         bnd, by = bound_ms(nbytes, flops)
-        return dict(name=name, kernel=kernel, route="cuda", source=src,
-                    replaces=replaces, max_abs_err=err, max_row_rel_err=rel,
-                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                    library_ms=lib_ms, shape=shape)
+        return dict(name=name, kernel=kernel, variant=variant, route="cuda",
+                    source=src, replaces=replaces, max_abs_err=err,
+                    max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bnd, bound_by=by, library_ms=lib_ms, shape=shape)
 
     # ---- decode rows of mixed context up to 2047 (B4, then B1) ----------
     bts = torch.arange(P, device=dev, dtype=torch.int32).reshape(B, MP)
@@ -545,6 +709,8 @@ def mla_attention_cases(torch, tk, plain, dev):
     valid = torch.ones(B, dtype=torch.bool, device=dev)
     q = randn(B, H, QK)
     knew = randn(B, 1, QK)
+    if fp8:
+        knew = with_values(torch, knew, E4M3_EDGES)
     pool_a = pool0.clone()
     plain.append_decode(pool_a, LAYER, knew, None, bts, seq, valid, PAGE)
     ctx = int((seq + 1).sum().item())  # latent rows read, new token's included
@@ -554,9 +720,10 @@ def mla_attention_cases(torch, tk, plain, dev):
     sdpa_dec = lambda: F.scaled_dot_product_attention(
         q[:, :, None, :], kg, kg, attn_mask=mask, scale=R1_SCALE,
         enable_gqa=True)
-    lib_dec = device_ms(torch, sdpa_dec)
+    lib_dec = device_ms_sized(torch, sdpa_dec)
     flops = 2.0 * H * (QK + DV) * ctx
-    dec_bytes = ctx * QK * 2 + q.numel() * 2 + B * H * DV * 2
+    dec_bytes = ctx * QK * esz + q.numel() * 2 + B * H * DV * 2
+    lt = f"[{variant},R1]"
 
     args = (pool_a, LAYER, bts, seq, PAGE)
     poison(torch, (B, H, DV), dev)
@@ -567,7 +734,7 @@ def mla_attention_cases(torch, tk, plain, dev):
         raise AssertionError("attend_decode[latent]: two launches differ")
     err, rel = compare_rows(torch, "attend_decode[latent]", out_k, out_p, valid)
     yield case(
-        "attend_decode[latent,R1]", "attend_decode", err, rel,
+        "attend_decode" + lt, "attend_decode", err, rel,
         device_ms(torch, lambda: tk.attend_decode(q, *args, **kw)),
         call_ms(torch, lambda: plain.attend_decode(
             q, *args, 1, QK, scale=R1_SCALE, split_kv=False)),
@@ -577,6 +744,14 @@ def mla_attention_cases(torch, tk, plain, dev):
 
     valid_f = valid.clone()
     valid_f[3] = False  # a row that appends nothing
+    if fp8:
+        overflow_append_check(
+            torch, tk, "attend_decode_fused" + lt, pool0,
+            lambda pk, kk, vv: tk.attend_decode_fused(
+                q, pk, LAYER, kk, None, bts, seq, valid_f, PAGE, **kw),
+            lambda pp, kk, vv: tk.attend_decode_fused_plain(
+                q, pp, LAYER, kk, None, bts, seq, valid_f, PAGE, **kw),
+            knew, None)
     pool_k, pool_p = pool0.clone(), pool0.clone()
     fargs = (LAYER, knew, None, bts, seq, valid_f, PAGE)
     poison(torch, (B, H, DV), dev)
@@ -585,10 +760,10 @@ def mla_attention_cases(torch, tk, plain, dev):
     err, rel = compare_rows(torch, "attend_decode_fused[latent]", out_k, out_p,
                             valid_f, pool_k, pool_p)
     yield case(
-        "attend_decode_fused[latent,R1]", "attend_decode_fused", err, rel,
+        "attend_decode_fused" + lt, "attend_decode_fused", err, rel,
         device_ms(torch, lambda: tk.attend_decode_fused(q, pool_k, *fargs, **kw)),
         call_ms(torch, lambda: tk.attend_decode_fused_plain(q, pool_p, *fargs, **kw)),
-        lib_dec, dec_bytes + B * M * 2, flops,
+        lib_dec, dec_bytes + B * M * esz, flops,
         f"B={B} H={H} live={QK} value={DV} page={PAGE} mp={MP} ctx_rows={ctx}",
         replaces="chitu_tpu/ops/pallas_attention.py:727")
 
@@ -642,13 +817,13 @@ def mla_attention_cases(torch, tk, plain, dev):
     n_new = sum(n for _, n in segs)
     ctx_rows = sum(s0 + n for s0, n in segs)
     yield case(
-        "attend_prefill_packed[latent,R1]", "attend_prefill_packed", err, rel,
+        "attend_prefill_packed" + lt, "attend_prefill_packed", err, rel,
         device_ms(torch, lambda: tk.attend_prefill_packed(q, *pargs, **kw)),
         call_ms(torch, lambda: tk.attend_prefill_packed_plain(q, *pargs, **kw),
                 reps=5),
         device_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kg, kg, attn_mask=mask, scale=R1_SCALE, enable_gqa=True)),
-        ctx_rows * QK * 2 + n_new * H * (QK + DV) * 2,
+        ctx_rows * QK * esz + n_new * H * (QK + DV) * 2,
         2.0 * H * (QK + DV) * pairs,
         f"T={T} Tq={TQ} NB={NB} segs={segs} H={H} live={QK} value={DV}",
         replaces="chitu_tpu/ops/pallas_attention.py:1709")
@@ -670,17 +845,20 @@ def mla_attention_cases(torch, tk, plain, dev):
             <= q_pos[:, None].long()) & (torch.arange(kg.shape[2], device=dev)[None, :] < totl)
     pairs = int(mask.sum().item())
     yield case(
-        "attend_prefill[latent,R1]", "attend_prefill", err, rel,
+        "attend_prefill" + lt, "attend_prefill", err, rel,
         device_ms(torch, lambda: tk.attend_prefill(q, *sargs, **kw)),
         call_ms(torch, lambda: plain.attend_prefill(
             q, *sargs, 1, QK, scale=R1_SCALE, split_kv=False), reps=5),
         device_ms(torch, lambda: F.scaled_dot_product_attention(
             q.transpose(0, 1)[None], kg, kg, attn_mask=mask[None, None],
             scale=R1_SCALE, enable_gqa=True)),
-        totl * QK * 2 + T * H * (QK + DV) * 2, 2.0 * H * (QK + DV) * pairs,
+        totl * QK * esz + T * H * (QK + DV) * 2, 2.0 * H * (QK + DV) * pairs,
         f"T={T} q_pos0={start} total={totl} H={H} live={QK} value={DV}",
         replaces="chitu_tpu/ops/pallas_attention.py:1137")
     del pool0, pool_a, pool_k, pool_p
+    if fp8:
+        torch.cuda.empty_cache()
+        return
 
     # ---- B4 and B3 at Llama-3-8B's split geometry ------------------------
     H, KV, D = 32, 8, 128
@@ -707,7 +885,7 @@ def mla_attention_cases(torch, tk, plain, dev):
             enable_gqa=True)),
         ctx * 2 * KV * D * 2 + 2 * q.numel() * 2, 4.0 * H * D * ctx,
         f"B={B} H={H} KV={KV} D={D} page={PAGE} mp={MP} ctx_rows={ctx}",
-        replaces="chitu_tpu/ops/pallas_attention.py:327")
+        replaces="chitu_tpu/ops/pallas_attention.py:327", variant="split")
 
     TQ = tk.packed_q_block(H, M, PAGE, D, kv_heads=KV)
     NB = T // TQ
@@ -728,6 +906,7 @@ def mla_attention_cases(torch, tk, plain, dev):
     ctx_rows = sum(s0 + n for s0, n in segs)
     q = randn(T, H, D)
     pargs = (pool, LAYER, bts_p, block_seg, block_q, total, PAGE, KV, D)
+    poison(torch, q.shape, dev)
     out_k = tk.attend_prefill_packed(q, *pargs, scale=scale)
     out_p = tk.attend_prefill_packed_plain(q, *pargs, scale=scale)
     err, rel = compare_rows(torch, "attend_prefill_packed[split]", out_k,
@@ -738,10 +917,12 @@ def mla_attention_cases(torch, tk, plain, dev):
         device_ms(torch, lambda: tk.attend_prefill_packed(q, *pargs, scale=scale)),
         call_ms(torch, lambda: tk.attend_prefill_packed_plain(
             q, *pargs, scale=scale), reps=5),
-        None, ctx_rows * 2 * KV * D * 2 + 2 * n_new * H * D * 2,
+        sdpa_segments_ms(torch, F, q, pool, LAYER, bts_p, segs, TQ, KV, D,
+                         scale, plain),
+        ctx_rows * 2 * KV * D * 2 + 2 * n_new * H * D * 2,
         4.0 * H * D * pairs_split(segs),
         f"T={T} Tq={TQ} NB={NB} segs={segs} H={H} KV={KV} D={D}",
-        replaces="chitu_tpu/ops/pallas_attention.py:1709")
+        replaces="chitu_tpu/ops/pallas_attention.py:1709", variant="split")
     del pool
     torch.cuda.empty_cache()
 
@@ -749,6 +930,261 @@ def mla_attention_cases(torch, tk, plain, dev):
 def pairs_split(segs):
     """Causal (query, key) pairs of packed segments [(start, new tokens)]."""
     return sum(n * s0 + n * (n + 1) // 2 for s0, n in segs)
+
+
+def sdpa_segments_ms(torch, F, q, pool, layer, bts, segs, tq, kv_heads, d,
+                     scale, plain):
+    """Device time of the library yardstick of a packed slab on the split
+    layout: one `scaled_dot_product_attention` over each segment's
+    gathered, decoded K/V, the segments padded to one batch with causal
+    masks by absolute position (packed rows of `tq`-token blocks)."""
+    dev = q.device
+    R = len(segs)
+    rows = plain._gather(pool, layer, bts[:R])
+    kg, vg = (t.transpose(1, 2).contiguous()
+              for t in plain.unpack_pool(rows, kv_heads, d))
+    S, H = kg.shape[2], q.shape[1]
+    nmax = max(n for _, n in segs)
+    qs = torch.zeros((R, H, nmax, d), dtype=q.dtype, device=dev)
+    mask = torch.zeros((R, 1, nmax, S), dtype=torch.bool, device=dev)
+    off = 0
+    for r, (s0, n) in enumerate(segs):
+        qs[r, :, :n] = q[off : off + n].transpose(0, 1)
+        qp = s0 + torch.arange(n, device=dev)[:, None]
+        cols = torch.arange(S, device=dev)[None, :]
+        mask[r, 0, :n] = (cols <= qp) & (cols < s0 + n)
+        mask[r, 0, n:, 0] = True
+        off += (n + tq - 1) // tq * tq
+    return device_ms(torch, lambda: F.scaled_dot_product_attention(
+        qs, kg, vg, attn_mask=mask, scale=scale, enable_gqa=True))
+
+
+# ---------------------------------------------------------------------------
+# phase 2e: the split layout at other head sizes (DeepSeek-R1's dense MLA at
+# 192, tiny-llama-debug's 64) and B13, the dense stacked-layer GEMM
+# ---------------------------------------------------------------------------
+
+
+def split_head_cases(torch, tk, plain, dev, label, H, KV, D, kernels,
+                     scale=None):
+    """B1 (fused), B4, B5 and B3 (those named in `kernels`) on the split
+    layout at head size D: 16 decode rows of context up to 2047 (pages of
+    64), a 512-token chunk at q_pos 512, and a packed slab of three prompts
+    (256 tokens: the plain version gathers K and V a token at a time, 13 GB
+    in f32 at 128 heads of 192). At DeepSeek's dense MLA (D 192) V lives in
+    the first 128 of 192 lanes and the rest are zero, as the model pads
+    it. Limits and yardsticks as in phase 2."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    bf = torch.bfloat16
+    PAGE, L, LAYER, B, MP = 64, 2, 1, 16, 33
+    P = B * MP
+    M = 2 * KV * D
+    G = H // KV
+    scale = scale or D ** -0.5
+    dv = 128 if D == 192 else D  # live value lanes
+    variant = f"d{D}"
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    def vpad(v):
+        if dv < D:
+            v[..., dv:] = 0
+        return v
+
+    pool0 = randn(L, P, PAGE, M, s=0.5)
+    if dv < D:
+        pool0.view(L, P, PAGE, 2, KV, D)[:, :, :, 1, :, dv:] = 0
+
+    def gathered_kv(pool, bts):
+        rows = plain._gather(pool, LAYER, bts)
+        k, v = plain.unpack_pool(rows, KV, D)
+        return k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous()
+
+    def case(name, kernel, err, rel, ms, plain_ms, lib_ms, nbytes, flops, shape,
+             replaces):
+        bnd, by = bound_ms(nbytes, flops)
+        return dict(name=f"{name}[{variant},{label}]", kernel=kernel,
+                    variant=variant, route="cuda", source=ATTN_SRC,
+                    replaces=replaces, max_abs_err=err, max_row_rel_err=rel,
+                    ms=ms, plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+                    library_ms=lib_ms, shape=shape)
+
+    bts = torch.arange(P, device=dev, dtype=torch.int32).reshape(B, MP)
+    seq = torch.randint(1, MP * PAGE - PAGE, (B,), generator=g,
+                        device=dev).to(torch.int32)
+    seq[0] = 2047
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    valid[3] = False
+    q = randn(B, H, D)
+    k, v = randn(B, KV, D), vpad(randn(B, KV, D))
+    ctx = int((seq + 1).sum().item())
+    cols = torch.arange(MP * PAGE, device=dev)[None, :]
+    mask = (cols <= seq[:, None].long())[:, None, None, :]
+    kv_bytes = 2 * KV * D * 2  # a context row's K and V
+    shape = f"B={B} H={H} KV={KV} D={D} page={PAGE} mp={MP} ctx_rows={ctx}"
+    if "attend_decode_fused" in kernels:
+        pool_k, pool_p = pool0.clone(), pool0.clone()
+        fargs = (LAYER, k, v, bts, seq, valid, PAGE, KV, D)
+        poison(torch, q.shape, dev)
+        out_k = tk.attend_decode_fused(q, pool_k, *fargs, scale=scale)
+        out_p = tk.attend_decode_fused_plain(q, pool_p, *fargs, scale=scale)
+        err, rel = compare_rows(torch, "attend_decode_fused", out_k, out_p,
+                                valid, pool_k, pool_p)
+        kg, vg = gathered_kv(pool_k, bts)
+        yield case(
+            "attend_decode_fused", "attend_decode_fused", err, rel,
+            device_ms(torch, lambda: tk.attend_decode_fused(
+                q, pool_k, *fargs, scale=scale)),
+            call_ms(torch, lambda: tk.attend_decode_fused_plain(
+                q, pool_p, *fargs, scale=scale), reps=5),
+            device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale,
+                enable_gqa=True)),
+            (ctx - B) * kv_bytes + 2 * q.numel() * 2 + 2 * k.numel() * 2
+            + int(valid.sum().item()) * M * 2,
+            4.0 * H * D * ctx, shape, "chitu_tpu/ops/pallas_attention.py:727")
+        del pool_k, pool_p, kg, vg
+    if "attend_decode" in kernels:
+        pool_a = pool0.clone()
+        plain.append_decode(pool_a, LAYER, k, v, bts, seq, valid, PAGE)
+        dargs = (pool_a, LAYER, bts, seq, PAGE, KV, D)
+        poison(torch, q.shape, dev)
+        out_k = tk.attend_decode(q, *dargs, scale=scale)
+        out_p = tk.attend_decode_plain(q, *dargs, scale=scale)
+        err, rel = compare_rows(torch, "attend_decode", out_k, out_p, valid)
+        kg, vg = gathered_kv(pool_a, bts)
+        yield case(
+            "attend_decode", "attend_decode", err, rel,
+            device_ms(torch, lambda: tk.attend_decode(q, *dargs, scale=scale)),
+            call_ms(torch, lambda: tk.attend_decode_plain(
+                q, *dargs, scale=scale), reps=5),
+            device_ms(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kg, vg, attn_mask=mask, scale=scale,
+                enable_gqa=True)),
+            ctx * kv_bytes + 2 * q.numel() * 2, 4.0 * H * D * ctx, shape,
+            "chitu_tpu/ops/pallas_attention.py:327")
+        del pool_a, kg, vg
+    if "attend_prefill" in kernels:
+        T, start = 512, 512
+        totl = start + T
+        bt = torch.arange(16, device=dev, dtype=torch.int32) + 100
+        q_pos = (start + torch.arange(T, device=dev)).to(torch.int32)
+        qp = randn(T, H, D)
+        sargs = (pool0, LAYER, bt, q_pos, totl, PAGE, KV, D)
+        poison(torch, qp.shape, dev)
+        out_k = tk.attend_prefill(qp, *sargs, scale=scale)
+        out_p = tk.attend_prefill_plain(qp, *sargs, scale=scale)
+        err, rel = compare_rows(torch, "attend_prefill", out_k, out_p,
+                                slice(None))
+        kg, vg = gathered_kv(pool0, bt[None])
+        c = torch.arange(kg.shape[2], device=dev)[None, :]
+        m5 = (c <= q_pos[:, None].long()) & (c < totl)
+        yield case(
+            "attend_prefill", "attend_prefill", err, rel,
+            device_ms(torch, lambda: tk.attend_prefill(qp, *sargs, scale=scale)),
+            call_ms(torch, lambda: tk.attend_prefill_plain(
+                qp, *sargs, scale=scale), reps=5),
+            device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qp.transpose(0, 1)[None], kg, vg, attn_mask=m5[None, None],
+                scale=scale, enable_gqa=True)),
+            totl * kv_bytes + 2 * qp.numel() * 2,
+            4.0 * H * D * int(m5.sum().item()),
+            f"T={T} q_pos0={start} total={totl} H={H} KV={KV} D={D}",
+            "chitu_tpu/ops/pallas_attention.py:1137")
+        del kg, vg
+    if "attend_prefill_packed" in kernels:
+        T = 256
+        TQ = tk.packed_q_block(H, M, PAGE, D, kv_heads=KV)
+        NB = T // TQ
+        segs = [(0, 100), (128, 60), (0, 40)]
+        mp_p = 4
+        bts_p = torch.full((B, mp_p), -1, dtype=torch.int32, device=dev)
+        block_seg = torch.full((NB,), -1, dtype=torch.int32, device=dev)
+        block_q = torch.zeros((NB,), dtype=torch.int32, device=dev)
+        total = torch.zeros((B,), dtype=torch.int32, device=dev)
+        tok_live = torch.zeros((T,), dtype=torch.bool, device=dev)
+        off = 0
+        for r, (s0, n) in enumerate(segs):
+            bts_p[r] = torch.arange(r * mp_p, (r + 1) * mp_p, device=dev)
+            nb = (n + TQ - 1) // TQ
+            block_seg[off // TQ : off // TQ + nb] = r
+            block_q[off // TQ : off // TQ + nb] = (
+                s0 + torch.arange(nb, device=dev) * TQ)
+            total[r] = s0 + n
+            tok_live[off : off + n] = True
+            off += nb * TQ
+        qs = randn(T, H, D)
+        pargs = (pool0, LAYER, bts_p, block_seg, block_q, total, PAGE, KV, D)
+        poison(torch, qs.shape, dev)
+        out_k = tk.attend_prefill_packed(qs, *pargs, scale=scale)
+        out_p = tk.attend_prefill_packed_plain(qs, *pargs, scale=scale)
+        err, rel = compare_rows(torch, "attend_prefill_packed", out_k, out_p,
+                                tok_live)
+        dead = ~torch.repeat_interleave(block_seg >= 0, TQ)
+        if dead.any() and out_k[dead].abs().max().item() != 0.0:
+            raise AssertionError("attend_prefill_packed: dead blocks not zero")
+        n_new = sum(n for _, n in segs)
+        yield case(
+            "attend_prefill_packed", "attend_prefill_packed", err, rel,
+            device_ms(torch, lambda: tk.attend_prefill_packed(
+                qs, *pargs, scale=scale)),
+            call_ms(torch, lambda: tk.attend_prefill_packed_plain(
+                qs, *pargs, scale=scale), reps=3),
+            sdpa_segments_ms(torch, F, qs, pool0, LAYER, bts_p, segs, TQ, KV,
+                             D, scale, plain),
+            sum(s0 + n for s0, n in segs) * kv_bytes + 2 * n_new * H * D * 2,
+            4.0 * H * D * pairs_split(segs),
+            f"T={T} Tq={TQ} NB={NB} segs={segs} H={H} KV={KV} D={D}",
+            "chitu_tpu/ops/pallas_attention.py:1709")
+    del pool0
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+DENSE_SRC = "chitu_tpu_torch/csrc/dense_gemm.cu"
+# Llama-3-8B's four stacked projections: wqkv, wo, w_gate_up, w_down
+DENSE_PROJ = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
+
+
+def dense_gemm_cases(torch, dg, dev):
+    """B13 at Llama-3-8B's four stacked shapes (layer 1 of a two-layer
+    stack), T 16 and 512, against its plain version (every row within
+    1e-2 of the plain row's norm) and twice bit-equal. Library yardstick:
+    one `torch.mm(x, w[layer], out_dtype=float32)` on the layer's view.
+    Bound: the layer's weight, x and the f32 output / 3.35 TB/s against
+    2TKN / 989 TFLOP/s."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    for K, N in DENSE_PROJ:
+        w = (torch.randn((2, K, N), generator=g, device=dev) * 0.02).to(
+            torch.bfloat16)
+        for T in (16, 512):
+            x = torch.randn((T, K), generator=g, device=dev).to(torch.bfloat16)
+            name = f"dense_matmul_stacked[{K}->{N},T={T}]"
+            got = dg.dense_matmul_stacked(x, 1, w)
+            if not torch.equal(got, dg.dense_matmul_stacked(x, 1, w)):
+                raise AssertionError(f"{name}: two launches differ")
+            err, rel = _row_rel(torch, name, got,
+                                dg.dense_matmul_stacked_plain(x, 1, w), ROW_RTOL)
+            bnd, by = bound_ms(K * N * 2 + T * K * 2 + T * N * 4, 2.0 * T * K * N)
+            yield dict(
+                name=name, kernel="dense_matmul_stacked", variant="bf16",
+                route="cuda", source=DENSE_SRC,
+                replaces="chitu_tpu/ops/pallas_quant_gemm.py:588",
+                max_abs_err=err, max_row_rel_err=rel,
+                ms=device_ms(torch, lambda: dg.dense_matmul_stacked(x, 1, w)),
+                plain_ms=call_ms(torch, lambda: dg.dense_matmul_stacked_plain(
+                    x, 1, w)),
+                bound_ms=bnd, bound_by=by,
+                library_ms=device_ms(torch, lambda: torch.mm(
+                    x, w[1], out_dtype=torch.float32)),
+                shape=f"T={T} K={K} N={N} layers=2 layer=1")
+        del w
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -1166,6 +1602,122 @@ def shadowed(torch, errs):
     return _swapped(make)
 
 
+# the wrappers of the attention kernels the models call through
+# `ops.attention_kernels`; B1 and B2 append into the pool they are given
+ATTN_WRAPPERS = ("attend_decode_fused", "attend_prefill_packed_fused",
+                 "attend_prefill", "attend_prefill_packed", "attend_decode")
+APPENDING = ("attend_decode_fused", "attend_prefill_packed_fused")
+
+
+@contextlib.contextmanager
+def shadowed_attention(torch, tk, errs):
+    """Every call of an attention wrapper, and of B13 through `linear`,
+    also runs its plain version on equal inputs, held to the limits of
+    phase 2: the appending kernels' plain versions write into a copy of
+    the layer's pool slice, which must come out byte-equal to the layer
+    the kernel wrote; outputs within ROW_RTOL on the rows both define
+    (B1: the valid rows; B2, B3: the live tokens). The kernel's result
+    goes on. `errs[variant]` collects the largest row error."""
+    import inspect
+
+    from chitu_tpu_torch.ops import dense_gemm_kernels as dg
+    from chitu_tpu_torch.ops import linear
+
+    def shim(name):
+        real = getattr(tk, name)
+        plain_fn = getattr(tk, name + "_plain")
+        sig = inspect.signature(real)
+
+        def both(*a, **kw):
+            args = sig.bind(*a, **kw)
+            args.apply_defaults()
+            args = dict(args.arguments)
+            pool, layer, q = args["pool"], args["layer"], args["q"]
+            key = tk.variant_name(name, pool, q.shape[-1],
+                                  args.get("split_kv", True))
+            if name in APPENDING:
+                args["pool"], args["layer"] = pool[layer:layer + 1].clone(), 0
+            out = real(*a, **kw)
+            want = plain_fn(**args)
+            if name in APPENDING and not torch.equal(pool[layer], args["pool"][0]):
+                raise AssertionError(f"{key} in the model: pool bytes differ "
+                                     "from the plain append")
+            if name == "attend_decode_fused":
+                rows = args["valid"]
+            elif name.startswith("attend_prefill_packed"):
+                rows = tk.packed_token_layout(
+                    args["block_seg"], args["block_qstart"],
+                    args["total_lens"], q.shape[0])[2]
+            elif name == "attend_prefill":
+                # the kernel places row t at q_pos[0] + t, the plain
+                # version at q_pos[t]: they part on a chunk's padded rows
+                qp = args["q_pos"]
+                rows = qp == qp[0] + torch.arange(qp.shape[0], device=qp.device)
+            else:
+                rows = slice(None)
+            if isinstance(rows, slice) or bool(rows.any()):
+                _, e = compare_rows(torch, f"{key} in the model", out, want,
+                                    rows)
+                errs[key] = max(errs.get(key, 0.0), e)
+            return out
+
+        return both
+
+    def dense_both(x, layer, w):
+        got = real_dense(x, layer, w)
+        _, e = _row_rel(torch, "dense_matmul_stacked in the model", got,
+                        dg.dense_matmul_stacked_plain(x, layer, w), ROW_RTOL)
+        errs["dense_matmul_stacked"] = max(
+            errs.get("dense_matmul_stacked", 0.0), e)
+        return got
+
+    old = {n: getattr(tk, n) for n in ATTN_WRAPPERS}
+    real_dense = linear.dense_matmul_stacked
+    try:
+        for n in ATTN_WRAPPERS:
+            setattr(tk, n, shim(n))
+        linear.dense_matmul_stacked = dense_both
+        yield
+    finally:
+        for n, fn in old.items():
+            setattr(tk, n, fn)
+        linear.dense_matmul_stacked = real_dense
+
+
+def shadow_serve(torch, np, tk, eng, label):
+    """A short burst with every attention and B13 call shadowed: a lone
+    prompt (B5, then decode: B1), two prompts in one packed slab (B2, or
+    B3 for DeepSeek), and one more arriving while those decode (the hybrid
+    step: B1 + B2, or B4 + B3). -> the largest row error of each kernel
+    variant."""
+    from chitu_tpu_torch import SampleParams
+
+    rng = np.random.default_rng(11)
+    V = eng.cfg.models.vocab_size
+    short = SampleParams(temperature=0.0, max_new_tokens=4)
+    long = SampleParams(temperature=0.0, max_new_tokens=12)
+
+    def prompt(n):
+        return [int(x) for x in rng.integers(1, V, size=n)]
+
+    errs = {}
+    with torch.no_grad(), shadowed_attention(torch, tk, errs):
+        reqs = [eng.submit("", short, prompt_tokens=prompt(120))]
+        eng.step()
+        eng.step()
+        reqs += [eng.submit("", long, prompt_tokens=prompt(n)) for n in (40, 70)]
+        eng.step()
+        reqs.append(eng.submit("", short, prompt_tokens=prompt(50)))
+        eng.run_until_complete()
+    torch.cuda.synchronize()
+    for r, n in zip(reqs, (4, 12, 12, 4)):
+        if len(r.async_stream.tokens) != n:
+            raise AssertionError(f"[{label}] shadowed request incomplete")
+    if not errs:
+        raise AssertionError(f"[{label}] the shadowed burst reached no kernel")
+    return errs
+
+
 # Activations that pass through a step function (e4m3 rounding: steps of
 # 6-12 % of a value; per-token int8: 0.8 % of a row's largest) turn a
 # last-bit difference between two sound implementations into whole steps,
@@ -1209,10 +1761,12 @@ def logits_against_plain(torch, np, eng, label):
 def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
                  lens=(40, 100, 200, 130, 60, 700), new_tokens=32,
                  need=ATTN_KERNELS, check_plain=False,
-                 model="Llama-3-8B-Instruct"):
+                 model="Llama-3-8B-Instruct", shadow=False):
     """Bring up an engine, serve one lone prompt and then a burst that
     arrives while it decodes, check everything came back, and return the
-    kernel launch counts of that run (zeroed just before it)."""
+    kernel launch counts of that run (zeroed just before it). `shadow`:
+    then a short burst with every attention and B13 call shadowed by its
+    plain version (`shadow_serve`)."""
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
 
@@ -1305,6 +1859,10 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
         errs, rel = logits_against_plain(torch, np, eng, label)
         stats["kernel_call_err_vs_plain"] = errs
         stats["logits_row_rel_err_vs_plain"] = rel
+    if shadow:
+        stats["shadowed_call_err_vs_plain"] = shadow_serve(
+            torch, np, tk, eng, label)
+    stats["kv_pool_gib"] = eng.cache.bytes() / 2**30
     print("engine " + json.dumps(stats), flush=True)
     eng.terminate()
     del eng
@@ -1361,6 +1919,51 @@ MLA_PHASES = [
 ]
 
 
+# Slice 5: the e4m3 KV pool, DeepSeek's dense MLA (head_dim 192), the debug
+# cards' head sizes (64, 32) and B13. Full width; R1 at the depth 80 GB
+# holds (the dense MLA pool is 96 KiB a token a layer: 13 GiB at 4 layers).
+LLAMA = "Llama-3-8B-Instruct"
+E4M3 = ("attend_decode_fused[e4m3]", "attend_prefill_packed_fused[e4m3]",
+        "attend_prefill[e4m3]")
+LATENT_E4M3 = tuple(f"{k}[latent,e4m3]" for k in (
+    "attend_decode_fused", "attend_prefill_packed", "attend_decode",
+    "attend_prefill"))
+D192 = tuple(f"{k}[d192]" for k in (
+    "attend_decode_fused", "attend_prefill_packed", "attend_decode",
+    "attend_prefill"))
+SLICE5_PHASES = [
+    # (label, model card, overrides, kernels that must have launched)
+    ("llama_fp8_kv", LLAMA, ["infer.kv_dtype=fp8"], ATTN_KERNELS + E4M3),
+    ("r1_fp8_kv", R1, ["models.n_layers=5", "infer.kv_dtype=fp8"],
+     MLA_KERNELS + LATENT_E4M3),
+    ("r1_dense", R1, ["models.n_layers=4", "infer.mla_absorb=none"],
+     D192 + ("grouped_gemm",)),
+    ("llama_dense_kernel", LLAMA, ["models.n_layers=4"],
+     ATTN_KERNELS + ("dense_matmul_stacked",)),
+    ("tiny_llama_d64", "tiny-llama-debug", [],
+     tuple(f"{k}[d64]" for k in ATTN_KERNELS)),
+    ("micro_llama_d32", "micro-llama-debug", [],
+     tuple(f"{k}[d32]" for k in ATTN_KERNELS)),
+]
+# the kernels line's rows beyond the first case of each kernel: a variant
+# and the phase whose launches it reports (its main path)
+VARIANT_ROWS = [
+    ("attend_decode_fused[latent]", "r1_bf16"),
+    ("attend_prefill[latent]", "r1_bf16"),
+    *((k, "llama_fp8_kv") for k in E4M3),
+    *((k, "r1_fp8_kv") for k in LATENT_E4M3),
+    *((k, "r1_dense") for k in D192),
+    ("attend_decode_fused[d64]", "tiny_llama_d64"),
+    ("attend_prefill[d64]", "tiny_llama_d64"),
+    ("dense_matmul_stacked", "llama_dense_kernel"),
+]
+
+
+def row_key(res):
+    v = res.get("variant")
+    return res["kernel"] if v in (None, "bf16", "split") else f"{res['kernel']}[{v}]"
+
+
 def main():
     import numpy as np
     import torch
@@ -1373,6 +1976,8 @@ def main():
     from chitu_tpu_torch.ops import absorb_kernels as ab
     from chitu_tpu_torch.ops import attention as plain
     from chitu_tpu_torch.ops import attention_kernels as tk
+    from chitu_tpu_torch.ops import dense_gemm_kernels as dg
+    from chitu_tpu_torch.ops import linear
     from chitu_tpu_torch.ops import moe_gemm_kernels as mg
     from chitu_tpu_torch.ops import norm_quant as nq
     from chitu_tpu_torch.ops import quant_gemm_kernels as qg
@@ -1391,18 +1996,27 @@ def main():
     print(f"kernel build {time.time() - t0:.1f} s", flush=True)
 
     dev = torch.device("cuda", 0)
-    first = {}
+    first, by_row = {}, {}
     t0 = time.time()
     with torch.no_grad():
         for cases in (kernel_cases(torch, tk, plain, dev),
                       quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev),
                       moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev),
                       absorb_cases(torch, ab, dev),
-                      mla_attention_cases(torch, tk, plain, dev)):
+                      mla_attention_cases(torch, tk, plain, dev),
+                      kernel_cases(torch, tk, plain, dev, kv="e4m3"),
+                      mla_attention_cases(torch, tk, plain, dev, kv="e4m3"),
+                      split_head_cases(torch, tk, plain, dev, "R1", 128, 128,
+                                       192, ATTN_WRAPPERS, scale=R1_SCALE),
+                      split_head_cases(torch, tk, plain, dev,
+                                       "tiny-llama-debug", 32, 4, 64,
+                                       ("attend_decode_fused", "attend_prefill")),
+                      dense_gemm_cases(torch, dg, dev)):
             for res in cases:
                 res["card"] = card
                 print("case " + json.dumps(res), flush=True)
                 first.setdefault(res["kernel"], res)
+                by_row.setdefault(row_key(res), res)
     gc.collect()
     torch.cuda.empty_cache()
     print(f"kernel cases {time.time() - t0:.1f} s", flush=True)
@@ -1446,6 +2060,7 @@ def main():
         got = engine_phase(torch, np, tk, card, label, ovr,
                            need=MLA_KERNELS + need, model=model)
         if label == "r1_bf16":
+            r1_launches = got
             for k in ("attend_prefill_packed", "attend_decode", "absorb_matmul"):
                 launches[k] = got[k]
     engine_phase(
@@ -1454,20 +2069,34 @@ def main():
         lens=(40, 100, 200), new_tokens=8,
         need=MLA_KERNELS + ("quant_gemm",), check_plain=True, model=R1,
     )
+    # slice 5: each phase's burst, then a shadowed one
+    phase = {"r1_bf16": r1_launches}
+    for label, model, ovr, need in SLICE5_PHASES:
+        linear.set_dense_kernel(label == "llama_dense_kernel")
+        try:
+            phase[label] = engine_phase(torch, np, tk, card, label, ovr,
+                                        need=need, model=model, shadow=True)
+        finally:
+            linear.set_dense_kernel(False)
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []
-    for kname in KERNEL_ORDER:
-        r = first[kname]
-        if launches.get(kname, 0) <= 0:
-            raise AssertionError(f"kernel {kname} has no launches to report")
+
+    def row(name, r, n):
+        if n <= 0:
+            raise AssertionError(f"kernel {name} has no launches to report")
         rows.append(dict(
-            name=kname, route=r["route"], source=r["source"],
-            replaces=r["replaces"], launches=launches[kname],
+            name=name, route=r["route"], source=r["source"],
+            replaces=r["replaces"], launches=n,
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
         ))
+
+    for kname in KERNEL_ORDER:
+        row(kname, first[kname], launches.get(kname, 0))
+    for key, label in VARIANT_ROWS:
+        row(key, by_row[key], phase[label].get(key, 0))
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -15,48 +15,113 @@
 //                             <- attend_prefill (_prefill_grouped_kernel)
 //
 // and, for B1, B3, B4 and B5 on the MLA merged latent row, latent_kernel
-// (below). Two pool layouts, as in the JAX package, [L, P, page, M] bf16:
-// split K/V rows [K_0..K_{KV-1} V_0..V_{KV-1} | pad], M = pad128(2*KV*D),
-// at head_dim 128; and the merged latent row [c_kv (512) | k_pe (64) | pad]
-// of DeepSeek's MLA absorb, M = 640, one KV "head" that every query head
-// reads, whose first 512 lanes are also the value. Offsets into the pool
-// are 64-bit: a full-size pool holds more than 2^31 elements.
+// (below). Two pool layouts, as in the JAX package, [L, P, page, M]: split
+// K/V rows [K_0..K_{KV-1} V_0..V_{KV-1} | pad], M = pad128(2*KV*D), at head
+// sizes 32, 64, 128 and 192 (192: DeepSeek's dense MLA, K = [k_nope | k_pe]
+// and V padded from 128 to 192 lanes in the row; the kernels read V at the
+// K head size and the caller keeps the live lanes); and the merged latent
+// row [c_kv (512) | k_pe (64) | pad] of DeepSeek's MLA absorb, M = 640, one
+// KV "head" that every query head reads, whose first 512 lanes are also the
+// value. Offsets into the pool are 64-bit: a full-size pool holds more than
+// 2^31 elements.
 //
-// What bounds them on the card: the bytes of context K/V read from the
-// pool (each page row of the KV head's K and V slices; q and out are small
-// beside it), at the card's memory rate. The design answers that in two
-// ways. First, grouped-query sharing: one block per (query row or query
-// block, KV head) loads every K/V tile of that head ONCE into shared memory
-// for all G query heads that read it (the TPU kernels' expanded-query and
-// mask/fold matrices are not carried over). Second, each tile is fetched
-// with 16-byte loads from every thread before any arithmetic, so a block
-// keeps a whole 64-key tile of K and V in flight. Arithmetic is scalar fp32
-// FMA with fp32 softmax statistics; tensor cores (mma/wgmma) and TMA
-// pipelines are left for later work.
+// Two pool element types (infer.kv_dtype): bf16, and int8 lanes holding
+// fp8-e4m3 bits. An e4m3 pool is read 8 bytes (8 values) at a time and
+// converted to bf16 with the card's native e4m3 convert before it reaches
+// shared memory (e4m3 values are exact in bf16), so everything after the
+// load is the bf16 kernel. The appends (B1's in-kernel append, B2's append
+// launch, the latent B1's) write e4m3 bytes equal to the JAX package's
+// encode: round to nearest even, NaN (sign | 0x7F) for NaN, infinities and
+// magnitudes above 464, never a saturated 448. The fused decode attends its
+// new token at the value its e4m3 bytes hold, as the TPU kernel does.
 //
-// The TPU grid runs in order, and the fused packed-prefill kernel relies on
-// that: block b+1 of a segment reads the rows block b appended. Blocks on
-// Hopper run in any order, so B2 is two launches on one stream: the append
-// of every live row, then the attention (B3 is that second launch alone:
-// its rows were appended before it). The fused decode kernel never reads
-// back the row it writes: the new token's column comes from the input k/v,
-// as on the TPU (pallas_attention.py:652-679); B4 reads it from the pool,
-// where the plain append of the same step wrote it.
-//
-// Every entry returns cudaGetLastError() after its launch (0 = launched);
-// the wrappers raise on anything else.
-
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 typedef __nv_bfloat16 bf16;
+typedef uint8_t e4m3;  // a pool lane holding fp8-e4m3 bits
 
 namespace {
 
 constexpr int BK = 64;  // keys per shared-memory tile
+
+// ---------------------------------------------------------------------------
+// Pool element access, 8 values at a time: Raw is what 8 pool lanes occupy
+// (16 bytes of bf16, 8 bytes of e4m3); the kernels load Raw, convert it to
+// 8 bf16 (a uint4) with to_bf16, and store 8 bf16 as Raw with from_bf16.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t e4m3x2_to_bf16x2(uint32_t pair) {
+  const __half2_raw hr =
+      __nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)pair, __NV_E4M3);
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&hr));
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f.x, f.y);  // exact
+  return *reinterpret_cast<const uint32_t*>(&b);
+}
+
+// the JAX package's encode of one value: NaN codes beyond 464
+__device__ __forceinline__ uint32_t e4m3_byte(float f) {
+  if (!(fabsf(f) <= 464.f)) return (__float_as_uint(f) >> 31) ? 0xFFu : 0x7Fu;
+  return (uint32_t)__nv_cvt_float_to_fp8(f, __NV_SATFINITE, __NV_E4M3);
+}
+
+template <typename PT>
+struct PoolIO;
+
+template <>
+struct PoolIO<bf16> {
+  typedef uint4 Raw;
+  static __device__ __forceinline__ Raw load(const bf16* p) {
+    return *reinterpret_cast<const uint4*>(p);
+  }
+  static __device__ __forceinline__ void store(bf16* p, Raw r) {
+    *reinterpret_cast<uint4*>(p) = r;
+  }
+  static __device__ __forceinline__ uint4 to_bf16(Raw r) { return r; }
+  static __device__ __forceinline__ Raw from_bf16(uint4 v) { return v; }
+  static __device__ __forceinline__ Raw zero() {
+    return make_uint4(0u, 0u, 0u, 0u);
+  }
+};
+
+template <>
+struct PoolIO<e4m3> {
+  typedef uint2 Raw;
+  static __device__ __forceinline__ Raw load(const e4m3* p) {
+    return *reinterpret_cast<const uint2*>(p);
+  }
+  static __device__ __forceinline__ void store(e4m3* p, Raw r) {
+    *reinterpret_cast<uint2*>(p) = r;
+  }
+  static __device__ __forceinline__ uint4 to_bf16(Raw r) {
+    return make_uint4(e4m3x2_to_bf16x2(r.x & 0xFFFFu), e4m3x2_to_bf16x2(r.x >> 16),
+                      e4m3x2_to_bf16x2(r.y & 0xFFFFu), e4m3x2_to_bf16x2(r.y >> 16));
+  }
+  static __device__ __forceinline__ Raw from_bf16(uint4 v) {
+    const bf16* h = reinterpret_cast<const bf16*>(&v);
+    uint32_t w[2];
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      w[j] = 0u;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[j] |= e4m3_byte(__bfloat162float(h[4 * j + i])) << (8 * i);
+    }
+    return make_uint2(w[0], w[1]);
+  }
+  static __device__ __forceinline__ Raw zero() { return make_uint2(0u, 0u); }
+};
+
+__device__ __forceinline__ uint4 ld16(const bf16* p) {
+  return *reinterpret_cast<const uint4*>(p);
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -102,38 +167,37 @@ __device__ __forceinline__ float online_update(float& m, float& l, float s0,
 
 // ---------------------------------------------------------------------------
 // Shared-memory staging of one 64-key tile: every thread issues all of its
-// 16-byte loads before it stores any, so a block keeps the whole tile of
-// K and V in flight. K rows are padded by one bf16 pair (KS = D + 2) so
-// that lanes reading the same column of consecutive rows hit distinct
-// banks; V rows are dense (lanes read consecutive columns of one row).
-// src(r, &k, &v) gives the global 16-byte chunk pointers of tile row r.
+// loads (16 bytes of bf16 or 8 of e4m3 each) before it converts and stores
+// any, so a block keeps the whole tile of K and V in flight. K rows are
+// padded by one bf16 pair (KS = D + 2) so that lanes reading the same
+// column of consecutive rows hit distinct banks; V rows are dense (lanes
+// read consecutive columns of one row). src(r, c, k, v) loads chunk c (8
+// values) of tile row r's K and V.
 // ---------------------------------------------------------------------------
 
-template <int D, int NT, typename Src>
+template <int D, int NT, typename PT, typename Src>
 __device__ __forceinline__ void stage_tile(bf16* ks, bf16* vs, int n, int tid,
                                            Src src) {
+  using IO = PoolIO<PT>;
   constexpr int CH = D / 8, KS = D + 2, PER = BK * CH / NT;
-  uint4 kr[PER], vr[PER];
+  static_assert(BK * CH % NT == 0, "tile chunks");
+  typename IO::Raw kr[PER], vr[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = tid + i * NT, r = e / CH, c = e % CH;
-    if (r < n) {
-      const uint4 *kp, *vp;
-      src(r, kp, vp);
-      kr[i] = kp[c];
-      vr[i] = vp[c];
-    }
+    if (r < n) src(r, c, kr[i], vr[i]);
   }
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int e = tid + i * NT, r = e / CH, c = e % CH;
     if (r < n) {
+      const uint4 kv = IO::to_bf16(kr[i]);
       uint32_t* kd = reinterpret_cast<uint32_t*>(ks + r * KS + c * 8);
-      kd[0] = kr[i].x;
-      kd[1] = kr[i].y;
-      kd[2] = kr[i].z;
-      kd[3] = kr[i].w;
-      reinterpret_cast<uint4*>(vs + r * D)[c] = vr[i];
+      kd[0] = kv.x;
+      kd[1] = kv.y;
+      kd[2] = kv.z;
+      kd[3] = kv.w;
+      reinterpret_cast<uint4*>(vs + r * D)[c] = IO::to_bf16(vr[i]);
     }
   }
 }
@@ -175,21 +239,32 @@ constexpr int DEC_WARPS = 4;
 constexpr int DEC_HPW = 4;  // heads per warp -> G <= 16
 
 template <int D>
+constexpr size_t decode_smem_bytes() {
+  return size_t(BK) * (D + 2) * 2                 // ks (padded rows)
+         + size_t(BK) * D * 2                     // vs
+         + size_t(DEC_WARPS * DEC_HPW) * D * 4    // qs (f32)
+         + size_t(DEC_WARPS) * BK * 4;            // ps
+}
+
+template <int D, typename PT>
 __global__ void __launch_bounds__(DEC_WARPS * 32)
-decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
+decode_kernel(const bf16* __restrict__ q, PT* __restrict__ pool,
               const bf16* __restrict__ knew, const bf16* __restrict__ vnew,
               const int* __restrict__ block_tables,
               const int* __restrict__ seq_lens,
               const uint8_t* __restrict__ valid, bf16* __restrict__ out,
               int fused, int layer, int P, int page, int M, int mp, int KV,
               int G, float scale, int window, float softcap) {
+  using IO = PoolIO<PT>;
+  using Raw = typename IO::Raw;
   constexpr int DPL = D / 32;
-  constexpr int CH = D / 8;  // 16-byte chunks in one head's row slice
+  constexpr int CH = D / 8;  // 8-value chunks in one head's row slice
   constexpr int NT = DEC_WARPS * 32;
-  __shared__ __align__(16) bf16 ks[BK * (D + 2)];
-  __shared__ __align__(16) bf16 vs[BK * D];
-  __shared__ __align__(16) float qs[DEC_WARPS * DEC_HPW][D];
-  __shared__ float ps[DEC_WARPS][BK];
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* ks = reinterpret_cast<bf16*>(smem);                  // [BK][D + 2]
+  bf16* vs = ks + BK * (D + 2);                              // [BK][D]
+  float* qs = reinterpret_cast<float*>(vs + BK * D);         // [16][D]
+  float* ps = qs + DEC_WARPS * DEC_HPW * D;                  // [4][BK]
 
   const int b = blockIdx.x, h = blockIdx.y;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -202,8 +277,7 @@ decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
   const bf16* vrow = vnew + (int64_t(b) * KV + h) * D;
 
   for (int e = tid; e < G * D; e += NT)
-    qs[e / D][e % D] =
-        __bfloat162float(q[(int64_t(b) * H + h * G + e / D) * D + e % D]);
+    qs[e] = __bfloat162float(q[(int64_t(b) * H + h * G + e / D) * D + e % D]);
 
   float acc[DEC_HPW][DPL], m[DEC_HPW], l[DEC_HPW];
 #pragma unroll
@@ -217,18 +291,18 @@ decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
   for (int t0 = lo; t0 < hi; t0 += BK) {
     const int n = min(BK, hi - t0);
     __syncthreads();  // the previous tile is consumed (and qs is staged)
-    stage_tile<D, NT>(ks, vs, n, tid,
-                      [&](int r, const uint4*& kp, const uint4*& vp) {
+    stage_tile<D, NT, PT>(ks, vs, n, tid, [&](int r, int c, Raw& kr, Raw& vr) {
       const int pos = t0 + r;
       if (pos < tot || !fused) {
         const int pi = pos / page;
         const int pid = pi < mp ? max(bt[pi], 0) : 0;
-        const bf16* row = pool + row_offset(layer, P, page, M, pid, pos % page);
-        kp = reinterpret_cast<const uint4*>(row + h * D);
-        vp = reinterpret_cast<const uint4*>(row + khalf + h * D);
-      } else {  // the new token, from the input (never read back)
-        kp = reinterpret_cast<const uint4*>(krow);
-        vp = reinterpret_cast<const uint4*>(vrow);
+        const PT* row = pool + row_offset(layer, P, page, M, pid, pos % page);
+        kr = IO::load(row + h * D + c * 8);
+        vr = IO::load(row + khalf + h * D + c * 8);
+      } else {  // the new token, from the input (never read back), at the
+                // value its pool encoding holds
+        kr = IO::from_bf16(ld16(krow + c * 8));
+        vr = IO::from_bf16(ld16(vrow + c * 8));
       }
     });
     __syncthreads();
@@ -238,7 +312,7 @@ decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
       const int g = warp + i * DEC_WARPS;
       if (g < G) {  // warp-uniform
         float sv[2];
-        tile_scores<D>(ks, qs[g], lane, sv[0], sv[1]);
+        tile_scores<D>(ks, qs + g * D, lane, sv[0], sv[1]);
 #pragma unroll
         for (int kk = 0; kk < 2; ++kk) {
           const int j = lane + 32 * kk, pos = t0 + j;
@@ -248,13 +322,13 @@ decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
         }
         float p0, p1;
         const float alpha = online_update(m[i], l[i], sv[0], sv[1], p0, p1);
-        ps[warp][lane] = p0;
-        ps[warp][lane + 32] = p1;
+        ps[warp * BK + lane] = p0;
+        ps[warp * BK + lane + 32] = p1;
         __syncwarp();
 #pragma unroll
         for (int d = 0; d < DPL; ++d) acc[i][d] *= alpha;
         for (int j = 0; j < n; ++j) {
-          const float p = ps[warp][j];
+          const float p = ps[warp * BK + j];
 #pragma unroll
           for (int d = 0; d < DPL; ++d)
             acc[i][d] += p * __bfloat162float(vs[j * D + lane * DPL + d]);
@@ -281,18 +355,14 @@ decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
     const int pi = tot / page;
     const int pid = pi < mp ? bt[pi] : -1;
     if (pid >= 0 && pid < P) {
-      bf16* row = pool + row_offset(layer, P, page, M, pid, tot % page);
-      for (int c = tid; c < CH; c += DEC_WARPS * 32) {
-        reinterpret_cast<uint4*>(row + h * D)[c] =
-            reinterpret_cast<const uint4*>(knew + (int64_t(b) * KV + h) * D)[c];
-        reinterpret_cast<uint4*>(row + khalf + h * D)[c] =
-            reinterpret_cast<const uint4*>(vnew + (int64_t(b) * KV + h) * D)[c];
+      PT* row = pool + row_offset(layer, P, page, M, pid, tot % page);
+      for (int c = tid; c < CH; c += NT) {
+        IO::store(row + h * D + c * 8, IO::from_bf16(ld16(krow + c * 8)));
+        IO::store(row + khalf + h * D + c * 8, IO::from_bf16(ld16(vrow + c * 8)));
       }
-      if (h == 0) {
-        const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-        for (int e = 2 * khalf + tid * 8; e < M; e += DEC_WARPS * 32 * 8)
-          *reinterpret_cast<uint4*>(row + e) = zero;
-      }
+      if (h == 0)
+        for (int e = 2 * khalf + tid * 8; e < M; e += NT * 8)
+          IO::store(row + e, IO::zero());
     }
   }
 }
@@ -304,7 +374,8 @@ decode_kernel(const bf16* __restrict__ q, bf16* __restrict__ pool,
 // total), else nothing is written.
 // ---------------------------------------------------------------------------
 
-__global__ void append_packed_kernel(bf16* __restrict__ pool,
+template <typename PT>
+__global__ void append_packed_kernel(PT* __restrict__ pool,
                                      const bf16* __restrict__ k,
                                      const bf16* __restrict__ v,
                                      const int* __restrict__ bts,
@@ -313,6 +384,7 @@ __global__ void append_packed_kernel(bf16* __restrict__ pool,
                                      const int* __restrict__ total_lens,
                                      int Tq, int layer, int P, int page,
                                      int M, int mp, int khalf) {
+  using IO = PoolIO<PT>;
   const int t = blockIdx.x, b = t / Tq;
   const int seg = block_seg[b];
   if (seg < 0) return;
@@ -322,15 +394,14 @@ __global__ void append_packed_kernel(bf16* __restrict__ pool,
   if (pi >= mp) return;
   const int pid = bts[int64_t(seg) * mp + pi];
   if (pid < 0 || pid >= P) return;
-  bf16* row = pool + row_offset(layer, P, page, M, pid, pos % page);
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  PT* row = pool + row_offset(layer, P, page, M, pid, pos % page);
   for (int e = threadIdx.x * 8; e < M; e += blockDim.x * 8) {
-    uint4 val = zero;
+    typename IO::Raw val = IO::zero();
     if (e < khalf)
-      val = *reinterpret_cast<const uint4*>(k + int64_t(t) * khalf + e);
+      val = IO::from_bf16(ld16(k + int64_t(t) * khalf + e));
     else if (e < 2 * khalf)
-      val = *reinterpret_cast<const uint4*>(v + int64_t(t) * khalf + e - khalf);
-    *reinterpret_cast<uint4*>(row + e) = val;
+      val = IO::from_bf16(ld16(v + int64_t(t) * khalf + e - khalf));
+    IO::store(row + e, val);
   }
 }
 
@@ -362,9 +433,9 @@ constexpr size_t prefill_smem_bytes() {
          + size_t(BK) * (D + 2) * 2;  // ks (padded rows)
 }
 
-template <int D>
+template <int D, typename PT>
 __global__ void __launch_bounds__(PF_WARPS * 32)
-prefill_attend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pool,
+prefill_attend_kernel(const bf16* __restrict__ q, const PT* __restrict__ pool,
                       const int* __restrict__ bts,
                       const int* __restrict__ q_pos,
                       const int* __restrict__ block_seg,
@@ -373,6 +444,7 @@ prefill_attend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pool,
                       bf16* __restrict__ out, int packed, int Tq, int BQ,
                       int layer, int P, int page, int M, int mp, int KV,
                       int G, float scale, int window, float softcap) {
+  using IO = PoolIO<PT>;
   constexpr int DPL = D / 32;
   constexpr int CH = D / 8;
   constexpr int KS = D + 2;  // padded K row (elements)
@@ -446,9 +518,9 @@ prefill_attend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pool,
       const int r = e / CH, c = e % CH, pos = t0 + r;
       const int pi = pos / page;
       const int pid = pi < mp ? max(bt[pi], 0) : 0;
-      const bf16* row = pool + row_offset(layer, P, page, M, pid, pos % page);
-      const uint4 kv = reinterpret_cast<const uint4*>(row + h * D)[c];
-      const uint4 vv = reinterpret_cast<const uint4*>(row + khalf + h * D)[c];
+      const PT* row = pool + row_offset(layer, P, page, M, pid, pos % page);
+      const uint4 kv = IO::to_bf16(IO::load(row + h * D + c * 8));
+      const uint4 vv = IO::to_bf16(IO::load(row + khalf + h * D + c * 8));
       uint32_t* kd = reinterpret_cast<uint32_t*>(ks + r * KS + c * 8);
       kd[0] = kv.x;
       kd[1] = kv.y;
@@ -527,7 +599,7 @@ prefill_attend_kernel(const bf16* __restrict__ q, const bf16* __restrict__ pool,
   }
 }
 
-template <int D>
+template <int D, typename PT>
 int launch_prefill(const void* q, const void* pool, const void* bts,
                    const void* q_pos, const void* block_seg,
                    const void* block_qstart, const void* total_lens,
@@ -539,14 +611,14 @@ int launch_prefill(const void* q, const void* pool, const void* bts,
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        prefill_attend_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
+        prefill_attend_kernel<D, PT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
     if (e != cudaSuccess) return int(e);
     attr_set = true;
   }
   dim3 grid(T / BQ, KV);
-  prefill_attend_kernel<D><<<grid, PF_WARPS * 32, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(pool),
+  prefill_attend_kernel<D, PT><<<grid, PF_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const PT*>(pool),
       static_cast<const int*>(bts), static_cast<const int*>(q_pos),
       static_cast<const int*>(block_seg),
       static_cast<const int*>(block_qstart),
@@ -555,6 +627,45 @@ int launch_prefill(const void* q, const void* pool, const void* bts,
   return int(cudaGetLastError());
 }
 
+template <int D, typename PT>
+int launch_decode(const void* q, void* pool, const void* k, const void* v,
+                  const void* block_tables, const void* seq_lens,
+                  const void* valid, void* out, int fused, int B, int layer,
+                  int P, int page, int M, int mp, int KV, int G, float scale,
+                  int window, float softcap, cudaStream_t stream) {
+  const size_t smem = decode_smem_bytes<D>();
+  static bool attr_set = false;
+  if (!attr_set) {
+    cudaError_t e = cudaFuncSetAttribute(
+        decode_kernel<D, PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
+    if (e != cudaSuccess) return int(e);
+    attr_set = true;
+  }
+  dim3 grid(B, KV);
+  decode_kernel<D, PT><<<grid, DEC_WARPS * 32, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<PT*>(pool),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
+      static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), fused,
+      layer, P, page, M, mp, KV, G, scale, window, softcap);
+  return int(cudaGetLastError());
+}
+
+template <typename PT>
+int launch_append_packed(void* pool, const void* k, const void* v,
+                         const void* bts, const void* block_seg,
+                         const void* block_qstart, const void* total_lens,
+                         int T, int Tq, int layer, int P, int page, int M,
+                         int mp, int khalf, cudaStream_t stream) {
+  append_packed_kernel<PT><<<T, 128, 0, stream>>>(
+      static_cast<PT*>(pool), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<const int*>(bts),
+      static_cast<const int*>(block_seg),
+      static_cast<const int*>(block_qstart),
+      static_cast<const int*>(total_lens), Tq, layer, P, page, M, mp, khalf);
+  return int(cudaGetLastError());
+}
 
 // ---------------------------------------------------------------------------
 // The MLA merged latent row (B1, B3, B4 and B5 with split_kv=False).
@@ -576,8 +687,10 @@ int launch_prefill(const void* q, const void* pool, const void* bts,
 // 4w..4w+3 (probabilities rounded to bf16 for the next product); then
 // O[32 x 512] += P V, warp w the 16 x 128 block (w / 4, w % 4) in
 // registers, rescaled row by row (the accumulator's row of each register
-// is fixed by the mma layout). Not done yet: split K over a long context at
-// batch 1, TMA and wgmma.
+// is fixed by the mma layout). An e4m3 pool's tile arrives as bytes (64 x
+// 576, 36 KB) by cp.async into a byte tile, and every thread then converts
+// its chunks into the bf16 K=V tile once, before the products read it.
+// Not done yet: split K over a long context at batch 1, TMA and wgmma.
 // ---------------------------------------------------------------------------
 
 constexpr int LQK = 576;        // live lanes of a latent row (score dims)
@@ -590,6 +703,11 @@ constexpr int LPLD = BK + 8;    // row stride of the probability tile (bf16)
 constexpr size_t LATENT_SMEM =
     size_t(LR) * LLD * 2 + size_t(BK) * LLD * 2 + size_t(LR) * LSLD * 4 +
     size_t(LR) * LPLD * 2 + 2 * LR * 4;
+// an e4m3 pool adds the byte tile the staging lands in
+template <typename PT>
+constexpr size_t latent_smem_bytes() {
+  return LATENT_SMEM + (std::is_same<PT, e4m3>::value ? size_t(BK) * LQK : 0);
+}
 
 enum LatentMode { L_DECODE_FUSED = 0, L_DECODE = 1, L_PREFILL = 2, L_PACKED = 3 };
 
@@ -621,8 +739,9 @@ __device__ __forceinline__ void ldsm_x4_trans(const bf16* p, uint32_t& r0,
       : "r"(a));
 }
 
+template <typename PT>
 __global__ void __launch_bounds__(LWARPS * 32)
-latent_kernel(int mode, const bf16* __restrict__ q, bf16* __restrict__ pool,
+latent_kernel(int mode, const bf16* __restrict__ q, PT* __restrict__ pool,
               const bf16* __restrict__ knew, const int* __restrict__ bts,
               const int* __restrict__ pos_in,  // seq_lens [B] or q_pos [T]
               const uint8_t* __restrict__ valid,
@@ -632,6 +751,8 @@ latent_kernel(int mode, const bf16* __restrict__ q, bf16* __restrict__ pool,
               bf16* __restrict__ out, int Tq, int H, int HT, int layer, int P,
               int page, int M, int mp, float scale, int window,
               float softcap) {
+  using IO = PoolIO<PT>;
+  constexpr bool FP8 = std::is_same<PT, e4m3>::value;
   extern __shared__ __align__(16) unsigned char smem[];
   bf16* qs = reinterpret_cast<bf16*>(smem);                // [LR][LLD]
   bf16* ks = qs + LR * LLD;                                // [BK][LLD]
@@ -639,6 +760,7 @@ latent_kernel(int mode, const bf16* __restrict__ q, bf16* __restrict__ pool,
   bf16* ps = reinterpret_cast<bf16*>(ss + LR * LSLD);      // [LR][LPLD]
   float* alpha_s = reinterpret_cast<float*>(ps + LR * LPLD);  // [LR]
   float* l_s = alpha_s + LR;                                  // [LR]
+  e4m3* kb = reinterpret_cast<e4m3*>(smem + LATENT_SMEM);     // [BK][LQK]
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t4 = lane & 3;
@@ -711,26 +833,40 @@ latent_kernel(int mode, const bf16* __restrict__ q, bf16* __restrict__ pool,
   for (int t0 = kstart; t0 < kend; t0 += BK) {
     const int n = min(BK, kend - t0);
     __syncthreads();  // the previous tile is consumed (and qs is staged)
+    // 8 lanes a chunk: 16 bytes of bf16 straight into the K=V tile, or
+    // 8 bytes of e4m3 into the byte tile
     for (int e = tid; e < BK * (LQK / 8); e += LWARPS * 32) {
       const int r = e / (LQK / 8), c = e % (LQK / 8);
-      bf16* dst = ks + r * LLD + c * 8;
       const int pos = t0 + r;
+      PT* dst;
+      if constexpr (FP8)
+        dst = kb + r * LQK + c * 8;
+      else
+        dst = ks + r * LLD + c * 8;
       if (r >= n) {
-        *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
+        IO::store(dst, IO::zero());
       } else if (mode == L_DECODE_FUSED && pos == q_start) {
-        *reinterpret_cast<uint4*>(dst) =
-            reinterpret_cast<const uint4*>(knew + int64_t(t_base) * LQK)[c];
+        // the new token at the value its pool encoding holds
+        IO::store(dst, IO::from_bf16(ld16(knew + int64_t(t_base) * LQK + c * 8)));
       } else {
         const int pi = pos / page;
         const int pid = pi < mp ? max(bt[pi], 0) : 0;
         __pipeline_memcpy_async(
             dst, pool + row_offset(layer, P, page, M, pid, pos % page) + c * 8,
-            16);
+            sizeof(typename IO::Raw));
       }
     }
     __pipeline_commit();
     __pipeline_wait_prior(0);
     __syncthreads();
+    if constexpr (FP8) {  // the byte tile -> the bf16 tile, once
+      for (int e = tid; e < BK * (LQK / 8); e += LWARPS * 32) {
+        const int r = e / (LQK / 8), c = e % (LQK / 8);
+        *reinterpret_cast<uint4*>(ks + r * LLD + c * 8) = IO::to_bf16(
+            *reinterpret_cast<const typename IO::Raw*>(kb + r * LQK + c * 8));
+      }
+      __syncthreads();
+    }
 
     // scores: the warp's 16 x 16 block, 36 k-steps over the live lanes
     float sc[2][4];
@@ -831,17 +967,18 @@ latent_kernel(int mode, const bf16* __restrict__ q, bf16* __restrict__ pool,
     const int pi = q_start / page;
     const int pid = pi < mp ? bt[pi] : -1;
     if (pid >= 0 && pid < P) {
-      bf16* row = pool + row_offset(layer, P, page, M, pid, q_start % page);
+      PT* row = pool + row_offset(layer, P, page, M, pid, q_start % page);
       for (int c = tid; c < M / 8; c += LWARPS * 32) {
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        typename IO::Raw v = IO::zero();
         if (c < LQK / 8)
-          v = reinterpret_cast<const uint4*>(knew + int64_t(t_base) * LQK)[c];
-        reinterpret_cast<uint4*>(row)[c] = v;
+          v = IO::from_bf16(ld16(knew + int64_t(t_base) * LQK + c * 8));
+        IO::store(row + c * 8, v);
       }
     }
   }
 }
 
+template <typename PT>
 int launch_latent(int mode, const void* q, void* pool, const void* knew,
                   const void* bts, const void* pos_in, const void* valid,
                   const void* block_seg, const void* block_qstart,
@@ -854,17 +991,18 @@ int launch_latent(int mode, const void* q, void* pool, const void* knew,
   const int BQ = decode ? 1 : LR / HT;
   if (H % 16 || M < LQK || nrows % BQ || (mode == L_PACKED && Tq % BQ))
     return 100000;
+  const size_t smem = latent_smem_bytes<PT>();
   static bool attr_set = false;
   if (!attr_set) {
     cudaError_t e = cudaFuncSetAttribute(
-        latent_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(LATENT_SMEM));
+        latent_kernel<PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        int(smem));
     if (e != cudaSuccess) return int(e);
     attr_set = true;
   }
   dim3 grid(nrows / BQ, H / HT);
-  latent_kernel<<<grid, LWARPS * 32, LATENT_SMEM, stream>>>(
-      mode, static_cast<const bf16*>(q), static_cast<bf16*>(pool),
+  latent_kernel<PT><<<grid, LWARPS * 32, smem, stream>>>(
+      mode, static_cast<const bf16*>(q), static_cast<PT*>(pool),
       static_cast<const bf16*>(knew), static_cast<const int*>(bts),
       static_cast<const int*>(pos_in), static_cast<const uint8_t*>(valid),
       static_cast<const int*>(block_seg),
@@ -874,28 +1012,52 @@ int launch_latent(int mode, const void* q, void* pool, const void* knew,
   return int(cudaGetLastError());
 }
 
+template <typename T>
+struct Tag {
+  typedef T type;
+};
+
+// f(Tag<pool element type>) for the pool of the call: bf16 or e4m3 bits
+template <typename F>
+int with_pool(int fp8, F f) {
+  return fp8 ? f(Tag<e4m3>()) : f(Tag<bf16>());
+}
+
+// f(integral_constant<head size>) for every head size built
+template <typename F>
+int with_head_dim(int D, F f) {
+  switch (D) {
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 192: return f(std::integral_constant<int, 192>());
+  }
+  return 100000;
+}
+
 }  // namespace
 
 constexpr int kUnsupported = 100000;
-// the one head size built; others wait for the expanded variants
-constexpr int kHeadDim = 128;
+
+// Every entry takes `fp8`: 0 for a bf16 pool, 1 for int8 lanes of e4m3
+// bits. The split-layout entries take head sizes 32, 64, 128 and 192.
 
 extern "C" int chitu_attend_decode_fused(
     const void* q, void* pool, const void* k, const void* v,
     const void* block_tables, const void* seq_lens, const void* valid,
     void* out, int B, int layer, int P, int page, int M, int mp, int KV,
-    int G, int D, float scale, int window, float softcap, void* stream) {
-  if (G > DEC_WARPS * DEC_HPW || D != kHeadDim) return kUnsupported;
-  dim3 grid(B, KV);
-  decode_kernel<kHeadDim>
-      <<<grid, DEC_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q), static_cast<bf16*>(pool),
-          static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-          static_cast<const int*>(block_tables),
-          static_cast<const int*>(seq_lens),
-          static_cast<const uint8_t*>(valid), static_cast<bf16*>(out), 1,
-          layer, P, page, M, mp, KV, G, scale, window, softcap);
-  return int(cudaGetLastError());
+    int G, int D, float scale, int window, float softcap, int fp8,
+    void* stream) {
+  if (G > DEC_WARPS * DEC_HPW) return kUnsupported;
+  return with_pool(fp8, [&](auto pt) {
+    using PT = typename decltype(pt)::type;
+    return with_head_dim(D, [&](auto d) {
+      return launch_decode<decltype(d)::value, PT>(
+          q, pool, k, v, block_tables, seq_lens, valid, out, 1, B, layer, P,
+          page, M, mp, KV, G, scale, window, softcap,
+          static_cast<cudaStream_t>(stream));
+    });
+  });
 }
 
 extern "C" int chitu_attend_decode(const void* q, const void* pool,
@@ -903,18 +1065,18 @@ extern "C" int chitu_attend_decode(const void* q, const void* pool,
                                    const void* seq_lens, void* out, int B,
                                    int layer, int P, int page, int M, int mp,
                                    int KV, int G, int D, float scale,
-                                   int window, float softcap, void* stream) {
-  if (G > DEC_WARPS * DEC_HPW || D != kHeadDim) return kUnsupported;
-  dim3 grid(B, KV);
-  decode_kernel<kHeadDim>
-      <<<grid, DEC_WARPS * 32, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const bf16*>(q),
-          const_cast<bf16*>(static_cast<const bf16*>(pool)), nullptr,
-          nullptr, static_cast<const int*>(block_tables),
-          static_cast<const int*>(seq_lens), nullptr,
-          static_cast<bf16*>(out), 0, layer, P, page, M, mp, KV, G, scale,
-          window, softcap);
-  return int(cudaGetLastError());
+                                   int window, float softcap, int fp8,
+                                   void* stream) {
+  if (G > DEC_WARPS * DEC_HPW) return kUnsupported;
+  return with_pool(fp8, [&](auto pt) {
+    using PT = typename decltype(pt)::type;
+    return with_head_dim(D, [&](auto d) {
+      return launch_decode<decltype(d)::value, PT>(
+          q, const_cast<void*>(pool), nullptr, nullptr, block_tables,
+          seq_lens, nullptr, out, 0, B, layer, P, page, M, mp, KV, G, scale,
+          window, softcap, static_cast<cudaStream_t>(stream));
+    });
+  });
 }
 
 extern "C" int chitu_attend_prefill(const void* q, const void* pool,
@@ -923,12 +1085,17 @@ extern "C" int chitu_attend_prefill(const void* q, const void* pool,
                                     int BQ, int layer, int P, int page, int M,
                                     int mp, int KV, int G, int D, int total,
                                     float scale, int window, float softcap,
-                                    void* stream) {
-  if (BQ * G > PF_ROWS || T % BQ || D != kHeadDim) return kUnsupported;
-  return launch_prefill<kHeadDim>(
-      q, pool, block_table, q_pos, nullptr, nullptr, nullptr, total, out, 0,
-      T, T, BQ, layer, P, page, M, mp, KV, G, scale, window, softcap,
-      static_cast<cudaStream_t>(stream));
+                                    int fp8, void* stream) {
+  if (BQ * G > PF_ROWS || T % BQ) return kUnsupported;
+  return with_pool(fp8, [&](auto pt) {
+    using PT = typename decltype(pt)::type;
+    return with_head_dim(D, [&](auto d) {
+      return launch_prefill<decltype(d)::value, PT>(
+          q, pool, block_table, q_pos, nullptr, nullptr, nullptr, total, out,
+          0, T, T, BQ, layer, P, page, M, mp, KV, G, scale, window, softcap,
+          static_cast<cudaStream_t>(stream));
+    });
+  });
 }
 
 extern "C" int chitu_attend_prefill_packed_fused(
@@ -936,38 +1103,41 @@ extern "C" int chitu_attend_prefill_packed_fused(
     const void* block_seg, const void* block_qstart, const void* total_lens,
     void* out, int T, int NB, int BQ, int layer, int P, int page, int M,
     int mp, int KV, int G, int D, float scale, int window, float softcap,
-    void* stream) {
+    int fp8, void* stream) {
   const int Tq = T / NB;
-  if (BQ * G > PF_ROWS || Tq * NB != T || Tq % BQ || D != kHeadDim)
-    return kUnsupported;
+  if (BQ * G > PF_ROWS || Tq * NB != T || Tq % BQ) return kUnsupported;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  append_packed_kernel<<<T, 128, 0, s>>>(
-      static_cast<bf16*>(pool), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const int*>(bts),
-      static_cast<const int*>(block_seg),
-      static_cast<const int*>(block_qstart),
-      static_cast<const int*>(total_lens), Tq, layer, P, page, M, mp, KV * D);
-  const int err = int(cudaGetLastError());
-  if (err) return err;
-  return launch_prefill<kHeadDim>(q, pool, bts, nullptr, block_seg,
-                                  block_qstart, total_lens, 0, out, 1, T, Tq,
-                                  BQ, layer, P, page, M, mp, KV, G, scale,
-                                  window, softcap, s);
+  return with_pool(fp8, [&](auto pt) {
+    using PT = typename decltype(pt)::type;
+    return with_head_dim(D, [&](auto d) {
+      const int err = launch_append_packed<PT>(
+          pool, k, v, bts, block_seg, block_qstart, total_lens, T, Tq, layer,
+          P, page, M, mp, KV * D, s);
+      if (err) return err;
+      return launch_prefill<decltype(d)::value, PT>(
+          q, pool, bts, nullptr, block_seg, block_qstart, total_lens, 0, out,
+          1, T, Tq, BQ, layer, P, page, M, mp, KV, G, scale, window, softcap,
+          s);
+    });
+  });
 }
 
 extern "C" int chitu_attend_prefill_packed(
     const void* q, const void* pool, const void* bts, const void* block_seg,
     const void* block_qstart, const void* total_lens, void* out, int T,
     int NB, int BQ, int layer, int P, int page, int M, int mp, int KV, int G,
-    int D, float scale, int window, float softcap, void* stream) {
+    int D, float scale, int window, float softcap, int fp8, void* stream) {
   const int Tq = T / NB;
-  if (BQ * G > PF_ROWS || Tq * NB != T || Tq % BQ || D != kHeadDim)
-    return kUnsupported;
-  return launch_prefill<kHeadDim>(q, pool, bts, nullptr, block_seg,
-                                  block_qstart, total_lens, 0, out, 1, T, Tq,
-                                  BQ, layer, P, page, M, mp, KV, G, scale,
-                                  window, softcap,
-                                  static_cast<cudaStream_t>(stream));
+  if (BQ * G > PF_ROWS || Tq * NB != T || Tq % BQ) return kUnsupported;
+  return with_pool(fp8, [&](auto pt) {
+    using PT = typename decltype(pt)::type;
+    return with_head_dim(D, [&](auto d) {
+      return launch_prefill<decltype(d)::value, PT>(
+          q, pool, bts, nullptr, block_seg, block_qstart, total_lens, 0, out,
+          1, T, Tq, BQ, layer, P, page, M, mp, KV, G, scale, window, softcap,
+          static_cast<cudaStream_t>(stream));
+    });
+  });
 }
 
 // The merged latent row (kv_heads 1, live width 576, value width 512):
@@ -980,12 +1150,16 @@ extern "C" int chitu_attend_latent(
     const void* pos_in, const void* valid, const void* block_seg,
     const void* block_qstart, const void* total_lens, int total, void* out,
     int nrows, int NB, int H, int layer, int P, int page, int M, int mp,
-    float scale, int window, float softcap, void* stream) {
+    float scale, int window, float softcap, int fp8, void* stream) {
   if (mode < 0 || mode > 3) return kUnsupported;
   const int Tq = mode == 3 ? nrows / NB : nrows;
   if (mode == 3 && Tq * NB != nrows) return kUnsupported;
-  return launch_latent(mode, q, pool, knew, bts, pos_in, valid, block_seg,
-                       block_qstart, total_lens, total, out, nrows, Tq, H,
-                       layer, P, page, M, mp, scale, window, softcap,
-                       static_cast<cudaStream_t>(stream));
+  return with_pool(fp8, [&](auto pt) {
+    using PT = typename decltype(pt)::type;
+    return launch_latent<PT>(mode, q, pool, knew, bts, pos_in, valid,
+                             block_seg, block_qstart, total_lens, total, out,
+                             nrows, Tq, H, layer, P, page, M, mp, scale,
+                             window, softcap,
+                             static_cast<cudaStream_t>(stream));
+  });
 }

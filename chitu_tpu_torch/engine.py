@@ -75,10 +75,6 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
     quant = cfg.quant
     if quant.method not in ("none", "") and quant.method not in KIND_BY_METHOD:
         raise ValueError(f"unknown quant method {quant.method!r}")
-    if cfg.models.type == "deepseek-v3" and infer.mla_absorb == "none":
-        from chitu_tpu_torch.models.deepseek_v3 import MLA_NONE_TODO
-
-        raise NotImplementedError(MLA_NONE_TODO)
     todo = []
     if infer.tp_size > 1 or infer.pp_size > 1 or infer.dp_size > 1:
         todo.append("tp/pp/dp > 1 (slice 7: multi-GPU)")
@@ -94,8 +90,6 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
             "(slice 1, item 9: loader.py, and the AWQ/GPTQ unpack of slice "
             "5); set quant.quant_on_load=true to quantize on load"
         )
-    if infer.kv_dtype != "bf16":
-        todo.append(f"kv_dtype={infer.kv_dtype} (slice 5)")
     if infer.spec_decode:
         todo.append("spec_decode (slice 6)")
     if infer.prefix_cache:
@@ -204,7 +198,8 @@ class Engine:
             page_size,
             spec["kv_heads"],
             spec["head_dim"],
-            dtype=torch.bfloat16,
+            # fp8 KV: e4m3 bits in int8 lanes (the kernels convert on load)
+            dtype=torch.int8 if cfg.infer.kv_dtype == "fp8" else torch.bfloat16,
             device=self.device,
             kv_dim=spec.get("kv_dim", 0),
             layer_groups=spec.get("layer_groups"),

@@ -119,7 +119,9 @@ class SlotAllocator:
 class PagedKVCache:
     """Device pools + allocator for one model.
 
-    Pool layout: [L, num_pages, page, M]. Split K/V rows (GQA/MHA):
+    Pool layout: [L, num_pages, page, M], bf16, or int8 holding fp8-e4m3
+    bits (`infer.kv_dtype=fp8`: `models.common.kv_encode`). Split K/V rows
+    (GQA/MHA, and DeepSeek's dense MLA with V padded to the K head size):
     M = pad128(2*KV*D), K-half then V-half (ops/attention.pack_kv). The MLA
     merged latent row, where `kv_heads == 0`: M = pad128(kv_dim) (640 lanes
     for kv_dim 576, as in the JAX pool, so pool bytes compare directly).

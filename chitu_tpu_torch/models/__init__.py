@@ -5,7 +5,7 @@ chitu/backend.py:72-84). Ported: the llama family (hf-llama / llama
 cards: Llama-3, Qwen2, R1-Distill, Meta-Llama), Mixtral (mixtral cards:
 Mixtral-8x7B, moe-16x-bench) and the MLA family (deepseek-v3 cards:
 DeepSeek-R1, deepseek-mid-bench, deepseek-mini-bench, tiny-deepseek-debug;
-`mla_absorb=absorb` only).
+`mla_absorb=absorb` and `none`).
 """
 
 from __future__ import annotations

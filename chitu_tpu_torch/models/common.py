@@ -208,22 +208,32 @@ def kv_pool_minor(kv_heads: int, head_dim: int, lane: int = 128) -> int:
     return (c + lane - 1) // lane * lane
 
 
+# the largest magnitude that rounds into e4m3 (448 plus half its ulp of 32):
+# beyond it the JAX package's encode gives NaN, never a saturated 448
+E4M3_OVERFLOW = 464.0
+
+
 def kv_encode(vals: torch.Tensor, pool_dtype: torch.dtype) -> torch.Tensor:
-    """Encode KV rows for the pool. Only the bf16/f32 pools of this slice
-    exist; the fp8 (int8-bits) pool waits for a later slice."""
+    """Encode KV rows for the pool. int8 pools hold fp8-e4m3 BITS
+    (infer.kv_dtype=fp8), byte for byte the JAX package's encode: round
+    to nearest even, and NaN (sign | 0x7F) for NaN, infinities and every
+    magnitude above 464, where torch's own cast saturates to +-448."""
     if pool_dtype == torch.int8:
-        raise NotImplementedError(
-            "kv_dtype=fp8 pools are not ported yet (ROADMAP queue A, slice 5)"
+        bits = vals.to(torch.float8_e4m3fn).view(torch.int8)
+        over = ~(vals.abs() <= E4M3_OVERFLOW)  # NaN included
+        nan = torch.where(
+            torch.signbit(vals), torch.tensor(-1, dtype=torch.int8),
+            torch.tensor(127, dtype=torch.int8),
         )
+        return torch.where(over, nan.to(vals.device), bits)
     return vals.to(pool_dtype)
 
 
 def kv_decode(x: torch.Tensor, out_dtype=torch.bfloat16) -> torch.Tensor:
-    """Inverse of kv_encode."""
+    """Inverse of kv_encode (int8 bits -> e4m3 value -> out_dtype; the
+    NaN codes give NaN)."""
     if x.dtype == torch.int8:
-        raise NotImplementedError(
-            "kv_dtype=fp8 pools are not ported yet (ROADMAP queue A, slice 5)"
-        )
+        return x.view(torch.float8_e4m3fn).to(out_dtype)
     return x if x.dtype == out_dtype else x.to(out_dtype)
 
 

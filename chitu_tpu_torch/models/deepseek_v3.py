@@ -30,9 +30,14 @@ The weights are the JAX package's tree: {"embed", "norm", "lm_head",
 dense or `QTensor`, split or merged (`wq_kv_a`, `shared_gu`, `exp_gu`),
 kept as two dicts on the module. The KV pools are updated IN PLACE.
 
-Not ported yet: `mla_absorb=none` (the dense per-head path needs head_dim
-192 on the split-K/V layout, ROADMAP queue B item 5), the ring and
-pipeline paths, and the DeepSeek checkpoint adapter (with loader.py).
+`mla_absorb=none` (reference dense paths: :612-670) materializes per-head
+K = [k_nope | k_pe] and V through the whole `wkv_b` (`linear`, no B9) and
+runs plain multi-head attention on the split K/V layout at head_dim 192,
+V padded from 128 to 192 lanes in the pool row: the same four kernels at
+that head size (`_mla_dense`). The param tree is the absorb path's.
+
+Not ported yet: the ring and pipeline paths, and the DeepSeek checkpoint
+adapter (with loader.py).
 """
 
 from __future__ import annotations
@@ -63,11 +68,6 @@ from chitu_tpu_torch.ops.linear import linear, matmul_out_dtype
 from chitu_tpu_torch.ops.qtensor import QTensor
 from chitu_tpu_torch.utils import resolve_device
 
-MLA_NONE_TODO = (
-    "infer.mla_absorb=none is not ported yet (ROADMAP queue B, item 5: the "
-    "dense MLA path needs head_dim 192 on the split-K/V layout, with the "
-    "expanded head sizes); use mla_absorb=absorb"
-)
 STACKS = ("dense_layers", "moe_layers")
 POOLS = {"dense_layers": "kv_dense", "moe_layers": "kv_moe"}
 
@@ -84,20 +84,20 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 "tp_size/pp_size > 1 are not ported yet (ROADMAP queue A, "
                 "slice 7: multi-GPU)"
             )
-        if infer.mla_absorb == "none":
-            raise NotImplementedError(MLA_NONE_TODO)
         self.args = args
         self.cfg = cfg
         self.device = resolve_device(device)
         self.mla = m = args.mla
         self.moe = args.moe
-        self.absorb = True
+        # mla_absorb=none: the dense per-head path (the cache holds K and
+        # V padded to qk_head_dim per head); absorb is the production path
+        self.absorb = infer.mla_absorb != "none"
         self.qk_head_dim = m.qk_nope_head_dim + m.qk_rope_head_dim
         self.kv_dim = m.kv_lora_rank + m.qk_rope_head_dim
         self.kv_minor = pad_kv_minor(1, self.kv_dim)
         # the attention width the executor's slab geometry reads, as in
         # the JAX model
-        self.head_dim = self.kv_minor
+        self.head_dim = self.kv_minor if self.absorb else self.qk_head_dim
         self.n_dense = self.moe.n_dense_layers
         self.n_moe = args.n_layers - self.n_dense
 
@@ -128,6 +128,16 @@ class DeepSeekV3ForCausalLM(nn.Module):
     # -- cache geometry -----------------------------------------------------
 
     def kv_cache_spec(self) -> Dict[str, Any]:
+        groups = {"kv_dense": self.n_dense, "kv_moe": self.n_moe}
+        if not self.absorb:
+            # dense MLA: per-head K/V rows (V padded to qk_head_dim)
+            return dict(
+                n_layers=self.args.n_layers,
+                kv_heads=self.args.n_heads,
+                head_dim=self.qk_head_dim,
+                kv_dim=0,
+                layer_groups=groups,
+            )
         # merged-MLA cache: one latent row a token shared across heads
         # (reference: backend.py:186-197)
         return dict(
@@ -281,16 +291,12 @@ class DeepSeekV3ForCausalLM(nn.Module):
 
     # -- attention ----------------------------------------------------------
 
-    def _mla(self, x, lp, layer: int, cos, sin, attend):
-        """MLA absorb forward of a [T, D] slab through one layer of the
-        stack `lp`; `attend(q [T, H, 576], kv [T, 1, 576], layer)` appends
-        the latent rows and returns the value lanes [T, H, kv_lora_rank]."""
+    def _mla_qkv(self, x, lp, layer: int, cos, sin):
+        """-> q_nope [T, H, dn], q_pe [T, H, dr] (rotated), c_kv [T, dc]
+        (normed), k_pe [T, dr] (rotated) of a [T, D] slab."""
         a, m = self.args, self.mla
         T = x.shape[0]
-        H = a.n_heads
-        dn, dv, dc, ql = (
-            m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank, m.q_lora_rank,
-        )
+        dn, dc, ql = m.qk_nope_head_dim, m.kv_lora_rank, m.q_lora_rank
         eps = a.norm_eps
         if "wq_kv_a" in lp:
             # merged lora down-projections: one GEMM yields [q_a | kv_a]
@@ -310,11 +316,22 @@ class DeepSeekV3ForCausalLM(nn.Module):
         else:
             q = linear(x, lp["wq"], layer=layer)
             kv_a = linear(x, lp["wkv_a"], layer=layer)
-        q = q.reshape(T, H, self.qk_head_dim)
-        q_nope = q[..., :dn]
+        q = q.reshape(T, a.n_heads, self.qk_head_dim)
         q_pe = apply_rope(q[..., dn:], cos, sin, self.rotary_layout)
         c_kv = rms_norm(kv_a[:, :dc], lp["kv_norm"][layer], eps)
         k_pe = apply_rope(kv_a[:, None, dc:], cos, sin, self.rotary_layout)[:, 0]
+        return q[..., :dn], q_pe, c_kv, k_pe
+
+    def _mla(self, x, lp, layer: int, cos, sin, attend):
+        """MLA absorb forward of a [T, D] slab through one layer of the
+        stack `lp`; `attend(q [T, H, 576], k [T, 1, 576], None, layer)`
+        appends the latent rows and returns the value lanes
+        [T, H, kv_lora_rank]."""
+        m = self.mla
+        T = x.shape[0]
+        H = self.args.n_heads
+        dn, dv, dc = m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
+        q_nope, q_pe, c_kv, k_pe = self._mla_qkv(x, lp, layer, cos, sin)
 
         wkv_b = lp["wkv_b"]
         kernel = (
@@ -336,7 +353,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         # live lanes [q_abs | q_pe]
         new_kv = torch.cat([c_kv, k_pe], dim=-1)[:, None, :]
         q_full = torch.cat([q_abs, q_pe], dim=-1)
-        o = attend(q_full, new_kv, layer)  # [T, H, dc]
+        o = attend(q_full, new_kv, None, layer)  # [T, H, dc]
 
         if kernel:
             v_out = absorb_matmul(o, wkv_b, layer, "uv", dn, dv)
@@ -344,7 +361,30 @@ class DeepSeekV3ForCausalLM(nn.Module):
             v_out = torch.einsum("thc,chd->thd", o, w_b[..., dn:])
         return linear(v_out.reshape(T, H * dv), lp["wo"], layer=layer)
 
+    def _mla_dense(self, x, lp, layer: int, cos, sin, attend):
+        """mla_absorb=none: per-head K/V through the whole `wkv_b`, then
+        multi-head attention at qk_head_dim (reference dense paths:
+        model_deepseek_v3.py:612-670). `attend(q, k, v, layer)` gets
+        q, k [T, H, dn + dr] and V padded to [T, H, dn + dr], and returns
+        [T, H, dn + dr], of which the first v_head_dim lanes are live."""
+        m = self.mla
+        T = x.shape[0]
+        H = self.args.n_heads
+        dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
+        q_nope, q_pe, c_kv, k_pe = self._mla_qkv(x, lp, layer, cos, sin)
+        q = torch.cat([q_nope, q_pe], dim=-1)
+        kv = linear(c_kv, lp["wkv_b"], layer=layer).reshape(T, H, dn + dv)
+        k = torch.cat([kv[..., :dn], k_pe[:, None, :].expand(T, H, dr)], dim=-1)
+        v_pad = F.pad(kv[..., dn:], (0, self.qk_head_dim - dv))
+        o = attend(q, k, v_pad, layer)[..., :dv]
+        return linear(o.reshape(T, H * dv), lp["wo"], layer=layer)
+
     def _attn_kw(self):
+        if not self.absorb:
+            return dict(
+                kv_heads=self.args.n_heads, head_dim=self.qk_head_dim,
+                scale=self.attn_scale,
+            )
         return dict(
             kv_heads=1, head_dim=self.kv_dim, scale=self.attn_scale,
             split_kv=False, v_dim=self.mla.kv_lora_rank,
@@ -384,8 +424,10 @@ class DeepSeekV3ForCausalLM(nn.Module):
     # -- stacks -------------------------------------------------------------
 
     def _forward(self, cache, h, cos, sin, attend):
-        """Both stacks over their pools; `attend(pool, q, kv, layer)`."""
+        """Both stacks over their pools; `attend(pool, q, k, v, layer)`
+        (v None for the latent row)."""
         eps = self.args.norm_eps
+        mla = self._mla if self.absorb else self._mla_dense
         for stack, n, ffn in (
             ("dense_layers", self.n_dense, self._dense_ffn),
             ("moe_layers", self.n_moe, self._moe_ffn),
@@ -393,12 +435,12 @@ class DeepSeekV3ForCausalLM(nn.Module):
             lp = getattr(self, stack)
             pool = cache[POOLS[stack]]
 
-            def att(q, kv, layer, pool=pool):
-                return attend(pool, q, kv, layer)
+            def att(q, k, v, layer, pool=pool):
+                return attend(pool, q, k, v, layer)
 
             for layer in range(n):
                 x = rms_norm(h, lp["attn_norm"][layer], eps)
-                h = h + self._mla(x, lp, layer, cos, sin, att)
+                h = h + mla(x, lp, layer, cos, sin, att)
                 x = rms_norm(h, lp["ffn_norm"][layer], eps)
                 h = h + ffn(x, lp, layer)
         return rms_norm(h, self.norm, eps)
@@ -435,9 +477,9 @@ class DeepSeekV3ForCausalLM(nn.Module):
         cos, sin = self._rope_rows(pos)
         kw = self._attn_kw()
 
-        def attend(pool, q, kv, layer):
+        def attend(pool, q, k, v, layer):
             attn_ops.append_prefill(
-                pool, layer, kv, None, block_table, pos, valid_len, page_size
+                pool, layer, k, v, block_table, pos, valid_len, page_size
             )
             return kernels.attend_prefill(
                 q, pool, layer, block_table, q_pos, total_len, page_size, **kw
@@ -467,9 +509,9 @@ class DeepSeekV3ForCausalLM(nn.Module):
         cos, sin = self._rope_rows(pos)
         kw = self._attn_kw()
 
-        def attend(pool, q, kv, layer):
+        def attend(pool, q, k, v, layer):
             attn_ops.append_prefill_packed(
-                pool, layer, kv, None, block_tables, seg_ids, pos, page_size
+                pool, layer, k, v, block_tables, seg_ids, pos, page_size
             )
             return kernels.attend_prefill_packed(
                 q, pool, layer, block_tables, block_seg, block_qstart,
@@ -504,14 +546,14 @@ class DeepSeekV3ForCausalLM(nn.Module):
         cos, sin = self._rope_rows(torch.cat([dec_seq_lens, pf_pos]))
         kw = self._attn_kw()
 
-        def attend(pool, q, kv, layer):
+        def attend(pool, q, k, v, layer):
             attn_ops.append_decode(
-                pool, layer, kv[:B], None, dec_block_tables, dec_seq_lens,
-                dec_valid, page_size,
+                pool, layer, k[:B], None if v is None else v[:B],
+                dec_block_tables, dec_seq_lens, dec_valid, page_size,
             )
             attn_ops.append_prefill_packed(
-                pool, layer, kv[B:], None, pf_block_tables, pf_seg_ids,
-                pf_pos, page_size,
+                pool, layer, k[B:], None if v is None else v[B:],
+                pf_block_tables, pf_seg_ids, pf_pos, page_size,
             )
             od = kernels.attend_decode(
                 q[:B], pool, layer, dec_block_tables, dec_seq_lens,
@@ -543,9 +585,9 @@ class DeepSeekV3ForCausalLM(nn.Module):
         cos, sin = self._rope_rows(seq_lens)
         kw = self._attn_kw()
 
-        def attend(pool, q, kv, layer):
+        def attend(pool, q, k, v, layer):
             return kernels.attend_decode_fused(
-                q, pool, layer, kv, None, block_tables, seq_lens, valid,
+                q, pool, layer, k, v, block_tables, seq_lens, valid,
                 page_size, **kw,
             )
 

@@ -160,6 +160,12 @@ def attend_prefill(
     return grouped_attention(q, k[0], v[0], mask, scale=scale, softcap=softcap)
 
 
+# f32 elements of one token chunk's gathered K (and V) in the packed
+# oracle: the tokens go in chunks so that a wide pool row (DeepSeek's dense
+# MLA: 128 heads of 192) over a long table stays within memory
+_ORACLE_CHUNK_ELEMS = 1 << 28
+
+
 def _oracle_prefill_packed(
     q, pool, layer, block_tables, seg_ids, pos, total_lens,
     kv_heads, head_dim, scale=None, window=0, softcap=0.0, split_kv=True,
@@ -167,8 +173,6 @@ def _oracle_prefill_packed(
     gathered = _gather(pool, layer, block_tables)  # [R, S, M]
     k, v = unpack_pool(gathered, kv_heads, head_dim, split_kv)
     seg_safe = torch.clamp(seg_ids, min=0).long()
-    kt = k[seg_safe]  # [T, S, KV, D]
-    vt = v[seg_safe]
     T, H, D = q.shape
     S = k.shape[1]
     G = H // kv_heads
@@ -182,15 +186,21 @@ def _oracle_prefill_packed(
     if window > 0:
         mask = mask & (spos > pos[:, None] - window)
     qg = q.reshape(T, kv_heads, G, D).float() * scale
-    scores = torch.einsum("tkgd,tskd->tkgs", qg, kt.float())
-    if softcap > 0.0:
-        scores = torch.tanh(scores / softcap) * softcap
-    scores = torch.where(
-        mask[:, None, None, :], scores, scores.new_tensor(NEG_INF)
-    )
-    p = torch.softmax(scores, dim=-1)
-    out = torch.einsum("tkgs,tskd->tkgd", p, vt.float())
-    return out.reshape(T, H, D).to(q.dtype)
+    step = max(1, _ORACLE_CHUNK_ELEMS // max(S * kv_heads * D, 1))
+    outs = []
+    for t0 in range(0, T, step):
+        sl = slice(t0, t0 + step)
+        kt = k[seg_safe[sl]].float()  # [t, S, KV, D]
+        scores = torch.einsum("tkgd,tskd->tkgs", qg[sl], kt)
+        del kt
+        if softcap > 0.0:
+            scores = torch.tanh(scores / softcap) * softcap
+        scores = torch.where(
+            mask[sl, None, None, :], scores, scores.new_tensor(NEG_INF)
+        )
+        p = torch.softmax(scores, dim=-1)
+        outs.append(torch.einsum("tkgs,tskd->tkgd", p, v[seg_safe[sl]].float()))
+    return torch.cat(outs).reshape(T, H, D).to(q.dtype)
 
 
 def attend_prefill_packed(

@@ -18,16 +18,22 @@ plain C interface, ctypes):
   plain version the oracle `attend_prefill`.
 
 Two geometries, each raising on anything else (`_check_geometry`): split
-K/V rows at head_dim 128 (B1-B5), and the MLA merged latent row
-(`split_kv=False`, B1 and B3-B5): one KV head whose 576 live lanes
+K/V rows at head sizes 32, 64, 128 and 192 (B1-B5; 192 is DeepSeek's
+dense MLA, V padded to 192 lanes in the row), and the MLA merged latent
+row (`split_kv=False`, B1 and B3-B5): one KV head whose 576 live lanes
 [c_kv | k_pe] are the key and whose first 512 (`v_dim`, kv_lora_rank) are
 the value. There q comes at its 576 live lanes and the output holds the
-512 value lanes only, in the kernel and in its plain version alike.
+512 value lanes only, in the kernel and in its plain version alike. Every
+kernel takes a bf16 pool or an int8 pool of fp8-e4m3 bits
+(infer.kv_dtype=fp8); the appends write the JAX package's e4m3 bytes.
 
 A wrapper runs the plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back.
-Each wrapper counts its kernel launches in `LAUNCHES`. The pool is
-updated IN PLACE by B1 and B2 (the JAX kernels alias it and return it).
+Each wrapper counts its kernel launches in `LAUNCHES`, under its own name
+and, for every variant beyond a bf16 pool at head_dim 128, under
+`name[variant]` too (`e4m3`, `d192`, `latent`, `latent,e4m3`, ...). The
+pool is updated IN PLACE by B1 and B2 (the JAX kernels alias it and return
+it).
 """
 
 from __future__ import annotations
@@ -61,6 +67,9 @@ LATENT_QK = 576
 LATENT_DV = 512
 # C entry chitu_attend_latent's modes
 _DECODE_FUSED, _DECODE, _PREFILL, _PACKED = range(4)
+# the split-layout head sizes csrc/attention.cu instantiates
+SPLIT_HEAD_DIMS = (32, 64, 128, 192)
+POOL_DTYPES = (torch.bfloat16, torch.int8)
 
 
 def build_kernels():
@@ -142,20 +151,20 @@ def _lib():
         lib = cuda_build.load("attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.chitu_attend_decode_fused.argtypes = (
-            [P] * 8 + [I] * 9 + [F, I, F, P]
+            [P] * 8 + [I] * 9 + [F, I, F, I, P]
         )
         lib.chitu_attend_prefill.argtypes = (
-            [P] * 5 + [I] * 11 + [F, I, F, P]
+            [P] * 5 + [I] * 11 + [F, I, F, I, P]
         )
         lib.chitu_attend_prefill_packed_fused.argtypes = (
-            [P] * 9 + [I] * 11 + [F, I, F, P]
+            [P] * 9 + [I] * 11 + [F, I, F, I, P]
         )
-        lib.chitu_attend_decode.argtypes = [P] * 5 + [I] * 9 + [F, I, F, P]
+        lib.chitu_attend_decode.argtypes = [P] * 5 + [I] * 9 + [F, I, F, I, P]
         lib.chitu_attend_prefill_packed.argtypes = (
-            [P] * 7 + [I] * 11 + [F, I, F, P]
+            [P] * 7 + [I] * 11 + [F, I, F, I, P]
         )
         lib.chitu_attend_latent.argtypes = (
-            [I] + [P] * 9 + [I, P] + [I] * 8 + [F, I, F, P]
+            [I] + [P] * 9 + [I, P] + [I] * 8 + [F, I, F, I, P]
         )
         for fn in (
             lib.chitu_attend_decode_fused,
@@ -183,9 +192,9 @@ def _check_geometry(
     D: int, M: int, kv_heads: int, H: int, split_kv: bool = True,
     v_dim: Optional[int] = None,
 ):
-    """Accept exactly the two geometries the kernels take: split K/V at
-    head_dim 128, and the merged latent row (one KV head, live width 576,
-    value width 512)."""
+    """Accept exactly the geometries the kernels are built for: split K/V
+    at the head sizes of SPLIT_HEAD_DIMS, and the merged latent row (one
+    KV head, live width 576, value width 512)."""
     if not split_kv:
         if (kv_heads, D, v_dim) != (1, LATENT_QK, LATENT_DV) or H % 16:
             raise NotImplementedError(
@@ -197,14 +206,49 @@ def _check_geometry(
         if M < D:
             raise ValueError(f"pool minor {M} cannot hold a {D}-lane row")
         return
-    if D != 128 or v_dim not in (None, D):
+    if D not in SPLIT_HEAD_DIMS or v_dim not in (None, D):
         raise NotImplementedError(
-            f"head_dim {D}: the CUDA kernels take head_dim 128 only; other "
-            "head sizes wait for the expanded variants (ROADMAP queue B, "
-            "item 5)"
+            f"head_dim {D} (value width {v_dim}): the CUDA kernels take "
+            f"split K/V at head sizes {SPLIT_HEAD_DIMS} with V at the K "
+            "head size; another head size needs its instantiation in "
+            "csrc/attention.cu (with_head_dim)"
         )
     if H % kv_heads or M < 2 * kv_heads * D:
         raise ValueError(f"pool minor {M} cannot hold {kv_heads} K/V heads of {D}")
+
+
+def _check_pool(pool, dev):
+    if pool.dtype not in POOL_DTYPES:
+        raise TypeError(
+            f"pool has dtype {pool.dtype}: the kernels take bf16 or int8 "
+            "(fp8-e4m3 bits)"
+        )
+    _check("pool", pool, pool.dtype, dev)
+    if pool.data_ptr() % 16:  # e4m3 rows load 8 and 16 bytes at a time
+        raise ValueError("pool must be 16-byte aligned")
+    return int(pool.dtype == torch.int8)
+
+
+def variant_name(name, pool, D, split_kv) -> str:
+    """`name[tags]` for a launch beyond a bf16 pool at split head_dim 128
+    (tags: `latent` or `d<head_dim>`, and `e4m3` for an int8 pool), else
+    `name`."""
+    tags = []
+    if not split_kv:
+        tags.append("latent")
+    elif D != 128:
+        tags.append(f"d{D}")
+    if pool.dtype == torch.int8:
+        tags.append("e4m3")
+    return f"{name}[{','.join(tags)}]" if tags else name
+
+
+def _count(name, pool, D, split_kv):
+    """One launch of `name`, and of its variant (`variant_name`)."""
+    LAUNCHES[name] += 1
+    key = variant_name(name, pool, D, split_kv)
+    if key != name:
+        LAUNCHES[key] = LAUNCHES.get(key, 0) + 1
 
 
 def _latent(mode, q, pool, layer, bts, pos_in, total, nrows, NB=1,
@@ -216,13 +260,13 @@ def _latent(mode, q, pool, layer, bts, pos_in, total, nrows, NB=1,
     H = q.shape[1]
     dev = q.device
     _check("q", q, torch.bfloat16, dev, (nrows, H, LATENT_QK))
-    _check("pool", pool, torch.bfloat16, dev)
+    fp8 = _check_pool(pool, dev)
     out = torch.empty((nrows, H, LATENT_DV), dtype=torch.bfloat16, device=dev)
     rc = _lib().chitu_attend_latent(
         mode, _ptr(q), _ptr(pool), _ptr(knew), _ptr(bts), _ptr(pos_in),
         _ptr(valid), _ptr(block_seg), _ptr(block_qstart), _ptr(total_lens),
         int(total), _ptr(out), nrows, NB, H, int(layer), P, page, M,
-        bts.shape[-1], float(scale), int(window), float(softcap),
+        bts.shape[-1], float(scale), int(window), float(softcap), fp8,
         _stream(dev),
     )
     return out, rc
@@ -235,6 +279,28 @@ def _latent(mode, q, pool, layer, bts, pos_in, total, nrows, NB=1,
 
 def _vlanes(out, v_dim):
     return out if v_dim is None else out[..., :v_dim]
+
+
+def attend_decode_plain(
+    q, pool, layer, block_tables, seq_lens, page_size, kv_heads, head_dim,
+    scale=None, window=0, softcap=0.0, split_kv=True, v_dim=None,
+):
+    return _vlanes(plain.attend_decode(
+        q, pool, layer, block_tables, seq_lens, page_size, kv_heads,
+        head_dim, scale=scale, window=window, softcap=softcap,
+        split_kv=split_kv,
+    ), v_dim)
+
+
+def attend_prefill_plain(
+    q, pool, layer, block_table, q_pos, total_len, page_size, kv_heads,
+    head_dim, scale=None, window=0, softcap=0.0, split_kv=True, v_dim=None,
+):
+    return _vlanes(plain.attend_prefill(
+        q, pool, layer, block_table, q_pos, total_len, page_size, kv_heads,
+        head_dim, scale=scale, window=window, softcap=softcap,
+        split_kv=split_kv,
+    ), v_dim)
 
 
 def attend_decode_fused_plain(
@@ -296,7 +362,7 @@ def attend_decode_fused(
         )
     else:
         _check("q", q, torch.bfloat16, dev)
-        _check("pool", pool, torch.bfloat16, dev)
+        fp8 = _check_pool(pool, dev)
         _check("k", k, torch.bfloat16, dev, (B, kv_heads, D))
         _check("v", v, torch.bfloat16, dev, (B, kv_heads, D))
         out = torch.empty_like(q)
@@ -304,10 +370,10 @@ def attend_decode_fused(
             _ptr(q), _ptr(pool), _ptr(k), _ptr(v), _ptr(block_tables),
             _ptr(seq_lens), _ptr(valid), _ptr(out), B, int(layer), P, page,
             M, mp, kv_heads, H // kv_heads, D, float(scale), int(window),
-            float(softcap), _stream(dev),
+            float(softcap), fp8, _stream(dev),
         )
     _raise_on(rc, "attend_decode_fused")
-    LAUNCHES["attend_decode_fused"] += 1
+    _count("attend_decode_fused", pool, D, split_kv)
     return out
 
 
@@ -334,11 +400,10 @@ def attend_decode(
     assert page == page_size and D == head_dim
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if not q.is_cuda:
-        return _vlanes(plain.attend_decode(
+        return attend_decode_plain(
             q, pool, layer, block_tables, seq_lens, page_size, kv_heads,
-            head_dim, scale=scale, window=window, softcap=softcap,
-            split_kv=split_kv,
-        ), v_dim)
+            head_dim, scale, window, softcap, split_kv, v_dim,
+        )
     dev = q.device
     _check_geometry(D, M, kv_heads, H, split_kv, v_dim)
     mp = block_tables.shape[1]
@@ -351,16 +416,16 @@ def attend_decode(
         )
     else:
         _check("q", q, torch.bfloat16, dev)
-        _check("pool", pool, torch.bfloat16, dev)
+        fp8 = _check_pool(pool, dev)
         out = torch.empty_like(q)
         rc = _lib().chitu_attend_decode(
             _ptr(q), _ptr(pool), _ptr(block_tables), _ptr(seq_lens),
             _ptr(out), B, int(layer), P, page, M, mp, kv_heads,
             H // kv_heads, D, float(scale), int(window), float(softcap),
-            _stream(dev),
+            fp8, _stream(dev),
         )
     _raise_on(rc, "attend_decode")
-    LAUNCHES["attend_decode"] += 1
+    _count("attend_decode", pool, D, split_kv)
     return out
 
 
@@ -393,11 +458,10 @@ def attend_prefill(
     assert page == page_size and D == head_dim
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     if not q.is_cuda:
-        return _vlanes(plain.attend_prefill(
+        return attend_prefill_plain(
             q, pool, layer, block_table, q_pos, total_len, page_size,
-            kv_heads, head_dim, scale=scale, window=window, softcap=softcap,
-            split_kv=split_kv,
-        ), v_dim)
+            kv_heads, head_dim, scale, window, softcap, split_kv, v_dim,
+        )
     dev = q.device
     _check_geometry(D, M, kv_heads, H, split_kv, v_dim)
     mp = block_table.shape[0]
@@ -410,17 +474,17 @@ def attend_prefill(
         )
     else:
         _check("q", q, torch.bfloat16, dev)
-        _check("pool", pool, torch.bfloat16, dev)
+        fp8 = _check_pool(pool, dev)
         G = H // kv_heads
         out = torch.empty_like(q)
         rc = _lib().chitu_attend_prefill(
             _ptr(q), _ptr(pool), _ptr(block_table), _ptr(q_pos), _ptr(out),
             T, _rows_block(G, T), int(layer), P, page, M, mp, kv_heads, G, D,
-            int(total_len), float(scale), int(window), float(softcap),
+            int(total_len), float(scale), int(window), float(softcap), fp8,
             _stream(dev),
         )
     _raise_on(rc, "attend_prefill")
-    LAUNCHES["attend_prefill"] += 1
+    _count("attend_prefill", pool, D, split_kv)
     return out
 
 
@@ -492,8 +556,7 @@ def _packed_checks(q, pool, block_tables, block_seg, block_qstart,
     _check("total_lens", total_lens, torch.int32, dev, (R,))
     if split_kv:
         _check("q", q, torch.bfloat16, dev)
-        _check("pool", pool, torch.bfloat16, dev)
-    return NB, mp
+    return NB, mp, _check_pool(pool, dev)
 
 
 def attend_prefill_packed_fused(
@@ -531,8 +594,9 @@ def attend_prefill_packed_fused(
             total_lens, page_size, kv_heads, head_dim, scale, window, softcap,
         )
     dev = q.device
-    NB, mp = _packed_checks(q, pool, block_tables, block_seg, block_qstart,
-                            total_lens, kv_heads, True, None)
+    NB, mp, fp8 = _packed_checks(q, pool, block_tables, block_seg,
+                                 block_qstart, total_lens, kv_heads, True,
+                                 None)
     _check("k", k, torch.bfloat16, dev, (T, kv_heads, D))
     _check("v", v, torch.bfloat16, dev, (T, kv_heads, D))
     G = H // kv_heads
@@ -541,11 +605,11 @@ def attend_prefill_packed_fused(
         _ptr(q), _ptr(pool), _ptr(k), _ptr(v), _ptr(block_tables),
         _ptr(block_seg), _ptr(block_qstart), _ptr(total_lens), _ptr(out),
         T, NB, _rows_block(G, T // NB), int(layer), P, page, M, mp,
-        kv_heads, G, D, float(scale), int(window), float(softcap),
+        kv_heads, G, D, float(scale), int(window), float(softcap), fp8,
         _stream(dev),
     )
     _raise_on(rc, "attend_prefill_packed_fused")
-    LAUNCHES["attend_prefill_packed_fused"] += 1
+    _count("attend_prefill_packed_fused", pool, D, True)
     return out
 
 
@@ -579,8 +643,9 @@ def attend_prefill_packed(
             total_lens, page_size, kv_heads, head_dim, scale, window,
             softcap, split_kv, v_dim,
         )
-    NB, mp = _packed_checks(q, pool, block_tables, block_seg, block_qstart,
-                            total_lens, kv_heads, split_kv, v_dim)
+    NB, mp, fp8 = _packed_checks(q, pool, block_tables, block_seg,
+                                 block_qstart, total_lens, kv_heads,
+                                 split_kv, v_dim)
     if not split_kv:
         out, rc = _latent(
             _PACKED, q, pool, layer, block_tables, None, 0, T, NB=NB,
@@ -595,9 +660,9 @@ def attend_prefill_packed(
             _ptr(q), _ptr(pool), _ptr(block_tables), _ptr(block_seg),
             _ptr(block_qstart), _ptr(total_lens), _ptr(out), T, NB,
             _rows_block(G, T // NB), int(layer), P, page, M, mp, kv_heads,
-            G, D, float(scale), int(window), float(softcap),
+            G, D, float(scale), int(window), float(softcap), fp8,
             _stream(q.device),
         )
     _raise_on(rc, "attend_prefill_packed")
-    LAUNCHES["attend_prefill_packed"] += 1
+    _count("attend_prefill_packed", pool, D, split_kv)
     return out

@@ -25,7 +25,9 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-SOURCES = ("attention", "quant_gemm", "norm_quant", "moe_gemm", "absorb")
+SOURCES = (
+    "attention", "quant_gemm", "norm_quant", "moe_gemm", "absorb", "dense_gemm",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -2,7 +2,10 @@
 
 Counterpart of `chitu_tpu/ops/linear.py`: the one entry point every model
 layer uses, dispatching on the weight's type. A dense tensor goes to
-`torch.matmul` (the JAX package leaves `x @ w[layer]` to XLA). A `QTensor`
+`torch.matmul` (the JAX package leaves `x @ w[layer]` to XLA), or, for a
+stacked [L, K, N] weight with `CHITU_TPU_DENSE_KERNEL=1` (read as the JAX
+package reads it) or `set_dense_kernel(True)`, to the dense stacked-layer
+GEMM (`ops/dense_gemm_kernels.dense_matmul_stacked`, B13). A `QTensor`
 goes to the dequant GEMM (`ops/quant_gemm_kernels.quant_gemm`) or, for
 W8A8, through per-token int8 activations to the int8 GEMM: the CUDA
 kernels for tensors on the card, their plain versions for tensors on the
@@ -11,10 +14,12 @@ CPU, and no third route.
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Union
 
 import torch
 
+from chitu_tpu_torch.ops.dense_gemm_kernels import dense_matmul_stacked
 from chitu_tpu_torch.ops.norm_quant import QuantizedActs, quant_acts
 from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
 from chitu_tpu_torch.ops.quant_gemm_kernels import int8_gemm, quant_gemm
@@ -24,6 +29,18 @@ from chitu_tpu_torch.ops.quant_gemm_kernels import int8_gemm, quant_gemm
 # scales; "int8" leaves them as they are, exactly as the JAX package does
 # (there the mode is read at one place only, to switch e4m3 on)
 _FP8_ACT = "int8"
+# stacked dense weights through the dense stacked-layer GEMM (B13) instead
+# of torch.matmul on the layer's view
+_DENSE_KERNEL = os.environ.get("CHITU_TPU_DENSE_KERNEL", "0") == "1"
+
+
+def set_dense_kernel(on: bool):
+    global _DENSE_KERNEL
+    _DENSE_KERNEL = bool(on)
+
+
+def get_dense_kernel() -> bool:
+    return _DENSE_KERNEL
 
 
 def set_fp8_act(mode: str):
@@ -83,6 +100,14 @@ def linear(
         # dense weight: reconstruct bf16 activations
         x = x.dequantize(torch.bfloat16)
         out_dtype = out_dtype or torch.bfloat16
+    if _DENSE_KERNEL and layer is not None and w.dim() == 3:
+        # the kernel indexes the stack itself; f32 sums and output
+        y = dense_matmul_stacked(
+            x.reshape(-1, x.shape[-1]).contiguous(), layer, w
+        ).reshape(*x.shape[:-1], w.shape[-1])
+        if bias is not None:
+            y = y + bias.to(y.dtype)
+        return y.to(out_dtype or x.dtype)
     w = _at(w, layer, 3)
     if out_dtype is not None and out_dtype != x.dtype:
         y = matmul_out_dtype(x, w.to(x.dtype), out_dtype)

@@ -2,12 +2,14 @@
 """Where a decode step's time goes in the PyTorch/CUDA port, on one GPU.
 
     python3 scripts/torch_decode_profile.py [batch] [prompt_len] \
-        [quant_method] [model card] [layers]
+        [quant_method] [model card] [layers] [kv_dtype] [mla_absorb]
 
 Builds the engine of a model card (default Llama-3-8B-Instruct) at full
 width and at `layers` deep (default: the card's depth) with random
 weights (quantized on load when a `quant.method` such as soft_fp8 is
-named), puts `batch` greedy requests of `prompt_len` random tokens into
+named; `infer.kv_dtype` bf16 or fp8, default bf16; `infer.mla_absorb`
+absorb or none for a DeepSeek card, default absorb), puts `batch` greedy
+requests of `prompt_len` random tokens into
 decode, then times decode steps twice: plain wall clock (decode tokens
 per second at that batch), and under `torch.profiler` to split device
 kernel time into the port's attention kernels (the DeepSeek latent-row
@@ -43,6 +45,8 @@ def category(name: str) -> str:
         return "attention_kernels"
     if "quant_gemm_" in name or "int8_gemm_kernel" in name:
         return "quant_gemm_kernels"
+    if "dense_gemm_kernel" in name:
+        return "dense_gemm_kernel"
     if "moe_gemm_kernel" in name:
         return "grouped_gemm_kernel"
     if "norm_quant_kernel" in name:
@@ -109,6 +113,8 @@ def main():
     method = sys.argv[3] if len(sys.argv) > 3 else "none"
     model = sys.argv[4] if len(sys.argv) > 4 else "Llama-3-8B-Instruct"
     depth = [f"models.n_layers={int(sys.argv[5])}"] if len(sys.argv) > 5 else []
+    kv_dtype = sys.argv[6] if len(sys.argv) > 6 else "bf16"
+    absorb = sys.argv[7] if len(sys.argv) > 7 else "absorb"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -117,7 +123,7 @@ def main():
         f"models={model}", "infer.stop_with_eos=false",
         "infer.adaptive_window=false", f"infer.max_reqs={max(batch, 1)}",
         f"quant.method={method}", f"quant.quant_on_load={str(method != 'none').lower()}",
-        *depth,
+        f"infer.kv_dtype={kv_dtype}", f"infer.mla_absorb={absorb}", *depth,
     ])
     moe = cfg.models.moe is not None
     if moe:
@@ -184,6 +190,8 @@ def main():
     print(json.dumps(dict(
         card=card, model=cfg.models.name, layers=cfg.models.n_layers,
         batch=batch, prompt_len=plen, window=window, quant=method,
+        kv_dtype=kv_dtype, mla_absorb=absorb,
+        kv_pool_gib=eng.cache.bytes() / 2**30,
         bringup_s=bringup, weights_gib=weights_gib,
         peak_mem_gib=torch.cuda.max_memory_allocated() / 2**30,
         steps_timed=steps, steps_profiled=psteps,

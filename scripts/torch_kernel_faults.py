@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Shows that the limits `chip_smoke.py` holds the quantized, grouped and
-absorb GEMM kernels and the latent-row attention kernel to reject broken
+"""Shows that the limits `chip_smoke.py` holds the quantized, grouped,
+absorb and dense GEMM kernels and the attention kernels (the latent row,
+the e4m3 pool, the split layout at head sizes 192 and 64) to reject broken
 kernels. Needs an NVIDIA GPU and nvcc.
 
     python3 scripts/torch_kernel_faults.py
@@ -14,7 +15,13 @@ layer 1 of a two-layer Mixtral-8x7B `[4096 -> 14336]` expert stack at the
 16-token decode geometry, where two of ten blocks are dead; B9: layer 1
 of DeepSeek-R1's `wkv_b` [2, 512, 128*256] at T 16, uk reading q_nope as a
 view of the [T, 128, 192] query rows; the latent row: B4 at DeepSeek-R1's
-16-row decode geometry, contexts 1 to 2048). It prints one
+16-row decode geometry, contexts 1 to 2048; the e4m3 pool: B4 over
+one-token contexts holding every finite code, which must decode exactly,
+B1's append bytes against the plain append's for edge values and for
+values beyond e4m3's range, the latent B4 on an e4m3 pool; head size 192:
+B4 at DeepSeek-R1's dense MLA, 128 heads; head size 64: B5 at
+tiny-llama-debug's 32 heads on 4; B13: layer 1 of a two-layer
+`[4096 -> 6144]` stack at T 16). It prints one
 JSON line per fault with the measured error beside the limit, first for
 the sound kernel and then for the broken one, and exits non-zero if a
 sound kernel fails its limit or a fault passes it.
@@ -86,6 +93,40 @@ FAULTS = [
     ("B4 new-token column not read", "attention.cu",
      "    kend = total;\n", "    kend = mode == L_DECODE ? q_start : total;\n",
      "latent_decode"),
+    ("e4m3 decode drops the sign", "attention.cu",
+     "__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)pair, __NV_E4M3);",
+     "__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(pair & 0x7F7Fu), __NV_E4M3);",
+     "e4m3_exact"),
+    ("e4m3 decode flushes the subnormals", "attention.cu",
+     "__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)pair, __NV_E4M3);",
+     "__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)("
+     "((pair & 0x78u) ? pair & 0xFFu : 0u) | ((pair & 0x7800u) ? pair & 0xFF00u : 0u)),"
+     " __NV_E4M3);",
+     "e4m3_exact"),
+    ("fused append writes bf16 bytes into the e4m3 pool", "attention.cu",
+     "w[j] |= e4m3_byte(__bfloat162float(h[4 * j + i])) << (8 * i);",
+     "w[j] |= (uint32_t)(__bfloat16_as_ushort(h[4 * j + i]) >> 8) << (8 * i);",
+     "e4m3_append"),
+    ("e4m3 encode saturates to 448", "attention.cu",
+     "if (!(fabsf(f) <= 464.f)) return (__float_as_uint(f) >> 31) ? 0xFFu : 0x7Fu;",
+     "", "e4m3_overflow"),
+    ("latent e4m3 tile: last 8 key rows left unconverted", "attention.cu",
+     "*reinterpret_cast<uint4*>(ks + r * LLD + c * 8) = IO::to_bf16(",
+     "if (r < BK - 8) *reinterpret_cast<uint4*>(ks + r * LLD + c * 8) = IO::to_bf16(",
+     "latent_e4m3"),
+    ("D-192 kernel reads V at lane offset 128 a head", "attention.cu",
+     "vr = IO::load(row + khalf + h * D + c * 8);",
+     "vr = IO::load(row + khalf + h * (D == 192 ? 128 : D) + c * 8);",
+     "d192_decode"),
+    ("head size 64 dispatched to the 32 instantiation", "attention.cu",
+     "case 64: return f(std::integral_constant<int, 64>());",
+     "case 64: return f(std::integral_constant<int, 32>());",
+     "d64_prefill"),
+    ("B13 layer stride wrong", "dense_gemm.cu",
+     "w + (size_t)layer * K * N;", "w + (size_t)layer * K * (N - 128);",
+     "dense"),
+    ("B13 last K tile skipped", "dense_gemm.cu",
+     "const int ntiles = K / BK;", "const int ntiles = K / BK - 1;", "dense"),
 ]
 
 
@@ -98,7 +139,10 @@ def main():
     from chitu_tpu_torch.ops import absorb_kernels as ab
     from chitu_tpu_torch.ops import attention as plain
     from chitu_tpu_torch.ops import attention_kernels as tk
+    from chip_smoke import E4M3_EDGES, E4M3_OVERFLOW, e4m3_decode_exact, with_values
+    from chitu_tpu_torch.models.common import kv_encode
     from chitu_tpu_torch.ops import cuda_build
+    from chitu_tpu_torch.ops import dense_gemm_kernels as dg
     from chitu_tpu_torch.ops import moe_gemm_kernels as mg
     from chitu_tpu_torch.ops import norm_quant as nq
     from chitu_tpu_torch.ops import quant_gemm_kernels as qg
@@ -159,6 +203,27 @@ def main():
     lkw = dict(kv_heads=1, head_dim=QK, split_kv=False, v_dim=tk.LATENT_DV,
                scale=0.1352)
 
+    # the e4m3 pool at Llama-3-8B's geometry (32 heads on 8, 16 rows)
+    KV8, D8 = 8, 128
+    epool = kv_encode(randn(2, B * MP, PAGE, 2 * KV8 * D8, k=0.5), torch.int8)
+    eq = randn(B, 32, D8)
+    ek = with_values(torch, randn(B, KV8, D8), E4M3_EDGES)
+    ev = with_values(torch, randn(B, KV8, D8), E4M3_EDGES[::-1])
+    evalid = torch.ones(B, dtype=torch.bool, device=dev)
+    lepool = kv_encode(lpool, torch.int8)
+    # head size 192 (DeepSeek-R1 dense MLA, 128 heads, 4 rows) and 64
+    B2 = 4
+    dpool = randn(1, B2 * MP, PAGE, 2 * 128 * 192, k=0.5)
+    dbt = torch.arange(B2 * MP, device=dev, dtype=torch.int32).reshape(B2, MP)
+    dseq = lseq[:B2].clone()
+    dq = randn(B2, 128, 192)
+    spool = randn(2, 20, PAGE, 2 * 4 * 64, k=0.5)
+    sbt = torch.arange(20, device=dev, dtype=torch.int32)
+    sq = randn(128, 32, 64)
+    spos = torch.arange(512, 640, device=dev, dtype=torch.int32)
+    # B13: layer 1 of [2, 4096, 6144]
+    wd = randn(2, K, N, k=0.02)
+
     def row_rel(a, b):
         a, b = a.float(), b.float()
         return ((a - b).norm(dim=-1) / b.norm(dim=-1).clamp_min(1e-30)).max().item()
@@ -196,6 +261,37 @@ def main():
                 lq, lpool, 1, lbt, lseq, PAGE, 1, QK, scale=lkw["scale"],
                 split_kv=False), tk.LATENT_DV)
             return row_rel(got, want), ROW_RTOL, "row relative error"
+        if kind == "e4m3_exact":
+            return (e4m3_decode_exact(torch, tk, dev), 0, "values decoded wrong")
+        if kind in ("e4m3_append", "e4m3_overflow"):
+            kk, vv = ek, ev
+            if kind == "e4m3_overflow":
+                kk = with_values(torch, ek, E4M3_OVERFLOW + E4M3_EDGES)
+                vv = with_values(torch, ev, E4M3_EDGES + E4M3_OVERFLOW)
+            pk, pp = epool.clone(), epool.clone()
+            args = (1, kk, vv, lbt, lseq, evalid, PAGE, KV8, D8)
+            tk.attend_decode_fused(eq, pk, *args)
+            tk.attend_decode_fused_plain(eq, pp, *args)
+            return int((pk != pp).sum().item()), 0, "pool bytes unlike the plain append's"
+        if kind == "latent_e4m3":
+            junk = torch.full((B, Ha, tk.LATENT_DV), 7.0, dtype=bf, device=dev)
+            del junk
+            return (row_rel(tk.attend_decode(lq, lepool, 1, lbt, lseq, PAGE, **lkw),
+                            tk.attend_decode_plain(lq, lepool, 1, lbt, lseq, PAGE,
+                                                   **lkw)),
+                    ROW_RTOL, "row relative error")
+        if kind == "d192_decode":
+            a = (dq, dpool, 0, dbt, dseq, PAGE, 128, 192)
+            return (row_rel(tk.attend_decode(*a), tk.attend_decode_plain(*a)),
+                    ROW_RTOL, "row relative error")
+        if kind == "d64_prefill":
+            a = (sq, spool, 1, sbt, spos, 640, PAGE, 4, 64)
+            return (row_rel(tk.attend_prefill(*a), tk.attend_prefill_plain(*a)),
+                    ROW_RTOL, "row relative error")
+        if kind == "dense":
+            return (row_rel(dg.dense_matmul_stacked(x, 1, wd),
+                            dg.dense_matmul_stacked_plain(x, 1, wd)),
+                    ROW_RTOL, "row relative error")
         if kind == "int8":
             q = weights["int8"]
             return (row_rel(qg.int8_gemm(xa.data, xa.scale, q),
@@ -208,7 +304,7 @@ def main():
     def use_sources(csrc):
         cuda_build.CSRC = csrc
         cuda_build._LIBS.clear()
-        qg._LIB = nq._LIB = mg._LIB = ab._LIB = tk._LIB = None
+        qg._LIB = nq._LIB = mg._LIB = ab._LIB = tk._LIB = dg._LIB = None
 
     sound_dir = cuda_build.CSRC
     ok = True

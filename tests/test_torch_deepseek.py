@@ -429,10 +429,3 @@ def test_engine_generates(method, act):
     assert eng.cache.allocator.num_free() == eng.cache.num_pages
     assert len(eng.pool) == 0 and len(eng.executor.slots.free) == 4
 
-
-def test_mla_absorb_none_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, item 5"):
-        Engine(tload(overrides=OVR + ["infer.mla_absorb=none"]), device="cpu")
-    cfg = tload(overrides=OVR + ["infer.mla_absorb=none"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue B, item 5"):
-        tbuild(cfg.models, cfg, device="cpu")

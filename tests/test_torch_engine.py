@@ -198,15 +198,15 @@ def test_unknown_quant_method_rejected():
 @pytest.mark.parametrize(
     "override",
     [
-        "infer.tp_size=2", "quant.method=soft_fp8", "infer.kv_dtype=fp8",
+        "infer.tp_size=2", "quant.method=soft_fp8", "infer.dp_size=2",
         "infer.spec_decode=ngram", "infer.prefix_cache=true",
         "infer.ring_prefill=true", "models=tiny-deepseek-debug",
     ],
 )
 def test_unported_configurations_raise(override):
-    # the DeepSeek card serves since slice 4; what still raises there is
-    # its dense MLA path
-    extra = ["infer.mla_absorb=none"] if "deepseek" in override else []
+    # the DeepSeek card serves since slice 4 (its dense MLA path since
+    # slice 5); what still raises there is the ring KV of slice 7
+    extra = ["infer.ring_kv=true"] if "deepseek" in override else []
     cfg = load_config(overrides=TINY + [override] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP|slice"):
         Engine(cfg, device="cpu")

@@ -1,9 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions on the card, at
 small geometries beside the Llama-3-8B, Mixtral and DeepSeek ones
-chip_smoke.py covers: head_dim 128 (the one split head size the kernels
-take), 1 to 8 query heads per KV head, pages of 16 and 64, window and
-softcap; the MLA latent row (576 live lanes, 512 value lanes) at 16, 32 and
-128 heads; B9 at 4 and 32 heads, T 1 to 128. Pool bytes must be
+chip_smoke.py covers: head_dim 128, 1 to 8 query heads per KV head, pages
+of 16 and 64, window and softcap; the other split head sizes (192 with one
+query head per KV head, as DeepSeek's dense MLA; 64 and 32) and the int8
+pools of e4m3 bits on every attention kernel, the appends fed ties,
+subnormals, +-448, +-464 and values beyond; the MLA latent row (576 live
+lanes, 512 value lanes) at 16, 32 and 128 heads; B9 at 4 and 32 heads, T 1
+to 128; B13 at decode and slab row counts. Pool bytes must be
 equal; every (token, head) output row must satisfy
 ||kernel - plain|| <= 1e-2 * ||plain|| in bf16 (the kernels sum in f32 in
 another order; bf16 rounding alone leaves about 2e-3).
@@ -137,10 +140,10 @@ def test_wrappers_reject_bad_inputs(dev):
     k = rand(3, 2, 128)
     with pytest.raises(TypeError):
         tk.attend_decode_fused(q, pool, 0, k, k, bt, seq, valid, 16, 2, 128)
-    with pytest.raises(NotImplementedError):  # head_dim 64 has no kernel yet
+    with pytest.raises(NotImplementedError):  # head_dim 96 is not built
         tk.attend_decode_fused(
-            rand(3, 4, 64), rand(2, 8, 16, 256), 0, rand(3, 2, 64),
-            rand(3, 2, 64), bt.int(), seq, valid, 16, 2, 64,
+            rand(3, 4, 96), rand(2, 8, 16, 384), 0, rand(3, 2, 96),
+            rand(3, 2, 96), bt.int(), seq, valid, 16, 2, 96,
         )
 
 
@@ -562,3 +565,245 @@ def test_latent_and_absorb_reject_bad_inputs(dev):
         ab.absorb_matmul(rand(4, 4, 128).float(), w, 0, "uk", 128, 128)
     with pytest.raises(ValueError):
         ab.absorb_matmul(rand(4, 4, 128), w, 0, "uv", 128, 128)
+
+
+# ---------------------------------------------------------------------------
+# The variants of this slice: the split layout at head sizes 192, 64 and 32,
+# and int8 pools of fp8-e4m3 bits on every attention kernel (split and
+# latent). The appends must write the JAX package's e4m3 bytes: the pool
+# after a fused append equals the plain append's (`kv_encode`), NaN codes
+# included. B13 against its plain version. Same row limit as above.
+# ---------------------------------------------------------------------------
+
+from chitu_tpu_torch.models.common import kv_encode  # noqa: E402
+from chitu_tpu_torch.ops import dense_gemm_kernels as dg  # noqa: E402
+
+VGEOMS = [  # (H, KV, D, page, pool)
+    (4, 4, 192, 16, "bf16"), (8, 8, 192, 64, "e4m3"), (32, 4, 64, 16, "bf16"),
+    (32, 4, 64, 64, "e4m3"), (4, 2, 32, 16, "bf16"), (4, 2, 32, 16, "e4m3"),
+    (8, 4, 128, 16, "e4m3"), (16, 2, 128, 64, "e4m3"),
+]
+# e4m3 encodings to pin: +-448, +-464 (ties down to 448), the smallest
+# subnormal and its half (a tie to zero), a subnormal tie, mantissa ties
+# either way, signed zeros and an underflow
+SPECIALS = [448.0, -448.0, 464.0, -464.0, 2.0 ** -9, -(2.0 ** -9), 2.0 ** -10,
+            -(2.0 ** -10), 3 * 2.0 ** -10, 1.0625, 1.1875, -0.0, 0.0, 1e-8,
+            -1e-8, 0.01171875]
+# beyond the e4m3 range: NaN codes (the rows holding them are not attended)
+OVERFLOW = [466.0, -466.0, 1000.0, -600.0, float("inf"), float("-inf"),
+            float("nan")]
+
+
+def _vpool(rand, KV, D, page, P, kind):
+    pool = rand(2, P, page, 2 * KV * D)
+    return pool if kind == "bf16" else kv_encode(pool, torch.int8)
+
+
+def _with(x, vals):
+    x = x.clone()
+    flat = x.view(-1)
+    flat[: len(vals)] = torch.tensor(vals, dtype=x.dtype, device=x.device)
+    return x
+
+
+def _tag(D, kind):
+    tags = ([f"d{D}"] if D != 128 else []) + (["e4m3"] if kind == "e4m3" else [])
+    return ",".join(tags)
+
+
+@pytest.mark.parametrize("H,KV,D,page,kind", VGEOMS)
+def test_variant_decode_fused(dev, H, KV, D, page, kind):
+    rand = _gen(dev, 20)
+    B, mp = 5, 8
+    pool = _vpool(rand, KV, D, page, B * mp, kind)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, page, 3 * page + 5, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    valid = torch.tensor([True, True, False, True, True], device=dev)
+    q = rand(B, H, D)
+    k, v = _with(rand(B, KV, D), SPECIALS), _with(rand(B, KV, D), SPECIALS[::-1])
+    pk, pp = pool.clone(), pool.clone()
+    args = (1, k, v, bt, seq, valid, page, KV, D)
+    key = f"attend_decode_fused[{_tag(D, kind)}]"
+    n0 = tk.LAUNCHES.get(key, 0)
+    out_k = tk.attend_decode_fused(q, pk, *args)
+    out_p = tk.attend_decode_fused_plain(q, pp, *args)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES[key] == n0 + 1
+    assert torch.equal(pk, pp)
+    _check(out_k, out_p, valid)
+
+
+@pytest.mark.parametrize("H,KV,D,page,kind", VGEOMS)
+def test_variant_decode(dev, H, KV, D, page, kind):
+    rand = _gen(dev, 21)
+    B, mp = 5, 8
+    pool = _vpool(rand, KV, D, page, B * mp, kind)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, page, 3 * page + 5, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    valid = torch.ones((B,), device=dev, dtype=torch.bool)
+    plain.append_decode(pool, 1, rand(B, KV, D), rand(B, KV, D), bt, seq,
+                        valid, page)
+    q = rand(B, H, D)
+    args = (pool, 1, bt, seq, page, KV, D)
+    _check(tk.attend_decode(q, *args, window=40),
+           plain.attend_decode(q, *args, window=40))
+
+
+@pytest.mark.parametrize("H,KV,D,page,kind", VGEOMS)
+def test_variant_prefill(dev, H, KV, D, page, kind):
+    rand = _gen(dev, 22)
+    mp, T, start = 16, 32, 40
+    pool = _vpool(rand, KV, D, page, mp + 4, kind)
+    bt = torch.arange(mp, device=dev, dtype=torch.int32) + 4
+    q_pos = torch.arange(start, start + T, device=dev, dtype=torch.int32)
+    q = rand(T, H, D)
+    args = (pool, 1, bt, q_pos, start + T, page, KV, D)
+    _check(tk.attend_prefill(q, *args, softcap=20.0),
+           plain.attend_prefill(q, *args, softcap=20.0))
+
+
+@pytest.mark.parametrize("H,KV,D,page,kind", VGEOMS)
+def test_variant_prefill_packed(dev, H, KV, D, page, kind):
+    """B2 (append, then attend) and B3 (attend only) on one slab."""
+    rand = _gen(dev, 23)
+    Tq, NB, mp = 16, 6, 8
+    bts, bseg, bq, total, live = _slab(
+        dev, Tq, NB, mp, [(0, 20), (page, 17), (0, 3)])
+    pool = _vpool(rand, KV, D, page, 4 * mp, kind)
+    T = Tq * NB
+    q = rand(T, H, D)
+    k, v = _with(rand(T, KV, D), SPECIALS), _with(rand(T, KV, D), SPECIALS[::-1])
+    pk, pp = pool.clone(), pool.clone()
+    args = (1, k, v, bts, bseg, bq, total, page, KV, D)
+    out_k = tk.attend_prefill_packed_fused(q, pk, *args, window=24)
+    out_p = tk.attend_prefill_packed_fused_plain(q, pp, *args, window=24)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    _check(out_k, out_p, live)
+    pargs = (pk, 1, bts, bseg, bq, total, page, KV, D)
+    out_k = tk.attend_prefill_packed(q, *pargs)
+    _check(out_k, tk.attend_prefill_packed_plain(q, *pargs), live)
+    dead = ~torch.repeat_interleave(bseg >= 0, Tq)
+    assert out_k[dead].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("D", [192, 128])
+def test_e4m3_appends_write_nan_codes(dev, D):
+    """Values beyond 464 land as NaN codes (sign | 0x7F), byte-equal to
+    the plain append, in B1's and B2's appends."""
+    rand = _gen(dev, 24)
+    KV, page, B, mp = 2, 16, 3, 4
+    pool = _vpool(rand, KV, D, page, B * mp, "e4m3")
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([1, 5, 20], device=dev, dtype=torch.int32)
+    valid = torch.ones((B,), device=dev, dtype=torch.bool)
+    k = _with(rand(B, KV, D), OVERFLOW + SPECIALS)
+    v = _with(rand(B, KV, D), SPECIALS + OVERFLOW)
+    pk, pp = pool.clone(), pool.clone()
+    tk.attend_decode_fused(rand(B, 2 * KV, D), pk, 1, k, v, bt, seq, valid,
+                           page, KV, D)
+    tk.attend_decode_fused_plain(rand(B, 2 * KV, D), pp, 1, k, v, bt, seq,
+                                 valid, page, KV, D)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert (pk == 127).any() and (pk == -1).any()
+    Tq, NB = 16, 2
+    bts, bseg, bq, total, live = _slab(dev, Tq, NB, mp, [(0, 20)])
+    k = _with(rand(Tq * NB, KV, D), OVERFLOW * 3)
+    v = _with(rand(Tq * NB, KV, D), SPECIALS)
+    pk, pp = pool.clone(), pool.clone()
+    q = rand(Tq * NB, 2 * KV, D)
+    args = (1, k, v, bts, bseg, bq, total, page, KV, D)
+    tk.attend_prefill_packed_fused(q, pk, *args)
+    tk.attend_prefill_packed_fused_plain(q, pp, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+
+
+def _latent_e4m3(rand, page, P):
+    return kv_encode(_latent_pool(rand, page, P), torch.int8)
+
+
+@pytest.mark.parametrize("H,page", [(128, 64), (32, 16)])
+def test_latent_e4m3(dev, H, page):
+    """The latent row on an e4m3 pool through all four modes; B1's append
+    bytes equal the plain append's."""
+    rand = _gen(dev, 25)
+    B, mp = 5, 8
+    pool = _latent_e4m3(rand, page, B * mp)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, page, 3 * page + 5, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    valid = torch.tensor([True, True, False, True, True], device=dev)
+    q = rand(B, H, tk.LATENT_QK)
+    k = _with(rand(B, 1, tk.LATENT_QK), SPECIALS)
+    pk, pp = pool.clone(), pool.clone()
+    args = (1, k, None, bt, seq, valid, page)
+    n0 = tk.LAUNCHES.get("attend_decode_fused[latent,e4m3]", 0)
+    out_k = tk.attend_decode_fused(q, pk, *args, **LAT)
+    out_p = tk.attend_decode_fused_plain(q, pp, *args, **LAT)
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["attend_decode_fused[latent,e4m3]"] == n0 + 1
+    assert torch.equal(pk, pp)
+    _check(out_k, out_p, valid)
+    out_k = tk.attend_decode(q, pk, 1, bt, seq, page, **LAT)
+    out_p = plain.attend_decode(
+        q, pk, 1, bt, seq, page, 1, tk.LATENT_QK, scale=LAT["scale"],
+        split_kv=False)[..., : tk.LATENT_DV]
+    _check(out_k, out_p, valid)
+    T, start = 32, 40
+    bt1 = torch.arange(mp, device=dev, dtype=torch.int32) + 4
+    q_pos = torch.arange(start, start + T, device=dev, dtype=torch.int32)
+    qp = rand(T, H, tk.LATENT_QK)
+    sargs = (pool, 1, bt1, q_pos, start + T, page)
+    _check(tk.attend_prefill(qp, *sargs, **LAT),
+           plain.attend_prefill(qp, *sargs, 1, tk.LATENT_QK, scale=LAT["scale"],
+                                split_kv=False)[..., : tk.LATENT_DV])
+    Tq, NB = 8, 12
+    bts, bseg, bq, total, live = _slab(dev, Tq, NB, mp, [(0, 20), (page, 17)])
+    qs = rand(Tq * NB, H, tk.LATENT_QK)
+    pargs = (pool, 1, bts, bseg, bq, total, page)
+    _check(tk.attend_prefill_packed(qs, *pargs, **LAT),
+           tk.attend_prefill_packed_plain(qs, *pargs, **LAT), live)
+
+
+@pytest.mark.parametrize("T", [1, 16, 100, 512])
+@pytest.mark.parametrize("K,N", [(256, 384), (1024, 128), (384, 1024)])
+def test_dense_matmul_stacked(dev, T, K, N):
+    rand = _gen(dev, 26)
+    w = rand(3, K, N) * 0.05
+    x = rand(T, K)
+    n0 = dg.LAUNCHES["dense_matmul_stacked"]
+    got = dg.dense_matmul_stacked(x, 2, w)
+    want = dg.dense_matmul_stacked_plain(x, 2, w)
+    torch.cuda.synchronize()
+    assert dg.LAUNCHES["dense_matmul_stacked"] == n0 + 1
+    assert got.dtype == torch.float32 and got.shape == (T, N)
+    _check(got, want)
+
+
+def test_dense_matmul_stacked_geometry_rule(dev):
+    """K or N off the multiples of 128 go to torch.matmul, as the JAX
+    function does; no kernel launch."""
+    rand = _gen(dev, 27)
+    w, x = rand(2, 200, 256), rand(5, 200)
+    n0 = dg.LAUNCHES["dense_matmul_stacked"]
+    got = dg.dense_matmul_stacked(x, 1, w)
+    assert dg.LAUNCHES["dense_matmul_stacked"] == n0
+    _check(got, dg.dense_matmul_stacked_plain(x, 1, w))
+    with pytest.raises(TypeError):
+        dg.dense_matmul_stacked(x.float()[:, :128], 0, rand(2, 128, 128))
+
+
+def test_variant_wrappers_reject_bad_inputs(dev):
+    rand = _gen(dev, 28)
+    bt = torch.zeros((3, 2), device=dev, dtype=torch.int32)
+    seq = torch.zeros((3,), device=dev, dtype=torch.int32)
+    with pytest.raises(TypeError):  # an f16 pool
+        tk.attend_decode(rand(3, 4, 64), rand(2, 8, 16, 256).half(), 0, bt,
+                         seq, 16, 2, 64)
+    with pytest.raises(NotImplementedError):  # V narrower than K
+        tk.attend_decode(rand(3, 4, 192), rand(2, 8, 16, 768), 0, bt, seq,
+                         16, 2, 192, v_dim=128)

@@ -325,9 +325,11 @@ def test_wrappers_refuse_other_geometries_on_the_card_only():
     tk._check_geometry(tk.LATENT_QK, 640, 1, 128, False, tk.LATENT_DV)
     tk._check_geometry(tk.LATENT_QK, 640, 1, 32, False, tk.LATENT_DV)
     tk._check_geometry(128, 2048, 8, 32)
+    for d in (192, 64, 32):  # the other split head sizes built
+        tk._check_geometry(d, 2 * 4 * d, 4, 8)
     for args in [(LIVE, MROW, 1, 8, False, DC), (576, 640, 1, 8, False, 512),
                  (576, 640, 2, 128, False, 512), (576, 640, 1, 128, False, 576),
-                 (192, 6144, 16, 16)]:
+                 (96, 3072, 16, 16), (192, 6144, 16, 16, True, 128)]:
         with pytest.raises(NotImplementedError):
             tk._check_geometry(*args)
 
