@@ -12,7 +12,8 @@ Phases, each fatal on failure:
    pool bytes equal, and for every (token, head) output row
    ||kernel - plain|| <= 1e-2 * ||plain|| (bf16 outputs; a relative limit,
    because at these contexts the outputs are averages over hundreds of
-   keys and far below 1 in size). Times: the kernel and
+   keys and far below 1 in size); two launches on equal inputs give equal
+   bits. Times: the kernel and
    `scaled_dot_product_attention` on the gathered K/V (the library
    yardstick) as device time, 30 calls captured in one CUDA graph and
    replayed between two CUDA events (median of 20 replays, divided by 30),
@@ -72,6 +73,11 @@ Phases, each fatal on failure:
    full depth either: through 32 layers of random weights a last-bit
    difference grows to 5-6 % of a logits row, whichever of two sound
    implementations made it.)
+   Then the plain route: the same short burst at 4 layers in soft-fp8 with
+   `infer.attn_type=ref infer.op_impl=xla`, in which no attention kernel
+   and no kernel that op_impl governs (B6/B7, B10-B13, B9) may launch; its
+   64-token prefill logits are held against the same model switched back
+   to the kernels: every row within 2e-2 of the plain row's norm.
    Then MoE serving, the same lone prompt and burst of six at full width:
    Mixtral-8x7B-Instruct-v0.1 in bf16 at 8 layers (a layer of its experts
    is 2.82 GB in bf16, so the 32 layers do not fit 80 GB) and in soft-fp8
@@ -345,6 +351,14 @@ def compare_rows(torch, name, out_k, out_p, rows, pool_kernel=None,
     return err, rel
 
 
+def bit_equal(torch, name, out, again):
+    """Two launches on equal inputs give equal bits (the split decode
+    merges its partials in a fixed order)."""
+    torch.cuda.synchronize()
+    if not torch.equal(out, again):
+        raise AssertionError(f"{name}: two launches on equal inputs differ")
+
+
 def kernel_cases(torch, tk, plain, dev, kv="bf16"):
     """Yields one result dict per case; the first case of each kernel is
     the one reported in the kernels line. kv="e4m3": the same cases on an
@@ -424,6 +438,8 @@ def kernel_cases(torch, tk, plain, dev, kv="bf16"):
         out_k = tk.attend_decode_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_decode_fused_plain(q, pool_p, *args, **kw)
         err, rel = compare_rows(torch, name, out_k, out_p, live, pool_k, pool_p)
+        bit_equal(torch, name, out_k,
+                  tk.attend_decode_fused(q, pool0.clone(), *args, **kw))
         ms = device_ms(torch, lambda: tk.attend_decode_fused(q, pool_k, *args, **kw))
         plain_ms = call_ms(
             torch, lambda: tk.attend_decode_fused_plain(q, pool_p, *args, **kw)
@@ -502,6 +518,8 @@ def kernel_cases(torch, tk, plain, dev, kv="bf16"):
         out_k = tk.attend_prefill_packed_fused(q, pool_k, *args, **kw)
         out_p = tk.attend_prefill_packed_fused_plain(q, pool_p, *args, **kw)
         err, rel = compare_rows(torch, name, out_k, out_p, tok_live, pool_k, pool_p)
+        bit_equal(torch, name, out_k,
+                  tk.attend_prefill_packed_fused(q, pool0.clone(), *args, **kw))
         dead = ~torch.repeat_interleave(block_seg >= 0, TQ)
         if out_k[dead].abs().max().item() != 0.0:
             raise AssertionError(f"{name}: dead blocks not zero")
@@ -567,6 +585,7 @@ def kernel_cases(torch, tk, plain, dev, kv="bf16"):
         out_p = plain.attend_prefill(q, *args, **kw)
         rows = torch.ones(T, dtype=torch.bool, device=dev)
         err, rel = compare_rows(torch, name, out_k, out_p, rows, None, None)
+        bit_equal(torch, name, out_k, tk.attend_prefill(q, *args, **kw))
         ms = device_ms(torch, lambda: tk.attend_prefill(q, *args, **kw))
         plain_ms = call_ms(torch, lambda: plain.attend_prefill(q, *args, **kw))
         kg, vg = gathered_kv(bt[None])
@@ -872,6 +891,8 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
     out_k = tk.attend_decode(q, *dargs, scale=scale)
     out_p = plain.attend_decode(q, *dargs, scale=scale)
     err, rel = compare_rows(torch, "attend_decode[split]", out_k, out_p, valid)
+    bit_equal(torch, "attend_decode[split]", out_k,
+              tk.attend_decode(q, *dargs, scale=scale))
     rows = plain._gather(pool, LAYER, bts)
     kg2, vg2 = (t.transpose(1, 2).contiguous()
                 for t in plain.unpack_pool(rows, KV, D))
@@ -911,6 +932,8 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
     out_p = tk.attend_prefill_packed_plain(q, *pargs, scale=scale)
     err, rel = compare_rows(torch, "attend_prefill_packed[split]", out_k,
                             out_p, tok_live)
+    bit_equal(torch, "attend_prefill_packed[split]", out_k,
+              tk.attend_prefill_packed(q, *pargs, scale=scale))
     yield case(
         "attend_prefill_packed[split,Llama-3-8B]", "attend_prefill_packed",
         err, rel,
@@ -1034,6 +1057,8 @@ def split_head_cases(torch, tk, plain, dev, label, H, KV, D, kernels,
         out_p = tk.attend_decode_fused_plain(q, pool_p, *fargs, scale=scale)
         err, rel = compare_rows(torch, "attend_decode_fused", out_k, out_p,
                                 valid, pool_k, pool_p)
+        bit_equal(torch, "attend_decode_fused", out_k, tk.attend_decode_fused(
+            q, pool0.clone(), *fargs, scale=scale))
         kg, vg = gathered_kv(pool_k, bts)
         yield case(
             "attend_decode_fused", "attend_decode_fused", err, rel,
@@ -1056,6 +1081,8 @@ def split_head_cases(torch, tk, plain, dev, label, H, KV, D, kernels,
         out_k = tk.attend_decode(q, *dargs, scale=scale)
         out_p = tk.attend_decode_plain(q, *dargs, scale=scale)
         err, rel = compare_rows(torch, "attend_decode", out_k, out_p, valid)
+        bit_equal(torch, "attend_decode", out_k,
+                  tk.attend_decode(q, *dargs, scale=scale))
         kg, vg = gathered_kv(pool_a, bts)
         yield case(
             "attend_decode", "attend_decode", err, rel,
@@ -1080,6 +1107,8 @@ def split_head_cases(torch, tk, plain, dev, label, H, KV, D, kernels,
         out_p = tk.attend_prefill_plain(qp, *sargs, scale=scale)
         err, rel = compare_rows(torch, "attend_prefill", out_k, out_p,
                                 slice(None))
+        bit_equal(torch, "attend_prefill", out_k,
+                  tk.attend_prefill(qp, *sargs, scale=scale))
         kg, vg = gathered_kv(pool0, bt[None])
         c = torch.arange(kg.shape[2], device=dev)[None, :]
         m5 = (c <= q_pos[:, None].long()) & (c < totl)
@@ -1124,6 +1153,8 @@ def split_head_cases(torch, tk, plain, dev, label, H, KV, D, kernels,
         out_p = tk.attend_prefill_packed_plain(qs, *pargs, scale=scale)
         err, rel = compare_rows(torch, "attend_prefill_packed", out_k, out_p,
                                 tok_live)
+        bit_equal(torch, "attend_prefill_packed", out_k,
+                  tk.attend_prefill_packed(qs, *pargs, scale=scale))
         dead = ~torch.repeat_interleave(block_seg >= 0, TQ)
         if dead.any() and out_k[dead].abs().max().item() != 0.0:
             raise AssertionError("attend_prefill_packed: dead blocks not zero")
@@ -1758,15 +1789,68 @@ def logits_against_plain(torch, np, eng, label):
     return errs, rel
 
 
+# infer.attn_type=ref and infer.op_impl=xla: every attention call and
+# every call op_impl governs take their plain versions on the card; under
+# soft-fp8, so that the dequant GEMM would otherwise launch
+PLAIN_ROUTE = ["models.n_layers=4", "infer.attn_type=ref",
+               "infer.op_impl=xla", "quant.method=soft_fp8",
+               "quant.quant_on_load=true"]
+ROUTED_OFF = ATTN_WRAPPERS + ("quant_gemm", "int8_gemm", "rms_norm_quant",
+                              "quant_acts", "dense_matmul_stacked",
+                              "absorb_matmul")
+
+
+def routed_off(tk, forbid):
+    """The launches (variants included) of the kernels in `forbid`."""
+    return {k: n for k, n in tk.LAUNCHES.items()
+            if n and k.split("[")[0] in forbid}
+
+
+def plain_route_logits(torch, np, tk, eng, forbid):
+    """One 64-token prefill of the idle plain-route engine's model, then
+    the same model switched back to the kernels (equal weights): no
+    kernel in `forbid` may launch in the first, the attention and dequant
+    GEMM kernels must in the second, and every logits row must lie within
+    LOGITS_RTOL. -> the largest per-row relative error."""
+    from chitu_tpu_torch.ops import linear
+
+    cfg = eng.cfg
+    dev = eng.device
+    rng = np.random.default_rng(7)
+    toks = torch.tensor(rng.integers(1, cfg.models.vocab_size, size=64),
+                        dtype=torch.int32, device=dev)
+    mp = cfg.infer.max_seq_len // cfg.infer.page_size + 1
+    bt = torch.arange(mp, dtype=torch.int32, device=dev)  # free pages
+    args = (dict(eng.cache.arrays), toks, bt, 0, 64, cfg.infer.page_size)
+    with torch.no_grad():
+        tk.reset_launch_counts()
+        want, _ = eng.model.prefill(*args, return_all_logits=True)
+        torch.cuda.synchronize()
+        off = routed_off(tk, forbid)
+        eng.model.attn_route, eng.model.attn = tk.attention_route("auto")
+        linear.set_op_impl("auto")
+        tk.reset_launch_counts()
+        got, _ = eng.model.prefill(*args, return_all_logits=True)
+        torch.cuda.synchronize()
+    if off:
+        raise AssertionError(f"plain route launched kernels: {off}")
+    if not (tk.LAUNCHES["attend_prefill"] and tk.LAUNCHES["quant_gemm"]):
+        raise AssertionError("the kernel route reached no kernel")
+    _, rel = _row_rel(torch, "plain route prefill logits", got, want,
+                      LOGITS_RTOL)
+    return rel
+
+
 def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
                  lens=(40, 100, 200, 130, 60, 700), new_tokens=32,
                  need=ATTN_KERNELS, check_plain=False,
-                 model="Llama-3-8B-Instruct", shadow=False):
+                 model="Llama-3-8B-Instruct", shadow=False, forbid=()):
     """Bring up an engine, serve one lone prompt and then a burst that
     arrives while it decodes, check everything came back, and return the
     kernel launch counts of that run (zeroed just before it). `shadow`:
     then a short burst with every attention and B13 call shadowed by its
-    plain version (`shadow_serve`)."""
+    plain version (`shadow_serve`). `forbid`: kernels that must not launch
+    in the burst (the plain route), then `plain_route_logits`."""
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
 
@@ -1829,6 +1913,9 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
         if launches.get(name, 0) <= 0:
             raise AssertionError(
                 f"[{label}] kernel {name} was not launched by the engine")
+    if routed_off(tk, forbid):
+        raise AssertionError(f"[{label}] kernels launched under the plain "
+                             f"route: {routed_off(tk, forbid)}")
 
     # time to first token: arrival to the end of the request's prefill
     ttft = [r.prefill_end_time - r.arrival_time for r in reqs]
@@ -1862,6 +1949,10 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
     if shadow:
         stats["shadowed_call_err_vs_plain"] = shadow_serve(
             torch, np, tk, eng, label)
+    if forbid:
+        stats["route"] = eng.model.attn_route
+        stats["logits_row_rel_err_plain_route_vs_kernels"] = (
+            plain_route_logits(torch, np, tk, eng, forbid))
     stats["kv_pool_gib"] = eng.cache.bytes() / 2**30
     print("engine " + json.dumps(stats), flush=True)
     eng.terminate()
@@ -2040,6 +2131,10 @@ def main():
         if label == "w8a8":
             for k in need:
                 launches[k] = got[k]
+    # infer.attn_type=ref infer.op_impl=xla: no kernel of either launches
+    engine_phase(torch, np, tk, card, "plain_route", PLAIN_ROUTE,
+                 lens=(40, 100, 200), new_tokens=8, need=(),
+                 forbid=ROUTED_OFF)
     # MoE serving: the grouped GEMM's launches are those of the soft-fp8
     # Mixtral-8x7B burst
     for label, model, ovr, need in MOE_PHASES:

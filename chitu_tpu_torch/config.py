@@ -18,9 +18,15 @@ them (YAML 1.1 rules: ``1e-05`` without a dot stays a string).
 
 The dataclass tree is the JAX package's, field for field, so that the same
 overrides give equal trees in both packages; the field comments describe
-the JAX engine. Fields this port does not read yet (attn_type, op_impl,
-the ring, speculative and quantization settings) are kept for that
-equality; the engine raises for the values it cannot serve.
+the JAX engine. `infer.attn_type` and `infer.op_impl` mean what they mean
+there: attn_type xla|ref sends every attention call to the plain PyTorch
+versions of the kernels (the jnp oracle's counterpart), on the card too;
+op_impl=xla sends the calls that JAX's `get_op_impl()` governs (the
+quantized and int8 GEMMs, B13, the W8A8 activation quantizers, the MLA
+absorb projections) to theirs; auto|pallas keep the CUDA kernels, and any
+other value raises. Fields this port does not read yet (the ring,
+speculative and some quantization settings) are kept for the equality;
+the engine raises for the values it cannot serve.
 """
 
 from __future__ import annotations

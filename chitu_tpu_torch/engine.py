@@ -34,7 +34,8 @@ from chitu_tpu_torch.config import EngineConfig
 from chitu_tpu_torch.executor import Executor
 from chitu_tpu_torch.kvcache import PagedKVCache
 from chitu_tpu_torch.models import build_model
-from chitu_tpu_torch.ops.linear import set_fp8_act
+from chitu_tpu_torch.ops.attention_kernels import ATTN_TYPES
+from chitu_tpu_torch.ops.linear import OP_IMPLS, set_fp8_act, set_op_impl
 from chitu_tpu_torch.quantize.transforms import (
     KIND_BY_METHOD,
     merge_moe_gate_up,
@@ -75,6 +76,12 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
     quant = cfg.quant
     if quant.method not in ("none", "") and quant.method not in KIND_BY_METHOD:
         raise ValueError(f"unknown quant method {quant.method!r}")
+    if infer.attn_type not in ATTN_TYPES:
+        raise ValueError(
+            f"infer.attn_type={infer.attn_type!r}: expected one of {ATTN_TYPES}")
+    if infer.op_impl not in OP_IMPLS:
+        raise ValueError(
+            f"infer.op_impl={infer.op_impl!r}: expected one of {OP_IMPLS}")
     todo = []
     if infer.tp_size > 1 or infer.pp_size > 1 or infer.dp_size > 1:
         todo.append("tp/pp/dp > 1 (slice 7: multi-GPU)")
@@ -114,6 +121,7 @@ class Engine:
         init_logger()
         check_supported(cfg, have_params=params is not None)
         set_fp8_act(cfg.quant.fp8_act)
+        set_op_impl(cfg.infer.op_impl)
         self.device = resolve_device(device)
         if (
             self.device.type == "cuda"

@@ -64,7 +64,11 @@ from chitu_tpu_torch.ops.absorb_kernels import (
     absorb_kernel_ok,
     absorb_matmul,
 )
-from chitu_tpu_torch.ops.linear import linear, matmul_out_dtype
+from chitu_tpu_torch.ops.linear import (
+    linear,
+    matmul_out_dtype,
+    op_kernels,
+)
 from chitu_tpu_torch.ops.qtensor import QTensor
 from chitu_tpu_torch.utils import resolve_device
 
@@ -86,6 +90,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
             )
         self.args = args
         self.cfg = cfg
+        # infer.attn_type: the CUDA kernels, or their plain versions
+        self.attn_route, self.attn = kernels.attention_route(infer.attn_type)
         self.device = resolve_device(device)
         self.mla = m = args.mla
         self.moe = args.moe
@@ -335,7 +341,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
 
         wkv_b = lp["wkv_b"]
         kernel = (
-            not isinstance(wkv_b, QTensor)
+            op_kernels()  # infer.op_impl=xla: the einsum, as in JAX
+            and not isinstance(wkv_b, QTensor)
             and absorb_kernel_ok(wkv_b, dn, dv, dc)
             and T <= MAX_T
         )
@@ -481,7 +488,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
             attn_ops.append_prefill(
                 pool, layer, k, v, block_table, pos, valid_len, page_size
             )
-            return kernels.attend_prefill(
+            return self.attn.attend_prefill(
                 q, pool, layer, block_table, q_pos, total_len, page_size, **kw
             )
 
@@ -513,7 +520,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
             attn_ops.append_prefill_packed(
                 pool, layer, k, v, block_tables, seg_ids, pos, page_size
             )
-            return kernels.attend_prefill_packed(
+            return self.attn.attend_prefill_packed(
                 q, pool, layer, block_tables, block_seg, block_qstart,
                 total_lens, page_size, **kw,
             )
@@ -555,11 +562,11 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 pool, layer, k[B:], None if v is None else v[B:],
                 pf_block_tables, pf_seg_ids, pf_pos, page_size,
             )
-            od = kernels.attend_decode(
+            od = self.attn.attend_decode(
                 q[:B], pool, layer, dec_block_tables, dec_seq_lens,
                 page_size, **kw,
             )
-            op = kernels.attend_prefill_packed(
+            op = self.attn.attend_prefill_packed(
                 q[B:], pool, layer, pf_block_tables, pf_block_seg,
                 pf_block_qstart, pf_total_lens, page_size, **kw,
             )
@@ -586,7 +593,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         kw = self._attn_kw()
 
         def attend(pool, q, k, v, layer):
-            return kernels.attend_decode_fused(
+            return self.attn.attend_decode_fused(
                 q, pool, layer, k, v, block_tables, seq_lens, valid,
                 page_size, **kw,
             )

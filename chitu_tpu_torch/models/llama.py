@@ -35,8 +35,17 @@ from chitu_tpu_torch.models import register_model
 from chitu_tpu_torch.models.common import apply_rope, rms_norm, rope_tables
 from chitu_tpu_torch.ops import attention as attn_ops
 from chitu_tpu_torch.ops import attention_kernels as kernels
-from chitu_tpu_torch.ops.linear import linear, matmul_out_dtype
-from chitu_tpu_torch.ops.norm_quant import quant_acts, rms_norm_quant
+from chitu_tpu_torch.ops.linear import (
+    linear,
+    matmul_out_dtype,
+    op_kernels,
+)
+from chitu_tpu_torch.ops.norm_quant import (
+    quant_acts,
+    quant_acts_plain,
+    rms_norm_quant,
+    rms_norm_quant_plain,
+)
 from chitu_tpu_torch.ops.qtensor import (
     TENSOR_FIELDS,
     QTensor,
@@ -222,6 +231,8 @@ class LlamaForCausalLM(nn.Module):
             )
         self.args = args
         self.cfg = cfg
+        # infer.attn_type: the CUDA kernels, or their plain versions
+        self.attn_route, self.attn = kernels.attention_route(infer.attn_type)
         self.device = resolve_device(device)
         self.head_dim = args.head_dim_()
         self.inter_dim = _ffn_dim(args)
@@ -377,12 +388,15 @@ class LlamaForCausalLM(nn.Module):
         """RMSNorm, fused with per-token int8 activation quantization when
         the consuming projection is W8A8."""
         if self._w8a8(proj_w):
-            return rms_norm_quant(h, norm_w, self.args.norm_eps)
+            fused = rms_norm_quant if op_kernels() else rms_norm_quant_plain
+            return fused(h, norm_w, self.args.norm_eps)
         return rms_norm(h, norm_w, self.args.norm_eps)
 
     def _maybe_quant_acts(self, x, proj_w):
         """Mid-FFN activation quantization feeding a W8A8 down-projection."""
-        return quant_acts(x.contiguous()) if self._w8a8(proj_w) else x
+        if not self._w8a8(proj_w):
+            return x
+        return (quant_acts if op_kernels() else quant_acts_plain)(x.contiguous())
 
     def _run_layers(self, h, cos, sin, attend):
         for layer in range(self.args.n_layers):
@@ -436,7 +450,7 @@ class LlamaForCausalLM(nn.Module):
             attn_ops.append_prefill(
                 pool, layer, k, v, block_table, pos, valid_len, page_size
             )
-            return kernels.attend_prefill(
+            return self.attn.attend_prefill(
                 q, pool, layer, block_table, q_pos, total_len, page_size, **kw
             )
 
@@ -469,7 +483,7 @@ class LlamaForCausalLM(nn.Module):
         kw = self._attn_kw()
 
         def attend(q, k, v, layer):
-            return kernels.attend_prefill_packed_fused(
+            return self.attn.attend_prefill_packed_fused(
                 q, pool, layer, k, v, block_tables, block_seg, block_qstart,
                 total_lens, page_size, **kw,
             )
@@ -506,11 +520,11 @@ class LlamaForCausalLM(nn.Module):
         kw = self._attn_kw()
 
         def attend(q, k, v, layer):
-            od = kernels.attend_decode_fused(
+            od = self.attn.attend_decode_fused(
                 q[:B], pool, layer, k[:B], v[:B], dec_block_tables,
                 dec_seq_lens, dec_valid, page_size, **kw,
             )
-            op = kernels.attend_prefill_packed_fused(
+            op = self.attn.attend_prefill_packed_fused(
                 q[B:], pool, layer, k[B:], v[B:], pf_block_tables,
                 pf_block_seg, pf_block_qstart, pf_total_lens, page_size, **kw,
             )
@@ -538,7 +552,7 @@ class LlamaForCausalLM(nn.Module):
         kw = self._attn_kw()
 
         def attend(q, k, v, layer):
-            return kernels.attend_decode_fused(
+            return self.attn.attend_decode_fused(
                 q, pool, layer, k, v, block_tables, seq_lens, valid,
                 page_size, **kw,
             )

@@ -27,8 +27,17 @@ the value. There q comes at its 576 live lanes and the output holds the
 kernel takes a bf16 pool or an int8 pool of fp8-e4m3 bits
 (infer.kv_dtype=fp8); the appends write the JAX package's e4m3 bytes.
 
+The split-layout decode (B1, B4) splits the context over blocks: the
+wrapper picks the split from shapes alone (`decode_split`, `_decode_plan`;
+no host sync) and allocates the partials' scratch, and a second small
+launch merges them (`attend_decode_split_plain` is that arithmetic in
+plain PyTorch).
+
 A wrapper runs the plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back.
+`attention_route(infer.attn_type)` gives the models either this module or
+`PLAIN`, the plain versions under the wrappers' names (attn_type
+xla|ref: the user's explicit choice, on the card too).
 Each wrapper counts its kernel launches in `LAUNCHES`, under its own name
 and, for every variant beyond a bf16 pool at head_dim 128, under
 `name[variant]` too (`e4m3`, `d192`, `latent`, `latent,e4m3`, ...). The
@@ -40,6 +49,8 @@ from __future__ import annotations
 
 import ctypes
 import math
+import sys
+import types
 from typing import Optional
 
 import torch
@@ -151,7 +162,7 @@ def _lib():
         lib = cuda_build.load("attention")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.chitu_attend_decode_fused.argtypes = (
-            [P] * 8 + [I] * 9 + [F, I, F, I, P]
+            [P] * 10 + [I] * 9 + [F, I, F, I, I, I, P]
         )
         lib.chitu_attend_prefill.argtypes = (
             [P] * 5 + [I] * 11 + [F, I, F, I, P]
@@ -159,7 +170,9 @@ def _lib():
         lib.chitu_attend_prefill_packed_fused.argtypes = (
             [P] * 9 + [I] * 11 + [F, I, F, I, P]
         )
-        lib.chitu_attend_decode.argtypes = [P] * 5 + [I] * 9 + [F, I, F, I, P]
+        lib.chitu_attend_decode.argtypes = (
+            [P] * 7 + [I] * 9 + [F, I, F, I, I, I, P]
+        )
         lib.chitu_attend_prefill_packed.argtypes = (
             [P] * 7 + [I] * 11 + [F, I, F, I, P]
         )
@@ -179,12 +192,103 @@ def _lib():
     return _LIB
 
 
+# the split decode kernel: keys a shared-memory tile, and the blocks an SM
+# the split count aims at (more than the 3 an SM holds at head size 128:
+# each block has one tile in flight, so short splits in two waves beat
+# long ones in one)
+KEY_TILE = 64
+DECODE_BLOCKS_PER_SM = 4
+_SMS = {}
+
+
+def _sm_count(dev) -> int:
+    i = dev.index if dev.index is not None else torch.cuda.current_device()
+    if i not in _SMS:
+        _SMS[i] = torch.cuda.get_device_properties(i).multi_processor_count
+    return _SMS[i]
+
+
+def decode_split(B: int, KV: int, mp: int, page: int, sms: int):
+    """(S, chunk): the split decode kernel's grid is (B, KV, S) and split s
+    covers key positions [s * chunk, (s + 1) * chunk) of the table's
+    mp * page. From shapes alone (never the context lengths, so the launch
+    needs no host sync): about DECODE_BLOCKS_PER_SM blocks an SM, at most
+    one split a 64-key tile, chunk a whole number of tiles."""
+    tiles = -(-(mp * page) // KEY_TILE)
+    want = -(-(DECODE_BLOCKS_PER_SM * sms) // max(B * KV, 1))
+    chunk = -(-tiles // max(1, min(tiles, want))) * KEY_TILE
+    return max(1, -(-(mp * page) // chunk)), chunk
+
+
+def _decode_plan(q, block_tables, kv_heads: int, page: int):
+    """(S, chunk, part_o, part_ml) of a split-layout decode launch: the
+    split from shapes alone (`decode_split`) and, for S > 1, the f32
+    scratch of the partials (part_o [B, KV, S, G, D], part_ml [B, KV, S,
+    G] (m, l) pairs). Reads no tensor's values."""
+    B, H, D = q.shape
+    S, chunk = decode_split(B, kv_heads, block_tables.shape[1], page,
+                            _sm_count(q.device))
+    if S == 1:
+        return S, chunk, None, None
+    n = B * H * S  # (b, h, s, g) rows
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return S, chunk, torch.empty((n * D,), **f32), torch.empty((n * 2,), **f32)
+
+
+def attend_decode_split_plain(
+    q, pool, layer, block_tables, seq_lens, page_size, kv_heads, head_dim,
+    S, chunk, scale=None, window=0, softcap=0.0,
+):
+    """The split decode's arithmetic in plain PyTorch (split layout): each
+    split's partial (max m, sum l, unnormalized O) over its key range,
+    merged in split order as `decode_merge_kernel` merges them; an empty
+    split has m = -inf, l = 0. Equals `attend_decode_plain` but for
+    rounding."""
+    k, v = plain.unpack_pool(plain._gather(pool, layer, block_tables),
+                             kv_heads, head_dim)
+    B, H, D = q.shape
+    G = H // kv_heads
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    x = torch.einsum("bkgd,bskd->bkgs",
+                     q.reshape(B, kv_heads, G, D).float(), k.float()) * scale
+    if softcap > 0.0:
+        x = torch.tanh(x / softcap) * softcap
+    cols = torch.arange(x.shape[-1], device=q.device)[None, :]
+    live = cols <= seq_lens[:, None]
+    if window > 0:
+        live = live & (cols > seq_lens[:, None] - window)
+    ninf = x.new_tensor(-math.inf)
+    parts = []
+    for s in range(S):
+        inside = (live & (cols >= s * chunk) & (cols < (s + 1) * chunk))[:, None, None]
+        m = torch.where(inside, x, ninf).amax(-1)
+        p = torch.where(inside, torch.exp(x - m[..., None]), x.new_zeros(()))
+        parts.append((m, p.sum(-1), torch.einsum("bkgs,bskd->bkgd", p, v.float())))
+    mx = torch.stack([m for m, _, _ in parts]).amax(0)
+    L = torch.zeros_like(mx)
+    O = torch.zeros_like(parts[0][2])
+    for m, l, o in parts:
+        f = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp(m - mx))
+        L = L + f * l
+        O = O + f[..., None] * o
+    out = torch.where(L[..., None] > 0, O / L.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(O))
+    return out.reshape(B, H, D).to(q.dtype)
+
+
 def _rows_block(G: int, Tq: int) -> int:
     """Query tokens per CUDA block: the largest power of two with
-    tokens x G <= 64 rows that divides Tq."""
+    tokens x G <= 128 rows that divides Tq. A block of more than 64 rows
+    runs 8 warps of 16 rows and must fill them; one of up to 64 runs 4
+    warps and must not leave one idle (3 row groups): halved where
+    either would happen."""
     bq = 1
-    while bq * 2 * G <= 64 and Tq % (bq * 2) == 0:
+    while bq * 2 * G <= 128 and Tq % (bq * 2) == 0:
         bq *= 2
+    if bq > 1 and 64 < bq * G < 128:
+        bq //= 2
+    if bq > 1 and -(-bq * G // 16) == 3:
+        bq //= 2
     return bq
 
 
@@ -366,11 +470,13 @@ def attend_decode_fused(
         _check("k", k, torch.bfloat16, dev, (B, kv_heads, D))
         _check("v", v, torch.bfloat16, dev, (B, kv_heads, D))
         out = torch.empty_like(q)
+        S, chunk, part_o, part_ml = _decode_plan(q, block_tables, kv_heads, page)
         rc = _lib().chitu_attend_decode_fused(
             _ptr(q), _ptr(pool), _ptr(k), _ptr(v), _ptr(block_tables),
-            _ptr(seq_lens), _ptr(valid), _ptr(out), B, int(layer), P, page,
-            M, mp, kv_heads, H // kv_heads, D, float(scale), int(window),
-            float(softcap), fp8, _stream(dev),
+            _ptr(seq_lens), _ptr(valid), _ptr(out), _ptr(part_o),
+            _ptr(part_ml), B, int(layer), P, page, M, mp, kv_heads,
+            H // kv_heads, D, float(scale), int(window), float(softcap), fp8,
+            S, chunk, _stream(dev),
         )
     _raise_on(rc, "attend_decode_fused")
     _count("attend_decode_fused", pool, D, split_kv)
@@ -418,11 +524,12 @@ def attend_decode(
         _check("q", q, torch.bfloat16, dev)
         fp8 = _check_pool(pool, dev)
         out = torch.empty_like(q)
+        S, chunk, part_o, part_ml = _decode_plan(q, block_tables, kv_heads, page)
         rc = _lib().chitu_attend_decode(
             _ptr(q), _ptr(pool), _ptr(block_tables), _ptr(seq_lens),
-            _ptr(out), B, int(layer), P, page, M, mp, kv_heads,
-            H // kv_heads, D, float(scale), int(window), float(softcap),
-            fp8, _stream(dev),
+            _ptr(out), _ptr(part_o), _ptr(part_ml), B, int(layer), P, page,
+            M, mp, kv_heads, H // kv_heads, D, float(scale), int(window),
+            float(softcap), fp8, S, chunk, _stream(dev),
         )
     _raise_on(rc, "attend_decode")
     _count("attend_decode", pool, D, split_kv)
@@ -666,3 +773,30 @@ def attend_prefill_packed(
     _raise_on(rc, "attend_prefill_packed")
     _count("attend_prefill_packed", pool, D, split_kv)
     return out
+
+
+# ---------------------------------------------------------------------------
+# infer.attn_type: the models call attention through `attention_route`
+# ---------------------------------------------------------------------------
+
+ATTN_TYPES = ("auto", "pallas", "xla", "ref")
+# the plain versions under the wrappers' names: the route of
+# attn_type xla|ref, on the card too (the JAX engine's jnp oracle)
+PLAIN = types.SimpleNamespace(
+    attend_decode_fused=attend_decode_fused_plain,
+    attend_decode=attend_decode_plain,
+    attend_prefill=attend_prefill_plain,
+    attend_prefill_packed=attend_prefill_packed_plain,
+    attend_prefill_packed_fused=attend_prefill_packed_fused_plain,
+)
+
+
+def attention_route(attn_type: str):
+    """-> (route name, namespace of the five attention entry points):
+    ("kernels", this module) for auto|pallas, ("plain", PLAIN) for
+    xla|ref."""
+    if attn_type not in ATTN_TYPES:
+        raise ValueError(f"attn_type={attn_type!r}: expected one of {ATTN_TYPES}")
+    if attn_type in ("xla", "ref"):
+        return "plain", PLAIN
+    return "kernels", sys.modules[__name__]

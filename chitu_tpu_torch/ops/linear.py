@@ -9,7 +9,10 @@ GEMM (`ops/dense_gemm_kernels.dense_matmul_stacked`, B13). A `QTensor`
 goes to the dequant GEMM (`ops/quant_gemm_kernels.quant_gemm`) or, for
 W8A8, through per-token int8 activations to the int8 GEMM: the CUDA
 kernels for tensors on the card, their plain versions for tensors on the
-CPU, and no third route.
+CPU. `infer.op_impl=xla` (`set_op_impl`) sends what the JAX package's
+`get_op_impl()` governs to the plain versions on the card too: these
+GEMMs, B13, the W8A8 activation quantizers and the MLA absorb
+projections (the grouped expert GEMM ignores it, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -20,9 +23,18 @@ from typing import Optional, Union
 import torch
 
 from chitu_tpu_torch.ops.dense_gemm_kernels import dense_matmul_stacked
-from chitu_tpu_torch.ops.norm_quant import QuantizedActs, quant_acts
+from chitu_tpu_torch.ops.norm_quant import (
+    QuantizedActs,
+    quant_acts,
+    quant_acts_plain,
+)
 from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
-from chitu_tpu_torch.ops.quant_gemm_kernels import int8_gemm, quant_gemm
+from chitu_tpu_torch.ops.quant_gemm_kernels import (
+    int8_gemm,
+    int8_gemm_plain,
+    quant_gemm,
+    quant_gemm_plain,
+)
 
 # activation handling for QuantKind.FP8 weights (quant.fp8_act): "e4m3"
 # rounds the activations through the fp8 grid with dynamic blockwise
@@ -32,6 +44,28 @@ _FP8_ACT = "int8"
 # stacked dense weights through the dense stacked-layer GEMM (B13) instead
 # of torch.matmul on the layer's view
 _DENSE_KERNEL = os.environ.get("CHITU_TPU_DENSE_KERNEL", "0") == "1"
+
+
+# infer.op_impl: "auto" and "pallas" keep the kernels, "xla" takes the
+# plain versions (the JAX package's jnp paths) wherever it governs
+OP_IMPLS = ("auto", "pallas", "xla")
+_OP_IMPL = "auto"
+
+
+def set_op_impl(impl: str):
+    global _OP_IMPL
+    if impl not in OP_IMPLS:
+        raise ValueError(f"op_impl={impl!r}: expected one of {OP_IMPLS}")
+    _OP_IMPL = impl
+
+
+def get_op_impl() -> str:
+    return _OP_IMPL
+
+
+def op_kernels() -> bool:
+    """Whether the calls op_impl governs launch their kernels."""
+    return _OP_IMPL != "xla"
 
 
 def set_dense_kernel(on: bool):
@@ -100,7 +134,7 @@ def linear(
         # dense weight: reconstruct bf16 activations
         x = x.dequantize(torch.bfloat16)
         out_dtype = out_dtype or torch.bfloat16
-    if _DENSE_KERNEL and layer is not None and w.dim() == 3:
+    if _DENSE_KERNEL and op_kernels() and layer is not None and w.dim() == 3:
         # the kernel indexes the stack itself; f32 sums and output
         y = dense_matmul_stacked(
             x.reshape(-1, x.shape[-1]).contiguous(), layer, w
@@ -141,7 +175,8 @@ def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype) -> torch.Tensor:
                 f"int8 activations need a W8A8 weight, got {w.kind}"
             )
         w = w[layer] if layer is not None and w.data.dim() == 3 else w
-        return int8_gemm(x.data, x.scale, w, bias, out_dtype)
+        gemm = int8_gemm if op_kernels() else int8_gemm_plain
+        return gemm(x.data, x.scale, w, bias, out_dtype)
     x = maybe_fp8_act(x, w)
     if w.in_perm is not None:
         # act-order GPTQ: rows are group-sorted in storage; gather x to
@@ -153,10 +188,15 @@ def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if w.kind == QuantKind.W8A8:
         # dynamic per-token int8 activations, then the int8 GEMM
-        xa = quant_acts(x2)
-        y = int8_gemm(xa.data, xa.scale, w, bias, out_dtype)
+        if op_kernels():
+            xa = quant_acts(x2)
+            y = int8_gemm(xa.data, xa.scale, w, bias, out_dtype)
+        else:
+            xa = quant_acts_plain(x2)
+            y = int8_gemm_plain(xa.data, xa.scale, w, bias, out_dtype)
     else:
-        y = quant_gemm(x2, w, bias, out_dtype)
+        y = (quant_gemm if op_kernels() else quant_gemm_plain)(
+            x2, w, bias, out_dtype)
     return y.reshape(*lead, y.shape[-1])
 
 

@@ -40,7 +40,8 @@ def category(name: str) -> str:
         return "latent_attention_kernel"
     if "absorb_kernel" in name:
         return "absorb_matmul_kernel"
-    if any(k in name for k in ("decode_kernel", "prefill_attend_kernel",
+    if any(k in name for k in ("decode_kernel", "decode_merge_kernel",
+                                "prefill_attend_kernel",
                                 "append_packed_kernel")):
         return "attention_kernels"
     if "quant_gemm_" in name or "int8_gemm_kernel" in name:

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Shows that the limits `chip_smoke.py` holds the quantized, grouped,
 absorb and dense GEMM kernels and the attention kernels (the latent row,
-the e4m3 pool, the split layout at head sizes 192 and 64) to reject broken
-kernels. Needs an NVIDIA GPU and nvcc.
+the e4m3 pool, the split layout at head sizes 192 and 64, the split decode
+and the tensor-core prefill) to reject broken kernels. Needs an NVIDIA GPU and nvcc.
 
-    python3 scripts/torch_kernel_faults.py
+    python3 scripts/torch_kernel_faults.py [words ...]
+
+With words, only the faults whose name holds one of them are planted.
 
 For each planted fault it copies `chitu_tpu_torch/csrc/` into a temporary
 directory, edits one line of one source there (the repository's sources
@@ -21,7 +23,10 @@ B1's append bytes against the plain append's for edge values and for
 values beyond e4m3's range, the latent B4 on an e4m3 pool; head size 192:
 B4 at DeepSeek-R1's dense MLA, 128 heads; head size 64: B5 at
 tiny-llama-debug's 32 heads on 4; B13: layer 1 of a two-layer
-`[4096 -> 6144]` stack at T 16). It prints one
+`[4096 -> 6144]` stack at T 16; the split decode: B4 at Llama-3-8B's
+16-row decode geometry, contexts up to 2048 in five splits, on a bf16 and
+on an e4m3 pool; the tensor-core prefill: B5 for a 128-token chunk at
+q_pos 512). It prints one
 JSON line per fault with the measured error beside the limit, first for
 the sound kernel and then for the broken one, and exits non-zero if a
 sound kernel fails its limit or a fault passes it.
@@ -115,13 +120,38 @@ FAULTS = [
      "if (r < BK - 8) *reinterpret_cast<uint4*>(ks + r * LLD + c * 8) = IO::to_bf16(",
      "latent_e4m3"),
     ("D-192 kernel reads V at lane offset 128 a head", "attention.cu",
-     "vr = IO::load(row + khalf + h * D + c * 8);",
-     "vr = IO::load(row + khalf + h * (D == 192 ? 128 : D) + c * 8);",
+     "cp16(vd, row + khalf + h * D + c * EPC);",
+     "cp16(vd, row + khalf + h * (D == 192 ? 128 : D) + c * EPC);",
      "d192_decode"),
     ("head size 64 dispatched to the 32 instantiation", "attention.cu",
      "case 64: return f(std::integral_constant<int, 64>());",
      "case 64: return f(std::integral_constant<int, 32>());",
      "d64_prefill"),
+    ("split decode: the last split's partial dropped", "attention.cu",
+     "if (ml.x == -INFINITY) continue;",
+     "if (ml.x == -INFINITY || s == S - 1) continue;", "split_decode"),
+    ("split decode: the merge without its rescale", "attention.cu",
+     "const float f = exp2f(ml.x - Mx);", "const float f = 1.f;",
+     "split_decode"),
+    ("split decode: a split ends one key short", "attention.cu",
+     "const int end = min(tot + 1, s * chunk + chunk);",
+     "const int end = min(tot + 1, s * chunk + chunk - 1);", "split_decode"),
+    ("mask columns swapped within a pair of the mma layout", "attention.cu",
+     "if (!ok(kw + 8 * j + 2 * t4 + (e & 1), e >> 1)) s[j][e] = -INFINITY;",
+     "if (!ok(kw + 8 * j + 2 * t4 + 1 - (e & 1), e >> 1)) s[j][e] = -INFINITY;",
+     "d128_prefill"),
+    ("causal mask lets a row see the next key", "attention.cu",
+     "return kp < kend && kp <= qp && kp / page < mp &&",
+     "return kp < kend && kp <= qp + 1 && kp / page < mp &&", "d128_prefill"),
+    ("the ring's newest stage not waited", "attention.cu",
+     "__pipeline_wait_prior(NST - 2);",
+     "__pipeline_wait_prior(NST - 1);", "split_decode"),
+    ("e4m3 tile converted before its copy lands", "attention.cu",
+     "    __pipeline_wait_prior(NST - 2);\n    __syncthreads();\n"
+     "    if constexpr (FP8) {\n      convert(st, tid, nt);\n      __syncthreads();\n    }",
+     "    if constexpr (FP8) convert(st, tid, nt);\n"
+     "    __pipeline_wait_prior(NST - 2);\n    __syncthreads();",
+     "e4m3_decode"),
     ("B13 layer stride wrong", "dense_gemm.cu",
      "w + (size_t)layer * K * N;", "w + (size_t)layer * K * (N - 128);",
      "dense"),
@@ -221,6 +251,12 @@ def main():
     sbt = torch.arange(20, device=dev, dtype=torch.int32)
     sq = randn(128, 32, 64)
     spos = torch.arange(512, 640, device=dev, dtype=torch.int32)
+    # the split decode and the tensor-core prefill at Llama-3-8B's
+    # geometry: 16 decode rows of context up to 2048 (5 splits of 448
+    # keys), a 128-token chunk at q_pos 512
+    bpool = randn(2, B * MP, PAGE, 2 * KV8 * D8, k=0.5)
+    pq = randn(128, 32, D8)
+    ppos = torch.arange(512, 640, device=dev, dtype=torch.int32)
     # B13: layer 1 of [2, 4096, 6144]
     wd = randn(2, K, N, k=0.02)
 
@@ -280,6 +316,17 @@ def main():
                             tk.attend_decode_plain(lq, lepool, 1, lbt, lseq, PAGE,
                                                    **lkw)),
                     ROW_RTOL, "row relative error")
+        if kind in ("split_decode", "e4m3_decode"):
+            pool = bpool if kind == "split_decode" else epool
+            junk = torch.full((B, 32, D8), 7.0, dtype=bf, device=dev)
+            del junk
+            a = (eq, pool, 1, lbt, lseq, PAGE, KV8, D8)
+            return (row_rel(tk.attend_decode(*a), tk.attend_decode_plain(*a)),
+                    ROW_RTOL, "row relative error")
+        if kind == "d128_prefill":
+            a = (pq, bpool, 1, lbt[2], ppos, 640, PAGE, KV8, D8)
+            return (row_rel(tk.attend_prefill(*a), tk.attend_prefill_plain(*a)),
+                    ROW_RTOL, "row relative error")
         if kind == "d192_decode":
             a = (dq, dpool, 0, dbt, dseq, PAGE, 128, 192)
             return (row_rel(tk.attend_decode(*a), tk.attend_decode_plain(*a)),
@@ -308,7 +355,10 @@ def main():
 
     sound_dir = cuda_build.CSRC
     ok = True
+    words = sys.argv[1:]
     for name, src, old, new, kind in FAULTS:
+        if words and not any(w in name for w in words):
+            continue
         use_sources(sound_dir)
         sound, limit, what = check(kind)
         tmp = tempfile.mkdtemp(prefix="faults-")

@@ -15,6 +15,8 @@ those rows are excluded as in the JAX tests; dead packed blocks are 0 on
 both sides.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -24,6 +26,19 @@ from chitu_tpu.models.common import pad_kv_minor
 from chitu_tpu.ops import attention as jattn
 from chitu_tpu.ops import pallas_attention as pk
 from chitu_tpu_torch.ops import attention_kernels as tk
+
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
 
 PAGE = 16
 LAYER = 1
@@ -223,3 +238,57 @@ def test_gates_match_jax():
     assert tk.packed_q_block(32, 2048, 64, 128, kv_heads=8) == 64
     assert tk.prefill_packed_fused_ok(True, 8, 128, 32, 64, 64)
 
+
+
+# ---------------------------------------------------------------------------
+# the split decode kernel's geometry and merge (plain versions)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,KV_,mp,page", [
+    (16, 8, 33, 64), (16, 128, 33, 64), (1, 8, 33, 64), (16, 4, 33, 64),
+    (4, 2, 8, 16), (3, 1, 1, 16), (64, 8, 129, 16),
+])
+def test_decode_split_covers_the_table(B, KV_, mp, page):
+    S, chunk = tk.decode_split(B, KV_, mp, page, 132)
+    keys = mp * page
+    assert S >= 1 and chunk % tk.KEY_TILE == 0
+    assert (S - 1) * chunk < keys <= S * chunk  # no empty trailing split
+    if B * KV_ >= tk.DECODE_BLOCKS_PER_SM * 132:
+        assert S == 1  # enough blocks: the kernel writes the output itself
+
+
+def test_decode_plan_reads_shapes_only(monkeypatch):
+    """The split choice and its scratch come from shapes alone: the plan
+    is built from meta tensors, which hold no values, so the launch needs
+    no host sync (and a CUDA graph can capture it)."""
+    monkeypatch.setattr(tk, "_sm_count", lambda dev: 132)
+    meta = dict(device="meta")
+    q = torch.empty((16, 32, 128), dtype=torch.bfloat16, **meta)
+    bt = torch.empty((16, 33), dtype=torch.int32, **meta)
+    S, chunk, part_o, part_ml = tk._decode_plan(q, bt, 8, 64)
+    assert (S, chunk) == tk.decode_split(16, 8, 33, 64, 132) == (5, 448)
+    assert part_o.numel() == 16 * 32 * S * 128 and part_ml.numel() == 16 * 32 * S * 2
+    assert part_o.device.type == "meta"
+    S, chunk, part_o, part_ml = tk._decode_plan(
+        torch.empty((16, 128, 192), dtype=torch.bfloat16, **meta),
+        bt, 128, 64)
+    assert S == 1 and part_o is None and part_ml is None
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 0.0), (0, 20.0)])
+@pytest.mark.parametrize("S,chunk", [(1, 128), (2, 64), (3, 48), (8, 16), (5, 64)])
+def test_split_merge_equals_unsplit(S, chunk, window, softcap):
+    """Partials of the splits merged in split order (the kernel's merge,
+    empty splits included) equal the unsplit attention in f32."""
+    r = np.random.default_rng(5)
+    B, mp = 5, 8
+    pool = _t(_pool(11, P=B * mp))
+    bt = torch.arange(B * mp, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, PAGE, 3 * PAGE + 5, mp * PAGE - 1], dtype=torch.int32)
+    q = torch.from_numpy(r.standard_normal((B, H, D)).astype(np.float32))
+    args = (q, pool, LAYER, bt, seq, PAGE, KV, D)
+    kw = dict(window=window, softcap=softcap)
+    got = tk.attend_decode_split_plain(*args, S, chunk, **kw)
+    want = tk.attend_decode_plain(*args, **kw)
+    assert (got - want).abs().max().item() <= 1e-5

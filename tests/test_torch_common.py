@@ -2,6 +2,8 @@
 the same numpy inputs (f32; atol 1e-5: the same arithmetic, summed in
 another order by another library)."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -12,6 +14,19 @@ from chitu_tpu import config as jcfg
 from chitu_tpu.models import common as jc
 from chitu_tpu_torch import config as tcfg
 from chitu_tpu_torch.models import common as tc
+
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
 
 ATOL = 1e-5
 

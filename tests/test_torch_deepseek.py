@@ -43,6 +43,19 @@ from chitu_tpu_torch.models.llama import params_from_numpy
 from chitu_tpu_torch.ops.qtensor import QTensor
 from chitu_tpu_torch.quantize import transforms as tqt
 
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
+
 jlinear = importlib.import_module("chitu_tpu.ops.linear")
 
 PAGE = 16

@@ -2,6 +2,8 @@
 verify recipe drives on the JAX engine, and greedy tokens equal to the
 JAX engine's on the same weights."""
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,19 @@ from chitu_tpu.task import SampleParams as JSampleParams
 from chitu_tpu_torch import SampleParams, load_config
 from chitu_tpu_torch.engine import Engine
 from chitu_tpu_torch.models.llama import params_from_numpy
+
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
 
 TINY = [
     "models=micro-llama-debug", "infer.max_seq_len=128", "infer.max_reqs=4",
@@ -210,3 +225,98 @@ def test_unported_configurations_raise(override):
     cfg = load_config(overrides=TINY + [override] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP|slice"):
         Engine(cfg, device="cpu")
+
+
+# ---------------------------------------------------------------------------
+# infer.attn_type and infer.op_impl: the JAX semantics, honoured by the port
+# ---------------------------------------------------------------------------
+
+from chitu_tpu_torch.models import deepseek_v3 as tds  # noqa: E402
+from chitu_tpu_torch.models import llama as tllama  # noqa: E402
+from chitu_tpu_torch.ops import attention_kernels as tk  # noqa: E402
+from chitu_tpu_torch.ops import linear as tlinear  # noqa: E402
+
+DS = ["models=tiny-deepseek-debug", "models.n_layers=2"]
+# the flagship's MLA head sizes at a small width, where B9 runs
+DS_B9 = DS + [
+    "models.mla.qk_nope_head_dim=128", "models.mla.v_head_dim=128",
+    "models.mla.kv_lora_rank=128", "models.mla.qk_rope_head_dim=64",
+    "models.n_heads=4", "models.n_kv_heads=4",
+]
+
+
+def _refuse(monkeypatch, mod, names):
+    """Make each `mod.name` raise when called: the route must not reach
+    it."""
+    def make(name):
+        def refuse(*a, **kw):
+            raise AssertionError(f"{name} reached under the plain route")
+        return refuse
+
+    for n in names:
+        monkeypatch.setattr(mod, n, make(n))
+
+
+@pytest.fixture
+def keep_op_impl(monkeypatch):
+    """An engine sets the port's op_impl switch; restore it after."""
+    monkeypatch.setattr(tlinear, "_OP_IMPL", tlinear.get_op_impl())
+
+
+@pytest.mark.parametrize("card", [[], DS], ids=["llama", "deepseek"])
+@pytest.mark.parametrize("attn_type", ["ref", "xla"])
+def test_attn_type_ref_routes_to_plain_attention(monkeypatch, keep_op_impl,
+                                                 attn_type, card):
+    """attn_type xla|ref: every attention call takes the plain versions
+    (the kernel wrappers are never called); greedy tokens equal the
+    default route's on the CPU."""
+    eng = _engine(*card)
+    assert eng.model.attn_route == "kernels"
+    want = eng.generate("route me", GREEDY)
+    _refuse(monkeypatch, tk, tk.PLAIN.__dict__)
+    eng = _engine(*card, f"infer.attn_type={attn_type}")
+    assert eng.model.attn_route == "plain"
+    assert eng.generate("route me", GREEDY) == want
+    with pytest.raises(AssertionError, match="reached under the plain route"):
+        _engine(*card).generate("route me", GREEDY)
+
+
+@pytest.mark.parametrize("method,card,refused", [
+    ("soft_fp8", [], [(tlinear, ("quant_gemm",))]),
+    ("w8a8", [], [(tlinear, ("int8_gemm", "quant_acts")),
+                  (tllama, ("rms_norm_quant", "quant_acts"))]),
+    ("none", DS_B9, [(tds, ("absorb_matmul",))]),
+], ids=["soft_fp8", "w8a8", "deepseek_absorb"])
+def test_op_impl_xla_routes_to_plain_gemms(monkeypatch, keep_op_impl, method,
+                                           card, refused):
+    """op_impl=xla: the calls JAX's get_op_impl() governs take their
+    plain versions (B6/B7, B10, the W8A8 quantizers, B9); greedy tokens
+    equal the kernels' route on the CPU."""
+    quant = ([f"quant.method={method}", "quant.quant_on_load=true"]
+             if method != "none" else [])
+    want = _engine(*card, *quant).generate("route me", GREEDY)
+    assert tlinear.get_op_impl() == "auto" and tlinear.op_kernels()
+    for mod, names in refused:
+        _refuse(monkeypatch, mod, names)
+    eng = _engine(*card, *quant, "infer.op_impl=xla")
+    assert tlinear.get_op_impl() == "xla" and not tlinear.op_kernels()
+    assert eng.generate("route me", GREEDY) == want
+    with pytest.raises(AssertionError, match="reached under the plain route"):
+        _engine(*card, *quant).generate("route me", GREEDY)
+
+
+def test_op_impl_xla_turns_the_dense_kernel_off(monkeypatch, keep_op_impl):
+    """B13 (switched on) runs only while op_impl keeps the kernels."""
+    monkeypatch.setattr(tlinear, "_DENSE_KERNEL", True)
+    want = _engine().generate("route me", GREEDY)
+    _refuse(monkeypatch, tlinear, ("dense_matmul_stacked",))
+    assert _engine("infer.op_impl=xla").generate("route me", GREEDY) == want
+    with pytest.raises(AssertionError, match="reached under the plain route"):
+        _engine().generate("route me", GREEDY)
+
+
+@pytest.mark.parametrize("override", ["infer.attn_type=flash",
+                                      "infer.op_impl=cuda"])
+def test_unknown_attn_type_or_op_impl_rejected(override):
+    with pytest.raises(ValueError, match="expected one of"):
+        Engine(load_config(overrides=TINY + [override]), device="cpu")

@@ -807,3 +807,110 @@ def test_variant_wrappers_reject_bad_inputs(dev):
     with pytest.raises(NotImplementedError):  # V narrower than K
         tk.attend_decode(rand(3, 4, 192), rand(2, 8, 16, 768), 0, bt, seq,
                          16, 2, 192, v_dim=128)
+
+
+# ---------------------------------------------------------------------------
+# The redesigned split-layout kernels: the split decode (B1, B4) and the
+# tensor-core prefill (B5, B2, B3), over every head size, 1 to 16 query
+# heads a KV head, both pools and pages of 16 and 64
+# ---------------------------------------------------------------------------
+
+SPLIT_GEOMS = [(D, G, kind, page) for D in (32, 64, 128, 192)
+               for G in (1, 4, 8, 16) for kind in ("bf16", "e4m3")
+               for page in (16, 64)]
+
+
+def _ids(p):
+    return "d{}-g{}-{}-p{}".format(*p)
+
+
+def _ws(D, G, page):
+    return WS[(D // 32 + G + page) % 3]
+
+
+@pytest.mark.parametrize("D,G,kind,page", SPLIT_GEOMS, ids=map(_ids, SPLIT_GEOMS))
+def test_split_decode(dev, D, G, kind, page):
+    """B1 and B4 over contexts 0, 1, 63, 64, 65 and each split boundary
+    +-1 (the splits as the wrapper picks them), a dead row, window or
+    softcap; pool bytes equal, rows within 1e-2, two launches
+    bit-equal."""
+    rand = _gen(dev, 30)
+    KV, keys = 2, 512
+    mp = keys // page
+    S, chunk = tk.decode_split(16, KV, mp, page, tk._sm_count(dev))
+    ctx = [0, 1, 63, 64, 65, keys - 1]
+    ctx += [c for s in range(1, S) for c in (s * chunk - 2, s * chunk - 1, s * chunk)]
+    ctx = sorted(set(min(max(c, 0), keys - 1) for c in ctx))[:16]
+    B = len(ctx)
+    S, chunk = tk.decode_split(B, KV, mp, page, tk._sm_count(dev))
+    pool = _vpool(rand, KV, D, page, B * mp, kind)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor(ctx, device=dev, dtype=torch.int32)
+    valid = torch.ones((B,), device=dev, dtype=torch.bool)
+    valid[1] = False
+    q, k, v = rand(B, KV * G, D), rand(B, KV, D), rand(B, KV, D)
+    window, softcap = _ws(D, G, page)
+    kw = dict(window=window, softcap=softcap)
+    args = (1, k, v, bt, seq, valid, page, KV, D)
+    pk, pp = pool.clone(), pool.clone()
+    out_k = tk.attend_decode_fused(q, pk, *args, **kw)
+    out_p = tk.attend_decode_fused_plain(q, pp, *args, **kw)
+    again = tk.attend_decode_fused(q, pool.clone(), *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert torch.equal(out_k, again)
+    _check(out_k, out_p, valid)
+    dargs = (pk, 1, bt, seq, page, KV, D)
+    out_k = tk.attend_decode(q, *dargs, **kw)
+    again = tk.attend_decode(q, *dargs, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, again)
+    _check(out_k, tk.attend_decode_plain(q, *dargs, **kw))
+    _check(out_k.float(),
+           tk.attend_decode_split_plain(q, *dargs, S, chunk, **kw).float())
+
+
+@pytest.mark.parametrize("D,G,kind,page", SPLIT_GEOMS, ids=map(_ids, SPLIT_GEOMS))
+def test_split_prefill(dev, D, G, kind, page):
+    """B5 for a chunk whose q_pos is not tile-aligned, then B2 (append and
+    attend) and B3 on packed slabs of Tq 8 and 64 with dead blocks;
+    window or softcap; pool bytes equal, rows within 1e-2, dead blocks
+    zero, two launches bit-equal."""
+    rand = _gen(dev, 31)
+    KV = 2
+    window, softcap = _ws(D, G, page)
+    kw = dict(window=window, softcap=softcap)
+    mp, T, start = 256 // page + 2, 96, 37
+    pool = _vpool(rand, KV, D, page, 4 * mp, kind)
+    bt = torch.arange(mp, device=dev, dtype=torch.int32) + mp
+    q_pos = torch.arange(start, start + T, device=dev, dtype=torch.int32)
+    q = rand(T, KV * G, D)
+    args = (pool, 1, bt, q_pos, start + T, page, KV, D)
+    out_k = tk.attend_prefill(q, *args, **kw)
+    again = tk.attend_prefill(q, *args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, again)
+    _check(out_k, plain.attend_prefill(q, *args, **kw))
+    segs = [(0, 70), (page + 3, 37), (0, 5)]  # (start, new tokens)
+    for Tq in (8, 64):
+        NB = sum(-(-n // Tq) for _, n in segs) + 2  # two dead blocks
+        bts, bseg, bq, total, live = _slab(dev, Tq, NB, mp, segs)
+        T = Tq * NB
+        q = rand(T, KV * G, D)
+        k, v = rand(T, KV, D), rand(T, KV, D)
+        pk, pp = pool.clone(), pool.clone()
+        fargs = (1, k, v, bts, bseg, bq, total, page, KV, D)
+        out_k = tk.attend_prefill_packed_fused(q, pk, *fargs, **kw)
+        out_p = tk.attend_prefill_packed_fused_plain(q, pp, *fargs, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp)
+        _check(out_k, out_p, live)
+        dead = ~torch.repeat_interleave(bseg >= 0, Tq)
+        assert dead.any() and out_k[dead].abs().max().item() == 0.0
+        pargs = (pk, 1, bts, bseg, bq, total, page, KV, D)
+        out_k = tk.attend_prefill_packed(q, *pargs, **kw)
+        again = tk.attend_prefill_packed(q, *pargs, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(out_k, again)
+        _check(out_k, tk.attend_prefill_packed_plain(q, *pargs, **kw), live)
+        assert out_k[dead].abs().max().item() == 0.0

@@ -30,6 +30,8 @@ ulp of an e4m3 rounding midpoint can land one code apart, so the pools
 must be equal but for at most 1e-5 of their codes, each one step apart.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import ml_dtypes
@@ -51,6 +53,19 @@ from chitu_tpu_torch.models.common import kv_decode, kv_encode
 from chitu_tpu_torch.models.llama import params_from_numpy
 from chitu_tpu_torch.ops import attention as tattn
 from chitu_tpu_torch.ops import attention_kernels as tk
+
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
 
 PAGE = 16
 LAYER = 1

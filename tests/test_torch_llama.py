@@ -25,6 +25,19 @@ from chitu_tpu_torch.config import load_config as tload
 from chitu_tpu_torch.models import build_model as tbuild
 from chitu_tpu_torch.models.llama import params_from_numpy
 
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
+
 PAGE = 16
 MP = 8
 OVR = [

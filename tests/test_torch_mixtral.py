@@ -17,6 +17,8 @@ scales f32 block sums, the port rounds the scaled weight to bf16 first).
 Measured on the prefill logits: 1.4e-3 dense, 2.2e-3 soft-fp8.
 """
 
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +37,19 @@ from chitu_tpu_torch.models import build_model as tbuild
 from chitu_tpu_torch.models.llama import params_from_numpy
 from chitu_tpu_torch.models.mixtral import MixtralForCausalLM
 from chitu_tpu_torch.ops.qtensor import QTensor
+
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
 
 PAGE = 16
 MP = 8

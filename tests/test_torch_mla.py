@@ -19,6 +19,8 @@ multiply the same bf16 values and sum in f32, then round once to bf16;
 they are one bf16 step (0.4 %) apart at most: 1e-2.
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -33,6 +35,19 @@ from chitu_tpu_torch.kvcache import PagedKVCache
 from chitu_tpu_torch.ops import absorb_kernels as tabs
 from chitu_tpu_torch.ops import attention as tattn
 from chitu_tpu_torch.ops import attention_kernels as tk
+
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
 
 PAGE = 16
 LAYER = 1

@@ -52,6 +52,19 @@ from chitu_tpu_torch.ops import linear as tlinear
 
 from test_torch_deepseek import PAGE, _JaxModel, _TorchModel, _compare
 
+
+@pytest.fixture(autouse=True)
+def _jax_op_impl_auto():
+    """Run each test with the JAX op_impl switch at "auto": a JAX test in
+    the same worker may leave it at "pallas", and the JAX side of these
+    tests would then reach a Pallas kernel outside interpret mode."""
+    mod = importlib.import_module("chitu_tpu.ops.linear")
+    old = mod._OP_IMPL
+    mod._OP_IMPL = "auto"
+    yield
+    mod._OP_IMPL = old
+
+
 jlinear = importlib.import_module("chitu_tpu.ops.linear")
 
 DENSE = [
