@@ -33,7 +33,14 @@ Phases, each fatal on failure:
    differ by 1. Library yardsticks: `torch.matmul` on weights dequantized
    beforehand, `torch._int_mm` (timed only). Bound: bytes of weights,
    scales, x and y / 3.35 TB/s against 2TKN / 989 TFLOP/s (bf16) or
-   / 1979 TOP/s (int8).
+   / 1979 TOP/s (int8). Since slice 7 B6/B7 and B8 run the TMA + wgmma
+   mainloop: the e4m3 cases add T 64 and 65 (the edge of its decode and
+   slab regimes) and 128, two shapes go through its cp.async path (a
+   4100-byte weight row, an 8002-byte x row, at T 16 and 512), every
+   B6/B7 output lands on memory filled with 7.0, and every B6/B7/B8 case
+   also holds two launches bit-equal and a replay of a captured CUDA
+   graph bit-equal to an eager launch; each case line names the plan
+   (regime, rows a tile, K splits, TMA or cp.async for each operand).
    The grouped expert GEMM of the MoE path (B8 `grouped_gemm`) at the
    expert stacks of Mixtral-8x7B (8 experts; `[4096 -> 28672]` gate/up
    merged in e4m3, `[4096 -> 14336]` in bf16, `[14336 -> 4096]` in both)
@@ -41,7 +48,8 @@ Phases, each fatal on failure:
    1408]` bf16, `[1408 -> 2048]` both), top-2 routing from a numpy seed
    through the port's own `sorted_dispatch`, at the geometry of a 16-token
    decode step (bm 16; 10 or 18 blocks, some dead), of a 512-token slab
-   (bm 256 or 128) and of one request (T 1, where K is split); layer 1 of
+   (bm 256 or 128), of one request (T 1, where K is split) and, at
+   Mixtral-8x7B, T 64, 65 (bm 32) and 128 (bm 64); layer 1 of
    a two-layer stack, rowwise scales, an unstacked weight, the other row
    tiles (bm 32, 64) and a skewed routing where every token picks the
    same two experts. Limits: every row of a live block within 1e-2 of the
@@ -129,8 +137,10 @@ Phases, each fatal on failure:
    over one-token contexts holding every finite code, which must decode
    exactly; the split layout at head size 192 with 128 heads on 128
    (DeepSeek-R1's dense MLA, V in 128 of the 192 lanes) under B1, B4, B5
-   and B3 (a 256-token slab), and at 64 (tiny-llama-debug: 32 heads on 4)
-   under B1 and B5; B13 `dense_matmul_stacked` at Llama-3-8B's four
+   and B3 (a 256-token slab), at 64 (tiny-llama-debug: 32 heads on 4)
+   under B1 and B5, and at 32 (micro-llama-debug: 4 heads on 2) under
+   B1, B2 and B5 at phase 2's Llama shapes (16 decode rows, the 512-token
+   slab of three prompts, the 512-token chunk); B13 `dense_matmul_stacked` at Llama-3-8B's four
    stacked shapes, T 16 and 512 (yardstick: one `torch.mm` on the layer's
    view with an f32 output). Library yardsticks for attention: SDPA on
    the gathered, decoded K/V (the split B3 too). Bounds count a pool
@@ -150,7 +160,8 @@ Phases, each fatal on failure:
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
    latent B1/B5 from R1 bf16, e4m3 from the fp8-KV phases, d192 from R1
-   dense, d64 from tiny-llama-debug, B13 from the dense-kernel phase),
+   dense, d64 from tiny-llama-debug, d32 from micro-llama-debug, B13 from
+   the dense-kernel phase),
    then the card's name and power limit, then the device JSON as the last
    line.
 
@@ -359,12 +370,37 @@ def bit_equal(torch, name, out, again):
         raise AssertionError(f"{name}: two launches on equal inputs differ")
 
 
-def kernel_cases(torch, tk, plain, dev, kv="bf16"):
+def replay_equal(torch, name, fn, eager):
+    """One fn() call captured in a CUDA graph and replayed must give the
+    bits of the eager call `eager` (the split-K tickets go back to zero in
+    the launch that used them, so a replay finds them as capture did)."""
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not torch.equal(out, eager):
+        raise AssertionError(f"{name}: graph replay differs from an eager launch")
+    del graph
+
+
+def plan_fields(plan):
+    """The GEMM mainloop's plan of a case, for its result line."""
+    return dict(regime=plan.regime, tile_rows=plan.tn, k_splits=plan.splits,
+                weight_load="tma" if plan.tma_w else "cp.async",
+                x_load="tma" if plan.tma_x else "cp.async")
+
+
+def kernel_cases(torch, tk, plain, dev, kv="bf16", geom=None):
     """Yields one result dict per case; the first case of each kernel is
     the one reported in the kernels line. kv="e4m3": the same cases on an
     int8 pool of e4m3 bits (no window/softcap variants), the new rows fed
     e4m3 edge values and, in a second launch, values beyond e4m3's range
-    (the pool bytes must still equal the plain append's)."""
+    (the pool bytes must still equal the plain append's). geom = (H, KV,
+    D, variant): the bf16 cases at another head geometry (no window /
+    softcap variants), reported as that variant (micro-llama-debug: 4
+    heads on 2 of size 32)."""
     import torch.nn.functional as F
 
     from chitu_tpu_torch.models.common import kv_encode
@@ -376,6 +412,9 @@ def kernel_cases(torch, tk, plain, dev, kv="bf16"):
     tag = "[e4m3]" if fp8 else ""
     esz = 1 if fp8 else 2  # bytes of a pool element
     variants = ((0, 0.0),) if fp8 else ((0, 0.0), (512, 30.0))
+    if geom is not None:
+        H, KV, D, kv = geom
+        tag, variants = f"[{kv}]", ((0, 0.0),)
     M = 2 * KV * D
     G = H // KV
     B, MP = 16, 33  # max_reqs rows, max_seq_len 2048 // 64 + 1 pages
@@ -506,7 +545,7 @@ def kernel_cases(torch, tk, plain, dev, kv="bf16"):
             lambda pp, kk, vv: tk.attend_prefill_packed_fused_plain(
                 q, pp, pargs[0], kk, vv, *pargs[1:]),
             k, v)
-    for window, softcap in (variants[:1] if fp8 else ((0, 0.0), (128, 30.0))):
+    for window, softcap in (variants[:1] if fp8 or geom else ((0, 0.0), (128, 30.0))):
         name = "attend_prefill_packed_fused" + (
             tag if not window else "[window,softcap]"
         )
@@ -576,7 +615,7 @@ def kernel_cases(torch, tk, plain, dev, kv="bf16"):
     q_pos = (start + torch.arange(T, device=dev)).to(torch.int32)
     q = randn(T, H, D)
     pool_k = pool0
-    for window, softcap in (variants[:1] if fp8 else ((0, 0.0), (256, 30.0))):
+    for window, softcap in (variants[:1] if fp8 or geom else ((0, 0.0), (256, 30.0))):
         name = "attend_prefill" + (tag if not window else "[window,softcap]")
         kw = dict(scale=scale, window=window, softcap=softcap)
         args = (pool0, LAYER, bt, q_pos, totl, PAGE, KV, D)
@@ -1279,9 +1318,12 @@ def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
         q = weight(mode, K, N)
         x = randn(T, K)
         name = f"quant_gemm[{mode},T={T},{K}->{N}]"
+        poison(torch, (T, 2 * N), dev)  # the f32 output lands on 7.0s
         got = qg.quant_gemm(x, q)
         want = qg.quant_gemm_plain(x, q)
         err, rel = _row_rel(torch, name, got, want, ROW_RTOL)
+        bit_equal(torch, name, got, qg.quant_gemm(x, q))
+        replay_equal(torch, name, lambda: qg.quant_gemm(x, q), got)
         # bf16 output with a bias through the same kernel
         bias = randn(N)
         _row_rel(torch, name + "+bias", qg.quant_gemm(x, q, bias, bf),
@@ -1294,7 +1336,8 @@ def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
                    max_abs_err=err, max_row_rel_err=rel, bound_ms=bnd,
                    bound_by=by, ms=None, plain_ms=None, library_ms=None,
                    shape=f"T={T} K={K} N={N} mode={mode} "
-                         f"weight_bytes={q.nbytes()}")
+                         f"weight_bytes={q.nbytes()}",
+                   **plan_fields(qg.gemm_plan(x, q)))
         if timed:
             res["ms"] = device_ms_sized(torch, lambda: qg.quant_gemm(x, q))
             res["plain_ms"] = call_ms(
@@ -1304,9 +1347,10 @@ def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
             del wd
         return res
 
-    # the soft-fp8 engine's own shapes first, then every other mode
+    # the soft-fp8 engine's own shapes first, then every other mode; T 64
+    # and 65 stand on the edge of the two regimes
     for K, N in PROJ:
-        for T in TS:
+        for T in TS + [64, 65, 128]:
             yield gemm_case("e4m3_blockwise", T, K, N)
     for mode in ("e4m3_rowwise_layer1", "int8_channel", "int4_packed",
                  "int4_unpacked"):
@@ -1318,6 +1362,11 @@ def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
     for mode in ("e4m3_blockwise", "int4_unpacked", "int8_channel"):
         yield gemm_case(mode, 16, 4096, 576)  # an odd output width
     yield gemm_case("e4m3_blockwise", 16, 4000, 6144, timed=False)  # ragged K
+    # shapes no tensor map describes (rows of 4100 bytes; x rows of 8002):
+    # the cp.async path of the same kernel, both regimes
+    for T in (16, 512):
+        yield gemm_case("e4m3_blockwise", T, 4096, 4100, timed=False)
+        yield gemm_case("int8_channel", T, 4001, 4096, timed=False)
     torch.cuda.empty_cache()
 
     # ---- B10: int8 x int8 -> int32, then the two scales ------------------
@@ -1486,6 +1535,7 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
         got, again = run(), run()
         want = mg.grouped_matmul_plain(xs, w, layer, block_expert, bm)
         err, rel = check_grouped(torch, name, got, again, want, live_rows)
+        replay_equal(torch, name, run, got)
         experts = sorted(set(live))
         wbytes = len(experts) * K * N * (1 if fp8 else 2)
         if fp8:
@@ -1499,7 +1549,8 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
                    bound_by=by, ms=None, plain_ms=None, library_ms=None,
                    shape=f"T={T} k={k} E={E} bm={bm} NB={NB} live_blocks="
                          f"{len(live)} live_experts={len(experts)} K={K} N={N} "
-                         f"mode={mode} weight_bytes_read={wbytes}")
+                         f"mode={mode} weight_bytes_read={wbytes}",
+                   **plan_fields(mg.gemm_plan(xs, w, block_expert, bm)))
         if timed:
             res["ms"] = device_ms_sized(torch, run)
             res["plain_ms"] = call_ms(
@@ -1523,13 +1574,13 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
 
     for label, E, K, N, fp8 in MOE_STACKS:
         w = stack(2, E, K, N, fp8)
-        for T in (16, 512, 1):  # decode batch, prefill slab, one request
+        # decode batch, prefill slab, one request; at Mixtral also the
+        # other row tiles (T 64 and 65: bm 32, T 128: bm 64)
+        more = (64, 65, 128) if label == "mixtral" else ()
+        for T in (16, 512, 1) + more:
             yield case(label, w, T, layer=1 if T == 1 else 0)
         if (label, fp8) == ("mixtral", True):
-            # the other row tiles (bm 32 and 64), and the skewed routing
-            # that the capacity route would drop
-            for T in (64, 128):
-                yield case(label, w, T, timed=False)
+            # the skewed routing that the capacity route would drop
             yield case(label, w, 16, skewed=True, timed=False, tag=",skewed")
             yield case(label, w, 512, skewed=True, timed=False, tag=",skewed")
         del w
@@ -2046,6 +2097,7 @@ VARIANT_ROWS = [
     *((k, "r1_dense") for k in D192),
     ("attend_decode_fused[d64]", "tiny_llama_d64"),
     ("attend_prefill[d64]", "tiny_llama_d64"),
+    *((f"{k}[d32]", "micro_llama_d32") for k in ATTN_KERNELS),
     ("dense_matmul_stacked", "llama_dense_kernel"),
 ]
 
@@ -2102,6 +2154,8 @@ def main():
                       split_head_cases(torch, tk, plain, dev,
                                        "tiny-llama-debug", 32, 4, 64,
                                        ("attend_decode_fused", "attend_prefill")),
+                      kernel_cases(torch, tk, plain, dev,
+                                   geom=(4, 2, 32, "d32")),
                       dense_gemm_cases(torch, dg, dev)):
             for res in cases:
                 res["card"] = card

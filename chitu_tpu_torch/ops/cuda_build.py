@@ -119,6 +119,8 @@ def check(name: str, t: torch.Tensor, dtype, device, shape=None):
 def raise_on(rc: int, kernel: str):
     if rc == 100000:
         raise NotImplementedError(f"{kernel}: geometry not supported by the kernel")
+    if rc == 100001:
+        raise RuntimeError(f"{kernel}: cuTensorMapEncodeTiled refused a tensor map")
     if rc:
         raise RuntimeError(
             f"{kernel} launch failed: {torch.cuda.get_device_name()} "

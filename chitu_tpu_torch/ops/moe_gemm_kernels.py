@@ -23,6 +23,9 @@ tolerance is atol = rtol = 2e-2 (that of the dequant GEMM's tests), while
 kernel and plain version differ only in summation order. Launches repeat bit
 for bit: split-K partial sums are added in a fixed order, without atomics.
 
+The kernel is the shared TMA + wgmma mainloop of the dequant GEMM
+(`csrc/gemm_common.cuh`); `gemm_plan` says how a call runs it (decode
+tiles for bm <= 64 with K splits from shapes only, slab tiles above).
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.
 """
@@ -34,13 +37,13 @@ from typing import Union
 
 import torch
 
-from chitu_tpu_torch.ops import cuda_build
+from chitu_tpu_torch.ops import cuda_build, gemm_plan as plan
 from chitu_tpu_torch.ops.cuda_build import LAUNCHES
 from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
 
 LAUNCHES.setdefault("grouped_gemm", 0)
 
-QBLK = 128  # K rows that share one scale row; also the kernel's column tile
+QBLK = plan.QBLK  # K rows that share one scale row; also the kernel's column tile
 BLOCK_ROWS = (16, 32, 64, 128, 256)  # what `dispatch_geometry` can give
 
 _FP8_KINDS = (QuantKind.SOFT_FP8, QuantKind.FP8)
@@ -107,45 +110,21 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("moe_gemm")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.chitu_moe_gemm.argtypes = [P] * 5 + [I] * 9 + [P, P, I, P]
+        lib.chitu_moe_gemm.argtypes = [P] * 5 + [I] * 10 + [P, P, I, P]
         lib.chitu_moe_gemm.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-# split-K workspace of the 16-row kernel, one per device, grown on demand:
-# partial tiles (16 x 128 f32 each) and ticket counters that every launch
-# leaves at zero. Launches that run in order (one stream, as the port
-# launches them) share it; launches on different streams must not overlap.
-_WORKSPACES = {}
-_MAX_SPLITS = 16
-_SMS = {}
+_WORKSPACE = plan.Workspace()  # split-K partial tiles and tickets
 
 
-def _workspace(dev, tiles: int, partials: int):
-    ws, counters = _WORKSPACES.get(dev.index, (None, None))
-    if ws is None or ws.shape[0] < partials or counters.shape[0] < tiles:
-        if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError(
-                "the grouped GEMM's split-K workspace must exist before a "
-                "CUDA graph is captured: run the call once beforehand"
-            )
-        ws = torch.empty((partials, 16, QBLK), dtype=torch.float32, device=dev)
-        counters = torch.zeros((tiles,), dtype=torch.int32, device=dev)
-        _WORKSPACES[dev.index] = (ws, counters)
-    return ws, counters
-
-
-def _splits(dev, NB: int, E: int, K: int, N: int, fp8: bool) -> int:
-    """K splits of the 16-row kernel, from static shapes only: at most
-    min(E, NB) dispatch blocks are live at decode, and two blocks fit an
-    SM, so K is split until the live blocks' column tiles fill the card,
-    keeping at least two K tiles a split."""
-    if dev.index not in _SMS:
-        _SMS[dev.index] = torch.cuda.get_device_properties(dev).multi_processor_count
-    live_tiles = min(E, NB) * (N // QBLK)
-    ktiles = K // (128 if fp8 else 64)
-    return max(1, min(2 * _SMS[dev.index] // live_tiles, ktiles // 2, _MAX_SPLITS))
+def gemm_plan(xs: torch.Tensor, w, block_expert: torch.Tensor, bm: int) -> plan.GemmPlan:
+    """How `grouped_matmul(xs, w, layer, block_expert, bm)` runs the kernel
+    on xs's card (shapes only: the routing is never read)."""
+    E, K, N = _stack(w).shape[-3:]
+    return plan.moe_plan(block_expert.shape[0], bm, E, K, N,
+                         plan.sm_count(torch, xs.device))
 
 
 def grouped_matmul(
@@ -196,17 +175,15 @@ def grouped_matmul(
     out = torch.empty((NB * bm, N), dtype=torch.bfloat16, device=dev)
     if NB == 0:
         return out
-    ws, counters, splits = None, None, 1
-    if bm == 16:
-        splits = _splits(dev, NB, E, K, N, fp8)
-        if splits > 1:
-            tiles = NB * (N // QBLK)
-            ws, counters = _workspace(dev, tiles, tiles * splits)
+    p = gemm_plan(xs, w, block_expert, bm)
+    ws, counters = None, None
+    if p.splits > 1:
+        ws, counters = _WORKSPACE.get(torch, dev, p.ws_floats, p.tickets)
     rc = _lib().chitu_moe_gemm(
         cuda_build.ptr(xs), cuda_build.ptr(data), cuda_build.ptr(scale),
-        cuda_build.ptr(block_expert), cuda_build.ptr(out), NB, bm, K, N, E,
+        cuda_build.ptr(block_expert), cuda_build.ptr(out), NB, bm, K, N, E, L,
         layer, int(fp8), scale_ld, rowwise, cuda_build.ptr(ws),
-        cuda_build.ptr(counters), splits, cuda_build.stream(dev),
+        cuda_build.ptr(counters), p.splits, cuda_build.stream(dev),
     )
     cuda_build.raise_on(rc, "grouped_gemm")
     LAUNCHES["grouped_gemm"] += 1

@@ -11,7 +11,10 @@ Counterpart of `chitu_tpu/ops/pallas_quant_gemm.py`:
   and the 2-D TPU kernels are one kernel here. Scales are read in place.
   K and N are free; the quant block must be 32, 64 or a multiple of 128
   rows (what tiles with both of the kernel's K tiles), else the wrapper
-  raises NotImplementedError. Plain version: `QTensor.dequantize` + matmul.
+  raises NotImplementedError. The kernel is the shared TMA + wgmma
+  mainloop (`csrc/gemm_common.cuh`); `gemm_plan` says how a call runs it
+  (decode or slab tiles, K splits, TMA or cp.async for each operand).
+  Plain version: `QTensor.dequantize` + matmul.
 - `int8_gemm` (B10): `int32[T, N] = int8 x[T, K] @ int8 W[K, N]`, exact,
   then `f32(acc) * x_scale[t] * w_scale[n]`. Plain version: an exact
   integer product (int32 on the CPU, float64 on the card, where the sums
@@ -28,7 +31,7 @@ from typing import Optional
 
 import torch
 
-from chitu_tpu_torch.ops import cuda_build
+from chitu_tpu_torch.ops import cuda_build, gemm_plan as plan
 from chitu_tpu_torch.ops.cuda_build import LAUNCHES
 from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
 
@@ -80,7 +83,7 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("quant_gemm")
         P, I = ctypes.c_void_p, ctypes.c_int
-        lib.chitu_quant_gemm.argtypes = [P] * 6 + [I] * 8 + [P] * 3
+        lib.chitu_quant_gemm.argtypes = [P] * 6 + [I] * 12 + [P] * 3
         lib.chitu_int8_gemm.argtypes = [P] * 6 + [I] * 4 + [P]
         lib.chitu_quant_gemm.restype = ctypes.c_int
         lib.chitu_int8_gemm.restype = ctypes.c_int
@@ -88,22 +91,16 @@ def _lib():
     return _LIB
 
 
-# split-K workspace of the decode kernel, one per device: partial tiles
-# (512 x 16 x 128 f32) and ticket counters that every launch leaves at zero.
-# Launches that run in order (one stream, as the port launches them) share it;
-# launches on different streams must not overlap.
-_WS_TILES = 512
-_WORKSPACES = {}
+_WORKSPACE = plan.Workspace()  # split-K partial tiles and tickets
 
 
-def _workspace(dev):
-    key = dev.index
-    if key not in _WORKSPACES:
-        _WORKSPACES[key] = (
-            torch.empty((_WS_TILES, 16, 128), dtype=torch.float32, device=dev),
-            torch.zeros((_WS_TILES,), dtype=torch.int32, device=dev),
-        )
-    return _WORKSPACES[key]
+def gemm_plan(x: torch.Tensor, q: QTensor) -> plan.GemmPlan:
+    """How `quant_gemm(x, q)` runs the kernel on x's card."""
+    T, K = x.shape
+    return plan.quant_plan(
+        T, K, q.out_features, q.packed, plan.sm_count(torch, x.device),
+        q.data.data_ptr(), x.data_ptr(),
+    )
 
 
 def _check_2d(q: QTensor, kinds):
@@ -168,13 +165,16 @@ def quant_gemm(
     out = torch.empty((T, N), dtype=out_dtype, device=dev)
     if T == 0:
         return out
-    stream = cuda_build.stream(dev)
-    ws, counters = _workspace(dev) if T <= 16 else (None, None)
+    p = gemm_plan(x, q)
+    ws, counters = None, None
+    if p.splits > 1:
+        ws, counters = _WORKSPACE.get(torch, dev, p.ws_floats, p.tickets)
     rc = _lib().chitu_quant_gemm(
         cuda_build.ptr(x), cuda_build.ptr(q.data), cuda_build.ptr(q.scale),
         cuda_build.ptr(q.zeros if mode >= 2 else None), cuda_build.ptr(bias),
         cuda_build.ptr(out), T, K, N, mode, smode, B, sshape[-1],
-        _OUT[out_dtype], cuda_build.ptr(ws), cuda_build.ptr(counters), stream,
+        _OUT[out_dtype], p.tn, p.splits, int(p.tma_w), int(p.tma_x),
+        cuda_build.ptr(ws), cuda_build.ptr(counters), cuda_build.stream(dev),
     )
     cuda_build.raise_on(rc, "quant_gemm")
     LAUNCHES["quant_gemm"] += 1

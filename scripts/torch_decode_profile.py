@@ -3,6 +3,7 @@
 
     python3 scripts/torch_decode_profile.py [batch] [prompt_len] \
         [quant_method] [model card] [layers] [kv_dtype] [mla_absorb]
+    python3 scripts/torch_decode_profile.py --prefill [same arguments]
 
 Builds the engine of a model card (default Llama-3-8B-Instruct) at full
 width and at `layers` deep (default: the card's depth) with random
@@ -22,7 +23,10 @@ told apart by where it is launched, not by name: the model's calls to
 counts as glue when the operator that launched it lies in that range.
 The device's busy share is kernel time per step over the unprofiled wall
 time per step (the kernels run on one stream, so they do not overlap);
-its idle share is the rest. Prints one JSON line
+its idle share is the rest. With --prefill it times the prefill step of
+one prompt of `prompt_len` tokens instead (the 512-token slab at the
+default 512; one new token, so the step is the prefill and its sampling),
+split the same way. Prints one JSON line
 with the card's name and power limit. Needs a CUDA device.
 """
 
@@ -44,12 +48,17 @@ def category(name: str) -> str:
                                 "prefill_attend_kernel",
                                 "append_packed_kernel")):
         return "attention_kernels"
-    if "quant_gemm_" in name or "int8_gemm_kernel" in name:
+    # the shared TMA + wgmma mainloop: its third template argument is the
+    # call site (0 the dequant GEMM, 1 the grouped expert GEMM)
+    if "wg_gemm_kernel" in name:
+        site = name.split("wg_gemm_kernel<", 1)[-1].split(">", 1)[0]
+        if site.replace(" ", "").endswith(",1"):
+            return "grouped_gemm_kernel"
+        return "quant_gemm_kernels"
+    if "int8_gemm_kernel" in name:
         return "quant_gemm_kernels"
     if "dense_gemm_kernel" in name:
         return "dense_gemm_kernel"
-    if "moe_gemm_kernel" in name:
-        return "grouped_gemm_kernel"
     if "norm_quant_kernel" in name:
         return "act_quant_kernels"
     low = name.lower()
@@ -109,8 +118,11 @@ def main():
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
 
-    batch = int(sys.argv[1]) if len(sys.argv) > 1 else 16
-    plen = int(sys.argv[2]) if len(sys.argv) > 2 else 256
+    argv = [a for a in sys.argv if a != "--prefill"]
+    prefill = len(argv) != len(sys.argv)
+    sys.argv = argv
+    batch = int(sys.argv[1]) if len(sys.argv) > 1 else (1 if prefill else 16)
+    plen = int(sys.argv[2]) if len(sys.argv) > 2 else (512 if prefill else 256)
     method = sys.argv[3] if len(sys.argv) > 3 else "none"
     model = sys.argv[4] if len(sys.argv) > 4 else "Llama-3-8B-Instruct"
     depth = [f"models.n_layers={int(sys.argv[5])}"] if len(sys.argv) > 5 else []
@@ -142,14 +154,32 @@ def main():
         return [eng.submit("", p, prompt_tokens=[int(x) for x in
                 rng.integers(1, V, size=plen)]) for _ in range(batch)]
 
-    reqs = submit_batch()
-    eng.step()  # prefill all
     ex = eng.executor
     window = cfg.infer.decode_window
+    if prefill:
+        one = SampleParams(temperature=0.0, max_new_tokens=1)
 
-    live = [eng.pool[f"task-{r.request_id}"] for r in reqs]
+        def decode_steps(n):
+            """-> (wall seconds, prefill steps) of n prefill steps, each a
+            new batch of prompts that ends with its first token."""
+            t = 0.0
+            for _ in range(n):
+                for _ in range(batch):
+                    eng.submit("", one, prompt_tokens=[
+                        int(x) for x in rng.integers(1, V, size=plen)])
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                eng.step()
+                torch.cuda.synchronize()
+                t += time.perf_counter() - t0
+                eng.run_until_complete()
+            return t, n
+    else:
+        reqs = submit_batch()
+        eng.step()  # prefill all
+        live = [eng.pool[f"task-{r.request_id}"] for r in reqs]
 
-    def decode_steps(n_chains):
+    def decode_chains(n_chains):
         """-> (wall seconds, decode steps) of n_chains decode chains."""
         before = len(live[0].response_tokens)
         t0 = time.perf_counter()
@@ -158,6 +188,8 @@ def main():
         torch.cuda.synchronize()
         return time.perf_counter() - t0, len(live[0].response_tokens) - before
 
+    if not prefill:
+        decode_steps = decode_chains
     decode_steps(1)  # warm
     wall, steps = decode_steps(3)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -190,7 +222,7 @@ def main():
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
     print(json.dumps(dict(
         card=card, model=cfg.models.name, layers=cfg.models.n_layers,
-        batch=batch, prompt_len=plen, window=window, quant=method,
+        step="prefill" if prefill else "decode", batch=batch, prompt_len=plen, window=window, quant=method,
         kv_dtype=kv_dtype, mla_absorb=absorb,
         kv_pool_gib=eng.cache.bytes() / 2**30,
         bringup_s=bringup, weights_gib=weights_gib,

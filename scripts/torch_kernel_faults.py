@@ -9,10 +9,12 @@ and the tensor-core prefill) to reject broken kernels. Needs an NVIDIA GPU and n
 With words, only the faults whose name holds one of them are planted.
 
 For each planted fault it copies `chitu_tpu_torch/csrc/` into a temporary
-directory, edits one line of one source there (the repository's sources
-are never touched), builds that copy, points the wrappers at it and runs
+directory, edits one source there (a line, or two for a fault that moves
+a wait; the repository's sources are never touched), builds that copy, points the wrappers at it and runs
 the comparison with the plain version that `chip_smoke.py` runs for the
-mode the fault touches, at a Llama-3-8B projection shape (the grouped GEMM:
+mode the fault touches, at a Llama-3-8B projection shape (the dequant
+GEMM at T 16, where `[4096 -> 6144]` splits K in two, and at T 512 for a
+fault of the slab tiles; the grouped GEMM:
 layer 1 of a two-layer Mixtral-8x7B `[4096 -> 14336]` expert stack at the
 16-token decode geometry, where two of ten blocks are dead; B9: layer 1
 of DeepSeek-R1's `wkv_b` [2, 512, 128*256] at T 16, uk reading q_nope as a
@@ -43,41 +45,71 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 ROW_RTOL = 1e-2  # chip_smoke.py's limit on every GEMM output row
 
 FAULTS = [
-    # (name, source, old text, new text, check)
-    ("scale block index off by one", "quant_gemm.cu",
-     "return (size_t)kb * a.scale_ld + n / a.block;",
-     "return (size_t)kb * a.scale_ld + (n / a.block > 0 ? n / a.block - 1 : 0);",
+    # (name, source, old text, new text, check); a tuple of old texts and
+    # one of new texts make several edits
+    ("scale block index off by one", "gemm_common.cuh",
+     "scol[q] = p.scale_mode == SCALE_BLOCK ? n / p.block : n;",
+     "scol[q] = p.scale_mode == SCALE_BLOCK ? (n / p.block > 0 ? n / p.block - 1 : 0) : n;",
      "e4m3_blockwise"),
-    ("last K block skipped", "quant_gemm.cu",
+    ("last K block skipped", "gemm_common.cuh",
      "const int t_cnt = base + (split < rem ? 1 : 0);",
-     "const int t_cnt = base + (split < rem ? 1 : 0) - (split == a.splits - 1 ? 1 : 0);",
+     "const int t_cnt = base + (split < rem ? 1 : 0) - (split == nsplit - 1 ? 1 : 0);",
      "e4m3_blockwise"),
-    ("low and high nibbles swapped", "quant_gemm.cu",
-     "f[i] = (float)(u.b[i] & 0xF);\n      f[8 + i] = (float)(u.b[i] >> 4);",
-     "f[8 + i] = (float)(u.b[i] & 0xF);\n      f[i] = (float)(u.b[i] >> 4);",
+    ("low and high nibbles swapped", "gemm_common.cuh",
+     "const uint32_t n = (w >> (8 * i + 4 * hi)) & 0xFu;",
+     "const uint32_t n = (w >> (8 * i + 4 * (1 - hi))) & 0xFu;",
      "int4_packed"),
-    ("zeros dropped", "quant_gemm.cu",
-     "if (MODE >= MODE_INT4) v -= z[e];", "", "int4_unpacked"),
+    ("zeros dropped", "gemm_common.cuh",
+     "if (MODE == MODE_INT4 || MODE == MODE_INT4P) v -= zr[4 * q + i];", "",
+     "int4_unpacked"),
     ("x_scale left out", "quant_gemm.cu",
      "(float)cw[idx] * a.x_scale[t] * a.w_scale[n]",
      "(float)cw[idx] * a.w_scale[n]", "int8"),
     ("truncation instead of round-half-to-even", "norm_quant.cu",
      "rintf(y / s)", "truncf(y / s)", "acts"),
-    ("expert index off by one", "moe_gemm.cu",
-     "const uint8_t* w = a.w + (size_t)e * a.K * a.N * wbytes;",
-     "const uint8_t* w = a.w + (size_t)((e + 1) % a.E) * a.K * a.N * wbytes;",
+    ("expert index off by one", "gemm_common.cuh",
+     "expert = p.layer * p.E + e;", "expert = p.layer * p.E + (e + 1) % p.E;",
      "moe_bf16"),
-    ("layer offset dropped", "moe_gemm.cu",
-     "a.w = (const uint8_t*)w + (size_t)layer * E * K * N * (fp8 ? 1 : 2);",
-     "a.w = (const uint8_t*)w;", "moe_bf16"),
-    ("dead block left unzeroed", "moe_gemm.cu",
+    ("layer offset dropped", "gemm_common.cuh",
+     "expert = p.layer * p.E + e;", "expert = e;", "moe_bf16"),
+    ("dead block left unzeroed", "gemm_common.cuh",
      "if (split == 0) {", "if (split < 0) {", "moe_dead"),
-    ("expert scale block index off by one", "moe_gemm.cu",
-     "(a.scale_rowwise ? n : n / QBLK);",
-     "(a.scale_rowwise ? n : (n / QBLK > 0 ? n / QBLK - 1 : 0));", "moe_e4m3"),
-    ("last K tile of the grouped GEMM skipped", "moe_gemm.cu",
+    ("expert scale block index off by one", "gemm_common.cuh",
+     "scol[q] = p.scale_mode == SCALE_BLOCK ? n / p.block : n;",
+     "scol[q] = p.scale_mode == SCALE_BLOCK ? (n / p.block > 0 ? n / p.block - 1 : 0) : n;",
+     "moe_e4m3"),
+    ("last K tile of the grouped GEMM skipped", "gemm_common.cuh",
      "const int t_cnt = base + (split < rem ? 1 : 0);",
      "const int t_cnt = base + (split < rem ? 1 : 0) - (split == nsplit - 1 ? 1 : 0);",
+     "moe_e4m3"),
+    # the TMA + wgmma mainloop
+    ("decode A descriptor's swizzle off by one chunk", "gemm_common.cuh",
+     "sw128_desc(wa + h * BK * 128 + kk * 2048, BK * 128, 1024)",
+     "sw128_desc(wa + h * BK * 128 + kk * 2048 + 16, BK * 128, 1024)",
+     "e4m3_blockwise"),
+    ("slab B descriptor's swizzle off by one chunk", "gemm_common.cuh",
+     "sw128_desc(wa + kk * 2048, BK * 128, 1024)",
+     "sw128_desc(wa + kk * 2048 + 16, BK * 128, 1024)", "e4m3_slab"),
+    ("a stage's full mbarrier not waited on the ring's first lap",
+     "gemm_common.cuh",
+     "    mbar_wait(&full[s], (i / S) & 1);\n    const uint8_t* wst",
+     "    if (i >= S) mbar_wait(&full[s], (i / S) & 1);\n    const uint8_t* wst",
+     "e4m3_poisoned"),
+    ("the converted tile written before its TMA lands", "gemm_common.cuh",
+     ("    mbar_wait(&full[s], (i / S) & 1);\n    const uint8_t* wst",
+      "    wgmma_fence();\n    const uint32_t xa"),
+     ("    const uint8_t* wst",
+      "    mbar_wait(&full[s], (i / S) & 1);\n    wgmma_fence();\n    const uint32_t xa"),
+     "e4m3_blockwise"),
+    ("the swapped output read at the transposed stride", "gemm_common.cuh",
+     "const int row = m0 + e / BN, n = wg_col<MODE>(bx, e % BN);",
+     "const int row = m0 + e % TN, n = wg_col<MODE>(bx, e / TN);", "e4m3_blockwise"),
+    ("the last split of K dropped", "gemm_common.cuh",
+     "for (int sp = 0; sp < nsplit; ++sp) v +=",
+     "for (int sp = 0; sp < nsplit - 1; ++sp) v +=", "e4m3_blockwise"),
+    ("B8's expert row coordinate off by one expert", "gemm_common.cuh",
+     "const long long wrow0 = (long long)expert * p.K;",
+     "const long long wrow0 = (long long)((expert + 1) % (p.w_rows / p.K)) * p.K;",
      "moe_e4m3"),
     ("B9 head stride off by one head", "absorb.cu",
      "w + int64_t(layer) * C * HS + int64_t(h) * S;",
@@ -190,10 +222,12 @@ def main():
     w4 = qt.quantize_weight(w, QuantKind.W4A16)
     weights = {
         "e4m3_blockwise": qt.quantize_weight(w, QuantKind.SOFT_FP8),
+        "e4m3_other": qt.quantize_weight(w.flip(0) * 3, QuantKind.SOFT_FP8),
         "int4_packed": qt.pack_int4_storage({"w": w4})["w"],
         "int4_unpacked": qt.quantize_weight(w[:, : N - 128], QuantKind.W4A16),
         "int8": qt.quantize_weight(w, QuantKind.W8A8),
     }
+    x512 = randn(512, K)  # the slab tiles
     xa = nq.quant_acts_plain(x)
     nw = (1.0 + 0.1 * randn(K).float()).to(bf)
 
@@ -344,6 +378,18 @@ def main():
             return (row_rel(qg.int8_gemm(xa.data, xa.scale, q),
                             qg.int8_gemm_plain(xa.data, xa.scale, q)),
                     1e-5, "row relative error")
+        if kind == "e4m3_poisoned":
+            # a launch on other data first, so that shared memory a block
+            # reads before its copies land holds other values (a race that
+            # reads the previous launch's tiles of the same inputs passes)
+            qg.quant_gemm(x, weights["e4m3_other"])
+            q = weights["e4m3_blockwise"]
+            return (row_rel(qg.quant_gemm(x, q), qg.quant_gemm_plain(x, q)),
+                    ROW_RTOL, "row relative error")
+        if kind == "e4m3_slab":
+            q = weights["e4m3_blockwise"]
+            return (row_rel(qg.quant_gemm(x512, q), qg.quant_gemm_plain(x512, q)),
+                    ROW_RTOL, "row relative error")
         q = weights[kind]
         return (row_rel(qg.quant_gemm(x, q), qg.quant_gemm_plain(x, q)),
                 ROW_RTOL, "row relative error")
@@ -367,10 +413,14 @@ def main():
                 shutil.copy(os.path.join(sound_dir, f), tmp)
             path = os.path.join(tmp, src)
             text = open(path).read()
-            if text.count(old) != 1:
-                raise SystemExit(f"{name}: the line to break is not unique in {src}")
+            olds, news = ((old, new) if isinstance(old, tuple)
+                          else ((old,), (new,)))
+            for o, n in zip(olds, news):
+                if text.count(o) != 1:
+                    raise SystemExit(f"{name}: the line to break is not unique in {src}")
+                text = text.replace(o, n)
             with open(path, "w") as f:
-                f.write(text.replace(old, new))
+                f.write(text)
             use_sources(tmp)
             broken, _, _ = check(kind)
             torch.cuda.synchronize()

@@ -240,6 +240,81 @@ def test_quant_gemm_other_block_sizes(dev, T, block):
         assert _row_rel(got, want) <= ROW_RTOL
 
 
+# the two regimes of the TMA + wgmma mainloop and their edge (64 / 65 rows)
+QTS = [1, 8, 16, 17, 64, 65, 128, 512, 513]
+
+
+@pytest.mark.parametrize("T", QTS)
+@pytest.mark.parametrize("mode", QMODES)
+def test_quant_gemm_regimes(dev, mode, T):
+    rand = _gen(dev, 11)
+    q = _qweight(dev, mode, 1024, 1536, seed=2)
+    x = rand(T, 1024)
+    plan = qg.gemm_plan(x, q)
+    assert plan.regime == ("decode" if T <= 64 else "slab")
+    assert plan.tma_w and plan.tma_x
+    got = qg.quant_gemm(x, q)
+    again = qg.quant_gemm(x, q)
+    want = qg.quant_gemm_plain(x, q)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert _row_rel(got, want) <= ROW_RTOL
+
+
+@pytest.mark.parametrize("T", [1, 16, 65, 513])
+@pytest.mark.parametrize("K,N", [(4000, 4100), (4001, 1024), (130, 72), (96, 200)])
+@pytest.mark.parametrize("mode", ["fp8_block", "w8a16", "w4a16"])
+def test_quant_gemm_cp_async_path(dev, mode, K, N, T):
+    """Rows no tensor map can describe (a weight row or an x row that is
+    no multiple of 16 bytes) go through the producer's cp.async path."""
+    rand = _gen(dev, 12)
+    q = _qweight(dev, mode, K, N, seed=4)
+    x = rand(T, K)
+    plan = qg.gemm_plan(x, q)
+    assert not (plan.tma_w and plan.tma_x)
+    bias = rand(N)
+    for b, dt in ((None, torch.float32), (bias, torch.bfloat16)):
+        got = qg.quant_gemm(x, q, b, dt)
+        want = qg.quant_gemm_plain(x, q, b, dt)
+        torch.cuda.synchronize()
+        assert got.shape == (T, N)
+        assert _row_rel(got, want) <= ROW_RTOL
+
+
+def _replays_equal(fn):
+    eager = fn()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
+@pytest.mark.parametrize("T", [1, 16, 64, 512])
+def test_quant_gemm_graph_replay_is_bit_equal(dev, T):
+    """Replays of a captured launch give an eager launch's bits, split-K
+    tickets included (K 4096 into 512 columns splits at decode)."""
+    rand = _gen(dev, 13)
+    q = _qweight(dev, "fp8_block", 4096, 512)
+    x = rand(T, 4096)
+    if T <= 64:
+        assert qg.gemm_plan(x, q).splits > 1
+    _replays_equal(lambda: qg.quant_gemm(x, q))
+
+
+@pytest.mark.parametrize("T", [1, 16, 128, 512])
+@pytest.mark.parametrize("mode", ["bf16", "e4m3_blockwise"])
+def test_grouped_gemm_graph_replay_is_bit_equal(dev, mode, T):
+    from chitu_tpu_torch.ops import moe_gemm_kernels as mg
+
+    w, xs, block_expert, bm = _moe_case(dev, mode, T, 8, 2048, 256)
+    if T == 1:
+        assert mg.gemm_plan(xs, w, block_expert, bm).splits > 1
+    _replays_equal(lambda: mg.grouped_matmul(xs, w, 1, block_expert, bm))
+
+
 def test_quant_gemm_split_k_is_deterministic(dev):
     """Decode shapes that split K (a narrow output) give the same bits on
     every call, and the workspace is left clean for the next shape."""
@@ -331,7 +406,7 @@ def _moe_case(dev, mode, T, E, K, N, k=2, L=2, seed=5):
     return w, rand(NB * bm, K), block_expert, bm
 
 
-@pytest.mark.parametrize("T", [1, 16, 64, 128, 256, 512])  # bm 16 .. 256
+@pytest.mark.parametrize("T", [1, 8, 16, 17, 64, 65, 128, 256, 512, 513])  # bm 16 .. 256
 @pytest.mark.parametrize("mode", ["bf16", "e4m3_blockwise", "e4m3_rowwise"])
 def test_grouped_gemm(dev, mode, T):
     from chitu_tpu_torch.ops import moe_gemm_kernels as mg
