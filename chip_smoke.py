@@ -101,9 +101,10 @@ Phases, each fatal on failure:
    have launched, and the dequant GEMM under a quant method. The earlier
    phases run at the depth they had.
    The MLA kernels of DeepSeek serving: B9 `absorb_matmul` at
-   DeepSeek-R1's `wkv_b` [2, 512, 128*256] (layer 1) and
-   deepseek-mid-bench's (32 heads), uk (reading q_nope as a view of the
-   query rows) and uv at T 16, 1 and 128, two launches bit-equal; the
+   DeepSeek-R1's `wkv_b` [8, 512, 128*256] (layer 1) and
+   deepseek-mid-bench's (32 heads, 26 layers), uk (reading q_nope as a
+   view of the query rows) and uv at T 16, 1 and 128, two launches
+   bit-equal and a graph replay bit-equal to an eager launch; the
    merged latent row (128 heads on one KV head of 576 live lanes, 512 value
    lanes, 640-lane rows) through B4 `attend_decode` and B1 (16 rows of
    context up to 2047, the new token appended by the plain append before
@@ -117,7 +118,16 @@ Phases, each fatal on failure:
    the gathered latent rows (K = V = the 576 lanes), one `torch.einsum` on
    the layer's half of `wkv_b`. Bounds: bytes of the leaf half, x and out
    for B9; for the latent row the 576 live lanes of each context row read
-   once against 2 x H x (576 + 512) FLOPs a (query, key) pair.
+   once against 2 x H x (576 + 512) FLOPs a (query, key) pair. B9 and B13
+   are timed twice: warm (`ms`, `library_ms`: the graph's calls reread one
+   layer, which a 50 MB L2 keeps) and cold (`ms_cold`, `library_ms_cold`:
+   the calls cycle over the stack's layers, sized so the others read more
+   than twice the L2 between two calls on one, as a decode step finds a
+   layer's weight); their cases also carry the host time of one eager
+   call of the wrapper and of the library call (`host_us`,
+   `library_host_us`). Any byte-bound case of phase 2 whose `ms` or
+   `library_ms` reads below its byte bound (data read from L2) carries
+   `"l2_resident": true`.
    Then DeepSeek serving, the same lone prompt and burst of six at full
    width: DeepSeek-R1 in bf16 and in soft-fp8 at 5 of 61 layers (3 dense,
    2 MoE: a layer of its experts is 22.5 GB in bf16 and the engine draws
@@ -140,9 +150,11 @@ Phases, each fatal on failure:
    and B3 (a 256-token slab), at 64 (tiny-llama-debug: 32 heads on 4)
    under B1 and B5, and at 32 (micro-llama-debug: 4 heads on 2) under
    B1, B2 and B5 at phase 2's Llama shapes (16 decode rows, the 512-token
-   slab of three prompts, the 512-token chunk); B13 `dense_matmul_stacked` at Llama-3-8B's four
-   stacked shapes, T 16 and 512 (yardstick: one `torch.mm` on the layer's
-   view with an f32 output). Library yardsticks for attention: SDPA on
+   slab of three prompts, the 512-token chunk); B13 `dense_matmul_stacked`
+   at Llama-3-8B's four stacked shapes, T 16, 512, 1, 64 and 65, each on
+   output memory filled with 7.0, two launches and a graph replay
+   bit-equal (yardstick: one `torch.mm` on the layer's view with an f32
+   output; warm and cold as B9). Library yardsticks for attention: SDPA on
    the gathered, decoded K/V (the split B3 too). Bounds count a pool
    element as one byte in e4m3.
    Then slice 5's serving, each the same lone prompt and two-wave burst
@@ -186,8 +198,6 @@ ROW_RTOL = 1e-2
 LOGITS_RTOL = 2e-2  # engine phases: kernels against plain versions
 REPS = 20  # timings per case; the median is reported
 GRAPH_CALLS = 30  # calls per captured graph
-
-
 def card_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -223,6 +233,46 @@ def device_ms(torch, fn, calls=GRAPH_CALLS, reps=REPS):
     graph.replay()
     times = sorted(_events_ms(torch, graph.replay) for _ in range(reps))
     return times[reps // 2] / calls
+
+
+def host_us(torch, fn, calls=200, reps=5):
+    """Host time of one eager fn() call, in microseconds: `calls` calls
+    enqueued back to back (fewer than the launch queue holds, so the host
+    does not wait on the card), the card drained before each of `reps`
+    runs; the median run."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return sorted(times)[reps // 2] / calls * 1e6
+
+
+def cold_layers(torch, dev, nbytes: int, least: int) -> int:
+    """Layers of a stack to cycle over so that between two calls on one
+    layer the others read more than twice the card's L2 (`nbytes`: what
+    one call reads of its layer)."""
+    l2 = torch.cuda.get_device_properties(dev).L2_cache_size
+    return max(least, 2 * l2 // nbytes + 2)
+
+
+def device_ms_cold(torch, fns, reps=REPS):
+    """Device time of one call with its weight cold in L2, as a decode step
+    finds a layer's weight after the other layers' weights have passed:
+    fns[i] calls on layer i of a stack sized by `cold_layers`; one CUDA
+    graph holds whole cycles over the layers (at least GRAPH_CALLS calls,
+    so a replay's first call follows the last layer's), no flush kernel
+    inside; median of `reps` replays over the calls."""
+    n = len(fns)
+
+    def cycle():
+        for f in fns:
+            f()
+
+    return device_ms(torch, cycle, calls=-(-GRAPH_CALLS // n), reps=reps) / n
 
 
 def device_ms_sized(torch, fn):
@@ -664,9 +714,15 @@ R1_SCALE = 192 ** -0.5 * (0.1 * 1.0 * math.log(40.0) + 1.0) ** 2
 
 
 def absorb_cases(torch, ab, dev):
-    """B9 at DeepSeek-R1's wkv_b [2, 512, 128*256] (layer 1) and
-    deepseek-mid-bench's (32 heads): uk and uv at T 16, 1 and 128. The
-    first case (R1, uk, T 16) is the one reported in the kernels line."""
+    """B9 at DeepSeek-R1's wkv_b [L, 512, 128*256] (layer 1) and
+    deepseek-mid-bench's (32 heads): uk and uv at T 16, 1 and 128, each on
+    output memory filled with 7.0, two launches bit-equal and a CUDA-graph
+    replay bit-equal to an eager launch. Times warm (`ms`, `library_ms`:
+    the graph's calls reread one layer, which stays in L2) and cold
+    (`ms_cold`, `library_ms_cold`: the calls cycle over the stack's L
+    layers, L sized so the others read more than twice the L2 in between).
+    The first case (R1, uk, T 16) is the one reported in the kernels
+    line."""
     g = torch.Generator(device=dev)
     g.manual_seed(3)
     bf = torch.bfloat16
@@ -676,7 +732,11 @@ def absorb_cases(torch, ab, dev):
         return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
 
     for label, H in (("R1", 128), ("mid", 32)):
-        w = randn(2, C, H * (dn + dv), s=0.02)
+        half_bytes = C * H * dn * 2  # what one call reads of its layer
+        L = cold_layers(torch, dev, half_bytes, 8)
+        w = torch.empty((L, C, H * (dn + dv)), dtype=bf, device=dev)
+        for l in range(L):
+            w[l] = randn(C, H * (dn + dv), s=0.02)
         wl = w[1].view(C, H, dn + dv)
         for T in (16, 1, 128):
             for kind in ("uk", "uv"):
@@ -686,28 +746,42 @@ def absorb_cases(torch, ab, dev):
                 name = f"absorb_matmul[{label},{kind},T={T}]"
                 run = lambda: ab.absorb_matmul(x, w, 1, kind, dn, dv)
                 poison(torch, (T, H, C if kind == "uk" else dv), dev)
-                got, again = run(), run()
+                got = run()
                 want = ab.absorb_matmul_plain(x, w, 1, kind, dn, dv)
-                if not torch.equal(got, again):
-                    raise AssertionError(f"{name}: two launches differ")
                 err, rel = compare_rows(torch, name, got, want, slice(None))
-                half = wl[..., :dn] if kind == "uk" else wl[..., dn:]
+                bit_equal(torch, name, got, run())
+                replay_equal(torch, name, run, got)
                 eq = "thd,chd->thc" if kind == "uk" else "thc,chd->thd"
+                halves = [w[l].view(C, H, dn + dv)[..., :dn] if kind == "uk"
+                          else w[l].view(C, H, dn + dv)[..., dn:] for l in range(L)]
+                half = halves[1]
                 nbytes = half.numel() * 2 + x.numel() * 2 + got.numel() * 2
                 bnd, by = bound_ms(nbytes, 2.0 * T * H * C * (dn if kind == "uk" else dv))
-                yield dict(
+                res = dict(
                     name=name, kernel="absorb_matmul", route="cuda",
                     source=ABSORB_SRC,
                     replaces="chitu_tpu/ops/pallas_absorb.py:103",
                     max_abs_err=err, max_row_rel_err=rel,
                     ms=device_ms(torch, run),
+                    ms_cold=device_ms_cold(torch, [
+                        (lambda l=l: ab.absorb_matmul(x, w, l, kind, dn, dv))
+                        for l in range(L)]),
                     plain_ms=call_ms(torch, lambda: ab.absorb_matmul_plain(
                         x, w, 1, kind, dn, dv)),
                     bound_ms=bnd, bound_by=by,
                     library_ms=device_ms(torch, lambda: torch.einsum(eq, x, half)),
+                    host_us=host_us(torch, run),
+                    library_host_us=host_us(torch, lambda: torch.einsum(eq, x, half)),
+                    library_ms_cold=device_ms_cold(torch, [
+                        (lambda hl=hl: torch.einsum(eq, x, hl)) for hl in halves]),
                     shape=f"T={T} H={H} C={C} dn={dn} dv={dv} kind={kind} "
-                          f"leaf_half_bytes={half.numel() * 2}")
-        del w
+                          f"leaf_half_bytes={half.numel() * 2} layers={L}")
+                if hasattr(ab, "gemm_plan"):
+                    p = ab.gemm_plan(x, w, kind, dn, dv)
+                    res.update(regime=p.regime, tile_rows=p.tn, blocks=p.blocks,
+                               items_per_block=p.per_block)
+                yield res
+        del w, wl
     torch.cuda.empty_cache()
 
 
@@ -1221,38 +1295,57 @@ DENSE_PROJ = [(4096, 6144), (4096, 4096), (4096, 28672), (14336, 4096)]
 
 
 def dense_gemm_cases(torch, dg, dev):
-    """B13 at Llama-3-8B's four stacked shapes (layer 1 of a two-layer
-    stack), T 16 and 512, against its plain version (every row within
-    1e-2 of the plain row's norm) and twice bit-equal. Library yardstick:
-    one `torch.mm(x, w[layer], out_dtype=float32)` on the layer's view.
-    Bound: the layer's weight, x and the f32 output / 3.35 TB/s against
-    2TKN / 989 TFLOP/s."""
+    """B13 at Llama-3-8B's four stacked shapes (layer 1 of the stack), T
+    16, 512, 1, 64 and 65, against its plain version (every row within
+    1e-2 of the plain row's norm, on output memory filled with 7.0), two
+    launches bit-equal and a CUDA-graph replay bit-equal to an eager
+    launch. Times warm and cold as B9's (`absorb_cases`): the stack holds
+    L layers, at least 2, enough that the others read more than twice the
+    L2 between two calls on one. Library yardstick: one `torch.mm(x,
+    w[layer], out_dtype=float32)` on the layer's view. Bound: the layer's
+    weight, x and the f32 output / 3.35 TB/s against 2TKN / 989 TFLOP/s."""
     g = torch.Generator(device=dev)
     g.manual_seed(6)
     for K, N in DENSE_PROJ:
-        w = (torch.randn((2, K, N), generator=g, device=dev) * 0.02).to(
-            torch.bfloat16)
-        for T in (16, 512):
+        L = cold_layers(torch, dev, K * N * 2, 2)
+        w = torch.empty((L, K, N), dtype=torch.bfloat16, device=dev)
+        for l in range(L):
+            w[l] = (torch.randn((K, N), generator=g, device=dev) * 0.02).to(
+                torch.bfloat16)
+        for T in (16, 512, 1, 64, 65):
             x = torch.randn((T, K), generator=g, device=dev).to(torch.bfloat16)
             name = f"dense_matmul_stacked[{K}->{N},T={T}]"
-            got = dg.dense_matmul_stacked(x, 1, w)
-            if not torch.equal(got, dg.dense_matmul_stacked(x, 1, w)):
-                raise AssertionError(f"{name}: two launches differ")
+            run = lambda: dg.dense_matmul_stacked(x, 1, w)
+            poison(torch, (T, 2 * N), dev)  # the f32 output lands on 7.0s
+            got = run()
             err, rel = _row_rel(torch, name, got,
                                 dg.dense_matmul_stacked_plain(x, 1, w), ROW_RTOL)
+            bit_equal(torch, name, got, run())
+            replay_equal(torch, name, run, got)
             bnd, by = bound_ms(K * N * 2 + T * K * 2 + T * N * 4, 2.0 * T * K * N)
-            yield dict(
+            res = dict(
                 name=name, kernel="dense_matmul_stacked", variant="bf16",
                 route="cuda", source=DENSE_SRC,
                 replaces="chitu_tpu/ops/pallas_quant_gemm.py:588",
                 max_abs_err=err, max_row_rel_err=rel,
-                ms=device_ms(torch, lambda: dg.dense_matmul_stacked(x, 1, w)),
+                ms=device_ms(torch, run),
+                ms_cold=device_ms_cold(torch, [
+                    (lambda l=l: dg.dense_matmul_stacked(x, l, w)) for l in range(L)]),
                 plain_ms=call_ms(torch, lambda: dg.dense_matmul_stacked_plain(
                     x, 1, w)),
                 bound_ms=bnd, bound_by=by,
                 library_ms=device_ms(torch, lambda: torch.mm(
                     x, w[1], out_dtype=torch.float32)),
-                shape=f"T={T} K={K} N={N} layers=2 layer=1")
+                host_us=host_us(torch, run),
+                library_host_us=host_us(torch, lambda: torch.mm(
+                    x, w[1], out_dtype=torch.float32)),
+                library_ms_cold=device_ms_cold(torch, [
+                    (lambda l=l: torch.mm(x, w[l], out_dtype=torch.float32))
+                    for l in range(L)]),
+                shape=f"T={T} K={K} N={N} layers={L} layer=1")
+            if hasattr(dg, "gemm_plan"):
+                res.update(plan_fields(dg.gemm_plan(x, w)))
+            yield res
         del w
     torch.cuda.empty_cache()
 
@@ -2159,6 +2252,10 @@ def main():
                       dense_gemm_cases(torch, dg, dev)):
             for res in cases:
                 res["card"] = card
+                if res.get("bound_by") == "bytes" and any(
+                        res.get(k) is not None and res[k] < res["bound_ms"]
+                        for k in ("ms", "library_ms")):
+                    res["l2_resident"] = True
                 print("case " + json.dumps(res), flush=True)
                 first.setdefault(res["kernel"], res)
                 by_row.setdefault(row_key(res), res)

@@ -1,7 +1,9 @@
 // Pieces shared by the GEMM kernels of quant_gemm.cu, moe_gemm.cu,
-// dense_gemm.cu and absorb.cu: the block geometry, the 16-byte unions, and
-// the Hopper GEMM mainloop (TMA + wgmma) that the dequant GEMM (B6+B7) and
-// the grouped expert GEMM (B8) both run. Every
+// dense_gemm.cu and absorb.cu: the block geometry, the 16-byte unions, the
+// TMA, mbarrier and wgmma primitives, and the Hopper GEMM mainloop (TMA +
+// wgmma) that the dequant GEMM (B6+B7), the grouped expert GEMM (B8) and
+// the dense stacked-layer GEMM (B13) run; the MLA absorb kernel (B9) walks
+// its own items with the same primitives. Every
 // source that includes this header is rebuilt when it changes (the build
 // hashes the headers with the source, ops/cuda_build.py).
 
@@ -48,7 +50,8 @@ __host__ __device__ inline int aligned16(const void* p) { return ((uintptr_t)p &
 
 
 // ===========================================================================
-// The Hopper GEMM mainloop of B6+B7 (quant_gemm.cu) and B8 (moe_gemm.cu)
+// The Hopper GEMM mainloop of B6+B7 (quant_gemm.cu), B8 (moe_gemm.cu) and
+// B13 (dense_gemm.cu)
 // ===========================================================================
 //
 //   out[m, n] = sum_k x[m, k] * W[k, n],   x bf16 [rows, K], W stored as
@@ -133,7 +136,7 @@ struct WgParams {
   long long scale_expert;
   int x_rows, K, N, w_ld, w_rows;
   int bm;                    // rows of a group (B8: a dispatch block; B6/B7: T)
-  int E, layer;
+  int E, layer;              // B8: experts a layer; B8 and B13: the stack's layer
   int scale_mode, block, scale_ld, out_bf16;
   int ncol, splits;
   int tma_w, tma_x;
@@ -254,6 +257,39 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+
+// shared -> global through a 3-D tensor map; boxes past the tensor's edge
+// are clipped (nothing is written there)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src,
+                                             int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1),
+      "r"(c2) : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores have read their shared-memory sources (their
+// global writes complete with the grid)
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// fetch a tensor map's descriptor ahead of its first use
+__device__ __forceinline__ void prefetch_tmap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
@@ -286,8 +322,10 @@ __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
 
 // ---- wgmma.mma_async (bf16 x bf16 -> f32, operands in shared memory) ----
 
-// D[64 x 128] += A * B, bf16 in, f32 sums; A K-major, B MN-major
-__device__ __forceinline__ void wgmma_m64n128_t01(float (&d)[64], uint64_t da, uint64_t db) {
+// D[64 x N] += A * B, bf16 in, f32 sums, both operands in shared memory.
+// TA / TB: 1 where A / B is MN-major (transposed), 0 where K-major.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
@@ -299,7 +337,7 @@ __device__ __forceinline__ void wgmma_m64n128_t01(float (&d)[64], uint64_t da, u
       "%40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, "
       "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -312,39 +350,39 @@ __device__ __forceinline__ void wgmma_m64n128_t01(float (&d)[64], uint64_t da, u
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// D[64 x 16] += A * B, bf16 in, f32 sums; A MN-major, B K-major
-__device__ __forceinline__ void wgmma_m64n16_t10(float (&d)[8], uint64_t da, uint64_t db) {
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n16(float (&d)[8], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7"
-      "}, %8, %9, p, 1, 1, 1, 0;\n"
+      "}, %8, %9, p, 1, 1, %11, %12;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// D[64 x 32] += A * B, bf16 in, f32 sums; A MN-major, B K-major
-__device__ __forceinline__ void wgmma_m64n32_t10(float (&d)[16], uint64_t da, uint64_t db) {
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32(float (&d)[16], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, "
       "%8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 1, 0;\n"
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
         "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
 }
 
-// D[64 x 64] += A * B, bf16 in, f32 sums; A MN-major, B K-major
-__device__ __forceinline__ void wgmma_m64n64_t10(float (&d)[32], uint64_t da, uint64_t db) {
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n64(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
@@ -352,7 +390,7 @@ __device__ __forceinline__ void wgmma_m64n64_t10(float (&d)[32], uint64_t da, ui
       "%8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, "
       "%24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 1, 0;\n"
+      "}, %32, %33, p, 1, 1, %35, %36;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
         "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
@@ -360,7 +398,16 @@ __device__ __forceinline__ void wgmma_m64n64_t10(float (&d)[32], uint64_t da, ui
         "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TA), "n"(TB));
+}
+
+// D[64 x TN] += A * B for a token tile of TN = 16, 32, 64 or 128 columns
+template <int TN, int TA, int TB>
+__device__ __forceinline__ void wgmma_tile(float (&d)[TN / 2], uint64_t da, uint64_t db) {
+  if constexpr (TN == 16) wgmma_m64n16<TA, TB>(d, da, db);
+  if constexpr (TN == 32) wgmma_m64n32<TA, TB>(d, da, db);
+  if constexpr (TN == 64) wgmma_m64n64<TA, TB>(d, da, db);
+  if constexpr (TN == 128) wgmma_m64n128<TA, TB>(d, da, db);
 }
 
 
@@ -433,8 +480,9 @@ __device__ __forceinline__ void wg_put(const WgParams& p, int row, int n, float 
     reinterpret_cast<float*>(p.out)[o] = v;
 }
 
-// SITE names the caller (0 the dequant GEMM, 1 the grouped expert GEMM) so
-// that a profiler tells the two apart; the code is the same.
+// SITE names the caller (0 the dequant GEMM, 1 the grouped expert GEMM, 2
+// the dense stacked-layer GEMM) so that a profiler tells them apart; the
+// code is the same.
 template <int MODE, int TN, int SITE>
 __global__ void __launch_bounds__(WG_THREADS, 1)
 wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
@@ -457,9 +505,10 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
   const int m0 = g * p.bm + (SLAB ? blockIdx.x * TN : 0);
   const int row_end = min((g + 1) * p.bm, p.x_rows);
 
-  // B8: the block's expert, read on the device; a dead block reads no
-  // weight and writes zeros (bf16 output, N a multiple of 128)
-  int expert = 0;
+  // the block's weight matrix in the stack's rows: B13's layer (B6: 0);
+  // B8: its expert, read on the device; a dead block reads no weight and
+  // writes zeros (bf16 output, N a multiple of 128)
+  int expert = p.layer;
   if (p.block_expert != nullptr) {
     const int e = p.block_expert[g];
     if (e < 0 || e >= p.E) {
@@ -685,7 +734,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
 #pragma unroll
         for (int mh = 0; mh < NSUB; ++mh) {
           const uint64_t da = sw128_desc(xa + (h * NSUB + mh) * 64 * 128 + kk * 32, 16, 1024);
-          wgmma_m64n128_t01(acc[mh], da, db);
+          wgmma_m64n128<0, 1>(acc[mh], da, db);
         }
       }
     } else {
@@ -693,9 +742,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t da = sw128_desc(wa + h * BK * 128 + kk * 2048, BK * 128, 1024);
         const uint64_t db = sw128_desc(xa + (kk / 4) * TN * 128 + (kk % 4) * 32, 16, 1024);
-        if constexpr (TN == 16) wgmma_m64n16_t10(acc[0], da, db);
-        if constexpr (TN == 32) wgmma_m64n32_t10(acc[0], da, db);
-        if constexpr (TN == 64) wgmma_m64n64_t10(acc[0], da, db);
+        wgmma_tile<TN, 1, 0>(acc[0], da, db);
       }
     }
     wgmma_commit();
@@ -822,17 +869,63 @@ inline int encode_map(CUtensorMap* m, const MapKey& k) {
   return r == CUDA_SUCCESS ? 0 : MAP_FAILED;
 }
 
-// weight maps, cached (a layer's weight keeps its pointer and shape)
-inline int cached_map(CUtensorMap* m, const MapKey& k) {
+// a 3-D bf16 map with 128-byte swizzle: dims[0] contiguous elements;
+// strides[0] and strides[1] the byte strides of dims 1 and 2 (a strided
+// view is described where it lies)
+struct Map3Key {
+  const void* base;
+  uint64_t dims[3], strides[2];
+  uint32_t box[3];
+};
+
+inline Map3Key map3_key(const void* base, uint64_t d0, uint64_t d1, uint64_t d2,
+                        uint64_t s1, uint64_t s2, uint32_t b0, uint32_t b1, uint32_t b2) {
+  Map3Key k;
+  memset(&k, 0, sizeof(k));  // the padding too: keys are compared by memcmp
+  k.base = base;
+  k.dims[0] = d0;
+  k.dims[1] = d1;
+  k.dims[2] = d2;
+  k.strides[0] = s1;
+  k.strides[1] = s2;
+  k.box[0] = b0;
+  k.box[1] = b1;
+  k.box[2] = b2;
+  return k;
+}
+
+inline int encode_map(CUtensorMap* m, const Map3Key& k) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return MAP_FAILED;
+  cuuint64_t d[3] = {k.dims[0], k.dims[1], k.dims[2]};
+  cuuint64_t st[2] = {k.strides[0], k.strides[1]};
+  cuuint32_t b[3] = {k.box[0], k.box[1], k.box[2]};
+  cuuint32_t estr[3] = {1, 1, 1};
+  CUresult r = fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(k.base), d, st,
+                  b, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : MAP_FAILED;
+}
+
+// Tensor maps by the key that makes them: a map is a function of its key
+// alone, so a call that repeats a pointer, shape and box takes the map made
+// before. Weights keep their pointers; the caching allocator hands a step's
+// activations the same few blocks again. Each table holds 128 maps, filled
+// round robin; weights and activations have tables of their own, so the
+// activations a step passes through cannot push the weights' maps out.
+enum { WEIGHT_MAPS = 0, ACT_MAPS = 1 };
+
+template <int TABLE, typename Key>
+inline int cached_map(CUtensorMap* m, const Key& k) {
   struct Entry {
-    MapKey k;
+    Key k;
     CUtensorMap m;
     int used;
   };
   static Entry cache[128];
   static int next = 0;
   for (auto& e : cache)
-    if (e.used && memcmp(&e.k, &k, sizeof(MapKey)) == 0) {
+    if (e.used && memcmp(&e.k, &k, sizeof(Key)) == 0) {
       *m = e.m;
       return 0;
     }
@@ -840,8 +933,7 @@ inline int cached_map(CUtensorMap* m, const MapKey& k) {
   if (rc == 0) {
     Entry& e = cache[next];
     next = (next + 1) % 128;
-    memset(&e.k, 0, sizeof(MapKey));
-    e.k = k;
+    memcpy(&e.k, &k, sizeof(Key));
     e.m = *m;
     e.used = 1;
   }
@@ -891,7 +983,7 @@ int wg_gemm(const WgParams& p, int tn, int groups, int row_tiles, cudaStream_t s
     k.box1 = bk;
     k.bf16 = MODE == MODE_BF16;
     k.swz = MODE != MODE_INT4P;
-    const int rc = cached_map(&tmw, k);
+    const int rc = cached_map<WEIGHT_MAPS>(&tmw, k);
     if (rc) return rc;
   }
   if (p.tma_x) {
@@ -904,7 +996,7 @@ int wg_gemm(const WgParams& p, int tn, int groups, int row_tiles, cudaStream_t s
     k.box1 = tn;
     k.bf16 = 1;
     k.swz = 1;
-    const int rc = encode_map(&tmx, k);
+    const int rc = cached_map<ACT_MAPS>(&tmx, k);
     if (rc) return rc;
   }
   const dim3 grid(slab ? row_tiles : p.splits, groups, p.ncol);

@@ -9,7 +9,9 @@ Counterpart of `chitu_tpu/ops/pallas_absorb.py`. For w [L, C, H*(dn+dv)]
 
 with S = dn + dv, f32 accumulation and the output in x's dtype. The kernel
 (`csrc/absorb.cu`, built and loaded by `ops/cuda_build.py`) reads exactly
-the half of w[layer] a projection needs, straight from the whole stack.
+the half of w[layer] a projection needs, by TMA straight from the whole
+stack, and x through its strides; about one persistent block an SM walks
+the (head, 128-column tile) items that `gemm_plan.absorb_plan` assigns it.
 The wrapper runs the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises. Launches count in `LAUNCHES`.
 """
@@ -20,15 +22,14 @@ import ctypes
 
 import torch
 
-from chitu_tpu_torch.ops import cuda_build
+from chitu_tpu_torch.ops import cuda_build, gemm_plan as plan
 from chitu_tpu_torch.ops.cuda_build import LAUNCHES
 from chitu_tpu_torch.ops.cuda_build import check as _check
-from chitu_tpu_torch.ops.cuda_build import ptr as _ptr
 from chitu_tpu_torch.ops.cuda_build import raise_on as _raise_on
 from chitu_tpu_torch.ops.cuda_build import stream as _stream
 
 LAUNCHES.setdefault("absorb_matmul", 0)
-MAX_T = 128  # the model's gate: above it the einsum runs on the layer's view
+MAX_T = plan.AB_MAX_T  # the model's gate: above it the einsum runs on the layer's view
 
 
 def absorb_kernel_ok(w, dn: int, dv: int, dc: int) -> bool:
@@ -72,10 +73,19 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("absorb")
         P, I, L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.chitu_absorb_matmul.argtypes = [P] * 3 + [L] * 2 + [I] * 7 + [P]
+        lib.chitu_absorb_matmul.argtypes = [P] * 3 + [L] * 2 + [I] * 11 + [P]
         lib.chitu_absorb_matmul.restype = ctypes.c_int
         _LIB = lib
     return _LIB
+
+
+def gemm_plan(x: torch.Tensor, w: torch.Tensor, kind: str, dn: int,
+              dv: int) -> plan.AbsorbPlan:
+    """How `absorb_matmul(x, w, layer, kind, dn, dv)` runs the kernel on
+    x's card."""
+    T, H, _ = x.shape
+    return plan.absorb_plan(T, H, w.shape[1], dn, dv, kind,
+                            plan.sm_count(torch, x.device))
 
 
 def absorb_matmul(
@@ -107,9 +117,15 @@ def absorb_matmul(
     out = torch.empty(
         (T, H, C if kind == "uk" else dv), dtype=torch.bfloat16, device=dev
     )
+    if T == 0:
+        return out
+    if not 0 <= layer < L:
+        raise IndexError(f"layer {layer} of a {L}-layer stack")
+    p = plan.absorb_plan(T, H, C, dn, dv, kind, plan.sm_count(torch, dev))
     rc = _lib().chitu_absorb_matmul(
-        _ptr(x), _ptr(w), _ptr(out), x.stride(0), x.stride(1),
-        0 if kind == "uk" else 1, T, H, C, dn, dv, int(layer), _stream(dev),
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), x.stride(0), x.stride(1),
+        0 if kind == "uk" else 1, T, H, C, dn, dv, L, int(layer), p.tn,
+        p.per_block, p.blocks, _stream(dev),
     )
     _raise_on(rc, "absorb_matmul")
     LAUNCHES["absorb_matmul"] += 1

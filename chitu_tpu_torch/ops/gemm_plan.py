@@ -1,8 +1,11 @@
 """Host-side planning of the shared Hopper GEMM mainloop
 (`csrc/gemm_common.cuh`) that the dequant GEMM (B6+B7,
-`ops/quant_gemm_kernels.py`) and the grouped expert GEMM (B8,
-`ops/moe_gemm_kernels.py`) launch: plain functions of shapes (and, for the
-tensor maps, of pointers), so the CPU tests reach them.
+`ops/quant_gemm_kernels.py`), the grouped expert GEMM (B8,
+`ops/moe_gemm_kernels.py`) and the dense stacked-layer GEMM (B13,
+`ops/dense_gemm_kernels.py`) launch, and of the MLA absorb kernel's item
+walk (B9, `ops/absorb_kernels.py`, `csrc/absorb.cu`): plain functions of
+shapes (and, for the tensor maps, of pointers), so the CPU tests reach
+them.
 
 - The regime and the rows a tile: at most `DECODE_ROWS` rows run the
   decode tiles, which swap A and B (64 weight columns a warpgroup as
@@ -18,10 +21,14 @@ tensor maps, of pointers), so the CPU tests reach them.
 - The split-K workspace: partial tiles and ticket counters.
 - B8's tile coordinates: the weight row of (layer, expert, K tile) in the
   stack's [L * E * K, N] rows, and where that tile's scale row lies.
+- B9's walk: its items (head, 128-column tile), the run of items each
+  persistent block takes, and each tile's row and column in the stacked
+  wkv_b's [L * C, H * (dn + dv)] map.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 from typing import Optional, Tuple
@@ -130,6 +137,17 @@ def quant_plan(T: int, K: int, N: int, packed: bool, sms: int,
     )
 
 
+@functools.lru_cache(maxsize=1024)
+def dense_plan(T: int, K: int, N: int, sms: int,
+               w_ptr: int = 0, x_ptr: int = 0) -> GemmPlan:
+    """B13 for x [T, K] bf16 at `x_ptr` and a bf16 stack [L, K, N] at
+    `w_ptr`: the dequant GEMM's plan for a bf16 weight (no conversion, the
+    same tiles, splits and slab rows). The wrapper hands the kernel aligned
+    operands, so both go by tensor map. Memoized: a decode step asks for
+    the same few plans again and again."""
+    return quant_plan(T, K, N, False, sms, w_ptr, x_ptr)
+
+
 def moe_plan(NB: int, bm: int, E: int, K: int, N: int, sms: int) -> GemmPlan:
     """B8 for NB dispatch blocks of bm rows over E experts [K, N]. At most
     min(E, NB) blocks are live, so the split count counts their column
@@ -159,6 +177,67 @@ def moe_tile_coords(layer: int, E: int, e: int, K: int, k_index: int,
     expert = layer * E + e
     k0 = k_index * bk
     return expert * K + k0, (expert * (K // QBLK) + k0 // QBLK) * scale_ld
+
+
+AB_TILE = 128  # B9: K tile, and output columns an item
+AB_MAX_T = 128  # B9: the model's gate (the largest token tile)
+
+
+@dataclass(frozen=True)
+class AbsorbPlan:
+    kind: str  # "uk" or "uv"
+    tn: int  # token tile (wgmma N): 16, 32, 64, or 128 (the slab tile)
+    nk: int  # K tiles an item: dn / 128 (uk) or C / 128 (uv)
+    ncol: int  # column tiles a head: C / 128 (uk) or dv / 128 (uv)
+    items: int  # H * ncol
+    per_block: int  # items a persistent block walks
+    blocks: int  # grid.x
+
+    @property
+    def regime(self) -> str:
+        return "slab" if self.tn > DECODE_ROWS else "decode"
+
+
+@functools.lru_cache(maxsize=1024)
+def absorb_plan(T: int, H: int, C: int, dn: int, dv: int, kind: str,
+                sms: int) -> AbsorbPlan:
+    """B9's launch for x [T, H, K] against the stacked wkv_b [L, C, H * (dn
+    + dv)]: items (head, 128-column tile) ordered head-major, a block
+    taking a contiguous run of ceil(items / sms) of them, so about one
+    block an SM walks several items through one TMA ring. Memoized."""
+    if kind not in ("uk", "uv"):
+        raise ValueError(f"kind {kind!r}")
+    K, N = (dn, C) if kind == "uk" else (C, dv)
+    if T < 1 or T > AB_MAX_T or K % AB_TILE or N % AB_TILE or dn % AB_TILE \
+            or dv % AB_TILE:
+        raise NotImplementedError(
+            f"absorb_matmul: T {T} (1..{AB_MAX_T}), C {C}, dn {dn} and dv {dv} "
+            f"(multiples of {AB_TILE})")
+    tn = token_tile(T) or AB_MAX_T
+    ncol = N // AB_TILE
+    items = H * ncol
+    per_block = -(-items // sms)
+    return AbsorbPlan(kind=kind, tn=tn, nk=K // AB_TILE, ncol=ncol, items=items,
+                      per_block=per_block, blocks=-(-items // per_block))
+
+
+def absorb_items(plan: AbsorbPlan, block: int):
+    """The (head, column tile) items block `block` walks, in order."""
+    end = min((block + 1) * plan.per_block, plan.items)
+    return [divmod(u, plan.ncol) for u in range(block * plan.per_block, end)]
+
+
+def absorb_tile(kind: str, layer: int, C: int, dn: int, dv: int, h: int,
+                ct: int, j: int) -> Tuple[int, int, int]:
+    """Where K tile j of item (h, ct) lies: (its first row and first column
+    in the stacked wkv_b's [L * C, H * (dn + dv)] map, the first lane of x
+    [T, H, K] it multiplies). uk: the item's 128 c rows at the head's dn
+    lanes h * S + 128 j; uv: K tile j's 128 c rows at the head's dv lanes
+    h * S + dn + 128 ct."""
+    S = dn + dv
+    if kind == "uk":
+        return layer * C + ct * AB_TILE, h * S + j * AB_TILE, j * AB_TILE
+    return layer * C + j * AB_TILE, h * S + dn + ct * AB_TILE, j * AB_TILE
 
 
 class Workspace:

@@ -4,6 +4,7 @@
     python3 scripts/torch_decode_profile.py [batch] [prompt_len] \
         [quant_method] [model card] [layers] [kv_dtype] [mla_absorb]
     python3 scripts/torch_decode_profile.py --prefill [same arguments]
+    python3 scripts/torch_decode_profile.py --host [same arguments]
 
 Builds the engine of a model card (default Llama-3-8B-Instruct) at full
 width and at `layers` deep (default: the card's depth) with random
@@ -21,12 +22,17 @@ dispatch, gather, SwiGLU, combine), library GEMMs and everything else. The glue 
 told apart by where it is launched, not by name: the model's calls to
 `route` and `moe_ffn_auto` run inside a profiler range, and a kernel
 counts as glue when the operator that launched it lies in that range.
-The device's busy share is kernel time per step over the unprofiled wall
-time per step (the kernels run on one stream, so they do not overlap);
+It also gives the process's CPU time a decode step over the same
+steps (`host_cpu_ms_per_step`: the host's own work, less disturbed by
+other loads on the host than the wall clock). The device's busy share is
+kernel time per step over the unprofiled wall time per step (the kernels run on one stream, so they do not overlap);
 its idle share is the rest. With --prefill it times the prefill step of
 one prompt of `prompt_len` tokens instead (the 512-token slab at the
 default 512; one new token, so the step is the prefill and its sampling),
-split the same way. Prints one JSON line
+split the same way. With --host it also runs one more decode chain under
+cProfile and adds the host's own time a step by Python function
+(`host_top`: calls and self time a step, the time of any ctypes or C call
+a function makes counted in its own). Prints one JSON line
 with the card's name and power limit. Needs a CUDA device.
 """
 
@@ -42,23 +48,25 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 def category(name: str) -> str:
     if "latent_kernel" in name:
         return "latent_attention_kernel"
-    if "absorb_kernel" in name:
+    if "absorb_wg_kernel" in name:
         return "absorb_matmul_kernel"
     if any(k in name for k in ("decode_kernel", "decode_merge_kernel",
                                 "prefill_attend_kernel",
                                 "append_packed_kernel")):
         return "attention_kernels"
     # the shared TMA + wgmma mainloop: its third template argument is the
-    # call site (0 the dequant GEMM, 1 the grouped expert GEMM)
+    # call site (0 the dequant GEMM, 1 the grouped expert GEMM, 2 the dense
+    # stacked-layer GEMM)
     if "wg_gemm_kernel" in name:
         site = name.split("wg_gemm_kernel<", 1)[-1].split(">", 1)[0]
-        if site.replace(" ", "").endswith(",1"):
+        site = site.replace(" ", "")
+        if site.endswith(",1"):
             return "grouped_gemm_kernel"
+        if site.endswith(",2"):
+            return "dense_gemm_kernel"
         return "quant_gemm_kernels"
     if "int8_gemm_kernel" in name:
         return "quant_gemm_kernels"
-    if "dense_gemm_kernel" in name:
-        return "dense_gemm_kernel"
     if "norm_quant_kernel" in name:
         return "act_quant_kernels"
     low = name.lower()
@@ -118,9 +126,9 @@ def main():
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
 
-    argv = [a for a in sys.argv if a != "--prefill"]
-    prefill = len(argv) != len(sys.argv)
-    sys.argv = argv
+    prefill = "--prefill" in sys.argv
+    host = "--host" in sys.argv
+    sys.argv = [a for a in sys.argv if a not in ("--prefill", "--host")]
     batch = int(sys.argv[1]) if len(sys.argv) > 1 else (1 if prefill else 16)
     plen = int(sys.argv[2]) if len(sys.argv) > 2 else (512 if prefill else 256)
     method = sys.argv[3] if len(sys.argv) > 3 else "none"
@@ -191,7 +199,9 @@ def main():
     if not prefill:
         decode_steps = decode_chains
     decode_steps(1)  # warm
+    cpu0 = time.process_time()
     wall, steps = decode_steps(3)
+    cpu = time.process_time() - cpu0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -220,6 +230,19 @@ def main():
                      "cuLaunchKernelEx")
     )
     top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    host_top = None
+    if host:
+        import cProfile
+        import pstats
+
+        prof_host = cProfile.Profile()
+        prof_host.enable()
+        _, hsteps = decode_steps(1)
+        prof_host.disable()
+        stats = pstats.Stats(prof_host).stats  # (file, line, name) -> (cc, nc, tt, ct, callers)
+        rows = sorted(stats.items(), key=lambda kv: -kv[1][2])[:15]
+        host_top = [(f"{os.path.basename(k[0])}:{k[1]}:{k[2]}", v[1] / hsteps,
+                     v[2] / hsteps * 1e6) for k, v in rows]
     print(json.dumps(dict(
         card=card, model=cfg.models.name, layers=cfg.models.n_layers,
         step="prefill" if prefill else "decode", batch=batch, prompt_len=plen, window=window, quant=method,
@@ -230,6 +253,10 @@ def main():
         steps_timed=steps, steps_profiled=psteps,
         decode_ms_per_step=wall / steps * 1e3,
         decode_tokens_per_s=batch * steps / wall,
+        # the process's CPU time over the same steps: the host's own work,
+        # which other loads on the host do not inflate as they do the wall
+        # clock (it counts any spin while waiting on the card); decode only
+        host_cpu_ms_per_step=None if prefill else cpu / steps * 1e3,
         profiled_ms_per_step=pwall / psteps * 1e3,
         device_kernel_ms_per_step=busy_us / psteps / 1e3,
         # kernel time per step over the unprofiled wall time per step
@@ -239,6 +266,8 @@ def main():
         device_ms_per_step={
             k: None if v is None else v / psteps / 1e3 for k, v in cats.items()},
         top_kernels_ms_per_step=[(k[:80], v / psteps / 1e3) for k, v in top],
+        # (function, calls a step, self us a step) under cProfile, with --host
+        host_top=host_top,
     )), flush=True)
     eng.terminate()
 

@@ -6,7 +6,8 @@ and the tensor-core prefill) to reject broken kernels. Needs an NVIDIA GPU and n
 
     python3 scripts/torch_kernel_faults.py [words ...]
 
-With words, only the faults whose name holds one of them are planted.
+With words, only the faults whose name holds one of them, or whose source
+file a word names (`absorb.cu`, `gemm_common.cuh`, ...), are planted.
 
 For each planted fault it copies `chitu_tpu_torch/csrc/` into a temporary
 directory, edits one source there (a line, or two for a fault that moves
@@ -25,7 +26,7 @@ B1's append bytes against the plain append's for edge values and for
 values beyond e4m3's range, the latent B4 on an e4m3 pool; head size 192:
 B4 at DeepSeek-R1's dense MLA, 128 heads; head size 64: B5 at
 tiny-llama-debug's 32 heads on 4; B13: layer 1 of a two-layer
-`[4096 -> 6144]` stack at T 16; the split decode: B4 at Llama-3-8B's
+`[4096 -> 6144]` stack at T 16, where K splits in two; the split decode: B4 at Llama-3-8B's
 16-row decode geometry, contexts up to 2048 in five splits, on a bf16 and
 on an e4m3 pool; the tensor-core prefill: B5 for a 128-token chunk at
 q_pos 512). It prints one
@@ -111,15 +112,29 @@ FAULTS = [
      "const long long wrow0 = (long long)expert * p.K;",
      "const long long wrow0 = (long long)((expert + 1) % (p.w_rows / p.K)) * p.K;",
      "moe_e4m3"),
+    # B9, the persistent TMA + wgmma absorb kernel
     ("B9 head stride off by one head", "absorb.cu",
-     "w + int64_t(layer) * C * HS + int64_t(h) * S;",
-     "w + int64_t(layer) * C * HS + int64_t((h + 1) % H) * S;", "absorb_uk"),
+     "const int col = h * hs + (UK ? j * AB_T : p.dn + ct * AB_T);",
+     "const int col = ((h + 1) % p.H) * hs + (UK ? j * AB_T : p.dn + ct * AB_T);",
+     "absorb_uk"),
     ("B9 uv dn offset dropped", "absorb.cu",
-     "wl + int64_t(k0 + k) * HS + dn + nt * BN + c * 8, 16);",
-     "wl + int64_t(k0 + k) * HS + nt * BN + c * 8, 16);", "absorb_uv"),
+     "const int col = h * hs + (UK ? j * AB_T : p.dn + ct * AB_T);",
+     "const int col = h * hs + (UK ? j * AB_T : ct * AB_T);", "absorb_uv"),
     ("B9 layer offset dropped", "absorb.cu",
-     "w + int64_t(layer) * C * HS + int64_t(h) * S;",
-     "w + int64_t(h) * S;", "absorb_uk"),
+     "const int row = p.layer * p.C + (UK ? ct : j) * AB_T;",
+     "const int row = (UK ? ct : j) * AB_T;", "absorb_uk"),
+    ("B9 uk weight tile read MN-major (the transpose bit flipped)", "absorb.cu",
+     "wgmma_tile<TN, UK ? 0 : 1, 0>(acc, da, db);",
+     "wgmma_tile<TN, 1, 0>(acc, da, db);", "absorb_uk"),
+    ("B9 item walk skips its last item", "absorb.cu",
+     "const int u_end = min(u_begin + p.per_block, p.items);",
+     "const int u_end = min(u_begin + p.per_block, p.items - 1);", "absorb_uk"),
+    ("B9 x head stride off by one head", "absorb.cu",
+     ("tma_load_3d(xdst, &tmx, &full[s], j * AB_T, h, 0);",
+      "tma_load_3d(xdst + TN * 128, &tmx, &full[s], j * AB_T + AB_BOX, h, 0);"),
+     ("tma_load_3d(xdst, &tmx, &full[s], j * AB_T, (h + 1) % p.H, 0);",
+      "tma_load_3d(xdst + TN * 128, &tmx, &full[s], j * AB_T + AB_BOX, (h + 1) % p.H, 0);"),
+     "absorb_uv"),
     ("latent V read from the k_pe lanes", "attention.cu",
      "const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 8 * (lane >> 4);",
      "const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 64 + 8 * (lane >> 4);",
@@ -184,11 +199,19 @@ FAULTS = [
      "    if constexpr (FP8) convert(st, tid, nt);\n"
      "    __pipeline_wait_prior(NST - 2);\n    __syncthreads();",
      "e4m3_decode"),
-    ("B13 layer stride wrong", "dense_gemm.cu",
-     "w + (size_t)layer * K * N;", "w + (size_t)layer * K * (N - 128);",
+    # B13 on the shared mainloop (bf16 tiles, the stack's [L * K, N] rows)
+    ("B13 layer stride wrong", "gemm_common.cuh",
+     "const long long wrow0 = (long long)expert * p.K;",
+     "const long long wrow0 = (long long)expert * (p.K - 128);", "dense"),
+    ("B13 last K tile skipped", "gemm_common.cuh",
+     "const int t_cnt = base + (split < rem ? 1 : 0);",
+     "const int t_cnt = base + (split < rem ? 1 : 0) - (split == nsplit - 1 ? 1 : 0);",
      "dense"),
-    ("B13 last K tile skipped", "dense_gemm.cu",
-     "const int ntiles = K / BK;", "const int ntiles = K / BK - 1;", "dense"),
+    ("B13 layer row offset dropped", "gemm_common.cuh",
+     "int expert = p.layer;", "int expert = 0;", "dense"),
+    ("B13 last split dropped", "gemm_common.cuh",
+     "for (int sp = 0; sp < nsplit; ++sp) v +=",
+     "for (int sp = 0; sp < nsplit - 1; ++sp) v +=", "dense"),
 ]
 
 
@@ -370,6 +393,8 @@ def main():
             return (row_rel(tk.attend_prefill(*a), tk.attend_prefill_plain(*a)),
                     ROW_RTOL, "row relative error")
         if kind == "dense":
+            junk = torch.full((T, 2 * N), 7.0, dtype=bf, device=dev)
+            del junk
             return (row_rel(dg.dense_matmul_stacked(x, 1, wd),
                             dg.dense_matmul_stacked_plain(x, 1, wd)),
                     ROW_RTOL, "row relative error")
@@ -403,7 +428,7 @@ def main():
     ok = True
     words = sys.argv[1:]
     for name, src, old, new, kind in FAULTS:
-        if words and not any(w in name for w in words):
+        if words and not any(w in name or w == src for w in words):
             continue
         use_sources(sound_dir)
         sound, limit, what = check(kind)

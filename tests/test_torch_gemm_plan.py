@@ -182,3 +182,106 @@ def test_workspace_grows_and_keeps_counters_zero():
     assert b.data_ptr() == a.data_ptr() and c2.data_ptr() == c.data_ptr()
     d, c3 = ws.get(torch, dev, 5000, 4)  # a larger one grows both
     assert d.numel() >= 5000 and c3.numel() >= 8 and not c3.any()
+
+
+# ---------------------------------------------------------------------------
+# B13, the dense stacked-layer GEMM: the same mainloop with bf16 tiles, one
+# tensor map over the stack's [L * K, N] rows
+# ---------------------------------------------------------------------------
+
+LLAMA_SPLITS = {(4096, 6144): 2, (4096, 4096): 4, (4096, 28672): 1, (14336, 4096): 4}
+LLAMA_SLAB = {(4096, 6144): 256, (4096, 4096): 128, (4096, 28672): 256,
+              (14336, 4096): 128}
+
+
+@pytest.mark.parametrize("K,N", list(LLAMA_SPLITS))
+@pytest.mark.parametrize("T", [1, 16, 64, 65, 512])
+def test_dense_plan_at_llama_shapes(T, K, N):
+    """Llama-3-8B's four projections on 132 SMs: swapped decode tiles with
+    K splits at up to 64 rows (N 4096: four splits, 128 blocks against the
+    first kernel's 32), slab tiles of 128 or 256 rows above."""
+    p = gp.dense_plan(T, K, N, SMS, 1 << 20, 1 << 21)
+    assert p.tma_w and p.tma_x
+    assert p.col_tiles == N // 128
+    if T <= 64:
+        assert p.regime == "decode" and p.bk == 128
+        assert p.tn == (16 if T <= 16 else 64)
+        assert p.splits == LLAMA_SPLITS[(K, N)]
+        assert p.grid == (p.splits, 1, N // 128)
+        assert p.ws_floats == ((N // 128) * p.splits * p.tn * 128 if p.splits > 1 else 0)
+    else:
+        assert p.regime == "slab" and p.bk == 64 and p.splits == 1
+        assert p.tn == (128 if T == 65 else LLAMA_SLAB[(K, N)])
+        assert p.grid == (math.ceil(T / p.tn), 1, N // 128)
+
+
+def split_range(k_tiles, splits, split):
+    """(first K tile, K tiles) of split `split`, as the mainloop cuts K
+    (`csrc/gemm_common.cuh`): evenly, the first `k_tiles % splits` splits
+    one tile longer."""
+    base, rem = divmod(k_tiles, splits)
+    return split * base + min(split, rem), base + (1 if split < rem else 0)
+
+
+def dense_tile_row(layer, K, k0):
+    """B13: the row of the stack's [L * K, N] weight map where the layer's
+    K tile starting at k0 lies, as the mainloop reads it (`layer * K + k0`)."""
+    return layer * K + k0
+
+
+@pytest.mark.parametrize("k_tiles,splits", [(32, 4), (112, 4), (7, 3), (4, 2), (1, 1)])
+def test_split_range_covers_k_once(k_tiles, splits):
+    seen = []
+    for sp in range(splits):
+        b, c = split_range(k_tiles, splits, sp)
+        assert c >= k_tiles // splits
+        seen += list(range(b, b + c))
+    assert seen == list(range(k_tiles))
+
+
+def test_dense_tile_row_is_the_layer_row():
+    """Row layer * K + k0 of the stack read as [L * K, N] rows is row k0 of
+    w[layer]."""
+    L, K, N = 3, 256, 128
+    w = torch.arange(L * K * N, dtype=torch.float32).reshape(L, K, N)
+    rows = w.reshape(L * K, N)
+    for layer in range(L):
+        assert dense_tile_row(layer, K, 0) == layer * K
+        for k0 in (0, 64, 128, 192):
+            assert torch.equal(rows[dense_tile_row(layer, K, k0)], w[layer, k0])
+
+
+@pytest.mark.parametrize("T,K,N", [(5, 512, 256), (16, 512, 128), (70, 256, 384),
+                                   (130, 384, 128)])
+def test_dense_walk_emulated(T, K, N):
+    """The planned walk, each tile multiplied on the CPU at the planned
+    coordinates of the stack's [L * K, N] rows (split-K partials summed in
+    split order, as the last block of a tile sums them), assembles
+    `dense_matmul_stacked_plain`."""
+    from chitu_tpu_torch.ops import dense_gemm_kernels as dg
+
+    rng = np.random.default_rng(1)
+    L, layer = 3, 2
+    w = torch.tensor(rng.standard_normal((L, K, N)), dtype=torch.float32).bfloat16()
+    x = torch.tensor(rng.standard_normal((T, K)), dtype=torch.float32).bfloat16()
+    p = gp.dense_plan(T, K, N, SMS)
+    if T == 16:
+        assert p.splits == 2  # the walk covers a split
+    rows = w.float().reshape(L * K, N)
+    xf = x.float()
+    out = torch.zeros((T, N))
+    k_tiles = K // p.bk
+    row_tiles = [(0, T)] if p.regime == "decode" else [
+        (m, min(m + p.tn, T)) for m in range(0, T, p.tn)]
+    for m0, m1 in row_tiles:
+        for bx in range(p.col_tiles):
+            cols = slice(bx * 128, (bx + 1) * 128)
+            for sp in range(p.splits):
+                b, c = split_range(k_tiles, p.splits, sp)
+                part = torch.zeros((m1 - m0, 128))
+                for kt in range(b, b + c):
+                    r = dense_tile_row(layer, K, kt * p.bk)
+                    part += xf[m0:m1, kt * p.bk:(kt + 1) * p.bk] @ rows[r:r + p.bk, cols]
+                out[m0:m1, cols] += part
+    want = dg.dense_matmul_stacked_plain(x, layer, w)
+    torch.testing.assert_close(out, want, atol=1e-6 * want.abs().max().item(), rtol=1e-6)

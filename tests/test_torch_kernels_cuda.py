@@ -601,10 +601,19 @@ def test_latent_prefill_packed(dev, H, page, Tq, window):
     assert out_k[dead].abs().max().item() == 0.0
 
 
-@pytest.mark.parametrize("T", [1, 5, 16, 100, 128])
+def _poison(shape, dev):
+    """Fill a block of an output's size with 7.0 and free it: the caching
+    allocator hands it to the next output, so a tile left unwritten shows."""
+    junk = torch.full(shape, 7.0, dtype=torch.bfloat16, device=dev)
+    del junk
+
+
+@pytest.mark.parametrize("T", [1, 5, 16, 64, 65, 100, 128])
 @pytest.mark.parametrize("kind", ["uk", "uv"])
-@pytest.mark.parametrize("H", [4, 32])
+@pytest.mark.parametrize("H", [4, 32, 128])
 def test_absorb_matmul(dev, H, kind, T):
+    """B9 on output memory that held 7.0s: every row within the limit, two
+    launches bit-equal, a CUDA-graph replay bit-equal to an eager launch."""
     rand = _gen(dev, 12)
     L, C, dn, dv = 2, 512, 128, 128
     w = rand(L, C, H * (dn + dv)) * 0.05
@@ -614,6 +623,7 @@ def test_absorb_matmul(dev, H, kind, T):
     else:
         x = rand(T, H, C)
     n0 = ab.LAUNCHES["absorb_matmul"]
+    _poison((T, H, 2 * C), dev)
     got = ab.absorb_matmul(x, w, 1, kind, dn, dv)
     again = ab.absorb_matmul(x, w, 1, kind, dn, dv)
     want = ab.absorb_matmul_plain(x, w, 1, kind, dn, dv)
@@ -621,6 +631,7 @@ def test_absorb_matmul(dev, H, kind, T):
     assert ab.LAUNCHES["absorb_matmul"] == n0 + 2
     assert torch.equal(got, again)
     _check(got, want)
+    _replays_equal(lambda: ab.absorb_matmul(x, w, 1, kind, dn, dv))
 
 
 def test_latent_and_absorb_reject_bad_inputs(dev):
@@ -844,19 +855,42 @@ def test_latent_e4m3(dev, H, page):
            tk.attend_prefill_packed_plain(qs, *pargs, **LAT), live)
 
 
-@pytest.mark.parametrize("T", [1, 16, 100, 512])
+@pytest.mark.parametrize("T", [1, 16, 64, 65, 100, 128, 512])
 @pytest.mark.parametrize("K,N", [(256, 384), (1024, 128), (384, 1024)])
 def test_dense_matmul_stacked(dev, T, K, N):
+    """B13 on output memory that held 7.0s: every row within the limit, two
+    launches bit-equal (K split at decode where the plan says so), a
+    CUDA-graph replay bit-equal to an eager launch."""
     rand = _gen(dev, 26)
     w = rand(3, K, N) * 0.05
     x = rand(T, K)
     n0 = dg.LAUNCHES["dense_matmul_stacked"]
+    _poison((T, 2 * N), dev)
     got = dg.dense_matmul_stacked(x, 2, w)
+    again = dg.dense_matmul_stacked(x, 2, w)
     want = dg.dense_matmul_stacked_plain(x, 2, w)
     torch.cuda.synchronize()
-    assert dg.LAUNCHES["dense_matmul_stacked"] == n0 + 1
+    assert dg.LAUNCHES["dense_matmul_stacked"] == n0 + 2
     assert got.dtype == torch.float32 and got.shape == (T, N)
+    assert torch.equal(got, again)
     _check(got, want)
+    _replays_equal(lambda: dg.dense_matmul_stacked(x, 2, w))
+
+
+@pytest.mark.parametrize("T", [16, 512])
+def test_dense_matmul_stacked_misaligned_x(dev, T):
+    """An x whose base lies off 16 bytes (a view one element in) is copied
+    to an aligned buffer and still runs the kernel."""
+    rand = _gen(dev, 29)
+    w = rand(2, 1024, 512) * 0.05
+    x = rand(T * 1024 + 1)[1:].view(T, 1024)
+    assert x.data_ptr() % 16
+    n0 = dg.LAUNCHES["dense_matmul_stacked"]
+    got = dg.dense_matmul_stacked(x, 1, w)
+    torch.cuda.synchronize()
+    assert dg.LAUNCHES["dense_matmul_stacked"] == n0 + 1
+    _check(got, dg.dense_matmul_stacked_plain(x, 1, w))
+    assert torch.equal(got, dg.dense_matmul_stacked(x.clone(), 1, w))
 
 
 def test_dense_matmul_stacked_geometry_rule(dev):
