@@ -24,7 +24,9 @@ Phases, each fatal on failure:
    The quantized GEMMs (B6+B7 `quant_gemm`, B10 `int8_gemm`) and the
    activation quantizers (B11 `rms_norm_quant`, B12 `quant_acts`) at the
    same model's projection shapes ([4096 -> 6144], [4096 -> 28672],
-   [14336 -> 4096]; T 1, 16 and 512): every weight mode (e4m3 blockwise,
+   [14336 -> 4096]; T 1, 16 and 512; B10 also at T 64 and 65, each on
+   memory filled with 7.0, two launches and a graph replay bit-equal,
+   timed warm and cold as B9 is): every weight mode (e4m3 blockwise,
    e4m3 rowwise as layer 1 of a stack, int8 per-channel, int4 packed,
    int4 one nibble a byte at a width that is no multiple of 512, and an
    odd 576-wide output). Limits: each GEMM output row within 1e-2 of the
@@ -109,7 +111,13 @@ Phases, each fatal on failure:
    lanes, 640-lane rows) through B4 `attend_decode` and B1 (16 rows of
    context up to 2047, the new token appended by the plain append before
    B4), B3 `attend_prefill_packed` (a 512-token slab of three prompts) and
-   B5 (a 512-token chunk at q_pos 512); B4 and B3 again at Llama-3-8B's
+   B5 (a 512-token chunk at q_pos 512), then the decode where its split
+   over the context matters (one row of a 16,384-token context; 16 rows of
+   4,096-8,191, 113-151 MB of rows; four rows whose contexts end one key
+   past a split boundary, on it and one short of it) and
+   deepseek-mid-bench's 32 heads (decode, B5, B3), every latent output
+   also two launches and a graph replay bit-equal, the decode timed warm
+   and cold as B9 is; B4 and B3 again at Llama-3-8B's
    split geometry; B8 at DeepSeek-R1's expert stacks (256 experts, top-8:
    `[7168 -> 4096]` merged e4m3, `[2048 -> 7168]` e4m3 and bf16; T 16, 512
    and 1). Same limits as above; each checked output lands on memory
@@ -785,14 +793,21 @@ def absorb_cases(torch, ab, dev):
     torch.cuda.empty_cache()
 
 
-def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
+def mla_attention_cases(torch, tk, plain, dev, kv="bf16", split=True):
     """The latent row (DeepSeek-R1: 128 heads on one KV head of 576 live
     lanes, 512 value lanes, pages of 64, rows of 640) through B4, B1, B3
-    and B5, then B4 and B3 at Llama-3-8B's split geometry. The first case
-    of B3 and of B4 (latent) is the one reported in the kernels line: their
-    main path is DeepSeek serving. kv="e4m3": the latent cases on an int8
-    pool of e4m3 bits (B1's new rows fed e4m3 edge values, and values
-    beyond the range in a second launch), without the split ones."""
+    and B5, then the latent decode at long contexts and at a split's edge
+    and deepseek-mid-bench's 32 heads, then (`split`) B4 and B3 at
+    Llama-3-8B's split geometry. The first case of B3 and of B4 (latent)
+    is the one reported in the kernels line: their main path is DeepSeek
+    serving. Every latent output lands on memory filled with 7.0, and two
+    launches and a CUDA-graph replay must give equal bits. The decode
+    cases are timed warm (`ms`: the graph rereads one layer's rows) and
+    cold (`ms_cold`: the calls cycle over the layers of a pool sized by
+    `cold_layers`); SDPA on the gathered rows (25 ms a call at R1's decode)
+    is timed warm only. kv="e4m3": the latent cases on an int8 pool of
+    e4m3 bits (B1's new rows fed e4m3 edge values, and values beyond the
+    range in a second launch), without the split ones."""
     import torch.nn.functional as F
 
     from chitu_tpu_torch.models.common import kv_decode, kv_encode
@@ -811,93 +826,136 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
     def randn(*shape, s=1.0):
         return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
 
-    pool0 = randn(L, P, PAGE, M, s=0.5)
-    pool0[..., QK:] = 0  # the pad lanes of a latent row
+    def latent_pool(layers, pages):
+        pool = randn(layers, pages, PAGE, M, s=0.5)
+        pool[..., QK:] = 0  # the pad lanes of a latent row
+        return kv_encode(pool, torch.int8) if fp8 else pool
+
+    pool0 = latent_pool(L, P)
     if fp8:
-        pool0 = kv_encode(pool0, torch.int8)
         bad = e4m3_decode_exact(torch, tk, dev, latent=True)
         if bad:
             raise AssertionError(f"attend_decode[latent,e4m3]: {bad} decoded "
                                  "values differ from the e4m3 codes' values")
 
-    def gathered(pool, bts):
+    def gathered(pool, bts, layer=LAYER):
         """[R, mp*page] latent rows -> K = V [R, 1, S, 576] (bf16)."""
-        rows = kv_decode(plain._gather(pool, LAYER, bts))
+        rows = kv_decode(plain._gather(pool, layer, bts))
         return rows[..., :QK][:, None].contiguous()
 
     def case(name, kernel, err, rel, ms, plain_ms, lib_ms, nbytes, flops, shape,
-             src=ATTN_SRC, replaces="", variant=variant):
+             src=ATTN_SRC, replaces="", variant=variant, **extra):
         bnd, by = bound_ms(nbytes, flops)
         return dict(name=name, kernel=kernel, variant=variant, route="cuda",
                     source=src, replaces=replaces, max_abs_err=err,
                     max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
-                    bound_ms=bnd, bound_by=by, library_ms=lib_ms, shape=shape)
+                    bound_ms=bnd, bound_by=by, library_ms=lib_ms, shape=shape,
+                    **extra)
+
+    def held(name, run, want, rows, shape, pools=None):
+        """The checked launch on memory that held 7.0s, within the limit of
+        the plain output `want` (and the pools equal), then two launches
+        and a graph replay bit-equal -> (max abs err, row rel err)."""
+        poison(torch, shape, dev)
+        got = run()
+        err, rel = compare_rows(torch, name, got, want, rows,
+                                *(pools or (None, None)))
+        bit_equal(torch, name, got, run())
+        replay_equal(torch, name, run, got)
+        return err, rel
+
+    def with_layers(pool, layers):
+        """`pool` followed by fresh layers up to `layers` (the cold stack;
+        the checked layer keeps its rows)."""
+        if layers <= pool.shape[0]:
+            return pool
+        return torch.cat([pool, latent_pool(layers - pool.shape[0], pool.shape[1])])
+
+    def decode_cases(label, Hq, q, knew, seq, bts, pool_in, valid_f, lib=True,
+                     cold=True):
+        """B4 over the pool the plain append wrote, then B1 (fused), for
+        rows of context seq[b] + 1 -> two result dicts (`cold`: with
+        `ms_cold`)."""
+        Bn, mp = bts.shape
+        valid = torch.ones(Bn, dtype=torch.bool, device=dev)
+        ctx = int((seq + 1).sum().item())  # latent rows read, new token's included
+        nbytes = ctx * QK * esz + q.numel() * 2 + Bn * Hq * DV * 2
+        flops = 2.0 * Hq * (QK + DV) * ctx
+        layers = cold_layers(torch, dev, ctx * QK * esz, 2) if cold else 2
+        lt = f"[{variant},{label}]"
+        shape = (f"B={Bn} H={Hq} live={QK} value={DV} page={PAGE} mp={mp} "
+                 f"ctx_rows={ctx} layers={layers}")
+        if hasattr(tk, "latent_split"):
+            S, chunk = tk.latent_split(Bn, Hq, mp, PAGE, tk._sm_count(dev))
+            shape += f" splits={S} chunk={chunk}"
+        pool_a = pool_in.clone()
+        plain.append_decode(pool_a, LAYER, knew, None, bts, seq, valid, PAGE)
+        args = (pool_a, LAYER, bts, seq, PAGE)
+        run = lambda: tk.attend_decode(q, *args, **kw)
+        want = tk._vlanes(plain.attend_decode(
+            q, *args, 1, QK, scale=R1_SCALE, split_kv=False), DV)
+        err, rel = held("attend_decode" + lt, run, want, valid, (Bn, Hq, DV))
+        lib_ms = None
+        if lib:
+            kg = gathered(pool_a, bts)
+            cols = torch.arange(mp * PAGE, device=dev)[None, :]
+            mask = (cols <= seq[:, None].long())[:, None, None, :]
+            lib_ms = device_ms_sized(torch, lambda: F.scaled_dot_product_attention(
+                q[:, :, None, :], kg, kg, attn_mask=mask, scale=R1_SCALE,
+                enable_gqa=True))
+            del kg, mask
+        stack = with_layers(pool_a, layers)
+        yield case(
+            "attend_decode" + lt, "attend_decode", err, rel,
+            device_ms(torch, run),
+            call_ms(torch, lambda: plain.attend_decode(
+                q, *args, 1, QK, scale=R1_SCALE, split_kv=False), reps=5),
+            lib_ms, nbytes, flops, shape,
+            replaces="chitu_tpu/ops/pallas_attention.py:327",
+            ms_cold=device_ms_cold(torch, [
+                (lambda l=l: tk.attend_decode(q, stack, l, bts, seq, PAGE, **kw))
+                for l in range(layers)]) if cold else None)
+        del stack, pool_a
+        if fp8:
+            overflow_append_check(
+                torch, tk, "attend_decode_fused" + lt, pool_in,
+                lambda pk, kk, vv: tk.attend_decode_fused(
+                    q, pk, LAYER, kk, None, bts, seq, valid_f, PAGE, **kw),
+                lambda pp, kk, vv: tk.attend_decode_fused_plain(
+                    q, pp, LAYER, kk, None, bts, seq, valid_f, PAGE, **kw),
+                knew, None)
+        pool_k, pool_p = pool_in.clone(), pool_in.clone()
+        fargs = (LAYER, knew, None, bts, seq, valid_f, PAGE)
+        want = tk.attend_decode_fused_plain(q, pool_p, *fargs, **kw)
+        run = lambda: tk.attend_decode_fused(q, pool_k, *fargs, **kw)
+        err, rel = held("attend_decode_fused" + lt, run, want, valid_f,
+                        (Bn, Hq, DV), (pool_k, pool_p))
+        stack = with_layers(pool_k, layers)
+        yield case(
+            "attend_decode_fused" + lt, "attend_decode_fused", err, rel,
+            device_ms(torch, run),
+            call_ms(torch, lambda: tk.attend_decode_fused_plain(
+                q, pool_p, *fargs, **kw), reps=5),
+            lib_ms, nbytes + Bn * M * esz, flops, shape,
+            replaces="chitu_tpu/ops/pallas_attention.py:727",
+            ms_cold=device_ms_cold(torch, [
+                (lambda l=l: tk.attend_decode_fused(
+                    q, stack, l, knew, None, bts, seq, valid_f, PAGE, **kw))
+                for l in range(layers)]) if cold else None)
+        del stack, pool_k, pool_p
 
     # ---- decode rows of mixed context up to 2047 (B4, then B1) ----------
     bts = torch.arange(P, device=dev, dtype=torch.int32).reshape(B, MP)
     seq = torch.randint(1, MP * PAGE - PAGE, (B,), generator=g,
                         device=dev).to(torch.int32)
     seq[0] = 2047
-    valid = torch.ones(B, dtype=torch.bool, device=dev)
     q = randn(B, H, QK)
     knew = randn(B, 1, QK)
     if fp8:
         knew = with_values(torch, knew, E4M3_EDGES)
-    pool_a = pool0.clone()
-    plain.append_decode(pool_a, LAYER, knew, None, bts, seq, valid, PAGE)
-    ctx = int((seq + 1).sum().item())  # latent rows read, new token's included
-    cols = torch.arange(MP * PAGE, device=dev)[None, :]
-    kg = gathered(pool_a, bts)
-    mask = (cols <= seq[:, None].long())[:, None, None, :]
-    sdpa_dec = lambda: F.scaled_dot_product_attention(
-        q[:, :, None, :], kg, kg, attn_mask=mask, scale=R1_SCALE,
-        enable_gqa=True)
-    lib_dec = device_ms_sized(torch, sdpa_dec)
-    flops = 2.0 * H * (QK + DV) * ctx
-    dec_bytes = ctx * QK * esz + q.numel() * 2 + B * H * DV * 2
-    lt = f"[{variant},R1]"
-
-    args = (pool_a, LAYER, bts, seq, PAGE)
-    poison(torch, (B, H, DV), dev)
-    out_k = tk.attend_decode(q, *args, **kw)
-    out_p = tk._vlanes(plain.attend_decode(
-        q, *args, 1, QK, scale=R1_SCALE, split_kv=False), DV)
-    if not torch.equal(out_k, tk.attend_decode(q, *args, **kw)):
-        raise AssertionError("attend_decode[latent]: two launches differ")
-    err, rel = compare_rows(torch, "attend_decode[latent]", out_k, out_p, valid)
-    yield case(
-        "attend_decode" + lt, "attend_decode", err, rel,
-        device_ms(torch, lambda: tk.attend_decode(q, *args, **kw)),
-        call_ms(torch, lambda: plain.attend_decode(
-            q, *args, 1, QK, scale=R1_SCALE, split_kv=False)),
-        lib_dec, dec_bytes, flops,
-        f"B={B} H={H} live={QK} value={DV} page={PAGE} mp={MP} ctx_rows={ctx}",
-        replaces="chitu_tpu/ops/pallas_attention.py:327")
-
-    valid_f = valid.clone()
+    valid_f = torch.ones(B, dtype=torch.bool, device=dev)
     valid_f[3] = False  # a row that appends nothing
-    if fp8:
-        overflow_append_check(
-            torch, tk, "attend_decode_fused" + lt, pool0,
-            lambda pk, kk, vv: tk.attend_decode_fused(
-                q, pk, LAYER, kk, None, bts, seq, valid_f, PAGE, **kw),
-            lambda pp, kk, vv: tk.attend_decode_fused_plain(
-                q, pp, LAYER, kk, None, bts, seq, valid_f, PAGE, **kw),
-            knew, None)
-    pool_k, pool_p = pool0.clone(), pool0.clone()
-    fargs = (LAYER, knew, None, bts, seq, valid_f, PAGE)
-    poison(torch, (B, H, DV), dev)
-    out_k = tk.attend_decode_fused(q, pool_k, *fargs, **kw)
-    out_p = tk.attend_decode_fused_plain(q, pool_p, *fargs, **kw)
-    err, rel = compare_rows(torch, "attend_decode_fused[latent]", out_k, out_p,
-                            valid_f, pool_k, pool_p)
-    yield case(
-        "attend_decode_fused" + lt, "attend_decode_fused", err, rel,
-        device_ms(torch, lambda: tk.attend_decode_fused(q, pool_k, *fargs, **kw)),
-        call_ms(torch, lambda: tk.attend_decode_fused_plain(q, pool_p, *fargs, **kw)),
-        lib_dec, dec_bytes + B * M * esz, flops,
-        f"B={B} H={H} live={QK} value={DV} page={PAGE} mp={MP} ctx_rows={ctx}",
-        replaces="chitu_tpu/ops/pallas_attention.py:727")
+    yield from decode_cases("R1", H, q, knew, seq, bts, pool0, valid_f)
 
     # ---- B3: a 512-token slab of three prompts ---------------------------
     T = 512
@@ -919,17 +977,15 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
         total[r] = s0 + n
         tok_live[off : off + n] = True
         off += nb * TQ
-    q = randn(T, H, QK)
+    lt = f"[{variant},R1]"
+    qp = randn(T, H, QK)
     pargs = (pool0, LAYER, bts_p, block_seg, block_q, total, PAGE)
-    poison(torch, (T, H, DV), dev)
-    out_k = tk.attend_prefill_packed(q, *pargs, **kw)
-    out_p = tk.attend_prefill_packed_plain(q, *pargs, **kw)
-    if not torch.equal(out_k, tk.attend_prefill_packed(q, *pargs, **kw)):
-        raise AssertionError("attend_prefill_packed[latent]: two launches differ")
-    err, rel = compare_rows(torch, "attend_prefill_packed[latent]", out_k,
-                            out_p, tok_live)
+    run = lambda: tk.attend_prefill_packed(qp, *pargs, **kw)
+    err, rel = held("attend_prefill_packed" + lt, run,
+                    tk.attend_prefill_packed_plain(qp, *pargs, **kw),
+                    tok_live, (T, H, DV))
     dead = ~torch.repeat_interleave(block_seg >= 0, TQ)
-    if out_k[dead].abs().max().item() != 0.0:
+    if run()[dead].abs().max().item() != 0.0:
         raise AssertionError("attend_prefill_packed[latent]: dead blocks not zero")
     # library: SDPA over each segment's gathered rows, padded to one batch
     kg = gathered(pool0, bts_p[: len(segs)])
@@ -939,9 +995,9 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
     mask = torch.zeros((len(segs), 1, nmax, S), dtype=torch.bool, device=dev)
     off, pairs = 0, 0
     for r, (s0, n) in enumerate(segs):
-        qs[r, :, :n] = q[off : off + n].transpose(0, 1)
-        qp = s0 + torch.arange(n, device=dev)[:, None]
-        mr = torch.arange(S, device=dev)[None, :] <= qp
+        qs[r, :, :n] = qp[off : off + n].transpose(0, 1)
+        qpos = s0 + torch.arange(n, device=dev)[:, None]
+        mr = torch.arange(S, device=dev)[None, :] <= qpos
         mask[r, 0, :n] = mr
         mask[r, 0, n:, 0] = True
         pairs += int(mr.sum().item())
@@ -950,8 +1006,8 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
     ctx_rows = sum(s0 + n for s0, n in segs)
     yield case(
         "attend_prefill_packed" + lt, "attend_prefill_packed", err, rel,
-        device_ms(torch, lambda: tk.attend_prefill_packed(q, *pargs, **kw)),
-        call_ms(torch, lambda: tk.attend_prefill_packed_plain(q, *pargs, **kw),
+        device_ms(torch, run),
+        call_ms(torch, lambda: tk.attend_prefill_packed_plain(qp, *pargs, **kw),
                 reps=5),
         device_ms(torch, lambda: F.scaled_dot_product_attention(
             qs, kg, kg, attn_mask=mask, scale=R1_SCALE, enable_gqa=True)),
@@ -959,40 +1015,90 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
         2.0 * H * (QK + DV) * pairs,
         f"T={T} Tq={TQ} NB={NB} segs={segs} H={H} live={QK} value={DV}",
         replaces="chitu_tpu/ops/pallas_attention.py:1709")
+    del kg, qs, mask
 
     # ---- B5: a 512-token chunk at q_pos 512 ------------------------------
-    start = 512
-    totl = start + T
-    bt = torch.arange(16, device=dev, dtype=torch.int32) + 100
-    q_pos = (start + torch.arange(T, device=dev)).to(torch.int32)
-    sargs = (pool0, LAYER, bt, q_pos, totl, PAGE)
-    poison(torch, (T, H, DV), dev)
-    out_k = tk.attend_prefill(q, *sargs, **kw)
-    out_p = tk._vlanes(plain.attend_prefill(
-        q, *sargs, 1, QK, scale=R1_SCALE, split_kv=False), DV)
-    err, rel = compare_rows(torch, "attend_prefill[latent]", out_k, out_p,
-                            slice(None))
-    kg = gathered(pool0, bt[None])
-    mask = (torch.arange(kg.shape[2], device=dev)[None, :]
-            <= q_pos[:, None].long()) & (torch.arange(kg.shape[2], device=dev)[None, :] < totl)
-    pairs = int(mask.sum().item())
+    def chunk_case(label, Hq, qc):
+        start = 512
+        totl = start + T
+        bt = torch.arange(16, device=dev, dtype=torch.int32) + 100
+        q_pos = (start + torch.arange(T, device=dev)).to(torch.int32)
+        sargs = (pool0, LAYER, bt, q_pos, totl, PAGE)
+        run = lambda: tk.attend_prefill(qc, *sargs, **kw)
+        err, rel = held(f"attend_prefill[{variant},{label}]", run,
+                        tk._vlanes(plain.attend_prefill(
+                            qc, *sargs, 1, QK, scale=R1_SCALE, split_kv=False), DV),
+                        slice(None), (T, Hq, DV))
+        kg = gathered(pool0, bt[None])
+        cols = torch.arange(kg.shape[2], device=dev)[None, :]
+        mask = (cols <= q_pos[:, None].long()) & (cols < totl)
+        pairs = int(mask.sum().item())
+        return case(
+            f"attend_prefill[{variant},{label}]", "attend_prefill", err, rel,
+            device_ms(torch, run),
+            call_ms(torch, lambda: plain.attend_prefill(
+                qc, *sargs, 1, QK, scale=R1_SCALE, split_kv=False), reps=5),
+            device_ms(torch, lambda: F.scaled_dot_product_attention(
+                qc.transpose(0, 1)[None], kg, kg, attn_mask=mask[None, None],
+                scale=R1_SCALE, enable_gqa=True)),
+            totl * QK * esz + T * Hq * (QK + DV) * 2, 2.0 * Hq * (QK + DV) * pairs,
+            f"T={T} q_pos0={start} total={totl} H={Hq} live={QK} value={DV}",
+            replaces="chitu_tpu/ops/pallas_attention.py:1137")
+
+    yield chunk_case("R1", H, qp)
+
+    # ---- the latent decode where the split matters -----------------------
+    # one row of a 16,384-token context (the split fills the card); 16 rows
+    # of 4,096-8,191 (113-151 MB of rows, past twice the L2); four rows
+    # whose contexts end one key past a split boundary, on it and one
+    # short of it (the new token alone in its split)
+    mp1 = 16384 // PAGE + 1
+    yield from decode_cases(
+        "batch1_16k", H, randn(1, H, QK), randn(1, 1, QK),
+        torch.full((1,), 16383, dtype=torch.int32, device=dev),
+        torch.arange(mp1, device=dev, dtype=torch.int32)[None],
+        latent_pool(2, mp1), torch.ones(1, dtype=torch.bool, device=dev))
+    mpl = 8192 // PAGE + 1
+    seq_l = torch.randint(4096, 8192, (B,), generator=g, device=dev).to(torch.int32)
+    yield from decode_cases(
+        "long16", H, randn(B, H, QK), randn(B, 1, QK), seq_l,
+        torch.arange(B * mpl, device=dev, dtype=torch.int32).reshape(B, mpl),
+        latent_pool(2, B * mpl), valid_f, lib=False)
+    chunk = 64  # a tree without the split: any boundary of 64-key tiles
+    if hasattr(tk, "latent_split"):
+        chunk = tk.latent_split(4, H, MP, PAGE, tk._sm_count(dev))[1]
+    seq_e = torch.tensor([chunk, chunk - 1, 2 * chunk, chunk + 1], dtype=torch.int32,
+                         device=dev).clamp(max=MP * PAGE - 1)
+    yield from decode_cases(
+        "split_edge", H, randn(4, H, QK), randn(4, 1, QK), seq_e, bts[:4].contiguous(),
+        pool0, valid_f[:4].contiguous(), lib=False, cold=False)
+
+    # ---- deepseek-mid-bench: 32 heads (half of each decode tile dead) ----
+    yield from decode_cases("mid", 32, randn(B, 32, QK), knew, seq, bts, pool0,
+                            valid_f, lib=False)
+    yield chunk_case("mid", 32, randn(T, 32, QK))
+    qm = randn(T, 32, QK)
+    pargs = (pool0, LAYER, bts_p, block_seg, block_q, total, PAGE)
+    run = lambda: tk.attend_prefill_packed(qm, *pargs, **kw)
+    err, rel = held(f"attend_prefill_packed[{variant},mid]", run,
+                    tk.attend_prefill_packed_plain(qm, *pargs, **kw),
+                    tok_live, (T, 32, DV))
     yield case(
-        "attend_prefill" + lt, "attend_prefill", err, rel,
-        device_ms(torch, lambda: tk.attend_prefill(q, *sargs, **kw)),
-        call_ms(torch, lambda: plain.attend_prefill(
-            q, *sargs, 1, QK, scale=R1_SCALE, split_kv=False), reps=5),
-        device_ms(torch, lambda: F.scaled_dot_product_attention(
-            q.transpose(0, 1)[None], kg, kg, attn_mask=mask[None, None],
-            scale=R1_SCALE, enable_gqa=True)),
-        totl * QK * esz + T * H * (QK + DV) * 2, 2.0 * H * (QK + DV) * pairs,
-        f"T={T} q_pos0={start} total={totl} H={H} live={QK} value={DV}",
-        replaces="chitu_tpu/ops/pallas_attention.py:1137")
-    del pool0, pool_a, pool_k, pool_p
-    if fp8:
-        torch.cuda.empty_cache()
+        f"attend_prefill_packed[{variant},mid]", "attend_prefill_packed", err,
+        rel, device_ms(torch, run), None, None,
+        ctx_rows * QK * esz + n_new * 32 * (QK + DV) * 2,
+        2.0 * 32 * (QK + DV) * pairs,
+        f"T={T} Tq={TQ} NB={NB} segs={segs} H=32 live={QK} value={DV}",
+        replaces="chitu_tpu/ops/pallas_attention.py:1709")
+    del pool0
+    torch.cuda.empty_cache()
+    if fp8 or not split:
         return
 
     # ---- B4 and B3 at Llama-3-8B's split geometry ------------------------
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    cols = torch.arange(MP * PAGE, device=dev)[None, :]
+    ctx = int((seq + 1).sum().item())
     H, KV, D = 32, 8, 128
     M = 2 * KV * D
     scale = D ** -0.5
@@ -1061,6 +1167,22 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16"):
         replaces="chitu_tpu/ops/pallas_attention.py:1709", variant="split")
     del pool
     torch.cuda.empty_cache()
+
+
+def latent_cases(torch, tk, dev):
+    """The latent row's cases alone (bf16 pool), for
+    scripts/torch_kernel_compare.py: `mla_attention_cases` without the
+    split geometry, the plain versions of the tree that `tk` comes from."""
+    from chitu_tpu_torch.ops import attention as plain
+
+    yield from mla_attention_cases(torch, tk, plain, dev, split=False)
+
+
+def latent_e4m3_cases(torch, tk, dev):
+    """The same on an e4m3 pool."""
+    from chitu_tpu_torch.ops import attention as plain
+
+    yield from mla_attention_cases(torch, tk, plain, dev, kv="e4m3")
 
 
 def pairs_split(segs):
@@ -1373,6 +1495,78 @@ def _row_rel(torch, name, got, want, limit):
     return err, rel
 
 
+def int8_cases(torch, qg, dev):
+    """B10 at Llama-3-8B's W8A8 projection shapes, T 16, 1, 512, 64 and 65
+    (the first case, T 16 `[4096 -> 28672]`, is the one reported in the
+    kernels line): the int32 sums equal the plain product's exactly, the
+    scaled f32 output within 1e-5 of the plain row's norm (the same f32
+    arithmetic), a bf16 output with a bias within 1e-2; each checked
+    output on memory filled with 7.0, two launches and a CUDA-graph replay
+    bit-equal. Times warm and cold as B9's (`absorb_cases`): the weights of
+    a stack of W8A8 layers sized by `cold_layers`. Library yardstick:
+    `torch._int_mm` (more than 16 rows only), warm and cold."""
+    from chitu_tpu_torch.ops import norm_quant as nq
+    from chitu_tpu_torch.ops.qtensor import QuantKind
+    from chitu_tpu_torch.quantize import transforms as qt
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    bf = torch.bfloat16
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    for K, N in PROJ:
+        L = cold_layers(torch, dev, K * N, 2)
+        ws = [qt.quantize_weight(randn(K, N, s=0.02), QuantKind.W8A8)
+              for _ in range(L)]
+        w8 = ws[1]
+        for T in TS + [64, 65]:
+            name = f"int8_gemm[T={T},{K}->{N}]"
+            xa = nq.quant_acts_plain(randn(T, K))
+            run_acc = lambda: qg.int8_matmul(xa.data, w8.data)
+            acc, acc_p = run_acc(), qg.int8_matmul_plain(xa.data, w8.data)
+            if not torch.equal(acc, acc_p):
+                bad = (acc != acc_p).sum().item()
+                raise AssertionError(f"{name}: {bad} int32 sums differ")
+            bit_equal(torch, name + " sums", acc, run_acc())
+            replay_equal(torch, name + " sums", run_acc, acc)
+            run = lambda: qg.int8_gemm(xa.data, xa.scale, w8)
+            poison(torch, (T, 2 * N), dev)  # the f32 output lands on 7.0s
+            got = run()
+            err, rel = _row_rel(torch, name, got,
+                                qg.int8_gemm_plain(xa.data, xa.scale, w8), 1e-5)
+            bit_equal(torch, name, got, run())
+            replay_equal(torch, name, run, got)
+            bias = randn(N)
+            _row_rel(torch, name + "+bias", qg.int8_gemm(xa.data, xa.scale, w8, bias, bf),
+                     qg.int8_gemm_plain(xa.data, xa.scale, w8, bias, bf), ROW_RTOL)
+            nbytes = w8.nbytes() + T * K + T * 4 + T * N * 4
+            bnd, by = bound_ms(nbytes, 2.0 * T * K * N, INT8_OP_PER_S)
+            lib = lib_cold = None
+            if T > 16:  # torch._int_mm takes more than 16 rows only
+                lib = device_ms_sized(torch, lambda: torch._int_mm(xa.data, w8.data))
+                lib_cold = device_ms_cold(torch, [
+                    (lambda w=w: torch._int_mm(xa.data, w.data)) for w in ws])
+            res = dict(
+                name=name, kernel="int8_gemm", route="cuda", source=QGEMM_SRC,
+                replaces="chitu_tpu/ops/pallas_quant_gemm.py:501",
+                max_abs_err=err, max_row_rel_err=rel, int32_sums_equal=True,
+                ms=device_ms_sized(torch, run),
+                ms_cold=device_ms_cold(torch, [
+                    (lambda w=w: qg.int8_gemm(xa.data, xa.scale, w)) for w in ws]),
+                plain_ms=call_ms(
+                    torch, lambda: qg.int8_gemm_plain(xa.data, xa.scale, w8),
+                    reps=5),
+                bound_ms=bnd, bound_by=by, library_ms=lib, library_ms_cold=lib_cold,
+                shape=f"T={T} K={K} N={N} layers={L} layer=1")
+            if hasattr(qg, "int8_gemm_plan"):
+                res.update(plan_fields(qg.int8_gemm_plan(xa.data, w8.data)))
+            yield res
+        del ws, w8
+    torch.cuda.empty_cache()
+
+
 def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
     """One result dict per case; the first case of each kernel is the one
     reported in the kernels line (the shape the soft-fp8 engine's decode
@@ -1462,38 +1656,7 @@ def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
         yield gemm_case("int8_channel", T, 4001, 4096, timed=False)
     torch.cuda.empty_cache()
 
-    # ---- B10: int8 x int8 -> int32, then the two scales ------------------
-    for K, N in PROJ:
-        w8 = qt.quantize_weight(randn(K, N, s=0.02), QuantKind.W8A8)
-        for T in TS:
-            name = f"int8_gemm[T={T},{K}->{N}]"
-            xa = nq.quant_acts_plain(randn(T, K))
-            acc = qg.int8_matmul(xa.data, w8.data)
-            acc_p = qg.int8_matmul_plain(xa.data, w8.data)
-            if not torch.equal(acc, acc_p):
-                bad = (acc != acc_p).sum().item()
-                raise AssertionError(f"{name}: {bad} int32 sums differ")
-            got = qg.int8_gemm(xa.data, xa.scale, w8)
-            want = qg.int8_gemm_plain(xa.data, xa.scale, w8)
-            err, rel = _row_rel(torch, name, got, want, 1e-5)
-            nbytes = w8.nbytes() + T * K + T * 4 + T * N * 4
-            bnd, by = bound_ms(nbytes, 2.0 * T * K * N, INT8_OP_PER_S)
-            lib = None
-            if T > 16:  # torch._int_mm takes more than 16 rows only
-                lib = device_ms_sized(
-                    torch, lambda: torch._int_mm(xa.data, w8.data))
-            yield dict(
-                name=name, kernel="int8_gemm", route="cuda", source=QGEMM_SRC,
-                replaces="chitu_tpu/ops/pallas_quant_gemm.py:501",
-                max_abs_err=err, max_row_rel_err=rel, int32_sums_equal=True,
-                ms=device_ms_sized(
-                    torch, lambda: qg.int8_gemm(xa.data, xa.scale, w8)),
-                plain_ms=call_ms(
-                    torch, lambda: qg.int8_gemm_plain(xa.data, xa.scale, w8),
-                    reps=5),
-                bound_ms=bnd, bound_by=by, library_ms=lib,
-                shape=f"T={T} K={K} N={N}")
-        del w8
+    yield from int8_cases(torch, qg, dev)
 
     # ---- B11 / B12: activation quantizers ---------------------------------
     def acts_check(name, got, want):
@@ -2337,6 +2500,7 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"],
+            **{k: r[k] for k in ("ms_cold", "library_ms_cold") if r.get(k) is not None},
         ))
 
     for kname in KERNEL_ORDER:

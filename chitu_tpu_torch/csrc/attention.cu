@@ -17,7 +17,7 @@
 //                             <- attend_prefill (_prefill_grouped_kernel)
 //
 // and, for B1, B3, B4 and B5 on the MLA merged latent row, latent_kernel
-// (below). Two pool layouts, as in the JAX package, [L, P, page, M]: split
+// (+ latent_merge_kernel when a decode is split; below, TMA and wgmma). Two pool layouts, as in the JAX package, [L, P, page, M]: split
 // K/V rows [K_0..K_{KV-1} V_0..V_{KV-1} | pad], M = pad128(2*KV*D), at head
 // sizes 32, 64, 128 and 192 (192: DeepSeek's dense MLA, K = [k_nope | k_pe]
 // and V padded from 128 to 192 lanes in the row; the kernels read V at the
@@ -29,7 +29,7 @@
 //
 // Two pool element types (infer.kv_dtype): bf16, and int8 lanes holding
 // fp8-e4m3 bits. An e4m3 pool tile lands in shared memory as bytes
-// (cp.async) and is converted to bf16 there once, with the card's native
+// (cp.async; the latent kernel's by TMA) and is converted to bf16 there once, with the card's native
 // e4m3 convert (e4m3 values are exact in bf16), so everything after the
 // convert is the bf16 kernel. The appends (B1's in-kernel append, B2's append
 // launch, the latent B1's) write e4m3 bytes equal to the JAX package's
@@ -46,6 +46,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "gemm_common.cuh"  // TMA, mbarrier and wgmma primitives, tensor maps
 
 typedef __nv_bfloat16 bf16;
 typedef uint8_t e4m3;  // a pool lane holding fp8-e4m3 bits
@@ -125,46 +127,9 @@ __device__ __forceinline__ uint4 ld16(const bf16* p) {
   return *reinterpret_cast<const uint4*>(p);
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float capped(float s, float softcap) {
-  return softcap > 0.f ? tanhf(s / softcap) * softcap : s;
-}
-
 __device__ __forceinline__ int64_t row_offset(int layer, int P, int page,
                                               int M, int pid, int off) {
   return ((int64_t(layer) * P + pid) * page + off) * int64_t(M);
-}
-
-// Online-softmax update of one row for a tile of 64 scores held two per
-// lane (keys lane and lane+32; -INFINITY = masked). Returns the rescale
-// factor for the accumulator and leaves the tile's probabilities in p0/p1.
-__device__ __forceinline__ float online_update(float& m, float& l, float s0,
-                                               float s1, float& p0,
-                                               float& p1) {
-  const float m_new = fmaxf(m, warp_max(fmaxf(s0, s1)));
-  float alpha = 1.f;
-  p0 = 0.f;
-  p1 = 0.f;
-  if (m_new != -INFINITY) {
-    alpha = expf(m - m_new);  // m == -inf -> 0
-    p0 = s0 == -INFINITY ? 0.f : expf(s0 - m_new);
-    p1 = s1 == -INFINITY ? 0.f : expf(s1 - m_new);
-  }
-  l = l * alpha + warp_sum(p0 + p1);
-  m = m_new;
-  return alpha;
 }
 
 // ---------------------------------------------------------------------------
@@ -1054,317 +1019,560 @@ int launch_append_packed(void* pool, const void* k, const void* v,
 // ---------------------------------------------------------------------------
 // The MLA merged latent row (B1, B3, B4 and B5 with split_kv=False).
 // One KV "head" of LQK = 576 live lanes ([c_kv | k_pe]) is shared by all H
-// query heads, and its first LDV = 512 lanes are the value. Scores and
-// values are products with inner dimensions of 576 and 64, so both run on
-// the tensor cores (mma.sync m16n8k16, bf16 in, f32 sums); the online
-// softmax runs in f32 in between, as in the split kernels.
+// query heads, and its first LDV = 512 lanes are the value.
 //
-// Grid (row blocks, H / HT): a block owns LR = 32 query rows, HT heads
-// (32, or 16 when H is no multiple of 32) of LR / HT query tokens (decode:
-// one batch row and HT heads). It stages each 64-key tile of the latent
-// rows ONCE (64 x 576 bf16, 72 KB) and uses it for both the scores and the
-// values. What bounds it: the context bytes at a decode batch, the
-// tensor-core rate at prefill. Every head tile re-reads the context (H / HT
-// times: 4x for DeepSeek-R1's 128 heads), which L2 absorbs at the contexts
-// served here. Per tile, 8 warps: scores S[32 x 64] = Q K^T, warp w the
-// 16 x 16 block (w / 4, w % 4), to shared memory; softmax, warp w rows
-// 4w..4w+3 (probabilities rounded to bf16 for the next product); then
-// O[32 x 512] += P V, warp w the 16 x 128 block (w / 4, w % 4) in
-// registers, rescaled row by row (the accumulator's row of each register
-// is fixed by the mma layout). An e4m3 pool's tile arrives as bytes (64 x
-// 576, 36 KB) by cp.async into a byte tile, and every thread then converts
-// its chunks into the bf16 K=V tile once, before the products read it.
-// Not done yet: split K over a long context at batch 1, TMA and wgmma.
+// What bounds it on an H100. Decode: the context's bytes and the tensor
+// cores together -- DeepSeek-R1's 128 heads on one 576-lane row do
+// 2 * 128 * (576 + 512) operations per 1152 bytes read, 242 a byte, near
+// the card's 295 (989 TFLOP/s over 3.35 TB/s) -- so the products must run
+// at the wgmma rate while the copies stream. Prefill: the tensor cores,
+// and the key tiles' traffic from L2 (each key tile serves the rows of one
+// block).
+//
+// The design. A block owns one tile of 64 (token, head) rows, wgmma's M:
+// at decode 64 heads of one batch row (R1's 128 heads are 2 tiles, so the
+// context is read twice, not four times; with 16 or 32 heads the rest of
+// the tile is dead rows, computed and never stored); at prefill 64
+// consecutive (token, head) rows of q (128 heads: 64 heads of one token;
+// 32 heads: two tokens), each row under its own causal limit. Thread 0
+// loads the block's query tile [64 x 576] once and keeps a ring of 2
+// stages of key tiles in flight, each 64 keys x 576 lanes, by
+// TMA (`cp.async.bulk.tensor`, a 2-D map over the pool's [L * P * page, M]
+// rows, nine 64-lane boxes a tile, one box of page rows a page where a
+// page holds fewer than 64 keys), completing on the stage's `full`
+// mbarrier. bf16 tiles land in the 128-byte-swizzled layout wgmma reads;
+// an e4m3 pool's byte tiles (36 KB, no swizzle) are converted once into
+// one bf16 K=V tile by both warpgroups. Warpgroups 0 and 1 compute:
+// S = Q K^T by wgmma m64n32k16 (36 k-steps, Q and K both K-major from
+// shared memory), warpgroup h scoring keys 32h..32h+31 of the tile; the
+// online softmax on the accumulator registers (scale and softcap in f32,
+// base-2 exponentials), the row maxima exchanged between the warpgroups
+// through shared memory; P rounded to bf16 into a swizzled [64 x 64] tile;
+// O += P V by wgmma m64n128k16 with V the first 512 lanes of the same
+// tile read MN-major (one tile, one copy, used twice), warpgroup h holding
+// O's value lanes 256h..256h+255 in 128 f32 registers a thread (one
+// warpgroup's 256 would exceed 255). The row sums are each warpgroup's
+// partials, added at the end.
+//
+// Decode splits the context over blocks (grid (S, head tiles, B); the
+// wrapper plans S from shapes alone, so the launch can be captured in a
+// CUDA graph): a split covers `chunk` key positions (whole 64-key tiles),
+// writes its partial (m, l, O[512]) to f32 scratch, and
+// latent_merge_kernel merges a row's live splits in split order
+// (deterministic). A split past a row's context exits at once; a row whose
+// context one split holds is written by that split, as unsplit. Mode 0
+// (B1) takes the new token from `knew` in every block that meets it (the
+// tile's row is overwritten in shared memory, at the value its pool
+// encoding holds), and exactly one block per batch row (head tile 0, the
+// split holding the token) writes the new row to the pool after its own
+// reads. Packed prefill's dead blocks zero their output rows and read
+// nothing.
+//
+// A block: 256 threads, one block an SM (230,944 bytes of dynamic shared
+// memory: the query tile, two bf16 stages or one bf16 tile and two byte
+// stages, P, the exchange and the barriers). No producer warp: thread 0
+// issues the copies between the block's barriers, so the two warpgroups
+// keep up to 255 registers a thread (O alone is 128; with a producer warp
+// in the block ptxas capped them at 168 and serialized the wgmma).
 // ---------------------------------------------------------------------------
 
-constexpr int LQK = 576;        // live lanes of a latent row (score dims)
-constexpr int LDV = 512;        // value lanes (kv_lora_rank)
-constexpr int LR = 32;          // query rows a block
-constexpr int LWARPS = 8;
-constexpr int LLD = LQK + 8;    // row stride of the q and K=V tiles (bf16)
-constexpr int LSLD = BK + 4;    // row stride of the score tile (f32)
-constexpr int LPLD = BK + 8;    // row stride of the probability tile (bf16)
-constexpr size_t LATENT_SMEM =
-    size_t(LR) * LLD * 2 + size_t(BK) * LLD * 2 + size_t(LR) * LSLD * 4 +
-    size_t(LR) * LPLD * 2 + 2 * LR * 4;
-// an e4m3 pool adds the byte tile the staging lands in
+constexpr int LQK = 576;              // live lanes of a latent row (score dims)
+constexpr int LDV = 512;              // value lanes (kv_lora_rank)
+constexpr int LROWS = 64;             // (token, head) rows a tile: wgmma's M
+constexpr int LNBOX = LQK / 64;       // 64-lane boxes a row
+constexpr int LBOX = 64 * 128;        // bytes of a 64-row bf16 box
+constexpr int LTILE = LNBOX * LBOX;   // a bf16 tile of 64 rows
+constexpr int LSTAGES = 2;            // ring stages
+constexpr int LTHREADS = 256;         // two warpgroups; thread 0 also issues the copies
+
 template <typename PT>
-constexpr size_t latent_smem_bytes() {
-  return LATENT_SMEM + (std::is_same<PT, e4m3>::value ? size_t(BK) * LQK : 0);
-}
+struct LatentSmem {
+  static constexpr bool FP8 = std::is_same<PT, e4m3>::value;
+  static constexpr int STAGE = FP8 ? BK * LQK : LTILE;  // a ring stage
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_T = LTILE;  // e4m3: the bf16 tile the bytes become
+  static constexpr int OFF_RING = FP8 ? 2 * LTILE : LTILE;
+  static constexpr int OFF_P = OFF_RING + LSTAGES * STAGE;
+  static constexpr int OFF_RED = OFF_P + LROWS * 128;  // f32 [2][64]
+  static constexpr int OFF_BAR = OFF_RED + 2 * LROWS * 4;
+  static constexpr int TOTAL = OFF_BAR + (LSTAGES + 1) * 8 + 1024;
+  static_assert(OFF_RING % 1024 == 0 && OFF_P % 1024 == 0, "atoms 1024-aligned");
+  static_assert(TOTAL <= 227 * 1024, "shared memory");
+};
 
 enum LatentMode { L_DECODE_FUSED = 0, L_DECODE = 1, L_PREFILL = 2, L_PACKED = 3 };
 
+struct LatentArgs {
+  const bf16* q;            // [nrows * H, 576]
+  void* pool;               // [L, P, page, M]
+  const bf16* knew;         // [B, 576] (mode 0)
+  const int* bts;
+  const int* pos_in;        // seq_lens [B] or q_pos [T]
+  const uint8_t* valid;
+  const int* block_seg;
+  const int* block_qstart;
+  const int* total_lens;
+  bf16* out;                // [nrows * H, 512]
+  float* part_o;            // decode, S > 1: [B, S, H, 512]
+  float2* part_ml;          // [B, S, H] (m in log2 units, l)
+  int mode, total, nrows, Tq, H, L, layer, P, page, M, mp, window, S, chunk;
+  float scale, softcap;
+};
+
 template <typename PT>
-__global__ void __launch_bounds__(LWARPS * 32)
-latent_kernel(int mode, const bf16* __restrict__ q, PT* __restrict__ pool,
-              const bf16* __restrict__ knew, const int* __restrict__ bts,
-              const int* __restrict__ pos_in,  // seq_lens [B] or q_pos [T]
-              const uint8_t* __restrict__ valid,
-              const int* __restrict__ block_seg,
-              const int* __restrict__ block_qstart,
-              const int* __restrict__ total_lens, int total_scalar,
-              bf16* __restrict__ out, int Tq, int H, int HT, int layer, int P,
-              int page, int M, int mp, float scale, int window,
-              float softcap) {
+__global__ void __launch_bounds__(LTHREADS, 1)
+latent_kernel(const __grid_constant__ CUtensorMap tmq,
+              const __grid_constant__ CUtensorMap tmk, const LatentArgs a) {
   using IO = PoolIO<PT>;
-  constexpr bool FP8 = std::is_same<PT, e4m3>::value;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* qs = reinterpret_cast<bf16*>(smem);                // [LR][LLD]
-  bf16* ks = qs + LR * LLD;                                // [BK][LLD]
-  float* ss = reinterpret_cast<float*>(ks + BK * LLD);     // [LR][LSLD]
-  bf16* ps = reinterpret_cast<bf16*>(ss + LR * LSLD);      // [LR][LPLD]
-  float* alpha_s = reinterpret_cast<float*>(ps + LR * LPLD);  // [LR]
-  float* l_s = alpha_s + LR;                                  // [LR]
-  e4m3* kb = reinterpret_cast<e4m3*>(smem + LATENT_SMEM);     // [BK][LQK]
+  using Sm = LatentSmem<PT>;
+  constexpr bool FP8 = Sm::FP8;
+  extern __shared__ uint8_t lsm_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(lsm_raw) + 1023) & ~(uintptr_t)1023);
+  uint8_t* qs = sm + Sm::OFF_Q;
+  uint8_t* ring = sm + Sm::OFF_RING;
+  uint8_t* ps = sm + Sm::OFF_P;
+  float* red = reinterpret_cast<float*>(sm + Sm::OFF_RED);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + Sm::OFF_BAR);
+  uint64_t* qbar = full + LSTAGES;
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int h0 = blockIdx.y * HT;
-  const bool decode = mode == L_DECODE_FUSED || mode == L_DECODE;
-  const int BQ = decode ? 1 : LR / HT;  // query tokens of the block
-  const int R = BQ * HT;                // live rows
-  const int t_base = blockIdx.x * BQ;   // first token (decode: batch row)
+  const int tid = threadIdx.x;
+  const int H = a.H;
+  const bool decode = a.mode == L_DECODE_FUSED || a.mode == L_DECODE;
+  const bool fused = a.mode == L_DECODE_FUSED;
 
-  // the block's context: keys [kstart, kend); row r's query position is
-  // q_start + r / HT (decode: tot for every row)
-  int q_start, total, kstart, kend;
+  // the tile: flat q rows [f0, f0 + live), their positions (row r: q_start
+  // + r / RT), the context [.., total) and the keys [kbeg, wend) it walks
+  int f0, live, q_start, total, kstart, kend, RT, b = 0, split = 0;
   const int* bt;
   if (decode) {
-    q_start = pos_in[t_base];
+    split = blockIdx.x;
+    b = blockIdx.z;
+    f0 = b * H + blockIdx.y * LROWS;
+    live = min(LROWS, H - int(blockIdx.y) * LROWS);
+    RT = LROWS;
+    q_start = a.pos_in[b];
     total = q_start + 1;
-    kstart = window > 0 ? max(q_start + 1 - window, 0) : 0;
+    kstart = a.window > 0 ? max(total - a.window, 0) : 0;
     kend = total;
-    bt = bts + int64_t(t_base) * mp;
+    bt = a.bts + int64_t(b) * a.mp;
   } else {
-    if (mode == L_PACKED) {
-      const int blk = t_base / Tq;
-      const int seg = block_seg[blk];
+    f0 = blockIdx.x * LROWS;
+    live = min(LROWS, a.nrows * H - f0);
+    RT = min(H, LROWS);
+    const int t_first = f0 / H;
+    const int ntok = (live + RT - 1) / RT;
+    if (a.mode == L_PACKED) {
+      const int blk = t_first / a.Tq;
+      const int seg = a.block_seg[blk];
       if (seg < 0) {  // dead block: zero output, nothing read
-        for (int e = tid; e < R * LDV; e += LWARPS * 32) {
-          const int r = e / LDV;
-          out[(int64_t(t_base + r / HT) * H + h0 + r % HT) * LDV + e % LDV] =
-              __float2bfloat16(0.f);
-        }
+        for (int e = tid; e < live * (LDV / 8); e += LTHREADS)
+          *reinterpret_cast<uint4*>(a.out + int64_t(f0 + e / (LDV / 8)) * LDV +
+                                    (e % (LDV / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
         return;
       }
-      q_start = block_qstart[blk] + t_base % Tq;
-      total = total_lens[seg];
-      bt = bts + int64_t(seg) * mp;
+      q_start = a.block_qstart[blk] + t_first % a.Tq;
+      total = a.total_lens[seg];
+      bt = a.bts + int64_t(seg) * a.mp;
     } else {
-      q_start = pos_in[0] + t_base;
-      total = total_scalar;
-      bt = bts;
+      q_start = a.pos_in[0] + t_first;
+      total = a.total;
+      bt = a.bts;
     }
-    kend = min(q_start + BQ, total);
-    kstart = window > 0 ? max(q_start - window + 1, 0) : 0;
+    kend = min(q_start + ntok, total);
+    kstart = a.window > 0 ? max(q_start - a.window + 1, 0) : 0;
   }
-
-  // stage the block's queries (rows >= R are zero)
-  for (int e = tid; e < LR * (LQK / 8); e += LWARPS * 32) {
-    const int r = e / (LQK / 8), c = e % (LQK / 8);
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r < R)
-      v = reinterpret_cast<const uint4*>(
-          q + (int64_t(t_base + r / HT) * H + h0 + r % HT) * LQK)[c];
-    *reinterpret_cast<uint4*>(qs + r * LLD + c * 8) = v;
+  int kbeg = kstart & ~(BK - 1), wend = kend;
+  if (decode && a.S > 1) {
+    kbeg = max(kbeg, split * a.chunk);
+    wend = min(kend, split * a.chunk + a.chunk);
   }
+  const int nt = wend > kbeg ? (wend - kbeg + BK - 1) / BK : 0;
+  if (decode && a.S > 1 && nt == 0) return;  // a split past the row's context
 
-  float m[4], l[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
+  if (tid == 0) {
+    for (int s = 0; s < LSTAGES; ++s) mbar_init(&full[s], 1);
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  float acc[16][4];
-#pragma unroll
-  for (int j = 0; j < 16; ++j)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) acc[j][c] = 0.f;
+  __syncthreads();
 
-  const int sm = (warp >> 2) * 16;  // score / value row tile of this warp
-  const int sn = (warp & 3) * 16;   // score key columns
-  const int vd = (warp & 3) * 128;  // value lanes
-
-  for (int t0 = kstart; t0 < kend; t0 += BK) {
-    const int n = min(BK, kend - t0);
-    __syncthreads();  // the previous tile is consumed (and qs is staged)
-    // 8 lanes a chunk: 16 bytes of bf16 straight into the K=V tile, or
-    // 8 bytes of e4m3 into the byte tile
-    for (int e = tid; e < BK * (LQK / 8); e += LWARPS * 32) {
-      const int r = e / (LQK / 8), c = e % (LQK / 8);
-      const int pos = t0 + r;
-      PT* dst;
-      if constexpr (FP8)
-        dst = kb + r * LQK + c * 8;
-      else
-        dst = ks + r * LLD + c * 8;
-      if (r >= n) {
-        IO::store(dst, IO::zero());
-      } else if (mode == L_DECODE_FUSED && pos == q_start) {
-        // the new token at the value its pool encoding holds
-        IO::store(dst, IO::from_bf16(ld16(knew + int64_t(t_base) * LQK + c * 8)));
-      } else {
-        const int pi = pos / page;
-        const int pid = pi < mp ? max(bt[pi], 0) : 0;
-        __pipeline_memcpy_async(
-            dst, pool + row_offset(layer, P, page, M, pid, pos % page) + c * 8,
-            sizeof(typename IO::Raw));
+  // Thread 0 issues the copies: the query tile and the first two key
+  // tiles now, tile i + 1 in iteration i once both warpgroups are done
+  // with the stage it reuses (no producer warp: the consumers keep every
+  // register, 255 a thread)
+  const int br = min(a.page, BK);  // key rows a box
+  const int64_t lrow = int64_t(a.layer) * a.P;
+  auto load_tile = [&](int i) {
+    const int s = i % LSTAGES;
+    uint8_t* dst = ring + s * Sm::STAGE;
+    const int t0 = kbeg + i * BK;
+    mbar_arrive_tx(&full[s], Sm::STAGE);
+    for (int c = 0; c < BK; c += br) {
+      const int pos = t0 + c;
+      const int pi = pos / a.page;
+      int pid = pi < a.mp ? bt[pi] : 0;
+      if (pid < 0 || pid >= a.P) pid = 0;  // a masked page
+      const int row = int((lrow + pid) * a.page + pos % a.page);
+#pragma unroll
+      for (int j = 0; j < LNBOX; ++j) {
+        if constexpr (FP8)
+          tma_load_2d(dst + j * (BK * 64) + c * 64, &tmk, &full[s], j * 64, row);
+        else
+          tma_load_2d(dst + j * LBOX + c * 128, &tmk, &full[s], j * 64, row);
       }
     }
-    __pipeline_commit();
-    __pipeline_wait_prior(0);
-    __syncthreads();
-    if constexpr (FP8) {  // the byte tile -> the bf16 tile, once
-      for (int e = tid; e < BK * (LQK / 8); e += LWARPS * 32) {
-        const int r = e / (LQK / 8), c = e % (LQK / 8);
-        *reinterpret_cast<uint4*>(ks + r * LLD + c * 8) = IO::to_bf16(
-            *reinterpret_cast<const typename IO::Raw*>(kb + r * LQK + c * 8));
-      }
-      __syncthreads();
-    }
+  };
+  if (tid == 0 && nt > 0) {
+    prefetch_tmap(&tmq);
+    prefetch_tmap(&tmk);
+    mbar_arrive_tx(qbar, LTILE);
+    for (int j = 0; j < LNBOX; ++j) tma_load_2d(qs + j * LBOX, &tmq, qbar, j * 64, f0);
+    for (int i = 0; i < min(nt, LSTAGES); ++i) load_tile(i);
+  }
 
-    // scores: the warp's 16 x 16 block, 36 k-steps over the live lanes
-    float sc[2][4];
+  const int h = tid >> 7;  // warpgroup: keys 32h.. of a tile's scores, value lanes 256h..
+  const int wtid = tid & 127, wq = wtid >> 5, lane = tid & 31;
+  // accumulator layout (m64nN): acc[4 * n8 + 2 * hi + e] holds row
+  // 16 * wq + lane / 4 + 8 * hi and column 8 * n8 + 2 * (lane % 4) + e
+  const int r0 = 16 * wq + (lane >> 2), r1 = r0 + 8;
+  const int qp0 = q_start + r0 / RT, qp1 = q_start + r1 / RT;
+  float o[2][64];
+#pragma unroll
+  for (int j = 0; j < 2; ++j)
+#pragma unroll
+    for (int e = 0; e < 64; ++e) o[j][e] = 0.f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;
+
+  if (nt > 0) mbar_wait(qbar, 0);
+  const uint32_t qa = smem_u32(qs), pa = smem_u32(ps);
+  for (int i = 0; i < nt; ++i) {
+    const int s = i % LSTAGES;
+    const int t0 = kbeg + i * BK;
+    const int nr = fused ? q_start - t0 : -1;  // the new token's row of the tile
+    const bool patch = nr >= 0 && nr < BK;
+    mbar_wait(&full[s], (i / LSTAGES) & 1);
+    uint8_t* kv = ring + s * Sm::STAGE;
+    if constexpr (FP8) {
+      // the byte tile -> the bf16 tile, once (both warpgroups are done
+      // with the previous tile first); then the byte stage takes tile i + 2
+      uint8_t* tb = sm + Sm::OFF_T;
+      named_bar_sync(1, 256);
+      for (int e = tid; e < LNBOX * BK * 8; e += 256) {
+        const int j = e / (BK * 8), r = (e >> 3) % BK, c = e & 7;
+        const uint4 v =
+            (patch && r == nr)
+                ? IO::to_bf16(IO::from_bf16(ld16(a.knew + int64_t(b) * LQK + j * 64 + c * 8)))
+                : IO::to_bf16(*reinterpret_cast<const typename IO::Raw*>(
+                      kv + j * (BK * 64) + r * 64 + c * 8));
+        *reinterpret_cast<uint4*>(tb + j * LBOX + r * 128 + ((c ^ (r & 7)) << 4)) = v;
+      }
+      fence_proxy_async();  // wgmma reads what the generic proxy wrote
+      named_bar_sync(1, 256);
+      if (tid == 0 && i + LSTAGES < nt) load_tile(i + LSTAGES);
+      kv = tb;
+    } else if (patch) {
+      // the new token's row from knew, not from the pool
+      for (int e = tid; e < LNBOX * 8; e += 256) {
+        const int j = e >> 3, c = e & 7;
+        *reinterpret_cast<uint4*>(kv + j * LBOX + nr * 128 + ((c ^ (nr & 7)) << 4)) =
+            ld16(a.knew + int64_t(b) * LQK + j * 64 + c * 8);
+      }
+      fence_proxy_async();
+      named_bar_sync(1, 256);
+    }
+    const uint32_t ka = smem_u32(kv);
+    // the descriptors' bases, opaque to the compiler each tile: no Q or P
+    // descriptor is hoisted out of the loop to sit in registers O needs
+    uint32_t qa_t = qa, pa_t = pa, kb_t = ka + h * 32 * 128;
+    asm volatile("" : "+r"(qa_t), "+r"(pa_t), "+r"(kb_t));
+
+    // S = Q K^T over this warpgroup's 32 keys: 36 k-steps of 16 lanes in
+    // two accumulator chains (even and odd steps), summed after
+    float sc[16], sc2[16];
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sc[e] = sc2[e] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < LQK / 16; kk += 2) {
+      const uint32_t off = (kk >> 2) * LBOX + (kk & 3) * 32;
+      wgmma_m64n32<0, 0>(sc, sw128_desc(qa_t + off, 16, 1024),
+                         sw128_desc(kb_t + off, 16, 1024));
+      wgmma_m64n32<0, 0>(sc2, sw128_desc(qa_t + off + 32, 16, 1024),
+                         sw128_desc(kb_t + off + 32, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+    fence_regs(sc2);
+#pragma unroll
+    for (int e = 0; e < 16; ++e) sc[e] += sc2[e];
+
+    // mask, scale, softcap; row maxima over both warpgroups
+    const bool in_table = (t0 + BK - 1) / a.page < a.mp;
+    float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+    for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = t0 + 32 * h + 8 * n8 + 2 * (lane & 3) + (e & 1);
+        const int qp = e >> 1 ? qp1 : qp0;
+        bool ok = kp <= qp && kp < total;
+        if (!(fused && kp == q_start)) ok = ok && (in_table || kp / a.page < a.mp);
+        if (a.window > 0) ok = ok && kp > qp - a.window;
+        float v = sc[4 * n8 + e] * a.scale;
+        if (a.softcap > 0.f) v = tanhf(v / a.softcap) * a.softcap;
+        v = ok ? v * LOG2E : -INFINITY;
+        sc[4 * n8 + e] = v;
+        if (e >> 1)
+          mx1 = fmaxf(mx1, v);
+        else
+          mx0 = fmaxf(mx0, v);
+      }
+#pragma unroll
+    for (int d = 1; d <= 2; d <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, d));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, d));
+    }
+    if ((lane & 3) == 0) {
+      red[h * LROWS + r0] = mx0;
+      red[h * LROWS + r1] = mx1;
+    }
+    named_bar_sync(1, 256);
+    // both warpgroups are done with tile i - 1: its bf16 stage takes tile i + 1
+    if constexpr (!FP8)
+      if (tid == 0 && i >= 1 && i + 1 < nt) load_tile(i + 1);
+    const float mn0 = fmaxf(m0, fmaxf(mx0, red[(1 - h) * LROWS + r0]));
+    const float mn1 = fmaxf(m1, fmaxf(mx1, red[(1 - h) * LROWS + r1]));
+    const float al0 = mn0 == -INFINITY ? 1.f : ex2(m0 - mn0);  // m -inf -> 0
+    const float al1 = mn1 == -INFINITY ? 1.f : ex2(m1 - mn1);
+    float ls0 = 0.f, ls1 = 0.f;
+#pragma unroll
+    for (int n8 = 0; n8 < 4; ++n8)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = sc[4 * n8 + e];
+        const float p = v == -INFINITY ? 0.f : ex2(v - (e >> 1 ? mn1 : mn0));
+        sc[4 * n8 + e] = p;
+        if (e >> 1)
+          ls1 += p;
+        else
+          ls0 += p;
+      }
+    l0 = l0 * al0 + ls0;
+    l1 = l1 * al1 + ls1;
+    m0 = mn0;
+    m1 = mn1;
+    // P in bf16, K-major and swizzled: row r's 64 keys are 128 bytes
+#pragma unroll
+    for (int n8 = 0; n8 < 4; ++n8) {
+      const int ch = 4 * h + n8;
+      *reinterpret_cast<uint32_t*>(ps + r0 * 128 + ((ch ^ (r0 & 7)) << 4) + 4 * (lane & 3)) =
+          pack_bf16(sc[4 * n8], sc[4 * n8 + 1]);
+      *reinterpret_cast<uint32_t*>(ps + r1 * 128 + ((ch ^ (r1 & 7)) << 4) + 4 * (lane & 3)) =
+          pack_bf16(sc[4 * n8 + 2], sc[4 * n8 + 3]);
+    }
+    fence_proxy_async();
+    named_bar_sync(1, 256);  // both halves of P are written
+
+    // O = O * alpha + P V over this warpgroup's 256 value lanes
 #pragma unroll
     for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sc[j][c] = 0.f;
-    const bf16* qa = qs + (sm + g) * LLD + 2 * t4;
-    const bf16* kb = ks + (sn + g) * LLD + 2 * t4;
-#pragma unroll 4
-    for (int k0 = 0; k0 < LQK; k0 += 16) {
-      const uint32_t a0 = lds32(qa + k0), a1 = lds32(qa + 8 * LLD + k0);
-      const uint32_t a2 = lds32(qa + k0 + 8), a3 = lds32(qa + 8 * LLD + k0 + 8);
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const bf16* kp = kb + j * 8 * LLD + k0;
-        mma_bf16_16816(sc[j], a0, a1, a2, a3, lds32(kp), lds32(kp + 8));
+      for (int n8 = 0; n8 < 16; ++n8) {
+        o[j][4 * n8] *= al0;
+        o[j][4 * n8 + 1] *= al0;
+        o[j][4 * n8 + 2] *= al1;
+        o[j][4 * n8 + 3] *= al1;
       }
-    }
+    wgmma_fence();
+    const uint32_t va = ka + 4 * h * LBOX;
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float* s0 = ss + (sm + g) * LSLD + sn + j * 8 + 2 * t4;
-      s0[0] = sc[j][0];
-      s0[1] = sc[j][1];
-      s0[8 * LSLD] = sc[j][2];
-      s0[8 * LSLD + 1] = sc[j][3];
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t da = sw128_desc(pa_t + kk * 32, 16, 1024);
+      wgmma_m64n128<0, 1>(o[0], da, sw128_desc(va + kk * 2048, LBOX, 1024));
+      wgmma_m64n128<0, 1>(o[1], da, sw128_desc(va + 2 * LBOX + kk * 2048, LBOX, 1024));
     }
-    __syncthreads();
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o[0]);
+    fence_regs(o[1]);
+  }
 
-    // online softmax: warp w rows 4w..4w+3, keys lane and lane + 32
+  // row sums: the quad's, then the other warpgroup's
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = warp * 4 + i;
-      const int qp = decode ? q_start : q_start + r / HT;
-      float sv[2];
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int j = lane + 32 * kk, kp = t0 + j;
-        bool ok = j < n && kp <= qp && kp < total;
-        if (!(mode == L_DECODE_FUSED && kp == q_start)) ok = ok && kp / page < mp;
-        if (window > 0) ok = ok && kp > qp - window;
-        sv[kk] = ok ? capped(ss[r * LSLD + j] * scale, softcap) : -INFINITY;
-      }
-      float p0, p1;
-      const float alpha = online_update(m[i], l[i], sv[0], sv[1], p0, p1);
-      ps[r * LPLD + lane] = __float2bfloat16(p0);
-      ps[r * LPLD + lane + 32] = __float2bfloat16(p1);
-      if (lane == 0) alpha_s[r] = alpha;
-    }
-    __syncthreads();
+  for (int d = 1; d <= 2; d <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, d);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, d);
+  }
+  if ((lane & 3) == 0) {
+    red[h * LROWS + r0] = l0;
+    red[h * LROWS + r1] = l1;
+  }
+  named_bar_sync(1, 256);
+  const float L0 = l0 + red[(1 - h) * LROWS + r0];
+  const float L1 = l1 + red[(1 - h) * LROWS + r1];
 
-    // O += P V: the warp's 16 x 128 block, rescaled first
-    const float al0 = alpha_s[sm + g], al1 = alpha_s[sm + g + 8];
+  // a split decode writes partials for the merge, but a row whose context
+  // lies in one split (this block's) writes its output here, as unsplit
+  const bool partial =
+      decode && a.S > 1 && kstart / a.chunk != (kend - 1) / a.chunk;
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      acc[j][0] *= al0;
-      acc[j][1] *= al0;
-      acc[j][2] *= al1;
-      acc[j][3] *= al1;
-    }
-    const bf16* pa = ps + (sm + g) * LPLD + 2 * t4;
+  for (int hi = 0; hi < 2; ++hi) {
+    const int r = hi ? r1 : r0;
+    if (r >= live) continue;  // a dead row: never stored
+    if (partial) {
+      const int64_t pr = (int64_t(b) * a.S + split) * H + blockIdx.y * LROWS + r;
+      float* po = a.part_o + pr * LDV + 256 * h + 2 * (lane & 3);
 #pragma unroll
-    for (int k0 = 0; k0 < BK; k0 += 16) {
-      const uint32_t a0 = lds32(pa + k0), a1 = lds32(pa + 8 * LPLD + k0);
-      const uint32_t a2 = lds32(pa + k0 + 8), a3 = lds32(pa + 8 * LPLD + k0 + 8);
-      const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 8 * (lane >> 4);
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-      for (int jj = 0; jj < 8; ++jj) {
-        uint32_t b0, b1, b2, b3;
-        ldsm_x4_trans(vb + jj * 16, b0, b1, b2, b3);
-        mma_bf16_16816(acc[2 * jj], a0, a1, a2, a3, b0, b1);
-        mma_bf16_16816(acc[2 * jj + 1], a0, a1, a2, a3, b2, b3);
-      }
+        for (int n8 = 0; n8 < 16; ++n8)
+          *reinterpret_cast<float2*>(po + 128 * j + 8 * n8) =
+              make_float2(o[j][4 * n8 + 2 * hi], o[j][4 * n8 + 2 * hi + 1]);
+      if (h == 0 && (lane & 3) == 0) a.part_ml[pr] = make_float2(hi ? m1 : m0, hi ? L1 : L0);
+    } else {
+      const float Lr = hi ? L1 : L0;
+      const float inv = Lr > 0.f ? 1.f / Lr : 0.f;
+      bf16* op = a.out + int64_t(f0 + r) * LDV + 256 * h + 2 * (lane & 3);
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int n8 = 0; n8 < 16; ++n8)
+          *reinterpret_cast<__nv_bfloat162*>(op + 128 * j + 8 * n8) = __floats2bfloat162_rn(
+              o[j][4 * n8 + 2 * hi] * inv, o[j][4 * n8 + 2 * hi + 1] * inv);
     }
   }
 
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    if (lane == 0) l_s[warp * 4 + i] = l[i];
-  __syncthreads();
-#pragma unroll
-  for (int half = 0; half < 2; ++half) {
-    const int r = sm + g + 8 * half;
-    if (r < R) {
-      const float inv = l_s[r] > 0.f ? 1.f / l_s[r] : 0.f;
-      bf16* op = out + (int64_t(t_base + r / HT) * H + h0 + r % HT) * LDV + vd +
-                 2 * t4;
-#pragma unroll
-      for (int j = 0; j < 16; ++j)
-        *reinterpret_cast<__nv_bfloat162*>(op + j * 8) = __floats2bfloat162_rn(
-            acc[j][2 * half] * inv, acc[j][2 * half + 1] * inv);
-    }
-  }
-
-  // B1: append the new latent row [c_kv | k_pe | 0-pad] after the reads (no
-  // block reads slot `tot` of this batch row from the pool)
-  if (mode == L_DECODE_FUSED && blockIdx.y == 0 && valid[t_base]) {
-    const int pi = q_start / page;
-    const int pid = pi < mp ? bt[pi] : -1;
-    if (pid >= 0 && pid < P) {
-      PT* row = pool + row_offset(layer, P, page, M, pid, q_start % page);
-      for (int c = tid; c < M / 8; c += LWARPS * 32) {
+  // B1: append the new latent row [c_kv | k_pe | 0-pad] after this block's
+  // reads; one block per batch row: head tile 0, the split holding the token
+  if (fused && blockIdx.y == 0 && (a.S == 1 || split == q_start / a.chunk) && a.valid[b]) {
+    const int pi = q_start / a.page;
+    const int pid = pi < a.mp ? bt[pi] : -1;
+    if (pid >= 0 && pid < a.P) {
+      PT* row = static_cast<PT*>(a.pool) +
+                row_offset(a.layer, a.P, a.page, a.M, pid, q_start % a.page);
+      for (int c = tid; c < a.M / 8; c += 256) {
         typename IO::Raw v = IO::zero();
-        if (c < LQK / 8)
-          v = IO::from_bf16(ld16(knew + int64_t(t_base) * LQK + c * 8));
+        if (c < LQK / 8) v = IO::from_bf16(ld16(a.knew + int64_t(b) * LQK + c * 8));
         IO::store(row + c * 8, v);
       }
     }
   }
 }
 
+// The split partials of each (batch row, head) merged in split order ->
+// out. Grid B * H, 128 threads of 4 value lanes; only the splits the
+// row's context reaches (those latent_kernel ran) are read, and a row
+// that one split holds is left as latent_kernel wrote it.
+__global__ void latent_merge_kernel(const float* __restrict__ part_o,
+                                    const float2* __restrict__ part_ml,
+                                    const int* __restrict__ seq_lens,
+                                    bf16* __restrict__ out, int H, int S,
+                                    int chunk, int window) {
+  const int b = blockIdx.x / H, head = blockIdx.x % H;
+  const int kend = seq_lens[b] + 1;
+  const int kstart = window > 0 ? max(kend - window, 0) : 0;
+  const int s_lo = kstart / chunk, s_hi = min((kend - 1) / chunk, S - 1);
+  if (s_lo == s_hi) return;  // one split: latent_kernel wrote the row
+  const int64_t p0 = int64_t(b) * S * H + head;  // split s at p0 + s * H
+  const int n = s_hi - s_lo + 1;
+  // the splits' (m, l) read in parallel into shared memory, the largest m
+  // reduced in split order, then each split's weight f = 2^(m - max)
+  extern __shared__ float mw[];  // [n] m, then [n] f
+  __shared__ float red_m[LDV / 4 / 32];
+  float mx = -INFINITY;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float2 ml = part_ml[p0 + int64_t(s_lo + i) * H];
+    mw[i] = ml.x;
+    mw[n + i] = ml.y;
+    mx = fmaxf(mx, ml.x);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+  if ((threadIdx.x & 31) == 0) red_m[threadIdx.x >> 5] = mx;
+  __syncthreads();
+  const float Mx = fmaxf(fmaxf(red_m[0], red_m[1]), fmaxf(red_m[2], red_m[3]));
+  for (int i = threadIdx.x; i < n; i += blockDim.x)  // l -> f * l, m -> f
+    if (mw[i] == -INFINITY || Mx == -INFINITY) {
+      mw[i] = 0.f;
+      mw[n + i] = 0.f;
+    } else {
+      const float f = exp2f(mw[i] - Mx);
+      mw[i] = f;
+      mw[n + i] *= f;
+    }
+  __syncthreads();
+  const int d = threadIdx.x * 4;
+  float L = 0.f, acc[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll 4
+  for (int i = 0; i < n; ++i) {
+    const float f = mw[i];
+    L += mw[n + i];
+    if (f == 0.f) continue;
+    const float4 v =
+        *reinterpret_cast<const float4*>(part_o + (p0 + int64_t(s_lo + i) * H) * LDV + d);
+    acc[0] += f * v.x;
+    acc[1] += f * v.y;
+    acc[2] += f * v.z;
+    acc[3] += f * v.w;
+  }
+  const float inv = L > 0.f ? 1.f / L : 0.f;
+  __nv_bfloat162* op = reinterpret_cast<__nv_bfloat162*>(out + int64_t(blockIdx.x) * LDV + d);
+  op[0] = __floats2bfloat162_rn(acc[0] * inv, acc[1] * inv);
+  op[1] = __floats2bfloat162_rn(acc[2] * inv, acc[3] * inv);
+}
+
 template <typename PT>
-int launch_latent(int mode, const void* q, void* pool, const void* knew,
-                  const void* bts, const void* pos_in, const void* valid,
-                  const void* block_seg, const void* block_qstart,
-                  const void* total_lens, int total, void* out, int nrows,
-                  int Tq, int H, int layer, int P, int page, int M, int mp,
-                  float scale, int window, float softcap,
-                  cudaStream_t stream) {
-  const int HT = H % 32 == 0 ? 32 : 16;
-  const bool decode = mode == L_DECODE_FUSED || mode == L_DECODE;
-  const int BQ = decode ? 1 : LR / HT;
-  if (H % 16 || M < LQK || nrows % BQ || (mode == L_PACKED && Tq % BQ))
-    return 100000;
-  const size_t smem = latent_smem_bytes<PT>();
+int launch_latent(const LatentArgs& a, cudaStream_t stream) {
+  using Sm = LatentSmem<PT>;
+  constexpr bool FP8 = Sm::FP8;
+  const bool decode = a.mode == L_DECODE_FUSED || a.mode == L_DECODE;
+  if (a.M < LQK || (a.M * int(sizeof(PT))) % 16 || !aligned16(a.pool) || !aligned16(a.q))
+    return NOT_SUPPORTED;
+  if (a.H % 16 || (a.H % LROWS && LROWS % a.H)) return NOT_SUPPORTED;
+  if (!(a.page % BK == 0 || (BK % a.page == 0 && a.page % 8 == 0))) return NOT_SUPPORTED;
+  if (a.mode == L_PACKED && a.Tq % max(1, LROWS / a.H)) return NOT_SUPPORTED;
+  if (decode && (a.S < 1 || (a.S > 1 && (a.chunk <= 0 || a.chunk % BK || !a.part_o ||
+                                         !a.part_ml))))
+    return NOT_SUPPORTED;
+  if (a.nrows <= 0) return 0;
+  CUtensorMap tmq, tmk;
+  MapKey kq;
+  memset(&kq, 0, sizeof(kq));
+  kq.base = a.q;
+  kq.rows = uint64_t(a.nrows) * a.H;
+  kq.cols = LQK;
+  kq.box0 = 64;
+  kq.box1 = LROWS;
+  kq.bf16 = 1;
+  kq.swz = 1;
+  if (const int rc = cached_map<ACT_MAPS>(&tmq, kq)) return rc;
+  MapKey kk;
+  memset(&kk, 0, sizeof(kk));
+  kk.base = a.pool;
+  kk.rows = uint64_t(a.L) * a.P * a.page;
+  kk.cols = uint64_t(a.M);
+  kk.box0 = 64;
+  kk.box1 = uint32_t(min(a.page, BK));
+  kk.bf16 = !FP8;
+  kk.swz = !FP8;
+  if (const int rc = cached_map<WEIGHT_MAPS>(&tmk, kk)) return rc;
   static bool attr_set = false;
   if (!attr_set) {
-    cudaError_t e = cudaFuncSetAttribute(
-        latent_kernel<PT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        int(smem));
+    const cudaError_t e = cudaFuncSetAttribute(
+        latent_kernel<PT>, cudaFuncAttributeMaxDynamicSharedMemorySize, Sm::TOTAL);
     if (e != cudaSuccess) return int(e);
     attr_set = true;
   }
-  dim3 grid(nrows / BQ, H / HT);
-  latent_kernel<PT><<<grid, LWARPS * 32, smem, stream>>>(
-      mode, static_cast<const bf16*>(q), static_cast<PT*>(pool),
-      static_cast<const bf16*>(knew), static_cast<const int*>(bts),
-      static_cast<const int*>(pos_in), static_cast<const uint8_t*>(valid),
-      static_cast<const int*>(block_seg),
-      static_cast<const int*>(block_qstart),
-      static_cast<const int*>(total_lens), total, static_cast<bf16*>(out), Tq,
-      H, HT, layer, P, page, M, mp, scale, window, softcap);
+  const int htiles = (a.H + LROWS - 1) / LROWS;
+  const dim3 grid = decode ? dim3(a.S, htiles, a.nrows)
+                           : dim3((a.nrows * a.H + LROWS - 1) / LROWS, 1, 1);
+  latent_kernel<PT><<<grid, LTHREADS, Sm::TOTAL, stream>>>(tmq, tmk, a);
+  if (const cudaError_t e = cudaGetLastError()) return int(e);
+  if (decode && a.S > 1)
+    latent_merge_kernel<<<a.nrows * a.H, LDV / 4, 2 * a.S * sizeof(float), stream>>>(
+        a.part_o, a.part_ml, a.pos_in, a.out, a.H, a.S, a.chunk, a.window);
   return int(cudaGetLastError());
 }
 template <typename T>
@@ -1509,22 +1717,52 @@ extern "C" int chitu_attend_prefill_packed(
 // mode 0 B1 (fused append + decode), 1 B4 (decode), 2 B5 (one sequence's
 // chunk, pos_in = q_pos), 3 B3 (packed slab). nrows: batch rows (decode) or
 // query tokens (prefill); q [nrows, H, 576], out [nrows, H, 512], knew
-// [nrows, 576] (mode 0 only).
+// [nrows, 576] (mode 0 only); the pool [L, P, page, M]. Decode splits the
+// context into S splits of `chunk` key positions (a multiple of 64) when
+// S > 1, its partials in part_o [nrows, S, H, 512] f32 and part_ml
+// [nrows, S, H] (m, l) f32 pairs.
 extern "C" int chitu_attend_latent(
     int mode, const void* q, void* pool, const void* knew, const void* bts,
     const void* pos_in, const void* valid, const void* block_seg,
     const void* block_qstart, const void* total_lens, int total, void* out,
-    int nrows, int NB, int H, int layer, int P, int page, int M, int mp,
-    float scale, int window, float softcap, int fp8, void* stream) {
+    void* part_o, void* part_ml, int nrows, int NB, int H, int L, int layer,
+    int P, int page, int M, int mp, float scale, int window, float softcap,
+    int fp8, int S, int chunk, void* stream) {
   if (mode < 0 || mode > 3) return kUnsupported;
   const int Tq = mode == 3 ? nrows / NB : nrows;
   if (mode == 3 && Tq * NB != nrows) return kUnsupported;
+  LatentArgs a;
+  memset(&a, 0, sizeof(a));
+  a.q = static_cast<const bf16*>(q);
+  a.pool = pool;
+  a.knew = static_cast<const bf16*>(knew);
+  a.bts = static_cast<const int*>(bts);
+  a.pos_in = static_cast<const int*>(pos_in);
+  a.valid = static_cast<const uint8_t*>(valid);
+  a.block_seg = static_cast<const int*>(block_seg);
+  a.block_qstart = static_cast<const int*>(block_qstart);
+  a.total_lens = static_cast<const int*>(total_lens);
+  a.out = static_cast<bf16*>(out);
+  a.part_o = static_cast<float*>(part_o);
+  a.part_ml = static_cast<float2*>(part_ml);
+  a.mode = mode;
+  a.total = total;
+  a.nrows = nrows;
+  a.Tq = Tq;
+  a.H = H;
+  a.L = L;
+  a.layer = layer;
+  a.P = P;
+  a.page = page;
+  a.M = M;
+  a.mp = mp;
+  a.window = window;
+  a.S = mode <= 1 ? S : 1;
+  a.chunk = chunk;
+  a.scale = scale;
+  a.softcap = softcap;
   return with_pool(fp8, [&](auto pt) {
     using PT = typename decltype(pt)::type;
-    return launch_latent<PT>(mode, q, pool, knew, bts, pos_in, valid,
-                             block_seg, block_qstart, total_lens, total, out,
-                             nrows, Tq, H, layer, P, page, M, mp, scale,
-                             window, softcap,
-                             static_cast<cudaStream_t>(stream));
+    return launch_latent<PT>(a, static_cast<cudaStream_t>(stream));
   });
 }

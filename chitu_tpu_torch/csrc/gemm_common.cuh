@@ -1,9 +1,10 @@
 // Pieces shared by the GEMM kernels of quant_gemm.cu, moe_gemm.cu,
-// dense_gemm.cu and absorb.cu: the block geometry, the 16-byte unions, the
-// TMA, mbarrier and wgmma primitives, and the Hopper GEMM mainloop (TMA +
-// wgmma) that the dequant GEMM (B6+B7), the grouped expert GEMM (B8) and
-// the dense stacked-layer GEMM (B13) run; the MLA absorb kernel (B9) walks
-// its own items with the same primitives. Every
+// dense_gemm.cu and absorb.cu and by the latent attention kernel of
+// attention.cu: the block geometry, the 16-byte unions, the TMA, mbarrier
+// and wgmma primitives, the tensor maps, and the Hopper GEMM mainloop (TMA
+// + wgmma) that the dequant GEMM (B6+B7), the W8A8 int8 GEMM (B10), the
+// grouped expert GEMM (B8) and the dense stacked-layer GEMM (B13) run; the
+// MLA absorb kernel (B9) walks its own items with the same primitives. Every
 // source that includes this header is rebuilt when it changes (the build
 // hashes the headers with the source, ops/cuda_build.py).
 
@@ -17,9 +18,10 @@
 #include <stdint.h>
 #include <string.h>
 
+#include <type_traits>
+
 namespace {
 
-constexpr int THREADS = 256;
 constexpr int BN = 128;
 constexpr int NOT_SUPPORTED = 100000;
 constexpr int MAP_FAILED = 100001;  // cuTensorMapEncodeTiled refused the map
@@ -56,7 +58,10 @@ __host__ __device__ inline int aligned16(const void* p) { return ((uintptr_t)p &
 //
 //   out[m, n] = sum_k x[m, k] * W[k, n],   x bf16 [rows, K], W stored as
 //   e4m3 / int8 / int4 (one nibble a byte, or packed two a byte) with scales
-//   (and zeros), or bf16; f32 sums, f32 or bf16 out (+ a bias).
+//   (and zeros), or bf16; f32 sums, f32 or bf16 out (+ a bias). B10
+//   (MODE_S8): x int8 [rows, K] and W int8 [K, N], exact int32 sums by
+//   `wgmma ... .s32.s8.s8` (k32), then f32(sum) * x_scale[m] * w_scale[n]
+//   (+ a bias), or the raw sums.
 //
 // One block of 384 threads: warpgroups 0 and 1 consume, warp 8 (in
 // warpgroup 2) produces; `setmaxnreg` gives the producer warpgroup 40
@@ -75,6 +80,15 @@ __host__ __device__ inline int aligned16(const void* p) { return ((uintptr_t)p &
 // while the warps convert tile i + 1; `wgmma.wait_group 1` then frees tile
 // i - 1's stage (`empty` mbarrier, one arrival a consumer warp). bf16
 // weights skip the conversion: TMA writes them in the converted layout.
+//
+// B10's operands: wgmma takes 8-bit A and B K-major only. x [T, K] is
+// K-major as it lies and arrives by TMA as it is; W [K, N] (the JAX
+// package's layout, N-major) arrives raw and the conversion step becomes a
+// byte transpose: each warpgroup turns its 64 columns of the [128 k][128 n]
+// raw tile into [64 n][128 k] K-major rows (16 4-byte loads, 4x4 byte
+// transposes by `prmt`, 16-byte stores into the 128-byte swizzle). K tile
+// 256 bytes at decode (half the per-tile handshakes of 128), 128 at the
+// slab; the split-K partials are int32, summed in split order, exact.
 //
 // Two regimes (TN is the template's rows a tile):
 // - slab (more than 64 rows; TN 128 or 256): a TN x 128 output tile, x is
@@ -119,14 +133,16 @@ __host__ __device__ inline int aligned16(const void* p) { return ((uintptr_t)p &
 // - CUDA graphs: no launch reads device memory on the host or allocates;
 //   the split-K counters return to zero in the launch that used them.
 
-enum { MODE_FP8 = 0, MODE_INT8 = 1, MODE_INT4 = 2, MODE_INT4P = 3, MODE_BF16 = 4 };
+enum { MODE_FP8 = 0, MODE_INT8 = 1, MODE_INT4 = 2, MODE_INT4P = 3, MODE_BF16 = 4,
+       MODE_S8 = 5 };
 enum { SCALE_BLOCK = 0, SCALE_ROW = 1, SCALE_CHAN = 2 };
 constexpr int WG_THREADS = 384;
 
 struct WgParams {
-  const __nv_bfloat16* x;    // [x_rows, K]
+  const __nv_bfloat16* x;    // [x_rows, K] (B10: int8)
   const uint8_t* w;          // w_rows rows of w_ld elements (bytes, or bf16)
-  const float* scale;        // scale rows (per expert: scale_expert floats)
+  const float* scale;        // scale rows (per expert: scale_expert floats); B10: [N]
+  const float* x_scale;      // B10: [x_rows]
   const float* zeros;        // int4: [K/B, N]
   const __nv_bfloat16* bias; // [N] or null
   const int* block_expert;   // [groups] (B8), or null (one group)
@@ -138,6 +154,7 @@ struct WgParams {
   int bm;                    // rows of a group (B8: a dispatch block; B6/B7: T)
   int E, layer;              // B8: experts a layer; B8 and B13: the stack's layer
   int scale_mode, block, scale_ld, out_bf16;
+  int out_i32;               // B10: store the raw int32 sums
   int ncol, splits;
   int tma_w, tma_x;
 };
@@ -148,18 +165,22 @@ struct WgParams {
 template <int MODE, int TN>
 struct WgSmem {
   static constexpr bool SLAB = TN >= 128;
-  static constexpr int BK = SLAB ? 64 : 128;               // K tile
+  static constexpr bool S8 = MODE == MODE_S8;              // B10: int8 x and W
+  // K tile (elements); B10's decode tile 256 bytes deep, half the handshakes
+  static constexpr int BK = S8 ? (SLAB ? 128 : 256) : (SLAB ? 64 : 128);
+  static constexpr int XES = S8 ? 1 : 2;                   // bytes an x element
   static constexpr int ROWS = TN;                          // x rows a tile
   static constexpr int NSUB = SLAB ? TN / 128 : 1;         // m64 tiles a warpgroup
   static constexpr bool CONVERT = MODE != MODE_BF16;
   static constexpr bool ZEROS = MODE == MODE_INT4 || MODE == MODE_INT4P;
   static constexpr int RAWROW = MODE == MODE_INT4P ? 64 : 128;  // raw bytes a W row
   static constexpr int WSTAGE = CONVERT ? BK * RAWROW : 2 * BK * 128;
-  static constexpr int XSTAGE = ROWS * BK * 2;
-  static constexpr int GROUPS = CONVERT ? BK / 32 : 0;     // most scale rows a tile
+  static constexpr int XSTAGE = ROWS * BK * XES;
+  static constexpr int GROUPS = CONVERT && !S8 ? BK / 32 : 0;  // most scale rows a tile
   static constexpr int SSTAGE = GROUPS * BN * 4 * (ZEROS ? 2 : 1);
   static constexpr int NC = CONVERT ? (SLAB ? 3 : 2) : 0;  // converted tiles
-  static constexpr int CBUF = BK * 128 * 2;                // two 64-column atoms
+  // two 64-column bf16 atoms, or B10's [128 n][128 k] bytes
+  static constexpr int CBUF = S8 ? BN * BK : BK * 128 * 2;
   static constexpr int PER = WSTAGE + XSTAGE + SSTAGE;
   static constexpr int FIXED = NC * CBUF + 1024 + 256;
   static constexpr int S0 = (227 * 1024 - FIXED) / PER;
@@ -309,6 +330,11 @@ __device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int R>
+__device__ __forceinline__ void fence_regs(int (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
 
 // wgmma shared-memory matrix descriptor, 128-byte swizzle
 __device__ __forceinline__ uint64_t sw128_desc(uint32_t saddr, uint32_t lbo,
@@ -411,6 +437,90 @@ __device__ __forceinline__ void wgmma_tile(float (&d)[TN / 2], uint64_t da, uint
 }
 
 
+// ---- wgmma.mma_async (s8 x s8 -> s32, both operands K-major in shared memory) ----
+
+__device__ __forceinline__ void wgmma_s8_m64n16(int (&d)[8], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n32(int (&d)[16], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n64(int (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_s8_m64n128(int (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p;\n"
+      "}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// D[64 x TN] += A * B in int32 for a token tile of TN = 16, 32, 64 or 128 columns
+template <int TN>
+__device__ __forceinline__ void wgmma_s8_tile(int (&d)[TN / 2], uint64_t da, uint64_t db) {
+  if constexpr (TN == 16) wgmma_s8_m64n16(d, da, db);
+  if constexpr (TN == 32) wgmma_s8_m64n32(d, da, db);
+  if constexpr (TN == 64) wgmma_s8_m64n64(d, da, db);
+  if constexpr (TN == 128) wgmma_s8_m64n128(d, da, db);
+}
+
 // ---- conversion -----------------------------------------------------------
 
 // logical output column of local column j (0..127) of column tile bx.
@@ -480,6 +590,14 @@ __device__ __forceinline__ void wg_put(const WgParams& p, int row, int n, float 
     reinterpret_cast<float*>(p.out)[o] = v;
 }
 
+// B10: the raw int32 sum, or f32(sum) * x_scale[row] * w_scale[n] (+ bias)
+__device__ __forceinline__ void wg_put(const WgParams& p, int row, int n, int v) {
+  if (p.out_i32)
+    reinterpret_cast<int*>(p.out)[(size_t)row * p.N + n] = v;
+  else
+    wg_put(p, row, n, (float)v * p.x_scale[row] * p.scale[n]);
+}
+
 // SITE names the caller (0 the dequant GEMM, 1 the grouped expert GEMM, 2
 // the dense stacked-layer GEMM) so that a profiler tells them apart; the
 // code is the same.
@@ -490,6 +608,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
   using L = WgSmem<MODE, TN>;
   constexpr bool SLAB = L::SLAB;
   constexpr int BK = L::BK, S = L::STAGES;
+  using Acc = typename std::conditional<L::S8, int, float>::type;  // the sums
 
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -582,12 +701,13 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
           }
         }
         if (p.tma_x) {
+          // boxes of 128 bytes of x rows
 #pragma unroll
-          for (int a = 0; a < BK / 64; ++a)
-            tma_load_2d(xdst + a * L::ROWS * 128, &tmx, &full[s], k0 + 64 * a, m0);
+          for (int a = 0; a < BK * L::XES / 128; ++a)
+            tma_load_2d(xdst + a * L::ROWS * 128, &tmx, &full[s], k0 + (128 / L::XES) * a, m0);
         }
       }
-      if constexpr (L::CONVERT) {
+      if constexpr (L::GROUPS > 0) {
         // the tile's scale (and zero) rows at every local column, zero
         // outside the weight
         float* ss = reinterpret_cast<float*>(smem + L::OFF_S + s * L::SSTAGE);
@@ -605,6 +725,8 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
                         ok ? 4 : 0);
           }
         }
+      }
+      if constexpr (L::CONVERT) {
         if (!p.tma_w) {
           // the raw tile through cp.async (plain loads at an unaligned edge)
           constexpr int Q = L::RAWROW / 16;
@@ -626,7 +748,25 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
           }
         }
       }
-      if (!p.tma_x) {
+      if (!p.tma_x && L::S8) {
+        // B10's int8 x rows: 16-byte chunks into 128-byte swizzled boxes
+        constexpr int KC = BK / 16;
+        for (int c = lane; c < L::ROWS * KC; c += 32) {
+          const int m = c / KC, q = c % KC;
+          uint8_t* dst = xdst + (q >> 3) * L::ROWS * 128 + m * 128 + (((q & 7) ^ (m & 7)) << 4);
+          const int t = m0 + m, k = k0 + q * 16;
+          const uint8_t* src = reinterpret_cast<const uint8_t*>(p.x) + (size_t)t * p.K + k;
+          if (t < p.x_rows && k + 16 <= p.K && aligned16(src)) {
+            cp_async16(dst, src);
+          } else {
+            Bytes16 u;
+#pragma unroll
+            for (int b = 0; b < 16; ++b)
+              u.b[b] = (t < p.x_rows && k + b < p.K) ? src[b] : (uint8_t)0;
+            *reinterpret_cast<uint4*>(dst) = u.v;
+          }
+        }
+      } else if (!p.tma_x) {
         constexpr int KC = BK / 8;  // 16-byte chunks of an x row
         for (int c = lane; c < L::ROWS * KC; c += 32) {
           const int m = c / KC, kc = c % KC;
@@ -666,11 +806,11 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
   const int h = tid >> 7;  // warpgroup: its 64 weight columns (decode), its 64 rows (slab)
   const int wtid = tid & 127, wq = wtid >> 5, lane = tid & 31;
   constexpr int NSUB = L::NSUB, NACC = SLAB ? 64 : TN / 2;
-  float acc[NSUB][NACC];
+  Acc acc[NSUB][NACC];
 #pragma unroll
   for (int mh = 0; mh < NSUB; ++mh)
 #pragma unroll
-    for (int i = 0; i < NACC; ++i) acc[mh][i] = 0.f;
+    for (int i = 0; i < NACC; ++i) acc[mh][i] = 0;
 
   // converter: column chunk cc of rows r0, r0 + 32, ...; the 8 threads of
   // a quarter-warp take rows r and r + 4, so their 16-byte loads of the
@@ -684,7 +824,50 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
     const uint8_t* wst = smem + s * L::WSTAGE;
     const uint8_t* xst = smem + L::OFF_X + s * L::XSTAGE;
     const uint8_t* bt = wst;  // the bf16 weight tile the products read
-    if constexpr (L::CONVERT) {
+    if constexpr (L::S8) {
+      // B10: this warpgroup's 64 columns of the raw [BK k][128 n] tile ->
+      // [64 n][BK k] K-major rows, in 128-k atoms [128 n][128 bytes]. A
+      // thread takes 4 columns and 16 k of each atom: 16 words (4 columns
+      // of one k each), four 4x4 byte transposes, 4 chunks of 16 k (one
+      // column each) into the 128-byte swizzle.
+      uint8_t* cb = smem + L::OFF_C + (i % L::NC) * L::CBUF;
+      const int ng = wtid & 15, kc = wtid >> 4;
+      const int nb = h * 64 + 4 * ng;
+#pragma unroll
+      for (int at = 0; at < BK / 128; ++at) {
+        uint32_t w[16];
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int k = 128 * at + 16 * kc + j;
+          w[j] = *reinterpret_cast<const uint32_t*>(
+              wst + k * 128 + (((nb >> 4) ^ (k & 7)) << 4) + (nb & 15));
+        }
+        uint32_t t[4][4];  // [column][k group of 4]
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const uint32_t lo01 = __byte_perm(w[4 * g], w[4 * g + 1], 0x5140);
+          const uint32_t hi01 = __byte_perm(w[4 * g], w[4 * g + 1], 0x7362);
+          const uint32_t lo23 = __byte_perm(w[4 * g + 2], w[4 * g + 3], 0x5140);
+          const uint32_t hi23 = __byte_perm(w[4 * g + 2], w[4 * g + 3], 0x7362);
+          t[0][g] = __byte_perm(lo01, lo23, 0x5410);
+          t[1][g] = __byte_perm(lo01, lo23, 0x7632);
+          t[2][g] = __byte_perm(hi01, hi23, 0x5410);
+          t[3][g] = __byte_perm(hi01, hi23, 0x7632);
+        }
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int n = nb + c;
+          *reinterpret_cast<uint4*>(cb + at * BN * 128 + n * 128 + ((kc ^ (n & 7)) << 4)) =
+              make_uint4(t[c][0], t[c][1], t[c][2], t[c][3]);
+        }
+      }
+      fence_proxy_async();  // the transposed tile is read by wgmma (async proxy)
+      if (SLAB)
+        named_bar_sync(1, 256);  // both halves of the tile are written
+      else
+        named_bar_sync(2 + h, 128);
+      bt = cb;
+    } else if constexpr (L::CONVERT) {
       uint8_t* cb = smem + L::OFF_C + (i % L::NC) * L::CBUF;
       uint8_t* atom = cb + h * BK * 128;
       const float* ss = reinterpret_cast<const float*>(smem + L::OFF_S + s * L::SSTAGE);
@@ -727,7 +910,25 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
     }
     wgmma_fence();
     const uint32_t xa = smem_u32(xst), wa = smem_u32(bt);
-    if constexpr (SLAB) {
+    if constexpr (L::S8) {
+      // k32 steps of 32 bytes inside the 128-byte rows of both operands'
+      // 128-k atoms
+#pragma unroll
+      for (int kk = 0; kk < BK / 32; ++kk) {
+        const uint32_t wk = wa + (kk >> 2) * BN * 128 + (kk & 3) * 32;
+        const uint32_t xk = xa + (kk >> 2) * L::ROWS * 128 + (kk & 3) * 32;
+        if constexpr (SLAB) {
+          const uint64_t db = sw128_desc(wk, 16, 1024);
+#pragma unroll
+          for (int mh = 0; mh < NSUB; ++mh)
+            wgmma_s8_m64n128(acc[mh], sw128_desc(xk + (h * NSUB + mh) * 64 * 128, 16, 1024),
+                             db);
+        } else {
+          wgmma_s8_tile<TN>(acc[0], sw128_desc(wk + h * 64 * 128, 16, 1024),
+                            sw128_desc(xk, 16, 1024));
+        }
+      }
+    } else if constexpr (SLAB) {
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {
         const uint64_t db = sw128_desc(wa + kk * 2048, BK * 128, 1024);
@@ -792,7 +993,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
   // split-K: the partial tile [TN tokens][128 columns] goes to this split's
   // slab; the last block to take a ticket sums the slabs in split order
   const int tile = g * p.ncol + bx;
-  float* slabs = p.ws + (size_t)tile * nsplit * (TN * BN);
+  Acc* slabs = reinterpret_cast<Acc*>(p.ws) + (size_t)tile * nsplit * (TN * BN);
 #pragma unroll
   for (int n8 = 0; n8 < TN / 8; ++n8)
 #pragma unroll
@@ -810,7 +1011,7 @@ wg_gemm_kernel(const __grid_constant__ CUtensorMap tmw,
   if (*ticket != nsplit - 1) return;
   __threadfence();
   for (int e = tid; e < TN * BN; e += 256) {
-    float v = 0.f;
+    Acc v = 0;
     for (int sp = 0; sp < nsplit; ++sp) v += __ldcg(&slabs[(size_t)sp * (TN * BN) + e]);
     const int row = m0 + e / BN, n = wg_col<MODE>(bx, e % BN);
     if (row < row_end && n < p.N) wg_put(p, row, n, v);
@@ -960,14 +1161,16 @@ int wg_launch(const WgParams& p, const CUtensorMap& tmw, const CUtensorMap& tmx,
 template <int MODE, int SITE>
 int wg_gemm(const WgParams& p, int tn, int groups, int row_tiles, cudaStream_t stream) {
   constexpr int ES = MODE == MODE_BF16 ? 2 : 1;
+  constexpr bool S8 = MODE == MODE_S8;
+  constexpr int XES = S8 ? 1 : 2;
   if (p.tma_w && !(aligned16(p.w) && ((long long)p.w_ld * ES) % 16 == 0)) return NOT_SUPPORTED;
-  if (p.tma_x && !(aligned16(p.x) && (p.K * 2) % 16 == 0)) return NOT_SUPPORTED;
+  if (p.tma_x && !(aligned16(p.x) && (p.K * XES) % 16 == 0)) return NOT_SUPPORTED;
   if (MODE == MODE_BF16 && !(p.tma_w && p.tma_x)) return NOT_SUPPORTED;
   if (tn != 16 && tn != 32 && tn != 64 && tn != 128 && tn != 256) return NOT_SUPPORTED;
   const bool slab = tn >= 128;
   if (p.splits < 1 || (slab && p.splits != 1)) return NOT_SUPPORTED;
-  const int bk = slab ? 64 : 128;
-  if (p.scale_mode != SCALE_CHAN && MODE != MODE_BF16 &&
+  const int bk = S8 ? (slab ? 128 : 256) : (slab ? 64 : 128);
+  if (p.scale_mode != SCALE_CHAN && MODE != MODE_BF16 && !S8 &&
       !(p.block % bk == 0 || (bk % p.block == 0 && bk / p.block <= bk / 32)))
     return NOT_SUPPORTED;
   CUtensorMap tmw, tmx;
@@ -992,9 +1195,9 @@ int wg_gemm(const WgParams& p, int tn, int groups, int row_tiles, cudaStream_t s
     k.base = p.x;
     k.rows = (uint64_t)p.x_rows;
     k.cols = (uint64_t)p.K;
-    k.box0 = 64;
+    k.box0 = 128 / XES;  // 128 bytes
     k.box1 = tn;
-    k.bf16 = 1;
+    k.bf16 = !S8;
     k.swz = 1;
     const int rc = cached_map<ACT_MAPS>(&tmx, k);
     if (rc) return rc;

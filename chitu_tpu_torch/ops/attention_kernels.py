@@ -27,11 +27,12 @@ the value. There q comes at its 576 live lanes and the output holds the
 kernel takes a bf16 pool or an int8 pool of fp8-e4m3 bits
 (infer.kv_dtype=fp8); the appends write the JAX package's e4m3 bytes.
 
-The split-layout decode (B1, B4) splits the context over blocks: the
-wrapper picks the split from shapes alone (`decode_split`, `_decode_plan`;
+The decode (B1, B4), on the split layout and on the latent row alike,
+splits the context over blocks: the wrapper picks the split from shapes
+alone (`decode_split`, `_decode_plan`; `latent_split`, `_latent_plan`;
 no host sync) and allocates the partials' scratch, and a second small
 launch merges them (`attend_decode_split_plain` is that arithmetic in
-plain PyTorch).
+plain PyTorch, for both layouts).
 
 A wrapper runs the plain version only for tensors that lie on the CPU.
 For CUDA tensors it launches its kernel or raises; it never falls back.
@@ -48,6 +49,7 @@ it).
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import sys
 import types
@@ -177,7 +179,7 @@ def _lib():
             [P] * 7 + [I] * 11 + [F, I, F, I, P]
         )
         lib.chitu_attend_latent.argtypes = (
-            [I] + [P] * 9 + [I, P] + [I] * 8 + [F, I, F, I, P]
+            [I] + [P] * 9 + [I] + [P] * 3 + [I] * 9 + [F, I, F, I, I, I, P]
         )
         for fn in (
             lib.chitu_attend_decode_fused,
@@ -208,14 +210,15 @@ def _sm_count(dev) -> int:
     return _SMS[i]
 
 
-def decode_split(B: int, KV: int, mp: int, page: int, sms: int):
+def decode_split(B: int, KV: int, mp: int, page: int, sms: int,
+                 per_sm: int = DECODE_BLOCKS_PER_SM):
     """(S, chunk): the split decode kernel's grid is (B, KV, S) and split s
     covers key positions [s * chunk, (s + 1) * chunk) of the table's
     mp * page. From shapes alone (never the context lengths, so the launch
-    needs no host sync): about DECODE_BLOCKS_PER_SM blocks an SM, at most
-    one split a 64-key tile, chunk a whole number of tiles."""
+    needs no host sync): about `per_sm` blocks an SM, at most one split a
+    64-key tile, chunk a whole number of tiles."""
     tiles = -(-(mp * page) // KEY_TILE)
-    want = -(-(DECODE_BLOCKS_PER_SM * sms) // max(B * KV, 1))
+    want = -(-(per_sm * sms) // max(B * KV, 1))
     chunk = -(-tiles // max(1, min(tiles, want))) * KEY_TILE
     return max(1, -(-(mp * page) // chunk)), chunk
 
@@ -235,17 +238,60 @@ def _decode_plan(q, block_tables, kv_heads: int, page: int):
     return S, chunk, torch.empty((n * D,), **f32), torch.empty((n * 2,), **f32)
 
 
+# The latent kernel's tiles: 64 (token, head) rows (wgmma's M), so a decode
+# row of H heads is ceil(H / 64) tiles; one block an SM (its ring of
+# 72 KB key tiles fills shared memory). The split aims at
+# LATENT_BLOCKS_PER_SM blocks an SM, with splits of at least
+# LATENT_MIN_SPLIT_TILES key tiles: a block's fixed cost (its query tile,
+# the ring's fill, its partial) is about that of a tile
+# (scripts/torch_attention_ablate.py latent, PERF.md)
+LATENT_ROWS = 64
+LATENT_BLOCKS_PER_SM = 1
+LATENT_MIN_SPLIT_TILES = 4
+
+
+@functools.lru_cache(maxsize=1024)
+def latent_split(B: int, H: int, mp: int, page: int, sms: int):
+    """(S, chunk) of the latent decode (B1, B4 on the merged row): grid
+    (S, ceil(H / 64), B), split s walking the 64-key tiles of positions
+    [s * chunk, (s + 1) * chunk); `decode_split` with the head tiles in
+    place of the KV heads, chunk at least LATENT_MIN_SPLIT_TILES tiles.
+    From shapes alone; memoized (a decode step asks again and again)."""
+    S, chunk = decode_split(B, -(-H // LATENT_ROWS), mp, page, sms,
+                            LATENT_BLOCKS_PER_SM)
+    if S > 1 and chunk < LATENT_MIN_SPLIT_TILES * KEY_TILE:
+        chunk = LATENT_MIN_SPLIT_TILES * KEY_TILE
+        S = -(-(mp * page) // chunk)
+    return S, chunk
+
+
+def _latent_plan(q, block_tables, page: int):
+    """(S, chunk, part_o, part_ml) of a latent decode launch: the split
+    from shapes alone (`latent_split`) and, for S > 1, the f32 scratch of
+    the partials (part_o [B, S, H, 512], part_ml [B, S, H] (m, l) pairs).
+    Reads no tensor's values."""
+    B, H, _ = q.shape
+    S, chunk = latent_split(B, H, block_tables.shape[1], page,
+                            _sm_count(q.device))
+    if S == 1:
+        return S, chunk, None, None
+    n = B * S * H
+    f32 = dict(dtype=torch.float32, device=q.device)
+    return S, chunk, torch.empty((n * LATENT_DV,), **f32), torch.empty((n * 2,), **f32)
+
+
 def attend_decode_split_plain(
     q, pool, layer, block_tables, seq_lens, page_size, kv_heads, head_dim,
-    S, chunk, scale=None, window=0, softcap=0.0,
+    S, chunk, scale=None, window=0, softcap=0.0, split_kv=True, v_dim=None,
 ):
-    """The split decode's arithmetic in plain PyTorch (split layout): each
-    split's partial (max m, sum l, unnormalized O) over its key range,
-    merged in split order as `decode_merge_kernel` merges them; an empty
-    split has m = -inf, l = 0. Equals `attend_decode_plain` but for
-    rounding."""
+    """The split decode's arithmetic in plain PyTorch: each split's partial
+    (max m, sum l, unnormalized O) over its key range, merged in split
+    order as `decode_merge_kernel` (split layout) and `latent_merge_kernel`
+    (the merged latent row, `split_kv=False`: K = V = the live lanes, the
+    output cut to `v_dim`) merge them; an empty split has m = -inf, l = 0.
+    Equals `attend_decode_plain` but for rounding."""
     k, v = plain.unpack_pool(plain._gather(pool, layer, block_tables),
-                             kv_heads, head_dim)
+                             kv_heads, head_dim, split_kv)
     B, H, D = q.shape
     G = H // kv_heads
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
@@ -273,7 +319,7 @@ def attend_decode_split_plain(
         O = O + f[..., None] * o
     out = torch.where(L[..., None] > 0, O / L.clamp_min(1e-30)[..., None],
                       torch.zeros_like(O))
-    return out.reshape(B, H, D).to(q.dtype)
+    return _vlanes(out.reshape(B, H, D).to(q.dtype), v_dim)
 
 
 def _rows_block(G: int, Tq: int) -> int:
@@ -300,12 +346,14 @@ def _check_geometry(
     at the head sizes of SPLIT_HEAD_DIMS, and the merged latent row (one
     KV head, live width 576, value width 512)."""
     if not split_kv:
-        if (kv_heads, D, v_dim) != (1, LATENT_QK, LATENT_DV) or H % 16:
+        if (kv_heads, D, v_dim) != (1, LATENT_QK, LATENT_DV) or H % 16 or (
+                H % LATENT_ROWS and LATENT_ROWS % H):
             raise NotImplementedError(
                 f"merged row kv_heads {kv_heads}, live width {D}, value "
                 f"width {v_dim}, {H} heads: the CUDA kernels take one KV "
                 f"head of {LATENT_QK} live lanes and {LATENT_DV} value "
-                "lanes, with heads a multiple of 16 (DeepSeek-V3's MLA)"
+                "lanes, with 16, 32 or a multiple of 64 heads (DeepSeek-V3's "
+                "MLA)"
             )
         if M < D:
             raise ValueError(f"pool minor {M} cannot hold a {D}-lane row")
@@ -359,19 +407,23 @@ def _latent(mode, q, pool, layer, bts, pos_in, total, nrows, NB=1,
             knew=None, valid=None, block_seg=None, block_qstart=None,
             total_lens=None, scale=1.0, window=0, softcap=0.0):
     """Launch the latent-row kernel in one of its four modes -> out
-    [nrows, H, LATENT_DV]."""
+    [nrows, H, LATENT_DV]; a decode (modes 0, 1) split over the context
+    as `_latent_plan` says, its partials merged by a second launch."""
     L, P, page, M = pool.shape
     H = q.shape[1]
     dev = q.device
     _check("q", q, torch.bfloat16, dev, (nrows, H, LATENT_QK))
     fp8 = _check_pool(pool, dev)
     out = torch.empty((nrows, H, LATENT_DV), dtype=torch.bfloat16, device=dev)
+    S, chunk, part_o, part_ml = 1, 0, None, None
+    if mode in (_DECODE_FUSED, _DECODE):
+        S, chunk, part_o, part_ml = _latent_plan(q, bts, page)
     rc = _lib().chitu_attend_latent(
         mode, _ptr(q), _ptr(pool), _ptr(knew), _ptr(bts), _ptr(pos_in),
         _ptr(valid), _ptr(block_seg), _ptr(block_qstart), _ptr(total_lens),
-        int(total), _ptr(out), nrows, NB, H, int(layer), P, page, M,
-        bts.shape[-1], float(scale), int(window), float(softcap), fp8,
-        _stream(dev),
+        int(total), _ptr(out), _ptr(part_o), _ptr(part_ml), nrows, NB, H, L,
+        int(layer), P, page, M, bts.shape[-1], float(scale), int(window),
+        float(softcap), fp8, S, chunk, _stream(dev),
     )
     return out, rc
 

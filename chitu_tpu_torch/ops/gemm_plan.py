@@ -1,6 +1,6 @@
 """Host-side planning of the shared Hopper GEMM mainloop
-(`csrc/gemm_common.cuh`) that the dequant GEMM (B6+B7,
-`ops/quant_gemm_kernels.py`), the grouped expert GEMM (B8,
+(`csrc/gemm_common.cuh`) that the dequant GEMM (B6+B7) and the W8A8 int8
+GEMM (B10, `ops/quant_gemm_kernels.py`), the grouped expert GEMM (B8,
 `ops/moe_gemm_kernels.py`) and the dense stacked-layer GEMM (B13,
 `ops/dense_gemm_kernels.py`) launch, and of the MLA absorb kernel's item
 walk (B9, `ops/absorb_kernels.py`, `csrc/absorb.cu`): plain functions of
@@ -36,6 +36,7 @@ from typing import Optional, Tuple
 DECODE_ROWS = 64  # rows a decode tile takes; more run the slab tiles
 TOKEN_TILES = (16, 32, 64)  # wgmma N of the decode tiles
 DECODE_BK, SLAB_BK = 128, 64  # K tiles
+INT8_DECODE_BK, INT8_SLAB_BK = 256, 128  # B10's K tiles (bytes): wgmma k32 steps
 COL_TILE = 128  # output columns a block
 MAX_SPLITS = 16
 FILL_TILES = 2  # a block's ring fill and epilogue, in K tiles of work
@@ -133,6 +134,29 @@ def quant_plan(T: int, K: int, N: int, packed: bool, sms: int,
         regime="decode" if decode else "slab", tn=tn, bk=bk, col_tiles=cols,
         groups=1, row_tiles=1 if decode else -(-T // tn), splits=splits,
         tma_w=tma_ok(w_ptr, N // 2 if packed else N), tma_x=tma_ok(x_ptr, 2 * K),
+        ws_floats=ws, tickets=tickets,
+    )
+
+
+@functools.lru_cache(maxsize=1024)
+def int8_plan(T: int, K: int, N: int, sms: int,
+              w_ptr: int = 0, x_ptr: int = 0) -> GemmPlan:
+    """B10 for x int8 [T, K] and an int8 weight [K, N] (`x_ptr`, `w_ptr`:
+    their addresses, or the addresses' offsets from 16 bytes, all a tensor
+    map asks of them): the dequant GEMM's tiles and splits with K tiles of
+    256 bytes at decode and 128 at the slab (wgmma's s8 step is 32 bytes
+    deep); a tensor map takes rows whose bytes (K for x, N for W) are a
+    multiple of 16 from an aligned base. Memoized."""
+    cols = -(-N // COL_TILE)
+    tn = token_tile(T) or slab_rows(T, cols, sms)
+    decode = tn <= DECODE_ROWS
+    bk = INT8_DECODE_BK if decode else INT8_SLAB_BK
+    splits = decode_splits(cols, -(-K // bk), sms) if decode else 1
+    ws, tickets = _ws(tn, splits, cols)
+    return GemmPlan(
+        regime="decode" if decode else "slab", tn=tn, bk=bk, col_tiles=cols,
+        groups=1, row_tiles=1 if decode else -(-T // tn), splits=splits,
+        tma_w=tma_ok(w_ptr, N), tma_x=tma_ok(x_ptr, K),
         ws_floats=ws, tickets=tickets,
     )
 

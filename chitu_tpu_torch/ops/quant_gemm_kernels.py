@@ -16,9 +16,11 @@ Counterpart of `chitu_tpu/ops/pallas_quant_gemm.py`:
   (decode or slab tiles, K splits, TMA or cp.async for each operand).
   Plain version: `QTensor.dequantize` + matmul.
 - `int8_gemm` (B10): `int32[T, N] = int8 x[T, K] @ int8 W[K, N]`, exact,
-  then `f32(acc) * x_scale[t] * w_scale[n]`. Plain version: an exact
-  integer product (int32 on the CPU, float64 on the card, where the sums
-  stay below 2^53).
+  then `f32(acc) * x_scale[t] * w_scale[n]`. The same mainloop with int8
+  tiles (`wgmma ... .s32.s8.s8`; the [K, N] weight transposed tile by tile
+  in shared memory); `int8_gemm_plan` says how a call runs it. Plain
+  version: an exact integer product (int32 on the CPU, float64 on the
+  card, where the sums stay below 2^53).
 
 A wrapper runs its plain version only for tensors on the CPU; for CUDA
 tensors it launches its kernel or raises.
@@ -84,7 +86,7 @@ def _lib():
         lib = cuda_build.load("quant_gemm")
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.chitu_quant_gemm.argtypes = [P] * 6 + [I] * 12 + [P] * 3
-        lib.chitu_int8_gemm.argtypes = [P] * 6 + [I] * 4 + [P]
+        lib.chitu_int8_gemm.argtypes = [P] * 6 + [I] * 8 + [P] * 3
         lib.chitu_quant_gemm.restype = ctypes.c_int
         lib.chitu_int8_gemm.restype = ctypes.c_int
         _LIB = lib
@@ -101,6 +103,16 @@ def gemm_plan(x: torch.Tensor, q: QTensor) -> plan.GemmPlan:
         T, K, q.out_features, q.packed, plan.sm_count(torch, x.device),
         q.data.data_ptr(), x.data_ptr(),
     )
+
+
+def int8_gemm_plan(xq: torch.Tensor, w: torch.Tensor) -> plan.GemmPlan:
+    """How `int8_gemm` / `int8_matmul` run the kernel for int8 x [T, K] and
+    weight data [K, N] on x's card. The plan sees the pointers' offsets
+    from 16 bytes only (all a tensor map asks of them), so its memo hits
+    whatever address the caching allocator hands x."""
+    T, K = xq.shape
+    return plan.int8_plan(T, K, w.shape[1], plan.sm_count(torch, xq.device),
+                          w.data_ptr() % 16, xq.data_ptr() % 16)
 
 
 def _check_2d(q: QTensor, kinds):
@@ -183,10 +195,16 @@ def quant_gemm(
 
 def _int8_launch(xq, x_scale, w, w_scale, bias, out, out_mode):
     T, K = xq.shape
+    p = int8_gemm_plan(xq, w)
+    ws, counters = None, None
+    if p.splits > 1:
+        ws, counters = _WORKSPACE.get(torch, xq.device, p.ws_floats, p.tickets)
     rc = _lib().chitu_int8_gemm(
         cuda_build.ptr(xq), cuda_build.ptr(x_scale), cuda_build.ptr(w),
         cuda_build.ptr(w_scale), cuda_build.ptr(bias), cuda_build.ptr(out),
-        T, K, w.shape[1], out_mode, cuda_build.stream(xq.device),
+        T, K, w.shape[1], out_mode, p.tn, p.splits, int(p.tma_w),
+        int(p.tma_x), cuda_build.ptr(ws), cuda_build.ptr(counters),
+        cuda_build.stream(xq.device),
     )
     cuda_build.raise_on(rc, "int8_gemm")
     LAUNCHES["int8_gemm"] += 1

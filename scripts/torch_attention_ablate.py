@@ -1,11 +1,11 @@
 #!/usr/bin/env python3
-"""Where the split-layout attention kernels spend their time on the card.
-Needs an NVIDIA GPU and nvcc.
+"""Where the attention kernels spend their time on the card. Needs an
+NVIDIA GPU and nvcc.
 
-    python3 scripts/torch_attention_ablate.py
+    python3 scripts/torch_attention_ablate.py [split] [latent]
 
-Two parts, each printing one JSON line per measurement with the card's
-name and power limit:
+Parts (all by default; name some to run those), each printing one JSON
+line per measurement with the card's name and power limit:
 
 1. The split decode (B1 at Llama-3-8B's 16-row decode geometry, context
    up to 2047, and at tiny-llama-debug's head size 64) against the split
@@ -17,6 +17,16 @@ name and power limit:
    at head size 128. A variant computes wrong results by design (no
    tensor-core products, no exponentials, no copies, no compute): the
    times say what each part costs, nothing else.
+3. `latent`: the MLA latent kernel (TMA + wgmma) at DeepSeek-R1's shapes
+   (128 heads, 576 live lanes, bf16 pool): the split rule's target
+   `attention_kernels.LATENT_BLOCKS_PER_SM` and its least split
+   `LATENT_MIN_SPLIT_TILES` (no rebuild) on B4 over `chip_smoke.py`'s 16
+   rows of context up to 2047 (22,387 rows), over one row of 16,384 and
+   at deepseek-mid-bench's 32 heads; then ablations
+   of `latent_kernel` timing that decode and B5 (a 512-token chunk at
+   q_pos 512): without the score products, without the P V products,
+   without the key tiles' copies (the barriers complete at once), without
+   the exponentials, the score loop unrolled by 4 only.
 
 Device times as in `chip_smoke.py`: calls captured in a CUDA graph and
 replayed between two events.
@@ -62,6 +72,136 @@ VARIANTS = [
         "constexpr int kPrefillStages = 2;")]),
 ]
 
+# (name, [(old text, new text)]) edits of latent_kernel in attention.cu
+LATENT_VARIANTS = [
+    ("sound", []),
+    ("no S products", [(
+        "      wgmma_m64n32<0, 0>(sc, sw128_desc(qa_t + off, 16, 1024),\n"
+        "                         sw128_desc(kb_t + off, 16, 1024));\n"
+        "      wgmma_m64n32<0, 0>(sc2, sw128_desc(qa_t + off + 32, 16, 1024),\n"
+        "                         sw128_desc(kb_t + off + 32, 16, 1024));", "")]),
+    ("S in one accumulator chain", [(
+        "      wgmma_m64n32<0, 0>(sc2, sw128_desc(qa_t + off + 32, 16, 1024),",
+        "      wgmma_m64n32<0, 0>(sc, sw128_desc(qa_t + off + 32, 16, 1024),")]),
+    ("no PV products", [(
+        "      wgmma_m64n128<0, 1>(o[0], da, sw128_desc(va + kk * 2048, LBOX, 1024));\n"
+        "      wgmma_m64n128<0, 1>(o[1], da, sw128_desc(va + 2 * LBOX + kk * 2048, LBOX, 1024));",
+        "")]),
+    ("no key copies", [
+        ("    mbar_arrive_tx(&full[s], Sm::STAGE);\n    for (int c = 0; c < BK; c += br) {",
+         "    mbar_arrive(&full[s]);\n    for (int c = 0; c < 0; c += br) {")]),
+    ("no exponentials", [(
+        "const float p = v == -INFINITY ? 0.f : ex2(v - (e >> 1 ? mn1 : mn0));",
+        "const float p = v == -INFINITY ? 0.f : v - (e >> 1 ? mn1 : mn0);")]),
+    ("no barriers in the tile loop", [
+        ("    named_bar_sync(1, 256);\n    // both warpgroups are done with tile i - 1",
+         "    // both warpgroups are done with tile i - 1"),
+        ("    named_bar_sync(1, 256);  // both halves of P are written", "")]),
+    ("no page-table reads", [(
+        "      int pid = pi < a.mp ? bt[pi] : 0;", "      int pid = pi % a.P;")]),
+    ("no P stores", [
+        ("      *reinterpret_cast<uint32_t*>(ps + r0 * 128 + ((ch ^ (r0 & 7)) << 4) + 4 * (lane & 3)) =\n"
+         "          pack_bf16(sc[4 * n8], sc[4 * n8 + 1]);\n"
+         "      *reinterpret_cast<uint32_t*>(ps + r1 * 128 + ((ch ^ (r1 & 7)) << 4) + 4 * (lane & 3)) =\n"
+         "          pack_bf16(sc[4 * n8 + 2], sc[4 * n8 + 3]);", "      (void)ch;")]),
+    ("no O rescale", [(
+        "        o[j][4 * n8] *= al0;\n        o[j][4 * n8 + 1] *= al0;\n"
+        "        o[j][4 * n8 + 2] *= al1;\n        o[j][4 * n8 + 3] *= al1;", "")]),
+    ("score loop unrolled by 4", [(
+        "#pragma unroll\n    for (int kk = 0; kk < LQK / 16; kk += 2) {",
+        "#pragma unroll 4\n    for (int kk = 0; kk < LQK / 16; kk += 2) {")]),
+]
+
+
+def edited_sources(sound, edits, name):
+    """A temp copy of the sources with `edits` made to attention.cu."""
+    tmp = tempfile.mkdtemp(prefix="ablate-")
+    for f in os.listdir(sound):
+        shutil.copy(os.path.join(sound, f), tmp)
+    path = os.path.join(tmp, "attention.cu")
+    text = open(path).read()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise SystemExit(f"{name}: the text to edit is not unique")
+        text = text.replace(old, new)
+    with open(path, "w") as f:
+        f.write(text)
+    return tmp
+
+
+def latent_part(torch, cs, tk, cuda_build, randn, dev, card):
+    """Part 3: the latent kernel's split target, then its ablations."""
+    from chip_smoke import R1_SCALE
+
+    H, QK, M, PAGE, B, MP = 128, tk.LATENT_QK, 640, 64, 16, 33
+    kw = dict(kv_heads=1, head_dim=QK, split_kv=False, v_dim=tk.LATENT_DV,
+              scale=R1_SCALE)
+    # chip_smoke.py's R1 decode rows: the same generator, the same draws
+    g = torch.Generator(device=dev)
+    g.manual_seed(4)
+    rnd = lambda *shape, s=1.0: (torch.randn(shape, generator=g, device=dev) * s).to(
+        torch.bfloat16)
+    pool = rnd(2, B * MP, PAGE, M, s=0.5)
+    pool[..., QK:] = 0
+    bts = torch.arange(B * MP, device=dev, dtype=torch.int32).reshape(B, MP)
+    seq = torch.randint(1, MP * PAGE - PAGE, (B,), generator=g,
+                        device=dev).to(torch.int32)
+    seq[0] = 2047
+    q = rnd(B, H, QK)
+    q_mid = randn(B, 32, QK)
+    mp1 = 16384 // PAGE + 1
+    pool1 = randn(2, mp1, PAGE, M, s=0.5)
+    pool1[..., QK:] = 0
+    bt1 = torch.arange(mp1, device=dev, dtype=torch.int32)[None]
+    seq1 = torch.full((1,), 16383, dtype=torch.int32, device=dev)
+    q1 = randn(1, H, QK)
+    T, start = 512, 512
+    bt = torch.arange(16, device=dev, dtype=torch.int32) + 100
+    q_pos = (start + torch.arange(T, device=dev)).to(torch.int32)
+    qp = randn(T, H, QK)
+    b4 = lambda: tk.attend_decode(q, pool, 1, bts, seq, PAGE, **kw)
+    b4_mid = lambda: tk.attend_decode(q_mid, pool, 1, bts, seq, PAGE, **kw)
+    b4_16k = lambda: tk.attend_decode(q1, pool1, 1, bt1, seq1, PAGE, **kw)
+    b5 = lambda: tk.attend_prefill(qp, pool, 1, bt, q_pos, start + T, PAGE, **kw)
+    default = tk.LATENT_BLOCKS_PER_SM, tk.LATENT_MIN_SPLIT_TILES
+    sms = tk._sm_count(dev)
+    for bps, least in ((1, 1), (1, 4), (1, 8), (2, 4), (2, 8), (2, 16), (4, 4),
+                       (4, 8)):
+        tk.LATENT_BLOCKS_PER_SM, tk.LATENT_MIN_SPLIT_TILES = bps, least
+        tk.latent_split.cache_clear()  # the plan is memoized
+        print(json.dumps(dict(
+            part="latent split", blocks_per_sm=bps, min_split_tiles=least,
+            splits=tk.latent_split(B, H, MP, PAGE, sms)[0],
+            splits_16k=tk.latent_split(1, H, mp1, PAGE, sms)[0],
+            splits_mid=tk.latent_split(B, 32, MP, PAGE, sms)[0],
+            b4_ms=cs.device_ms(torch, b4), b4_16k_ms=cs.device_ms(torch, b4_16k),
+            b4_mid_ms=cs.device_ms(torch, b4_mid), card=card)), flush=True)
+    tk.LATENT_BLOCKS_PER_SM, tk.LATENT_MIN_SPLIT_TILES = default
+    tk.latent_split.cache_clear()
+    sound = cuda_build.CSRC
+    words = [a for a in sys.argv[1:] if a not in ("split", "latent")]
+    try:
+        for name, edits in LATENT_VARIANTS:
+            if words and name not in words and name != "sound":
+                continue
+            tmp = edited_sources(sound, edits, name)
+            try:
+                cuda_build.CSRC = tmp
+                cuda_build._LIBS.clear()
+                tk._LIB = None
+                print(json.dumps(dict(
+                    part="latent ablation", variant=name,
+                    b4_r1_ms=cs.device_ms(torch, b4),
+                    b4_mid_ms=cs.device_ms(torch, b4_mid),
+                    b4_16k_ms=cs.device_ms(torch, b4_16k),
+                    b5_r1_ms=cs.device_ms(torch, b5), card=card)), flush=True)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+    finally:
+        cuda_build.CSRC = sound
+        cuda_build._LIBS.clear()
+        tk._LIB = None
+
 
 def main():
     import torch
@@ -89,6 +229,11 @@ def main():
     valid = torch.ones(B, dtype=torch.bool, device=dev)
     sms = tk._sm_count(dev)
     tk.build_kernels()
+    parts = [a for a in sys.argv[1:] if a in ("split", "latent")] or ["split", "latent"]
+    if "latent" in parts:
+        latent_part(torch, cs, tk, cuda_build, randn, dev, card)
+    if "split" not in parts:
+        return
 
     # 1. the split rule's target
     default = tk.DECODE_BLOCKS_PER_SM
@@ -115,18 +260,8 @@ def main():
     sound = cuda_build.CSRC
     try:
         for name, edits in VARIANTS:
-            tmp = tempfile.mkdtemp(prefix="ablate-")
+            tmp = edited_sources(sound, edits, name)
             try:
-                for f in os.listdir(sound):
-                    shutil.copy(os.path.join(sound, f), tmp)
-                path = os.path.join(tmp, "attention.cu")
-                text = open(path).read()
-                for old, new in edits:
-                    if text.count(old) != 1:
-                        raise SystemExit(f"{name}: the text to edit is not unique")
-                    text = text.replace(old, new)
-                with open(path, "w") as f:
-                    f.write(text)
                 cuda_build.CSRC = tmp
                 cuda_build._LIBS.clear()
                 tk._LIB = None

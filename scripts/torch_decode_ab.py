@@ -3,7 +3,7 @@
 the port, the two alternated chain by chain in one process, on one GPU.
 
     python3 scripts/torch_decode_ab.py TREE CALLER:NAME:WRAPPER \
-        [batch] [prompt_len] [model card] [layers] [pairs]
+        [batch] [prompt_len] [model card] [layers] [pairs] [quant_method]
 
 for example, B13 of the parent commit (unpacked with `git archive` into a
 git-ignored directory) against this checkout's, in Llama-3-8B's decode:
@@ -13,8 +13,8 @@ git-ignored directory) against this checkout's, in Llama-3-8B's decode:
         Llama-3-8B-Instruct 32
 
 Builds this checkout's engine of a model card at full width (random
-weights, bf16, `batch` greedy requests of `prompt_len` random tokens put
-into decode), then imports `chitu_tpu_torch.<WRAPPER>` from TREE (its
+weights, bf16 or quantized on load by `quant_method`, `batch` greedy
+requests of `prompt_len` random tokens put into decode), then imports `chitu_tpu_torch.<WRAPPER>` from TREE (its
 package imported afresh beside this one, its kernels built from its own
 sources) and takes NAME from it. `chitu_tpu_torch.<CALLER>` is the module
 that calls NAME (it imported the name, so the swap sets it there). Decode
@@ -78,6 +78,7 @@ def main():
     model = args[4] if len(args) > 4 else "Llama-3-8B-Instruct"
     depth = [f"models.n_layers={int(args[5])}"] if len(args) > 5 else []
     pairs = int(args[6]) if len(args) > 6 else 8
+    method = args[7] if len(args) > 7 else "none"
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
@@ -91,6 +92,7 @@ def main():
     cfg = load_config(overrides=[
         f"models={model}", "infer.stop_with_eos=false",
         "infer.adaptive_window=false", f"infer.max_reqs={batch}", *depth,
+        f"quant.method={method}", f"quant.quant_on_load={str(method != 'none').lower()}",
     ])
     eng = Engine(cfg)
     rng = np.random.default_rng(0)
@@ -124,7 +126,7 @@ def main():
         setattr(caller, name, mine)
     med = statistics.median
     out = dict(card=card, model=cfg.models.name, layers=cfg.models.n_layers,
-               batch=batch, prompt_len=plen, swap=swap, tree_b=os.path.abspath(tree),
+               batch=batch, prompt_len=plen, quant=method, swap=swap, tree_b=os.path.abspath(tree),
                pairs=pairs)
     for i, metric in enumerate(("wall", "cpu")):
         a = [r[i] for r in runs["A"]]

@@ -46,7 +46,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def category(name: str) -> str:
-    if "latent_kernel" in name:
+    if "latent_kernel" in name or "latent_merge_kernel" in name:
         return "latent_attention_kernel"
     if "absorb_wg_kernel" in name:
         return "absorb_matmul_kernel"
@@ -55,8 +55,8 @@ def category(name: str) -> str:
                                 "append_packed_kernel")):
         return "attention_kernels"
     # the shared TMA + wgmma mainloop: its third template argument is the
-    # call site (0 the dequant GEMM, 1 the grouped expert GEMM, 2 the dense
-    # stacked-layer GEMM)
+    # call site (0 the dequant GEMM and the int8 GEMM, 1 the grouped expert
+    # GEMM, 2 the dense stacked-layer GEMM)
     if "wg_gemm_kernel" in name:
         site = name.split("wg_gemm_kernel<", 1)[-1].split(">", 1)[0]
         site = site.replace(" ", "")
@@ -64,8 +64,6 @@ def category(name: str) -> str:
             return "grouped_gemm_kernel"
         if site.endswith(",2"):
             return "dense_gemm_kernel"
-        return "quant_gemm_kernels"
-    if "int8_gemm_kernel" in name:
         return "quant_gemm_kernels"
     if "norm_quant_kernel" in name:
         return "act_quant_kernels"

@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """What holds the TMA + wgmma GEMM kernels back, on one GPU: the dequant
-GEMM (B6+B7), the grouped expert GEMM (B8) and the dense stacked-layer GEMM
-(B13), which share the mainloop of `gemm_common.cuh`, and the MLA absorb
-kernel (B9, `absorb.cu`), with parts taken out.
+GEMM (B6+B7), the W8A8 int8 GEMM (B10), the grouped expert GEMM (B8) and
+the dense stacked-layer GEMM (B13), which share the mainloop of
+`gemm_common.cuh`, and the MLA absorb kernel (B9, `absorb.cu`), with parts
+taken out.
 
     python3 scripts/torch_gemm_ablate.py [variant name ...]
 
@@ -14,9 +15,10 @@ touched), builds the four sources from them, points the wrappers at the
 copy and times, as device time (CUDA-graph replay, as `chip_smoke.py`
 takes it, the weights warm in L2 where they fit): `quant_gemm` with e4m3
 blockwise weights at Llama-3-8B's three projection shapes and
-`grouped_gemm` over Mixtral-8x7B's merged e4m3 gate/up stack `[4096 ->
-28672]` (8 experts, top-2), each at T 16 (the swapped decode tiles) and T
-512 (the slab tiles); `dense_matmul_stacked` at Llama-3-8B's four stacked
+`int8_gemm` (B10) at the same shapes with W8A8 weights (its conversion
+is the byte transpose), `grouped_gemm` over Mixtral-8x7B's merged e4m3
+gate/up stack `[4096 -> 28672]` (8 experts, top-2), each at T 16 (the
+swapped decode tiles) and T 512 (the slab tiles); `dense_matmul_stacked` at Llama-3-8B's four stacked
 shapes at T 16 and 512; `absorb_matmul` uk and uv at DeepSeek-R1's wkv_b
 (128 heads) at T 16 and 128. A variant leaves the kernels it does not
 touch as they are. The variants compute wrong results on purpose; only
@@ -37,6 +39,12 @@ sys.path.insert(0, ROOT)
 NO_WGMMA = [
     ("gemm_common.cuh", "wgmma_m64n128<0, 1>(acc[mh], da, db);", "{ (void)da; (void)db; }"),
     ("gemm_common.cuh", "wgmma_tile<TN, 1, 0>(acc[0], da, db);", "{ (void)da; (void)db; }"),
+    ("gemm_common.cuh",
+     "wgmma_s8_m64n128(acc[mh], sw128_desc(xk + (h * NSUB + mh) * 64 * 128, 16, 1024),\n"
+     "                             db);", "(void)db;"),
+    ("gemm_common.cuh",
+     "wgmma_s8_tile<TN>(acc[0], sw128_desc(wk + h * 64 * 128, 16, 1024),\n"
+     "                            sw128_desc(xk, 16, 1024));", ";"),
     ("absorb.cu", "wgmma_tile<TN, UK ? 0 : 1, 0>(acc, da, db);", "{ (void)da; (void)db; }"),
 ]
 NO_CONVERT = [(
@@ -44,6 +52,10 @@ NO_CONVERT = [(
     "convert16<MODE>(raw, h, sc, zr, o);",
     "o[0] = o[4] = raw.x; o[1] = o[5] = raw.y; o[2] = o[6] = raw.z; "
     "o[3] = o[7] = raw.w;",
+), (  # B10: the raw words stored as they were loaded, no byte transposes
+    "gemm_common.cuh",
+    "make_uint4(t[c][0], t[c][1], t[c][2], t[c][3]);",
+    "make_uint4(w[4 * c], w[4 * c + 1], w[4 * c + 2], w[4 * c + 3]);",
 )]
 MAINLOOP_W_TMA = [
     ("gemm_common.cuh", "            tma_load_2d(wdst, &tmw, &full[s], bx * BN, wr);", ""),
@@ -69,7 +81,7 @@ NO_COPIES = [
      "mbar_arrive_tx(&full[s], (p.tma_w ? L::WSTAGE : 0) + (p.tma_x ? L::XSTAGE : 0));",
      "mbar_arrive_tx(&full[s], 0);"),
     ("gemm_common.cuh",
-     "            tma_load_2d(xdst + a * L::ROWS * 128, &tmx, &full[s], k0 + 64 * a, m0);",
+     "            tma_load_2d(xdst + a * L::ROWS * 128, &tmx, &full[s], k0 + (128 / L::XES) * a, m0);",
      "            ;"),
     ("absorb.cu", "mbar_arrive_tx(&full[s], L::WSTAGE + L::XSTAGE);",
      "mbar_arrive_tx(&full[s], 0);"),
@@ -123,6 +135,10 @@ def main():
     shapes = [(4096, 28672), (4096, 6144), (14336, 4096)]
     ws = {s: qt.quantize_weight(randn(*s, k=0.02), QuantKind.SOFT_FP8) for s in shapes}
     xs = {T: {s: randn(T, s[0]) for s in shapes} for T in (16, 512)}
+    from chitu_tpu_torch.ops import norm_quant as nq
+
+    w8s = {s: qt.quantize_weight(randn(*s, k=0.02), QuantKind.W8A8) for s in shapes}
+    x8s = {T: {s: nq.quant_acts_plain(xs[T][s]) for s in shapes} for T in (16, 512)}
 
     E, k, K, N = 8, 2, 4096, 28672
     wm = torch.empty((1, E, K, N), dtype=bf, device=dev)
@@ -175,6 +191,9 @@ def main():
                     x, q = xs[T][(kk, n)], ws[(kk, n)]
                     ms[f"quant_gemm T={T} {kk}->{n}"] = chip_smoke.device_ms_sized(
                         torch, lambda: qg.quant_gemm(x, q))
+                    xa, w8 = x8s[T][(kk, n)], w8s[(kk, n)]
+                    ms[f"int8_gemm T={T} {kk}->{n}"] = chip_smoke.device_ms_sized(
+                        torch, lambda: qg.int8_gemm(xa.data, xa.scale, w8))
                 xm, be, bm = moe_cases[T]
                 ms[f"grouped_gemm T={T} {K}->{N} e4m3 bm={bm}"] = (
                     chip_smoke.device_ms_sized(

@@ -20,7 +20,10 @@ layer 1 of a two-layer Mixtral-8x7B `[4096 -> 14336]` expert stack at the
 16-token decode geometry, where two of ten blocks are dead; B9: layer 1
 of DeepSeek-R1's `wkv_b` [2, 512, 128*256] at T 16, uk reading q_nope as a
 view of the [T, 128, 192] query rows; the latent row: B4 at DeepSeek-R1's
-16-row decode geometry, contexts 1 to 2048; the e4m3 pool: B4 over
+16-row decode geometry, contexts 1 to 2048 (split over the context, the
+partials merged), B4 at deepseek-mid-bench's 32 heads (half of each tile
+dead rows), B5 for a 128-token chunk at q_pos 512; B10: the int8 GEMM at
+T 16 `[4096 -> 6144]`, where K splits in two; the e4m3 pool: B4 over
 one-token contexts holding every finite code, which must decode exactly,
 B1's append bytes against the plain append's for edge values and for
 values beyond e4m3's range, the latent B4 on an e4m3 pool; head size 192:
@@ -63,9 +66,9 @@ FAULTS = [
     ("zeros dropped", "gemm_common.cuh",
      "if (MODE == MODE_INT4 || MODE == MODE_INT4P) v -= zr[4 * q + i];", "",
      "int4_unpacked"),
-    ("x_scale left out", "quant_gemm.cu",
-     "(float)cw[idx] * a.x_scale[t] * a.w_scale[n]",
-     "(float)cw[idx] * a.w_scale[n]", "int8"),
+    ("x_scale left out", "gemm_common.cuh",
+     "(float)v * p.x_scale[row] * p.scale[n]",
+     "(float)v * p.scale[n]", "int8"),
     ("truncation instead of round-half-to-even", "norm_quant.cu",
      "rintf(y / s)", "truncf(y / s)", "acts"),
     ("expert index off by one", "gemm_common.cuh",
@@ -136,15 +139,42 @@ FAULTS = [
       "tma_load_3d(xdst + TN * 128, &tmx, &full[s], j * AB_T + AB_BOX, (h + 1) % p.H, 0);"),
      "absorb_uv"),
     ("latent V read from the k_pe lanes", "attention.cu",
-     "const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 8 * (lane >> 4);",
-     "const bf16* vb = ks + (k0 + (lane & 15)) * LLD + vd + 64 + 8 * (lane >> 4);",
+     "const uint32_t va = ka + 4 * h * LBOX;",
+     "const uint32_t va = ka + 4 * h * LBOX + LBOX;",
      "latent_decode"),
     ("latent last head tile skipped", "attention.cu",
-     "dim3 grid(nrows / BQ, H / HT);", "dim3 grid(nrows / BQ, H / HT - 1);",
+     "const int htiles = (a.H + LROWS - 1) / LROWS;",
+     "const int htiles = (a.H + LROWS - 1) / LROWS - 1;",
      "latent_decode"),
     ("B4 new-token column not read", "attention.cu",
-     "    kend = total;\n", "    kend = mode == L_DECODE ? q_start : total;\n",
+     "    total = q_start + 1;\n",
+     "    total = a.mode == L_DECODE ? q_start : q_start + 1;\n",
      "latent_decode"),
+    # the redesigned latent kernel (TMA + wgmma, split decode + merge)
+    ("latent: the last context split skipped by the merge", "attention.cu",
+     "const int n = s_hi - s_lo + 1;", "const int n = s_hi - s_lo;",
+     "latent_decode"),
+    ("latent: merge weights swapped between splits", "attention.cu",
+     "    const float f = mw[i];\n", "    const float f = mw[n - 1 - i];\n",
+     "latent_decode"),
+    ("latent: the second value warpgroup's lanes left unwritten", "attention.cu",
+     "    if (r >= live) continue;  // a dead row: never stored",
+     "    if (r >= live || h == 1) continue;", "latent_decode"),
+    ("latent: prefill causal limit one key off", "attention.cu",
+     "bool ok = kp <= qp && kp < total;", "bool ok = kp <= qp + 1 && kp < total;",
+     "latent_prefill"),
+    ("latent: a dead mid-bench row stored", "attention.cu",
+     "    if (r >= live) continue;  // a dead row: never stored",
+     "    if (r >= LROWS) continue;", "latent_mid_decode"),
+    ("latent: an e4m3 byte stage left unconverted (the k_pe box)", "attention.cu",
+     "for (int e = tid; e < LNBOX * BK * 8; e += 256) {",
+     "for (int e = tid; e < (LNBOX - 1) * BK * 8; e += 256) {", "latent_e4m3"),
+    ("B10's transpose one byte off", "gemm_common.cuh",
+     "t[0][g] = __byte_perm(lo01, lo23, 0x5410);",
+     "t[0][g] = __byte_perm(lo01, lo23, 0x5401);", "int8"),
+    ("B10's last K split dropped", "gemm_common.cuh",
+     "for (int sp = 0; sp < nsplit; ++sp) v +=",
+     "for (int sp = 0; sp < nsplit - 1; ++sp) v +=", "int8"),
     ("e4m3 decode drops the sign", "attention.cu",
      "__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)pair, __NV_E4M3);",
      "__nv_cvt_fp8x2_to_halfraw2((__nv_fp8x2_storage_t)(pair & 0x7F7Fu), __NV_E4M3);",
@@ -163,8 +193,8 @@ FAULTS = [
      "if (!(fabsf(f) <= 464.f)) return (__float_as_uint(f) >> 31) ? 0xFFu : 0x7Fu;",
      "", "e4m3_overflow"),
     ("latent e4m3 tile: last 8 key rows left unconverted", "attention.cu",
-     "*reinterpret_cast<uint4*>(ks + r * LLD + c * 8) = IO::to_bf16(",
-     "if (r < BK - 8) *reinterpret_cast<uint4*>(ks + r * LLD + c * 8) = IO::to_bf16(",
+     "*reinterpret_cast<uint4*>(tb + j * LBOX + r * 128 + ((c ^ (r & 7)) << 4)) = v;",
+     "if (r < BK - 8) *reinterpret_cast<uint4*>(tb + j * LBOX + r * 128 + ((c ^ (r & 7)) << 4)) = v;",
      "latent_e4m3"),
     ("D-192 kernel reads V at lane offset 128 a head", "attention.cu",
      "cp16(vd, row + khalf + h * D + c * EPC);",
@@ -287,6 +317,8 @@ def main():
     plain.append_decode(lpool, 1, randn(B, 1, QK), None, lbt, lseq,
                         torch.ones(B, dtype=torch.bool, device=dev), PAGE)
     lq = randn(B, Ha, QK)
+    lq_mid = randn(B, 32, QK)
+    lqp = randn(128, Ha, QK)
     lkw = dict(kv_heads=1, head_dim=QK, split_kv=False, v_dim=tk.LATENT_DV,
                scale=0.1352)
 
@@ -354,6 +386,19 @@ def main():
                 lq, lpool, 1, lbt, lseq, PAGE, 1, QK, scale=lkw["scale"],
                 split_kv=False), tk.LATENT_DV)
             return row_rel(got, want), ROW_RTOL, "row relative error"
+        if kind == "latent_mid_decode":
+            # deepseek-mid-bench's 32 heads: half of each decode tile dead
+            junk = torch.full((B, 32, tk.LATENT_DV), 7.0, dtype=bf, device=dev)
+            del junk
+            got = tk.attend_decode(lq_mid, lpool, 1, lbt, lseq, PAGE, **lkw)
+            want = tk.attend_decode_plain(lq_mid, lpool, 1, lbt, lseq, PAGE, **lkw)
+            return row_rel(got, want), ROW_RTOL, "row relative error"
+        if kind == "latent_prefill":
+            junk = torch.full((128, Ha, tk.LATENT_DV), 7.0, dtype=bf, device=dev)
+            del junk
+            a = (lqp, lpool, 1, lbt[2], ppos, 640, PAGE)
+            return (row_rel(tk.attend_prefill(*a, **lkw), tk.attend_prefill_plain(*a, **lkw)),
+                    ROW_RTOL, "row relative error")
         if kind == "e4m3_exact":
             return (e4m3_decode_exact(torch, tk, dev), 0, "values decoded wrong")
         if kind in ("e4m3_append", "e4m3_overflow"):

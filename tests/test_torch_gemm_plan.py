@@ -285,3 +285,51 @@ def test_dense_walk_emulated(T, K, N):
                 out[m0:m1, cols] += part
     want = dg.dense_matmul_stacked_plain(x, layer, w)
     torch.testing.assert_close(out, want, atol=1e-6 * want.abs().max().item(), rtol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# B10 (the W8A8 int8 GEMM) on the same mainloop: int8 tiles
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T,K,N", [
+    (16, 4096, 28672), (16, 4096, 6144), (16, 14336, 4096), (1, 4096, 6144),
+    (64, 4096, 6144), (65, 4096, 6144), (512, 4096, 28672), (512, 14336, 4096),
+    (5, 300, 200), (130, 96, 72), (33, 513, 1030),
+])
+def test_int8_plan(T, K, N):
+    """K tiles of 256 bytes at decode and 128 at the slab (multiples of
+    wgmma's 32-byte s8 step); the decode's K splits partition the K tiles
+    exactly;
+    the split-K workspace holds a partial tile a split; tensor maps only
+    for rows a whole number of 16 bytes."""
+    p = gp.int8_plan(T, K, N, SMS, w_ptr=256, x_ptr=512)
+    assert p.bk % 32 == 0
+    assert p.bk == (gp.INT8_DECODE_BK if p.regime == "decode" else gp.INT8_SLAB_BK)
+    cols = math.ceil(N / 128)
+    assert p.col_tiles == cols
+    tn = gp.token_tile(T) or gp.slab_rows(T, cols, SMS)
+    assert p.tn == tn and p.regime == ("decode" if tn <= 64 else "slab")
+    k_tiles = math.ceil(K / p.bk)
+    if p.regime == "decode":
+        assert p.splits == gp.decode_splits(cols, k_tiles, SMS)
+        assert p.grid == (p.splits, 1, cols)
+    else:
+        assert p.splits == 1 and p.grid == (math.ceil(T / tn), 1, cols)
+    runs = [split_range(k_tiles, p.splits, s) for s in range(p.splits)]
+    assert [t for b, c in runs for t in range(b, b + c)] == list(range(k_tiles))
+    assert all(c >= 1 for _, c in runs)
+    assert p.ws_floats == (cols * p.splits * tn * 128 if p.splits > 1 else 0)
+    assert p.tma_x == (K % 16 == 0) and p.tma_w == (N % 16 == 0)
+    assert not gp.int8_plan(T, K, N, SMS, w_ptr=8, x_ptr=512).tma_w
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 16])
+def test_split_range_partition(splits):
+    """Every K tile in exactly one split, in order, the runs one tile apart
+    in length at most (the kernel's partition, its last split included)."""
+    for k_tiles in range(splits, 130):
+        runs = [split_range(k_tiles, splits, s) for s in range(splits)]
+        assert [t for b, c in runs for t in range(b, b + c)] == list(range(k_tiles))
+        lens = [c for _, c in runs]
+        assert max(lens) - min(lens) <= 1 and min(lens) >= 1

@@ -1023,3 +1023,132 @@ def test_split_prefill(dev, D, G, kind, page):
         assert torch.equal(out_k, again)
         _check(out_k, tk.attend_prefill_packed_plain(q, *pargs, **kw), live)
         assert out_k[dead].abs().max().item() == 0.0
+
+
+# ---------------------------------------------------------------------------
+# The redesigned latent kernel (TMA + wgmma, split decode) and B10 on the
+# shared mainloop (int8 tiles)
+# ---------------------------------------------------------------------------
+
+LATENT_GEOMS = [(H, kind, page) for H in (128, 32, 16) for kind in ("bf16", "e4m3")
+                for page in (16, 64)]
+
+
+@pytest.mark.parametrize("H,kind,page", LATENT_GEOMS,
+                         ids=["h{}-{}-p{}".format(*p) for p in LATENT_GEOMS])
+def test_latent_split_decode(dev, H, kind, page):
+    """B1 and B4 on the latent row over contexts 0, 1, 63, 64, 65 and each
+    split boundary +-1 (the splits as the wrapper picks them), a row that
+    appends nothing: pool bytes equal, rows within 1e-2 on output memory
+    that held 7.0s, two launches and a graph replay bit-equal, and the
+    plain split arithmetic at the same splits."""
+    rand = _gen(dev, 40)
+    keys = 512
+    mp = keys // page
+    S, chunk = tk.latent_split(16, H, mp, page, tk._sm_count(dev))
+    ctx = [0, 1, 63, 64, 65, keys - 1]
+    ctx += [c for s in range(1, S) for c in (s * chunk - 1, s * chunk, s * chunk + 1)]
+    ctx = sorted(set(min(max(c, 0), keys - 1) for c in ctx))[:16]
+    B = len(ctx)
+    S, chunk = tk.latent_split(B, H, mp, page, tk._sm_count(dev))
+    pool = _latent_pool(rand, page, B * mp)
+    if kind == "e4m3":
+        pool = kv_encode(pool, torch.int8)
+    bt = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor(ctx, device=dev, dtype=torch.int32)
+    valid = torch.ones((B,), device=dev, dtype=torch.bool)
+    valid[1] = False
+    q, k = rand(B, H, tk.LATENT_QK), rand(B, 1, tk.LATENT_QK)
+    args = (1, k, None, bt, seq, valid, page)
+    pk, pp = pool.clone(), pool.clone()
+    _poison((B, H, tk.LATENT_DV), dev)
+    out_k = tk.attend_decode_fused(q, pk, *args, **LAT)
+    out_p = tk.attend_decode_fused_plain(q, pp, *args, **LAT)
+    again = tk.attend_decode_fused(q, pool.clone(), *args, **LAT)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    assert torch.equal(out_k, again)
+    _check(out_k, out_p, valid)
+    _replays_equal(lambda: tk.attend_decode_fused(q, pk, *args, **LAT))
+    dargs = (pk, 1, bt, seq, page)
+    _poison((B, H, tk.LATENT_DV), dev)
+    out_k = tk.attend_decode(q, *dargs, **LAT)
+    again = tk.attend_decode(q, *dargs, **LAT)
+    torch.cuda.synchronize()
+    assert torch.equal(out_k, again)
+    kw = dict(kv_heads=1, head_dim=tk.LATENT_QK, split_kv=False,
+              v_dim=tk.LATENT_DV, scale=LAT["scale"])
+    _check(out_k, tk.attend_decode_plain(q, *dargs, **kw))
+    _check(out_k, tk.attend_decode_split_plain(q, *dargs, S=S, chunk=chunk, **kw))
+    _replays_equal(lambda: tk.attend_decode(q, *dargs, **LAT))
+
+
+@pytest.mark.parametrize("ctx", [4096, 16384])
+def test_latent_decode_long_context(dev, ctx):
+    """One row of a long context (the split fills the card), the new
+    token's column one past a split boundary in the second case."""
+    rand = _gen(dev, 41)
+    page = 64
+    mp = ctx // page + 1
+    pool = _latent_pool(rand, page, mp)
+    bt = torch.arange(mp, device=dev, dtype=torch.int32)[None]
+    S, chunk = tk.latent_split(1, 128, mp, page, tk._sm_count(dev))
+    assert S > 1
+    seq = torch.tensor([ctx - 1 if ctx == 4096 else 4 * chunk], device=dev,
+                       dtype=torch.int32)
+    q, k = rand(1, 128, tk.LATENT_QK), rand(1, 1, tk.LATENT_QK)
+    valid = torch.ones((1,), device=dev, dtype=torch.bool)
+    pk, pp = pool.clone(), pool.clone()
+    out_k = tk.attend_decode_fused(q, pk, 1, k, None, bt, seq, valid, page, **LAT)
+    out_p = tk.attend_decode_fused_plain(q, pp, 1, k, None, bt, seq, valid, page,
+                                         **LAT)
+    torch.cuda.synchronize()
+    assert torch.equal(pk, pp)
+    _check(out_k, out_p)
+
+
+INT8_SHAPES = [(T, K, N) for T in (1, 16, 64, 65, 128, 512)
+               for K, N in ((4096, 512), (1024, 1536), (14336, 256))]
+
+
+@pytest.mark.parametrize("T,K,N", INT8_SHAPES)
+def test_int8_gemm_mainloop(dev, T, K, N):
+    """B10 on the shared mainloop at decode (K split where the plan says)
+    and slab row counts: the int32 sums exact, the scaled output on memory
+    that held 7.0s within 1e-5, a bf16 output with a bias within 1e-2, two
+    launches and a graph replay bit-equal."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(42)
+    xq = torch.randint(-127, 128, (T, K), generator=g, device=dev).to(torch.int8)
+    q = _qweight(dev, "w8a8", K, N)
+    xs = torch.rand((T,), generator=g, device=dev) * 0.01 + 1e-3
+    n0 = qg.LAUNCHES["int8_gemm"]
+    acc = qg.int8_matmul(xq, q.data)
+    assert torch.equal(acc, qg.int8_matmul_plain(xq, q.data))
+    _replays_equal(lambda: qg.int8_matmul(xq, q.data))
+    _poison((T, 2 * N), dev)
+    y = qg.int8_gemm(xq, xs, q)
+    torch.cuda.synchronize()
+    assert _row_rel(y, qg.int8_gemm_plain(xq, xs, q)) <= 1e-5
+    assert torch.equal(y, qg.int8_gemm(xq, xs, q))
+    _replays_equal(lambda: qg.int8_gemm(xq, xs, q))
+    bias = _gen(dev, 43)(N)
+    yb = qg.int8_gemm(xq, xs, q, bias, torch.bfloat16)
+    assert _row_rel(yb, qg.int8_gemm_plain(xq, xs, q, bias, torch.bfloat16)) <= ROW_RTOL
+    assert qg.LAUNCHES["int8_gemm"] > n0
+    p = qg.int8_gemm_plan(xq, q.data)
+    assert p.regime == ("decode" if T <= 64 else "slab")
+
+
+@pytest.mark.parametrize("T", [16, 512])
+@pytest.mark.parametrize("K,N", [(4001, 4096), (4096, 4100), (1000, 72)])
+def test_int8_gemm_cp_async_path(dev, T, K, N):
+    """Rows no tensor map describes (x rows of 4001 bytes, weight rows of
+    4100 or 72): the producer copies them through cp.async; sums exact."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(44)
+    xq = torch.randint(-127, 128, (T, K), generator=g, device=dev).to(torch.int8)
+    q = _qweight(dev, "w8a8", K, N)
+    p = qg.int8_gemm_plan(xq, q.data)
+    assert not (p.tma_x and p.tma_w)
+    assert torch.equal(qg.int8_matmul(xq, q.data), qg.int8_matmul_plain(xq, q.data))
