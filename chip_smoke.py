@@ -30,9 +30,10 @@ Phases, each fatal on failure:
    e4m3 rowwise as layer 1 of a stack, int8 per-channel, int4 packed,
    int4 one nibble a byte at a width that is no multiple of 512, and an
    odd 576-wide output). Limits: each GEMM output row within 1e-2 of the
-   plain row's norm; the int8 GEMM's int32 sums equal; activation scales
+   plain row's norm; the int8 GEMM's int32 sums equal; B11's scales
    within 1e-6 relative and int8 values equal but for at most 0.1 % that
-   differ by 1. Library yardsticks: `torch.matmul` on weights dequantized
+   differ by 1, B12 bit-equal (`acts_cases`: T 1-512, the
+   launch floor beside them). Library yardsticks: `torch.matmul` on weights dequantized
    beforehand, `torch._int_mm` (timed only). Bound: bytes of weights,
    scales, x and y / 3.35 TB/s against 2TKN / 989 TFLOP/s (bf16) or
    / 1979 TOP/s (int8). Since slice 7 B6/B7 and B8 run the TMA + wgmma
@@ -1567,7 +1568,7 @@ def int8_cases(torch, qg, dev):
     torch.cuda.empty_cache()
 
 
-def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
+def quant_kernel_cases(torch, qg, qt, QuantKind, dev):
     """One result dict per case; the first case of each kernel is the one
     reported in the kernels line (the shape the soft-fp8 engine's decode
     gives it)."""
@@ -1658,46 +1659,159 @@ def quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev):
 
     yield from int8_cases(torch, qg, dev)
 
-    # ---- B11 / B12: activation quantizers ---------------------------------
-    def acts_check(name, got, want):
-        rel = ((got.scale - want.scale).abs() / want.scale).max().item()
-        d = (got.data.int() - want.data.int()).abs()
-        off = (d != 0).float().mean().item()
-        if not (rel <= 1e-6 and d.max().item() <= 1 and off <= 1e-3):
-            raise AssertionError(
-                f"{name}: scale rel err {rel}, max int8 diff {d.max().item()}, "
-                f"share off by one {off}"
-            )
-        return rel, off, float(d.max().item())
 
-    for T in (16, 512):
-        D = 4096
-        x, w = randn(T, D), (1.0 + 0.1 * randn(D).float()).to(bf)
-        name = f"rms_norm_quant[T={T},D={D}]"
-        rel, off, dmax = acts_check(name, nq.rms_norm_quant(x, w, 1e-5),
-                                    nq.rms_norm_quant_plain(x, w, 1e-5))
-        bnd, by = bound_ms(T * D * 3 + D * 2 + T * 4, 0.0)
-        yield dict(
-            name=name, kernel="rms_norm_quant", route="cuda", source=NQ_SRC,
-            replaces="chitu_tpu/ops/pallas_norm_quant.py:79",
-            max_abs_err=dmax, scale_rel_err=rel, int8_off_by_one_share=off,
-            ms=device_ms(torch, lambda: nq.rms_norm_quant(x, w, 1e-5)),
-            plain_ms=call_ms(torch, lambda: nq.rms_norm_quant_plain(x, w, 1e-5)),
-            bound_ms=bnd, bound_by=by, library_ms=None, shape=f"T={T} D={D}")
-    for T in (16, 512):
-        D = 14336
-        x = randn(T, D)
-        name = f"quant_acts[T={T},F={D}]"
-        rel, off, dmax = acts_check(
-            name, nq.quant_acts(x), nq.quant_acts_plain(x))
-        bnd, by = bound_ms(T * D * 3 + T * 4, 0.0)
-        yield dict(
-            name=name, kernel="quant_acts", route="cuda", source=NQ_SRC,
-            replaces="chitu_tpu/ops/pallas_norm_quant.py:107",
-            max_abs_err=dmax, scale_rel_err=rel, int8_off_by_one_share=off,
-            ms=device_ms(torch, lambda: nq.quant_acts(x)),
-            plain_ms=call_ms(torch, lambda: nq.quant_acts_plain(x)),
-            bound_ms=bnd, bound_by=by, library_ms=None, shape=f"T={T} F={D}")
+# ---------------------------------------------------------------------------
+# phase 2b': the activation quantizers (B11, B12)
+# ---------------------------------------------------------------------------
+
+NQ_EPS = 1e-5
+# (kernel, width, label): B11 at Llama-3-8B's hidden size, B12 mid-FFN and
+# on wo's input
+ACTS_WIDTHS = [("rms_norm_quant", 4096, "D"), ("quant_acts", 14336, "F"),
+               ("quant_acts", 4096, "D")]
+ACTS_TS = [16, 1, 64, 65, 512]  # decode first: the kernels line's case
+
+
+def tie_rows(torch, T, D):
+    """T rows of D bf16 values (on the CPU) on which a product with the
+    reciprocal of the scale rounds otherwise than the division: row r
+    holds every bf16 value v with A_r / 256 <= |v| <= A_r (so |v / s| >=
+    0.5, s = A_r / 127) and fills the rest with smaller normal values; A_r
+    is the row's amax, picked where the ladder holds such ties.
+    -> (rows, count of values the product would round otherwise)."""
+    bits = torch.arange(-32768, 32768, dtype=torch.int32).to(torch.int16)
+    every = bits.view(torch.bfloat16).float()
+    every = every[torch.isfinite(every)]
+    recip = torch.tensor(1.0) / torch.tensor(127.0)
+    g = torch.Generator()
+    g.manual_seed(5)
+    rows, flips, a = [], 0, 2.0
+    while len(rows) < T:
+        a = float(torch.tensor(a * 1.0137).bfloat16().float())
+        amax = torch.tensor(a)
+        lad = every[(every.abs() <= amax) & (every.abs() >= amax / 256)]
+        s = amax * recip
+        n = int((torch.round(lad / s) != torch.round(lad * (1.0 / s))).sum())
+        if n == 0 or lad.numel() > D:
+            continue
+        fill = (torch.randn(D - lad.numel(), generator=g) * a / 8).clamp(-a, a)
+        row = torch.cat([lad, fill])[torch.randperm(D, generator=g)]
+        rows.append(row)
+        flips += n
+    return torch.stack(rows).to(torch.bfloat16), flips
+
+
+def acts_equal(torch, name, got, want):
+    """Scales and int8 values bit-equal."""
+    torch.cuda.synchronize()
+    if not (torch.equal(got.scale, want.scale) and torch.equal(got.data, want.data)):
+        ns = int((got.scale != want.scale).sum())
+        nd = int((got.data != want.data).sum())
+        raise AssertionError(f"{name}: {ns} scales and {nd} int8 values differ")
+
+
+def acts_close(torch, name, got, want):
+    """B11's limits: scales within 1e-6 relative, int8 values at most 1
+    apart, at most 0.1 % of them off (the sum of squares runs in another
+    order than torch's mean, and a last-bit difference flips a tie).
+    -> (scale rel err, share off, largest difference)."""
+    torch.cuda.synchronize()
+    rel = ((got.scale - want.scale).abs() / want.scale).max().item()
+    d = (got.data.int() - want.data.int()).abs()
+    off = (d != 0).float().mean().item()
+    if not (rel <= 1e-6 and d.max().item() <= 1 and off <= 1e-3):
+        raise AssertionError(
+            f"{name}: scale rel err {rel}, max int8 diff {d.max().item()}, "
+            f"share off by one {off}")
+    return rel, off, float(d.max().item())
+
+
+def acts_cases(torch, nq, dev):
+    """B11 `rms_norm_quant` at D 4096 and B12 `quant_acts` at F 14336 and
+    D 4096, at T 16, 1, 64, 65 and 512 (the first case of each, T 16, is
+    the one reported in the kernels line), then B11 at D 8192 (a 70B-class
+    hidden size), B12 at F 29568 (Qwen2-72B's FFN, whose rows split over
+    a cluster at T 16 and 1), an odd width (D 4100), an x starting 2 bytes
+    past a 16-byte boundary, and rows of rounding ties.
+    Each output lands on memory filled with 7.0; B12 is bit-equal to
+    `quant_acts_plain` (the max does not depend on order, and both divide
+    in IEEE f32), B11 within `acts_close`'s limits; two launches and a
+    CUDA-graph replay bit-equal. Times warm: on the main path the input
+    was written by the kernel just before (the residual add, silu(gate) *
+    up, the attention output) and sits in L2. Each case names its plan
+    (from `nq.plan_for` where the tree has one) and the host time of a
+    call. Last, `launch_floor`: the device time of a one-element in-place
+    add, what no launch beats. A tree from before the redesign (no
+    `nq.plan_for`; `scripts/torch_kernel_compare.py` runs earlier trees)
+    is held to B11's limits for B12 too, and skips the unaligned x, which
+    its wrapper refuses."""
+    exact = hasattr(nq, "plan_for")
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    bf = torch.bfloat16
+    w = (1.0 + 0.1 * torch.randn(8192, generator=g, device=dev)).to(bf)
+
+    def pack(a):
+        return torch.cat([a.data.view(-1), a.scale.view(torch.int8)])
+
+    def case(kernel, T, D, label, x=None, tag=""):
+        if x is None:
+            x = torch.randn((T, D), generator=g, device=dev).to(bf)
+        nw = w[:D].contiguous() if kernel == "rms_norm_quant" else None
+        if kernel == "rms_norm_quant":
+            run = lambda: nq.rms_norm_quant(x, nw, NQ_EPS)
+            plain = lambda: nq.rms_norm_quant_plain(x, nw, NQ_EPS)
+        else:
+            run = lambda: nq.quant_acts(x)
+            plain = lambda: nq.quant_acts_plain(x)
+        name = f"{kernel}[T={T},{label}={D}{tag}]"
+        poison(torch, (-(-T * D // 2),), dev)  # the int8 output
+        poison(torch, (2 * T,), dev)  # the scales
+        got = run()
+        want = plain()
+        if kernel == "quant_acts" and exact:
+            acts_equal(torch, name, got, want)
+            rel, off, dmax = 0.0, 0.0, 0.0
+        else:
+            rel, off, dmax = acts_close(torch, name, got, want)
+        bit_equal(torch, name, pack(got), pack(run()))
+        replay_equal(torch, name, lambda: pack(run()), pack(got))
+        nbytes = T * D * 3 + T * 4 + (D * 2 if nw is not None else 0)
+        bnd, by = bound_ms(nbytes, 0.0)
+        res = dict(
+            name=name, kernel=kernel, route="cuda", source=NQ_SRC,
+            replaces="chitu_tpu/ops/pallas_norm_quant.py:"
+                     + ("79" if kernel == "rms_norm_quant" else "107"),
+            max_abs_err=dmax, scale_rel_err=rel, int8_off_share=off,
+            bit_equal_plain=kernel == "quant_acts" and exact,
+            ms=device_ms(torch, run), plain_ms=call_ms(torch, plain),
+            host_us=host_us(torch, run), bound_ms=bnd, bound_by=by,
+            library_ms=None, shape=f"T={T} {label}={D}{tag}")
+        if hasattr(nq, "plan_for"):
+            p = nq.plan_for(x)
+            res.update(regime=p.regime, cluster=p.cluster, threads=p.threads,
+                       rows=p.rows, vecs=p.vecs, grid=p.grid)
+        return res
+
+    for kernel, D, label in ACTS_WIDTHS:
+        for T in ACTS_TS:
+            yield case(kernel, T, D, label)
+    yield case("rms_norm_quant", 16, 8192, "D")  # a 70B-class hidden size
+    for T in (16, 1):  # Qwen2-72B's FFN: a row split over a cluster
+        yield case("quant_acts", T, 29568, "F")
+    for kernel in ("rms_norm_quant", "quant_acts"):
+        yield case(kernel, 16, 4100, "D")
+        if exact:
+            buf = torch.randn(16 * 4096 + 1, generator=g, device=dev).to(bf)
+            yield case(kernel, 16, 4096, "D", buf[1:].view(16, 4096), ",x+2B")
+    ties, flips = tie_rows(torch, 16, 14336)
+    assert flips > 0
+    yield case("quant_acts", 16, 14336, "F", ties.to(dev), f",ties={flips}")
+    one = torch.zeros(1, device=dev)
+    yield dict(name="launch_floor", kernel="launch_floor",
+               ms=device_ms(torch, lambda: one.add_(1.0)),
+               shape="one f32 element added in place")
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -2399,7 +2513,8 @@ def main():
     t0 = time.time()
     with torch.no_grad():
         for cases in (kernel_cases(torch, tk, plain, dev),
-                      quant_kernel_cases(torch, qg, nq, qt, QuantKind, dev),
+                      quant_kernel_cases(torch, qg, qt, QuantKind, dev),
+                      acts_cases(torch, nq, dev),
                       moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev),
                       absorb_cases(torch, ab, dev),
                       mla_attention_cases(torch, tk, plain, dev),

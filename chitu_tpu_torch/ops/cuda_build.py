@@ -103,7 +103,9 @@ def load(name: str) -> ctypes.CDLL:
     return _LIBS[name]
 
 
-def check(name: str, t: torch.Tensor, dtype, device, shape=None):
+def check(name: str, t: torch.Tensor, dtype, device, shape=None, align=16):
+    """Raises unless t lies on `device` with `dtype`, `shape` (where given),
+    contiguous, and (bf16) `align`-byte aligned."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -112,8 +114,8 @@ def check(name: str, t: torch.Tensor, dtype, device, shape=None):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
-        raise ValueError(f"{name} must be 16-byte aligned")
+    if t.dtype == torch.bfloat16 and t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
 
 
 def raise_on(rc: int, kernel: str):

@@ -12,19 +12,24 @@ Counterpart of `chitu_tpu/ops/pallas_norm_quant.py`:
 
 Both in f32: `amax = max(|y|)` floored at 1e-8, `s = amax / 127`,
 `q = clip(rint(y / s), -127, 127)` with round-half-to-even and a true
-division. A wrapper runs its plain version only for tensors on the CPU;
-for CUDA tensors it launches its kernel or raises.
+division of y by s. (On the card `amax / 127.0` is amax times the f32
+reciprocal of 127, in the kernel as in PyTorch's CUDA division by a
+scalar and in XLA's compiled TPU kernel; on the CPU PyTorch divides.) A wrapper runs its plain version only for tensors on the CPU;
+for CUDA tensors it launches its kernel or raises. Both wrappers launch
+one kernel, `norm_quant_kernel`, planned from shapes by `acts_plan`.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 
 import torch
 
 from chitu_tpu_torch.ops import cuda_build
 from chitu_tpu_torch.ops.cuda_build import LAUNCHES
+from chitu_tpu_torch.ops.gemm_plan import sm_count
 
 for _name in ("rms_norm_quant", "quant_acts"):
     LAUNCHES.setdefault(_name, 0)
@@ -64,6 +69,86 @@ def quant_acts_plain(x: torch.Tensor) -> QuantizedActs:
     return _quantize_rows(x.float())
 
 
+# ---------------------------------------------------------------------------
+# the kernel's plan, from shapes alone
+# ---------------------------------------------------------------------------
+
+VEC = 8  # bf16 a 16-byte vector
+MAX_CLUSTER = 8  # the portable cluster size
+MAX_THREADS = 512  # a CTA (csrc/norm_quant.cu MAX_THREADS)
+VECS = (1, 2, 4, 8)  # vectors a thread the kernel is built for
+CTA_THREADS = 256  # threads a row slot, and a CTA, at most but for wide rows
+ROWS_VECS = 4  # vectors a thread aimed at when rows are many
+CLUSTER_MIN_VECS = 3072  # at few rows, a wider row splits over a cluster
+CLUSTER_VECS = 1024  # ... one rank a slice of this many vectors
+SM_THREADS = 2048  # threads an SM holds: the grid
+
+
+@dataclass(frozen=True)
+class ActsPlan:
+    """How `norm_quant_kernel` runs a [T, D] launch: a row split over a
+    cluster of `cluster` CTAs, each rank's slice (`slice` 16-byte vectors)
+    held by a slot of `threads` threads with `vecs` vectors each; `rows`
+    slots a CTA; `grid` CTAs walk the ceil(T / rows) row groups
+    grid-stride, a cluster a group at a time."""
+
+    cluster: int
+    threads: int
+    rows: int
+    vecs: int
+    slice: int
+    grid: int
+
+    @property
+    def regime(self) -> str:
+        return "cluster" if self.cluster > 1 else "rows"
+
+
+@functools.lru_cache(maxsize=1024)
+def acts_plan(T: int, D: int, sms: int) -> ActsPlan:
+    """The plan of a [T, D] launch on a card of `sms` SMs, from the timings
+    of `scripts/torch_acts_ablate.py` on an H100 (PERF.md). A row's slice
+    goes to a slot of up to CTA_THREADS threads, with 1 vector a thread or
+    more at few rows (2T <= sms: the shortest chain a row) and ROWS_VECS
+    or more at many (fewer, busier threads). At few rows only a row wider
+    than CLUSTER_MIN_VECS vectors (24,576 bf16) splits over a cluster of
+    ranks of CLUSTER_VECS vectors: a cluster's barriers cost more than a
+    split saves at narrower rows. Narrow rows share a CTA, and the grid is
+    sized to the card. x's alignment moves only each row's head and tail
+    scalars, which the kernel finds from the row's address, so it does not
+    enter the plan. Memoized on its arguments (never on addresses)."""
+    if T <= 0 or D <= 0:
+        raise NotImplementedError(f"norm_quant: no rows or no width ({T}, {D})")
+    nv = max(1, D // VEC)
+    few = 2 * T <= sms
+    cluster = 1
+    if few and nv > CLUSTER_MIN_VECS:
+        cluster = min(MAX_CLUSTER, -(-nv // CLUSTER_VECS))
+    while -(-nv // cluster) > MAX_THREADS * VECS[-1]:
+        cluster += 1
+    if cluster > MAX_CLUSTER:
+        raise NotImplementedError(f"norm_quant: a row of {D} is too wide")
+    sl = -(-nv // cluster)
+    aim = 1 if few else ROWS_VECS
+    threads = min(CTA_THREADS, (-(-sl // aim) + 31) // 32 * 32)
+    if threads * VECS[-1] < sl:
+        threads = (-(-sl // VECS[-1]) + 31) // 32 * 32
+    vecs = next(v for v in VECS if threads * v >= sl)
+    rows = 1
+    if cluster == 1:
+        rows = max(1, min(CTA_THREADS // threads, -(-T // sms)))
+    groups = -(-T // rows)
+    per_sm = max(1, SM_THREADS // (rows * threads))
+    grid = cluster * min(groups, sms * per_sm)
+    return ActsPlan(cluster, threads, rows, vecs, sl, grid)
+
+
+def plan_for(x: torch.Tensor) -> ActsPlan:
+    """The plan of a launch on the CUDA tensor x [T, D]."""
+    T, D = x.shape
+    return acts_plan(T, D, sm_count(torch, x.device))
+
+
 _LIB = None
 
 
@@ -72,20 +157,31 @@ def _lib():
     if _LIB is None:
         lib = cuda_build.load("norm_quant")
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.chitu_rms_norm_quant.argtypes = [P, P, P, P, I, I, F, P]
-        lib.chitu_quant_acts.argtypes = [P, P, P, I, I, P]
-        lib.chitu_rms_norm_quant.restype = ctypes.c_int
-        lib.chitu_quant_acts.restype = ctypes.c_int
+        lib.chitu_norm_quant.argtypes = [P, P, P, P, I, I, F] + [I] * 6 + [P]
+        lib.chitu_norm_quant.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
 
-def _outputs(x: torch.Tensor):
+def _launch(kernel: str, x: torch.Tensor, w, eps: float) -> QuantizedActs:
+    if x.dim() != 2:
+        raise ValueError(f"x must be [T, D], got {tuple(x.shape)}")
     T, D = x.shape
-    return (
-        torch.empty((T, D), dtype=torch.int8, device=x.device),
-        torch.empty((T,), dtype=torch.float32, device=x.device),
+    dev = x.device
+    cuda_build.check("x", x, torch.bfloat16, dev, align=2)
+    if w is not None:
+        cuda_build.check("w", w, torch.bfloat16, dev, (D,), align=2)
+    plan = plan_for(x)
+    xq = torch.empty((T, D), dtype=torch.int8, device=dev)
+    s = torch.empty((T,), dtype=torch.float32, device=dev)
+    rc = _lib().chitu_norm_quant(
+        cuda_build.ptr(x), cuda_build.ptr(w), cuda_build.ptr(xq),
+        cuda_build.ptr(s), T, D, float(eps), plan.cluster, plan.threads,
+        plan.rows, plan.vecs, plan.slice, plan.grid, cuda_build.stream(dev),
     )
+    cuda_build.raise_on(rc, kernel)
+    LAUNCHES[kernel] += 1
+    return QuantizedActs(data=xq, scale=s)
 
 
 def rms_norm_quant(
@@ -96,32 +192,11 @@ def rms_norm_quant(
     """Fused rmsnorm(x) * w -> per-token int8 (values, scales)."""
     if not x.is_cuda:
         return rms_norm_quant_plain(x, w, eps)
-    T, D = x.shape
-    dev = x.device
-    cuda_build.check("x", x, torch.bfloat16, dev)
-    cuda_build.check("w", w, torch.bfloat16, dev, (D,))
-    xq, s = _outputs(x)
-    rc = _lib().chitu_rms_norm_quant(
-        cuda_build.ptr(x), cuda_build.ptr(w), cuda_build.ptr(xq),
-        cuda_build.ptr(s), T, D, float(eps), cuda_build.stream(dev),
-    )
-    cuda_build.raise_on(rc, "rms_norm_quant")
-    LAUNCHES["rms_norm_quant"] += 1
-    return QuantizedActs(data=xq, scale=s)
+    return _launch("rms_norm_quant", x, w, eps)
 
 
 def quant_acts(x: torch.Tensor) -> QuantizedActs:
     """Per-token int8 quantization of [T, D] activations (no norm)."""
     if not x.is_cuda:
         return quant_acts_plain(x)
-    T, D = x.shape
-    dev = x.device
-    cuda_build.check("x", x, torch.bfloat16, dev)
-    xq, s = _outputs(x)
-    rc = _lib().chitu_quant_acts(
-        cuda_build.ptr(x), cuda_build.ptr(xq), cuda_build.ptr(s), T, D,
-        cuda_build.stream(dev),
-    )
-    cuda_build.raise_on(rc, "quant_acts")
-    LAUNCHES["quant_acts"] += 1
-    return QuantizedActs(data=xq, scale=s)
+    return _launch("quant_acts", x, None, 0.0)

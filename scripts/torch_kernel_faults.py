@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Shows that the limits `chip_smoke.py` holds the quantized, grouped,
-absorb and dense GEMM kernels and the attention kernels (the latent row,
+absorb and dense GEMM kernels, the activation quantizers and the
+attention kernels (the latent row,
 the e4m3 pool, the split layout at head sizes 192 and 64, the split decode
 and the tensor-core prefill) to reject broken kernels. Needs an NVIDIA GPU and nvcc.
 
@@ -32,7 +33,15 @@ tiny-llama-debug's 32 heads on 4; B13: layer 1 of a two-layer
 `[4096 -> 6144]` stack at T 16, where K splits in two; the split decode: B4 at Llama-3-8B's
 16-row decode geometry, contexts up to 2048 in five splits, on a bf16 and
 on an e4m3 pool; the tensor-core prefill: B5 for a 128-token chunk at
-q_pos 512). It prints one
+q_pos 512; the activation quantizers: B11 at T 16 and 512 (D 4096), T 4
+(D 29568, split over a cluster) and T 3 (D 4100) against its three
+limits, B12 bit-equal at T 16 and 512 (F 14336), T 16 (F 29568, a
+cluster), T 1 and, 2 bytes off a 16-byte boundary, T 16 (D 4096), T 3 (D
+4100) and on rows of rounding ties; the exit-barrier fault runs B12 at
+[16, 29568] with one cluster of 4 walking all rows and its odd ranks held
+back 20 us before they read the partials, in the sound kernel too; a
+broken kernel's launch error counts as a rejection, and as the context is
+lost with it, such a fault comes last). It prints one
 JSON line per fault with the measured error beside the limit, first for
 the sound kernel and then for the broken one, and exits non-zero if a
 sound kernel fails its limit or a fault passes it.
@@ -47,10 +56,17 @@ import tempfile
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 ROW_RTOL = 1e-2  # chip_smoke.py's limit on every GEMM output row
+# the activation quantizers' odd cluster ranks read the amax partials 20 us
+# late
+SLOW_READ = (
+    "  const float o = lane < p.cluster ? *cl.map_shared_rank(red + slot, lane) : 0.f;",
+    "  if (MAX && (cl.block_rank() & 1)) __nanosleep(20000);\n"
+    "  const float o = lane < p.cluster ? *cl.map_shared_rank(red + slot, lane) : 0.f;")
 
 FAULTS = [
-    # (name, source, old text, new text, check); a tuple of old texts and
-    # one of new texts make several edits
+    # (name, source, old text, new text, check[, control old texts, control
+    # new texts]); a tuple of old texts and one of new texts make several
+    # edits; a control's edits are made to the sound kernel too
     ("scale block index off by one", "gemm_common.cuh",
      "scol[q] = p.scale_mode == SCALE_BLOCK ? n / p.block : n;",
      "scol[q] = p.scale_mode == SCALE_BLOCK ? (n / p.block > 0 ? n / p.block - 1 : 0) : n;",
@@ -242,6 +258,27 @@ FAULTS = [
     ("B13 last split dropped", "gemm_common.cuh",
      "for (int sp = 0; sp < nsplit; ++sp) v +=",
      "for (int sp = 0; sp < nsplit - 1; ++sp) v +=", "dense"),
+    # the redesigned activation quantizers (B11, B12): vectors, a cluster
+    # split at few rows
+    ("quantizers: a cluster rank's partial sum of squares left out",
+     "norm_quant.cu",
+     "for (int c = 1; c < p.cluster; ++c) r = fold<MAX>",
+     "for (int c = 1; c < p.cluster - (MAX ? 0 : 1); ++c) r = fold<MAX>", "acts"),
+    ("quantizers: the amax combined over the local rank only", "norm_quant.cu",
+     "const float o = lane < p.cluster ? *cl.map_shared_rank(red + slot, lane) : 0.f;",
+     "const float o = lane < p.cluster ? (MAX ? red[slot] : "
+     "*cl.map_shared_rank(red + slot, lane)) : 0.f;", "quant_acts"),
+    ("quantizers: the scalar tail after the vector body skipped",
+     "norm_quant.cu", "const int tail = p.D - head - (nvec << 3);",
+     "const int tail = 0;", "quant_acts"),
+    ("quantizers: a product with 1 / s in place of the division",
+     "norm_quant.cu", "rintf(y / s)", "rintf(y * (1.f / s))", "quant_acts"),
+    # odd ranks held back 20 us before they read the partials (in the sound
+    # kernel too, as its control): without the barrier the even ranks run on
+    # to the next row and overwrite theirs first
+    ("quantizers: the exit barrier removed", "norm_quant.cu",
+     ("    if (p.cluster > 1) cl.sync();\n", SLOW_READ[0]), ("", SLOW_READ[1]),
+     "quant_acts_race", (SLOW_READ[0],), (SLOW_READ[1],)),
 ]
 
 
@@ -254,7 +291,8 @@ def main():
     from chitu_tpu_torch.ops import absorb_kernels as ab
     from chitu_tpu_torch.ops import attention as plain
     from chitu_tpu_torch.ops import attention_kernels as tk
-    from chip_smoke import E4M3_EDGES, E4M3_OVERFLOW, e4m3_decode_exact, with_values
+    from chip_smoke import (E4M3_EDGES, E4M3_OVERFLOW, e4m3_decode_exact, tie_rows,
+                            with_values)
     from chitu_tpu_torch.models.common import kv_encode
     from chitu_tpu_torch.ops import cuda_build
     from chitu_tpu_torch.ops import dense_gemm_kernels as dg
@@ -282,7 +320,15 @@ def main():
     }
     x512 = randn(512, K)  # the slab tiles
     xa = nq.quant_acts_plain(x)
-    nw = (1.0 + 0.1 * randn(K).float()).to(bf)
+    nw = (1.0 + 0.1 * randn(29568).float()).to(bf)
+    # the quantizers: decode rows (a cluster split), slab rows, an odd
+    # width (row heads and tails), x 2 bytes past a 16-byte boundary, rows
+    # of rounding ties
+    acts_x = [randn(16, 14336), randn(1, 4096), randn(512, 14336),
+              randn(3, 4100), randn(16 * 4096 + 1)[1:].view(16, 4096),
+              tie_rows(torch, 16, 14336)[0].to(dev), randn(16, 29568)]
+    # F 29568 (Qwen2-72B's FFN): split over a cluster at few rows
+    acts_nx = [x, randn(4, 29568), randn(512, K), randn(3, 4100)]
 
     # the grouped GEMM: layer 1 of [2, 8, 4096, 14336], 16 tokens, top-2
     E, k, Tm = 8, 2, 16
@@ -356,9 +402,42 @@ def main():
     def check(kind):
         """-> (measured error, limit, what it is)."""
         if kind == "acts":
-            got, want = nq.rms_norm_quant(x, nw, 1e-5), nq.rms_norm_quant_plain(x, nw, 1e-5)
-            d = (got.data.int() - want.data.int()).abs()
-            return (d != 0).float().mean().item(), 1e-3, "share of int8 values off"
+            # B11's three limits as one: each error over its limit
+            worst = 0.0
+            for xx in acts_nx:
+                w_ = nw[: xx.shape[1]]
+                got = nq.rms_norm_quant(xx, w_, 1e-5)
+                want = nq.rms_norm_quant_plain(xx, w_, 1e-5)
+                rel = ((got.scale - want.scale).abs() / want.scale).max().item()
+                d = (got.data.int() - want.data.int()).abs()
+                worst = max(worst, rel / 1e-6, (d != 0).float().mean().item() / 1e-3,
+                            d.max().item() / 1.0)
+            return (worst, 1.0, "largest of scale rel err / 1e-6, share of int8 "
+                    "values off / 1e-3, int8 difference / 1")
+        if kind == "quant_acts":
+            bad = 0
+            for xx in acts_x:
+                junk = torch.full((xx.numel() // 2 + 1,), 7.0, dtype=bf, device=dev)
+                del junk  # the int8 output lands on 7.0s
+                got, want = nq.quant_acts(xx), nq.quant_acts_plain(xx)
+                bad += int((got.data != want.data).sum()) + int(
+                    (got.scale != want.scale).sum())
+            return bad, 0, "int8 values and scales unlike the plain version's"
+        if kind == "quant_acts_race":
+            # one cluster of 4 walks all 16 rows of [16, 29568] (a plan
+            # forced for this check), so a rank that skips the exit barrier
+            # runs on to the next row
+            xx = acts_x[-1]
+            plan = nq.ActsPlan(4, 256, 1, 4, -(-(xx.shape[1] // 8) // 4), 4)
+            committed = nq.plan_for
+            nq.plan_for = lambda t: plan
+            try:
+                got = nq.quant_acts(xx)
+            finally:
+                nq.plan_for = committed
+            want = nq.quant_acts_plain(xx)
+            bad = int((got.data != want.data).sum()) + int((got.scale != want.scale).sum())
+            return bad, 0, "int8 values and scales unlike the plain version's"
         if kind.startswith("moe"):
             wq = wm if kind == "moe_bf16" else wm8
             junk = torch.full((NB * bm, 14336), 7.0, dtype=bf, device=dev)
@@ -472,38 +551,57 @@ def main():
     sound_dir = cuda_build.CSRC
     ok = True
     words = sys.argv[1:]
-    for name, src, old, new, kind in FAULTS:
+    def edited(src, olds, news, name):
+        """A temporary copy of the sources with `src` edited."""
+        tmp = tempfile.mkdtemp(prefix="faults-")
+        for f in os.listdir(sound_dir):
+            shutil.copy(os.path.join(sound_dir, f), tmp)
+        path = os.path.join(tmp, src)
+        text = open(path).read()
+        for o, n in zip(olds, news):
+            if text.count(o) != 1:
+                raise SystemExit(f"{name}: the line to break is not unique in {src}")
+            text = text.replace(o, n)
+        with open(path, "w") as f:
+            f.write(text)
+        return tmp
+
+    for name, src, old, new, kind, *control in FAULTS:
         if words and not any(w in name or w == src for w in words):
             continue
-        use_sources(sound_dir)
-        sound, limit, what = check(kind)
-        tmp = tempfile.mkdtemp(prefix="faults-")
+        tmps, failed = [], None
         try:
-            for f in os.listdir(sound_dir):
-                shutil.copy(os.path.join(sound_dir, f), tmp)
-            path = os.path.join(tmp, src)
-            text = open(path).read()
+            if control:  # the sound kernel with the control's edits
+                tmps.append(edited(src, *control, name))
+                use_sources(tmps[-1])
+            else:
+                use_sources(sound_dir)
+            sound, limit, what = check(kind)
             olds, news = ((old, new) if isinstance(old, tuple)
                           else ((old,), (new,)))
-            for o, n in zip(olds, news):
-                if text.count(o) != 1:
-                    raise SystemExit(f"{name}: the line to break is not unique in {src}")
-                text = text.replace(o, n)
-            with open(path, "w") as f:
-                f.write(text)
-            use_sources(tmp)
-            broken, _, _ = check(kind)
-            torch.cuda.synchronize()
+            tmps.append(edited(src, olds, news, name))
+            use_sources(tmps[-1])
+            try:
+                broken, _, _ = check(kind)
+                torch.cuda.synchronize()
+            except torch.AcceleratorError as e:  # the broken kernel faulted
+                broken, failed = float("inf"), str(e).splitlines()[0]
         finally:
             use_sources(sound_dir)
-            shutil.rmtree(tmp, ignore_errors=True)
+            for tmp in tmps:
+                shutil.rmtree(tmp, ignore_errors=True)
         rejected = not broken <= limit
         ok = ok and rejected and sound <= limit
         print(json.dumps(dict(
-            fault=name, source=src, check=kind, measure=what, limit=limit,
+            fault=name, source=src, check=kind, control=bool(control),
+            measure=what, limit=limit, launch_error=failed,
             sound=sound, broken=broken, rejected=rejected,
             card=torch.cuda.get_device_name(0),
         )), flush=True)
+        if failed:  # the context is lost with the launch: no later fault can run
+            print(f"stopped after a launch error: {failed}", flush=True)
+            ok = ok and name == FAULTS[-1][0]
+            break
     sys.exit(0 if ok else 1)
 
 

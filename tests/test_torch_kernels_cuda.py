@@ -151,9 +151,10 @@ def test_wrappers_reject_bad_inputs(dev):
 # The quantized GEMMs and the activation-quant kernels against their plain
 # versions. Limits: every GEMM output row within 1e-2 of the plain row's
 # norm (f32 sums in another order over bf16-rounded weights: about 1e-3);
-# the int8 GEMM's int32 sums equal exactly; activation scales within 1e-6
+# the int8 GEMM's int32 sums equal exactly; B11's scales within 1e-6
 # relative, int8 values equal but for at most 0.1 % that differ by 1 (a
-# value on a rounding tie after a last-bit difference in the reduction).
+# value on a rounding tie after a last-bit difference in the reduction);
+# B12's scales and values bit-equal.
 # ---------------------------------------------------------------------------
 
 from chitu_tpu_torch.ops import norm_quant as nq  # noqa: E402
@@ -356,13 +357,92 @@ def _check_acts(got, want):
     assert (d != 0).float().mean().item() <= 1e-3
 
 
-@pytest.mark.parametrize("T,D", [(1, 128), (16, 4096), (37, 1000), (512, 256)])
+def _acts_equal(got, want):
+    """B12: scales and int8 values bit-equal to the plain version (the max
+    does not depend on order, and both divide in IEEE f32)."""
+    torch.cuda.synchronize()
+    assert torch.equal(got.scale, want.scale)
+    assert torch.equal(got.data, want.data), int((got.data != want.data).sum())
+
+
+NQ_SHAPES = [(1, 128), (16, 4096), (37, 1000), (512, 256), (16, 14336),
+             (65, 4096), (1, 14336), (512, 14336), (3, 4100), (16, 29568),
+             (1, 40960), (200, 40960)]
+
+
+@pytest.mark.parametrize("T,D", NQ_SHAPES)
 def test_norm_quant_kernels(dev, T, D):
     rand = _gen(dev, 7)
     x = rand(T, D)
     w = (1.0 + 0.1 * rand(D).float()).to(torch.bfloat16)
     _check_acts(nq.rms_norm_quant(x, w, 1e-5), nq.rms_norm_quant_plain(x, w, 1e-5))
-    _check_acts(nq.quant_acts(x), nq.quant_acts_plain(x))
+    _acts_equal(nq.quant_acts(x), nq.quant_acts_plain(x))
+
+
+@pytest.mark.parametrize("off", [1, 3, 7])
+@pytest.mark.parametrize("T,D", [(16, 4096), (5, 1001), (200, 4096)])
+def test_norm_quant_unaligned_x(dev, T, D, off):
+    """x starting 2, 6 or 14 bytes past a 16-byte boundary (and w, a view
+    of the same offset): the heads and tails around the vector body."""
+    rand = _gen(dev, 8)
+    x = rand(T * D + off)[off:].view(T, D)
+    w = (1.0 + 0.1 * rand(D + off).float()).to(torch.bfloat16)[off:]
+    _check_acts(nq.rms_norm_quant(x, w, 1e-5), nq.rms_norm_quant_plain(x, w, 1e-5))
+    _check_acts(nq.rms_norm_quant(x, w.clone(), 1e-5),  # w aligned, x not
+                nq.rms_norm_quant_plain(x, w, 1e-5))
+    _acts_equal(nq.quant_acts(x), nq.quant_acts_plain(x))
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("T,D", [(16, 4096), (5, 14336), (3, 4100)])
+def test_norm_quant_cluster_plans(dev, monkeypatch, T, D, cluster):
+    """The cluster split forced on the main path's widths (its plan keeps
+    them in one CTA): each rank a slice, the partials read through
+    distributed shared memory."""
+    sl = -(-(D // nq.VEC) // cluster)
+    vecs = next(v for v in nq.VECS if 256 * v >= sl)
+    plan = nq.ActsPlan(cluster, 256, 1, vecs, sl, cluster * T)
+    monkeypatch.setattr(nq, "plan_for", lambda x: plan)
+    rand = _gen(dev, 11)
+    x = rand(T, D)
+    w = (1.0 + 0.1 * rand(D).float()).to(torch.bfloat16)
+    _check_acts(nq.rms_norm_quant(x, w, 1e-5), nq.rms_norm_quant_plain(x, w, 1e-5))
+    _acts_equal(nq.quant_acts(x), nq.quant_acts_plain(x))
+
+
+@pytest.mark.parametrize("T", [64, 200])
+def test_quant_acts_every_bf16_value(dev, T):
+    """Each row holds every bf16 value up to its amax (64 amaxes from 1e-36
+    to 1e36, denormals and zeros among them; repeated): B12 bit-equal to
+    the plain version, whose division is IEEE f32 (the kernel takes the
+    reciprocal once a row). T 64 splits each 65,536-wide row over a
+    cluster of 8; T 200 over 2 (a CTA holds at most 4,096 vectors)."""
+    every = torch.arange(-32768, 32768, dtype=torch.int32, device=dev)
+    every = every.to(torch.int16).view(torch.bfloat16)
+    every = every[torch.isfinite(every.float())]
+    D = 65536
+    rows = []
+    for a in torch.logspace(-36, 36, 64, device=dev).to(torch.bfloat16).float():
+        v = every[every.float().abs() <= a]
+        rows.append(torch.cat([v, v.new_zeros(D - v.numel())]))
+    x = torch.stack(rows).repeat(-(-T // 64), 1)[:T].contiguous()
+    _acts_equal(nq.quant_acts(x), nq.quant_acts_plain(x))
+
+
+@pytest.mark.parametrize("T,D", [(16, 4096), (16, 14336), (512, 4096)])
+def test_norm_quant_launches_and_replay_bit_equal(dev, T, D):
+    rand = _gen(dev, 9)
+    x = rand(T, D)
+    w = (1.0 + 0.1 * rand(D).float()).to(torch.bfloat16)
+    for run in (lambda: nq.rms_norm_quant(x, w, 1e-5), lambda: nq.quant_acts(x)):
+        a, b = run(), run()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            c = run()
+        graph.replay()
+        torch.cuda.synchronize()
+        for o in (b, c):
+            assert torch.equal(a.data, o.data) and torch.equal(a.scale, o.scale)
 
 
 def test_quant_wrappers_reject_bad_inputs(dev):
