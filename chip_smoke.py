@@ -177,6 +177,35 @@ Phases, each fatal on failure:
    (`linear.set_dense_kernel`) at 4 layers, and the debug cards
    tiny-llama-debug (head size 64) and micro-llama-debug (32) at their
    own widths. Each requires its variants' launches.
+   Then slice 11's checkpoints, each written from draws seeded by the
+   tensor's name with the port's own safetensors writer into a temporary
+   directory (synced and dropped from the page cache, so the load reads
+   the disk), served from there through `infer.do_load=true
+   models.ckpt_dir=<dir>` with the burst above, and deleted after:
+   Llama-3-8B-Instruct in HF naming, bf16, 8 layers in two files with a
+   `model.safetensors.index.json` (5.6 GB); the same at 4 layers as AWQ
+   and as GPTQ packed int4, group 128 (GPTQ with a shuffled `g_idx` that
+   q/k/v share and another that gate/up share), `quant.method=w4a16`
+   without `quant_on_load` (B6/B7 in its packed int4 mode must launch);
+   DeepSeek-R1 at 4 layers (3 dense, 1 MoE) laid out as its published
+   checkpoint (every projection and expert e4m3 with an f32
+   `weight_scale_inv`, the rest bf16, `e_score_correction_bias` f32; 17
+   GB; deepseek-mid-bench if the disk lacks room), where B6/B7 in e4m3
+   blockwise mode and B8 on the merged e4m3 experts must launch and B9
+   does not (a loaded fp8 `wkv_b` takes the dequant + einsum); and the
+   AWQ engine's tree dumped with `save_preprocessed` and served again
+   with `skip_preprocess=true`. Each checks that every loaded leaf equals
+   the written one byte for byte (drawn again from its seed: QTensor
+   data, scales, zeros and `in_perm`; the engine's merged MoE leaves part
+   by part) and that the greedy tokens of three prompts equal those of an
+   engine handed the same tree in memory (`Engine(cfg, params=...)`), and
+   prints a `load` line: seconds to load, GB/s read, peak and resident
+   device GiB, the host's peak resident set during bring-up. On the HF
+   Llama engine, `evals.perplexity_from_tokens` over 1,024 tokens
+   (windows of 512, stride 256) through the kernels and then through
+   `infer.attn_type=ref infer.op_impl=xla` (no kernel of either may
+   launch there): the two perplexities within 1e-3 relative (an `evals`
+   line).
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
@@ -197,7 +226,9 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
+import zlib
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
@@ -2262,16 +2293,58 @@ def plain_route_logits(torch, np, tk, eng, forbid):
     return rel
 
 
+def host_rss_gib() -> float:
+    """The process's resident set now, GiB (/proc/self/statm; mapped file
+    pages a load touched count while they stay mapped)."""
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * os.sysconf("SC_PAGE_SIZE") / 2**30
+
+
+@contextlib.contextmanager
+def host_peak(out):
+    """Sample the resident set every 5 ms while the body runs; the set at
+    its start lands in out["host_start_gib"], the peak in
+    out["host_peak_gib"], and the process's lifetime peak (getrusage) in
+    out["host_maxrss_gib"]."""
+    import resource
+    import threading
+
+    out["host_start_gib"] = host_rss_gib()
+    peak = [out["host_start_gib"]]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.005):
+            peak[0] = max(peak[0], host_rss_gib())
+
+    th = threading.Thread(target=sample, daemon=True)
+    th.start()
+    try:
+        yield
+    finally:
+        done.set()
+        th.join()
+        out["host_peak_gib"] = max(peak[0], host_rss_gib())
+        out["host_maxrss_gib"] = resource.getrusage(
+            resource.RUSAGE_SELF).ru_maxrss / 2**20
+
+
+BRINGUP = {}  # phase label -> its bring-up stats
+
+
 def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
                  lens=(40, 100, 200, 130, 60, 700), new_tokens=32,
                  need=ATTN_KERNELS, check_plain=False,
-                 model="Llama-3-8B-Instruct", shadow=False, forbid=()):
+                 model="Llama-3-8B-Instruct", shadow=False, forbid=(),
+                 after=None):
     """Bring up an engine, serve one lone prompt and then a burst that
     arrives while it decodes, check everything came back, and return the
     kernel launch counts of that run (zeroed just before it). `shadow`:
     then a short burst with every attention and B13 call shadowed by its
     plain version (`shadow_serve`). `forbid`: kernels that must not launch
-    in the burst (the plain route), then `plain_route_logits`."""
+    in the burst (the plain route), then `plain_route_logits`. `after(eng)`:
+    more checks on the idle engine before it goes; its dict joins the
+    phase's stats."""
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
 
@@ -2279,16 +2352,28 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
         f"models={model}", "infer.stop_with_eos=false", *overrides,
     ])
     torch.cuda.reset_peak_memory_stats()
+    host = {}
     t0 = time.time()
-    eng = Engine(cfg)
-    torch.cuda.synchronize()
+    with host_peak(host):
+        eng = Engine(cfg)
+        torch.cuda.synchronize()
     bringup = time.time() - t0
+    BRINGUP[label] = dict(
+        bringup_s=bringup,
+        peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+        resident_gib=torch.cuda.memory_allocated() / 2**30, **host,
+    )
+    source = (f"loaded from {cfg.models.ckpt_dir}" if cfg.infer.do_load
+              else "random weights")
     print(f"engine[{label}] bring-up {bringup:.1f} s "
-          f"({cfg.models.name}, {cfg.models.n_layers} layers, random weights, "
+          f"({cfg.models.name}, {cfg.models.n_layers} layers, {source}, "
           f"quant {cfg.quant.method}, KV pool {eng.cache.bytes() / 2**30:.2f} GiB, "
           f"peak during bring-up "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB, resident "
-          f"after it {torch.cuda.memory_allocated() / 2**30:.1f} GiB)",
+          f"{BRINGUP[label]['peak_gib']:.1f} GiB, resident "
+          f"after it {BRINGUP[label]['resident_gib']:.1f} GiB, host RSS "
+          f"{BRINGUP[label]['host_start_gib']:.2f} GiB at its start, peak "
+          f"{BRINGUP[label]['host_peak_gib']:.2f} GiB during it, "
+          f"{BRINGUP[label]['host_maxrss_gib']:.2f} GiB since the process began)",
           flush=True)
     rng = np.random.default_rng(0)
     V = cfg.models.vocab_size
@@ -2375,6 +2460,8 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
         stats["logits_row_rel_err_plain_route_vs_kernels"] = (
             plain_route_logits(torch, np, tk, eng, forbid))
     stats["kv_pool_gib"] = eng.cache.bytes() / 2**30
+    if after is not None:
+        stats.update(after(eng))
     print("engine " + json.dumps(stats), flush=True)
     eng.terminate()
     del eng
@@ -2470,6 +2557,565 @@ VARIANT_ROWS = [
     *((f"{k}[d32]", "micro_llama_d32") for k in ATTN_KERNELS),
     ("dense_matmul_stacked", "llama_dense_kernel"),
 ]
+
+
+# ---------------------------------------------------------------------------
+# Slice 11: checkpoints read from disk
+# ---------------------------------------------------------------------------
+
+GROUP = 128  # AWQ / GPTQ group of the int4 checkpoints
+FILE_BYTES = 4 << 30  # a checkpoint file holds tensors up to about this
+
+
+def draw(torch, dev, name, shape, kind):
+    """One tensor of a checkpoint, from a generator seeded by its name, on
+    the card: the same name gives the same bytes every time, so a leaf
+    that was written can be drawn again to check what was read."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(zlib.crc32(name.encode()))
+    r = lambda: torch.randn(shape, generator=g, device=dev)
+    if kind == "w":
+        return (r() * 0.02).to(torch.bfloat16)
+    if kind == "norm":
+        return (1.0 + 0.1 * r()).to(torch.bfloat16)
+    if kind == "f32":  # DeepSeek's e_score_correction_bias
+        return 0.1 * r()
+    if kind == "e4m3":  # spread over the e4m3 range, as a published weight
+        return (r() * 64).clamp(-448, 448).to(torch.float8_e4m3fn)
+    if kind == "scale_inv":  # weight ~ e4m3 * scale_inv ~ 0.02
+        return 2e-4 * (0.5 + torch.rand(shape, generator=g, device=dev))
+    if kind == "nibble":
+        return torch.randint(0, 16, shape, generator=g, device=dev, dtype=torch.int8)
+    if kind == "zero":  # 1..15: GPTQ stores zero - 1 in a nibble
+        return torch.randint(1, 16, shape, generator=g, device=dev).float()
+    if kind == "wscale":  # f16 values, so the f16 file holds them exactly
+        s = 0.001 + 0.004 * torch.rand(shape, generator=g, device=dev)
+        return s.to(torch.float16).float()
+    if kind == "gidx":  # a group of GROUP rows each, rows shuffled
+        K = shape[0]
+        return (torch.arange(K, device=dev) // GROUP)[
+            torch.randperm(K, generator=g, device=dev)]
+    raise ValueError(kind)
+
+
+def proj_tensors(torch, dev, name, out, inp, fmt, g_key=None):
+    """The checkpoint tensors of one projection `name` ([out, in] in the
+    HF layout) in format `fmt`: bf16, e4m3 + weight_scale_inv, AWQ or GPTQ
+    (g_key: the draw of a g_idx the projection shares; None: identity)."""
+    from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
+    from chitu_tpu_torch.quantize import packed
+
+    if fmt == "bf16":
+        return {f"{name}.weight": draw(torch, dev, f"{name}.weight", (out, inp), "w")}
+    if fmt == "fp8":
+        return {
+            f"{name}.weight": draw(torch, dev, f"{name}.weight", (out, inp), "e4m3"),
+            f"{name}.weight_scale_inv": draw(
+                torch, dev, f"{name}.weight_scale_inv",
+                (-(-out // 128), -(-inp // 128)), "scale_inv"),
+        }
+    data = draw(torch, dev, f"{name}.data", (inp, out), "nibble")
+    zeros = draw(torch, dev, f"{name}.zeros", (inp // GROUP, out), "zero")
+    scales = draw(torch, dev, f"{name}.scales", (inp // GROUP, out), "wscale")
+    if fmt == "awq":
+        parts = packed.pack_awq(QTensor(data=data, scale=scales, zeros=zeros,
+                                        kind=QuantKind.W4A16, block=GROUP))
+    else:
+        g = (draw(torch, dev, g_key, (inp,), "gidx") if g_key
+             else torch.arange(inp, device=dev) // GROUP)
+        parts = packed.pack_gptq(data, zeros, scales, g_idx=g)
+    return {f"{name}.{k}": v for k, v in parts.items()}
+
+
+def proj_leaf(torch, dev, name, out, inp, fmt, g_key=None):
+    """What the loader should make of `proj_tensors(...)`: [in, out] bf16,
+    or a QTensor with the e4m3 bytes transposed and their scales, or the
+    int4 values one a byte (rows sorted by group under an act-order
+    g_idx, the sort as `in_perm`)."""
+    from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
+
+    if fmt == "bf16":
+        return draw(torch, dev, f"{name}.weight", (out, inp), "w").T.contiguous()
+    if fmt == "fp8":
+        w = draw(torch, dev, f"{name}.weight", (out, inp), "e4m3")
+        s = draw(torch, dev, f"{name}.weight_scale_inv",
+                 (-(-out // 128), -(-inp // 128)), "scale_inv")
+        return QTensor(data=w.view(torch.uint8).T.contiguous().view(w.dtype),
+                       scale=s.T.contiguous(), kind=QuantKind.SOFT_FP8, block=128)
+    data = draw(torch, dev, f"{name}.data", (inp, out), "nibble")
+    q = QTensor(data=data,
+                scale=draw(torch, dev, f"{name}.scales", (inp // GROUP, out), "wscale"),
+                zeros=draw(torch, dev, f"{name}.zeros", (inp // GROUP, out), "zero"),
+                kind=QuantKind.W4A16, block=GROUP)
+    if fmt == "gptq" and g_key:
+        perm = torch.argsort(draw(torch, dev, g_key, (inp,), "gidx"), stable=True)
+        q.data, q.in_perm = data[perm], perm.to(torch.int32)
+    return q
+
+
+def _cat(torch, parts):
+    """Projection leaves side by side along the out dim (the merged
+    wqkv / w_gate_up of the llama family)."""
+    from chitu_tpu_torch.ops.qtensor import QTensor
+
+    if not isinstance(parts[0], QTensor):
+        return torch.cat(parts, dim=-1)
+    c = lambda n: torch.cat([getattr(p, n) for p in parts], dim=-1)
+    return QTensor(data=c("data"), scale=c("scale"), zeros=c("zeros"),
+                   kind=parts[0].kind, block=parts[0].block, in_perm=parts[0].in_perm)
+
+
+def _stack(torch, items):
+    from chitu_tpu_torch.ops.qtensor import TENSOR_FIELDS, QTensor
+
+    if not isinstance(items[0], QTensor):
+        return torch.stack(items)
+    kw = {n: (None if getattr(items[0], n) is None
+              else torch.stack([getattr(q, n) for q in items])) for n in TENSOR_FIELDS}
+    return QTensor(kind=items[0].kind, block=items[0].block, **kw)
+
+
+def llama_ckpt(torch, dev, m, fmt):
+    """A Llama checkpoint in HF naming as (name, make) groups in file
+    order (make() -> its tensors), and the tree the loader should build
+    from it (merged q/k/v and gate/up)."""
+    V, D, H, KV, F = m.vocab_size, m.dim, m.n_heads, m.n_kv_heads, m.inter_dim
+    Dh = m.head_dim or D // H
+    groups = [("model.embed_tokens.weight", lambda: {
+        "model.embed_tokens.weight": draw(torch, dev, "model.embed_tokens.weight", (V, D), "w")})]
+    attn = (("q", H * Dh, D), ("k", KV * Dh, D), ("v", KV * Dh, D), ("o", D, H * Dh))
+    ffn = (("gate", F, D), ("up", F, D), ("down", D, F))
+    for i in range(m.n_layers):
+        p = f"model.layers.{i}"
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            groups.append((f"{p}.{n}", lambda k=f"{p}.{n}.weight": {
+                k: draw(torch, dev, k, (D,), "norm")}))
+        for blk, projs in (("self_attn", attn), ("mlp", ffn)):
+            for x, out, inp in projs:
+                # act-order GPTQ: q/k/v share one g_idx, gate/up another
+                g_key = (f"{p}.{blk}.g_idx" if fmt == "gptq" and x not in ("o", "down")
+                         else None)
+                groups.append((f"{p}.{blk}.{x}_proj", lambda a=(
+                    f"{p}.{blk}.{x}_proj", out, inp, fmt, g_key):
+                    proj_tensors(torch, dev, *a)))
+    groups += [("model.norm.weight", lambda: {
+        "model.norm.weight": draw(torch, dev, "model.norm.weight", (D,), "norm")}),
+               ("lm_head.weight", lambda: {
+                   "lm_head.weight": draw(torch, dev, "lm_head.weight", (V, D), "w")})]
+
+    def tree():
+        def leaf(i, blk, x):
+            out, inp = {"q": (H * Dh, D), "k": (KV * Dh, D), "v": (KV * Dh, D),
+                        "o": (D, H * Dh), "gate": (F, D), "up": (F, D),
+                        "down": (D, F)}[x]
+            p = f"model.layers.{i}.{blk}"
+            g_key = f"{p}.g_idx" if fmt == "gptq" and x not in ("o", "down") else None
+            return proj_leaf(torch, dev, f"{p}.{x}_proj", out, inp, fmt, g_key)
+
+        L = range(m.n_layers)
+        norm = lambda n: torch.stack([draw(torch, dev, f"model.layers.{i}.{n}.weight",
+                                           (D,), "norm") for i in L])
+        return {
+            "embed": draw(torch, dev, "model.embed_tokens.weight", (V, D), "w"),
+            "norm": draw(torch, dev, "model.norm.weight", (D,), "norm"),
+            "lm_head": draw(torch, dev, "lm_head.weight", (V, D), "w").T.contiguous(),
+            "layers": {
+                "attn_norm": norm("input_layernorm"),
+                "ffn_norm": norm("post_attention_layernorm"),
+                "wqkv": _stack(torch, [_cat(torch, [leaf(i, "self_attn", x) for x in "qkv"])
+                                       for i in L]),
+                "wo": _stack(torch, [leaf(i, "self_attn", "o") for i in L]),
+                "w_gate_up": _stack(torch, [_cat(torch, [leaf(i, "mlp", x)
+                                                         for x in ("gate", "up")]) for i in L]),
+                "w_down": _stack(torch, [leaf(i, "mlp", "down") for i in L]),
+            },
+        }
+
+    return groups, tree
+
+
+def r1_ckpt(torch, dev, m):
+    """DeepSeek-R1 laid out as its published checkpoint is: every
+    projection and expert in e4m3 with an f32 weight_scale_inv; embed,
+    head, norms and router in bf16; e_score_correction_bias in f32. ->
+    (name, make) groups and the tree the loader should build."""
+    mo, ml = m.moe, m.mla
+    V, D, H, E, Fm, Fd = (m.vocab_size, m.dim, m.n_heads, mo.n_routed_experts,
+                          mo.moe_inter_dim, m.inter_dim)
+    Fs = Fm * max(mo.n_shared_experts, 1)
+    qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
+    attn = [("q_a_proj", "wq_a", ml.q_lora_rank, D),
+            ("q_b_proj", "wq_b", H * qk, ml.q_lora_rank),
+            ("kv_a_proj_with_mqa", "wkv_a", ml.kv_lora_rank + ml.qk_rope_head_dim, D),
+            ("kv_b_proj", "wkv_b", H * (ml.qk_nope_head_dim + ml.v_head_dim),
+             ml.kv_lora_rank),
+            ("o_proj", "wo", D, H * ml.v_head_dim)]
+    norms = [("input_layernorm", "attn_norm", D), ("post_attention_layernorm", "ffn_norm", D),
+             ("self_attn.q_a_layernorm", "q_norm", ml.q_lora_rank),
+             ("self_attn.kv_a_layernorm", "kv_norm", ml.kv_lora_rank)]
+    dense_mlp = [("gate_proj", "w_gate", Fd, D), ("up_proj", "w_up", Fd, D),
+                 ("down_proj", "w_down", D, Fd)]
+    moe_mlp = [("gate_proj", "gate", Fm, D), ("up_proj", "up", Fm, D),
+               ("down_proj", "down", D, Fm)]
+    one = lambda k, shape, kind: (k, lambda: {k: draw(torch, dev, k, shape, kind)})
+    fp8 = lambda n, out, inp: (n, lambda: proj_tensors(torch, dev, n, out, inp, "fp8"))
+    groups = [one("model.embed_tokens.weight", (V, D), "w")]
+    for i in range(m.n_layers):
+        p = f"model.layers.{i}"
+        groups += [one(f"{p}.{hf}.weight", (n,), "norm") for hf, _, n in norms]
+        groups += [fp8(f"{p}.self_attn.{hf}", o, n) for hf, _, o, n in attn]
+        if i < mo.n_dense_layers:
+            groups += [fp8(f"{p}.mlp.{hf}", o, n) for hf, _, o, n in dense_mlp]
+            continue
+        groups += [one(f"{p}.mlp.gate.weight", (E, D), "w"),
+                   one(f"{p}.mlp.gate.e_score_correction_bias", (E,), "f32")]
+        groups += [fp8(f"{p}.mlp.shared_experts.{hf}", o if o != Fm else Fs,
+                       n if n != Fm else Fs) for hf, _, o, n in moe_mlp]
+        groups += [fp8(f"{p}.mlp.experts.{e}.{hf}", o, n)
+                   for e in range(E) for hf, _, o, n in moe_mlp]
+    groups += [one("model.norm.weight", (D,), "norm"), one("lm_head.weight", (V, D), "w")]
+
+    def tree():
+        leaf = lambda n, o, i: proj_leaf(torch, dev, n, o, i, "fp8")
+
+        def stack(layers):
+            out = {ours: torch.stack([draw(torch, dev, f"model.layers.{i}.{hf}.weight",
+                                           (n,), "norm") for i in layers])
+                   for hf, ours, n in norms}
+            for hf, ours, o, n in attn:
+                out[ours] = _stack(torch, [leaf(f"model.layers.{i}.self_attn.{hf}", o, n)
+                                           for i in layers])
+            return out
+
+        dense_l = list(range(mo.n_dense_layers))
+        moe_l = list(range(mo.n_dense_layers, m.n_layers))
+        dense = stack(dense_l)
+        for hf, ours, o, n in dense_mlp:
+            dense[ours] = _stack(torch, [leaf(f"model.layers.{i}.mlp.{hf}", o, n)
+                                         for i in dense_l])
+        moe_p = stack(moe_l)
+        moe_p["moe_gate"] = torch.stack([
+            draw(torch, dev, f"model.layers.{i}.mlp.gate.weight", (E, D), "w").T
+            for i in moe_l])
+        moe_p["gate_bias"] = torch.stack([
+            draw(torch, dev, f"model.layers.{i}.mlp.gate.e_score_correction_bias",
+                 (E,), "f32") for i in moe_l])
+        for hf, x, o, n in moe_mlp:
+            so, sn = (Fs if o == Fm else o), (Fs if n == Fm else n)
+            moe_p[f"shared_{x}"] = _stack(torch, [
+                leaf(f"model.layers.{i}.mlp.shared_experts.{hf}", so, sn) for i in moe_l])
+            moe_p[f"exp_{x}"] = _stack(torch, [_stack(torch, [
+                leaf(f"model.layers.{i}.mlp.experts.{e}.{hf}", o, n) for e in range(E)])
+                for i in moe_l])
+        return {
+            "embed": draw(torch, dev, "model.embed_tokens.weight", (V, D), "w"),
+            "norm": draw(torch, dev, "model.norm.weight", (D,), "norm"),
+            "lm_head": draw(torch, dev, "lm_head.weight", (V, D), "w").T.contiguous(),
+            "dense_layers": dense,
+            "moe_layers": moe_p,
+        }
+
+    return groups, tree
+
+
+def write_checkpoint(torch, groups, d, files=None):
+    """Write the groups' tensors with the port's own writer into `d`, file
+    by file (HF sharded naming and a model.safetensors.index.json): a
+    file's tensors are drawn on the card, written and dropped before the
+    next; `files` fixes the file count, else a file holds about
+    FILE_BYTES. Each file is synced and dropped from the page cache, so
+    the load reads the disk. -> bytes written."""
+    from chitu_tpu_torch.utils.safetensors import save_file
+
+    os.makedirs(d, exist_ok=True)
+    chunks, cur, size = [], [], 0
+    for name, make in groups:
+        cur.append(make)
+        if files is None:
+            t = make()
+            size += sum(v.numel() * v.element_size() for v in t.values())
+            del t
+            if size >= FILE_BYTES:
+                chunks.append(cur)
+                cur, size = [], 0
+    if cur:
+        chunks.append(cur)
+    if files is not None:
+        per = -(-len(groups) // files)
+        chunks = [[mk for _, mk in groups[i:i + per]] for i in range(0, len(groups), per)]
+    weight_map, total = {}, 0
+    for j, makes in enumerate(chunks):
+        fname = f"model-{j + 1:05d}-of-{len(chunks):05d}.safetensors"
+        tensors = {}
+        for mk in makes:
+            tensors.update(mk())
+        path = os.path.join(d, fname)
+        save_file(tensors, path)
+        weight_map.update({k: fname for k in tensors})
+        total += sum(v.numel() * v.element_size() for v in tensors.values())
+        del tensors
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    with open(os.path.join(d, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return total
+
+
+MERGED = {"wq_kv_a": ("wq_a", "wkv_a"), "shared_gu": ("shared_gate", "shared_up"),
+          "exp_gu": ("exp_gate", "exp_up")}
+
+
+def _leaf_equal(torch, got, want):
+    """Byte equality of two leaves; QTensors field by field, packed int4
+    compared one nibble a byte."""
+    from chitu_tpu_torch.ops.qtensor import TENSOR_FIELDS, QTensor, unpack_int4
+
+    if isinstance(want, QTensor):
+        if not isinstance(got, QTensor) or (got.kind, got.block) != (want.kind, want.block):
+            return False
+        got = unpack_int4(got) if got.packed else got
+        return all(
+            (getattr(got, n) is None) == (getattr(want, n) is None)
+            and (getattr(want, n) is None
+                 or _leaf_equal(torch, getattr(got, n), getattr(want, n)))
+            for n in TENSOR_FIELDS)
+    raw = lambda t: t.contiguous().reshape(-1).view(torch.uint8)
+    return (not isinstance(got, QTensor) and got.dtype == want.dtype
+            and tuple(got.shape) == tuple(want.shape)
+            and torch.equal(raw(got), raw(want)))
+
+
+def _split(got, widths, scale_widths):
+    """A merged leaf's parts along the out dim (data, and scale at the
+    scales' widths)."""
+    from chitu_tpu_torch.ops.qtensor import QTensor
+
+    out, o, so = [], 0, 0
+    for w, sw in zip(widths, scale_widths):
+        out.append(QTensor(data=got.data[..., o:o + w], scale=got.scale[..., so:so + sw],
+                           kind=got.kind, block=got.block))
+        o, so = o + w, so + sw
+    return out
+
+
+def loaded_leaves_equal(torch, got, want, path=""):
+    """-> the paths of the engine's leaves (`got`: its params tree, MoE
+    gate/up merged by the engine) that differ from what was written
+    (`want`: the tree the loader should build)."""
+    bad = []
+    for k, g in got.items():
+        if isinstance(g, dict):
+            bad += loaded_leaves_equal(torch, g, want[k], f"{path}{k}/")
+        elif k in MERGED and k not in want:
+            parts = [want[p] for p in MERGED[k]]
+            for p, w, name in zip(_split(g, [w.data.shape[-1] for w in parts],
+                                         [w.scale.shape[-1] for w in parts]), parts, MERGED[k]):
+                if not _leaf_equal(torch, p, w):
+                    bad.append(f"{path}{k}[{name}]")
+        elif k not in want or not _leaf_equal(torch, g, want[k]):
+            bad.append(f"{path}{k}")
+    return bad
+
+
+def greedy_tokens(np, eng, vocab):
+    """Greedy tokens of three prompts (16 new each) submitted together."""
+    from chitu_tpu_torch import SampleParams
+
+    rng = np.random.default_rng(23)
+    reqs = [eng.submit("", SampleParams(temperature=0.0, max_new_tokens=16),
+                       prompt_tokens=[int(x) for x in rng.integers(1, vocab, size=n)])
+            for n in (30, 90, 200)]
+    eng.run_until_complete()
+    return [list(r.async_stream.tokens) for r in reqs]
+
+
+def ppl_kernels_vs_plain(torch, np, tk, eng):
+    """`evals.perplexity_from_tokens` over 1,024 tokens (windows of 512,
+    stride 256), first through the kernels, then the same model through
+    `infer.attn_type=ref infer.op_impl=xla`; the attention kernel must
+    launch in the first and none in the second."""
+    from chitu_tpu_torch import evals
+    from chitu_tpu_torch.ops import linear
+
+    rng = np.random.default_rng(31)
+    toks = [int(x) for x in rng.integers(1, eng.cfg.models.vocab_size, size=1024)]
+    tk.reset_launch_counts()
+    t0 = time.time()
+    got = evals.perplexity_from_tokens(eng, toks, window=512, stride=256)
+    torch.cuda.synchronize()
+    t_k = time.time() - t0
+    launched = dict(tk.LAUNCHES)
+    route = eng.model.attn_route, eng.model.attn
+    eng.model.attn_route, eng.model.attn = tk.attention_route("ref")
+    linear.set_op_impl("xla")
+    try:
+        tk.reset_launch_counts()
+        t0 = time.time()
+        want = evals.perplexity_from_tokens(eng, toks, window=512, stride=256)
+        torch.cuda.synchronize()
+        t_p = time.time() - t0
+        off = routed_off(tk, ROUTED_OFF)
+    finally:
+        eng.model.attn_route, eng.model.attn = route
+        linear.set_op_impl("auto")
+    if off:
+        raise AssertionError(f"evals: the plain route launched kernels: {off}")
+    if launched.get("attend_prefill", 0) <= 0:
+        raise AssertionError("evals: the kernel route launched no attend_prefill")
+    rel = abs(got - want) / want
+    if not (math.isfinite(got) and rel < PPL_RTOL):
+        raise AssertionError(f"evals: perplexity {got} through the kernels, {want} "
+                             f"plain (relative {rel:.2e}, limit {PPL_RTOL})")
+    return dict(ppl_kernels=got, ppl_plain=want, ppl_rel_diff=rel, ppl_kernels_s=t_k,
+                ppl_plain_s=t_p, ppl_launches=launched)
+
+
+# the two perplexities of one model through the kernels and their plain
+# versions: each window's logits differ by the rounding of two sound bf16
+# forwards (LOGITS_RTOL per row at most), which moves a mean
+# log-probability by far less
+PPL_RTOL = 1e-3
+R1_FP8_NEED = tuple(k for k in MLA_KERNELS if k != "absorb_matmul") + ("quant_gemm",)
+LOAD_PHASES = [
+    # (label, model card, overrides, checkpoint format, kernels that must
+    # have launched). Full width; depth cut to what the checkpoint's disk
+    # and the card hold.
+    ("load_llama_hf", LLAMA, ["models.n_layers=8"], "bf16", ATTN_KERNELS),
+    ("load_llama_awq", LLAMA, ["models.n_layers=4", "quant.method=w4a16"], "awq",
+     ATTN_KERNELS + ("quant_gemm",)),
+    ("load_llama_gptq", LLAMA, ["models.n_layers=4", "quant.method=w4a16"], "gptq",
+     ATTN_KERNELS + ("quant_gemm",)),
+    ("load_r1_fp8", R1, ["models.n_layers=4"], "fp8", R1_FP8_NEED),
+]
+
+
+def load_phases(torch, np, tk, card, root):
+    """Slice 11's phases: each writes a checkpoint from seeded draws with
+    the port's writer into `root`, serves it through `engine_phase` with
+    `infer.do_load=true models.ckpt_dir=<dir>` and checks that every
+    loaded leaf equals what was written, byte for byte, and that its
+    greedy tokens equal those of an engine handed the same tree in memory
+    (`Engine(cfg, params=...)`); then the AWQ engine's tree is dumped with
+    `save_preprocessed` and served again with `skip_preprocess=true`, and
+    the evals phase runs on the HF Llama engine. -> launches by phase."""
+    import shutil
+
+    from chitu_tpu_torch import load_config
+    from chitu_tpu_torch.engine import Engine
+    from chitu_tpu_torch.loader import save_preprocessed
+
+    dev = torch.device("cuda", 0)
+    out, tokens = {}, {}
+    for label, model, ovr, fmt, need in LOAD_PHASES:
+        m = load_config(overrides=[f"models={model}", *ovr]).models
+        if fmt == "fp8":
+            groups, tree = r1_ckpt(torch, dev, m)
+            nbytes = sum(sum(v.numel() * v.element_size() for v in mk().values())
+                         for _, mk in groups)
+            free = shutil.disk_usage(root).free
+            if free < nbytes * 1.1:
+                # the checkpoint's disk decides the depth: deepseek-mid-bench
+                # keeps R1's layer kinds at a quarter of the bytes
+                print(f"[{label}] {nbytes / 1e9:.1f} GB of checkpoint do not fit "
+                      f"{free / 1e9:.1f} GB free: deepseek-mid-bench instead", flush=True)
+                model, ovr = "deepseek-mid-bench", []
+                m = load_config(overrides=[f"models={model}"]).models
+                groups, tree = r1_ckpt(torch, dev, m)
+        else:
+            groups, tree = llama_ckpt(torch, dev, m, fmt)
+        d = os.path.join(root, label)
+        t0 = time.time()
+        nbytes = write_checkpoint(torch, groups, d, files=2 if fmt == "bf16" else None)
+        write_s = time.time() - t0
+        print(f"[{label}] wrote {nbytes / 1e9:.2f} GB in {write_s:.1f} s "
+              f"({len(os.listdir(d)) - 1} files, {d})", flush=True)
+        load = ["infer.do_load=true", f"models.ckpt_dir={d}"]
+
+        def after(eng, label=label, nbytes=nbytes, tree=tree):
+            b = BRINGUP[label]
+            stats = dict(ckpt_gb=nbytes / 1e9, write_s=write_s, load_s=b["bringup_s"],
+                         read_gbps=nbytes / 1e9 / b["bringup_s"],
+                         load_peak_gib=b["peak_gib"], resident_gib=b["resident_gib"],
+                         host_start_gib=b["host_start_gib"],
+                         host_peak_gib=b["host_peak_gib"],
+                         host_maxrss_gib=b["host_maxrss_gib"])
+            want = tree()
+            bad = loaded_leaves_equal(torch, eng.model.params_tree(), want)
+            del want
+            torch.cuda.empty_cache()
+            if bad:
+                raise AssertionError(f"[{label}] loaded leaves differ from what was "
+                                     f"written: {bad}")
+            tokens[label] = greedy_tokens(np, eng, eng.cfg.models.vocab_size)
+            if label == "load_llama_hf":
+                ev = ppl_kernels_vs_plain(torch, np, tk, eng)
+                print("evals " + json.dumps(dict(phase="evals", card=card, **ev)),
+                      flush=True)
+                stats.update(ev)
+            if label == "load_llama_awq":
+                t0 = time.time()
+                save_preprocessed(eng.model.params_tree(),
+                                  os.path.join(d, "chitu_tpu_preprocessed"),
+                                  layout={"merge_tp": 1})
+                stats["preprocessed_save_s"] = time.time() - t0
+            if label == "load_r1_fp8":
+                on_load = BRINGUP.get("r1_soft_fp8", {})
+                stats["model"] = eng.cfg.models.name
+                stats["r1_soft_fp8_on_load_peak_gib"] = on_load.get("peak_gib")
+            print("load " + json.dumps(dict(phase=label, card=card, **stats)), flush=True)
+            return stats
+
+        out[label] = engine_phase(torch, np, tk, card, label, ovr + load, need=need,
+                                  model=model, after=after)
+        # the same tree handed over in memory
+        cfg = load_config(overrides=[f"models={model}", "infer.stop_with_eos=false", *ovr])
+        eng = Engine(cfg, params=tree())
+        same = greedy_tokens(np, eng, cfg.models.vocab_size)
+        eng.terminate()
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        if same != tokens[label]:
+            raise AssertionError(f"[{label}] greedy tokens of the loaded engine "
+                                 f"{tokens[label]} differ from the in-memory tree's {same}")
+        print(f"[{label}] loaded leaves byte-equal to the written ones; greedy tokens "
+              f"equal to the in-memory tree's", flush=True)
+        if label == "load_llama_awq":
+            pre = ovr + load + ["skip_preprocess=true"]
+
+            def after_pre(eng, tree=tree):
+                bad = loaded_leaves_equal(torch, eng.model.params_tree(), tree())
+                torch.cuda.empty_cache()
+                if bad:
+                    raise AssertionError(f"[load_preprocessed] leaves differ: {bad}")
+                toks = greedy_tokens(np, eng, eng.cfg.models.vocab_size)
+                if toks != tokens["load_llama_awq"]:
+                    raise AssertionError("[load_preprocessed] greedy tokens differ "
+                                         "from the AWQ checkpoint's")
+                b = BRINGUP["load_preprocessed"]
+                dump = os.path.join(d, "chitu_tpu_preprocessed")
+                gb = sum(os.path.getsize(os.path.join(dump, f)) for f in os.listdir(dump)) / 1e9
+                stats = dict(ckpt_gb=gb, load_s=b["bringup_s"],
+                             read_gbps=gb / b["bringup_s"], load_peak_gib=b["peak_gib"],
+                             resident_gib=b["resident_gib"],
+                             host_start_gib=b["host_start_gib"],
+                             host_peak_gib=b["host_peak_gib"],
+                             host_maxrss_gib=b["host_maxrss_gib"])
+                print("load " + json.dumps(dict(phase="load_preprocessed", card=card,
+                                                **stats)), flush=True)
+                return stats
+
+            out["load_preprocessed"] = engine_phase(
+                torch, np, tk, card, "load_preprocessed", pre, need=need, model=model,
+                after=after_pre)
+        shutil.rmtree(d, ignore_errors=True)
+    return out
 
 
 def row_key(res):
@@ -2602,6 +3248,15 @@ def main():
                                         need=need, model=model, shadow=True)
         finally:
             linear.set_dense_kernel(False)
+
+    # slice 11: checkpoints read from disk, in a directory deleted after
+    root = tempfile.mkdtemp(prefix="chitu_ckpt_")
+    try:
+        phase.update(load_phases(torch, np, tk, card, root))
+    finally:
+        import shutil
+
+        shutil.rmtree(root, ignore_errors=True)
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []

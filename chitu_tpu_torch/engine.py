@@ -2,23 +2,26 @@
 
 Counterpart of `chitu_tpu/engine.py` (reference: chitu/chitu_main.py:38-131
 and chitu/backend.py:86-405), for one GPU: tokenizer -> model -> weights
-(random from a seeded `torch.Generator`, or a named tensor dict such as
-`params_from_numpy` gives) -> KV pool -> scheduler -> executor. The run
-loop mirrors `chitu_run` (reference: chitu_main.py:100-121): schedule ->
-step -> update.
+(read from `models.ckpt_dir` when `infer.do_load` is set, `loader.py`;
+else a named tensor dict such as `params_from_numpy` gives; else random
+from a seeded `torch.Generator`) -> KV pool -> scheduler -> executor. The
+run loop mirrors `chitu_run` (reference: chitu_main.py:100-121): schedule
+-> step -> update.
 
-With `quant.method` set and `quant.quant_on_load`, the projection weights
-are quantized after init or load (`quantize.quantize_params`), and W4A16
-storage is then packed two nibbles a byte on the device; a parameter dict
-may also hold `QTensor`s already. Quantized MoE gate and up expert stacks
-are then merged into one leaf (`quantize.merge_moe_gate_up`), as the JAX
-engine does. A configuration that lands on a known slow path (MoE experts
-on the capacity route) is named once in a warning at bring-up
-(`Engine.degraded`).
+A checkpoint may hold quantized projections already (AWQ / GPTQ packed
+int4, DeepSeek's native fp8), which load as `QTensor`s whatever
+`quant.method` says. With `quant.method` set and `quant.quant_on_load`,
+the dense projection weights are quantized after the load or the random
+draw (`quantize.quantize_params`). Then, whatever the weights' source,
+W4A16 storage is packed two nibbles a byte on the device and quantized
+MoE gate and up stacks are merged into one leaf
+(`quantize.merge_moe_gate_up`), as the JAX engine does. A configuration
+that lands on a known slow path (MoE experts on the capacity route) is
+named once in a warning at bring-up (`Engine.degraded`).
 
 The engine runs on CUDA unless `device="cpu"` is passed; with no GPU and
-no explicit device it raises. Configurations that later slices bring
-raise NotImplementedError naming the ROADMAP slice.
+no explicit device it raises. Configurations that later work brings raise
+NotImplementedError naming the ROADMAP queue A item.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import torch
 from chitu_tpu_torch.config import EngineConfig
 from chitu_tpu_torch.executor import Executor
 from chitu_tpu_torch.kvcache import PagedKVCache
+from chitu_tpu_torch.loader import load_checkpoint
 from chitu_tpu_torch.models import build_model
 from chitu_tpu_torch.ops.attention_kernels import ATTN_TYPES
 from chitu_tpu_torch.ops.linear import OP_IMPLS, set_fp8_act, set_op_impl
@@ -84,25 +88,26 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
             f"infer.op_impl={infer.op_impl!r}: expected one of {OP_IMPLS}")
     todo = []
     if infer.tp_size > 1 or infer.pp_size > 1 or infer.dp_size > 1:
-        todo.append("tp/pp/dp > 1 (slice 7: multi-GPU)")
+        todo.append("tp/pp/dp > 1 (A.6: multi-GPU)")
     if infer.ring_prefill or infer.ring_kv:
-        todo.append("ring prefill / ring KV (slice 7: multi-GPU)")
+        todo.append("ring prefill / ring KV (A.6: multi-GPU)")
     if (
         quant.method not in ("none", "")
         and not quant.quant_on_load
         and not have_params
+        and not (infer.do_load and cfg.models.ckpt_dir)
     ):
+        # the JAX engine serves such a configuration unquantized
         todo.append(
-            f"quant.method={quant.method} from a quantized checkpoint "
-            "(slice 1, item 9: loader.py, and the AWQ/GPTQ unpack of slice "
-            "5); set quant.quant_on_load=true to quantize on load"
+            f"quant.method={quant.method} on random weights: they are "
+            "quantized only on load (quant.quant_on_load=true); quantized "
+            "weights come from a checkpoint (infer.do_load=true "
+            "models.ckpt_dir=...)"
         )
     if infer.spec_decode:
-        todo.append("spec_decode (slice 6)")
+        todo.append("spec_decode (A.2: n-gram speculative decoding)")
     if infer.prefix_cache:
-        todo.append("prefix_cache (slice 6)")
-    if infer.do_load and cfg.models.ckpt_dir:
-        todo.append("checkpoint loading (slice 1, item 9: loader.py)")
+        todo.append("prefix_cache (A.1: the prefix cache)")
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP queue A): " + "; ".join(todo)
@@ -146,26 +151,28 @@ class Engine:
         self.model = build_model(margs, cfg, device=self.device)
 
         t0 = time.time()
-        if params is not None:
-            self.model.load_params(params)
+        if cfg.infer.do_load and margs.ckpt_dir:
+            if params is not None:
+                raise ValueError("params given and infer.do_load set: pick one")
+            # no random draw first: the checkpoint's leaves are the only
+            # copy of the weights on the device
+            tree = load_checkpoint(self.model, cfg, self.device)
         else:
-            # arch-only debug: random weights (reference: infer.do_load=
-            # False, config/serve_config.yaml:9)
-            gen = torch.Generator(device=self.device)
-            gen.manual_seed(cfg.infer.seed)
-            self.model.init_params(gen, _DTYPES[cfg.dtype])
-        quantize = cfg.quant.method not in ("none", "") and cfg.quant.quant_on_load
-        if quantize or margs.moe is not None:
+            if params is not None:
+                self.model.load_params(params)
+            else:
+                # arch-only debug: random weights (reference: infer.do_load=
+                # False, config/serve_config.yaml:9)
+                gen = torch.Generator(device=self.device)
+                gen.manual_seed(cfg.infer.seed)
+                self.model.init_params(gen, _DTYPES[cfg.dtype])
             tree = self.model.params_tree(pop=True)
-            if quantize:
-                # destructive walk over the popped tree: each dense leaf
-                # is freed as it is replaced; int4 storage is packed
-                # afterwards, on the device
-                tree = pack_int4_storage(
-                    quantize_params(tree, cfg.quant, self.model)
-                )
-            # one grouped GEMM per MoE layer for gate + up
-            self.model.load_params(merge_moe_gate_up(tree))
+        if cfg.quant.method not in ("none", "") and cfg.quant.quant_on_load:
+            # destructive walk: each dense leaf is freed as it is replaced
+            tree = quantize_params(tree, cfg.quant, self.model)
+        # int4 storage packed on the device; one grouped GEMM per MoE
+        # layer for gate + up
+        self.model.load_params(merge_moe_gate_up(pack_int4_storage(tree)))
         logger.info("params ready in %.1fs", time.time() - t0)
 
         spec = self.model.kv_cache_spec()

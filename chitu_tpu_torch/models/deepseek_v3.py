@@ -36,8 +36,9 @@ runs plain multi-head attention on the split K/V layout at head_dim 192,
 V padded from 128 to 192 lanes in the pool row: the same four kernels at
 that head size (`_mla_dense`). The param tree is the absorb path's.
 
-Not ported yet: the ring and pipeline paths, and the DeepSeek checkpoint
-adapter (with loader.py).
+Its checkpoints (bf16, or the published native fp8 with
+`weight_scale_inv`) load through `loaders_moe.load_deepseek_params`. Not
+ported yet: the ring and pipeline paths (ROADMAP queue A.6).
 """
 
 from __future__ import annotations
@@ -85,8 +86,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
         infer = cfg.infer
         if infer.tp_size > 1 or infer.pp_size > 1:
             raise NotImplementedError(
-                "tp_size/pp_size > 1 are not ported yet (ROADMAP queue A, "
-                "slice 7: multi-GPU)"
+                "tp_size/pp_size > 1 are not ported yet (ROADMAP queue "
+                "A.6: multi-GPU)"
             )
         self.args = args
         self.cfg = cfg

@@ -16,9 +16,10 @@ activations from the fused norm+quant kernel. The KV pool in
 `cache["kv"]` is updated IN PLACE and returned for symmetry with the JAX
 functions.
 
-Not ported yet: `verify_draft` (speculative decoding), the ring and
-tensor-parallel paths, and the unmerged weight layout (an unmerged JAX
-tree is merged by `params_from_numpy`).
+Checkpoints load through `loader.load_checkpoint`, which merges what it
+reads. Not ported yet: `verify_draft` (speculative decoding), the ring
+and tensor-parallel paths, and the unmerged weight layout (an unmerged
+JAX tree is merged by `params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -123,13 +124,25 @@ def _cat_out(parts):
     q0 = parts[0]
     if not all(
         isinstance(p, QTensor) and p.kind == q0.kind and p.block == q0.block
-        and p.in_perm is None and p.oc_idx is None for p in parts
+        and p.oc_idx is None for p in parts
     ):
         raise NotImplementedError(
-            "an unmerged quantized tree with mixed kinds, act-order "
-            "permutations or outlier rows cannot be merged into wqkv / "
-            "w_gate_up; quantize the merged layout instead"
+            "an unmerged quantized tree with mixed kinds or outlier rows "
+            "cannot be merged into wqkv / w_gate_up; quantize the merged "
+            "layout instead"
         )
+    # act-order GPTQ: the parts see one input, so their row orders are
+    # usually one permutation, which the merged leaf keeps
+    if q0.in_perm is not None or any(p.in_perm is not None for p in parts):
+        if not all(
+            p.in_perm is not None and torch.equal(p.in_perm, q0.in_perm)
+            for p in parts
+        ):
+            raise NotImplementedError(
+                "act-order parts with differing input permutations cannot "
+                "be merged into wqkv / w_gate_up; the unmerged weight "
+                "layout is not ported (ROADMAP queue A.6, with multi-GPU)"
+            )
     repack = all(p.packed for p in parts)
     parts = [unpack_int4(p) if p.packed else p for p in parts]
     blockwise = (
@@ -148,7 +161,7 @@ def _cat_out(parts):
         else cat("data"),
         scale=cat("scale"),
         zeros=cat("zeros") if q0.zeros is not None else None,
-        kind=q0.kind, block=q0.block,
+        kind=q0.kind, block=q0.block, in_perm=q0.in_perm,
     )
     if repack:
         from chitu_tpu_torch.quantize.transforms import pack_int4_storage
@@ -221,8 +234,8 @@ class LlamaForCausalLM(nn.Module):
         infer = cfg.infer
         if infer.tp_size > 1 or infer.pp_size > 1:
             raise NotImplementedError(
-                "tp_size/pp_size > 1 are not ported yet (ROADMAP queue A, "
-                "slice 7: multi-GPU)"
+                "tp_size/pp_size > 1 are not ported yet (ROADMAP queue "
+                "A.6: multi-GPU)"
             )
         if infer.merge_qkv_gate_up == "off":
             raise NotImplementedError(

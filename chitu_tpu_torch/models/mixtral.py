@@ -10,8 +10,8 @@ of a layer is `route` + `moe_ffn_auto` (`models/moe.py`): the token-sorted
 dispatch through the grouped GEMM kernel for bf16 and e4m3 experts, the
 capacity route for the stacks that kernel does not take.
 
-Not ported yet: expert parallelism over a mesh (with the multi-GPU slice)
-and the HF checkpoint loader (`chitu_tpu/loaders_moe.py`).
+Its HF checkpoints load through `loaders_moe.load_mixtral_params`. Not
+ported yet: expert parallelism over a mesh (ROADMAP queue A.6, multi-GPU).
 """
 
 from __future__ import annotations

@@ -220,7 +220,7 @@ def test_unknown_quant_method_rejected():
 )
 def test_unported_configurations_raise(override):
     # the DeepSeek card serves since slice 4 (its dense MLA path since
-    # slice 5); what still raises there is the ring KV of slice 7
+    # slice 5); what still raises there is the ring KV of queue A.6
     extra = ["infer.ring_kv=true"] if "deepseek" in override else []
     cfg = load_config(overrides=TINY + [override] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP|slice"):

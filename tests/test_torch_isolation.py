@@ -1,7 +1,8 @@
 """The port stands alone: every module of chitu_tpu_torch imports with
-jax and chitu_tpu blocked (and without PyYAML, aiohttp or pydantic), so
-does chip_smoke.py, and the engine never falls back to the CPU on its
-own."""
+jax and chitu_tpu blocked (and without PyYAML, aiohttp, pydantic,
+safetensors, transformers, tokenizers or ml_dtypes, which the GPU machine
+lacks), so does chip_smoke.py, and the engine never falls back to the CPU
+on its own."""
 
 import os
 import subprocess
@@ -14,7 +15,8 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _BLOCKED_IMPORTS = r"""
 import importlib, pkgutil, sys
-for name in ("jax", "jaxlib", "chitu_tpu", "yaml", "aiohttp", "pydantic"):
+for name in ("jax", "jaxlib", "chitu_tpu", "yaml", "aiohttp", "pydantic",
+             "safetensors", "transformers", "tokenizers", "ml_dtypes"):
     sys.modules[name] = None  # any import of these now raises ImportError
 import chitu_tpu_torch
 mods = [m.name for m in pkgutil.walk_packages(
@@ -25,7 +27,8 @@ for m in mods:
 import chip_smoke
 from chitu_tpu_torch import load_config
 load_config(overrides=["models=Llama-3-8B-Instruct"])
-leaked = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "chitu_tpu")
+leaked = sorted(k for k in sys.modules if k.split(".")[0] in (
+    "jax", "chitu_tpu", "safetensors", "transformers", "tokenizers", "ml_dtypes")
                 and sys.modules[k] is not None)
 assert not leaked, leaked
 print(len(mods))

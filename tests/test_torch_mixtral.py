@@ -244,8 +244,9 @@ def test_engine_generates_with_every_expert_layout(method, act, merged, capacity
 
 def test_deepseek_still_raises():
     """The DeepSeek card serves since slice 4 (its dense MLA path since
-    slice 5); split over two GPUs it still raises, naming its slice."""
+    slice 5); split over two GPUs it still raises, naming its ROADMAP
+    item (queue A's multi-GPU)."""
     cfg = tload(overrides=["models=tiny-deepseek-debug", "infer.max_seq_len=128",
                            "infer.tp_size=2"])
-    with pytest.raises(NotImplementedError, match="slice 7"):
+    with pytest.raises(NotImplementedError, match="A.6: multi-GPU"):
         Engine(cfg, device="cpu")
