@@ -5,7 +5,8 @@
 
 Phases, each fatal on failure:
 1. Card: name and power limit; TF32 off; build the CUDA kernels from
-   `chitu_tpu_torch/csrc/` (nvcc, sm_90a) and report the build time.
+   `chitu_tpu_torch/csrc/` (nvcc, sm_90a) and the native page allocator
+   (`csrc/hostops.cpp`, g++), and report both build times.
 2. Kernels: B1 attend_decode_fused, B2 attend_prefill_packed_fused and
    B5 attend_prefill at the shapes Llama-3-8B-Instruct serving gives them,
    each case held against its plain PyTorch version on the same inputs:
@@ -166,6 +167,12 @@ Phases, each fatal on failure:
    output; warm and cold as B9). Library yardsticks for attention: SDPA on
    the gathered, decoded K/V (the split B3 too). Bounds count a pool
    element as one byte in e4m3.
+   Slice 12's geometries at Llama-3-8B's shapes, held the same way (two
+   launches and a graph replay bit-equal too): B3 as `verify_draft` packs
+   a spec verify round (16 rows of K1 = 5 tokens, one block a row at
+   `block_qstart` = the row's context of 300-2,000 tokens, one dead row)
+   and B2 with three prefix-cache hit tails of 40, 150 and 300 tokens
+   whose blocks start at 1,024 on a 16-page prefix the rows share.
    Then slice 5's serving, each the same lone prompt and two-wave burst
    at full width, then a short shadowed burst in which every attention
    and B13 call also runs its plain version on equal inputs (the appending
@@ -206,12 +213,50 @@ Phases, each fatal on failure:
    `infer.attn_type=ref infer.op_impl=xla` (no kernel of either may
    launch there): the two perplexities within 1e-3 relative (an `evals`
    line).
+   Then slice 12, each phase printing its page allocator (every engine
+   without the prefix cache must run `NativeBackedPageAllocator`):
+   `prefix_cache`, Llama-3-8B-Instruct at 32 layers, bf16, random
+   weights, `infer.prefix_cache=true`: a cold burst of six prompts (one
+   1,024-token prefix, tails of 40-300 tokens; no page hit, the chunked
+   prefill), the same burst warm (each hits the 16 shared pages, B2 runs
+   the tails from `block_qstart` 1,024 and `_prefill_one` is never
+   called), a lone warm prompt (`_prefill_one` from 1,024: B5), the
+   prefill device ms of the cold and the warm burst (torch.profiler over
+   the step that prefills them), pages and slots back with the LRU
+   counted; then the same weights at `infer.kv_pool_frac=0.01` (33
+   pages): two stale prompts fill the LRU, a shared 128-token prefix is
+   published, and eight requests of 200 new tokens outgrow the pool, so
+   LRU eviction and preemption both fire (each counted, each > 0),
+   against an uncached engine's tokens. `spec_decode`: the same weights
+   with `infer.spec_decode=ngram infer.spec_k=4`: a greedy burst of six
+   against the same burst with `executor.spec_enabled = False`, one
+   sampled request that leaves `_spec_stats` as it was, tokens a verify
+   round and B3's launches printed, one verify round with every attention
+   call shadowed by its plain version; micro-llama-debug the same
+   without the shadow (its two layers of random weights loop, so drafts
+   must be accepted: more than one token a round); Mixtral-8x7B-Instruct-
+   v0.1 bf16 at 4 layers the same (B3 and B8 must launch; the round with every GEMM
+   call shadowed); DeepSeek-R1 bf16 at 4 layers (3 dense, 1 MoE) with the
+   prefix cache and spec decode: a warm burst hits, the latent B3 runs its
+   tails and spec decode falls back to windows (`_spec_stats` stays zero).
+   Every token comparison of slice 12 follows the near-tie rule: a stream
+   equal in full passes; otherwise, at its first divergent token, one
+   teacher-forced prefill of prompt + reference through the kernels gives
+   that position's logits row, and the two tokens' logits must lie within
+   1e-2 of the row's spread (largest minus smallest logit) or within 3
+   sigma, sigma being sqrt(2) x the rms difference between that row and
+   the same row through the plain versions of every kernel (the Mixtral
+   phase, where a router flip moves whole rows, takes 0.15 of the spread
+   alone); every divergence is printed with its gap, and later tokens are
+   not compared.
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
    latent B1/B5 from R1 bf16, e4m3 from the fp8-KV phases, d192 from R1
    dense, d64 from tiny-llama-debug, d32 from micro-llama-debug, B13 from
-   the dense-kernel phase),
+   the dense-kernel phase; slice 12's B3 verify geometry with B3's
+   launches in the `spec_decode` phase, and its B2 from 1,024 with B2's
+   launches in the warm `prefix_cache` burst),
    then the card's name and power limit, then the device JSON as the last
    line.
 
@@ -2375,6 +2420,7 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
           f"{BRINGUP[label]['host_peak_gib']:.2f} GiB during it, "
           f"{BRINGUP[label]['host_maxrss_gib']:.2f} GiB since the process began)",
           flush=True)
+    allocator = check_allocator(eng, label)
     rng = np.random.default_rng(0)
     V = cfg.models.vocab_size
 
@@ -2411,10 +2457,7 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
                 f"[{label}] request {r.request_id} incomplete: "
                 f"{len(r.async_stream.tokens)} tokens, {r.finish_reason}"
             )
-    if eng.cache.allocator.num_free() != eng.cache.num_pages:
-        raise AssertionError(f"[{label}] KV pages not all returned")
-    if len(eng.pool) != 0 or len(eng.executor.slots.free) != cfg.infer.max_reqs:
-        raise AssertionError(f"[{label}] tasks or slots left behind")
+    idle_engine_checks(eng, label)
     for name in need:
         if launches.get(name, 0) <= 0:
             raise AssertionError(
@@ -2438,6 +2481,7 @@ def engine_phase(torch, np, tk, card, label="bf16", overrides=(),
         bringup_s=bringup, requests=len(reqs), new_tokens=toks,
         burst_wall_s=wall, burst_tokens_per_s=toks / wall,
         ttft_s=sorted(ttft), peak_mem_gib=peak / 2**30, launches=launches,
+        allocator=allocator,
     )
     if new_tokens >= 32:
         # a lone request: its decode rate at batch 1 (64 tokens after the
@@ -2556,6 +2600,11 @@ VARIANT_ROWS = [
     ("attend_prefill[d64]", "tiny_llama_d64"),
     *((f"{k}[d32]", "micro_llama_d32") for k in ATTN_KERNELS),
     ("dense_matmul_stacked", "llama_dense_kernel"),
+    # slice 12: a case's geometry, with the launches of the kernel in the
+    # phase that runs it (spec verify rounds; prefix-hit tails)
+    ("attend_prefill_packed[verify]", "spec_decode", "attend_prefill_packed"),
+    ("attend_prefill_packed_fused[qstart1024]", "prefix_cache",
+     "attend_prefill_packed_fused"),
 ]
 
 
@@ -3118,6 +3167,625 @@ def load_phases(torch, np, tk, card, root):
     return out
 
 
+# ---------------------------------------------------------------------------
+# Slice 12: the prefix cache, n-gram speculative decoding, the native page
+# allocator
+# ---------------------------------------------------------------------------
+
+# A greedy stream may part from its reference only at a near tie. At the
+# first differing position the logits row that predicts it comes from one
+# teacher-forced prefill through the kernels (k) and one through the plain
+# versions of every kernel (p), on the same weights and context. The gap
+# |k[b] - k[a]| between the reference's token b and the stream's token a
+# must lie within NEAR_TIE of k's spread (largest minus smallest logit), or
+# else within NOISE_SIGMAS standard deviations of the difference two sound
+# computations make to a pair of logits: sigma = sqrt(2) x the rms over the
+# vocabulary of k - p, the typical per-entry disagreement (the largest one
+# sits near 4.4 x the rms on every row read). On an H100 the Llama-3-8B
+# streams part at up to 2.7 sigma (ROADMAP C). A MoE layer routes each
+# token to its top experts, so a last-bit difference can flip a router
+# choice and move a whole row (the Mixtral row's rms is 1.03 logits, 10 %
+# of its spread): the Mixtral phase, where every layer routes, takes only
+# a share of the spread, NEAR_TIE_MOE, set from its reading (0.103).
+# DeepSeek-R1 at 4 layers routes in one and keeps both dense arms.
+NEAR_TIE = 1e-2
+NOISE_SIGMAS = 3.0
+NEAR_TIE_MOE = 0.15
+
+
+def slice12_kernel_cases(torch, tk, plain, dev):
+    """The two geometries slice 12 gives the split attention kernels at
+    Llama-3-8B's shapes (32 heads on 8 of 128, pages of 64), each held
+    against its plain version as phase 2 holds its cases (output rows
+    within ROW_RTOL on memory that held 7.0, dead blocks zero, two
+    launches and a graph replay bit-equal; the appending B2 with the pool
+    bytes equal): B3 at the spec verify geometry (16 rows of K1 = 5
+    tokens, one block a row at block_qstart = the row's context of
+    300-2,000 tokens, row 7 dead) and B2 with three prefix-cache hit
+    tails (40, 150 and 300 tokens) whose blocks start at 1,024, on a
+    16-page prefix the three rows share. Yardstick: SDPA on each row's
+    gathered K/V."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(12)
+    bf = torch.bfloat16
+    H, KV, D, PAGE, L, LAYER = 32, 8, 128, 64, 2, 1
+    M, scale = 2 * KV * D, D ** -0.5
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    def held(name, run, want, rows, block_seg, pools=None):
+        poison(torch, want.shape, dev)
+        got = run()
+        err, rel = compare_rows(torch, name, got, want, rows,
+                                *(pools or (None, None)))
+        dead = ~torch.repeat_interleave(block_seg >= 0,
+                                        got.shape[0] // block_seg.shape[0])
+        if got[dead].abs().max().item() != 0.0:
+            raise AssertionError(f"{name}: dead blocks not zero")
+        return got, err, rel
+
+    def case(name, kernel, variant, replaces, err, rel, ms, plain_ms, lib_ms,
+             nbytes, flops, shape):
+        bnd, by = bound_ms(nbytes, flops)
+        return dict(name=name, kernel=kernel, variant=variant, route="cuda",
+                    source=ATTN_SRC, replaces=replaces, max_abs_err=err,
+                    max_row_rel_err=rel, ms=ms, plain_ms=plain_ms,
+                    bound_ms=bnd, bound_by=by, library_ms=lib_ms, shape=shape)
+
+    # ---- B3: one K1-token block a row, as verify_draft packs it --------
+    B, K1, MP = 16, 5, 33
+    P = B * MP
+    pool = randn(L, P, PAGE, M, s=0.5)
+    bts = torch.arange(P, dtype=torch.int32, device=dev).reshape(B, MP)
+    seq = torch.randint(300, 2001, (B,), generator=g, device=dev).to(torch.int32)
+    seq[0] = 2000
+    block_seg = torch.arange(B, dtype=torch.int32, device=dev)
+    block_seg[7] = -1
+    total = seq + K1
+    q = randn(B * K1, H, D)
+    rows = torch.repeat_interleave(block_seg >= 0, K1)
+    pargs = (pool, LAYER, bts, block_seg, seq, total, PAGE, KV, D)
+    run = lambda: tk.attend_prefill_packed(q, *pargs, scale=scale)  # noqa: E731
+    name = "attend_prefill_packed[verify,Llama-3-8B]"
+    got, err, rel = held(name, run,
+                         tk.attend_prefill_packed_plain(q, *pargs, scale=scale),
+                         rows, block_seg)
+    bit_equal(torch, name, got, run())
+    replay_equal(torch, name, run, got)
+    live = block_seg >= 0
+    segs = [(int(s), K1) for s in seq[live].tolist()]
+    yield case(
+        name, "attend_prefill_packed", "verify",
+        "chitu_tpu/ops/pallas_attention.py:1709", err, rel,
+        device_ms(torch, run),
+        call_ms(torch, lambda: tk.attend_prefill_packed_plain(
+            q, *pargs, scale=scale), reps=5),
+        sdpa_segments_ms(torch, F, q[rows], pool, LAYER, bts[live], segs, K1,
+                         KV, D, scale, plain),
+        sum(s + n for s, n in segs) * 2 * KV * D * 2
+        + 2 * len(segs) * K1 * H * D * 2,
+        4.0 * H * D * pairs_split(segs),
+        f"B={B} K1={K1} (one block a row, {tk._rows_block(H // KV, K1)} "
+        f"token a CUDA block) ctx={seq.tolist()} dead_row=7 H={H} KV={KV} "
+        f"D={D} page={PAGE}")
+    del pool
+
+    # ---- B2: prefix-hit tails from block_qstart 1,024 ------------------
+    segs = [(1024, 40), (1024, 150), (1024, 300)]
+    TQ = tk.packed_q_block(H, M, PAGE, D, kv_heads=KV)
+    padded = sum((n + TQ - 1) // TQ * TQ for _, n in segs)
+    NB = padded // TQ + 1  # and one dead block
+    T, R, mp = NB * TQ, 16, 32
+    pool0 = randn(L, 64, PAGE, M, s=0.5)
+    bts_p = torch.full((R, mp), -1, dtype=torch.int32, device=dev)
+    block_seg = torch.full((NB,), -1, dtype=torch.int32, device=dev)
+    block_q = torch.zeros((NB,), dtype=torch.int32, device=dev)
+    total = torch.zeros((R,), dtype=torch.int32, device=dev)
+    rows = torch.zeros((T,), dtype=torch.bool, device=dev)
+    off = 0
+    for r, (s0, n) in enumerate(segs):
+        bts_p[r, :16] = torch.arange(16, device=dev)  # the shared prefix
+        bts_p[r, 16:21] = 16 + 5 * r + torch.arange(5, device=dev)
+        nb = (n + TQ - 1) // TQ
+        block_seg[off // TQ : off // TQ + nb] = r
+        block_q[off // TQ : off // TQ + nb] = s0 + torch.arange(nb, device=dev) * TQ
+        total[r] = s0 + n
+        rows[off : off + n] = True
+        off += nb * TQ
+    q, k, v = randn(T, H, D), randn(T, KV, D), randn(T, KV, D)
+    args = (LAYER, k, v, bts_p, block_seg, block_q, total, PAGE, KV, D)
+    pool_k, pool_p = pool0.clone(), pool0.clone()
+    name = "attend_prefill_packed_fused[qstart1024,Llama-3-8B]"
+    want = tk.attend_prefill_packed_fused_plain(q, pool_p, *args, scale=scale)
+    got, err, rel = held(
+        name, lambda: tk.attend_prefill_packed_fused(q, pool_k, *args, scale=scale),
+        want, rows, block_seg, (pool_k, pool_p))
+    run = lambda: tk.attend_prefill_packed_fused(  # noqa: E731
+        q, pool0.clone(), *args, scale=scale)
+    bit_equal(torch, name, got, run())
+    pool_g = pool0.clone()
+    replay_equal(torch, name, lambda: tk.attend_prefill_packed_fused(
+        q, pool_g, *args, scale=scale), got)
+    n_new = sum(n for _, n in segs)
+    yield case(
+        name, "attend_prefill_packed_fused", "qstart1024",
+        "chitu_tpu/ops/pallas_attention.py:1424", err, rel,
+        device_ms(torch, lambda: tk.attend_prefill_packed_fused(
+            q, pool_k, *args, scale=scale)),
+        call_ms(torch, lambda: tk.attend_prefill_packed_fused_plain(
+            q, pool_p, *args, scale=scale), reps=5),
+        sdpa_segments_ms(torch, F, q, pool_k, LAYER, bts_p, segs, TQ, KV, D,
+                         scale, plain),
+        sum(s + n for s, n in segs) * 2 * KV * D * 2 + 2 * n_new * H * D * 2
+        + n_new * 2 * KV * D * 2 + n_new * M * 2,
+        4.0 * H * D * pairs_split(segs),
+        f"T={T} Tq={TQ} NB={NB} segs={segs} (pages 0-15 shared) H={H} KV={KV} "
+        f"D={D} page={PAGE}")
+    del pool0, pool_k, pool_p, pool_g
+    torch.cuda.empty_cache()
+
+
+def check_allocator(eng, label, prefix_cache=False):
+    """Print the engine's page allocator; without the prefix cache it must
+    be the native one (the JAX engine's default)."""
+    name = type(eng.cache.allocator).__name__
+    want = "PrefixCachingAllocator" if prefix_cache else "NativeBackedPageAllocator"
+    print(f"[{label}] page allocator {name}", flush=True)
+    if name != want:
+        raise AssertionError(f"[{label}] page allocator {name}, expected {want}")
+    return name
+
+
+def teacher_forced_row(torch, tk, eng, tokens, plain=False):
+    """The logits row that predicts the token after `tokens`: one prefill
+    of `tokens` through the idle engine's model (a chunk of the executor's
+    bucketed length, all logits), in pages taken from its allocator and
+    given back; `plain`: through the plain versions of every kernel
+    (attention and op_impl's), on the same weights."""
+    from chitu_tpu_torch.executor import _bucket
+    from chitu_tpu_torch.ops import linear
+
+    ex, alloc, page = eng.executor, eng.cache.allocator, eng.cfg.infer.page_size
+    n = len(tokens)
+    rid = "near-tie-check"
+    if not alloc.ensure(rid, n + 1):
+        raise AssertionError("no pages for the teacher-forced prefill")
+    route = (eng.model.attn_route, eng.model.attn)
+    try:
+        if plain:
+            eng.model.attn_route, eng.model.attn = tk.attention_route("ref")
+            linear.set_op_impl("xla")
+        T = _bucket(n, ex.prefill_buckets)
+        toks = torch.zeros(T, dtype=torch.int32, device=ex.device)
+        toks[:n] = torch.tensor(tokens, dtype=torch.int32, device=ex.device)
+        bt = torch.as_tensor(alloc.block_table([rid], ex.mp_full)[0],
+                             device=ex.device)
+        with torch.no_grad():
+            logits, _ = eng.model.prefill(dict(eng.cache.arrays), toks, bt, 0,
+                                          n, page, return_all_logits=True)
+        return logits[n - 1].float()
+    finally:
+        eng.model.attn_route, eng.model.attn = route
+        linear.set_op_impl(eng.cfg.infer.op_impl)
+        alloc.free(rid)
+
+
+def near_tie(torch, tk, eng, label, prompts, got, want, moe=False):
+    """Each greedy stream in `got` equals its reference in `want`, or
+    parts from it at a near tie (NEAR_TIE above; `moe`: NEAR_TIE_MOE
+    alone); tokens after the first divergence are not compared. Prints
+    every divergence with its gap. -> the divergences [(stream, position,
+    gap / spread, gap / sigma)]."""
+    out = []
+    for i, (p, a, b) in enumerate(zip(prompts, got, want)):
+        if a == b:
+            continue
+        j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        if j is None:
+            raise AssertionError(f"[{label}] stream {i}: {len(a)} tokens against "
+                                 f"{len(b)}, equal where both have them")
+        ctx = list(p) + list(b[:j])
+        row = teacher_forced_row(torch, tk, eng, ctx)
+        ref = teacher_forced_row(torch, tk, eng, ctx, plain=True)
+        margin = (row[b[j]] - row[a[j]]).item()
+        plain_margin = (ref[b[j]] - ref[a[j]]).item()
+        gap = abs(margin)
+        rel = gap / (row.max() - row.min()).item()
+        sigma = math.sqrt(2.0) * (row - ref).pow(2).mean().sqrt().item()
+        sigmas = gap / sigma if sigma else math.inf
+        print(f"[{label}] divergence: stream {i} at token {j} of {len(b)}: "
+              f"{a[j]} against the reference's {b[j]}, logit gap {gap:.5g} = "
+              f"{rel:.3e} of the row's spread (limit "
+              f"{NEAR_TIE_MOE if moe else NEAR_TIE}) = {sigmas:.3f} sigma "
+              f"(sigma {sigma:.5g}, limit {'none' if moe else NOISE_SIGMAS}); "
+              f"the pair's kernels-vs-plain shift {abs(margin - plain_margin):.5g}, "
+              f"plain margin {plain_margin:.5g}, the stream's token ranks "
+              f"{int((row > row[a[j]]).sum().item())} in the kernels' row",
+              flush=True)
+        ok = (rel <= NEAR_TIE_MOE if moe
+              else rel <= NEAR_TIE or sigmas <= NOISE_SIGMAS)
+        if not ok:
+            raise AssertionError(f"[{label}] stream {i} parts from its reference "
+                                 f"at token {j} beyond a near tie")
+        out.append((i, j, rel, sigmas))
+    return out
+
+
+def step_device_ms(torch, eng):
+    """One engine step under torch.profiler -> (device ms: the sum of its
+    kernels' device time, span ms: CUDA events around the step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        a.record()
+        eng.step()
+        b.record()
+        b.synchronize()
+    dev_us = sum(getattr(e, "self_device_time_total", 0.0)
+                 or getattr(e, "self_cuda_time_total", 0.0)
+                 for e in prof.key_averages())
+    return dev_us / 1e3, a.elapsed_time(b)
+
+
+def serve_burst(eng, prompts, params, profile_first=None):
+    """Submit `prompts` together and serve them to the end -> (token
+    streams, the first step's (device ms, span ms) when `profile_first` is
+    the torch module)."""
+    reqs = [eng.submit("", params, prompt_tokens=p) for p in prompts]
+    first = step_device_ms(profile_first, eng) if profile_first else None
+    eng.run_until_complete()
+    for r in reqs:
+        if r.finish_reason is None:
+            raise AssertionError(f"request {r.request_id} unfinished")
+    return [list(r.async_stream.tokens) for r in reqs], first
+
+
+def idle_engine_checks(eng, label):
+    """Pages (the LRU's counted as free) and slots all back."""
+    if eng.cache.allocator.num_free() != eng.cache.num_pages:
+        raise AssertionError(f"[{label}] KV pages not all returned: "
+                             f"{eng.cache.allocator.num_free()} of {eng.cache.num_pages}")
+    if len(eng.pool) or len(eng.executor.slots.free) != eng.cfg.infer.max_reqs:
+        raise AssertionError(f"[{label}] tasks or slots left behind")
+
+
+def free_memory(torch):
+    """Give the device memory of engines no longer referenced back."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+SHARED = 1024  # the shared prefix: 16 pages of 64
+TAILS = (40, 300, 90, 260, 150, 200)  # the first tail ends inside page 16
+
+
+def prefix_phases(torch, np, tk, card):
+    """Llama-3-8B-Instruct at full width and depth, bf16, random weights,
+    `infer.prefix_cache=true`: a cold burst of six prompts (a shared
+    1,024-token prefix and tails of 40-300 tokens), the same burst warm,
+    and a lone warm prompt; then the same weights in an engine whose pool
+    `kv_pool_frac` cuts to 33 pages, where LRU eviction and preemption
+    must both fire. -> (launches of the warm burst, the weights)."""
+    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch.engine import Engine
+
+    label = "prefix_cache"
+    base = [f"models={LLAMA}", "infer.stop_with_eos=false",
+            "infer.prefix_cache=true"]
+    t0 = time.time()
+    eng = Engine(load_config(overrides=base))
+    torch.cuda.synchronize()
+    print(f"engine[{label}] bring-up {time.time() - t0:.1f} s ({LLAMA}, "
+          f"{eng.cfg.models.n_layers} layers, random weights, KV pool "
+          f"{eng.cache.bytes() / 2**30:.2f} GiB, {eng.cache.num_pages} pages)",
+          flush=True)
+    check_allocator(eng, label, prefix_cache=True)
+    alloc = eng.cache.allocator
+    rng = np.random.default_rng(12)
+    V = eng.cfg.models.vocab_size
+
+    def toks(n):
+        return [int(x) for x in rng.integers(1, V, size=n)]
+
+    greedy = SampleParams(temperature=0.0, max_new_tokens=32)
+    shared = toks(SHARED)
+    prompts = [shared + toks(n) for n in TAILS]
+    chains = [(len(p) - 1) // 64 for p in prompts]
+    # cold: every prompt is admitted in one step, so no lookup finds a
+    # page; the chunked prefill (prompts over the 512-token chunk)
+    cold, cold_ms = serve_burst(eng, prompts, greedy, torch)
+    if alloc.hits != 0 or alloc.misses != sum(chains):
+        raise AssertionError(f"[{label}] cold burst: {alloc.hits} hits, "
+                             f"{alloc.misses} misses, expected 0 and {sum(chains)}")
+    idle_engine_checks(eng, label)
+    # warm: each attaches the 16 shared pages (the first prompt published
+    # them; a later prompt's own tail pages hang off its cold page 15, so
+    # their parent check stops the walk there)
+    calls = []
+    real_one = eng.executor._prefill_one
+
+    def spy(t, tokens=None):
+        calls.append((t.task_id, t.prefilled_len))
+        return real_one(t, tokens)
+
+    eng.executor._prefill_one = spy
+    tk.reset_launch_counts()
+    try:
+        warm, warm_ms = serve_burst(eng, prompts, greedy, torch)
+        torch.cuda.synchronize()
+        warm_launches = dict(tk.LAUNCHES)
+        want_hits = 16 * len(prompts) + max(0, chains[0] - 16)
+        if alloc.hits != want_hits:
+            raise AssertionError(f"[{label}] warm burst: {alloc.hits} hits, "
+                                 f"expected {want_hits}")
+        if calls:
+            raise AssertionError(f"[{label}] hit tails left the packed slab: {calls}")
+        if warm_launches.get("attend_prefill_packed_fused", 0) <= 0:
+            raise AssertionError(f"[{label}] B2 did not launch on the hit tails")
+        div = near_tie(torch, tk, eng, label + " warm", prompts, warm, cold)
+        # a lone warm prompt: the chunked path from q_pos 1,024 (B5)
+        tk.reset_launch_counts()
+        lone, _ = serve_burst(eng, prompts[2:3], greedy)
+        lone_b5 = tk.LAUNCHES.get("attend_prefill", 0)
+        if [s for _, s in calls] != [SHARED] or lone_b5 <= 0:
+            raise AssertionError(f"[{label}] lone hit: prefill_one calls {calls}, "
+                                 f"B5 launches {lone_b5}")
+        div += near_tie(torch, tk, eng, label + " lone", prompts[2:3], lone, cold[2:3])
+    finally:
+        del eng.executor._prefill_one
+        real_one = None  # the executor goes with the engine below
+    hits = alloc.hits
+    idle_engine_checks(eng, label)
+    params = eng.model.params_tree()
+    stats = dict(
+        phase=label, card=card, layers=eng.cfg.models.n_layers,
+        allocator=type(alloc).__name__, prompts=[len(p) for p in prompts],
+        hits=hits, misses=alloc.misses, warm_hits_expected=want_hits,
+        cold_prefill_device_ms=cold_ms[0], cold_prefill_span_ms=cold_ms[1],
+        warm_prefill_device_ms=warm_ms[0], warm_prefill_span_ms=warm_ms[1],
+        warm_launches={k: v for k, v in warm_launches.items() if v},
+        lone_b5_launches=lone_b5, divergences=div)
+    eng.terminate()
+    del eng
+    free_memory(torch)
+
+    # the same weights in a pool of 33 pages (kv_pool_frac's floor: one
+    # max_seq_len request): stale entries fill the LRU, the shared prefix
+    # is published, then eight requests outgrow the pool as they decode
+    label = "prefix_cache_tight"
+    shared2 = toks(128)
+    burst = [shared2 + toks(8 + 7 * i) for i in range(8)]
+    stale = [toks(600), toks(600)]
+    long = SampleParams(temperature=0.0, max_new_tokens=200)
+    roomy = Engine(load_config(overrides=base[:2]), params=params)
+    check_allocator(roomy, label + " reference")
+    want, _ = serve_burst(roomy, burst, long)
+    roomy.terminate()
+    del roomy
+    free_memory(torch)
+    tight = Engine(load_config(overrides=base + ["infer.kv_pool_frac=0.01"]),
+                   params=params)
+    check_allocator(tight, label, prefix_cache=True)
+    alloc = tight.cache.allocator
+    counts = {"preempt": 0, "evict": 0}
+    real_preempt, real_evict = tight.executor.preempt, alloc._evict_one
+
+    def preempt(t):
+        counts["preempt"] += 1
+        real_preempt(t)
+
+    def evict():
+        ok = real_evict()
+        counts["evict"] += ok
+        return ok
+
+    tight.executor.preempt, alloc._evict_one = preempt, evict
+    short = SampleParams(temperature=0.0, max_new_tokens=2)
+    serve_burst(tight, stale, short)
+    serve_burst(tight, burst[:1], short)
+    tk.reset_launch_counts()
+    t0 = time.time()
+    got, _ = serve_burst(tight, burst, long)
+    wall = time.time() - t0
+    if not (counts["preempt"] > 0 and counts["evict"] > 0):
+        raise AssertionError(f"[{label}] preemptions {counts['preempt']}, "
+                             f"evictions {counts['evict']}: both must fire")
+    if any(len(s) != 200 for s in got):
+        raise AssertionError(f"[{label}] a request came back short")
+    tdiv = near_tie(torch, tk, tight, label, burst, got, want)
+    idle_engine_checks(tight, label)
+    stats.update(tight_pages=tight.cache.num_pages, tight_preemptions=counts["preempt"],
+                 tight_evictions=counts["evict"], tight_hits=alloc.hits,
+                 tight_burst_wall_s=wall, tight_divergences=tdiv)
+    print("engine " + json.dumps(stats), flush=True)
+    tight.terminate()
+    del tight
+    free_memory(torch)
+    return warm_launches, params
+
+
+SPEC = ["infer.spec_decode=ngram", "infer.spec_k=4"]
+
+
+def spec_burst(torch, np, tk, eng, label, new_tokens=32, n=6, moe=False):
+    """A greedy burst of `n` prompts with spec decode, the same burst with
+    `spec_enabled = False` on the same engine as the reference (near-tie
+    rule; `moe`: its MoE limit), then one sampled request, which must leave
+    `_spec_stats` as it was. -> stats."""
+    from chitu_tpu_torch import SampleParams
+
+    ex = eng.executor
+    rng = np.random.default_rng(21)
+    V = eng.cfg.models.vocab_size
+    prompts = [[int(x) for x in rng.integers(1, V, size=m)]
+               for m in (40, 100, 200, 130, 60, 300)[:n]]
+    greedy = SampleParams(temperature=0.0, max_new_tokens=new_tokens)
+    s0 = list(ex._spec_stats)
+    tk.reset_launch_counts()
+    got, _ = serve_burst(eng, prompts, greedy)
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    emitted, rounds = ex._spec_stats[0] - s0[0], ex._spec_stats[1] - s0[1]
+    if rounds <= 0 or launches.get("attend_prefill_packed", 0) <= 0:
+        raise AssertionError(f"[{label}] no verify round ({rounds}) or no B3 "
+                             f"launch ({launches.get('attend_prefill_packed')})")
+    ex.spec_enabled = False
+    try:
+        want, _ = serve_burst(eng, prompts, greedy)
+    finally:
+        ex.spec_enabled = True
+    div = near_tie(torch, tk, eng, label, prompts, got, want, moe)
+    s1 = list(ex._spec_stats)
+    sampled = SampleParams(temperature=0.8, top_k=16, top_p=0.9,
+                           max_new_tokens=8)
+    out, _ = serve_burst(eng, prompts[:1], sampled)
+    if ex._spec_stats != s1 or len(out[0]) != 8:
+        raise AssertionError(f"[{label}] a sampled request took the spec path")
+    idle_engine_checks(eng, label)
+    print(f"[{label}] {emitted} tokens in {rounds} verify rounds "
+          f"({emitted / rounds:.2f} a round), B3 launches "
+          f"{launches['attend_prefill_packed']}", flush=True)
+    return dict(spec_tokens=emitted, verify_rounds=rounds,
+                tokens_per_round=emitted / rounds, launches=launches,
+                divergences=div)
+
+
+def one_verify_round(torch, np, eng, label, ctx):
+    """One request of two tokens: its prefill, then one verify round, with
+    the calls of the `ctx` context shadowed. -> the round count."""
+    from chitu_tpu_torch import SampleParams
+
+    rng = np.random.default_rng(5)
+    p = [int(x) for x in rng.integers(1, eng.cfg.models.vocab_size, size=90)]
+    r0 = eng.executor._spec_stats[1]
+    with torch.no_grad(), ctx:
+        out, _ = serve_burst(eng, [p], SampleParams(temperature=0.0,
+                                                    max_new_tokens=2))
+    torch.cuda.synchronize()
+    rounds = eng.executor._spec_stats[1] - r0
+    if rounds != 1 or len(out[0]) != 2:
+        raise AssertionError(f"[{label}] shadowed request: {rounds} rounds, "
+                             f"{len(out[0])} tokens")
+    return rounds
+
+
+def spec_phases(torch, np, tk, card, params):
+    """`infer.spec_decode=ngram infer.spec_k=4`: Llama-3-8B-Instruct at 32
+    layers on the prefix phase's weights (a burst, its reference, a
+    sampled request, one verify round with every attention call shadowed);
+    micro-llama-debug, whose streams loop, so drafts are accepted;
+    Mixtral-8x7B-Instruct-v0.1 bf16 at 4 layers (a burst; one round with
+    every GEMM call shadowed: B8 at T = B x K1 rows); DeepSeek-R1 bf16 at 4
+    layers (3 dense, 1 MoE) with the prefix cache too: a cold and a warm
+    burst on a shared 512-token prefix, where the latent B3 runs the hit
+    tails and spec decode falls back to windows (no verify_draft).
+    -> launches by phase."""
+    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch.engine import Engine
+
+    out = {}
+    label = "spec_decode"
+    eng = Engine(load_config(overrides=[f"models={LLAMA}", "infer.stop_with_eos=false",
+                                        *SPEC]), params=params)
+    check_allocator(eng, label)
+    stats = spec_burst(torch, np, tk, eng, label)
+    errs = {}
+    stats["shadowed_rounds"] = one_verify_round(
+        torch, np, eng, label, shadowed_attention(torch, tk, errs))
+    if "attend_prefill_packed" not in errs:
+        raise AssertionError(f"[{label}] the shadowed round reached no B3 call")
+    stats["shadowed_call_err_vs_plain"] = errs
+    out[label] = stats["launches"]
+    print("engine " + json.dumps(dict(phase=label, card=card,
+                                     layers=eng.cfg.models.n_layers, **stats)),
+          flush=True)
+    eng.terminate()
+    del eng
+    free_memory(torch)
+
+    # a small vocabulary and two layers of random weights loop within a
+    # few tokens, so drafts hit: acceptance beyond one token a round runs
+    # through the kernels (B3 at head size 32)
+    label = "spec_micro"
+    eng = Engine(load_config(overrides=["models=micro-llama-debug",
+                                        "infer.stop_with_eos=false", *SPEC]))
+    check_allocator(eng, label)
+    stats = spec_burst(torch, np, tk, eng, label)
+    if not stats["tokens_per_round"] > 1.0:
+        raise AssertionError(f"[{label}] no draft accepted on looping streams")
+    if stats["launches"].get("attend_prefill_packed[d32]", 0) <= 0:
+        raise AssertionError(f"[{label}] B3 at head size 32 did not launch")
+    out[label] = stats["launches"]
+    print("engine " + json.dumps(dict(phase=label, card=card, layers=2, **stats)),
+          flush=True)
+    eng.terminate()
+    del eng
+    free_memory(torch)
+
+    label = "spec_mixtral"
+    eng = Engine(load_config(overrides=[f"models={MIXTRAL}", "models.n_layers=4",
+                                        "infer.stop_with_eos=false", *SPEC]))
+    check_allocator(eng, label)
+    stats = spec_burst(torch, np, tk, eng, label, moe=True)
+    if stats["launches"].get("grouped_gemm", 0) <= 0:
+        raise AssertionError(f"[{label}] B8 did not launch")
+    errs = {}
+    stats["shadowed_rounds"] = one_verify_round(torch, np, eng, label,
+                                                shadowed(torch, errs))
+    if "grouped_matmul" not in errs:
+        raise AssertionError(f"[{label}] the shadowed round reached no B8 call")
+    stats["shadowed_call_err_vs_plain"] = errs
+    out[label] = stats["launches"]
+    print("engine " + json.dumps(dict(phase=label, card=card, layers=4, **stats)),
+          flush=True)
+    eng.terminate()
+    del eng
+    free_memory(torch)
+
+    label = "r1_prefix_spec"
+    eng = Engine(load_config(overrides=[f"models={R1}", "models.n_layers=4",
+                                        "infer.stop_with_eos=false",
+                                        "infer.prefix_cache=true", *SPEC]))
+    check_allocator(eng, label, prefix_cache=True)
+    rng = np.random.default_rng(31)
+    V = eng.cfg.models.vocab_size
+    shared = [int(x) for x in rng.integers(1, V, size=512)]
+    prompts = [shared + [int(x) for x in rng.integers(1, V, size=n)]
+               for n in (40, 120, 200)]
+    greedy = SampleParams(temperature=0.0, max_new_tokens=16)
+    cold, _ = serve_burst(eng, prompts, greedy)
+    tk.reset_launch_counts()
+    warm, _ = serve_burst(eng, prompts, greedy)
+    torch.cuda.synchronize()
+    launches = dict(tk.LAUNCHES)
+    hits = eng.cache.allocator.hits
+    if hits != 8 * len(prompts):  # the 8 shared pages each (see prefix_phases)
+        raise AssertionError(f"[{label}] warm burst hit {hits} pages, expected "
+                             f"{8 * len(prompts)}")
+    if launches.get("attend_prefill_packed[latent]", 0) <= 0:
+        raise AssertionError(f"[{label}] the latent B3 did not run the hit tails")
+    if eng.executor._spec_stats != [0, 0]:
+        raise AssertionError(f"[{label}] spec decode ran without verify_draft")
+    div = near_tie(torch, tk, eng, label, prompts, warm, cold)
+    idle_engine_checks(eng, label)
+    out[label] = launches
+    print("engine " + json.dumps(dict(
+        phase=label, card=card, layers=4, hits=hits,
+        misses=eng.cache.allocator.misses, spec_stats=eng.executor._spec_stats,
+        launches={k: v for k, v in launches.items() if v}, divergences=div)),
+        flush=True)
+    eng.terminate()
+    del eng
+    free_memory(torch)
+    return out
+
+
 def row_key(res):
     v = res.get("variant")
     return res["kernel"] if v in (None, "bf16", "split") else f"{res['kernel']}[{v}]"
@@ -3135,6 +3803,7 @@ def main():
     from chitu_tpu_torch.ops import absorb_kernels as ab
     from chitu_tpu_torch.ops import attention as plain
     from chitu_tpu_torch.ops import attention_kernels as tk
+    from chitu_tpu_torch.ops import cuda_build
     from chitu_tpu_torch.ops import dense_gemm_kernels as dg
     from chitu_tpu_torch.ops import linear
     from chitu_tpu_torch.ops import moe_gemm_kernels as mg
@@ -3153,6 +3822,10 @@ def main():
     t0 = time.time()
     tk.build_kernels()
     print(f"kernel build {time.time() - t0:.1f} s", flush=True)
+    t0 = time.time()
+    cuda_build.build_host("hostops")
+    print(f"hostops build {time.time() - t0:.1f} s (g++, the native page "
+          "allocator)", flush=True)
 
     dev = torch.device("cuda", 0)
     first, by_row = {}, {}
@@ -3173,7 +3846,8 @@ def main():
                                        ("attend_decode_fused", "attend_prefill")),
                       kernel_cases(torch, tk, plain, dev,
                                    geom=(4, 2, 32, "d32")),
-                      dense_gemm_cases(torch, dg, dev)):
+                      dense_gemm_cases(torch, dg, dev),
+                      slice12_kernel_cases(torch, tk, plain, dev)):
             for res in cases:
                 res["card"] = card
                 if res.get("bound_by") == "bytes" and any(
@@ -3258,6 +3932,15 @@ def main():
 
         shutil.rmtree(root, ignore_errors=True)
 
+    # slice 12: the prefix cache, then spec decode on the same weights
+    t0 = time.time()
+    phase["prefix_cache"], params = prefix_phases(torch, np, tk, card)
+    phase.update(spec_phases(torch, np, tk, card, params))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"slice 12 phases {time.time() - t0:.1f} s", flush=True)
+
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []
 
@@ -3275,8 +3958,8 @@ def main():
 
     for kname in KERNEL_ORDER:
         row(kname, first[kname], launches.get(kname, 0))
-    for key, label in VARIANT_ROWS:
-        row(key, by_row[key], phase[label].get(key, 0))
+    for key, label, *launch_key in VARIANT_ROWS:
+        row(key, by_row[key], phase[label].get((launch_key or [key])[0], 0))
     print(card, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -88,9 +88,9 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
             f"infer.op_impl={infer.op_impl!r}: expected one of {OP_IMPLS}")
     todo = []
     if infer.tp_size > 1 or infer.pp_size > 1 or infer.dp_size > 1:
-        todo.append("tp/pp/dp > 1 (A.6: multi-GPU)")
+        todo.append("tp/pp/dp > 1 (multi-GPU)")
     if infer.ring_prefill or infer.ring_kv:
-        todo.append("ring prefill / ring KV (A.6: multi-GPU)")
+        todo.append("ring prefill / ring KV (multi-GPU)")
     if (
         quant.method not in ("none", "")
         and not quant.quant_on_load
@@ -104,10 +104,6 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
             "weights come from a checkpoint (infer.do_load=true "
             "models.ckpt_dir=...)"
         )
-    if infer.spec_decode:
-        todo.append("spec_decode (A.2: n-gram speculative decoding)")
-    if infer.prefix_cache:
-        todo.append("prefix_cache (A.1: the prefix cache)")
     if todo:
         raise NotImplementedError(
             "not ported yet (see ROADMAP queue A): " + "; ".join(todo)
@@ -207,6 +203,11 @@ class Engine:
             infer = dataclasses.replace(cfg.infer, page_size=page_size)
             cfg = dataclasses.replace(cfg, infer=infer)
             self.cfg = cfg
+        if cfg.infer.prefix_cache and cache_type != "paged":
+            logger.warning(
+                "prefix_cache requires cache_type=paged (got %s); disabled",
+                cache_type,
+            )
         self.cache = PagedKVCache(
             spec["n_layers"],
             num_pages,
@@ -218,6 +219,12 @@ class Engine:
             device=self.device,
             kv_dim=spec.get("kv_dim", 0),
             layer_groups=spec.get("layer_groups"),
+            max_slots=cfg.infer.max_reqs,
+            # prefix caching is page-granular: dense/skew/nop hold one
+            # max_seq_len page per request, so no full prompt page can be
+            # shared — disabled loudly above instead of a cache that never
+            # hits
+            prefix_cache=cfg.infer.prefix_cache and cache_type == "paged",
         )
         if cache_type == "nop":
             from chitu_tpu_torch.kvcache import NopAllocator

@@ -6,7 +6,10 @@ runs one prompt's chunks), samples first tokens on the device, and flips
 tasks to decode; a hybrid step carries the in-flight decode rows through
 the packed prefill's forward; decode runs in windows of K steps whose
 sampled tokens feed back on the device, with one host sync per chain of
-windows.
+windows. With `infer.prefix_cache`, admission attaches a prompt's cached
+full pages and prefills only its tail; with `infer.spec_decode=ngram`,
+greedy batches decode in speculative windows (n-gram drafts verified K+1
+tokens a forward, `_decode_speculative`).
 
 PyTorch runs eagerly, so the JAX package's jit caches and first-call
 timers are gone. The shapes stay bucketed exactly as there (prefill
@@ -50,6 +53,51 @@ def _pow2_buckets(lo: int, hi: int) -> Tuple[int, ...]:
     return tuple(out)
 
 
+def _ngram_propose(ctx: List[int], k: int, n: int = 2) -> List[int]:
+    """Prompt-lookup drafting (draft-model-free speculative decoding):
+    find the most recent earlier occurrence of the context's trailing
+    n-gram and propose its continuation as the k draft tokens. Any
+    proposal is CORRECT (verification accepts only matching prefixes);
+    a bad one just wastes the extra verify rows. The host contract that
+    the spec window's vectorized drafter (`_draft`) equals at n = 2."""
+    if len(ctx) <= n:
+        return [ctx[-1]] * k
+    tail = ctx[-n:]
+    for i in range(len(ctx) - n - 1, -1, -1):
+        if ctx[i : i + n] == tail:
+            cont = ctx[i + n : i + n + k]
+            if cont:
+                return (cont + [cont[-1]] * k)[:k]
+    return [ctx[-1]] * k
+
+
+def _draft(buf: torch.Tensor, clen: torch.Tensor, k: int) -> torch.Tensor:
+    """`_ngram_propose(ctx, k)` of every row at once, on the device: row b's
+    context is buf[b, :clen[b]] (buf [B, L] int32, clen [B] >= 1) -> the
+    draft [B, k]: the continuation of the most recent earlier occurrence of
+    the trailing bigram (prev, last), padded with its last token, or `last`
+    repeated where there is none. A row whose last round ran it past the
+    buffer (clen up to L + 1, latched done) reads clamped indices, as the
+    JAX package's gathers do; its draft is never used."""
+    L = buf.shape[1]
+    idx = lambda p: torch.clamp(p, 0, L - 1)[:, None].long()  # noqa: E731
+    last = buf.gather(1, idx(clen - 1))[:, 0]
+    prev = buf.gather(1, idx(clen - 2))[:, 0]
+    ii = torch.arange(L - 1, dtype=torch.int32, device=buf.device)
+    m = (
+        (buf[:, :-1] == prev[:, None])
+        & (buf[:, 1:] == last[:, None])
+        & (ii[None, :] <= (clen - 3)[:, None])
+    )
+    best = torch.where(m, ii[None, :], torch.full_like(ii, -1)[None, :]).amax(1)
+    src = torch.where(best >= 0, best + 2, torch.clamp(clen - 1, min=0))
+    dpos = src[:, None] + torch.arange(k, dtype=torch.int32, device=buf.device)
+    dtok = buf.gather(1, torch.clamp(dpos, max=L - 1).long())
+    # a continuation cut short by the context's end pads with its last
+    # token, which is the context's last
+    return torch.where(dpos < clen[:, None], dtok, last[:, None])
+
+
 class Executor:
     """Single-device executor."""
 
@@ -87,6 +135,12 @@ class Executor:
         self._lat_pairs: List[Tuple[int, float]] = []
         self._kappa: float = 1.0
         self._kappa_src = "default"
+        # speculative decode: [tokens emitted, verify rounds] — mean
+        # tokens a round is the acceptance-driven gain over plain decode
+        self._spec_stats = [0, 0]
+        # serving warmup turns this off so its greedy burst exercises the
+        # windowed path that calibrate_dispatch times
+        self.spec_enabled = True
 
     def _tensor(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
@@ -187,14 +241,32 @@ class Executor:
         timers = get_timers()
         timers("prefill").start()
         admitted = []
+        prefix_caching = hasattr(self.cache.allocator, "lookup")
         for t in tasks:
             slot = self.slots.alloc(t.task_id)
             if slot is None:
                 continue  # over max_reqs; stays queued
             t.slot = slot
+            if (
+                prefix_caching
+                and t.prefilled_len == 0
+                and not t.response_tokens
+            ):
+                # attach any cached prompt prefix: those pages hold valid
+                # KV, so prefill starts at the first uncached token (a
+                # preempted task rebuilds without lookup)
+                cached = self.cache.allocator.lookup(t.task_id, t.tokens)
+                if cached:
+                    t.prefilled_len = cached
             if not self.cache.allocator.ensure(t.task_id, t.prefix_len + 1):
                 self.slots.release(t.task_id)
                 t.slot = -1
+                if t.prefilled_len:
+                    # detach the prefix pages lookup() just pinned: a
+                    # deferred request must not hold cache pages out of
+                    # the LRU; the retry's lookup re-attaches them
+                    self.cache.allocator.free(t.task_id)
+                    t.prefilled_len = 0
                 logger.warning("KV pool exhausted; deferring %s", t.task_id)
                 continue
             if t.req.prefill_start_time is None:
@@ -222,7 +294,8 @@ class Executor:
 
         # pack every one-chunk prompt into slab calls (the reference's
         # packed VarLens prefill, utils.py:84-100); longer prompts take
-        # the chunked per-request path
+        # the chunked per-request path. A prefix-cache hit packs its TAIL
+        # as a mid-context segment (block_qstart > 0)
         chunk_cap = max(self.cfg.infer.prefill_chunk, 16)
         Tq = self._packed_q_block()
         slab = self._pack_slab()
@@ -293,6 +366,10 @@ class Executor:
                         t.prefilled_len = t.prefix_len
                         t.start_decoding()
                     t.append_token(int(th[i]))
+        if prefix_caching:
+            # publish the freshly computed prompt pages for future sharing
+            for t in admitted:
+                self.cache.allocator.register(t.task_id, t.tokens)
         timers("prefill").stop()
 
     def _prefill_packed_step(
@@ -620,6 +697,10 @@ class Executor:
             return
         order = {id(t): i for i, t in enumerate(tasks)}
         live.sort(key=lambda t: order[id(t)])
+        if self._spec_ok(live):
+            self._decode_speculative(live, window)
+            timers("decode").stop()
+            return
         B = _bucket(len(live), self.decode_buckets)
         tokens = np.zeros((B,), np.int32)
         seq_lens = np.zeros((B,), np.int32)
@@ -688,6 +769,163 @@ class Executor:
                 if t.need_remove():
                     break
         timers("decode").stop()
+
+    # -- speculative decode -------------------------------------------------
+
+    def _spec_ok(self, tasks: List[Task]) -> bool:
+        """Speculative decode covers greedy, penalty-free batches (the
+        standard restriction: stochastic acceptance needs rejection
+        sampling) of a model with `verify_draft`; anything else takes the
+        windowed path. Rows near max_seq_len cannot host K+1 verify
+        columns: the windowed path finishes them."""
+        K1 = max(1, self.cfg.infer.spec_k) + 1
+        return (
+            self.spec_enabled
+            and self.cfg.infer.spec_decode == "ngram"
+            and hasattr(self.model, "verify_draft")
+            and all(
+                t.req.params.top_k == 1
+                and t.req.params.frequency_penalty == 0.0
+                and t.seq_len + K1 <= t.max_seq_len
+                for t in tasks
+            )
+        )
+
+    def _spec_window(self, R: int, K: int, buf, clen, bts, valid, ensured,
+                     remaining, stop_ids, check_stop) -> torch.Tensor:
+        """Up to R speculative rounds on the device -> emitted tokens
+        [rounds, B, K+1] (-1 where unused). Each round: bigram drafts from
+        the context buffer (`_draft`), one verify forward of the last
+        accepted token + K drafts, longest-prefix acceptance plus the
+        model's bonus token, per-row stop and budget truncation, the
+        append to the buffer, and the done latch (stop, budget, or no
+        reserved page room for another round: clen + K > ensured). The
+        JAX package runs the rounds in one while_loop; eagerly, the test
+        for "every row done" is one host sync (`.item()`) a round."""
+        B, L = buf.shape
+        K1 = K + 1
+        dev = buf.device
+        jcol = torch.arange(K1, dtype=torch.int32, device=dev)[None, :]
+        rows = torch.arange(B, device=dev)[:, None]
+        # one scratch column past the buffer takes the dropped writes
+        buf = torch.cat([buf, buf.new_zeros((B, 1))], dim=1)
+        cache = dict(self.cache.arrays)
+        done = torch.zeros((B,), dtype=torch.bool, device=dev)
+        outs = []
+        for _ in range(R):
+            live = valid & ~done
+            draft = _draft(buf[:, :L], clen, K)
+            last = buf.gather(
+                1, torch.clamp(clen - 1, 0, L - 1)[:, None].long()
+            )
+            greedy, _ = self.model.verify_draft(
+                cache, torch.cat([last, draft], dim=1),
+                torch.clamp(clen - 1, min=0), bts, live, page_size=self.page,
+            )
+            eq = (draft == greedy[:, :K]).to(torch.int32)
+            acc = torch.cumprod(eq, dim=1).sum(1, dtype=torch.int32)  # 0..K
+            bonus = greedy.gather(1, acc[:, None].long())
+            draft_p = torch.cat([draft, draft[:, -1:]], dim=1)
+            emit = torch.where(
+                jcol < acc[:, None], draft_p,
+                torch.where(jcol == acc[:, None], bonus,
+                            torch.full_like(draft_p, -1)),
+            )
+            n = acc + 1
+            is_stop = check_stop[:, None] & torch.any(
+                emit[:, :, None] == stop_ids[:, None, :], dim=-1
+            )
+            stop_idx = torch.where(is_stop, jcol, K1).amin(1)
+            n = torch.minimum(torch.minimum(n, stop_idx + 1), remaining)
+            n = torch.where(live, n, torch.zeros_like(n))
+            keep = jcol < n[:, None]
+            emit = torch.where(keep, emit, torch.full_like(emit, -1))
+            outs.append(emit)
+            pos = torch.where(keep, clen[:, None] + jcol, L)
+            buf[rows, torch.clamp(pos, max=L).long()] = emit
+            clen = clen + n
+            remaining = remaining - n
+            stop_hit = torch.any(is_stop & keep, dim=1)
+            done = done | (
+                live & (stop_hit | (remaining <= 0) | (clen + K > ensured))
+            )
+            if not bool((valid & ~done).any().item()):  # the round's sync
+                break
+        return torch.stack(outs)
+
+    def _decode_speculative(self, live: List[Task], window: int):
+        """Speculative decode of a greedy batch: reserve pages for a window
+        of rounds (4 x window tokens, as the windowed chain), run
+        `_spec_window`, and drain its tokens into the tasks on the host,
+        each row stopping at `need_remove()`. Each round advances a row
+        1..K+1 tokens."""
+        K = max(1, self.cfg.infer.spec_k)
+        K1 = K + 1
+        rounds = max(1, (4 * window) // K1)
+        L = self.cfg.infer.max_seq_len
+        rows, ensured = [], []
+        for t in live:
+            if t.need_remove() or t.seq_len + K1 > t.max_seq_len:
+                continue
+            # pre-reserve the window's worst-case growth (plus the K
+            # verify rows past the last accepted token); fall back to one
+            # round's worth under pool pressure
+            budget = min(rounds * K1, t.max_new_tokens - len(t.response_tokens))
+            want = min(t.seq_len + budget + K, t.max_seq_len)
+            while want > t.seq_len + K1 and not self.cache.allocator.ensure(
+                t.task_id, want
+            ):
+                want = t.seq_len + K1
+            if want == t.seq_len + K1 and not self.cache.allocator.ensure(
+                t.task_id, want
+            ):
+                continue
+            rows.append(t)
+            ensured.append(want)
+        if not rows:
+            return
+        B = _bucket(len(rows), self.decode_buckets)
+        rows, ensured = rows[:B], ensured[:B]
+
+        ctx_buf = np.zeros((B, L), np.int32)
+        ctx_len = np.ones((B,), np.int32)
+        ens = np.zeros((B,), np.int32)
+        remaining = np.zeros((B,), np.int32)
+        valid = np.zeros((B,), bool)
+        check_stop = np.zeros((B,), bool)
+        for i, t in enumerate(rows):
+            ctx = list(t.tokens) + list(t.response_tokens)
+            ctx_buf[i, : len(ctx)] = ctx
+            ctx_len[i] = len(ctx)
+            ens[i] = ensured[i]
+            remaining[i] = t.max_new_tokens - len(t.response_tokens)
+            valid[i] = True
+            check_stop[i] = t.stop_with_eos
+        bts = np.full((B, self.mp_full), -1, np.int32)
+        bts[: len(rows)] = self.cache.allocator.block_table(
+            [t.task_id for t in rows], self.mp_full
+        )
+        out = self._spec_window(
+            rounds, K,
+            *(self._tensor(a) for a in (ctx_buf, ctx_len, bts, valid, ens,
+                                        remaining)),
+            self._stop_ids(rows, B), self._tensor(check_stop),
+        )
+        oh = out.cpu().numpy()  # [rounds, B, K1]
+        for i, t in enumerate(rows):
+            for r in range(oh.shape[0]):
+                emitted = oh[r, i]
+                emitted = emitted[emitted >= 0]
+                if emitted.size == 0:
+                    continue
+                self._spec_stats[0] += int(emitted.size)
+                self._spec_stats[1] += 1
+                for tok in emitted:
+                    t.append_token(int(tok))
+                    if t.need_remove():
+                        break
+                if t.need_remove():
+                    break
 
     def _stop_ids(self, tasks: List[Task], n: int) -> torch.Tensor:
         """Per-row stop-token ids [n, 8], -2 padded (per-request sets so one

@@ -38,7 +38,7 @@ that head size (`_mla_dense`). The param tree is the absorb path's.
 
 Its checkpoints (bf16, or the published native fp8 with
 `weight_scale_inv`) load through `loaders_moe.load_deepseek_params`. Not
-ported yet: the ring and pipeline paths (ROADMAP queue A.6).
+ported yet: the ring and pipeline paths (ROADMAP: multi-GPU).
 """
 
 from __future__ import annotations
@@ -86,8 +86,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
         infer = cfg.infer
         if infer.tp_size > 1 or infer.pp_size > 1:
             raise NotImplementedError(
-                "tp_size/pp_size > 1 are not ported yet (ROADMAP queue "
-                "A.6: multi-GPU)"
+                "tp_size/pp_size > 1 are not ported yet (ROADMAP: "
+                "multi-GPU)"
             )
         self.args = args
         self.cfg = cfg

@@ -17,9 +17,9 @@ activations from the fused norm+quant kernel. The KV pool in
 functions.
 
 Checkpoints load through `loader.load_checkpoint`, which merges what it
-reads. Not ported yet: `verify_draft` (speculative decoding), the ring
-and tensor-parallel paths, and the unmerged weight layout (an unmerged
-JAX tree is merged by `params_from_numpy`).
+reads. Not ported yet: the ring and tensor-parallel paths, and the
+unmerged weight layout (an unmerged JAX tree is merged by
+`params_from_numpy`).
 """
 
 from __future__ import annotations
@@ -141,7 +141,7 @@ def _cat_out(parts):
             raise NotImplementedError(
                 "act-order parts with differing input permutations cannot "
                 "be merged into wqkv / w_gate_up; the unmerged weight "
-                "layout is not ported (ROADMAP queue A.6, with multi-GPU)"
+                "layout is not ported (ROADMAP: multi-GPU)"
             )
     repack = all(p.packed for p in parts)
     parts = [unpack_int4(p) if p.packed else p for p in parts]
@@ -222,8 +222,8 @@ _LAYER_LEAVES = (
 
 @register_model("hf-llama")
 class LlamaForCausalLM(nn.Module):
-    """Llama-family module: frozen stacked weights + the four forwards
-    (prefill, prefill_packed, step_hybrid, decode). A family with another
+    """Llama-family module: frozen stacked weights + the five forwards
+    (prefill, prefill_packed, step_hybrid, decode, verify_draft). A family with another
     FFN (MoE) subclasses it: it extends `_shapes` and `LAYER_LEAVES` and
     overrides `_ffn`."""
 
@@ -234,8 +234,8 @@ class LlamaForCausalLM(nn.Module):
         infer = cfg.infer
         if infer.tp_size > 1 or infer.pp_size > 1:
             raise NotImplementedError(
-                "tp_size/pp_size > 1 are not ported yet (ROADMAP queue "
-                "A.6: multi-GPU)"
+                "tp_size/pp_size > 1 are not ported yet (ROADMAP: "
+                "multi-GPU)"
             )
         if infer.merge_qkv_gate_up == "off":
             raise NotImplementedError(
@@ -547,6 +547,54 @@ class LlamaForCausalLM(nn.Module):
         dec_logits = self._logits(h[:B])
         pf_logits = self._logits(h[B + pf_last_idx.long()])
         return dec_logits, pf_logits, cache
+
+    def verify_draft(
+        self,
+        cache: Dict[str, torch.Tensor],
+        tokens: torch.Tensor,  # [B, K1] int32: last accepted token + K drafts
+        seq_lens: torch.Tensor,  # [B] int32 context BEFORE tokens[:, 0]
+        block_tables: torch.Tensor,  # [B, mp] int32
+        valid: torch.Tensor,  # [B] bool
+        page_size: int,
+    ):
+        """Speculative-decode verification -> (greedy tokens [B, K1],
+        cache): the B rows' K+1 tokens run through one forward at their
+        absolute positions, and the greedy continuation of every position
+        lets the caller accept the longest matching draft prefix plus one
+        token of the model's own. The drafts' K/V land in the pool by the
+        plain packed append (invalid rows write nothing); rows a later
+        round rejects are overwritten by its inputs and never read (the
+        attention is causal by position). Attention is the packed B3
+        kernel with one K1-token block per row (`block_qstart` = seq_lens,
+        dead blocks where not valid), as the JAX package's Pallas route
+        packs it. The reference has no speculative decoding."""
+        B, K1 = tokens.shape
+        dev = tokens.device
+        pool = cache["kv"]
+        pos = (
+            seq_lens[:, None]
+            + torch.arange(K1, dtype=torch.int32, device=dev)[None, :]
+        ).reshape(-1)
+        rows = torch.arange(B, dtype=torch.int32, device=dev)
+        block_seg = torch.where(valid, rows, torch.full_like(rows, -1))
+        seg_ids = block_seg.repeat_interleave(K1)
+        total_lens = seq_lens + K1
+        h = self.embed[tokens.reshape(-1).long()]
+        cos, sin = self._rope_rows(pos)
+        kw = self._attn_kw()
+
+        def attend(q, k, v, layer):
+            attn_ops.append_prefill_packed(
+                pool, layer, k, v, block_tables, seg_ids, pos, page_size
+            )
+            return self.attn.attend_prefill_packed(
+                q, pool, layer, block_tables, block_seg, seq_lens,
+                total_lens, page_size, **kw,
+            )
+
+        h = self._run_layers(h, cos, sin, attend)
+        greedy = torch.argmax(self._logits(h), dim=-1).to(torch.int32)
+        return greedy.reshape(B, K1), cache
 
     def decode(
         self,

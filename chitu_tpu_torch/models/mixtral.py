@@ -11,7 +11,7 @@ dispatch through the grouped GEMM kernel for bf16 and e4m3 experts, the
 capacity route for the stacks that kernel does not take.
 
 Its HF checkpoints load through `loaders_moe.load_mixtral_params`. Not
-ported yet: expert parallelism over a mesh (ROADMAP queue A.6, multi-GPU).
+ported yet: expert parallelism over a mesh (ROADMAP: multi-GPU).
 """
 
 from __future__ import annotations

@@ -8,11 +8,16 @@ first use, and loaded with ctypes. The headers (`csrc/*.cuh`) are shared
 between sources, so all of them enter every hash. `build_all()` starts one nvcc per source, all
 at once. `LAUNCHES` counts kernel launches by wrapper name: a wrapper adds
 one where it launches its kernel and nowhere else.
+
+The host-side C++ sources (`csrc/*.cpp`: the native page allocator) are
+built the same way by g++ (`build_host`), under a file lock, since every
+engine builds them at bring-up, on the CPU too.
 """
 
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -32,6 +37,8 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
+
+HOST_FLAGS = ("-O3", "-fPIC", "-std=c++17", "-shared")
 
 # launches of each kernel since the last reset_launch_counts()
 LAUNCHES: Dict[str, int] = {}
@@ -94,6 +101,40 @@ def build_all(names=SOURCES) -> List[str]:
     if failed:
         raise RuntimeError("\n".join(failed))
     return paths
+
+
+def build_host(name: str) -> str:
+    """Compile csrc/<name>.cpp with g++ into
+    build/<name>-<hash of flags and source>.so unless that exact build
+    exists; -> its path. Raises with the compiler's output on failure."""
+    src = os.path.join(CSRC, name + ".cpp")
+    h = hashlib.sha256(" ".join(HOST_FLAGS).encode())
+    with open(src, "rb") as f:
+        h.update(f.read())
+    so = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    if os.path.exists(so):
+        return so
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cxx = shutil.which("g++")
+    if cxx is None:
+        raise RuntimeError(f"{name}.cpp: g++ not found on PATH")
+    # one process builds, the others wait and find the library
+    with open(os.path.join(BUILD_DIR, f".{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(so):
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            res = subprocess.run(
+                [cxx, *HOST_FLAGS, "-o", tmp, src],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            if res.returncode != 0:
+                os.unlink(tmp)
+                raise RuntimeError(
+                    f"{name}.cpp: g++ failed ({res.returncode}):\n{res.stdout}"
+                )
+            os.replace(tmp, so)
+    return so
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -146,15 +146,31 @@ def warmup_engine(engine: Engine):
     sweep to do, so the JAX package's per-bucket sweep is not needed."""
     t0 = time.time()
     cfg = engine.cfg
+    ex = engine.executor
     n = cfg.infer.max_reqs
-    for _ in range(n):
-        engine.submit(
-            "warmup " * 4, SampleParams(temperature=0.0, max_new_tokens=4)
+    # spec decode would take every greedy warmup burst: run them on the
+    # windowed path, which calibrate_dispatch times, then one spec burst
+    ex.spec_enabled = False
+    try:
+        for _ in range(n):
+            engine.submit(
+                "warmup " * 4, SampleParams(temperature=0.0, max_new_tokens=4)
+            )
+        engine.run_until_complete()
+        engine.generate(
+            "warmup", SampleParams(temperature=0.0, max_new_tokens=2)
         )
-    engine.run_until_complete()
-    engine.generate("warmup", SampleParams(temperature=0.0, max_new_tokens=2))
+    finally:
+        ex.spec_enabled = True
     if cfg.infer.adaptive_window:
-        engine.executor.calibrate_dispatch()
+        ex.calibrate_dispatch()
+    if cfg.infer.spec_decode == "ngram":
+        for _ in range(n):
+            engine.submit(
+                "warmup spec",
+                SampleParams(temperature=0.0, max_new_tokens=12),
+            )
+        engine.run_until_complete()
     logger.info("warmup done in %.1fs (%d reqs)", time.time() - t0, n)
 
 

@@ -214,17 +214,28 @@ def test_unknown_quant_method_rejected():
     "override",
     [
         "infer.tp_size=2", "quant.method=soft_fp8", "infer.dp_size=2",
-        "infer.spec_decode=ngram", "infer.prefix_cache=true",
         "infer.ring_prefill=true", "models=tiny-deepseek-debug",
     ],
 )
 def test_unported_configurations_raise(override):
     # the DeepSeek card serves since slice 4 (its dense MLA path since
-    # slice 5); what still raises there is the ring KV of queue A.6
+    # slice 5); what still raises there is the ring KV (multi-GPU)
     extra = ["infer.ring_kv=true"] if "deepseek" in override else []
     cfg = load_config(overrides=TINY + [override] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP|slice"):
         Engine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize(
+    "override", ["infer.spec_decode=ngram", "infer.prefix_cache=true"]
+)
+def test_configurations_ported_in_slice_12_serve(override):
+    """Refused until slice 12 (the n-gram spec decode and the prefix
+    cache): they now build and serve a greedy request."""
+    eng = _engine(override)
+    assert eng.generate("hello world", GREEDY) == _engine().generate(
+        "hello world", GREEDY)
+    assert eng.cache.allocator.num_free() == eng.cache.num_pages
 
 
 # ---------------------------------------------------------------------------
