@@ -249,6 +249,33 @@ Phases, each fatal on failure:
    phase, where a router flip moves whole rows, takes 0.15 of the spread
    alone); every divergence is printed with its gap, and later tokens are
    not compared.
+   Then slice 13. Tensor parallelism of Llama-3-8B-Instruct at full width:
+   `tp2` (bf16, 32 layers), `tp2_soft_fp8` (`quant.method=soft_fp8
+   quant.quant_on_load=true`, 32 layers: B6 runs on the shards) and `tp4`
+   (4 layers, 2 KV heads a rank). Each phase first serves a burst of eight
+   greedy requests (prompts of 128-1,024 tokens, 64 new tokens each: seven
+   through `Engine.submit`, one chat message) on a tp=1 engine from the
+   same seed, then starts N ranks of this script (`--tp-rank`) through the
+   port's launcher (`parallel.distributed.spawn_ranks`), all on the one
+   card over gloo (the backend is printed); every rank draws each leaf
+   whole and keeps its slice, so the weights are the tp=1 engine's. Rank 0
+   serves the same burst, the chat message over HTTP to a server on its
+   engine, then one prefill and one decode step with every kernel call
+   shadowed by its plain version (held to phase 2's limits); the other
+   ranks follow it. Held: rank r's weight bytes are (total - replicated) /
+   N + replicated (the norms, and per-channel scales of row-parallel
+   weights) and its pool bytes total / N; the attention kernels (and B6 in
+   soft-fp8) launched on rank 0; rank 0's streams equal the tp=1 streams
+   or part at a near tie (the rule above, on the tp=1 engine's rows; the
+   two engines batch the HTTP request differently and sum the row-parallel
+   products in another order). A world is killed, every rank, when one
+   fails or after 900 s. `awq`: Llama-3-8B-Instruct at 32 layers, random
+   bf16 weights with 5 % of the embedding columns x 8 (the JAX test's
+   planted outliers), `awq_quantize_llama_params` on 512 calibration
+   tokens (wall seconds printed), the AWQ tree and RTN W4A16 of the same
+   weights served through the engine (B7's int4 mode must launch), and
+   against the bf16 model's teacher-forced logits over 256 held-out tokens
+   AWQ MSE <= 1.2 x RTN MSE.
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
@@ -272,6 +299,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import zlib
 
@@ -3339,18 +3367,20 @@ def check_allocator(eng, label, prefix_cache=False):
     return name
 
 
-def teacher_forced_row(torch, tk, eng, tokens, plain=False):
-    """The logits row that predicts the token after `tokens`: one prefill
-    of `tokens` through the idle engine's model (a chunk of the executor's
-    bucketed length, all logits), in pages taken from its allocator and
-    given back; `plain`: through the plain versions of every kernel
-    (attention and op_impl's), on the same weights."""
+def stream_rows(torch, tk, eng, prompt, stream, plain=False):
+    """The logits rows [len(stream), V] that predict each token of
+    `stream` after `prompt`: teacher-forced prefill chunks through the idle
+    engine's model (the prompt, whose last row predicts the first token;
+    then the stream but its last token, all rows), each of the executor's
+    bucketed length, in pages taken from its allocator and given back; `plain`: through the plain versions of every kernel (attention
+    and op_impl's), on the same weights. Under tensor parallelism every
+    rank runs the same call."""
     from chitu_tpu_torch.executor import _bucket
     from chitu_tpu_torch.ops import linear
 
     ex, alloc, page = eng.executor, eng.cache.allocator, eng.cfg.infer.page_size
-    n = len(tokens)
-    rid = "near-tie-check"
+    n = len(prompt) + len(stream)
+    rid = "teacher-forced"
     if not alloc.ensure(rid, n + 1):
         raise AssertionError("no pages for the teacher-forced prefill")
     route = (eng.model.attn_route, eng.model.attn)
@@ -3358,19 +3388,31 @@ def teacher_forced_row(torch, tk, eng, tokens, plain=False):
         if plain:
             eng.model.attn_route, eng.model.attn = tk.attention_route("ref")
             linear.set_op_impl("xla")
-        T = _bucket(n, ex.prefill_buckets)
-        toks = torch.zeros(T, dtype=torch.int32, device=ex.device)
-        toks[:n] = torch.tensor(tokens, dtype=torch.int32, device=ex.device)
         bt = torch.as_tensor(alloc.block_table([rid], ex.mp_full)[0],
                              device=ex.device)
-        with torch.no_grad():
-            logits, _ = eng.model.prefill(dict(eng.cache.arrays), toks, bt, 0,
-                                          n, page, return_all_logits=True)
-        return logits[n - 1].float()
+        rows = []
+        for start, chunk in ((0, prompt), (len(prompt), stream[:-1])):
+            if not chunk:
+                continue
+            T = _bucket(len(chunk), ex.prefill_buckets)
+            toks = torch.zeros(T, dtype=torch.int32, device=ex.device)
+            toks[:len(chunk)] = torch.tensor(chunk, dtype=torch.int32,
+                                             device=ex.device)
+            with torch.no_grad():
+                logits, _ = eng.model.prefill(
+                    dict(eng.cache.arrays), toks, bt, start, len(chunk), page,
+                    return_all_logits=start > 0)
+            rows.append(logits[:len(chunk)] if start else logits[None])
+        return torch.cat(rows).float()
     finally:
         eng.model.attn_route, eng.model.attn = route
         linear.set_op_impl(eng.cfg.infer.op_impl)
         alloc.free(rid)
+
+
+def teacher_forced_row(torch, tk, eng, tokens, plain=False):
+    """The logits row that predicts the token after `tokens` (`stream_rows`)."""
+    return stream_rows(torch, tk, eng, list(tokens), [0], plain)[0]
 
 
 def near_tie(torch, tk, eng, label, prompts, got, want, moe=False):
@@ -3791,6 +3833,464 @@ def row_key(res):
     return res["kernel"] if v in (None, "bf16", "split") else f"{res['kernel']}[{v}]"
 
 
+# ---------------------------------------------------------------------------
+# Slice 13: tensor parallelism (ranks sharing the card over gloo) and AWQ
+# ---------------------------------------------------------------------------
+
+TP_LENS = (128, 256, 384, 512, 640, 768, 1024)  # the burst's API prompts
+TP_NEW = 64
+TP_MSG = "Tensor parallel serving over HTTP to rank 0. " * 5  # ~250 bytes
+TP_TIMEOUT = 900  # a world's whole run, killed past it
+TP_BASE = [f"models={LLAMA}", "infer.stop_with_eos=false",
+           "infer.max_seq_len=2048", "infer.max_reqs=8"]
+
+
+def tp_prompts(np, V):
+    rng = np.random.default_rng(21)
+    return [[int(x) for x in rng.integers(1, V, size=n)] for n in TP_LENS]
+
+
+def tp_reference(torch, np, label, overrides):
+    """The tp=1 engine of a TP phase (same seed, same weights): the
+    streams of the burst's seven API prompts and its chat message, with
+    the message's prompt tokens; its weight, pool and norm bytes. ->
+    (engine, result)."""
+    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch.engine import Engine
+    from chitu_tpu_torch.ops.qtensor import QTensor
+
+    eng = Engine(load_config(overrides=TP_BASE + list(overrides)))
+    prompts = tp_prompts(np, eng.cfg.models.vocab_size)
+    greedy = SampleParams(temperature=0.0, max_new_tokens=TP_NEW)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    reqs = [eng.submit("", greedy, prompt_tokens=p) for p in prompts]
+    msg = eng.submit([{"role": "user", "content": TP_MSG}], greedy)
+    msg_tokens = list(eng.pool[f"task-{msg.request_id}"].tokens)
+    eng.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    lone = lone_decode_rate(eng, prompts[0][:64])
+    m = eng.model
+    # what every rank holds whole: the norms, and the per-out-channel
+    # scales of the row-parallel projections
+    norms = sum(getattr(m, n).numel() * getattr(m, n).element_size()
+                for n in ("norm", "attn_norm", "ffn_norm"))
+    for n in ("wo", "w_down"):
+        w = getattr(m, n)
+        if isinstance(w, QTensor) and w.scale.dim() < w.data.dim():
+            norms += w.scale.numel() * w.scale.element_size()
+    res = dict(api=[list(r.async_stream.tokens) for r in reqs],
+               http=list(msg.async_stream.tokens), http_prompt=msg_tokens,
+               prompts=prompts, weight_bytes=eng.weight_bytes(),
+               pool_bytes=eng.cache.bytes(), norm_bytes=norms,
+               layers=eng.cfg.models.n_layers, burst_wall_s=wall,
+               decode_tokens_per_s_batch1=lone)
+    print(f"[{label}] tp=1 reference: weights {res['weight_bytes'] / 2**30:.3f} "
+          f"GiB, pool {res['pool_bytes'] / 2**30:.3f} GiB", flush=True)
+    return eng, res
+
+
+def lone_decode_rate(eng, prompt):
+    """A lone greedy request of 65 new tokens: its decode rate at batch 1
+    (64 tokens over the time from its first token to its last)."""
+    from chitu_tpu_torch import SampleParams
+
+    r = eng.submit("", SampleParams(temperature=0.0, max_new_tokens=65),
+                   prompt_tokens=prompt)
+    eng.run_until_complete()
+    return 64 / (r.finish_time - r.prefill_end_time)
+
+
+def tp_world(label, n, overrides, prompts, http_prompt):
+    """Start n ranks of this script (`--tp-rank`) through the port's
+    launcher (`parallel.distributed.spawn_ranks`, the one
+    `python -m chitu_tpu_torch infer.tp_size=N` uses), rank 0 included;
+    all share the card over gloo. Killed, all of them, when one fails or
+    TP_TIMEOUT passes. -> (each rank's result, rank 0's teacher-forced
+    rows of its streams)."""
+    from chitu_tpu_torch.parallel import distributed
+
+    d = tempfile.mkdtemp(prefix=f"chitu_{label}_")
+    spec = os.path.join(d, "spec.json")
+    with open(spec, "w") as f:
+        json.dump(dict(label=label, overrides=TP_BASE + list(overrides)
+                       + [f"infer.tp_size={n}", "serve.port=0"],
+                       prompts=prompts, http_prompt=http_prompt, out=d), f)
+    t0 = time.time()
+    procs = distributed.spawn_ranks(
+        [sys.executable, os.path.abspath(__file__), "--tp-rank", spec], n,
+        distributed.local_coordinator(), first=0)
+    try:
+        while any(p.poll() is None for p in procs):
+            if time.time() - t0 > TP_TIMEOUT or any(
+                    p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        raise AssertionError(f"[{label}] ranks exited with {rcs}")
+    out = []
+    for r in range(n):
+        with open(os.path.join(d, f"rank{r}.json")) as f:
+            out.append(json.load(f))
+    import torch
+
+    rows = torch.load(os.path.join(d, "tp_rows.pt"))
+    import shutil
+
+    shutil.rmtree(d, ignore_errors=True)
+    print(f"[{label}] world of {n} ranks: {time.time() - t0:.1f} s", flush=True)
+    return out, rows
+
+
+def tp_rank_main(spec_path):
+    """One rank of a TP phase. Rank 0 serves the burst: its chat message
+    over HTTP to the server on its engine and the seven prompts through
+    `Engine.submit`, all at once (the launch counters zeroed just before);
+    then one prefill and one decode step with every kernel call shadowed by
+    its plain version. The other ranks follow it (`Engine.follow`). Then
+    every rank runs the teacher-forced prefills of rank 0's streams
+    (`stream_rows`), and rank 0 keeps the rows."""
+    import numpy as np
+    import torch
+    import urllib.request
+
+    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch.engine import Engine
+    from chitu_tpu_torch.ops import attention_kernels as tk
+    from chitu_tpu_torch.serve import BackgroundServer
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = load_config(overrides=spec["overrides"])
+    t0 = time.time()
+    eng = Engine(cfg)
+    torch.cuda.synchronize()
+    rank = eng.rank
+    res = dict(rank=rank, backend=eng.group.backend, device=str(eng.device),
+               bringup_s=time.time() - t0, weight_bytes=eng.weight_bytes(),
+               pool_bytes=eng.cache.bytes(),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    print(f"[{spec['label']}] rank {rank}: backend {res['backend']} on "
+          f"{res['device']}, weights {res['weight_bytes'] / 2**30:.3f} GiB, "
+          f"pool {res['pool_bytes'] / 2**30:.3f} GiB, bring-up "
+          f"{res['bringup_s']:.1f} s", flush=True)
+    if rank != 0:
+        eng.follow()
+    else:
+        greedy = SampleParams(temperature=0.0, max_new_tokens=TP_NEW)
+        reqs, submit = [], eng.submit
+
+        def recording(*a, **k):
+            r = submit(*a, **k)
+            reqs.append(r)
+            return r
+
+        eng.submit = recording
+        srv = BackgroundServer(cfg, engine=eng)
+        port = srv.start()
+        http = {}
+
+        def post():
+            body = json.dumps({"messages": [{"role": "user", "content": TP_MSG}],
+                               "max_tokens": TP_NEW, "temperature": 0.0}).encode()
+            req = urllib.request.Request(
+                f"http://127.0.0.1:{port}/v1/chat/completions", data=body,
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=TP_TIMEOUT) as r:
+                http["resp"] = json.loads(r.read())
+
+        torch.cuda.synchronize()
+        tk.reset_launch_counts()
+        t1 = time.time()
+        th = threading.Thread(target=post)
+        th.start()
+        api = [eng.submit("", greedy, prompt_tokens=p) for p in spec["prompts"]]
+        srv.ctx.wake.set()
+        th.join()
+        while any(r.finish_reason is None for r in api):
+            time.sleep(0.01)
+        torch.cuda.synchronize()
+        res["burst_wall_s"] = time.time() - t1
+        res["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
+        srv.ctx.stop_flag.set()
+        srv.ctx.worker.join()
+        srv._loop.call_soon_threadsafe(srv._loop.stop)
+        srv._thread.join(timeout=5)
+        eng.submit = submit
+        res["decode_tokens_per_s_batch1"] = lone_decode_rate(
+            eng, spec["prompts"][0][:64])
+        msg = [r for r in reqs if r not in api]
+        res["api"] = [list(r.async_stream.tokens) for r in api]
+        res["http"] = list(msg[0].async_stream.tokens) if len(msg) == 1 else None
+        res["http_usage"] = http["resp"]["usage"]
+        # one prefill step and one decode step, every kernel call of rank
+        # 0 shadowed by its plain version on equal inputs
+        errs = {}
+        rng = np.random.default_rng(5)
+        p = [int(x) for x in rng.integers(1, cfg.models.vocab_size, 300)]
+        with torch.no_grad(), shadowed_attention(torch, tk, errs), \
+                shadowed(torch, errs):
+            eng.submit("", SampleParams(temperature=0.0, max_new_tokens=2),
+                       prompt_tokens=p)
+            eng.step()
+            eng.step()
+        eng.run_until_complete()
+        res["shadowed_call_err_vs_plain"] = errs
+        eng.terminate()
+    # every decoded position of rank 0's streams, through the world
+    pairs = eng.group.decide(
+        list(zip(spec["prompts"] + [spec["http_prompt"]],
+                 res["api"] + [res["http"]])) if rank == 0 else None)
+    rows = [stream_rows(torch, tk, eng, p, a).cpu() for p, a in pairs if a]
+    if rank == 0:
+        torch.save(rows, os.path.join(spec["out"], "tp_rows.pt"))
+    with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    from chitu_tpu_torch.parallel import distributed
+
+    distributed.shutdown()
+
+
+def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo"):
+    """A TP phase: the tp=1 reference engine, then the world of n ranks on
+    the same seed. Held: every rank's backend is `backend` (gloo: the ranks
+    share one card; nccl: a card each, `scripts/torch_tp_cards.py`); rank r's weight bytes are (total - norms) / n + norms and
+    its pool bytes total / n; rank 0's streams, the HTTP one included,
+    equal the tp=1 streams or part from them at a near tie (judged on the
+    tp=1 engine's rows), and at every position of them the world's
+    teacher-forced row stays within the noise of the tp=1 engine's and the
+    decoded token is a near tie (`every_position`); the kernels
+    in `need` launched on rank 0 in the burst; every shadowed call within
+    its limit."""
+    ref_eng, ref = tp_reference(torch, np, label, overrides)
+    ranks, tp_rows = tp_world(label, n, overrides, ref["prompts"],
+                              ref["http_prompt"])
+    r0 = ranks[0]
+    for res in ranks:
+        if res["backend"] != backend:
+            raise AssertionError(f"[{label}] rank {res['rank']} on {res['backend']}")
+        norms = ref["norm_bytes"]
+        if (res["weight_bytes"] - norms) * n != ref["weight_bytes"] - norms:
+            raise AssertionError(f"[{label}] rank {res['rank']} holds "
+                                 f"{res['weight_bytes']} weight bytes of "
+                                 f"{ref['weight_bytes']}")
+        if res["pool_bytes"] * n != ref["pool_bytes"]:
+            raise AssertionError(f"[{label}] rank {res['rank']} pool "
+                                 f"{res['pool_bytes']} of {ref['pool_bytes']}")
+    for k in need:
+        if r0["launches"].get(k, 0) <= 0:
+            raise AssertionError(f"[{label}] kernel {k} did not launch on rank 0")
+    if r0["http"] is None or r0["http_usage"]["completion_tokens"] != TP_NEW:
+        raise AssertionError(f"[{label}] the HTTP request: {r0['http_usage']}")
+    got = r0["api"] + [r0["http"]]
+    want = ref["api"] + [ref["http"]]
+    prompts = ref["prompts"] + [ref["http_prompt"]]
+    div = near_tie(torch, tk, ref_eng, label, prompts, got, want)
+    rows = every_position(torch, tk, ref_eng, label, prompts, got, tp_rows)
+    same = sum(a == b for a, b in zip(got, want))
+    ref_eng.terminate()
+    del ref_eng
+    free_memory(torch)
+    stats = dict(
+        phase=label, card=card, tp=n, layers=ref["layers"], backend=r0["backend"],
+        streams_equal=same, streams=len(got), divergences=div,
+        every_position=rows,
+        rank_weight_bytes=[r["weight_bytes"] for r in ranks],
+        rank_pool_bytes=[r["pool_bytes"] for r in ranks],
+        tp1_weight_bytes=ref["weight_bytes"], tp1_pool_bytes=ref["pool_bytes"],
+        replicated_bytes=ref["norm_bytes"],
+        rank_bringup_s=[r["bringup_s"] for r in ranks],
+        rank_peak_gib=[r["peak_gib"] for r in ranks],
+        burst_wall_s=r0["burst_wall_s"], tp1_burst_wall_s=ref["burst_wall_s"],
+        decode_tokens_per_s_batch1=r0["decode_tokens_per_s_batch1"],
+        tp1_decode_tokens_per_s_batch1=ref["decode_tokens_per_s_batch1"],
+        rank_devices=[r["device"] for r in ranks],
+        launches_rank0=r0["launches"],
+        shadowed_call_err_vs_plain=r0["shadowed_call_err_vs_plain"])
+    print("tp " + json.dumps(stats), flush=True)
+    return stats
+
+
+def every_position(torch, tk, eng, label, prompts, streams, tp_rows):
+    """Every decoded position of the TP world's streams against the tp=1
+    engine, on teacher-forced rows of the same context (`stream_rows`: the
+    tp=1 engine's with the kernels and plain, the world's own in
+    `tp_rows`), with sigma = sqrt(2) x the rms of the tp=1 row's
+    kernels-vs-plain difference (near_tie's). Held at each position: the
+    world's row differs from the tp=1 row by an rms within NOISE_SIGMAS
+    sigma; the decoded token is the top of the world's row or of the tp=1
+    row, or a near tie on one of them (within NEAR_TIE of the row's spread
+    or NOISE_SIGMAS sigma below its top). Prints the rows checked, the
+    rms in sigma, and how many tokens sit below the top of which row and
+    by how much. -> those numbers."""
+    out = dict(rows=0, below_top={}, worst_spread={}, worst_sigma={})
+    shifts = []
+    for i, (p, a, tp) in enumerate(zip(prompts, streams, tp_rows)):
+        k = stream_rows(torch, tk, eng, p, a)
+        pl = stream_rows(torch, tk, eng, p, a, plain=True)
+        tp = tp.to(k.device)
+        sigma = math.sqrt(2.0) * (k - pl).pow(2).mean(-1).sqrt()
+        shift = (tp - k).pow(2).mean(-1).sqrt() / sigma
+        shifts.append(shift)
+        at = torch.arange(len(a), device=k.device)
+        dec = torch.tensor(a, device=k.device)
+        near = {}
+        for what, row, tok in (("decoded_on_tp1", k, dec),
+                               ("decoded_on_world", tp, dec),
+                               ("world_argmax_on_tp1", k, tp.argmax(-1))):
+            top = row.max(-1).values
+            gap = top - row[at, tok]
+            spread = top - row.min(-1).values
+            near[what] = (gap <= NEAR_TIE * spread) | (gap <= NOISE_SIGMAS * sigma)
+            below = gap > 0
+            out["below_top"][what] = out["below_top"].get(what, 0) + int(below.sum())
+            if below.any():
+                out["worst_spread"][what] = max(out["worst_spread"].get(what, 0.0),
+                                                (gap / spread)[below].max().item())
+                out["worst_sigma"][what] = max(out["worst_sigma"].get(what, 0.0),
+                                               (gap / sigma)[below].max().item())
+        far = shift > NOISE_SIGMAS
+        if far.any():
+            j = int(far.nonzero()[0])
+            raise AssertionError(
+                f"[{label}] stream {i}, token {j}: the world's row differs from "
+                f"the tp=1 row by an rms of {shift[j].item():.3f} sigma (limit "
+                f"{NOISE_SIGMAS})")
+        off = ~(near["decoded_on_tp1"] | near["decoded_on_world"])
+        if off.any():
+            j = int(off.nonzero()[0])
+            raise AssertionError(
+                f"[{label}] stream {i}, token {j}: the decoded token {a[j]} is "
+                "no near tie of the tp=1 row nor of the world's row")
+        out["rows"] += len(a)
+    shifts = torch.cat(shifts)
+    out["tp_vs_tp1_rms_sigma"] = dict(median=shifts.median().item(),
+                                      max=shifts.max().item())
+    print(f"[{label}] every position: {out['rows']} rows; the world's rows "
+          f"against tp=1's: rms {out['tp_vs_tp1_rms_sigma']} sigma (limit "
+          f"{NOISE_SIGMAS}); tokens below the top {out['below_top']}, at most "
+          f"{out['worst_spread']} of the spread and {out['worst_sigma']} sigma "
+          f"(a decoded token passes within {NEAR_TIE} or {NOISE_SIGMAS} sigma "
+          "on either row)", flush=True)
+    return out
+
+
+TP_PHASES = [
+    # (label, ranks, overrides, kernels that must launch on rank 0)
+    ("tp2", 2, [], ATTN_KERNELS),
+    ("tp2_soft_fp8", 2, ["quant.method=soft_fp8", "quant.quant_on_load=true"],
+     ATTN_KERNELS + ("quant_gemm",)),
+    ("tp4", 4, ["models.n_layers=4"], ATTN_KERNELS),
+]
+AWQ_CALIB = 512
+AWQ_HOLD = 256
+
+
+def teacher_forced_logits(torch, eng, tokens):
+    """All logits rows [n, V] of one prefill of `tokens` through the idle
+    engine's model, in pages taken from its allocator and given back."""
+    from chitu_tpu_torch.executor import _bucket
+
+    ex, alloc, page = eng.executor, eng.cache.allocator, eng.cfg.infer.page_size
+    n, rid = len(tokens), "teacher-forced"
+    if not alloc.ensure(rid, n + 1):
+        raise AssertionError("no pages for the teacher-forced prefill")
+    try:
+        T = _bucket(n, ex.prefill_buckets)
+        toks = torch.zeros(T, dtype=torch.int32, device=ex.device)
+        toks[:n] = torch.tensor(tokens, dtype=torch.int32, device=ex.device)
+        bt = torch.as_tensor(alloc.block_table([rid], ex.mp_full)[0],
+                             device=ex.device)
+        with torch.no_grad():
+            logits, _ = eng.model.prefill(dict(eng.cache.arrays), toks, bt, 0,
+                                          n, page, return_all_logits=True)
+        return logits[:n].float()
+    finally:
+        alloc.free(rid)
+
+
+def awq_phase(torch, np, tk, card, layers=32):
+    """AWQ at Llama-3-8B-Instruct's width: random bf16 weights with the
+    JAX test's planted activation outliers (5 % of the embedding columns
+    x 8), `awq_quantize_llama_params` on 512 calibration tokens on the
+    card, then the AWQ tree and RTN W4A16 of the same weights served
+    through the engine (B7's int4 mode must launch). Held: against the
+    bf16 model's teacher-forced logits over 256 held-out tokens, AWQ MSE
+    <= 1.2 x RTN MSE (the JAX test's criterion)."""
+    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch.engine import Engine
+    from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
+    from chitu_tpu_torch.quantize import awq
+
+    label = "awq"
+    base = [f"models={LLAMA}", f"models.n_layers={layers}",
+            "infer.stop_with_eos=false", "infer.max_seq_len=1024",
+            "infer.max_reqs=4"]
+    eng = Engine(load_config(overrides=base))
+    V, D = eng.cfg.models.vocab_size, eng.cfg.models.dim
+    rng = np.random.default_rng(7)
+    boost = torch.from_numpy(np.where(rng.random(D) < 0.05, 8.0, 1.0)).to(
+        eng.device, torch.bfloat16)
+    eng.model.embed.data.mul_(boost)
+    calib = rng.integers(5, V, AWQ_CALIB)
+    hold = [int(x) for x in rng.integers(5, V, AWQ_HOLD)]
+    tree = eng.model.params_tree()
+    ref = teacher_forced_logits(torch, eng, hold)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with torch.no_grad():
+        q = awq.awq_quantize_llama_params(eng.model, tree, calib)
+    torch.cuda.synchronize()
+    calib_s = time.time() - t0
+    if not (isinstance(q["layers"]["wqkv"], QTensor)
+            and q["layers"]["wqkv"].kind == QuantKind.W4A16):
+        raise AssertionError(f"[{label}] the AWQ tree holds no W4A16 leaves")
+    cfg = load_config(overrides=base)
+    out = {}
+    for name, params, extra in (
+            ("awq", q, []),
+            ("rtn", tree, ["quant.method=w4a16", "quant.quant_on_load=true"])):
+        e = Engine(load_config(overrides=base + extra), params=params)
+        tk.reset_launch_counts()
+        toks = e.generate("", SampleParams(temperature=0.0, max_new_tokens=8),
+                          prompt_tokens=hold[:64])
+        torch.cuda.synchronize()
+        launches = tk.LAUNCHES.get("quant_gemm", 0)
+        if len(toks) != 8 or launches <= 0 or not e.model.wqkv.packed:
+            raise AssertionError(f"[{label}] the {name} engine: {len(toks)} "
+                                 f"tokens, {launches} int4 GEMM launches")
+        got = teacher_forced_logits(torch, e, hold)
+        out[name] = dict(mse=float(((got - ref) ** 2).mean()),
+                         quant_gemm_launches=launches)
+        e.terminate()
+        del e
+        free_memory(torch)
+    del q, tree
+    eng.terminate()
+    del eng
+    free_memory(torch)
+    ratio = out["awq"]["mse"] / out["rtn"]["mse"]
+    stats = dict(phase=label, card=card, layers=layers, calib_tokens=AWQ_CALIB,
+                 held_out_tokens=AWQ_HOLD, calibration_s=calib_s,
+                 awq_mse=out["awq"]["mse"], rtn_mse=out["rtn"]["mse"],
+                 awq_over_rtn=ratio,
+                 quant_gemm_launches={k: v["quant_gemm_launches"]
+                                      for k, v in out.items()})
+    print("awq " + json.dumps(stats), flush=True)
+    if not ratio <= 1.2:
+        raise AssertionError(f"[{label}] AWQ MSE {out['awq']['mse']} > 1.2 x "
+                             f"RTN MSE {out['rtn']['mse']}")
+    return stats
+
+
 def main():
     import numpy as np
     import torch
@@ -3799,6 +4299,9 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         sys.exit(2)
     sys.path.insert(0, HERE)
+    if sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(sys.argv[2])
+        return
     from chitu_tpu_torch.models import moe
     from chitu_tpu_torch.ops import absorb_kernels as ab
     from chitu_tpu_torch.ops import attention as plain
@@ -3940,6 +4443,13 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     print(f"slice 12 phases {time.time() - t0:.1f} s", flush=True)
+
+    # slice 13: tensor parallelism over ranks sharing the card, then AWQ
+    t0 = time.time()
+    for label, n, ovr, need in TP_PHASES:
+        tp_phase(torch, np, tk, card, label, n, ovr, need)
+    awq_phase(torch, np, tk, card)
+    print(f"slice 13 phases {time.time() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []

@@ -244,10 +244,12 @@ class InferArgs:
     # free their slots instead of idling them for a full window
     adaptive_window: bool = True
 
-    # multi-host bring-up (reference: backend.py:88-89 init_process_group
-    # + script/srun_multi_node.sh): coordinator "host:port" + process
-    # count/id wire jax.distributed; env fallbacks CHITU_TPU_COORDINATOR /
-    # CHITU_TPU_NUM_PROCESSES / CHITU_TPU_PROCESS_ID
+    # multi-process bring-up (reference: backend.py:88-89
+    # init_process_group + script/srun_multi_node.sh): coordinator
+    # "host:port" (or a file:// URL) + process count/id wire
+    # torch.distributed (`parallel/distributed.py`); env fallbacks
+    # CHITU_TPU_COORDINATOR / CHITU_TPU_NUM_PROCESSES /
+    # CHITU_TPU_PROCESS_ID.
     coordinator: str = ""
     num_processes: int = 1
     process_id: int = -1

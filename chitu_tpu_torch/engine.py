@@ -22,12 +22,22 @@ named once in a warning at bring-up (`Engine.degraded`).
 The engine runs on CUDA unless `device="cpu"` is passed; with no GPU and
 no explicit device it raises. Configurations that later work brings raise
 NotImplementedError naming the ROADMAP queue A item.
+
+Tensor parallelism (`infer.tp_size` = N, the Llama family): N processes,
+one engine each, joined by `parallel.distributed.maybe_initialize`; rank
+r runs on `cuda:(r % device_count)` and holds its shard of the weights
+and its KV heads. Every rank runs the same host state machine. Requests
+enter at rank 0 (`submit`, `cancel`); each `step` of rank 0 broadcasts
+what arrived since the last one, with its clock and flags, and every
+rank applies it before it schedules, so all ranks launch the same
+programs. The other ranks run `follow` until rank 0 terminates.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import enum
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -40,6 +50,8 @@ from chitu_tpu_torch.loader import load_checkpoint
 from chitu_tpu_torch.models import build_model
 from chitu_tpu_torch.ops.attention_kernels import ATTN_TYPES
 from chitu_tpu_torch.ops.linear import OP_IMPLS, set_fp8_act, set_op_impl
+from chitu_tpu_torch.ops.qtensor import QuantKind
+from chitu_tpu_torch.parallel import distributed, mesh_from_config
 from chitu_tpu_torch.quantize.transforms import (
     KIND_BY_METHOD,
     merge_moe_gate_up,
@@ -87,10 +99,17 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
         raise ValueError(
             f"infer.op_impl={infer.op_impl!r}: expected one of {OP_IMPLS}")
     todo = []
-    if infer.tp_size > 1 or infer.pp_size > 1 or infer.dp_size > 1:
-        todo.append("tp/pp/dp > 1 (multi-GPU)")
+    if infer.pp_size > 1 or infer.dp_size > 1:
+        todo.append("pp/dp > 1: the PP/DP slice (ROADMAP A.1)")
+    if infer.tp_size > 1 and cfg.models.type not in ("hf-llama", "llama"):
+        todo.append(
+            f"tp_size > 1 for {cfg.models.type}: expert parallelism under TP "
+            "(multi-GPU), the slice after PP/DP (ROADMAP A.2)")
+    if infer.tp_size > 1 and KIND_BY_METHOD.get(quant.method) == QuantKind.W8A8:
+        # a row-parallel input's per-token scale needs the whole row
+        todo.append("W8A8 under tp_size > 1 (ROADMAP C)")
     if infer.ring_prefill or infer.ring_kv:
-        todo.append("ring prefill / ring KV (multi-GPU)")
+        todo.append("ring prefill / ring KV: the ring slice (ROADMAP A.3)")
     if (
         quant.method not in ("none", "")
         and not quant.quant_on_load
@@ -111,18 +130,44 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
 
 
 class Engine:
-    """One inference engine instance on one device."""
+    """One inference engine instance on one device (one rank's, under
+    tensor parallelism). `params`: named tensors (`params_from_numpy`),
+    or a function of the model that gives them (each rank its own shard:
+    `lambda m: params_from_numpy(tree, m.layout)`)."""
 
     def __init__(
         self,
         cfg: EngineConfig,
         device=None,
-        params: Optional[Dict[str, torch.Tensor]] = None,
+        params=None,
     ):
         init_logger()
         check_supported(cfg, have_params=params is not None)
         set_fp8_act(cfg.quant.fp8_act)
         set_op_impl(cfg.infer.op_impl)
+        self.group = None
+        if distributed.maybe_initialize(cfg, device):
+            self.group = distributed.tp_group()
+            mesh_from_config(cfg, self.group.size)
+            if self.group.size != cfg.infer.tp_size:
+                raise NotImplementedError(
+                    f"{self.group.size} processes for tp_size="
+                    f"{cfg.infer.tp_size}: a world is one tensor-parallel "
+                    "group until the PP/DP slice (ROADMAP A.1)")
+            device = self.group.device
+            init_logger(rank=self.group.rank)
+        elif cfg.infer.tp_size > 1:
+            raise ValueError(
+                f"tp_size={cfg.infer.tp_size} needs num_processes="
+                f"{cfg.infer.tp_size} and a coordinator (one process a "
+                "rank; `python -m chitu_tpu_torch infer.tp_size=N` starts "
+                "them on one host)")
+        self.rank = self.group.rank if self.group is not None else 0
+        # rank 0's requests and controls since its last step, and the
+        # tasks they made, which join the pool when the step broadcasts
+        self._outbox: List[tuple] = []
+        self._staged: Dict[str, Task] = {}
+        self._lock = threading.Lock()
         self.device = resolve_device(device)
         if (
             self.device.type == "cuda"
@@ -147,6 +192,7 @@ class Engine:
         self.model = build_model(margs, cfg, device=self.device)
 
         t0 = time.time()
+        quantize = cfg.quant.method not in ("none", "") and cfg.quant.quant_on_load
         if cfg.infer.do_load and margs.ckpt_dir:
             if params is not None:
                 raise ValueError("params given and infer.do_load set: pick one")
@@ -155,15 +201,23 @@ class Engine:
             tree = load_checkpoint(self.model, cfg, self.device)
         else:
             if params is not None:
-                self.model.load_params(params)
+                self.model.load_params(
+                    params(self.model) if callable(params) else params)
             else:
                 # arch-only debug: random weights (reference: infer.do_load=
-                # False, config/serve_config.yaml:9)
+                # False, config/serve_config.yaml:9), quantized leaf by leaf
+                # while whole (a rank's shard of a row-parallel weight has
+                # the full weight's scales)
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(cfg.infer.seed)
-                self.model.init_params(gen, _DTYPES[cfg.dtype])
+                if quantize and hasattr(self.model, "layout"):
+                    self.model.init_params(gen, _DTYPES[cfg.dtype],
+                                           transform=self._quantize_leaf)
+                    quantize = False
+                else:
+                    self.model.init_params(gen, _DTYPES[cfg.dtype])
             tree = self.model.params_tree(pop=True)
-        if cfg.quant.method not in ("none", "") and cfg.quant.quant_on_load:
+        if quantize:
             # destructive walk: each dense leaf is freed as it is replaced
             tree = quantize_params(tree, cfg.quant, self.model)
         # int4 storage packed on the device; one grouped GEMM per MoE
@@ -255,6 +309,34 @@ class Engine:
         for msg in self.degraded:
             logger.warning("degraded path: %s", msg)
 
+    def _quantize_leaf(self, name: str, t):
+        """`quant.quant_on_load` of one full leaf (`quantize_params` on a
+        tree that holds just it)."""
+        under = name in self.model.LAYER_LEAVES
+        tree = {"layers": {name: t}} if under else {name: t}
+        tree = quantize_params(tree, self.cfg.quant, self.model)
+        return (tree["layers"] if under else tree)[name]
+
+    def weight_bytes(self) -> int:
+        """Bytes of this rank's weights on the device."""
+        from chitu_tpu_torch.ops.qtensor import QTensor
+
+        n = 0
+        tree = self.model.params_tree()
+
+        def walk(t):
+            nonlocal n
+            if isinstance(t, dict):
+                for v in t.values():
+                    walk(v)
+            elif isinstance(t, QTensor):
+                n += t.nbytes()
+            elif isinstance(t, torch.Tensor):
+                n += t.numel() * t.element_size()
+
+        walk(tree)
+        return n
+
     def degraded_paths(self) -> List[str]:
         """Conditions where this configuration lands on a known
         structurally slow path, one sentence each."""
@@ -295,6 +377,26 @@ class Engine:
     ) -> UserRequest:
         """Create a request+task and enqueue it (reference: serve.py:78-99)."""
         rid = request_id or new_request_id()
+        if self.rank != 0:
+            raise RuntimeError(
+                "requests enter at rank 0; the other ranks follow it")
+        req, task = self._make_task(message, params, rid, prompt_tokens,
+                                    priority)
+        if self.group is None:
+            self._add_task(task)
+        else:
+            with self._lock:
+                if rid in self._staged or f"task-{rid}" in self.pool:
+                    TaskLoad.reduce(task.load_score())
+                    raise ValueError(f"duplicate request id {rid!r}")
+                self._staged[rid] = task
+                self._outbox.append(("submit", dict(
+                    message=message, params=req.params, rid=rid,
+                    prompt_tokens=prompt_tokens, priority=priority,
+                    arrival=task.arrival)))
+        return req
+
+    def _make_task(self, message, params, rid, prompt_tokens, priority):
         margs = self.cfg.models
         req = UserRequest(
             message,
@@ -323,12 +425,82 @@ class Engine:
             prompt_tokens=prompt_tokens,
             priority=priority,
         )
+        return req, task
+
+    def _add_task(self, task: Task):
         if not self.pool.add(task):
             # duplicate request id: Task.__init__ already bumped the
             # global TaskLoad; undo it
             TaskLoad.reduce(task.load_score())
-            raise ValueError(f"duplicate request id {rid!r}")
-        return req
+            raise ValueError(f"duplicate request id {task.req.request_id!r}")
+
+    # -- lockstep across ranks ----------------------------------------------
+
+    def has_work(self) -> bool:
+        return bool(len(self.pool) or self._outbox)
+
+    def _sync(self, step: bool = True) -> bool:
+        """Rank 0: broadcast what arrived since the last step (submits,
+        cancels, controls), its clock and its flags, and apply it; False
+        (and no broadcast) when there is nothing to step. A single process
+        applies nothing: its requests are in the pool already."""
+        if self.group is None:
+            return True
+        with self._lock:
+            ops, self._outbox = self._outbox, []
+        if step and not ops and not len(self.pool):
+            return False
+        msg = dict(ops=ops, now=time.time(), step=step,
+                   spec=self.executor.spec_enabled)
+        self.group.decide(msg)
+        self._apply(msg)
+        return True
+
+    def _apply(self, msg):
+        self.scheduler.clock = lambda now=msg["now"]: now
+        self.executor.spec_enabled = msg["spec"]
+        for op, arg in msg["ops"]:
+            if op == "submit":
+                task = self._staged.pop(arg["rid"], None)
+                if task is None:  # a follower makes rank 0's task
+                    req, task = self._make_task(
+                        arg["message"], arg["params"], arg["rid"],
+                        arg["prompt_tokens"], arg["priority"])
+                    req.bind_loop()
+                    task.arrival = arg["arrival"]
+                self._add_task(task)
+            elif op == "cancel":
+                self._cancel_now(arg)
+            elif op == "calibrate":
+                self.executor.calibrate_dispatch()
+
+    def follow(self):
+        """The worker loop of ranks other than 0 (the JAX package's
+        non-controller hosts, serve.py:525-535): take rank 0's step
+        messages and run the same steps, until it terminates. A step that
+        fails raises out of it: a rank that stepped on would issue other
+        collectives than the rest, so its process ends, and the world
+        with it."""
+        if self.group is None or self.rank == 0:
+            raise RuntimeError("follow() runs on ranks other than 0")
+        while True:
+            msg = self.group.decide(None)
+            if msg.get("stop"):
+                self._terminate_local()
+                return
+            self._apply(msg)
+            if msg["step"]:
+                self._step()
+
+    def calibrate(self):
+        """Seed the adaptive-window cost model (`calibrate_dispatch`) on
+        every rank; the windows stay rank 0's decisions."""
+        if self.group is None:
+            self.executor.calibrate_dispatch()
+            return
+        with self._lock:
+            self._outbox.append(("calibrate", None))
+        self._sync(step=False)
 
     # -- engine loop --------------------------------------------------------
 
@@ -337,6 +509,11 @@ class Engine:
         Returns the number of tasks stepped."""
         if self.state != EngineState.RUNNING:
             return 0
+        if not self._sync():
+            return 0
+        return self._step()
+
+    def _step(self) -> int:
         task_ids = self.scheduler.schedule(self._admit_predicate())
         if not task_ids:
             return 0
@@ -371,7 +548,7 @@ class Engine:
 
     def run_until_complete(self, max_steps: int = 1_000_000):
         steps = 0
-        while len(self.pool) and steps < max_steps:
+        while self.has_work() and steps < max_steps:
             if self.step() == 0 and len(self.pool):
                 time.sleep(0.001)  # nothing runnable; avoid a busy spin
             steps += 1
@@ -384,12 +561,20 @@ class Engine:
         """Synchronous one-shot generation (for tests and scripts)."""
         req = self.submit(message, params, prompt_tokens=prompt_tokens)
         task_id = f"task-{req.request_id}"
-        while task_id in self.pool:
+        while task_id in self.pool or req.request_id in self._staged:
             self.step()
         return list(req.async_stream.tokens)
 
     def cancel(self, request_id: str):
-        """Stop generating for an abandoned request (client disconnect)."""
+        """Stop generating for an abandoned request (client disconnect);
+        under tensor parallelism at rank 0's next step, on every rank."""
+        if self.group is not None:
+            with self._lock:
+                self._outbox.append(("cancel", request_id))
+            return
+        self._cancel_now(request_id)
+
+    def _cancel_now(self, request_id: str):
         task = self.pool.pool.get(f"task-{request_id}")
         if task is not None and task.req.finish_reason is None:
             task.cancel()
@@ -398,8 +583,18 @@ class Engine:
 
     def terminate(self):
         """Drain: finish every in-flight request (streams close with a
-        'cancelled' reason) and release device residency."""
+        'cancelled' reason) and release device residency; rank 0 releases
+        the ranks that follow it."""
+        if self.group is not None and self.rank == 0 and (
+                self.state == EngineState.RUNNING):
+            self.group.decide(dict(stop=True))
+        self._terminate_local()
+
+    def _terminate_local(self):
         self.state = EngineState.TERMINATING
+        for rid, task in list(self._staged.items()):
+            task.req.finish("cancelled")
+            self._staged.pop(rid)
         for task in self.pool.snapshot():
             try:
                 task.req.finish("cancelled")

@@ -42,6 +42,9 @@ def perplexity_from_tokens(
     window the previous one did not cover (standard strided eval)."""
     from chitu_tpu_torch.kvcache import PagedKVCache
 
+    if getattr(engine, "group", None) is not None:
+        # the model is called directly here, which the followers do not see
+        raise NotImplementedError("perplexity runs at tp_size=1")
     model = engine.model
     cfg = engine.cfg
     dev = engine.device

@@ -99,13 +99,17 @@ def _draft(buf: torch.Tensor, clen: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class Executor:
-    """Single-device executor."""
+    """The executor of one device (one rank's, under tensor parallelism:
+    every rank issues the same steps)."""
 
     def __init__(self, cfg, model, cache: PagedKVCache, has_waiting=None):
         self.cfg = cfg
         self.model = model
         self.cache = cache
         self.device = model.device
+        # the tensor-parallel group (None on one device): decisions that
+        # read the host clock are rank 0's (`parallel.distributed`)
+        self.group = getattr(model, "group", None)
         self.page = cfg.infer.page_size
         self.max_reqs = cfg.infer.max_reqs
         self.mp_full = cfg.infer.max_seq_len // self.page + 1
@@ -718,7 +722,11 @@ class Executor:
             min(int(remaining[i]), max(1, t.max_seq_len - t.seq_len))
             for i, t in enumerate(live)
         ]
+        # the window reads the host clock (kappa): under tensor
+        # parallelism rank 0 picks it for all
         window = self._pick_window(r_eff, min_headroom)
+        if self.group is not None:
+            window = self.group.decide(window)
         schedule = self._window_schedule(window, min(r_eff), min_headroom)
 
         stop_ids = self._stop_ids(live, B)

@@ -39,6 +39,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from chitu_tpu_torch.ops.qtensor import TENSOR_FIELDS, QTensor, QuantKind
+from chitu_tpu_torch.parallel.sharding import shard_tensor
 from chitu_tpu_torch.utils import get_logger
 from chitu_tpu_torch.utils.safetensors import Reader, save_file
 
@@ -263,7 +264,9 @@ def fill_stacked(lead: Tuple[int, ...], make: Callable[[tuple], Any]):
             _bytes(out[idx]).copy_(_bytes(p))
         del p
     if isinstance(out, QTensor) and any(v is not None for v in perms):
-        K = out.data.shape[-2]
+        # a permutation row spans the whole input (a row-parallel shard
+        # holds fewer rows than it indexes)
+        K = next(v for v in perms if v is not None).shape[-1]
         rows = [
             v if v is not None
             else torch.arange(K, dtype=torch.int32, device=out.data.device)
@@ -286,22 +289,15 @@ def fp8_qtensor(data: torch.Tensor, scale_inv: torch.Tensor) -> QTensor:
     )
 
 
-def merge_llama_leaves(layers: Dict[str, Any]) -> Dict[str, Any]:
-    """The port's merged layout, in place: wq/wk/wv -> wqkv, bq/bk/bv ->
-    b_qkv, and but for MoE expert stacks (a tree with a router) w_gate/w_up
-    -> w_gate_up (merge_tp 1: a plain concatenation of the out dims), dense
-    or quantized (`models.llama._cat_out`); each part is freed as the
-    merge takes it."""
-    from chitu_tpu_torch.models.llama import _cat_out
+def merge_llama_leaves(layers: Dict[str, Any], model=None) -> Dict[str, Any]:
+    """The model's layout, in place (`TPLayout.assemble`): when it merges
+    (always without a model), wq/wk/wv -> wqkv, bq/bk/bv -> b_qkv, and but
+    for MoE expert stacks w_gate/w_up -> w_gate_up, dense or quantized;
+    parts that cannot merge stay unmerged."""
+    from chitu_tpu_torch.models.llama import TPLayout
 
-    for parts, merged in ((("wq", "wk", "wv"), "wqkv"),
-                          (("bq", "bk", "bv"), "b_qkv"),
-                          (("w_gate", "w_up"), "w_gate_up")):
-        if merged == "w_gate_up" and "moe_gate" in layers:
-            continue
-        if all(p in layers for p in parts):
-            layers[merged] = _cat_out([layers.pop(p) for p in parts])
-    return layers
+    lay = getattr(model, "layout", None) or TPLayout()
+    return lay.assemble(layers)
 
 
 # ---------------------------------------------------------------------------
@@ -369,13 +365,27 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
         else:
             staged.setdefault(path[1], [None] * L)[layer] = (key, transpose)
 
-    def take(key, dtype=None, transpose=False):
-        return to_device(ck.get(key), dev, dtype, transpose)
+    lay = getattr(model, "layout", None)
+    cut = lay is not None and lay.tp > 1
+
+    def take(key, dtype=None, transpose=False, name=None):
+        view = ck.get(key)
+        if cut and name is not None:
+            # the rank's slice of the mapped view, before it is copied
+            spec = lay.part_spec(name, view.dim())
+            if transpose and view.dim() == 2:
+                spec = spec[::-1]
+            view = shard_tensor(view, spec, lay.rank, lay.tp)
+        return to_device(view, dev, dtype, transpose)
+
+    def local(name, q):
+        # a quantized layer is assembled on the device, then cut
+        return lay.local(name, q).contiguous() if cut else q
 
     params: Dict[str, Any] = {"layers": {}}
     ly = params["layers"]
     for name, (key, transpose) in flat.items():
-        params[name] = take(key, bf16, transpose)
+        params[name] = take(key, bf16, transpose, name)
 
     if packed:
         # offline-quantized checkpoint (AWQ / GPTQ; reference load paths:
@@ -399,7 +409,8 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
             if missing:
                 raise ValueError(f"packed ckpt missing {name} layers {missing}")
             staged.pop(name, None)
-            ly[name] = fill_stacked((L,), lambda idx, v=vals: unpack(v[idx[0]]))
+            ly[name] = fill_stacked(
+                (L,), lambda idx, v=vals, n=name: local(n, unpack(v[idx[0]])))
 
     fp8_names = {name for (_, name) in fp8_scales}
     for name, pieces in staged.items():
@@ -415,18 +426,19 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
                     f"fp8 checkpoint missing {name} scales for layers "
                     f"{sc_missing}"
                 )
-            ly[name] = fill_stacked((L,), lambda idx, n=name, p=pieces: fp8_qtensor(
-                take(p[idx[0]][0]), take(fp8_scales[(idx[0], n)])))
+            ly[name] = fill_stacked((L,), lambda idx, n=name, p=pieces: local(
+                n, fp8_qtensor(take(p[idx[0]][0]), take(fp8_scales[(idx[0], n)]))))
             continue
         ly[name] = fill_stacked(
-            (L,), lambda idx, p=pieces: take(p[idx[0]][0], bf16, p[idx[0]][1]))
+            (L,), lambda idx, p=pieces, n=name: take(
+                p[idx[0]][0], bf16, p[idx[0]][1], n))
     logger.info("read %d tensors (%.2f GB) in %.1fs", len(ck.keys()),
                 ck.nbytes / 1e9, time.time() - t0)
 
     if "lm_head" not in params and not a.tie_word_embeddings:
         # tied checkpoints without an explicit head
         params["lm_head"] = params["embed"].T.contiguous()
-    merge_llama_leaves(ly)
+    merge_llama_leaves(ly, model)
     return params
 
 
@@ -534,9 +546,13 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
     qmeta = meta.get("qtensors", {})
     reader = Reader(out_dir, files=meta.get("files"))
 
-    # merged projections are chunked per merge_tp; the port takes 1
+    # merged projections are chunked per merge_tp (rank-major when the
+    # dump was made under tensor parallelism): a model splits them into
+    # their parts again (`TPLayout.place`), and cuts its rank's slices
     saved_mtp = int(meta.get("layout", {}).get("merge_tp", 1))
-    if saved_mtp != 1 and any("wqkv" in k or "w_gate_up" in k for k in reader.keys()):
+    lay = getattr(model, "layout", None)
+    merged_keys = any("wqkv" in k or "w_gate_up" in k for k in reader.keys())
+    if saved_mtp != 1 and merged_keys and lay is None:
         raise ValueError(
             f"preprocessed dump stores merged projections with "
             f"merge_tp={saved_mtp} but the engine expects merge_tp=1: "
@@ -545,6 +561,10 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
         )
     if device is None:
         device = model.device if model is not None else torch.device("cpu")
+    cut = lay is not None and (lay.tp > 1 or saved_mtp != 1 or not lay.merged)
+    # a leaf that is cut stays a view of the mapped file until its slice
+    # is copied to the device
+    dest = torch.device("cpu") if cut else device
 
     def leaf(key):
         t = reader.get_tensor(key)
@@ -553,7 +573,7 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
             if want.itemsize != t.element_size():
                 raise ValueError(f"{key}: stored {t.dtype}, meta.json says {want}")
             t = t.view(want)
-        return to_device(t, device)
+        return t if cut else to_device(t, dest)
 
     tree: Dict[str, Any] = {}
     qparts: Dict[str, Dict[str, torch.Tensor]] = {}
@@ -575,6 +595,16 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
         info = qmeta[base]
         insert(base, QTensor(kind=QuantKind(info["kind"]), block=int(info["block"]),
                              **{n: fields.get(n) for n in TENSOR_FIELDS}))
-    if "layers" in tree:
-        merge_llama_leaves(tree["layers"])
+    if cut and "layers" in tree:
+        flat = {k: v for k, v in tree.items() if k != "layers"}
+        flat.update(tree.pop("layers"))
+        out: Dict[str, Any] = {}
+        for k in list(flat):
+            for n, v in lay.place(k, flat.pop(k), saved_mtp).items():
+                out[n] = (v.to(device).contiguous() if isinstance(v, QTensor)
+                          else to_device(v, device))
+        ly = {k: out.pop(k) for k in list(out) if k in model.LAYER_LEAVES}
+        tree = {**out, "layers": lay.assemble(ly)}
+    elif "layers" in tree:
+        merge_llama_leaves(tree["layers"], model)
     return tree

@@ -135,7 +135,7 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
             (len(layers), E),
             lambda idx, k=kind: st.take(experts[(idx[0], idx[1], k)], True),
         )
-    params["layers"] = merge_llama_leaves(ly)
+    params["layers"] = merge_llama_leaves(ly, model)
     if "lm_head" not in params and not a.tie_word_embeddings:
         params["lm_head"] = params["embed"].T.contiguous()
     logger.info("mixtral checkpoint: %.2f GB in %.1fs", ck.nbytes / 1e9,
@@ -182,11 +182,26 @@ def load_glm4_params(model, cfg, device=None) -> Dict[str, Any]:
 
     layers = list(range(a.n_layers))
     take = lambda v: st.take(*v)
-    params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()}
+    lay = model.layout
     names = ["attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down"]
     if a.attn_bias:
         names.append("b_qkv")
-    params["layers"] = {n: st.stack(n, layers, take) for n in names}
+    if lay.tp <= 1 and lay.merged:
+        params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()}
+        params["layers"] = {n: st.stack(n, layers, take) for n in names}
+        return params
+    # another layout: each fused layer is split into its parts and cut to
+    # the rank's slice on the device, then the layers are stacked
+    params = {}
+    for k, v in st.flat.items():
+        params.update(lay.place(k, take(v)))
+    ly: Dict[str, Any] = {}
+    for n in names:
+        slot = st.slot(n, layers)
+        pieces = [lay.place(n, take(slot[i])) for i in layers]
+        for k in pieces[0]:
+            ly[k] = torch.stack([p[k] for p in pieces])
+    params["layers"] = lay.assemble(ly)
     return params
 
 

@@ -86,8 +86,9 @@ class DeepSeekV3ForCausalLM(nn.Module):
         infer = cfg.infer
         if infer.tp_size > 1 or infer.pp_size > 1:
             raise NotImplementedError(
-                "tp_size/pp_size > 1 are not ported yet (ROADMAP: "
-                "multi-GPU)"
+                "tp_size/pp_size > 1 for DeepSeek: pipeline parallelism "
+                "comes with the PP/DP slice (ROADMAP A.1), DeepSeek under TP "
+                "(with expert parallelism) with the slice after it (A.2)"
             )
         self.args = args
         self.cfg = cfg

@@ -2,12 +2,14 @@
 
 Counterpart of `chitu_tpu/models/llama.py` (reference:
 chitu/models/model_hf_llama.py, chitu/models/model_llama.py). The weights
-are the JAX package's stacked [L, ...] leaves under the same names
-(`wqkv`, `wo`, `w_gate_up`, `w_down`, `attn_norm`, `ffn_norm`, `embed`,
-`norm`, `lm_head`, optional `b_qkv`) in the merged layout with
-merge_tp == 1, held as frozen parameters of an `nn.Module`. The layer loop
-is a Python loop; each layer's projections are `torch.matmul` on views of
-the stacked weights, and attention goes through the kernel wrappers of
+are the JAX package's stacked [L, ...] leaves under the same names, held
+as frozen parameters of an `nn.Module`, in one of two layouts
+(`infer.merge_qkv_gate_up`, decided as in the JAX package): merged
+(`wqkv`, `w_gate_up`, optional `b_qkv`) or unmerged (`wq`/`wk`/`wv`,
+`w_gate`/`w_up`, optional `bq`/`bk`/`bv`); besides them `wo`, `w_down`,
+`attn_norm`, `ffn_norm`, `embed`, `norm`, `lm_head`. The layer loop is a
+Python loop; each layer's projections are `torch.matmul` on views of the
+stacked weights, and attention goes through the kernel wrappers of
 `ops/attention_kernels.py` (CUDA kernels on the card, their plain
 versions on the CPU). A projection weight may be a `QTensor` (on-load
 quantization, or a quantized JAX tree carried across): `ops.linear`
@@ -16,15 +18,27 @@ activations from the fused norm+quant kernel. The KV pool in
 `cache["kv"]` is updated IN PLACE and returned for symmetry with the JAX
 functions.
 
-Checkpoints load through `loader.load_checkpoint`, which merges what it
-reads. Not ported yet: the ring and tensor-parallel paths, and the
-unmerged weight layout (an unmerged JAX tree is merged by
-`params_from_numpy`).
+Tensor parallelism (`infer.tp_size`, reference: chitu/tensor_parallel.py):
+each rank is a process that holds its shard (`TPLayout`): q/k/v, gate/up
+and the head column-parallel, wo and w_down row-parallel (their partial
+products summed in f32 over the group), the embedding vocab-parallel (a
+masked lookup, summed). The merged leaves of a rank are its own
+(q_r | k_r | v_r) and (g_r | u_r): the shard of the JAX package's
+rank-major layout. Attention runs the same kernels on the rank's heads,
+and the pool holds the rank's KV heads (all of them replicated by
+tp / KV ranks each when there are fewer KV heads than ranks). The logits
+are gathered to the full vocabulary on every rank, so sampling sees the
+same row everywhere.
+
+Checkpoints load through `loader.load_checkpoint`. Not ported yet: the
+ring paths and pipeline parallelism.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import numpy as np
@@ -53,7 +67,8 @@ from chitu_tpu_torch.ops.qtensor import (
     QuantKind,
     unpack_int4,
 )
-from chitu_tpu_torch.utils import resolve_device
+from chitu_tpu_torch.parallel.sharding import narrow_out, shard_leaf
+from chitu_tpu_torch.utils import get_logger, resolve_device
 
 
 def _ffn_dim(args) -> int:
@@ -122,14 +137,18 @@ def _cat_out(parts):
     if not any(isinstance(p, QTensor) for p in parts):
         return torch.cat(parts, dim=-1)
     q0 = parts[0]
+    # outlier rows concatenate only as the column slices of one leaf's
+    # (a merged llmint8 leaf split for its shards): one channel set
     if not all(
         isinstance(p, QTensor) and p.kind == q0.kind and p.block == q0.block
-        and p.oc_idx is None for p in parts
+        and (p.oc_idx is None if q0.oc_idx is None else (
+            p.oc_idx is not None and torch.equal(p.oc_idx, q0.oc_idx)))
+        for p in parts
     ):
         raise NotImplementedError(
             "an unmerged quantized tree with mixed kinds or outlier rows "
-            "cannot be merged into wqkv / w_gate_up; quantize the merged "
-            "layout instead"
+            "cannot be merged into wqkv / w_gate_up; serve it unmerged "
+            "(infer.merge_qkv_gate_up=off)"
         )
     # act-order GPTQ: the parts see one input, so their row orders are
     # usually one permutation, which the merged leaf keeps
@@ -140,8 +159,8 @@ def _cat_out(parts):
         ):
             raise NotImplementedError(
                 "act-order parts with differing input permutations cannot "
-                "be merged into wqkv / w_gate_up; the unmerged weight "
-                "layout is not ported (ROADMAP: multi-GPU)"
+                "be merged into wqkv / w_gate_up; serve them unmerged "
+                "(infer.merge_qkv_gate_up=off)"
             )
     repack = all(p.packed for p in parts)
     parts = [unpack_int4(p) if p.packed else p for p in parts]
@@ -162,6 +181,8 @@ def _cat_out(parts):
         scale=cat("scale"),
         zeros=cat("zeros") if q0.zeros is not None else None,
         kind=q0.kind, block=q0.block, in_perm=q0.in_perm,
+        oc_idx=q0.oc_idx,
+        oc_w=cat("oc_w") if q0.oc_w is not None else None,
     )
     if repack:
         from chitu_tpu_torch.quantize.transforms import pack_int4_storage
@@ -170,53 +191,185 @@ def _cat_out(parts):
     return q
 
 
-def params_from_numpy(tree: Dict[str, Any]) -> Dict[str, Any]:
+# the parts of each merged leaf, in their order along the out dim
+MERGES = {
+    "wqkv": ("wq", "wk", "wv"),
+    "b_qkv": ("bq", "bk", "bv"),
+    "w_gate_up": ("w_gate", "w_up"),
+}
+ROW_PARALLEL = ("wo", "w_down")
+
+
+def split_rank_major(leaf, widths, merge_tp: int = 1):
+    """A merged leaf -> its parts (the inverse of the JAX package's
+    `rank_major_merge`): with merge_tp 1 the out dim is the plain
+    concatenation of the parts; with merge_tp m it is m chunks, chunk c
+    the concatenation of every part's c-th slice."""
+    total = sum(widths)
+    chunk = total // merge_tp
+    parts = [[] for _ in widths]
+    for c in range(merge_tp):
+        o = c * chunk
+        for i, w in enumerate(widths):
+            wl = w // merge_tp
+            parts[i].append(narrow_out(leaf, o, o + wl))
+            o += wl
+    return [p[0] if len(p) == 1 else _cat_out(p) for p in parts]
+
+
+@dataclass(frozen=True)
+class TPLayout:
+    """One rank's view of the weights: which slice of every full leaf it
+    holds, and whether its q/k/v and gate/up leaves are merged.
+
+    Specs (`parallel.sharding`) are those of the JAX package's
+    `param_partition_specs` on the unmerged parts: wq and bq split by
+    query heads, wk/wv/bk/bv by KV heads (held by tp / KV ranks each when
+    the KV heads are fewer than the ranks), w_gate/w_up by columns and
+    wo/w_down by rows (whole when the FFN does not divide: then the FFN
+    replicates and nothing is summed), embed by vocab rows and lm_head by
+    vocab columns (whole when the vocabulary does not divide)."""
+
+    rank: int = 0
+    tp: int = 1
+    # the full model's geometry (zeros: one device, merged leaves kept
+    # as they are, no widths needed)
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int = 0
+    inter_dim: int = 0
+    vocab_size: int = 0
+    merged: bool = True
+    moe: bool = False
+
+    @property
+    def widths(self) -> Dict[str, tuple]:
+        H, KV, Dh, Fd = self.n_heads, self.n_kv_heads, self.head_dim, self.inter_dim
+        qkv = (H * Dh, KV * Dh, KV * Dh)
+        return {"wqkv": qkv, "b_qkv": qkv, "w_gate_up": (Fd, Fd)}
+
+    def part_spec(self, name: str, ndim: int) -> tuple:
+        spec = [None] * ndim
+        if name in ("wq", "bq"):
+            spec[-1] = ("tp", self.n_heads)
+        elif name in ("wk", "wv", "bk", "bv"):
+            spec[-1] = ("tp", self.n_kv_heads)
+        elif name == "wo":
+            spec[-2] = ("tp", self.n_heads)
+        elif name in ("w_gate", "w_up") and not self.moe:
+            spec[-1] = "tp"
+        elif name == "w_down" and not self.moe:
+            spec[-2] = "tp"
+        elif name == "embed":
+            spec[0] = "tp"
+        elif name == "lm_head":
+            spec[-1] = "tp"
+        return tuple(spec)
+
+    def local(self, name: str, part):
+        """Rank's shard of one full unmerged leaf."""
+        if self.tp <= 1:
+            return part
+        nd = part.data.dim() if isinstance(part, QTensor) else part.dim()
+        return shard_leaf(part, self.part_spec(name, nd), self.rank, self.tp,
+                          name)
+
+    def place(self, name: str, leaf, merge_tp: int = 1,
+              transform=None) -> Dict[str, Any]:
+        """One full leaf (a merged one in plain or rank-major order, or an
+        unmerged part) -> the rank's leaves by name, in this layout.
+        `transform(name, leaf)` sees each full leaf of this layout before
+        it is cut (the on-load quantization, which must see whole rows)."""
+        transform = transform or (lambda n, t: t)
+        if name in MERGES and not (self.moe and name == "w_gate_up"):
+            names = MERGES[name]
+            if self.merged:
+                if self.tp <= 1 and merge_tp <= 1:
+                    return {name: transform(name, leaf)}
+                if merge_tp <= 1:
+                    leaf = transform(name, leaf)
+                parts = split_rank_major(leaf, self.widths[name], merge_tp)
+                return {name: _cat_out([
+                    self.local(n, p) for n, p in zip(names, parts)])}
+            parts = split_rank_major(leaf, self.widths[name], merge_tp)
+            return {n: self.local(n, transform(n, p))
+                    for n, p in zip(names, parts)}
+        # an unmerged part (a merged layout joins it to its siblings in
+        # `assemble`), or a leaf of its own
+        return {name: self.local(name, transform(name, leaf))}
+
+    def assemble(self, leaves: Dict[str, Any]) -> Dict[str, Any]:
+        """Local unmerged parts -> the merged leaves, in place, when this
+        layout merges (a plain concatenation of the rank's parts; MoE
+        expert stacks stay split). Parts that cannot merge (act-order GPTQ
+        whose q/k/v permutations differ) all stay unmerged, and the model
+        serves the tree unmerged (`load_params` follows the tree), as the
+        JAX loader does (chitu_tpu/loader.py:685-708)."""
+        moe = self.moe or "moe_gate" in leaves
+        todo = [
+            (m, ps) for m, ps in MERGES.items()
+            if all(p in leaves for p in ps) and not (moe and m == "w_gate_up")
+        ]
+        if not self.merged or not todo:
+            return leaves
+        try:
+            merged = {m: _cat_out([leaves[p] for p in ps]) for m, ps in todo}
+        except NotImplementedError as e:
+            get_logger().warning("serving the projections unmerged: %s", e)
+            return leaves
+        for m, ps in todo:
+            for p in ps:
+                del leaves[p]
+            leaves[m] = merged[m]
+        return leaves
+
+
+def params_from_numpy(tree: Dict[str, Any], layout: Optional[TPLayout] = None,
+                      merge_tp: int = 1) -> Dict[str, Any]:
     """The JAX package's llama, Mixtral or DeepSeek parameter tree, as
     numpy arrays ({"embed", "norm", "layers": {...}, "lm_head"}, or
     DeepSeek's "dense_layers" and "moe_layers" stacks), -> the tensors of
     this package's module by name. A quantized leaf (the JAX `QTensor`
     with numpy fields, or a mapping of its fields; e4m3 data as
     `ml_dtypes` arrays or a uint8 view) becomes a `QTensor`, byte for
-    byte: blockwise or rowwise scales, packed or unpacked int4. Unmerged
-    attention and dense-FFN leaves (wq/wk/wv, w_gate/w_up) are merged into
-    the wqkv / w_gate_up leaves. The family shows in the tree: a Mixtral
-    tree has a router (`moe_gate`), and its expert stacks `[L, E, in, out]`
-    cross as they are, dense or quantized, split (`w_gate`, `w_up`) or
-    merged (`w_gu`). A DeepSeek tree crosses leaf for leaf into the same
-    nested form, `gate_bias` in f32, split or merged leaves (`wq_kv_a`,
-    `shared_gu`, `exp_gu`) as they are."""
+    byte: blockwise or rowwise scales, packed or unpacked int4. The
+    family shows in the tree: a Mixtral tree has a router (`moe_gate`),
+    and its expert stacks `[L, E, in, out]` cross as they are, dense or
+    quantized, split (`w_gate`, `w_up`) or merged (`w_gu`). A DeepSeek
+    tree crosses leaf for leaf into the same nested form, `gate_bias` in
+    f32, split or merged leaves (`wq_kv_a`, `shared_gu`, `exp_gu`) as
+    they are.
+
+    Without a `layout`, unmerged attention and dense-FFN leaves (wq/wk/wv,
+    w_gate/w_up) are merged into the wqkv / w_gate_up leaves. With one
+    (`model.layout`), the tree becomes that rank's leaves in that layout:
+    merged leaves in plain order (`merge_tp` 1) or the JAX package's
+    rank-major order (`merge_tp`, its model's `merge_tp`) are split into
+    their parts, each part is cut to the rank's slice, and the parts are
+    merged again when the layout merges."""
     if "dense_layers" in tree:
         out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head")}
         for stack in ("dense_layers", "moe_layers"):
             out[stack] = {k: _leaf(v) for k, v in tree[stack].items()}
         return out
     layers = tree["layers"]
-    moe = "moe_gate" in layers
-    out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head") if k in tree}
-    for k in ("attn_norm", "ffn_norm", "wo", "w_down"):
-        out[k] = _leaf(layers[k])
-    cat = lambda *ks: _cat_out([_leaf(layers[k]) for k in ks])
-    if "wqkv" in layers:
-        out["wqkv"] = _leaf(layers["wqkv"])
-        if "b_qkv" in layers:
-            out["b_qkv"] = _leaf(layers["b_qkv"])
-    else:
-        out["wqkv"] = cat("wq", "wk", "wv")
-        if "bq" in layers:
-            out["b_qkv"] = cat("bq", "bk", "bv")
-    if moe:
-        for k in ("moe_gate", "w_gate", "w_up", "w_gu"):
-            if k in layers:
-                out[k] = _leaf(layers[k])
-    elif "w_gate_up" in layers:
-        out["w_gate_up"] = _leaf(layers["w_gate_up"])
-    else:
-        out["w_gate_up"] = cat("w_gate", "w_up")
-    return out
+    flat = {k: tree[k] for k in ("embed", "norm", "lm_head") if k in tree}
+    flat.update(layers)
+    if layout is None:
+        layout = TPLayout(moe="moe_gate" in layers)
+        if any(k in layers for k in ("wqkv", "b_qkv", "w_gate_up")):
+            # merged leaves cross as they are (no widths to split by)
+            out = {k: _leaf(v) for k, v in flat.items()}
+            return layout.assemble(out)
+    out: Dict[str, Any] = {}
+    for k in list(flat):
+        out.update(layout.place(k, _leaf(flat.pop(k)), merge_tp))
+    return layout.assemble(out)
 
 
 _LAYER_LEAVES = (
     "attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down", "b_qkv",
+    "wq", "wk", "wv", "w_gate", "w_up", "bq", "bk", "bv",
 )  # the leaves that live under "layers" in the nested tree
 
 
@@ -232,15 +385,10 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, args, cfg, device=None):
         super().__init__()
         infer = cfg.infer
-        if infer.tp_size > 1 or infer.pp_size > 1:
+        if infer.pp_size > 1:
             raise NotImplementedError(
-                "tp_size/pp_size > 1 are not ported yet (ROADMAP: "
-                "multi-GPU)"
-            )
-        if infer.merge_qkv_gate_up == "off":
-            raise NotImplementedError(
-                "the unmerged weight layout is not ported; use "
-                "merge_qkv_gate_up=auto"
+                "pp_size > 1: pipeline parallelism comes with the PP/DP "
+                "slice (ROADMAP A.1)"
             )
         self.args = args
         self.cfg = cfg
@@ -252,6 +400,7 @@ class LlamaForCausalLM(nn.Module):
         self.rot_dim = int(self.head_dim * args.partial_rotary_factor)
         self.attn_scale = 1.0 / math.sqrt(self.head_dim)
         self.rotary_layout = args.rotary_type
+        self._init_tp(infer)
         cos, sin = rope_tables(
             self.rot_dim, infer.max_seq_len, args.rope_theta,
             args.rope_scaling, device=self.device,
@@ -259,48 +408,113 @@ class LlamaForCausalLM(nn.Module):
         self.register_buffer("cos", cos, persistent=False)
         self.register_buffer("sin", sin, persistent=False)
 
+    def _init_tp(self, infer):
+        """The tensor-parallel geometry and the weight layout (the JAX
+        package's `merged` / `merge_tp` / `kv_tp_shard` decisions)."""
+        from chitu_tpu_torch.parallel.distributed import tp_group
+
+        a = self.args
+        H, KV, Fd, V = a.n_heads, a.n_kv_heads, self.inter_dim, a.vocab_size
+        tp = infer.tp_size
+        self.tp = tp
+        self.group = tp_group() if tp > 1 else None
+        if tp > 1 and (self.group is None or self.group.size != tp):
+            raise RuntimeError(
+                f"tp_size={tp} needs a process group of {tp} ranks "
+                "(parallel.distributed.maybe_initialize; the engine joins "
+                "it from infer.coordinator / num_processes / process_id)"
+            )
+        self.rank = self.group.rank if self.group is not None else 0
+        if H % tp or not (KV % tp == 0 or tp % KV == 0):
+            raise NotImplementedError(
+                f"tp_size={tp} with {H} query and {KV} KV heads: each rank "
+                "must hold whole query heads of one KV group (ROADMAP C)"
+            )
+        div = H % tp == 0 and KV % tp == 0 and Fd % tp == 0
+        mq = infer.merge_qkv_gate_up
+        if mq not in ("auto", "on", "off"):
+            raise ValueError(f"merge_qkv_gate_up={mq!r}: expected auto, on or off")
+        self.merged = mq == "on" or (mq == "auto" and (tp <= 1 or div))
+        # tp chunk count of the JAX package's merged layout (1 = plain
+        # [q|k|v] concatenation); the port always holds its own chunk
+        self.merge_tp = tp if (self.merged and tp > 1 and div) else 1
+        # the pool shards whenever the KV heads divide (the JAX package
+        # also asks for 128-lane shards, a TPU layout matter: ROADMAP C);
+        # fewer KV heads than ranks: each rank holds the one its queries
+        # read
+        self.kv_tp_shard = tp > 1 and KV % tp == 0
+        self.h_local = H // tp
+        self.kv_local = KV // tp if self.kv_tp_shard else (1 if tp > 1 else KV)
+        self.ffn_tp = tp if Fd % tp == 0 else 1
+        self.vocab_tp = tp if V % tp == 0 else 1
+        self.layout = TPLayout(
+            self.rank, tp, H, KV, self.head_dim, Fd, V, merged=self.merged,
+            moe=getattr(a, "moe", None) is not None,
+        )
+
     # -- cache geometry -----------------------------------------------------
 
     def kv_cache_spec(self) -> Dict[str, Any]:
         return dict(
             n_layers=self.args.n_layers,
-            kv_heads=self.args.n_kv_heads,
+            kv_heads=self.kv_local,
             head_dim=self.head_dim,
             kv_dim=0,
         )
 
     # -- parameters ---------------------------------------------------------
 
-    def _shapes(self) -> Dict[str, tuple]:
+    def _shapes(self, local: bool = True, merged: Optional[bool] = None
+                ) -> Dict[str, tuple]:
+        """Leaf shapes of this rank's layout, or (`local=False`) of the
+        full tree at tp 1; `merged` overrides the layout's choice."""
         a = self.args
-        L, D, H, KV, Dh, Fd, V = (
-            a.n_layers, a.dim, a.n_heads, a.n_kv_heads, self.head_dim,
-            self.inter_dim, a.vocab_size,
-        )
+        merged = self.merged if merged is None else merged
+        L, D, Dh = a.n_layers, a.dim, self.head_dim
+        if local:
+            H, KV, Fd = self.h_local, self.kv_local, self.inter_dim // self.ffn_tp
+            V = a.vocab_size // self.vocab_tp
+        else:
+            H, KV, Fd, V = a.n_heads, a.n_kv_heads, self.inter_dim, a.vocab_size
         shapes = {
             "embed": (V, D),
             "norm": (D,),
             "attn_norm": (L, D),
             "ffn_norm": (L, D),
-            "wqkv": (L, D, (H + 2 * KV) * Dh),
-            "wo": (L, H * Dh, D),
-            "w_gate_up": (L, D, 2 * Fd),
-            "w_down": (L, Fd, D),
         }
+        if merged:
+            shapes["wqkv"] = (L, D, (H + 2 * KV) * Dh)
+        else:
+            shapes.update(wq=(L, D, H * Dh), wk=(L, D, KV * Dh),
+                          wv=(L, D, KV * Dh))
+        shapes["wo"] = (L, H * Dh, D)
+        if merged:
+            shapes["w_gate_up"] = (L, D, 2 * Fd)
+        else:
+            shapes.update(w_gate=(L, D, Fd), w_up=(L, D, Fd))
+        shapes["w_down"] = (L, Fd, D)
         if a.attn_bias:
-            shapes["b_qkv"] = (L, (H + 2 * KV) * Dh)
+            if merged:
+                shapes["b_qkv"] = (L, (H + 2 * KV) * Dh)
+            else:
+                shapes.update(bq=(L, H * Dh), bk=(L, KV * Dh), bv=(L, KV * Dh))
         if not a.tie_word_embeddings:
             shapes["lm_head"] = (D, V)
         return shapes
 
     def init_params(
         self, generator: Optional[torch.Generator] = None,
-        dtype: torch.dtype = torch.bfloat16,
+        dtype: torch.dtype = torch.bfloat16, transform=None,
     ):
         """Random weights on the module's device (normal * 0.02, norms 1,
         biases 0), drawn from `generator`; the JAX package's
-        `init_params` layout and scales."""
-        for name, shape in self._shapes().items():
+        `init_params` layout and scales. Every leaf is drawn whole, in the
+        merged tp-1 shapes and order, and the rank keeps its slice: the
+        weights are those of the tp-1 merged draw from the same seed,
+        whatever the layout and the rank, and no rank holds more than one
+        full leaf at a time. `transform(name, leaf)` sees each full leaf
+        of this layout first (`TPLayout.place`)."""
+        for name, shape in self._shapes(local=False, merged=True).items():
             t = torch.empty(shape, dtype=dtype, device=self.device)
             if name in ("norm", "attn_norm", "ffn_norm"):
                 t.fill_(1.0)
@@ -308,8 +522,23 @@ class LlamaForCausalLM(nn.Module):
                 t.zero_()
             else:
                 t.normal_(0.0, 0.02, generator=generator)
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            for k, v in self.layout.place(name, t, transform=transform).items():
+                self._install(k, v)
+            del t
         return self
+
+    def _install(self, name: str, t):
+        self._drop(name)
+        if isinstance(t, QTensor):
+            setattr(self, name, t.to(self.device).contiguous())
+        else:
+            self.register_parameter(
+                name,
+                nn.Parameter(
+                    t.detach().to(self.device).contiguous(),
+                    requires_grad=False,
+                ),
+            )
 
     def load_params(self, tensors: Dict[str, Any]):
         """Install named weights (from `params_from_numpy`, or the nested
@@ -321,6 +550,15 @@ class LlamaForCausalLM(nn.Module):
                 **{k: v for k, v in tensors.items() if k != "layers"},
                 **tensors["layers"],
             }
+        # the layout follows the tree (the JAX package derives it from
+        # the actual params too): a loader keeps parts unmerged that
+        # cannot merge (act-order GPTQ with differing permutations)
+        merged = "wqkv" in tensors
+        if merged != self.merged and ("wq" in tensors or merged):
+            for name in self._shapes():
+                self._drop(name)
+            self.merged = merged
+            self.layout = dataclasses.replace(self.layout, merged=merged)
         shapes = self._shapes()
         missing = set(shapes) - set(tensors)
         if missing:
@@ -329,17 +567,7 @@ class LlamaForCausalLM(nn.Module):
             t = tensors[name]
             if tuple(t.shape) != shape:
                 raise ValueError(f"{name}: shape {tuple(t.shape)} != {shape}")
-            self._drop(name)
-            if isinstance(t, QTensor):
-                setattr(self, name, t.to(self.device).contiguous())
-            else:
-                self.register_parameter(
-                    name,
-                    nn.Parameter(
-                        t.detach().to(self.device).contiguous(),
-                        requires_grad=False,
-                    ),
-                )
+            self._install(name, t)
         return self
 
     def _drop(self, name: str):
@@ -366,32 +594,64 @@ class LlamaForCausalLM(nn.Module):
 
     def _layer(self, h: torch.Tensor, layer: int, cos, sin, attend):
         """One decoder layer; `attend(q, k, v, layer)` appends the fresh
-        K/V and returns the attention output [T, H, Dh]."""
-        a = self.args
+        K/V and returns the attention output [T, H, Dh] (this rank's
+        heads)."""
         T = h.shape[0]
-        H, KV, Dh = a.n_heads, a.n_kv_heads, self.head_dim
-        x = self._norm_acts(h, self.attn_norm[layer], self.wqkv)
-        qkv = linear(
-            x, self.wqkv, getattr(self, "b_qkv", None), layer=layer
-        )
-        q = qkv[:, : H * Dh].reshape(T, H, Dh)
-        k = qkv[:, H * Dh : (H + KV) * Dh].reshape(T, KV, Dh)
-        v = qkv[:, (H + KV) * Dh :].reshape(T, KV, Dh).contiguous()
+        H, KV, Dh = self.h_local, self.kv_local, self.head_dim
+        if self.merged:
+            x = self._norm_acts(h, self.attn_norm[layer], self.wqkv)
+            qkv = linear(
+                x, self.wqkv, getattr(self, "b_qkv", None), layer=layer
+            )
+            q = qkv[:, : H * Dh]
+            k = qkv[:, H * Dh : (H + KV) * Dh]
+            v = qkv[:, (H + KV) * Dh :]
+        else:
+            x = self._norm_acts(h, self.attn_norm[layer], self.wq)
+            q, k, v = (
+                linear(x, getattr(self, w), getattr(self, b, None), layer=layer)
+                for w, b in (("wq", "bq"), ("wk", "bk"), ("wv", "bv"))
+            )
+        q = q.reshape(T, H, Dh)
+        k = k.reshape(T, KV, Dh)
+        v = v.reshape(T, KV, Dh).contiguous()
         q = apply_rope(q, cos, sin, self.rotary_layout)
         k = apply_rope(k, cos, sin, self.rotary_layout)
         o = attend(q, k, v, layer)
-        h = h + linear(o.reshape(T, -1), self.wo, layer=layer)
+        h = h + self._row_linear(o.reshape(T, -1), self.wo, layer)
         return self._ffn(h, layer)
+
+    def _row_linear(self, x, w, layer: int, sharded: bool = True):
+        """A row-parallel projection: this rank's partial product, summed
+        over the group in f32 (reference RowParallelLinear,
+        tensor_parallel.py:157-169). An act-order weight's rows index the
+        whole input, so its input is gathered first."""
+        if self.group is None or not sharded:
+            return linear(x, w, layer=layer)
+        if isinstance(w, QTensor) and w.in_perm is not None:
+            k = w.in_features
+            k0 = self.rank * k
+            full = self.group.gather_last(x, k0, w.in_perm.shape[-1])
+            x = full.to(x.dtype)[..., w.in_perm[layer, k0:k0 + k].long()]
+            w = w.without("in_perm")
+        return self.group.all_reduce_f32(linear(x, w, layer=layer))
 
     def _ffn(self, h: torch.Tensor, layer: int) -> torch.Tensor:
         """The FFN half of a layer, norm and residual included: SwiGLU
         here; the MoE families override it."""
-        x = self._norm_acts(h, self.ffn_norm[layer], self.w_gate_up)
-        gu = linear(x, self.w_gate_up, layer=layer)
-        Fd = self.inter_dim
-        hid = (F.silu(gu[:, :Fd]) * gu[:, Fd:]).to(h.dtype)
+        if self.merged:
+            x = self._norm_acts(h, self.ffn_norm[layer], self.w_gate_up)
+            gu = linear(x, self.w_gate_up, layer=layer)
+            Fd = gu.shape[-1] // 2
+            gate, up = gu[:, :Fd], gu[:, Fd:]
+        else:
+            x = self._norm_acts(h, self.ffn_norm[layer], self.w_gate)
+            gate = linear(x, self.w_gate, layer=layer)
+            up = linear(x, self.w_up, layer=layer)
+        hid = (F.silu(gate) * up).to(h.dtype)
         hid = self._maybe_quant_acts(hid, self.w_down)
-        return h + linear(hid, self.w_down, layer=layer)
+        return h + self._row_linear(hid, self.w_down, layer,
+                                    sharded=self.ffn_tp > 1)
 
     @staticmethod
     def _w8a8(proj_w) -> bool:
@@ -416,11 +676,30 @@ class LlamaForCausalLM(nn.Module):
             h = self._layer(h, layer, cos, sin, attend)
         return rms_norm(h, self.norm, self.args.norm_eps)
 
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding rows of `tokens`; vocab-parallel: each rank looks up
+        the tokens in its vocab slice, zeros the rest, and the rows are
+        summed over the group (exact: one nonzero term)."""
+        if self.vocab_tp == 1:
+            return self.embed[tokens.long()]
+        n = self.embed.shape[0]
+        t = tokens.long() - self.rank * n
+        held = (t >= 0) & (t < n)
+        rows = self.embed[t.clamp(0, n - 1)] * held[:, None].to(self.embed.dtype)
+        return self.group.all_reduce_f32(rows)
+
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.args.tie_word_embeddings else self.lm_head
         if isinstance(head, QTensor):  # quant.quantize_head
-            return linear(h, head, out_dtype=torch.float32)
-        return matmul_out_dtype(h, head, torch.float32)
+            y = linear(h, head, out_dtype=torch.float32)
+        else:
+            y = matmul_out_dtype(h, head, torch.float32)
+        if self.vocab_tp == 1:
+            return y
+        # every rank gets the whole row: sampling, penalties, stop checks
+        # and draft acceptance see the same logits everywhere
+        n = y.shape[-1]
+        return self.group.gather_last(y, self.rank * n, self.args.vocab_size)
 
     def _rope_rows(self, pos: torch.Tensor):
         idx = torch.clamp(pos, 0, self.cos.shape[0] - 1).long()
@@ -429,7 +708,7 @@ class LlamaForCausalLM(nn.Module):
     def _attn_kw(self):
         a = self.args
         return dict(
-            kv_heads=a.n_kv_heads, head_dim=self.head_dim,
+            kv_heads=self.kv_local, head_dim=self.head_dim,
             scale=self.attn_scale, window=a.sliding_window,
             softcap=a.attn_softcap,
         )
@@ -455,7 +734,7 @@ class LlamaForCausalLM(nn.Module):
         total_len = start_pos + valid_len
         q_pos = torch.where(ar < valid_len, pos, torch.zeros_like(pos))
         pool = cache["kv"]
-        h = self.embed[tokens.long()]
+        h = self._embed(tokens)
         cos, sin = self._rope_rows(pos)
         kw = self._attn_kw()
 
@@ -491,7 +770,7 @@ class LlamaForCausalLM(nn.Module):
         feeds nothing but the contract (the kernel reads the block
         geometry), `pos` places the rotary tables."""
         pool = cache["kv"]
-        h = self.embed[tokens.long()]
+        h = self._embed(tokens)
         cos, sin = self._rope_rows(pos)
         kw = self._attn_kw()
 
@@ -528,7 +807,7 @@ class LlamaForCausalLM(nn.Module):
         (disjoint pages, so their order does not matter)."""
         B = dec_tokens.shape[0]
         pool = cache["kv"]
-        h = self.embed[torch.cat([dec_tokens, pf_tokens]).long()]
+        h = self._embed(torch.cat([dec_tokens, pf_tokens]))
         cos, sin = self._rope_rows(torch.cat([dec_seq_lens, pf_pos]))
         kw = self._attn_kw()
 
@@ -579,7 +858,7 @@ class LlamaForCausalLM(nn.Module):
         block_seg = torch.where(valid, rows, torch.full_like(rows, -1))
         seg_ids = block_seg.repeat_interleave(K1)
         total_lens = seq_lens + K1
-        h = self.embed[tokens.reshape(-1).long()]
+        h = self._embed(tokens.reshape(-1))
         cos, sin = self._rope_rows(pos)
         kw = self._attn_kw()
 
@@ -608,7 +887,7 @@ class LlamaForCausalLM(nn.Module):
         """Batched one-token decode -> (logits [B, V], cache) through the
         B1 kernel (reference: Transformer.decode, models/model.py:537-622)."""
         pool = cache["kv"]
-        h = self.embed[tokens.long()]
+        h = self._embed(tokens)
         cos, sin = self._rope_rows(seq_lens)
         kw = self._attn_kw()
 

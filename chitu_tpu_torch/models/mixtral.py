@@ -10,8 +10,10 @@ of a layer is `route` + `moe_ffn_auto` (`models/moe.py`): the token-sorted
 dispatch through the grouped GEMM kernel for bf16 and e4m3 experts, the
 capacity route for the stacks that kernel does not take.
 
-Its HF checkpoints load through `loaders_moe.load_mixtral_params`. Not
-ported yet: expert parallelism over a mesh (ROADMAP: multi-GPU).
+Its attention takes the llama module's layouts, merged or unmerged
+(`infer.merge_qkv_gate_up=off`). Its HF checkpoints load through
+`loaders_moe.load_mixtral_params`. Not ported yet: expert parallelism
+under TP (ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ from chitu_tpu_torch.models.common import rms_norm
 from chitu_tpu_torch.models.llama import _LAYER_LEAVES, LlamaForCausalLM
 from chitu_tpu_torch.models.moe import moe_ffn_auto, route
 
-_FFN_LEAVES = ("w_gate_up", "w_down")
+_FFN_LEAVES = ("w_gate_up", "w_gate", "w_up", "w_down")
 _MOE_LEAVES = ("moe_gate", "w_gate", "w_up", "w_gu", "w_down")
 
 
@@ -38,15 +40,21 @@ class MixtralForCausalLM(LlamaForCausalLM):
     def __init__(self, args, cfg, device=None):
         if args.moe is None:
             raise ValueError("a mixtral model card needs its moe section")
+        if cfg.infer.tp_size > 1:
+            raise NotImplementedError(
+                "tp_size > 1 for Mixtral: expert parallelism under TP comes "
+                "with the slice after PP/DP (ROADMAP A.2)"
+            )
         super().__init__(args, cfg, device=device)
         self.moe = args.moe
         # gate and up experts in one [.., D, 2F] stack (`w_gu`)
         self.merged_gu = False
 
-    def _shapes(self) -> Dict[str, tuple]:
+    def _shapes(self, local: bool = True, merged=None) -> Dict[str, tuple]:
         a, m = self.args, self.moe
         shapes = {
-            k: v for k, v in super()._shapes().items() if k not in _FFN_LEAVES
+            k: v for k, v in super()._shapes(local, merged).items()
+            if k not in _FFN_LEAVES
         }
         L, D = a.n_layers, a.dim
         E, Fd = m.n_routed_experts, m.moe_inter_dim or self.inter_dim

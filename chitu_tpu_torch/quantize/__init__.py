@@ -1,4 +1,5 @@
-"""On-load quantization of the parameter tree (see `transforms`)."""
+"""On-load quantization of the parameter tree (see `transforms`), and
+AWQ calibration (`awq`)."""
 
 from chitu_tpu_torch.quantize.transforms import (  # noqa: F401
     expand_fp8_scales_rowwise,

@@ -26,6 +26,9 @@ class Scheduler:
         self.pool = pool
         self.cfg = cfg
         self.max_tasks = cfg.infer.max_reqs
+        # the clock a policy reads; under tensor parallelism the engine
+        # sets it to rank 0's reading of each step
+        self.clock = time.time
 
     @staticmethod
     def build(pool: TaskPool, cfg) -> "Scheduler":
@@ -110,7 +113,7 @@ class StrideScheduler(Scheduler):
         tasks = self._runnable(admit)
         if not tasks:
             return []
-        now = time.time()
+        now = self.clock()
         for t in tasks:
             t.sched_score = t.priority * (now - t.arrival)
         tasks.sort(key=lambda t: -t.sched_score)

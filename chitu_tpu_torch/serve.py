@@ -102,11 +102,17 @@ class ServerContext:
         n = sum(1 for t in self.done_times if now - t <= window_s)
         return n / window_s
 
-    def start(self, warmup: bool = True):
-        self.engine = Engine(self.cfg, device=self.device)
+    def start(self, warmup: bool = True, engine: Optional[Engine] = None):
+        """Bring the engine up (or take `engine`) and start its worker
+        thread. Under tensor parallelism a rank other than 0 starts none:
+        it takes no requests and follows rank 0 (`Engine.follow`)."""
+        self.engine = engine if engine is not None else Engine(
+            self.cfg, device=self.device)
+        self.stop_flag.clear()
+        if self.engine.rank != 0:
+            return
         if warmup:
             warmup_engine(self.engine)
-        self.stop_flag.clear()
         self.worker = threading.Thread(target=self._worker_loop, daemon=True)
         self.worker.start()
 
@@ -114,11 +120,17 @@ class ServerContext:
         """Busy loop running engine steps whenever work exists
         (reference: serve.py:167-176)."""
         while not self.stop_flag.is_set():
-            if self.engine is not None and len(self.engine.pool):
+            if self.engine is not None and self.engine.has_work():
                 try:
                     self.engine.step()
                 except Exception:
                     logger.exception("engine step failed")
+                    if self.engine.group is not None:
+                        # ranks step in lockstep: stepping on after a
+                        # failure would pair other collectives than theirs
+                        from chitu_tpu_torch.parallel import distributed
+
+                        distributed.end_world("a step failed on rank 0")
                     time.sleep(0.05)
             else:
                 self.wake.wait(timeout=0.005)
@@ -163,7 +175,7 @@ def warmup_engine(engine: Engine):
     finally:
         ex.spec_enabled = True
     if cfg.infer.adaptive_window:
-        ex.calibrate_dispatch()
+        engine.calibrate()
     if cfg.infer.spec_decode == "ngram":
         for _ in range(n):
             engine.submit(
@@ -355,6 +367,9 @@ def build_app(ctx: ServerContext):
         (reference: serve.py /init endpoint)."""
         if ctx.engine is not None and ctx.engine.state == EngineState.RUNNING:
             return _json_error(409, "engine already running")
+        if ctx.engine is not None and ctx.engine.group is not None:
+            # the other ranks' engines are gone with rank 0's
+            return _json_error(409, "no rebuild under tensor parallelism")
         try:
             body = await request.json() if request.can_read_body else {}
         except json.JSONDecodeError:
@@ -383,9 +398,11 @@ class BackgroundServer:
     """Run the app in a background thread on an ephemeral port (tests,
     embedded usage, benchmark drivers)."""
 
-    def __init__(self, cfg: EngineConfig, warmup: bool = False, device=None):
+    def __init__(self, cfg: EngineConfig, warmup: bool = False, device=None,
+                 engine: Optional[Engine] = None):
         self.ctx = ServerContext(cfg, device=device)
         self.warmup = warmup
+        self.engine = engine  # serve this engine instead of building one
         self.port: Optional[int] = None
         self._loop: Optional[asyncio.AbstractEventLoop] = None
         self._thread: Optional[threading.Thread] = None
@@ -394,7 +411,7 @@ class BackgroundServer:
     def start(self) -> int:
         from aiohttp import web
 
-        self.ctx.start(warmup=self.warmup)
+        self.ctx.start(warmup=self.warmup, engine=self.engine)
         app = build_app(self.ctx)
         self._loop = asyncio.new_event_loop()
 
@@ -439,6 +456,13 @@ def serve_forever(cfg: EngineConfig, warmup: bool = True, device=None):
 
     ctx = ServerContext(cfg, device=device)
     ctx.start(warmup=warmup)
+    if ctx.engine.rank != 0:
+        # the other ranks run the engine loop only; rank 0 serves HTTP
+        # (reference: rank-0 uvicorn + all-rank worker loops,
+        # serve.py:215-233)
+        logger.info("rank %d: following rank 0", ctx.engine.rank)
+        ctx.engine.follow()
+        return
     logging.getLogger("aiohttp.access").addFilter(_ProbeFilter())
     app = build_app(ctx)
     logger.info("serving on %s:%d", cfg.serve.host, cfg.serve.port)
@@ -450,11 +474,23 @@ def serve_forever(cfg: EngineConfig, warmup: bool = True, device=None):
 
 def main(argv: Optional[List[str]] = None):
     """`python -m chitu_tpu_torch key=value ...` (reference hydra entry:
-    serve.py:215-218); serves on the CUDA device."""
+    serve.py:215-218); serves on the CUDA device. With `infer.tp_size=N`
+    and no coordinator, the command starts ranks 1..N-1 as copies of
+    itself on this host and serves as rank 0; with `infer.coordinator`,
+    `infer.num_processes` and `infer.process_id` (or the CHITU_TPU_*
+    variables) it is one rank of a world started elsewhere, one process
+    a host."""
+    import os
     import sys
+
+    from chitu_tpu_torch.parallel import distributed
 
     overrides = list(argv if argv is not None else sys.argv[1:])
     cfg = load_config(overrides=overrides)
+    tp = cfg.infer.tp_size
+    if tp > 1 and not (cfg.infer.coordinator
+                       or os.environ.get("CHITU_TPU_COORDINATOR")):
+        distributed.serve_local(overrides, tp)
     serve_forever(cfg)
 
 

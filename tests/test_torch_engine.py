@@ -213,13 +213,15 @@ def test_unknown_quant_method_rejected():
 @pytest.mark.parametrize(
     "override",
     [
-        "infer.tp_size=2", "quant.method=soft_fp8", "infer.dp_size=2",
+        "infer.pp_size=2", "quant.method=soft_fp8", "infer.dp_size=2",
         "infer.ring_prefill=true", "models=tiny-deepseek-debug",
     ],
 )
 def test_unported_configurations_raise(override):
     # the DeepSeek card serves since slice 4 (its dense MLA path since
-    # slice 5); what still raises there is the ring KV (multi-GPU)
+    # slice 5); what still raises there is the ring KV (multi-GPU).
+    # tp_size=2 serves since slice 13 (tests/test_torch_tp.py); pp_size=2
+    # still raises
     extra = ["infer.ring_kv=true"] if "deepseek" in override else []
     cfg = load_config(overrides=TINY + [override] + extra)
     with pytest.raises(NotImplementedError, match="ROADMAP|slice"):

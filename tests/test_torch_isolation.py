@@ -45,6 +45,22 @@ def test_every_module_imports_without_jax_or_chitu_tpu():
     assert int(res.stdout.strip().splitlines()[-1]) >= 20
 
 
+def test_walk_covers_the_tensor_parallel_and_awq_modules():
+    """The modules slice 13 added are among those the blocked-import walk
+    above imports."""
+    import pkgutil
+
+    import chitu_tpu_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        chitu_tpu_torch.__path__, "chitu_tpu_torch.")}
+    assert {
+        "chitu_tpu_torch.parallel", "chitu_tpu_torch.parallel.mesh",
+        "chitu_tpu_torch.parallel.distributed",
+        "chitu_tpu_torch.parallel.sharding", "chitu_tpu_torch.quantize.awq",
+    } <= mods
+
+
 def test_engine_without_device_never_runs_on_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

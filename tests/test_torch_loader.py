@@ -678,9 +678,45 @@ def test_same_errors_as_jax_loader(tmp_path, case):
 
 
 def test_act_order_parts_with_differing_perms_raise(tmp_path):
+    """Act-order q/k/v (and gate/up) parts whose permutations differ
+    cannot merge into one leaf. They raised until the unmerged layout was
+    ported (slice 13); now they load unmerged, as the JAX loader keeps
+    them, equal to its tree, and the engine serves them with the JAX
+    engine's logits and greedy tokens."""
     ovr, d = LLAMA, write(int4_tensors(LLAMA, "gptq", perms="differ"), str(tmp_path))
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        port_tree(_cfgs(ovr, d)[1])
+    jcfg, cfg = _cfgs(ovr, d)
+    got = port_tree(cfg)
+    assert "wq" in got and "wqkv" not in got and "w_gate" in got
+    assert not torch.equal(got["wq"].in_perm, got["wk"].in_perm)
+    assert_trees_equal(jax_tree(jcfg), got)
+    eng = Engine(cfg, device="cpu")
+    assert not eng.model.merged and eng.model.wq.in_perm is not None
+    p = SampleParams(temperature=0.0, max_new_tokens=6)
+    assert len(eng.generate("act order", p)) == 6
+    # teacher-forced logits on the JAX loader's tree with its dense leaves
+    # in f32: the JAX engine cannot serve this tree on the CPU (its int4
+    # product is bf16 x bf16 -> f32, which XLA's CPU backend lacks)
+    import jax.numpy as jnp
+    from chitu_tpu.kvcache.paged import PagedKVCache as JCache
+
+    model = jbuild(jcfg.models, jcfg)
+    f32 = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float32) if a.dtype == jnp.bfloat16 else a,
+        jload_checkpoint(model, jcfg))
+    page, ids = 16, IDS[:24]
+    n, T = len(ids), 64
+    spec = model.kv_cache_spec()
+    cache = JCache(spec["n_layers"], T // page + 1, page, spec["kv_heads"],
+                   spec["head_dim"], dtype=jnp.float32)
+    tok = jnp.zeros((T,), jnp.int32).at[:n].set(jnp.asarray(ids))
+    want, _ = model.prefill(
+        f32, cache.arrays, tok, jnp.arange(T // page + 1, dtype=jnp.int32),
+        jnp.int32(0), jnp.int32(n), page_size=page, attn_impl="xla",
+        return_all_logits=True)
+    eng.model.load_params(params_from_numpy(jax.tree_util.tree_map(np.asarray, f32)))
+    assert not eng.model.merged
+    np.testing.assert_allclose(all_logits(eng, ids), np.asarray(want[:n]),
+                               rtol=1e-4, atol=1e-4)
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,165 @@
+"""One rank of a tensor-parallel test world of the port, on the CPU.
+
+`tests/test_torch_tp.py` starts N copies (`python tests/torch_tp_world.py
+SPEC RANK`) joined over gloo through a `file://` rendezvous; rank 0 runs
+each scenario of the spec's list through its engine and the other ranks
+follow it (`Engine.follow`). Weights and prompts come from the spec's
+`.npz` and JSON files; every rank writes what it saw to `out<rank>.json`.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+TREE_SEP = "/"
+
+
+def save_tree(tree, path):
+    """A numpy tree of the JAX package (nested dicts; quantized leaves
+    with the QTensor fields) -> one .npz; bf16 leaves are stored as f32."""
+    arrays, meta = {}, {}
+
+    def arr(a):
+        a = np.asarray(a)
+        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+    def walk(t, prefix):
+        if isinstance(t, dict):
+            for k, v in t.items():
+                walk(v, prefix + [k])
+            return
+        key = TREE_SEP.join(prefix)
+        if hasattr(t, "scale") and hasattr(t, "data"):
+            meta[key] = {"kind": getattr(t.kind, "value", t.kind),
+                         "block": int(t.block)}
+            for f in ("data", "scale", "zeros", "in_perm", "oc_idx", "oc_w"):
+                if getattr(t, f, None) is not None:
+                    arrays[key + "#" + f] = arr(getattr(t, f))
+        else:
+            arrays[key] = arr(t)
+
+    walk(tree, [])
+    np.savez(path, **arrays)
+    with open(path + ".json", "w") as f:
+        json.dump(meta, f)
+
+
+def load_tree(path):
+    z = np.load(path)
+    with open(path + ".json") as f:
+        meta = json.load(f)
+    tree = {}
+    for key in z.files:
+        base, _, field = key.partition("#")
+        node = tree
+        parts = base.split(TREE_SEP)
+        for p in parts[:-1]:
+            node = node.setdefault(p, {})
+        if field:
+            leaf = node.setdefault(parts[-1], dict(meta[base]))
+            leaf[field] = z[key]
+        else:
+            node[parts[-1]] = z[key]
+    return tree
+
+
+def run(spec_path, rank):
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    torch.set_num_threads(1)
+    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch.engine import Engine
+    from chitu_tpu_torch.models.llama import params_from_numpy
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    world = spec["world"]
+    out = {}
+    for sc in spec["scenarios"]:
+        ovr = list(sc["overrides"]) + world[str(rank)]
+        cfg = load_config(overrides=ovr)
+        tree = load_tree(sc["tree"]) if sc.get("tree") else None
+        params = None
+        if tree is not None:
+            params = lambda m, t=tree: params_from_numpy(t, m.layout, sc.get("merge_tp", 1))
+        eng = Engine(cfg, device="cpu", params=params)
+        res = dict(weight_bytes=eng.weight_bytes(), pool_bytes=eng.cache.bytes(),
+                   kv_tp_shard=eng.model.kv_tp_shard, merged=eng.model.merged,
+                   backend=eng.group.backend, windows=[], picks=[])
+        if sc.get("kappa"):
+            ex = eng.executor
+            ex._kappa = sc["kappa"][rank]
+            run_window, pick = ex._run_window, ex._pick_window
+            ex._run_window = lambda w, *a, **k: (res["windows"].append(w), run_window(w, *a, **k))[1]
+            ex._pick_window = lambda *a: (res["picks"].append(pick(*a)), res["picks"][-1])[1]
+        if sc.get("fail_rank") == rank:
+            def failing(*a, **k):
+                raise RuntimeError("a step fails on this rank alone")
+
+            eng.executor.step = failing
+        if sc.get("shards"):
+            m = eng.model
+            res["shards"] = {k: list(getattr(m, k).shape) for k in m._shapes()}
+        if rank != 0:
+            eng.follow()
+            out[sc["name"]] = res
+            continue
+        reqs = []
+        if sc.get("http"):
+            res["http"] = http_request(eng, cfg, sc["http"], reqs)
+        for i, p in enumerate(sc.get("prompts", [])):
+            sp = SampleParams(temperature=0.0, max_new_tokens=sc["new"][i])
+            reqs.append(eng.submit("", sp, prompt_tokens=p))
+            if sc.get("one_by_one"):
+                eng.run_until_complete()
+        eng.run_until_complete()
+        res["tokens"] = [list(r.async_stream.tokens) for r in reqs]
+        res["spec_stats"] = list(eng.executor._spec_stats)
+        alloc = eng.cache.allocator
+        res["prefix_hits"] = getattr(alloc, "hits", 0)
+        eng.terminate()
+        out[sc["name"]] = res
+    with open(os.path.join(os.path.dirname(spec_path), f"out{rank}.json"), "w") as f:
+        json.dump(out, f)
+    from chitu_tpu_torch.parallel import distributed
+
+    distributed.shutdown()
+
+
+def http_request(eng, cfg, msg, reqs):
+    """One chat completion over HTTP to rank 0's server on this engine;
+    the request's token stream joins `reqs` (its submit is recorded)."""
+    import urllib.request
+
+    from chitu_tpu_torch.serve import BackgroundServer
+
+    submit = eng.submit
+
+    def recording(*a, **k):
+        r = submit(*a, **k)
+        reqs.append(r)
+        return r
+
+    eng.submit = recording
+    srv = BackgroundServer(cfg, engine=eng)
+    port = srv.start()
+    body = json.dumps({"messages": [{"role": "user", "content": msg}],
+                       "max_tokens": 6, "temperature": 0.0}).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/v1/chat/completions", data=body,
+        headers={"Content-Type": "application/json"})
+    with urllib.request.urlopen(req, timeout=120) as r:
+        resp = json.loads(r.read())
+    # stop the server's worker thread; the engine stays up for the caller
+    srv.ctx.stop_flag.set()
+    srv.ctx.worker.join(timeout=60)
+    srv._loop.call_soon_threadsafe(srv._loop.stop)
+    srv._thread.join(timeout=5)
+    eng.submit = submit
+    return resp["usage"]["completion_tokens"]
+
+
+if __name__ == "__main__":
+    run(sys.argv[1], int(sys.argv[2]))
