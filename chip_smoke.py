@@ -276,6 +276,27 @@ Phases, each fatal on failure:
    weights served through the engine (B7's int4 mode must launch), and
    against the bf16 model's teacher-forced logits over 256 held-out tokens
    AWQ MSE <= 1.2 x RTN MSE.
+   Then slice 14. Pipeline parallelism, ranks sharing the card over gloo
+   (`PP_PHASES`): `pp2` (Llama-3-8B-Instruct bf16, 32 layers), `pp2_tp2`
+   (4 layers, four ranks), `pp2_mixtral` (Mixtral-8x7B bf16, 4 layers)
+   and `pp2_r1` (DeepSeek-R1 bf16, 5 layers: 3 dense, 2 MoE). Each phase
+   starts its world first (the ranks come up one after another, each
+   drawing every leaf whole and keeping its stage's layers), serves the
+   TP phases' burst from rank 0 and a lone request, then builds the
+   one-rank engine from the same seed, fed the HTTP request's prompt
+   tokens as the world saw them. Held: each rank's weight and pool bytes
+   are its stage's share exactly (`stage_bytes`); the phase's kernels
+   launched on every rank in the burst (rank 0 marks the burst's start
+   and end in its step stream, which every rank applies in lockstep); the
+   burst ran pipelined decode windows; at tp 1 the lone request (the
+   sequential path at the one-rank shapes) gives the one-rank engine's
+   tokens exactly, and the largest difference of its teacher-forced
+   logits is printed; the burst's streams part from the one-rank streams
+   only at near ties and hold at every position. An MoE card's decode
+   routes some tokens to other experts than its teacher-forced prefill
+   does, so its tokens are held to the largest share of the spread by
+   which the one-rank engine's own streams lie below the top of its own
+   teacher-forced rows, or 0.15 if larger.
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
@@ -3373,8 +3394,9 @@ def stream_rows(torch, tk, eng, prompt, stream, plain=False):
     engine's model (the prompt, whose last row predicts the first token;
     then the stream but its last token, all rows), each of the executor's
     bucketed length, in pages taken from its allocator and given back; `plain`: through the plain versions of every kernel (attention
-    and op_impl's), on the same weights. Under tensor parallelism every
-    rank runs the same call."""
+    and op_impl's), on the same weights. Under tensor or pipeline
+    parallelism every rank runs the same call; a stage before the last
+    gets None."""
     from chitu_tpu_torch.executor import _bucket
     from chitu_tpu_torch.ops import linear
 
@@ -3402,8 +3424,10 @@ def stream_rows(torch, tk, eng, prompt, stream, plain=False):
                 logits, _ = eng.model.prefill(
                     dict(eng.cache.arrays), toks, bt, start, len(chunk), page,
                     return_all_logits=start > 0)
-            rows.append(logits[:len(chunk)] if start else logits[None])
-        return torch.cat(rows).float()
+            rows.append(None if logits is None
+                        else logits[:len(chunk)] if start else logits[None])
+        # a pipeline stage before the last has no logits
+        return None if rows[0] is None else torch.cat(rows).float()
     finally:
         eng.model.attn_route, eng.model.attn = route
         linear.set_op_impl(eng.cfg.infer.op_impl)
@@ -3415,10 +3439,12 @@ def teacher_forced_row(torch, tk, eng, tokens, plain=False):
     return stream_rows(torch, tk, eng, list(tokens), [0], plain)[0]
 
 
-def near_tie(torch, tk, eng, label, prompts, got, want, moe=False):
+def near_tie(torch, tk, eng, label, prompts, got, want, moe=False,
+             moe_limit=NEAR_TIE_MOE):
     """Each greedy stream in `got` equals its reference in `want`, or
-    parts from it at a near tie (NEAR_TIE above; `moe`: NEAR_TIE_MOE
-    alone); tokens after the first divergence are not compared. Prints
+    parts from it at a near tie (NEAR_TIE above; `moe`: `moe_limit` of the
+    spread alone, NEAR_TIE_MOE unless the caller measured the reference's
+    own); tokens after the first divergence are not compared. Prints
     every divergence with its gap. -> the divergences [(stream, position,
     gap / spread, gap / sigma)]."""
     out = []
@@ -3441,13 +3467,13 @@ def near_tie(torch, tk, eng, label, prompts, got, want, moe=False):
         print(f"[{label}] divergence: stream {i} at token {j} of {len(b)}: "
               f"{a[j]} against the reference's {b[j]}, logit gap {gap:.5g} = "
               f"{rel:.3e} of the row's spread (limit "
-              f"{NEAR_TIE_MOE if moe else NEAR_TIE}) = {sigmas:.3f} sigma "
+              f"{moe_limit if moe else NEAR_TIE}) = {sigmas:.3f} sigma "
               f"(sigma {sigma:.5g}, limit {'none' if moe else NOISE_SIGMAS}); "
               f"the pair's kernels-vs-plain shift {abs(margin - plain_margin):.5g}, "
               f"plain margin {plain_margin:.5g}, the stream's token ranks "
               f"{int((row > row[a[j]]).sum().item())} in the kernels' row",
               flush=True)
-        ok = (rel <= NEAR_TIE_MOE if moe
+        ok = (rel <= moe_limit if moe
               else rel <= NEAR_TIE or sigmas <= NOISE_SIGMAS)
         if not ok:
             raise AssertionError(f"[{label}] stream {i} parts from its reference "
@@ -3850,73 +3876,141 @@ def tp_prompts(np, V):
     return [[int(x) for x in rng.integers(1, V, size=n)] for n in TP_LENS]
 
 
-def tp_reference(torch, np, label, overrides):
-    """The tp=1 engine of a TP phase (same seed, same weights): the
+def tp_reference(torch, np, label, overrides, base=TP_BASE,
+                 http_prompt=None):
+    """The tp=1 engine of a TP or PP phase (same seed, same weights): the
     streams of the burst's seven API prompts and its chat message, with
-    the message's prompt tokens; its weight, pool and norm bytes. ->
-    (engine, result)."""
+    the message's prompt tokens (`http_prompt`: those tokens, as the world
+    recorded them), and of a lone request; its weight, pool and norm
+    bytes. -> (engine, result)."""
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
     from chitu_tpu_torch.ops.qtensor import QTensor
 
-    eng = Engine(load_config(overrides=TP_BASE + list(overrides)))
+    eng = Engine(load_config(overrides=base + list(overrides)))
     prompts = tp_prompts(np, eng.cfg.models.vocab_size)
     greedy = SampleParams(temperature=0.0, max_new_tokens=TP_NEW)
     torch.cuda.synchronize()
     t0 = time.time()
     reqs = [eng.submit("", greedy, prompt_tokens=p) for p in prompts]
-    msg = eng.submit([{"role": "user", "content": TP_MSG}], greedy)
-    msg_tokens = list(eng.pool[f"task-{msg.request_id}"].tokens)
+    if http_prompt is None:
+        msg = eng.submit([{"role": "user", "content": TP_MSG}], greedy)
+        http_prompt = list(eng.pool[f"task-{msg.request_id}"].tokens)
+    else:
+        msg = eng.submit("", greedy, prompt_tokens=http_prompt)
     eng.run_until_complete()
     torch.cuda.synchronize()
     wall = time.time() - t0
-    lone = lone_decode_rate(eng, prompts[0][:64])
+    lone, lone_tokens = lone_decode_rate(eng, prompts[0][:64])
     m = eng.model
     # what every rank holds whole: the norms, and the per-out-channel
     # scales of the row-parallel projections
     norms = sum(getattr(m, n).numel() * getattr(m, n).element_size()
-                for n in ("norm", "attn_norm", "ffn_norm"))
+                for n in ("norm", "attn_norm", "ffn_norm") if hasattr(m, n))
     for n in ("wo", "w_down"):
-        w = getattr(m, n)
+        w = getattr(m, n, None)
         if isinstance(w, QTensor) and w.scale.dim() < w.data.dim():
             norms += w.scale.numel() * w.scale.element_size()
     res = dict(api=[list(r.async_stream.tokens) for r in reqs],
-               http=list(msg.async_stream.tokens), http_prompt=msg_tokens,
+               http=list(msg.async_stream.tokens), http_prompt=http_prompt,
                prompts=prompts, weight_bytes=eng.weight_bytes(),
                pool_bytes=eng.cache.bytes(), norm_bytes=norms,
                layers=eng.cfg.models.n_layers, burst_wall_s=wall,
-               decode_tokens_per_s_batch1=lone)
+               decode_tokens_per_s_batch1=lone, lone=lone_tokens)
     print(f"[{label}] tp=1 reference: weights {res['weight_bytes'] / 2**30:.3f} "
           f"GiB, pool {res['pool_bytes'] / 2**30:.3f} GiB", flush=True)
     return eng, res
 
 
 def lone_decode_rate(eng, prompt):
-    """A lone greedy request of 65 new tokens: its decode rate at batch 1
-    (64 tokens over the time from its first token to its last)."""
+    """A lone greedy request of 65 new tokens -> its decode rate at batch 1
+    (64 tokens over the time from its first token to its last), and its
+    tokens."""
     from chitu_tpu_torch import SampleParams
 
     r = eng.submit("", SampleParams(temperature=0.0, max_new_tokens=65),
                    prompt_tokens=prompt)
     eng.run_until_complete()
-    return 64 / (r.finish_time - r.prefill_end_time)
+    return 64 / (r.finish_time - r.prefill_end_time), list(r.async_stream.tokens)
 
 
-def tp_world(label, n, overrides, prompts, http_prompt):
+def batch_decode_rate(eng, prompts, n):
+    """n greedy requests of 65 new tokens on 128-token prompts, submitted
+    together -> their decode rate at batch n (64 tokens a row over the
+    time from the last first token to the last finish)."""
+    from chitu_tpu_torch import SampleParams
+
+    reqs = [eng.submit("", SampleParams(temperature=0.0, max_new_tokens=65),
+                       prompt_tokens=prompts[i % len(prompts)][:128])
+            for i in range(n)]
+    eng.run_until_complete()
+    span = max(r.finish_time for r in reqs) - max(r.prefill_end_time for r in reqs)
+    return n * 64 / span
+
+
+def seeded_params(model, seed=0):
+    """Random weights of a Llama-family model whose whole leaves do not
+    fit a card: each layer of each leaf drawn on its own (normal * 0.02,
+    norms 1, biases 0, bf16) from a generator seeded by (seed, leaf,
+    layer), then cut to the rank's stage and TP slice as `TPLayout.place`
+    cuts it; the rank holds its share and one layer beside it. Every
+    layout of one card gets slices of the same weights (not those of
+    `init_params`, which draws each leaf whole)."""
+    import dataclasses
+
+    import torch
+
+    from chitu_tpu_torch.parallel.sharding import StageSlice
+
+    lay = model.layout
+    one = dataclasses.replace(lay, stage=StageSlice())
+    out = {}
+    for name, shape in model._shapes(local=False, merged=True).items():
+        if not lay.stage.holds(name):
+            continue
+        top = name in ("embed", "norm", "lm_head")
+        layers = [0] if top else range(*lay.stage.ranges.get("layers", (0, shape[0])))
+        for i, layer in enumerate(layers):
+            g = torch.Generator(device=model.device)
+            g.manual_seed(zlib.crc32(f"{seed}/{name}/{layer}".encode()))
+            t = torch.empty(shape if top else (1, *shape[1:]), dtype=torch.bfloat16,
+                            device=model.device)
+            if "norm" in name:
+                t.fill_(1.0)
+            elif name == "b_qkv":
+                t.zero_()
+            else:
+                t.normal_(0.0, 0.02, generator=g)
+            for k, v in one.place(name, t).items():
+                if top:
+                    out[k] = v
+                    continue
+                if k not in out:
+                    out[k] = v.new_empty((len(layers), *v.shape[1:]))
+                out[k][i:i + 1].copy_(v)
+            del t
+    return out
+
+
+def tp_world(label, n, overrides, prompts, base=TP_BASE, grid=None, **extra):
     """Start n ranks of this script (`--tp-rank`) through the port's
     launcher (`parallel.distributed.spawn_ranks`, the one
-    `python -m chitu_tpu_torch infer.tp_size=N` uses), rank 0 included;
-    all share the card over gloo. Killed, all of them, when one fails or
-    TP_TIMEOUT passes. -> (each rank's result, rank 0's teacher-forced
-    rows of its streams)."""
+    `python -m chitu_tpu_torch infer.tp_size=N` uses), rank 0 included,
+    on the grid's overrides (`infer.tp_size=n` by default); ranks that
+    share the card do so over gloo. Killed, all of them, when one fails or
+    TP_TIMEOUT passes; `extra` goes to the ranks (`seeded`: weights from
+    `seeded_params`; `batch`: also time a decode batch of that many
+    rows). -> (each rank's result, the sampling rank's teacher-forced rows
+    of rank 0's streams and its lone request)."""
     from chitu_tpu_torch.parallel import distributed
 
     d = tempfile.mkdtemp(prefix=f"chitu_{label}_")
     spec = os.path.join(d, "spec.json")
+    grid = grid or [f"infer.tp_size={n}"]
     with open(spec, "w") as f:
-        json.dump(dict(label=label, overrides=TP_BASE + list(overrides)
-                       + [f"infer.tp_size={n}", "serve.port=0"],
-                       prompts=prompts, http_prompt=http_prompt, out=d), f)
+        json.dump(dict(label=label, overrides=base + list(overrides)
+                       + grid + ["serve.port=0"],
+                       prompts=prompts, out=d, **extra), f)
     t0 = time.time()
     procs = distributed.spawn_ranks(
         [sys.executable, os.path.abspath(__file__), "--tp-rank", spec], n,
@@ -3950,20 +4044,27 @@ def tp_world(label, n, overrides, prompts, http_prompt):
 
 
 def tp_rank_main(spec_path):
-    """One rank of a TP phase. Rank 0 serves the burst: its chat message
-    over HTTP to the server on its engine and the seven prompts through
-    `Engine.submit`, all at once (the launch counters zeroed just before);
-    then one prefill and one decode step with every kernel call shadowed by
-    its plain version. The other ranks follow it (`Engine.follow`). Then
-    every rank runs the teacher-forced prefills of rank 0's streams
-    (`stream_rows`), and rank 0 keeps the rows."""
+    """One rank of a TP or PP phase. Ranks that share the card come up one
+    after another (each draws every leaf whole before it keeps its part).
+    Rank 0 serves the burst: its chat message over HTTP to the server on
+    its engine and the seven prompts through `Engine.submit`, all at once;
+    then a lone request and one prefill and one decode step with every
+    kernel call shadowed by its plain version. The other ranks follow it
+    (`Engine.follow`). Every rank counts its kernel launches and its
+    pipelined decode windows in the burst: rank 0 marks the burst's start
+    and end in its step stream, which every rank applies in lockstep.
+    Then every rank runs the teacher-forced prefills of rank 0's streams
+    (`stream_rows`), and the sampling rank (rank 0 under TP alone, the
+    last stage's first rank under PP) keeps the rows."""
     import numpy as np
     import torch
+    import torch.distributed as dist
     import urllib.request
 
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
     from chitu_tpu_torch.ops import attention_kernels as tk
+    from chitu_tpu_torch.parallel import distributed, pipeline
     from chitu_tpu_torch.serve import BackgroundServer
 
     with open(spec_path) as f:
@@ -3971,32 +4072,77 @@ def tp_rank_main(spec_path):
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(overrides=spec["overrides"])
     t0 = time.time()
-    eng = Engine(cfg)
-    torch.cuda.synchronize()
+    distributed.maybe_initialize(cfg)
+    world = dist.get_world_size()
+    shared = torch.cuda.device_count() < world
+    for r in range(world if shared else 1):
+        if not shared or r == dist.get_rank():
+            eng = Engine(cfg, params=seeded_params if spec.get("seeded") else None)
+            torch.cuda.synchronize()
+            res = dict(bringup_s=time.time() - t0)
+            # the whole leaves' blocks go back to the card for the next rank
+            free_memory(torch)
+        if shared:
+            dist.barrier()
     rank = eng.rank
-    res = dict(rank=rank, backend=eng.group.backend, device=str(eng.device),
-               bringup_s=time.time() - t0, weight_bytes=eng.weight_bytes(),
+    res.update(rank=rank, stage=eng.group.stage, backend=eng.group.backend,
+               device=str(eng.device), weight_bytes=eng.weight_bytes(),
                pool_bytes=eng.cache.bytes(),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
-    print(f"[{spec['label']}] rank {rank}: backend {res['backend']} on "
-          f"{res['device']}, weights {res['weight_bytes'] / 2**30:.3f} GiB, "
-          f"pool {res['pool_bytes'] / 2**30:.3f} GiB, bring-up "
+    print(f"[{spec['label']}] rank {rank} (stage {res['stage']}): backend "
+          f"{res['backend']} on {res['device']}, weights "
+          f"{res['weight_bytes'] / 2**30:.3f} GiB, pool "
+          f"{res['pool_bytes'] / 2**30:.3f} GiB, bring-up "
           f"{res['bringup_s']:.1f} s", flush=True)
+    # the burst's launches and pipelined windows on every rank, between
+    # rank 0's marks
+    windows, seen = [0], set()
+    decode_pipelined = pipeline.decode_pipelined
+
+    def counted(*a, **k):
+        windows[0] += 1
+        return decode_pipelined(*a, **k)
+
+    pipeline.decode_pipelined = counted
+    apply = eng._apply
+
+    def marking(msg):
+        for op, arg in msg["ops"]:
+            if op == "mark" and arg == "burst":
+                tk.reset_launch_counts()
+                windows[0] = 0
+            elif op == "mark":
+                res["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
+                res["pipelined_windows"] = windows[0]
+            if op == "mark":
+                seen.add(arg)
+        apply(msg)
+
+    eng._apply = marking
     if rank != 0:
         eng.follow()
     else:
         greedy = SampleParams(temperature=0.0, max_new_tokens=TP_NEW)
-        reqs, submit = [], eng.submit
+        reqs, submit, prompt_of = [], eng.submit, {}
 
         def recording(*a, **k):
             r = submit(*a, **k)
             reqs.append(r)
+            prompt_of[r.request_id] = list(eng._staged[r.request_id].tokens)
             return r
 
         eng.submit = recording
         srv = BackgroundServer(cfg, engine=eng)
         port = srv.start()
         http = {}
+
+        def mark(name):
+            # the server's worker thread steps it into the stream
+            with eng._lock:
+                eng._outbox.append(("mark", name))
+            srv.ctx.wake.set()
+            while name not in seen:
+                time.sleep(0.005)
 
         def post():
             body = json.dumps({"messages": [{"role": "user", "content": TP_MSG}],
@@ -4007,8 +4153,8 @@ def tp_rank_main(spec_path):
             with urllib.request.urlopen(req, timeout=TP_TIMEOUT) as r:
                 http["resp"] = json.loads(r.read())
 
+        mark("burst")
         torch.cuda.synchronize()
-        tk.reset_launch_counts()
         t1 = time.time()
         th = threading.Thread(target=post)
         th.start()
@@ -4019,17 +4165,21 @@ def tp_rank_main(spec_path):
             time.sleep(0.01)
         torch.cuda.synchronize()
         res["burst_wall_s"] = time.time() - t1
-        res["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
+        mark("burst_end")
         srv.ctx.stop_flag.set()
         srv.ctx.worker.join()
         srv._loop.call_soon_threadsafe(srv._loop.stop)
         srv._thread.join(timeout=5)
         eng.submit = submit
-        res["decode_tokens_per_s_batch1"] = lone_decode_rate(
+        res["decode_tokens_per_s_batch1"], res["lone"] = lone_decode_rate(
             eng, spec["prompts"][0][:64])
+        if spec.get("batch"):
+            res[f"decode_tokens_per_s_batch{spec['batch']}"] = batch_decode_rate(
+                eng, spec["prompts"], spec["batch"])
         msg = [r for r in reqs if r not in api]
         res["api"] = [list(r.async_stream.tokens) for r in api]
         res["http"] = list(msg[0].async_stream.tokens) if len(msg) == 1 else None
+        res["http_prompt"] = prompt_of[msg[0].request_id] if len(msg) == 1 else None
         res["http_usage"] = http["resp"]["usage"]
         # one prefill step and one decode step, every kernel call of rank
         # 0 shadowed by its plain version on equal inputs
@@ -4045,13 +4195,17 @@ def tp_rank_main(spec_path):
         eng.run_until_complete()
         res["shadowed_call_err_vs_plain"] = errs
         eng.terminate()
-    # every decoded position of rank 0's streams, through the world
+    pipeline.decode_pipelined = decode_pipelined
+    # every decoded position of rank 0's streams and its lone request,
+    # through the world
     pairs = eng.group.decide(
-        list(zip(spec["prompts"] + [spec["http_prompt"]],
-                 res["api"] + [res["http"]])) if rank == 0 else None)
-    rows = [stream_rows(torch, tk, eng, p, a).cpu() for p, a in pairs if a]
-    if rank == 0:
-        torch.save(rows, os.path.join(spec["out"], "tp_rows.pt"))
+        list(zip(spec["prompts"] + [res["http_prompt"], spec["prompts"][0][:64]],
+                 res["api"] + [res["http"], res["lone"]])) if rank == 0 else None)
+    rows = [stream_rows(torch, tk, eng, p, a) for p, a in pairs if a]
+    stage = eng.model.stage
+    if stage is None or eng.group.world_rank == stage.sampler:
+        torch.save([r.cpu() for r in rows],
+                   os.path.join(spec["out"], "tp_rows.pt"))
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     from chitu_tpu_torch.parallel import distributed
@@ -4071,8 +4225,7 @@ def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo"):
     in `need` launched on rank 0 in the burst; every shadowed call within
     its limit."""
     ref_eng, ref = tp_reference(torch, np, label, overrides)
-    ranks, tp_rows = tp_world(label, n, overrides, ref["prompts"],
-                              ref["http_prompt"])
+    ranks, tp_rows = tp_world(label, n, overrides, ref["prompts"])
     r0 = ranks[0]
     for res in ranks:
         if res["backend"] != backend:
@@ -4119,7 +4272,8 @@ def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo"):
     return stats
 
 
-def every_position(torch, tk, eng, label, prompts, streams, tp_rows):
+def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
+                   tie=NEAR_TIE):
     """Every decoded position of the TP world's streams against the tp=1
     engine, on teacher-forced rows of the same context (`stream_rows`: the
     tp=1 engine's with the kernels and plain, the world's own in
@@ -4149,7 +4303,7 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows):
             top = row.max(-1).values
             gap = top - row[at, tok]
             spread = top - row.min(-1).values
-            near[what] = (gap <= NEAR_TIE * spread) | (gap <= NOISE_SIGMAS * sigma)
+            near[what] = (gap <= tie * spread) | (gap <= NOISE_SIGMAS * sigma)
             below = gap > 0
             out["below_top"][what] = out["below_top"].get(what, 0) + int(below.sum())
             if below.any():
@@ -4178,7 +4332,7 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows):
           f"against tp=1's: rms {out['tp_vs_tp1_rms_sigma']} sigma (limit "
           f"{NOISE_SIGMAS}); tokens below the top {out['below_top']}, at most "
           f"{out['worst_spread']} of the spread and {out['worst_sigma']} sigma "
-          f"(a decoded token passes within {NEAR_TIE} or {NOISE_SIGMAS} sigma "
+          f"(a decoded token passes within {tie} or {NOISE_SIGMAS} sigma "
           "on either row)", flush=True)
     return out
 
@@ -4190,6 +4344,187 @@ TP_PHASES = [
      ATTN_KERNELS + ("quant_gemm",)),
     ("tp4", 4, ["models.n_layers=4"], ATTN_KERNELS),
 ]
+# ---------------------------------------------------------------------------
+# Slice 14: pipeline parallelism (ranks sharing the card over gloo)
+# ---------------------------------------------------------------------------
+
+PP_PHASES = [
+    # (label, model card, pp, tp, overrides, kernels that must launch on
+    # every rank in the burst: each stage runs them on its own layers)
+    ("pp2", LLAMA, 2, 1, [], ATTN_KERNELS),
+    ("pp2_tp2", LLAMA, 2, 2, ["models.n_layers=4"], ATTN_KERNELS),
+    ("pp2_mixtral", MIXTRAL, 2, 1, ["models.n_layers=4"],
+     ATTN_KERNELS + ("grouped_gemm",)),
+    ("pp2_r1", R1, 2, 1, ["models.n_layers=5"],
+     ("attend_decode_fused[latent]", "attend_prefill_packed[latent]",
+      "absorb_matmul", "grouped_gemm")),
+]
+
+
+def stage_bytes(eng, pp, tp):
+    """Each rank's (weight bytes, pool bytes) in a pp x tp world, from the
+    one-rank engine's leaves: rank (p, t) holds (layers - norms) / (pp tp)
+    + norms / pp, plus embed / tp on stage 0 and head / tp + norm on the
+    last, and pool / (pp tp); DeepSeek (tp 1): the dense-first stack and
+    its pool on stage 0, the MoE stack and its pool / pp on each stage."""
+    from chitu_tpu_torch.ops.qtensor import QTensor
+
+    def size(t):
+        if isinstance(t, dict):
+            return sum(size(v) for v in t.values())
+        return t.nbytes() if isinstance(t, QTensor) else t.numel() * t.element_size()
+
+    tree = eng.model.params_tree()
+    top = {k: size(tree.get(k, {})) for k in ("embed", "norm", "lm_head")}
+    pools = {k: size(v) for k, v in eng.cache.arrays.items()}
+    out = []
+    for r in range(pp * tp):
+        p = r // tp
+        if "moe_layers" in tree:
+            w = size(tree["moe_layers"]) // pp
+            pool = pools["kv_moe"] // pp
+            if p == 0:
+                w += size(tree.get("dense_layers", {})) + top["embed"]
+                pool += pools["kv_dense"]
+        else:
+            norms = size({k: tree["layers"][k] for k in ("attn_norm", "ffn_norm")})
+            w = (size(tree["layers"]) - norms) // (pp * tp) + norms // pp
+            w += top["embed"] // tp if p == 0 else 0
+            pool = pools["kv"] // (pp * tp)
+        if p == pp - 1:
+            w += top["lm_head"] // tp + top["norm"]
+        out.append((w, pool))
+    return out
+
+
+def own_deviation(torch, tk, eng, prompts, streams):
+    """The largest share of the row's spread by which a decoded token of
+    the engine's own `streams` lies below the top of its teacher-forced
+    row (`stream_rows`)."""
+    worst = 0.0
+    for p, a in zip(prompts, streams):
+        row = stream_rows(torch, tk, eng, p, a)
+        top = row.max(-1).values
+        at = torch.arange(len(a), device=row.device)
+        gap = top - row[at, torch.tensor(a, device=row.device)]
+        worst = max(worst, (gap / (top - row.min(-1).values)).max().item())
+    return worst
+
+
+def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
+             backend="gloo"):
+    """A PP phase: the world of pp x tp ranks first (they share the card
+    with nothing else), then the one-rank reference engine on the same
+    seed, fed the HTTP request's prompt tokens as the world saw them.
+    Held: every rank's backend is `backend`; rank r's weight and pool
+    bytes are its stage's share (`stage_bytes`); the kernels in `need`
+    launched on every rank in the burst, on the stage's own layers; rank
+    0 ran pipelined decode windows in the burst; its lone request (the
+    sequential path, the one-rank engine's shapes) gives the reference's
+    tokens exactly, and its teacher-forced logits' largest difference from
+    the reference's is printed; its burst streams, the HTTP one included,
+    equal the reference's or part at a near tie, and hold at every
+    position (`every_position`); every shadowed call of rank 0 within its
+    limit."""
+    from chitu_tpu_torch import load_config
+
+    base = [f"models={model}"] + TP_BASE[1:]
+    prompts = tp_prompts(np, load_config(overrides=base + list(overrides))
+                         .models.vocab_size)
+    grid = [f"infer.pp_size={pp}", f"infer.tp_size={tp}"]
+    ranks, rows = tp_world(label, pp * tp, overrides, prompts, base=base,
+                           grid=grid)
+    free_memory(torch)
+    r0 = ranks[0]
+    ref_eng, ref = tp_reference(torch, np, label, overrides, base=base,
+                                http_prompt=r0["http_prompt"])
+    want = stage_bytes(ref_eng, pp, tp)
+    for res, (wb, pb) in zip(ranks, want):
+        print(f"[{label}] rank {res['rank']} stage {res['stage']}: weights "
+              f"{res['weight_bytes']} bytes ({res['weight_bytes'] / 2**30:.3f} "
+              f"GiB; predicted {wb}), pool {res['pool_bytes']} bytes "
+              f"({res['pool_bytes'] / 2**30:.3f} GiB; predicted {pb}), peak "
+              f"{res['peak_gib']:.2f} GiB, pipelined windows in the burst "
+              f"{res['pipelined_windows']}, launches {res['launches']}",
+              flush=True)
+        if res["backend"] != backend:
+            raise AssertionError(f"[{label}] rank {res['rank']} on {res['backend']}")
+        if (res["weight_bytes"], res["pool_bytes"]) != (wb, pb):
+            raise AssertionError(f"[{label}] rank {res['rank']} holds "
+                                 f"{res['weight_bytes']} weight and "
+                                 f"{res['pool_bytes']} pool bytes, not {wb}, {pb}")
+        for k in need:
+            if res["launches"].get(k, 0) <= 0:
+                raise AssertionError(f"[{label}] kernel {k} did not launch on "
+                                     f"rank {res['rank']} in the burst")
+    if r0["pipelined_windows"] <= 0:
+        raise AssertionError(f"[{label}] the burst ran no pipelined window")
+    if r0["http"] is None or r0["http_usage"]["completion_tokens"] != TP_NEW:
+        raise AssertionError(f"[{label}] the HTTP request: {r0['http_usage']}")
+    # the lone request: the sequential path at the one-rank shapes, equal
+    # in full at tp 1 (under TP the row-parallel sums take another order)
+    lone_prompt = prompts[0][:64]
+    lone_ref = stream_rows(torch, tk, ref_eng, lone_prompt, r0["lone"])
+    lone_diff = (rows[-1].to(lone_ref.device) - lone_ref).abs().max().item()
+    print(f"[{label}] lone request: {len(r0['lone'])} tokens, equal to the "
+          f"one-rank engine's: {r0['lone'] == ref['lone']}; teacher-forced "
+          f"logits' largest difference {lone_diff} (predicted "
+          f"{0 if tp == 1 else 'the TP sums noise'})", flush=True)
+    if tp == 1 and r0["lone"] != ref["lone"]:
+        raise AssertionError(f"[{label}] the lone request's tokens differ from "
+                             "the one-rank engine's")
+    got = r0["api"] + [r0["http"]]
+    want_streams = ref["api"] + [ref["http"]]
+    all_prompts = prompts + [r0["http_prompt"]]
+    if tp > 1:
+        got, want_streams = got + [r0["lone"]], want_streams + [ref["lone"]]
+        all_prompts = all_prompts + [lone_prompt]
+    # an MoE card's decode routes some tokens to other experts than its
+    # teacher-forced prefill does (last-bit noise at a router near tie moves
+    # a whole expert's output): its tokens are held to the largest share of
+    # the spread by which the one-rank engine's own streams lie below the
+    # top of its own teacher-forced rows, or NEAR_TIE_MOE if larger
+    moe = model in (MIXTRAL, R1)
+    own = own_deviation(torch, tk, ref_eng, all_prompts, want_streams) if moe else 0.0
+    tie = max(NEAR_TIE_MOE, own) if moe else NEAR_TIE
+    if moe:
+        print(f"[{label}] the one-rank engine's own streams lie at most {own:.4g} "
+              f"of the spread below the top of its teacher-forced rows: the "
+              f"MoE limit is {tie:.4g}", flush=True)
+    div = near_tie(torch, tk, ref_eng, label, all_prompts, got, want_streams,
+                   moe=moe, moe_limit=tie)
+    pos = every_position(torch, tk, ref_eng, label, all_prompts, got, rows,
+                         tie=tie)
+    same = sum(a == b for a, b in zip(got, want_streams))
+    ref_eng.terminate()
+    del ref_eng
+    free_memory(torch)
+    stats = dict(
+        phase=label, card=card, model=model, pp=pp, tp=tp,
+        layers=ref["layers"], backend=r0["backend"], streams_equal=same,
+        streams=len(got), divergences=div, every_position=pos,
+        moe_limit=tie if moe else None, one_rank_own_deviation=own,
+        lone_tokens_equal=r0["lone"] == ref["lone"],
+        lone_logits_max_abs_diff=lone_diff,
+        rank_stage=[r["stage"] for r in ranks],
+        rank_weight_bytes=[r["weight_bytes"] for r in ranks],
+        rank_pool_bytes=[r["pool_bytes"] for r in ranks],
+        predicted_rank_bytes=want,
+        one_rank_weight_bytes=ref["weight_bytes"],
+        one_rank_pool_bytes=ref["pool_bytes"],
+        rank_bringup_s=[r["bringup_s"] for r in ranks],
+        rank_peak_gib=[r["peak_gib"] for r in ranks],
+        rank_launches=[r["launches"] for r in ranks],
+        pipelined_windows=r0["pipelined_windows"],
+        burst_wall_s=r0["burst_wall_s"], one_rank_burst_wall_s=ref["burst_wall_s"],
+        decode_tokens_per_s_batch1=r0["decode_tokens_per_s_batch1"],
+        one_rank_decode_tokens_per_s_batch1=ref["decode_tokens_per_s_batch1"],
+        rank_devices=[r["device"] for r in ranks],
+        shadowed_call_err_vs_plain=r0["shadowed_call_err_vs_plain"])
+    print("pp " + json.dumps(stats), flush=True)
+    return stats
+
+
 AWQ_CALIB = 512
 AWQ_HOLD = 256
 
@@ -4450,6 +4785,12 @@ def main():
         tp_phase(torch, np, tk, card, label, n, ovr, need)
     awq_phase(torch, np, tk, card)
     print(f"slice 13 phases {time.time() - t0:.1f} s", flush=True)
+
+    # slice 14: pipeline parallelism over ranks sharing the card
+    t0 = time.time()
+    for label, model, pp, tp, ovr, need in PP_PHASES:
+        pp_phase(torch, np, tk, card, label, model, pp, tp, ovr, need)
+    print(f"slice 14 phases {time.time() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []

@@ -254,6 +254,8 @@ class InferArgs:
     num_processes: int = 1
     process_id: int = -1
     prefill_chunk: int = 512  # prefill token-count bucket granularity
+    # kept for the cards' sake and read nowhere, as in the JAX package:
+    # pipeline stages always hold equal layer ranges
     pp_layer_partition: Tuple[int, ...] = ()
     # KV-cache storage dtype (ADDITIVE over the reference, which caches
     # fp16/bf16 only): "fp8" stores e4m3 bits in int8 lanes — halves KV

@@ -23,14 +23,19 @@ The engine runs on CUDA unless `device="cpu"` is passed; with no GPU and
 no explicit device it raises. Configurations that later work brings raise
 NotImplementedError naming the ROADMAP queue A item.
 
-Tensor parallelism (`infer.tp_size` = N, the Llama family): N processes,
-one engine each, joined by `parallel.distributed.maybe_initialize`; rank
-r runs on `cuda:(r % device_count)` and holds its shard of the weights
-and its KV heads. Every rank runs the same host state machine. Requests
-enter at rank 0 (`submit`, `cancel`); each `step` of rank 0 broadcasts
-what arrived since the last one, with its clock and flags, and every
-rank applies it before it schedules, so all ranks launch the same
-programs. The other ranks run `follow` until rank 0 terminates.
+Tensor and pipeline parallelism (`infer.tp_size` = N, the Llama family;
+`infer.pp_size` = P, every family, at tp 1 for Mixtral and DeepSeek):
+P x N processes, one engine each, joined by
+`parallel.distributed.maybe_initialize`; rank r = p * N + t runs on
+`cuda:(r % device_count)` and holds its stage's layers (stage p), its
+shard of them and of their KV heads (TP index t). Every rank runs the
+same host state machine. Requests enter at rank 0, the controller
+(`submit`, `cancel`); each `step` of rank 0 broadcasts what arrived
+since the last one, with its clock and flags, and every rank applies it
+before it schedules, so all ranks launch the same programs. The other
+ranks run `follow` until rank 0 terminates; a step that fails on any
+rank ends the world (`distributed.end_world` under the server, the
+process's own error elsewhere).
 """
 
 from __future__ import annotations
@@ -99,12 +104,16 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
         raise ValueError(
             f"infer.op_impl={infer.op_impl!r}: expected one of {OP_IMPLS}")
     todo = []
-    if infer.pp_size > 1 or infer.dp_size > 1:
-        todo.append("pp/dp > 1: the PP/DP slice (ROADMAP A.1)")
-    if infer.tp_size > 1 and cfg.models.type not in ("hf-llama", "llama"):
+    if infer.dp_size > 1:
         todo.append(
-            f"tp_size > 1 for {cfg.models.type}: expert parallelism under TP "
-            "(multi-GPU), the slice after PP/DP (ROADMAP A.2)")
+            "dp_size > 1: data parallelism comes with the ring slice (ROADMAP "
+            "A.3; in the JAX package dp carries the ring KV pool and ring "
+            "prefill)")
+    if infer.tp_size > 1 and cfg.models.type not in ("hf-llama", "llama"):
+        under = f" under pp_size={infer.pp_size}" if infer.pp_size > 1 else ""
+        todo.append(
+            f"tp_size > 1 for {cfg.models.type}{under}: expert parallelism "
+            "under TP (multi-GPU), the next slice (ROADMAP A.2)")
     if infer.tp_size > 1 and KIND_BY_METHOD.get(quant.method) == QuantKind.W8A8:
         # a row-parallel input's per-token scale needs the whole row
         todo.append("W8A8 under tp_size > 1 (ROADMAP C)")
@@ -131,9 +140,10 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
 
 class Engine:
     """One inference engine instance on one device (one rank's, under
-    tensor parallelism). `params`: named tensors (`params_from_numpy`),
-    or a function of the model that gives them (each rank its own shard:
-    `lambda m: params_from_numpy(tree, m.layout)`)."""
+    tensor or pipeline parallelism). `params`: named tensors
+    (`params_from_numpy`), or a function of the model that gives them
+    (each rank its own stage and shard: `lambda m: params_from_numpy(tree,
+    m.layout)`)."""
 
     def __init__(
         self,
@@ -146,23 +156,25 @@ class Engine:
         set_fp8_act(cfg.quant.fp8_act)
         set_op_impl(cfg.infer.op_impl)
         self.group = None
+        pp, tp = cfg.infer.pp_size, cfg.infer.tp_size
         if distributed.maybe_initialize(cfg, device):
             self.group = distributed.tp_group()
-            mesh_from_config(cfg, self.group.size)
-            if self.group.size != cfg.infer.tp_size:
+            mesh_from_config(cfg, self.group.world_size)
+            if self.group.world_size != pp * tp:
                 raise NotImplementedError(
-                    f"{self.group.size} processes for tp_size="
-                    f"{cfg.infer.tp_size}: a world is one tensor-parallel "
-                    "group until the PP/DP slice (ROADMAP A.1)")
+                    f"{self.group.world_size} processes for pp_size={pp} x "
+                    f"tp_size={tp}: the world is one rank a (stage, TP "
+                    "index); replicas (dp) come with ROADMAP A.3")
             device = self.group.device
-            init_logger(rank=self.group.rank)
-        elif cfg.infer.tp_size > 1:
+            init_logger(rank=self.group.world_rank)
+        elif pp * tp > 1:
             raise ValueError(
-                f"tp_size={cfg.infer.tp_size} needs num_processes="
-                f"{cfg.infer.tp_size} and a coordinator (one process a "
-                "rank; `python -m chitu_tpu_torch infer.tp_size=N` starts "
+                f"pp_size={pp} x tp_size={tp} needs num_processes={pp * tp} "
+                "and a coordinator (one process a rank; `python -m "
+                "chitu_tpu_torch infer.pp_size=P infer.tp_size=N` starts "
                 "them on one host)")
-        self.rank = self.group.rank if self.group is not None else 0
+        # rank 0 of the world is the controller
+        self.rank = self.group.world_rank if self.group is not None else 0
         # rank 0's requests and controls since its last step, and the
         # tasks they made, which join the pool when the step broadcasts
         self._outbox: List[tuple] = []
@@ -210,7 +222,7 @@ class Engine:
                 # the full weight's scales)
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(cfg.infer.seed)
-                if quantize and hasattr(self.model, "layout"):
+                if quantize and hasattr(self.model, "LAYER_LEAVES"):
                     self.model.init_params(gen, _DTYPES[cfg.dtype],
                                            transform=self._quantize_leaf)
                     quantize = False

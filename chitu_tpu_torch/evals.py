@@ -44,7 +44,7 @@ def perplexity_from_tokens(
 
     if getattr(engine, "group", None) is not None:
         # the model is called directly here, which the followers do not see
-        raise NotImplementedError("perplexity runs at tp_size=1")
+        raise NotImplementedError("perplexity runs at tp_size=1 and pp_size=1")
     model = engine.model
     cfg = engine.cfg
     dev = engine.device

@@ -11,6 +11,15 @@ full pages and prefills only its tail; with `infer.spec_decode=ngram`,
 greedy batches decode in speculative windows (n-gram drafts verified K+1
 tokens a forward, `_decode_speculative`).
 
+Under pipeline parallelism (`infer.pp_size`) every rank runs the same
+steps on its stage; the last stage is the one sampler of record: it
+applies the penalties, draws every token (all its TP ranks on identical
+logits) and keeps the counts, and its tokens go to every rank
+(`_relay_tokens`), so no rank's generator parts from another's. A decode
+batch of two or more rows takes the microbatch-pipelined window
+(`_decode_pipelined`, `parallel/pipeline.py`), as the JAX executor
+decides.
+
 PyTorch runs eagerly, so the JAX package's jit caches and first-call
 timers are gone. The shapes stay bucketed exactly as there (prefill
 length and table-width buckets, decode batch buckets, the fixed packed
@@ -30,6 +39,7 @@ import torch
 from chitu_tpu_torch import sampling
 from chitu_tpu_torch.kvcache import PagedKVCache, SlotAllocator
 from chitu_tpu_torch.ops.attention_kernels import packed_q_block
+from chitu_tpu_torch.parallel import pipeline
 from chitu_tpu_torch.task import Task, TaskType
 from chitu_tpu_torch.utils import get_logger, get_timers
 
@@ -99,17 +109,19 @@ def _draft(buf: torch.Tensor, clen: torch.Tensor, k: int) -> torch.Tensor:
 
 
 class Executor:
-    """The executor of one device (one rank's, under tensor parallelism:
-    every rank issues the same steps)."""
+    """The executor of one device (one rank's, under tensor or pipeline
+    parallelism: every rank issues the same steps)."""
 
     def __init__(self, cfg, model, cache: PagedKVCache, has_waiting=None):
         self.cfg = cfg
         self.model = model
         self.cache = cache
         self.device = model.device
-        # the tensor-parallel group (None on one device): decisions that
-        # read the host clock are rank 0's (`parallel.distributed`)
-        self.group = getattr(model, "group", None)
+        # the rank's world (None on one device): decisions that read the
+        # host clock are rank 0's (`parallel.distributed`)
+        self.group = getattr(model, "world", None)
+        # the pipeline relay (None under one stage): the last stage samples
+        self.stage = getattr(model, "stage", None)
         self.page = cfg.infer.page_size
         self.max_reqs = cfg.infer.max_reqs
         self.mp_full = cfg.infer.max_seq_len // self.page + 1
@@ -202,13 +214,25 @@ class Executor:
         )
 
     def _sample(self, logits, temps, tks, tps, pens, slots, valid):
-        """Penalize, sample and count one row per request, on the device."""
-        logits = sampling.apply_frequency_penalty(
-            logits.float(), self.counts, slots, pens
-        )
-        toks = sampling.sample_tokens(logits, self.generator, temps, tks, tps)
-        sampling.update_counts(self.counts, slots, toks, valid)
-        return toks
+        """Penalize, sample and count one row per request, on the device
+        (on the sampling stage: the others get None logits and the
+        tokens)."""
+        toks = None
+        if logits is not None:
+            logits = sampling.apply_frequency_penalty(
+                logits.float(), self.counts, slots, pens
+            )
+            toks = sampling.sample_tokens(logits, self.generator, temps, tks,
+                                          tps)
+            sampling.update_counts(self.counts, slots, toks, valid)
+        return self._relay_tokens(toks, temps.shape[0])
+
+    def _relay_tokens(self, toks, n: int) -> torch.Tensor:
+        """The sampling stage's tokens [n] on every rank (the tokens
+        themselves on one stage)."""
+        if self.stage is None:
+            return toks
+        return self.stage.from_last(toks, (n,), torch.int32, self.device)
 
     # -- steps --------------------------------------------------------------
 
@@ -347,7 +371,8 @@ class Executor:
         rest = [t for t in admitted if t.task_id in logits_by_task]
         if rest:
             timers("prefill_sample").start()
-            logits = torch.stack([logits_by_task[t.task_id] for t in rest])
+            rows = [logits_by_task[t.task_id] for t in rest]
+            logits = None if rows[0] is None else torch.stack(rows)
             arrs = self._sampling_arrays(rest, len(rest))
             toks_host = self._sample(logits, *arrs).cpu().numpy()
             timers("prefill_sample").stop()
@@ -455,7 +480,8 @@ class Executor:
                 *pf,
                 page_size=self.page,
             )
-            logits = torch.cat([pf_logits, dec_logits], dim=0)
+            logits = (None if pf_logits is None
+                      else torch.cat([pf_logits, dec_logits], dim=0))
         else:
             rows = list(tasks_g) + [None] * (R - len(tasks_g))
             arrs = self._sampling_arrays(rows, R)
@@ -566,15 +592,18 @@ class Executor:
             logits, _ = self.model.decode(
                 cache, tokens, seq_lens, bts, live, page_size=self.page
             )
-            if not nopen:
-                logits = sampling.apply_frequency_penalty(
-                    logits, self.counts, slots, pens
+            new = None
+            if logits is not None:
+                if not nopen:
+                    logits = sampling.apply_frequency_penalty(
+                        logits, self.counts, slots, pens
+                    )
+                new = sampling.sample_tokens(
+                    logits, self.generator, temps, tks, tps, greedy_all=greedy
                 )
-            new = sampling.sample_tokens(
-                logits, self.generator, temps, tks, tps, greedy_all=greedy
-            )
-            if not nopen:
-                sampling.update_counts(self.counts, slots, new, live)
+                if not nopen:
+                    sampling.update_counts(self.counts, slots, new, live)
+            new = self._relay_tokens(new, tokens.shape[0])
             is_stop = check_stop & torch.any(new[:, None] == stop_ids, dim=-1)
             live_i = live.to(torch.int32)
             remaining = remaining - live_i
@@ -699,8 +728,20 @@ class Executor:
         if not live:
             timers("decode").stop()
             return
+        # the scheduler's emission order (admission sorted by arrival for
+        # victim fairness): the skew_pipeline policy emits decodes group-
+        # interleaved, and the pipelined path's round-robin regrouping
+        # depends on that order surviving
         order = {id(t): i for i, t in enumerate(tasks)}
         live.sort(key=lambda t: order[id(t)])
+        if pipeline.supports_pipeline(self.model) and len(live) >= 2:
+            # the pipelined window appends KV every step: clamped to the
+            # batch's page headroom, on the window ladder
+            head = min(max(1, t.max_seq_len - t.seq_len) for t in live)
+            w_pp = max([w for w in self._window_buckets() if w <= head] or [1])
+            self._decode_pipelined(live, min(window, w_pp))
+            timers("decode").stop()
+            return
         if self._spec_ok(live):
             self._decode_speculative(live, window)
             timers("decode").stop()
@@ -777,6 +818,73 @@ class Executor:
                 if t.need_remove():
                     break
         timers("decode").stop()
+
+    def _decode_pipelined(self, live: List[Task], window: int):
+        """Microbatch pipeline-parallel decode window (pp > 1): S = pp slot
+        groups stream through the stages so every stage works on a
+        different group each phase (reference: scheduler.py:139-186 +
+        executor.py:179-299; `parallel/pipeline.py`). Rows are grouped
+        round-robin, which rebuilds the skew_pipeline policy's slot
+        groups from its interleaved order."""
+        S = self.model.pp
+        groups: List[List[Task]] = [[] for _ in range(S)]
+        for i, t in enumerate(live):
+            groups[i % S].append(t)
+        # the bucket bound must cover ceil(live / S)
+        Bg = _bucket(
+            max(len(g) for g in groups),
+            _pow2_buckets(1, max(-(-self.max_reqs // S), 1)),
+        )
+        mp = self.mp_full
+        tokens0 = np.zeros((S, Bg), np.int32)
+        seq0 = np.zeros((S, Bg), np.int32)
+        bts = np.full((S, Bg, mp), -1, np.int32)
+        valid = np.zeros((S, Bg), bool)
+        temps = np.ones((S, Bg), np.float32)
+        tks = np.ones((S, Bg), np.int32)
+        tps = np.ones((S, Bg), np.float32)
+        slots = np.full((S, Bg), np.iinfo(np.int32).max, np.int32)
+        pens = np.zeros((S, Bg), np.float32)
+        remaining = np.ones((S, Bg), np.int32)
+        stop_ids = np.full((S, Bg, 8), -2, np.int32)
+        check_stop = np.zeros((S, Bg), bool)
+        for s, g in enumerate(groups):
+            for j, t in enumerate(g):
+                tokens0[s, j] = (
+                    t.response_tokens[-1] if t.response_tokens else t.tokens[-1]
+                )
+                seq0[s, j] = t.seq_len - 1
+                bts[s, j] = self.cache.allocator.block_table([t.task_id], mp)[0]
+                valid[s, j] = True
+                p = t.req.params
+                temps[s, j] = max(p.temperature, 1e-6)
+                tks[s, j] = p.top_k
+                tps[s, j] = p.top_p
+                slots[s, j] = t.slot
+                pens[s, j] = p.frequency_penalty
+                remaining[s, j] = max(1, t.max_new_tokens - len(t.response_tokens))
+                check_stop[s, j] = t.stop_with_eos
+                for i, tok in enumerate(sorted(t.stop_tokens)[:8]):
+                    stop_ids[s, j, i] = tok
+        toks = pipeline.decode_pipelined(
+            self.model, dict(self.cache.arrays), self.counts, self.generator,
+            *(self._tensor(a) for a in (
+                tokens0, seq0, bts, valid, temps, tks, tps, slots, pens,
+                remaining, stop_ids, check_stop)),
+            window=window, page_size=self.page,
+            greedy=all(t.req.params.top_k == 1 for t in live),
+            nopen=all(t.req.params.frequency_penalty == 0.0 for t in live),
+        )
+        toks_host = toks.cpu().numpy()  # [window, S, Bg]
+        for s, g in enumerate(groups):
+            for j, t in enumerate(g):
+                for k in range(toks_host.shape[0]):
+                    tok = int(toks_host[k, s, j])
+                    if tok < 0:
+                        break
+                    t.append_token(tok)
+                    if t.need_remove():
+                        break
 
     # -- speculative decode -------------------------------------------------
 

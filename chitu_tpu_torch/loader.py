@@ -305,9 +305,30 @@ def merge_llama_leaves(layers: Dict[str, Any], model=None) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 
 
+def stage_layers(model, stack: str = "layers") -> List[int]:
+    """The layers of `stack` that the model's pipeline stage holds (every
+    layer on one stage)."""
+    lay = getattr(model, "layout", None)
+    n = (model.args.n_layers if stack == "layers"
+         else model.n_dense if stack == "dense_layers" else model.n_moe)
+    r = lay.stage.ranges.get(stack) if lay is not None else None
+    if stack == "moe_layers":
+        base = model.n_dense
+        return [base + i for i in range(*(r or (0, n)))]
+    return list(range(*(r or (0, n))))
+
+
+def holds(model, name: str) -> bool:
+    """Does the model's pipeline stage hold the top-level leaf `name`?"""
+    lay = getattr(model, "layout", None)
+    return lay is None or lay.stage.holds(name)
+
+
 def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
     """Assemble the llama-family parameter tree from `model.args.ckpt_dir`
-    on `device` (the model's by default)."""
+    on `device` (the model's by default): the layers of the model's
+    pipeline stage, and the embedding, norm and head where it holds
+    them."""
     from chitu_tpu_torch.quantize.packed import unpack_awq, unpack_gptq
 
     a = model.args
@@ -367,6 +388,8 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
 
     lay = getattr(model, "layout", None)
     cut = lay is not None and lay.tp > 1
+    layers = stage_layers(model)
+    n = len(layers)
 
     def take(key, dtype=None, transpose=False, name=None):
         view = ck.get(key)
@@ -385,7 +408,13 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
     params: Dict[str, Any] = {"layers": {}}
     ly = params["layers"]
     for name, (key, transpose) in flat.items():
-        params[name] = take(key, bf16, transpose, name)
+        if holds(model, name):
+            params[name] = take(key, bf16, transpose, name)
+    if "lm_head" not in flat and not a.tie_word_embeddings and holds(
+            model, "lm_head"):
+        # tied checkpoints without an explicit head
+        key, transpose = flat["embed"]
+        params["lm_head"] = take(key, bf16, transpose, "embed").T.contiguous()
 
     if packed:
         # offline-quantized checkpoint (AWQ / GPTQ; reference load paths:
@@ -405,39 +434,37 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
                                g_idx=g_idx)
 
         for name, vals in by_name.items():
-            missing = [i for i, v in enumerate(vals) if v is None]
+            missing = [i for i in layers if vals[i] is None]
             if missing:
                 raise ValueError(f"packed ckpt missing {name} layers {missing}")
             staged.pop(name, None)
             ly[name] = fill_stacked(
-                (L,), lambda idx, v=vals, n=name: local(n, unpack(v[idx[0]])))
+                (n,), lambda idx, v=vals, nm=name: local(
+                    nm, unpack(v[layers[idx[0]]])))
 
     fp8_names = {name for (_, name) in fp8_scales}
     for name, pieces in staged.items():
-        missing = [i for i, p in enumerate(pieces) if p is None]
+        missing = [i for i in layers if pieces[i] is None]
         if missing:
             raise ValueError(f"checkpoint missing {name} for layers {missing}")
         if name in fp8_names:
             # fp8 weights + blockwise scales -> SOFT_FP8 QTensor stacks;
             # silently dropping the scales would load unscaled fp8 garbage
-            sc_missing = [i for i in range(L) if (i, name) not in fp8_scales]
+            sc_missing = [i for i in layers if (i, name) not in fp8_scales]
             if sc_missing:
                 raise ValueError(
                     f"fp8 checkpoint missing {name} scales for layers "
                     f"{sc_missing}"
                 )
-            ly[name] = fill_stacked((L,), lambda idx, n=name, p=pieces: local(
-                n, fp8_qtensor(take(p[idx[0]][0]), take(fp8_scales[(idx[0], n)]))))
+            ly[name] = fill_stacked((n,), lambda idx, nm=name, p=pieces: local(
+                nm, fp8_qtensor(take(p[layers[idx[0]]][0]),
+                                take(fp8_scales[(layers[idx[0]], nm)]))))
             continue
         ly[name] = fill_stacked(
-            (L,), lambda idx, p=pieces, n=name: take(
-                p[idx[0]][0], bf16, p[idx[0]][1], n))
+            (n,), lambda idx, p=pieces, nm=name: take(
+                p[layers[idx[0]]][0], bf16, p[layers[idx[0]]][1], nm))
     logger.info("read %d tensors (%.2f GB) in %.1fs", len(ck.keys()),
                 ck.nbytes / 1e9, time.time() - t0)
-
-    if "lm_head" not in params and not a.tie_word_embeddings:
-        # tied checkpoints without an explicit head
-        params["lm_head"] = params["embed"].T.contiguous()
     merge_llama_leaves(ly, model)
     return params
 
@@ -561,7 +588,8 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
         )
     if device is None:
         device = model.device if model is not None else torch.device("cpu")
-    cut = lay is not None and (lay.tp > 1 or saved_mtp != 1 or not lay.merged)
+    cut = lay is not None and (lay.tp > 1 or saved_mtp != 1 or not lay.merged
+                               or lay.stage.pp > 1)
     # a leaf that is cut stays a view of the mapped file until its slice
     # is copied to the device
     dest = torch.device("cpu") if cut else device
@@ -605,6 +633,16 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
                           else to_device(v, device))
         ly = {k: out.pop(k) for k in list(out) if k in model.LAYER_LEAVES}
         tree = {**out, "layers": lay.assemble(ly)}
+    elif cut:
+        # DeepSeek's two stacks: the stage's layers, then the device
+        def dev(t):
+            if isinstance(t, dict):
+                return {k: dev(v) for k, v in t.items()}
+            if isinstance(t, QTensor):
+                return t.to(device).contiguous()
+            return to_device(t, device)
+
+        tree = dev(lay.stage.tree(tree, ("dense_layers", "moe_layers")))
     elif "layers" in tree:
         merge_llama_leaves(tree["layers"], model)
     return tree

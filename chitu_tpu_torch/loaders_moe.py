@@ -13,12 +13,16 @@ model_deepseek_v3.py:1167-1288, model_hf_llama.py:577-596):
 
 As in `loader.py`, every leaf is allocated on the device once and filled
 there one layer or one expert at a time from views of the mapped files,
-so the host never holds the weights. The engine then merges the MoE
-gate/up pairs (`quantize.merge_moe_gate_up`).
+so the host never holds the weights, and a rank reads only its pipeline
+stage's layers (DeepSeek: the dense-first layers on stage 0, each stage
+its chunk of the MoE stack), the embedding on stage 0 and the norm and
+head on the last. The engine then merges the MoE gate/up pairs
+(`quantize.merge_moe_gate_up`).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import re
 import time
 from typing import Any, Dict, List, Optional
@@ -29,9 +33,12 @@ from chitu_tpu_torch.loader import (
     Checkpoint,
     fill_stacked,
     fp8_qtensor,
+    holds,
     merge_llama_leaves,
+    stage_layers,
     to_device,
 )
+from chitu_tpu_torch.parallel.sharding import StageSlice
 from chitu_tpu_torch.utils import get_logger
 
 logger = get_logger()
@@ -120,9 +127,10 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
                 experts[(i, int(me.group(1)), kind)] = key
 
     t0 = time.time()
-    layers = list(range(a.n_layers))
+    layers = stage_layers(model)
     take = lambda v: st.take(*v)
-    params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()}
+    params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()
+                              if holds(model, k)}
     ly: Dict[str, Any] = {}
     for name in ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "moe_gate"):
         ly[name] = st.stack(name, layers, take)
@@ -133,11 +141,13 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
             raise ValueError(f"checkpoint missing {kind} experts {missing[:8]}")
         ly[kind] = fill_stacked(  # [L, E, ., .]
             (len(layers), E),
-            lambda idx, k=kind: st.take(experts[(idx[0], idx[1], k)], True),
+            lambda idx, k=kind: st.take(
+                experts[(layers[idx[0]], idx[1], k)], True),
         )
     params["layers"] = merge_llama_leaves(ly, model)
-    if "lm_head" not in params and not a.tie_word_embeddings:
-        params["lm_head"] = params["embed"].T.contiguous()
+    if ("lm_head" not in st.flat and not a.tie_word_embeddings
+            and holds(model, "lm_head")):
+        params["lm_head"] = take(st.flat["embed"]).T.contiguous()
     logger.info("mixtral checkpoint: %.2f GB in %.1fs", ck.nbytes / 1e9,
                 time.time() - t0)
     return params
@@ -180,25 +190,26 @@ def load_glm4_params(model, cfg, device=None) -> Dict[str, Any]:
             name, tr = per_layer[m.group(2)]
             st.put(name, int(m.group(1)), (key, tr))
 
-    layers = list(range(a.n_layers))
+    layers = stage_layers(model)
     take = lambda v: st.take(*v)
     lay = model.layout
     names = ["attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down"]
     if a.attn_bias:
         names.append("b_qkv")
+    params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()
+                              if holds(model, k)}
     if lay.tp <= 1 and lay.merged:
-        params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()}
         params["layers"] = {n: st.stack(n, layers, take) for n in names}
         return params
     # another layout: each fused layer is split into its parts and cut to
-    # the rank's slice on the device, then the layers are stacked
-    params = {}
-    for k, v in st.flat.items():
-        params.update(lay.place(k, take(v)))
+    # the rank's slice on the device (one layer: no stage cut), then the
+    # layers are stacked
+    one = dataclasses.replace(lay, stage=StageSlice())
+    params = {n: v for k, t in params.items() for n, v in one.place(k, t).items()}
     ly: Dict[str, Any] = {}
     for n in names:
         slot = st.slot(n, layers)
-        pieces = [lay.place(n, take(slot[i])) for i in layers]
+        pieces = [one.place(n, take(slot[i])) for i in layers]
         for k in pieces[0]:
             ly[k] = torch.stack([p[k] for p in pieces])
     params["layers"] = lay.assemble(ly)
@@ -259,9 +270,10 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
         out["wo"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.o_proj"))
         return out
 
-    dense_layers = list(range(mo.n_dense_layers))
-    moe_layers = list(range(mo.n_dense_layers, a.n_layers))
-    missing = [i for i in range(a.n_layers)
+    # the stage's layers: the dense-first ones on stage 0 only
+    dense_layers = stage_layers(model, "dense_layers")
+    moe_layers = stage_layers(model, "moe_layers")
+    missing = [i for i in dense_layers + moe_layers
                if f"model.layers.{i}.input_layernorm.weight" not in ck]
     if missing:
         raise ValueError(f"checkpoint missing layers {missing}")
@@ -305,12 +317,12 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
             lambda idx, h=hf: _maybe_fp8(
                 f"model.layers.{moe_layers[idx[0]]}.mlp.experts.{idx[1]}.{h}"),
         )
+    top = {"embed": ("model.embed_tokens", False),
+           "norm": ("model.norm", False), "lm_head": ("lm_head", True)}
+    out = {k: get(*v) for k, v in top.items() if holds(model, k)}
+    if dense_layers or model.pp == 1:
+        out["dense_layers"] = dense
+    out["moe_layers"] = moe_p
     logger.info("deepseek checkpoint: %.2f GB in %.1fs", ck.nbytes / 1e9,
                 time.time() - t0)
-    return {
-        "embed": get("model.embed_tokens", transpose=False),
-        "norm": get("model.norm", transpose=False),
-        "lm_head": get("lm_head"),
-        "dense_layers": dense,
-        "moe_layers": moe_p,
-    }
+    return out

@@ -37,8 +37,17 @@ V padded from 128 to 192 lanes in the pool row: the same four kernels at
 that head size (`_mla_dense`). The param tree is the absorb path's.
 
 Its checkpoints (bf16, or the published native fp8 with
-`weight_scale_inv`) load through `loaders_moe.load_deepseek_params`. Not
-ported yet: the ring and pipeline paths (ROADMAP: multi-GPU).
+`weight_scale_inv`) load through `loaders_moe.load_deepseek_params`.
+
+Pipeline parallelism (`infer.pp_size`, at tp 1): the dense-first layers,
+their `kv_dense` pool and the embedding live on stage 0; every stage
+holds n_moe / pp MoE layers and that slice of `kv_moe`; the last stage
+the final norm and head. The JAX package replicates the dense stack and
+its pool over 'pp' and reconciles the pool once a window (a shard_map
+needs one layout on every device); here the stages that never read them
+do not hold them. The hidden state crosses each stage boundary once
+(`_forward`, as the llama module's `_run_layers`). Not ported yet: the
+ring paths, and DeepSeek under TP (expert parallelism, ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ from chitu_tpu_torch.models.common import (
     rms_norm,
     rope_tables,
 )
+from chitu_tpu_torch.models.llama import TPLayout, join_world
 from chitu_tpu_torch.models.moe import moe_ffn_auto, route
 from chitu_tpu_torch.ops import attention as attn_ops
 from chitu_tpu_torch.ops import attention_kernels as kernels
@@ -84,11 +94,11 @@ class DeepSeekV3ForCausalLM(nn.Module):
         if args.mla is None or args.moe is None:
             raise ValueError("a deepseek-v3 model card needs mla and moe sections")
         infer = cfg.infer
-        if infer.tp_size > 1 or infer.pp_size > 1:
+        if infer.tp_size > 1:
             raise NotImplementedError(
-                "tp_size/pp_size > 1 for DeepSeek: pipeline parallelism "
-                "comes with the PP/DP slice (ROADMAP A.1), DeepSeek under TP "
-                "(with expert parallelism) with the slice after it (A.2)"
+                "tp_size > 1 for DeepSeek (also under pp_size > 1): DeepSeek "
+                "under TP (multi-GPU, with expert parallelism) comes with the "
+                "next slice (ROADMAP A.2)"
             )
         self.args = args
         self.cfg = cfg
@@ -108,6 +118,13 @@ class DeepSeekV3ForCausalLM(nn.Module):
         self.head_dim = self.kv_minor if self.absorb else self.qk_head_dim
         self.n_dense = self.moe.n_dense_layers
         self.n_moe = args.n_layers - self.n_dense
+        stage = join_world(
+            self, infer, {"dense_layers": self.n_dense, "moe_layers": self.n_moe},
+            first_only=("dense_layers",))
+        self.n_local = {k: stage.count(k, n) for k, n in (
+            ("dense_layers", self.n_dense), ("moe_layers", self.n_moe))}
+        # params_from_numpy and the loaders read the stage from it
+        self.layout = TPLayout(stage=stage)
 
         # softmax scale with the YaRN mscale correction
         # (reference: model_deepseek_v3.py:1420-1445)
@@ -136,11 +153,15 @@ class DeepSeekV3ForCausalLM(nn.Module):
     # -- cache geometry -----------------------------------------------------
 
     def kv_cache_spec(self) -> Dict[str, Any]:
-        groups = {"kv_dense": self.n_dense, "kv_moe": self.n_moe}
+        # the stage's layers of each stack (a stage after the first holds
+        # no dense-first layers, and no pool for them)
+        groups = {POOLS[k]: n for k, n in self.n_local.items()
+                  if n or self.pp == 1}
+        n_layers = sum(groups.values())
         if not self.absorb:
             # dense MLA: per-head K/V rows (V padded to qk_head_dim)
             return dict(
-                n_layers=self.args.n_layers,
+                n_layers=n_layers,
                 kv_heads=self.args.n_heads,
                 head_dim=self.qk_head_dim,
                 kv_dim=0,
@@ -149,11 +170,11 @@ class DeepSeekV3ForCausalLM(nn.Module):
         # merged-MLA cache: one latent row a token shared across heads
         # (reference: backend.py:186-197)
         return dict(
-            n_layers=self.args.n_layers,
+            n_layers=n_layers,
             kv_heads=0,
             head_dim=0,
             kv_dim=self.kv_dim,
-            layer_groups={"kv_dense": self.n_dense, "kv_moe": self.n_moe},
+            layer_groups=groups,
         )
 
     def quantizable_keys(self):
@@ -189,16 +210,20 @@ class DeepSeekV3ForCausalLM(nn.Module):
             s["wq"] = (L, D, H * self.qk_head_dim)
         return s
 
-    def _shapes(self, merged=frozenset()) -> Dict[str, Dict[str, tuple]]:
-        """Logical shapes by stack ("" = top level); `merged` names the
-        merged leaves present (`wq_kv_a`, `shared_gu`, `exp_gu`)."""
+    def _shapes(self, merged=frozenset(), local: bool = True
+                ) -> Dict[str, Dict[str, tuple]]:
+        """Logical shapes by stack ("" = top level) of the stage's leaves,
+        or (`local=False`) of the whole model; `merged` names the merged
+        leaves present (`wq_kv_a`, `shared_gu`, `exp_gu`)."""
         a, mo = self.args, self.moe
         D, V = a.dim, a.vocab_size
-        dense = self._attn_shapes(self.n_dense)
-        dense["w_gate"] = (self.n_dense, D, a.inter_dim)
-        dense["w_up"] = (self.n_dense, D, a.inter_dim)
-        dense["w_down"] = (self.n_dense, a.inter_dim, D)
-        Lm, E, Fm = self.n_moe, mo.n_routed_experts, mo.moe_inter_dim
+        Ld, Lm = ((self.n_local["dense_layers"], self.n_local["moe_layers"])
+                  if local else (self.n_dense, self.n_moe))
+        dense = self._attn_shapes(Ld)
+        dense["w_gate"] = (Ld, D, a.inter_dim)
+        dense["w_up"] = (Ld, D, a.inter_dim)
+        dense["w_down"] = (Ld, a.inter_dim, D)
+        E, Fm = mo.n_routed_experts, mo.moe_inter_dim
         Fs = Fm * max(mo.n_shared_experts, 1)
         moe_l = self._attn_shapes(Lm)
         moe_l["moe_gate"] = (Lm, D, E)
@@ -217,11 +242,17 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 if name in merged and a_ in stack:
                     sa, sb = stack.pop(a_), stack.pop(b_)
                     stack[name] = (*sa[:-1], sa[-1] + sb[-1])
-        return {
+        out = {
             "": {"embed": (V, D), "norm": (D,), "lm_head": (D, V)},
             "dense_layers": dense,
             "moe_layers": moe_l,
         }
+        if local and self.pp > 1:
+            st = self.layout.stage
+            out[""] = {k: v for k, v in out[""].items() if st.holds(k)}
+            out = {k: v for k, v in out.items()
+                   if not k or self.n_local[k]}
+        return out
 
     def init_params(
         self, generator: Optional[torch.Generator] = None,
@@ -229,9 +260,14 @@ class DeepSeekV3ForCausalLM(nn.Module):
     ):
         """Random weights on the module's device (normal * 0.02, norms 1,
         `gate_bias` 0 in f32), drawn from `generator`; the JAX package's
-        `init_params` layout and scales."""
+        `init_params` layout and scales. Every leaf is drawn whole, in the
+        one-stage order, and the stage keeps its layers: the weights are
+        those of the pp-1 draw from the same seed, and no stage holds more
+        than one whole leaf beside its own."""
         tree: Dict[str, Any] = {}
-        for stack, shapes in self._shapes().items():
+        st = self.layout.stage
+        held = self._shapes()
+        for stack, shapes in self._shapes(local=False).items():
             leaves = {}
             for name, shape in shapes.items():
                 dt = torch.float32 if name == "gate_bias" else dtype
@@ -242,9 +278,12 @@ class DeepSeekV3ForCausalLM(nn.Module):
                     t.zero_()
                 else:
                     t.normal_(0.0, 0.02, generator=generator)
-                leaves[name] = t
+                if name in held.get(stack, {}):
+                    leaves[name] = st.cut(stack, t) if stack else t
+                del t
             if stack:
-                tree[stack] = leaves
+                if stack in held:
+                    tree[stack] = leaves
             else:
                 tree.update(leaves)
         return self._install(tree)
@@ -267,9 +306,10 @@ class DeepSeekV3ForCausalLM(nn.Module):
                     raise ValueError(
                         f"{stack}.{name}: shape {tuple(given[name].shape)} != {shape}"
                     )
-        tree = {k: tensors[k] for k in ("embed", "norm", "lm_head")}
+        tree = {k: tensors[k] for k in ("embed", "norm", "lm_head")
+                if k in tensors}
         for stack in STACKS:
-            tree[stack] = dict(tensors[stack])
+            tree[stack] = dict(tensors.get(stack, {}))
         return self._install(tree)
 
     def _install(self, tree):
@@ -279,20 +319,23 @@ class DeepSeekV3ForCausalLM(nn.Module):
             return t.detach().to(self.device).contiguous()
 
         for name in ("embed", "norm", "lm_head"):
-            setattr(self, name, dev(tree[name]))
-        self.dense_layers = {k: dev(v) for k, v in tree["dense_layers"].items()}
-        self.moe_layers = {k: dev(v) for k, v in tree["moe_layers"].items()}
+            if name in tree:
+                setattr(self, name, dev(tree[name]))
+        self.dense_layers = {k: dev(v) for k, v in tree.get("dense_layers", {}).items()}
+        self.moe_layers = {k: dev(v) for k, v in tree.get("moe_layers", {}).items()}
         return self
 
     def params_tree(self, pop: bool = False) -> Dict[str, Any]:
         """The weights as the nested tree the quantization transforms walk.
         With `pop` the module gives them up, so a transform can free each
         dense leaf as it replaces it; `load_params` installs the result."""
-        tree = {name: getattr(self, name) for name in ("embed", "norm", "lm_head")}
-        tree["dense_layers"] = dict(self.dense_layers)
-        tree["moe_layers"] = dict(self.moe_layers)
+        top = [n for n in ("embed", "norm", "lm_head") if hasattr(self, n)]
+        tree = {name: getattr(self, name) for name in top}
+        for stack in STACKS:
+            if getattr(self, stack):
+                tree[stack] = dict(getattr(self, stack))
         if pop:
-            for name in ("embed", "norm", "lm_head"):
+            for name in top:
                 delattr(self, name)
             self.dense_layers, self.moe_layers = {}, {}
         return tree
@@ -433,14 +476,30 @@ class DeepSeekV3ForCausalLM(nn.Module):
     # -- stacks -------------------------------------------------------------
 
     def _forward(self, cache, h, cos, sin, attend):
-        """Both stacks over their pools; `attend(pool, q, k, v, layer)`
-        (v None for the latent row)."""
+        """The stage's layers between the relay's links -> the normed
+        hidden state on the last stage, None on the others."""
+        st = self.stage
+        if st is not None and not st.first:
+            h = st.recv_prev(h)
+        h = self._local_forward(cache, h, cos, sin, attend)
+        if st is not None and not st.last:
+            st.send_next(h.to(self.hidden_dtype))
+            return None
+        return rms_norm(h, self.norm, self.args.norm_eps)
+
+    def _local_forward(self, cache, h, cos, sin, attend):
+        """The stage's layers of both stacks over their pools (the dense
+        ones on stage 0 only); `attend(pool, q, k, v, layer)` (v None for
+        the latent row)."""
         eps = self.args.norm_eps
         mla = self._mla if self.absorb else self._mla_dense
-        for stack, n, ffn in (
-            ("dense_layers", self.n_dense, self._dense_ffn),
-            ("moe_layers", self.n_moe, self._moe_ffn),
+        for stack, ffn in (
+            ("dense_layers", self._dense_ffn),
+            ("moe_layers", self._moe_ffn),
         ):
+            n = self.n_local[stack]
+            if not n:
+                continue
             lp = getattr(self, stack)
             pool = cache[POOLS[stack]]
 
@@ -452,7 +511,32 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 h = h + mla(x, lp, layer, cos, sin, att)
                 x = rms_norm(h, lp["ffn_norm"][layer], eps)
                 h = h + ffn(x, lp, layer)
-        return rms_norm(h, self.norm, eps)
+        return h
+
+    def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
+        """Embedding rows; on a stage after the first an empty buffer of
+        their shape, which the relay fills."""
+        if self.stage is not None and not self.stage.first:
+            return torch.empty((tokens.shape[0], self.args.dim),
+                               dtype=self.hidden_dtype, device=tokens.device)
+        return self.embed[tokens.long()]
+
+    @property
+    def hidden_dtype(self) -> torch.dtype:
+        """The dtype of the hidden state that crosses a stage boundary
+        (the weights', which every stage holds a MoE layer of)."""
+        return self.moe_layers["attn_norm"].dtype
+
+    def _head(self, h, idx=None):
+        """Logits of the rows `idx` of the normed hidden state, or None on
+        a stage before the last."""
+        if h is None:
+            return None
+        return self._logits(h if idx is None else h[idx])
+
+    def final_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The last stage's head on a hidden state [T, D]: norm, logits."""
+        return self._logits(rms_norm(h, self.norm, self.args.norm_eps))
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         if isinstance(self.lm_head, QTensor):  # quant.quantize_head
@@ -482,7 +566,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         pos = ar + start_pos
         total_len = start_pos + valid_len
         q_pos = torch.where(ar < valid_len, pos, torch.zeros_like(pos))
-        h = self.embed[tokens.long()]
+        h = self._embed(tokens)
         cos, sin = self._rope_rows(pos)
         kw = self._attn_kw()
 
@@ -496,8 +580,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
 
         h = self._forward(cache, h, cos, sin, attend)
         if return_all_logits:
-            return self._logits(h), cache
-        return self._logits(h[max(valid_len - 1, 0)]), cache
+            return self._head(h), cache
+        return self._head(h, max(valid_len - 1, 0)), cache
 
     def prefill_packed(
         self,
@@ -514,7 +598,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
     ):
         """R ragged prompts in one forward -> (logits [R, V], cache): a
         plain packed append, then B3 over the block geometry."""
-        h = self.embed[tokens.long()]
+        h = self._embed(tokens)
         cos, sin = self._rope_rows(pos)
         kw = self._attn_kw()
 
@@ -528,7 +612,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
             )
 
         h = self._forward(cache, h, cos, sin, attend)
-        return self._logits(h[last_idx.long()]), cache
+        return self._head(h, last_idx.long()), cache
 
     def step_hybrid(
         self,
@@ -551,7 +635,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         [R, V], cache): plain appends of both, then B4 for the decode rows
         and B3 for the prefill rows."""
         B = dec_tokens.shape[0]
-        h = self.embed[torch.cat([dec_tokens, pf_tokens]).long()]
+        h = self._embed(torch.cat([dec_tokens, pf_tokens]))
         cos, sin = self._rope_rows(torch.cat([dec_seq_lens, pf_pos]))
         kw = self._attn_kw()
 
@@ -575,8 +659,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
             return torch.cat([od, op], dim=0)
 
         h = self._forward(cache, h, cos, sin, attend)
-        dec_logits = self._logits(h[:B])
-        pf_logits = self._logits(h[B + pf_last_idx.long()])
+        dec_logits = self._head(h, slice(None, B))
+        pf_logits = self._head(h, B + pf_last_idx.long())
         return dec_logits, pf_logits, cache
 
     def decode(
@@ -590,8 +674,12 @@ class DeepSeekV3ForCausalLM(nn.Module):
     ):
         """Batched one-token decode -> (logits [B, V], cache) through B1,
         which appends each live row's latent row in the kernel."""
-        h = self.embed[tokens.long()]
+        h = self._embed(tokens)
         cos, sin = self._rope_rows(seq_lens)
+        attend = self._decode_attend(block_tables, seq_lens, valid, page_size)
+        return self._head(self._forward(cache, h, cos, sin, attend)), cache
+
+    def _decode_attend(self, block_tables, seq_lens, valid, page_size):
         kw = self._attn_kw()
 
         def attend(pool, q, k, v, layer):
@@ -600,5 +688,13 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 page_size, **kw,
             )
 
-        h = self._forward(cache, h, cos, sin, attend)
-        return self._logits(h), cache
+        return attend
+
+    def decode_local(self, cache, h, seq_lens, block_tables, valid,
+                     page_size):
+        """The stage's layers of one decode step on a hidden state [B, D]
+        (the pipelined decode's: no relay, no final norm), B1 on the
+        stage's pools."""
+        cos, sin = self._rope_rows(seq_lens)
+        attend = self._decode_attend(block_tables, seq_lens, valid, page_size)
+        return self._local_forward(cache, h, cos, sin, attend)

@@ -27,11 +27,23 @@ masked lookup, summed). The merged leaves of a rank are its own
 rank-major layout. Attention runs the same kernels on the rank's heads,
 and the pool holds the rank's KV heads (all of them replicated by
 tp / KV ranks each when there are fewer KV heads than ranks). The logits
-are gathered to the full vocabulary on every rank, so sampling sees the
-same row everywhere.
+are gathered to the full vocabulary on every rank of the group, so
+sampling sees the same row everywhere.
+
+Pipeline parallelism (`infer.pp_size`, the reference's PP stages): stage
+p holds layers [p * L / pp, (p + 1) * L / pp) of every stacked leaf
+(`TPLayout.stage`), its pool those layers, stage 0 the embedding, the
+last stage the final norm and the head. Each forward keeps its
+signature: stage 0 embeds, every stage runs its layers, and the hidden
+state crosses each stage boundary once (`_run_layers`, over
+`parallel.distributed.StageRelay`); only the last stage returns logits
+(None elsewhere: the executor samples there and relays the tokens), and
+`verify_draft` relays its greedy tokens to every rank. The pipelined
+decode (`parallel/pipeline.py`) calls the stage's pieces itself:
+`_embed`, `decode_local` and `final_logits`.
 
 Checkpoints load through `loader.load_checkpoint`. Not ported yet: the
-ring paths and pipeline parallelism.
+ring paths.
 """
 
 from __future__ import annotations
@@ -67,7 +79,7 @@ from chitu_tpu_torch.ops.qtensor import (
     QuantKind,
     unpack_int4,
 )
-from chitu_tpu_torch.parallel.sharding import narrow_out, shard_leaf
+from chitu_tpu_torch.parallel.sharding import StageSlice, narrow_out, shard_leaf
 from chitu_tpu_torch.utils import get_logger, resolve_device
 
 
@@ -228,7 +240,9 @@ class TPLayout:
     the KV heads are fewer than the ranks), w_gate/w_up by columns and
     wo/w_down by rows (whole when the FFN does not divide: then the FFN
     replicates and nothing is summed), embed by vocab rows and lm_head by
-    vocab columns (whole when the vocabulary does not divide)."""
+    vocab columns (whole when the vocabulary does not divide). Under
+    pipeline parallelism `stage` says which layers and which ends of the
+    model the rank's stage holds; a leaf is cut to those layers first."""
 
     rank: int = 0
     tp: int = 1
@@ -241,6 +255,7 @@ class TPLayout:
     vocab_size: int = 0
     merged: bool = True
     moe: bool = False
+    stage: StageSlice = StageSlice()
 
     @property
     def widths(self) -> Dict[str, tuple]:
@@ -279,8 +294,15 @@ class TPLayout:
         """One full leaf (a merged one in plain or rank-major order, or an
         unmerged part) -> the rank's leaves by name, in this layout.
         `transform(name, leaf)` sees each full leaf of this layout before
-        it is cut (the on-load quantization, which must see whole rows)."""
+        it is cut to the rank's TP slice (the on-load quantization, which
+        must see whole rows; it quantizes each layer on its own, so the
+        stage's layers are cut first). A leaf the stage does not hold
+        gives nothing."""
         transform = transform or (lambda n, t: t)
+        if not self.stage.holds(name):
+            return {}
+        if name not in ("embed", "norm", "lm_head"):
+            leaf = self.stage.cut("layers", leaf)
         if name in MERGES and not (self.moe and name == "w_gate_up"):
             names = MERGES[name]
             if self.merged:
@@ -346,12 +368,15 @@ def params_from_numpy(tree: Dict[str, Any], layout: Optional[TPLayout] = None,
     merged leaves in plain order (`merge_tp` 1) or the JAX package's
     rank-major order (`merge_tp`, its model's `merge_tp`) are split into
     their parts, each part is cut to the rank's slice, and the parts are
-    merged again when the layout merges."""
+    merged again when the layout merges. Under pipeline parallelism the
+    layout's `stage` keeps the stage's layers of every stack, and the
+    embedding, final norm and head where the stage holds them."""
     if "dense_layers" in tree:
+        stacks = ("dense_layers", "moe_layers")
         out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head")}
-        for stack in ("dense_layers", "moe_layers"):
+        for stack in stacks:
             out[stack] = {k: _leaf(v) for k, v in tree[stack].items()}
-        return out
+        return out if layout is None else layout.stage.tree(out, stacks)
     layers = tree["layers"]
     flat = {k: tree[k] for k in ("embed", "norm", "lm_head") if k in tree}
     flat.update(layers)
@@ -385,11 +410,6 @@ class LlamaForCausalLM(nn.Module):
     def __init__(self, args, cfg, device=None):
         super().__init__()
         infer = cfg.infer
-        if infer.pp_size > 1:
-            raise NotImplementedError(
-                "pp_size > 1: pipeline parallelism comes with the PP/DP "
-                "slice (ROADMAP A.1)"
-            )
         self.args = args
         self.cfg = cfg
         # infer.attn_type: the CUDA kernels, or their plain versions
@@ -409,22 +429,16 @@ class LlamaForCausalLM(nn.Module):
         self.register_buffer("sin", sin, persistent=False)
 
     def _init_tp(self, infer):
-        """The tensor-parallel geometry and the weight layout (the JAX
-        package's `merged` / `merge_tp` / `kv_tp_shard` decisions)."""
-        from chitu_tpu_torch.parallel.distributed import tp_group
-
+        """The tensor-parallel geometry, the pipeline stage and the weight
+        layout (the JAX package's `merged` / `merge_tp` / `kv_tp_shard`
+        decisions)."""
         a = self.args
         H, KV, Fd, V = a.n_heads, a.n_kv_heads, self.inter_dim, a.vocab_size
         tp = infer.tp_size
         self.tp = tp
-        self.group = tp_group() if tp > 1 else None
-        if tp > 1 and (self.group is None or self.group.size != tp):
-            raise RuntimeError(
-                f"tp_size={tp} needs a process group of {tp} ranks "
-                "(parallel.distributed.maybe_initialize; the engine joins "
-                "it from infer.coordinator / num_processes / process_id)"
-            )
-        self.rank = self.group.rank if self.group is not None else 0
+        stage = join_world(self, infer, {"layers": a.n_layers},
+                           tied=a.tie_word_embeddings)
+        self.n_local = stage.count("layers", a.n_layers)
         if H % tp or not (KV % tp == 0 or tp % KV == 0):
             raise NotImplementedError(
                 f"tp_size={tp} with {H} query and {KV} KV heads: each rank "
@@ -449,14 +463,14 @@ class LlamaForCausalLM(nn.Module):
         self.vocab_tp = tp if V % tp == 0 else 1
         self.layout = TPLayout(
             self.rank, tp, H, KV, self.head_dim, Fd, V, merged=self.merged,
-            moe=getattr(a, "moe", None) is not None,
+            moe=getattr(a, "moe", None) is not None, stage=stage,
         )
 
     # -- cache geometry -----------------------------------------------------
 
     def kv_cache_spec(self) -> Dict[str, Any]:
         return dict(
-            n_layers=self.args.n_layers,
+            n_layers=self.n_local,
             kv_heads=self.kv_local,
             head_dim=self.head_dim,
             kv_dim=0,
@@ -466,11 +480,12 @@ class LlamaForCausalLM(nn.Module):
 
     def _shapes(self, local: bool = True, merged: Optional[bool] = None
                 ) -> Dict[str, tuple]:
-        """Leaf shapes of this rank's layout, or (`local=False`) of the
-        full tree at tp 1; `merged` overrides the layout's choice."""
+        """Leaf shapes of this rank's layout (its stage's leaves), or
+        (`local=False`) of the full tree at tp 1 and pp 1; `merged`
+        overrides the layout's choice."""
         a = self.args
         merged = self.merged if merged is None else merged
-        L, D, Dh = a.n_layers, a.dim, self.head_dim
+        L, D, Dh = self.n_local if local else a.n_layers, a.dim, self.head_dim
         if local:
             H, KV, Fd = self.h_local, self.kv_local, self.inter_dim // self.ffn_tp
             V = a.vocab_size // self.vocab_tp
@@ -500,6 +515,9 @@ class LlamaForCausalLM(nn.Module):
                 shapes.update(bq=(L, H * Dh), bk=(L, KV * Dh), bv=(L, KV * Dh))
         if not a.tie_word_embeddings:
             shapes["lm_head"] = (D, V)
+        if local:
+            shapes = {k: v for k, v in shapes.items()
+                      if self.layout.stage.holds(k)}
         return shapes
 
     def init_params(
@@ -671,15 +689,50 @@ class LlamaForCausalLM(nn.Module):
             return x
         return (quant_acts if op_kernels() else quant_acts_plain)(x.contiguous())
 
-    def _run_layers(self, h, cos, sin, attend):
-        for layer in range(self.args.n_layers):
+    def _local_layers(self, h, cos, sin, attend):
+        for layer in range(self.n_local):
             h = self._layer(h, layer, cos, sin, attend)
+        return h
+
+    def _run_layers(self, h, cos, sin, attend):
+        """The stage's layers between the relay's links -> the normed
+        hidden state on the last stage, None on the others (the reference
+        PP stage loop, executor.py:179-299)."""
+        st = self.stage
+        if st is not None and not st.first:
+            h = st.recv_prev(h)
+        h = self._local_layers(h, cos, sin, attend)
+        if st is not None and not st.last:
+            st.send_next(h.to(self.hidden_dtype))
+            return None
         return rms_norm(h, self.norm, self.args.norm_eps)
+
+    @property
+    def hidden_dtype(self) -> torch.dtype:
+        """The dtype of the hidden state that crosses a stage boundary
+        (the weights', which every stage holds a layer of)."""
+        return self.attn_norm.dtype
+
+    def final_logits(self, h: torch.Tensor) -> torch.Tensor:
+        """The last stage's head on a hidden state [T, D]: norm, logits."""
+        return self._logits(rms_norm(h, self.norm, self.args.norm_eps))
+
+    def _head(self, h, idx=None):
+        """Logits of the rows `idx` of the normed hidden state, or None on
+        a stage that has none (not the last)."""
+        if h is None:
+            return None
+        return self._logits(h if idx is None else h[idx])
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
         """Embedding rows of `tokens`; vocab-parallel: each rank looks up
         the tokens in its vocab slice, zeros the rest, and the rows are
-        summed over the group (exact: one nonzero term)."""
+        summed over the group (exact: one nonzero term). A stage after the
+        first gets an empty buffer of the rows' shape, which the relay
+        fills."""
+        if self.stage is not None and not self.stage.first:
+            return torch.empty((tokens.shape[0], self.args.dim),
+                               dtype=self.hidden_dtype, device=tokens.device)
         if self.vocab_tp == 1:
             return self.embed[tokens.long()]
         n = self.embed.shape[0]
@@ -748,8 +801,8 @@ class LlamaForCausalLM(nn.Module):
 
         h = self._run_layers(h, cos, sin, attend)
         if return_all_logits:
-            return self._logits(h), cache
-        return self._logits(h[max(valid_len - 1, 0)]), cache
+            return self._head(h), cache
+        return self._head(h, max(valid_len - 1, 0)), cache
 
     def prefill_packed(
         self,
@@ -781,7 +834,7 @@ class LlamaForCausalLM(nn.Module):
             )
 
         h = self._run_layers(h, cos, sin, attend)
-        return self._logits(h[last_idx.long()]), cache
+        return self._head(h, last_idx.long()), cache
 
     def step_hybrid(
         self,
@@ -823,8 +876,8 @@ class LlamaForCausalLM(nn.Module):
             return torch.cat([od, op], dim=0)
 
         h = self._run_layers(h, cos, sin, attend)
-        dec_logits = self._logits(h[:B])
-        pf_logits = self._logits(h[B + pf_last_idx.long()])
+        dec_logits = self._head(h, slice(None, B))
+        pf_logits = self._head(h, B + pf_last_idx.long())
         return dec_logits, pf_logits, cache
 
     def verify_draft(
@@ -872,7 +925,12 @@ class LlamaForCausalLM(nn.Module):
             )
 
         h = self._run_layers(h, cos, sin, attend)
-        greedy = torch.argmax(self._logits(h), dim=-1).to(torch.int32)
+        logits = self._head(h)
+        greedy = None if logits is None else torch.argmax(
+            logits, dim=-1).to(torch.int32)
+        if self.stage is not None:
+            # the drafts' acceptance runs on every rank
+            greedy = self.stage.from_last(greedy, (B * K1,), torch.int32, dev)
         return greedy.reshape(B, K1), cache
 
     def decode(
@@ -886,9 +944,14 @@ class LlamaForCausalLM(nn.Module):
     ):
         """Batched one-token decode -> (logits [B, V], cache) through the
         B1 kernel (reference: Transformer.decode, models/model.py:537-622)."""
-        pool = cache["kv"]
         h = self._embed(tokens)
         cos, sin = self._rope_rows(seq_lens)
+        attend = self._decode_attend(cache, seq_lens, block_tables, valid,
+                                     page_size)
+        return self._head(self._run_layers(h, cos, sin, attend)), cache
+
+    def _decode_attend(self, cache, seq_lens, block_tables, valid, page_size):
+        pool = cache["kv"]
         kw = self._attn_kw()
 
         def attend(q, k, v, layer):
@@ -897,5 +960,41 @@ class LlamaForCausalLM(nn.Module):
                 page_size, **kw,
             )
 
-        h = self._run_layers(h, cos, sin, attend)
-        return self._logits(h), cache
+        return attend
+
+    def decode_local(self, cache, h, seq_lens, block_tables, valid,
+                     page_size):
+        """The stage's layers of one decode step on a hidden state [B, D]
+        (the pipelined decode's: no relay, no final norm), B1 on the
+        stage's pool."""
+        cos, sin = self._rope_rows(seq_lens)
+        attend = self._decode_attend(cache, seq_lens, block_tables, valid,
+                                     page_size)
+        return self._local_layers(h, cos, sin, attend)
+
+
+def join_world(model, infer, stacks, tied=False, first_only=()):
+    """Set a model's place in the world: `world` (the rank's
+    `parallel.distributed.TPGroup`, None on one device), `group` (the same
+    when tp > 1: the tensor-parallel collectives), `stage` (the relay when
+    pp > 1), `rank` (its TP index), `pp`; -> its `StageSlice` over
+    `stacks` ({name: layers})."""
+    from chitu_tpu_torch.parallel.distributed import tp_group
+
+    tp, pp = infer.tp_size, infer.pp_size
+    world = tp_group() if tp * pp > 1 else None
+    if tp * pp > 1 and (world is None or world.size != tp or world.pp != pp):
+        raise RuntimeError(
+            f"pp_size={pp} x tp_size={tp} needs a process group of "
+            f"{pp * tp} ranks (parallel.distributed.maybe_initialize; the "
+            "engine joins it from infer.coordinator / num_processes / "
+            "process_id)"
+        )
+    model.world, model.pp = world, pp
+    model.group = world if tp > 1 else None
+    model.stage = world.relay if pp > 1 else None
+    model.rank = world.rank if world is not None else 0
+    if pp <= 1:
+        return StageSlice()
+    return StageSlice.of(world.stage, pp, stacks, tied=tied,
+                         first_only=first_only)

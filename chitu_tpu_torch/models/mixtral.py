@@ -12,8 +12,9 @@ capacity route for the stacks that kernel does not take.
 
 Its attention takes the llama module's layouts, merged or unmerged
 (`infer.merge_qkv_gate_up=off`). Its HF checkpoints load through
-`loaders_moe.load_mixtral_params`. Not ported yet: expert parallelism
-under TP (ROADMAP A.2).
+`loaders_moe.load_mixtral_params`. Pipeline parallelism is the llama
+module's (each stage holds its layers' expert stacks `[L / pp, E, ...]`).
+Not ported yet: expert parallelism under TP (ROADMAP A.2).
 """
 
 from __future__ import annotations
@@ -42,8 +43,8 @@ class MixtralForCausalLM(LlamaForCausalLM):
             raise ValueError("a mixtral model card needs its moe section")
         if cfg.infer.tp_size > 1:
             raise NotImplementedError(
-                "tp_size > 1 for Mixtral: expert parallelism under TP comes "
-                "with the slice after PP/DP (ROADMAP A.2)"
+                "tp_size > 1 for Mixtral (also under pp_size > 1): expert "
+                "parallelism under TP comes with the next slice (ROADMAP A.2)"
             )
         super().__init__(args, cfg, device=device)
         self.moe = args.moe
@@ -56,7 +57,7 @@ class MixtralForCausalLM(LlamaForCausalLM):
             k: v for k, v in super()._shapes(local, merged).items()
             if k not in _FFN_LEAVES
         }
-        L, D = a.n_layers, a.dim
+        L, D = self.n_local if local else a.n_layers, a.dim
         E, Fd = m.n_routed_experts, m.moe_inter_dim or self.inter_dim
         shapes["moe_gate"] = (L, D, E)
         if self.merged_gu:

@@ -3,10 +3,11 @@ collectives, and the sharding rules that cut a full parameter tree into
 one rank's shard.
 
 Counterpart of `chitu_tpu/parallel/`. Ported: tensor parallelism of the
-Llama family (`mesh`, `distributed`, `sharding`). Not ported yet, in the
-order later slices take them: pipeline and data parallelism
-(`chitu_tpu/parallel/pipeline.py`), expert parallelism for Mixtral and
-DeepSeek under TP, ring prefill and ring KV (`ring.py`,
+Llama family and pipeline parallelism of every family (`mesh`,
+`distributed`, `sharding`, `pipeline`: the stage relay and the
+microbatch-pipelined decode). Not ported yet, in the order later slices
+take them: expert parallelism for Mixtral and DeepSeek under TP, then
+ring prefill and ring KV with data parallelism (`ring.py`,
 `ops/attention_ring.py`), and streamed loads (`loader_streaming.py`).
 """
 

@@ -1,24 +1,32 @@
-"""Multi-process bring-up and the collectives of tensor parallelism.
+"""Multi-process bring-up, the collectives of tensor parallelism and the
+pipeline's stage relay.
 
 Counterpart of `chitu_tpu/parallel/distributed.py` (reference:
-chitu/backend.py:88-89 init_process_group, script/srun_multi_node.sh).
-The JAX package runs one program over a global mesh and lets XLA insert
-the collectives; here every rank is a process that holds its shard of
-the weights and calls the collectives itself, over `torch.distributed`.
+chitu/backend.py:88-89 init_process_group, script/srun_multi_node.sh;
+the stage relay of chitu/executor.py:179-299). The JAX package runs one
+program over a global mesh and lets XLA insert the collectives; here
+every rank is a process that holds its shard of the weights and calls
+the collectives itself, over `torch.distributed`.
 
+The world is pp x tp ranks, rank = p * tp + t (`parallel.mesh`): stage p
+holds a range of the layers, and its tp ranks form one tensor-parallel
+group (`dist.new_group`; every rank creates every group, in one order).
 The control plane stays what the JAX package describes: every rank runs
 the same host state machine, so every rank derives the same schedule
-from the same request stream. Rank 0 (the controller) takes the requests
-and broadcasts them, step by step, with every decision that reads the
-host clock (`TPGroup.decide`): ranks that launched different programs
-would deadlock in the next collective.
+from the same request stream. Rank 0 (stage 0, t 0: the controller)
+takes the requests and broadcasts them, step by step, over the world,
+with every decision that reads the host clock (`TPGroup.decide`): ranks
+that launched different programs would deadlock in the next collective.
 
 The backend follows the device map: `nccl` when every rank has a card of
 its own, `gloo` when ranks share a card or run on the CPU. Both carry
-the collectives used here on CUDA tensors: an all-reduce (the f32 sum
+every collective used here on CUDA tensors: an all-reduce (the f32 sum
 after row-parallel projections, and the gathers, done as the sum of
-zero-padded buffers, which is exact) and an object broadcast on a CPU
-group.
+zero-padded buffers, which is exact), a broadcast (the stage relay and
+the tokens of the sampling stage), and an object broadcast on a CPU
+group. gloo has no point-to-point `send` / `recv` of CUDA tensors, so
+the relay is a broadcast inside a two-rank group {(p, t), (p + 1, t)}
+(`StageRelay`), the same call on either backend.
 """
 
 from __future__ import annotations
@@ -98,7 +106,7 @@ def maybe_initialize(cfg, device=None) -> bool:
             f"num_processes={n_proc} but no coordinator: set "
             "infer.coordinator=host:port (or CHITU_TPU_COORDINATOR)"
         )
-    if _GROUP is not None and _GROUP.size == n_proc:
+    if _GROUP is not None and _GROUP.world_size == n_proc:
         return True
     dev = rank_device(device, pid)
     backend = backend_for(dev, n_proc)
@@ -115,9 +123,11 @@ def maybe_initialize(cfg, device=None) -> bool:
             backend, init_method=url, world_size=n_proc, rank=pid,
             timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S),
         )
-    _GROUP = TPGroup(dev)
-    logger.info("rank %d of %d on %s, backend %s", _GROUP.rank, _GROUP.size,
-                dev, _GROUP.backend)
+    _GROUP = TPGroup(dev, cfg.infer.pp_size)
+    logger.info("rank %d of %d (stage %d of %d, TP rank %d of %d) on %s, "
+                "backend %s", _GROUP.world_rank, _GROUP.world_size,
+                _GROUP.stage, _GROUP.pp, _GROUP.rank, _GROUP.size, dev,
+                _GROUP.backend)
     return True
 
 
@@ -144,13 +154,24 @@ def process_count() -> int:
 
 
 class TPGroup:
-    """The tensor-parallel group (the whole world in this slice): its
-    rank, size, backend and the collectives the model and the engine
-    call."""
+    """This rank's place in the world: its tensor-parallel group (the tp
+    ranks of its pipeline stage; the whole world when pp is 1), the
+    collectives the model and the engine call, and, under pp > 1, the
+    stage relay (`relay`). `rank` and `size` are the rank's index in its
+    TP group and that group's size; `world_rank` is its rank in the
+    world."""
 
-    def __init__(self, device: torch.device):
-        self.rank = dist.get_rank()
-        self.size = dist.get_world_size()
+    def __init__(self, device: torch.device, pp: int = 1):
+        self.world_rank = dist.get_rank()
+        self.world_size = dist.get_world_size()
+        if pp < 1 or self.world_size % pp:
+            raise ValueError(
+                f"a world of {self.world_size} ranks cannot hold {pp} "
+                "pipeline stages of equal tensor-parallel groups")
+        self.pp = pp
+        self.size = self.world_size // pp
+        self.rank = self.world_rank % self.size
+        self.stage = self.world_rank // self.size
         self.backend = dist.get_backend()
         self.device = device
         # host objects travel on a CPU group: gloo itself, or a gloo
@@ -158,32 +179,107 @@ class TPGroup:
         self.obj_group = (
             None if self.backend == "gloo" else dist.new_group(backend="gloo")
         )
+        # the stage's TP group (None: the world, when it is the only
+        # stage); every rank makes every stage's group, in stage order
+        self.pg = None
+        if pp > 1 and self.size > 1:
+            for p in range(pp):
+                g = dist.new_group(ranks=list(range(p * self.size,
+                                                    (p + 1) * self.size)))
+                if p == self.stage:
+                    self.pg = g
+        self.relay = StageRelay(self) if pp > 1 else None
 
     def all_reduce_f32(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum over ranks in f32 (the JAX package's `psum_f32`: exact for
-        bf16 partial sums), back in x's dtype."""
+        """Sum over the TP group in f32 (the JAX package's `psum_f32`:
+        exact for bf16 partial sums), back in x's dtype."""
         y = x.to(torch.float32, copy=True)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=self.pg)
         return y.to(x.dtype)
 
     def gather_last(self, local: torch.Tensor, start: int,
                     total: int) -> torch.Tensor:
-        """Every rank's slice [..., start:start + n] of the last dim, joined
-        into [..., total] on every rank, in f32: the all-reduce of
-        zero-padded buffers (exact: each entry has one nonzero term)."""
+        """Every TP rank's slice [..., start:start + n] of the last dim,
+        joined into [..., total] on every rank of the group, in f32: the
+        all-reduce of zero-padded buffers (exact: each entry has one
+        nonzero term)."""
         buf = torch.zeros((*local.shape[:-1], total), dtype=torch.float32,
                           device=local.device)
         buf[..., start:start + local.shape[-1]] = local
-        dist.all_reduce(buf)
+        dist.all_reduce(buf, group=self.pg)
         return buf
 
     def decide(self, value):
         """Rank 0's `value` (a picklable host decision: a window length,
-        a step's requests and clock) on every rank: what differs from rank
-        to rank must not steer the program a rank launches."""
-        box = [value if self.rank == 0 else None]
+        a step's requests and clock) on every rank of the world: what
+        differs from rank to rank must not steer the program a rank
+        launches."""
+        box = [value if self.world_rank == 0 else None]
         dist.broadcast_object_list(box, src=0, group=self.obj_group)
         return box[0]
+
+
+class StageRelay:
+    """The pipeline's links (reference: the PipeTensorExecutor relay,
+    chitu/executor.py:179-299; the JAX package's ring `ppermute` over
+    'pp', chitu_tpu/parallel/pipeline.py): the hidden state from stage p
+    to stage p + 1 within TP index t, the sampled tokens from the last
+    stage back to stage 0 (the ring's closing link), and the sampling
+    stage's results to the whole world. Each link is a broadcast in a
+    two-rank group; the links are ordered (0, 1), (1, 2), ...,
+    (pp - 2, pp - 1), (pp - 1, 0), and a rank that takes two links in one
+    phase takes them in that order, so no cycle of waits can form."""
+
+    def __init__(self, world: TPGroup):
+        pp, tp, t = world.pp, world.size, world.rank
+        self.pp, self.tp, self.stage = pp, tp, world.stage
+        self.first, self.last = world.stage == 0, world.stage == pp - 1
+        self.world_rank = world.world_rank
+        # the world rank of stage p at this TP index
+        self.at = lambda p: p * tp + t
+        # the sampling stage's first rank: the source of the tokens
+        self.sampler = (pp - 1) * tp
+        edges = [(a, a + 1) for a in range(pp - 1)]
+        if pp > 2:
+            edges.append((pp - 1, 0))
+        self.links = {}
+        for ti in range(tp):
+            for a, b in edges:
+                g = dist.new_group(ranks=sorted((a * tp + ti, b * tp + ti)))
+                if ti == t:
+                    self.links[(a, b)] = g
+        # pp 2: the ring's closing link is the one forward link
+        self.back = self.links[(pp - 1, 0) if pp > 2 else (0, 1)]
+
+    def send_next(self, x: torch.Tensor):
+        """The hidden state to stage p + 1 (not on the last stage)."""
+        dist.broadcast(x.contiguous(), src=self.world_rank,
+                       group=self.links[(self.stage, self.stage + 1)])
+
+    def recv_prev(self, buf: torch.Tensor) -> torch.Tensor:
+        """Stage p - 1's hidden state, into `buf` (not on stage 0)."""
+        dist.broadcast(buf, src=self.at(self.stage - 1),
+                       group=self.links[(self.stage - 1, self.stage)])
+        return buf
+
+    def send_first(self, x: torch.Tensor):
+        """The last stage's tokens to stage 0 (the ring's closing link)."""
+        dist.broadcast(x.contiguous(), src=self.world_rank, group=self.back)
+
+    def recv_last(self, buf: torch.Tensor) -> torch.Tensor:
+        """On stage 0: the last stage's tokens, into `buf`."""
+        dist.broadcast(buf, src=self.at(self.pp - 1), group=self.back)
+        return buf
+
+    def from_last(self, x: Optional[torch.Tensor], shape, dtype,
+                  device) -> torch.Tensor:
+        """The sampling stage's tensor on every rank of the world: `x` on
+        the last stage (all its TP ranks hold the same values), a buffer
+        of `shape` elsewhere."""
+        buf = x.contiguous() if x is not None else torch.empty(
+            shape, dtype=dtype, device=device)
+        dist.broadcast(buf, src=self.sampler)
+        return buf
 
 
 # ---------------------------------------------------------------------------
@@ -213,7 +309,7 @@ def end_world(why: str):
     """End this process now, with code 1, and the ranks it started: a rank
     that left the lockstep would leave the others waiting in a
     collective."""
-    logger.critical("ending the tensor-parallel world: %s", why)
+    logger.critical("ending the world of ranks: %s", why)
     _reap()
     os._exit(1)
 
@@ -244,7 +340,8 @@ def _watch(procs: List[subprocess.Popen]):
 
 
 def serve_local(argv: List[str], n: int):
-    """`python -m chitu_tpu_torch infer.tp_size=N ...` on one host: start
+    """`python -m chitu_tpu_torch infer.tp_size=N ...` (or
+    `infer.pp_size=P`, N = P x tp_size) on one host: start
     ranks 1..N-1 as copies of this command and become rank 0, which ends
     when one of them fails."""
     coord = local_coordinator()

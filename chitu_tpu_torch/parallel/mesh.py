@@ -5,12 +5,13 @@ of a device array; here the same axes name a grid of processes, one
 rank a process, rank = (d * pp + p) * tp + t, so the ranks of one
 tensor-parallel group are consecutive:
 - "dp": data parallel (replicas);
-- "pp": pipeline stages (the layer stack);
+- "pp": pipeline stages (the layer stack, cut into pp equal ranges);
 - "tp": tensor parallel (weight shards; expert parallelism will live on
   the same axis, as it does in the JAX package).
 
-Only `tp` is served so far; `dp` or `pp` above 1 raise and name the
-slice that brings them.
+`pp` and `tp` are served; `dp` above 1 raises and names the slice that
+brings it (in the JAX package it carries the ring KV pool and ring
+prefill, which come together).
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from dataclasses import dataclass
 from typing import Optional
 
 NEXT_SLICE = {
-    "dp": "data parallelism comes with the PP/DP slice (ROADMAP A.1)",
-    "pp": "pipeline parallelism comes with the PP/DP slice (ROADMAP A.1)",
+    "dp": "data parallelism comes with the ring slice (ROADMAP A.3): in the "
+          "JAX package dp carries the ring KV pool and ring prefill",
 }
 
 
@@ -49,9 +50,8 @@ def make_mesh(dp: int = 1, pp: int = 1, tp: int = 1,
         raise ValueError(
             f"need {need} devices for dp={dp} pp={pp} tp={tp}, have {ranks}"
         )
-    for axis, n in (("dp", dp), ("pp", pp)):
-        if n > 1:
-            raise NotImplementedError(f"{axis}_size={n}: {NEXT_SLICE[axis]}")
+    if dp > 1:
+        raise NotImplementedError(f"dp_size={dp}: {NEXT_SLICE['dp']}")
     return RankGrid(dp, pp, tp)
 
 

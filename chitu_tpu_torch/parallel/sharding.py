@@ -1,5 +1,13 @@
 """Sharding rules: a full parameter leaf -> one rank's shard.
 
+Pipeline stages first (`StageSlice`, the `'pp'` entry on the layer dim of
+every stacked leaf in the JAX package's `param_partition_specs`): stage
+p of pp holds layers [p * L / pp, (p + 1) * L / pp) of every stack, its
+QTensor scales, zeros, permutations and outlier rows cut along the same
+layer dim; stage 0 holds the embedding, the last stage the final norm and
+the head (and the embedding again when the head is tied to it). Then the
+tensor-parallel cut of each leaf:
+
 Counterpart of `chitu_tpu/parallel/sharding.py` (reference:
 chitu/tensor_parallel.py:20-208): ColumnParallelLinear shards the out
 dim, RowParallelLinear the in dim (the model sums the partial products),
@@ -19,8 +27,8 @@ loud warning on large arrays (`safe_spec`).
 from __future__ import annotations
 
 import math
-from dataclasses import replace
-from typing import Any, Optional, Sequence, Tuple
+from dataclasses import dataclass, field, replace
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -201,3 +209,82 @@ def shard_leaf(leaf, spec: Spec, rank: int, tp: int, name: str = ""):
     if isinstance(leaf, QTensor):
         return shard_qtensor(leaf, spec, rank, tp, name).contiguous()
     return shard_tensor(leaf, spec, rank, tp).contiguous()
+
+
+@dataclass(frozen=True)
+class StageSlice:
+    """What one pipeline stage holds: a layer range (start, stop) of each
+    stack ("layers"; DeepSeek's "dense_layers" and "moe_layers"; a stack
+    absent from `ranges` is held whole), and which of the embedding
+    (`embed`) and the final norm and head (`head`) it holds. The default
+    holds everything: one stage."""
+
+    stage: int = 0
+    pp: int = 1
+    ranges: Dict[str, Tuple[int, int]] = field(default_factory=dict)
+    embed: bool = True
+    head: bool = True
+
+    @classmethod
+    def of(cls, stage: int, pp: int, stacks: Dict[str, int],
+           tied: bool = False, first_only: Sequence[str] = ()):
+        """Stage `stage` of `pp` over `stacks` ({name: layers}): each stack
+        cut into pp equal ranges, but those in `first_only`, held whole on
+        stage 0 and not at all elsewhere; refused when pp does not divide
+        a stack (the JAX package replicates it through GSPMD then)."""
+        ranges = {}
+        for name, n in stacks.items():
+            if name in first_only:
+                ranges[name] = (0, n) if stage == 0 else (0, 0)
+                continue
+            if n % pp:
+                raise NotImplementedError(
+                    f"pp_size={pp} does not divide the {n} layers of "
+                    f"{name!r}: each stage holds an equal layer range (the "
+                    "JAX package replicates such a stack; ROADMAP C)")
+            per = n // pp
+            if not per:
+                raise NotImplementedError(
+                    f"pp_size={pp} is more stages than the {n} layers of "
+                    f"{name!r}")
+            ranges[name] = (stage * per, (stage + 1) * per)
+        last = stage == pp - 1
+        return cls(stage, pp, ranges, embed=stage == 0 or (tied and last),
+                   head=last)
+
+    def count(self, stack: str, n: int) -> int:
+        """Layers of `stack` (n in all) this stage holds."""
+        r = self.ranges.get(stack)
+        return n if r is None else r[1] - r[0]
+
+    def holds(self, name: str) -> bool:
+        """Does this stage hold the top-level leaf `name`?"""
+        if name == "embed":
+            return self.embed
+        if name in ("norm", "lm_head"):
+            return self.head
+        return True
+
+    def cut(self, stack: str, leaf):
+        """The stage's layers of one stacked leaf (a QTensor's every field
+        along its leading layer dim), copied when they are not all of it:
+        the whole leaf can go."""
+        r = self.ranges.get(stack)
+        if r is None or r == (0, leaf.shape[0]):
+            return leaf
+        part = leaf[r[0]:r[1]]
+        return part._map(torch.clone) if isinstance(part, QTensor) else part.clone()
+
+    def tree(self, tree: Dict[str, Any], stacks: Sequence[str]) -> Dict[str, Any]:
+        """A nested tree ({top-level leaves, stack: {name: stacked leaf}})
+        -> the stage's part of it: the top-level leaves it holds, and its
+        layers of each stack it holds any of."""
+        out = {}
+        for k, v in tree.items():
+            if k in stacks:
+                r = self.ranges.get(k)
+                if r is None or r[1] > r[0]:
+                    out[k] = {n: self.cut(k, t) for n, t in v.items()}
+            elif self.holds(k):
+                out[k] = v
+        return out

@@ -104,8 +104,9 @@ class ServerContext:
 
     def start(self, warmup: bool = True, engine: Optional[Engine] = None):
         """Bring the engine up (or take `engine`) and start its worker
-        thread. Under tensor parallelism a rank other than 0 starts none:
-        it takes no requests and follows rank 0 (`Engine.follow`)."""
+        thread. Under tensor or pipeline parallelism a rank other than 0
+        starts none: it takes no requests and follows rank 0
+        (`Engine.follow`)."""
         self.engine = engine if engine is not None else Engine(
             self.cfg, device=self.device)
         self.stop_flag.clear()
@@ -369,7 +370,8 @@ def build_app(ctx: ServerContext):
             return _json_error(409, "engine already running")
         if ctx.engine is not None and ctx.engine.group is not None:
             # the other ranks' engines are gone with rank 0's
-            return _json_error(409, "no rebuild under tensor parallelism")
+            return _json_error(409, "no rebuild under tensor or pipeline "
+                                    "parallelism")
         try:
             body = await request.json() if request.can_read_body else {}
         except json.JSONDecodeError:
@@ -475,8 +477,8 @@ def serve_forever(cfg: EngineConfig, warmup: bool = True, device=None):
 def main(argv: Optional[List[str]] = None):
     """`python -m chitu_tpu_torch key=value ...` (reference hydra entry:
     serve.py:215-218); serves on the CUDA device. With `infer.tp_size=N`
-    and no coordinator, the command starts ranks 1..N-1 as copies of
-    itself on this host and serves as rank 0; with `infer.coordinator`,
+    and / or `infer.pp_size=P` and no coordinator, the command starts
+    ranks 1..P*N-1 as copies of itself on this host and serves as rank 0; with `infer.coordinator`,
     `infer.num_processes` and `infer.process_id` (or the CHITU_TPU_*
     variables) it is one rank of a world started elsewhere, one process
     a host."""
@@ -487,10 +489,10 @@ def main(argv: Optional[List[str]] = None):
 
     overrides = list(argv if argv is not None else sys.argv[1:])
     cfg = load_config(overrides=overrides)
-    tp = cfg.infer.tp_size
-    if tp > 1 and not (cfg.infer.coordinator
-                       or os.environ.get("CHITU_TPU_COORDINATOR")):
-        distributed.serve_local(overrides, tp)
+    ranks = cfg.infer.tp_size * cfg.infer.pp_size
+    if ranks > 1 and not (cfg.infer.coordinator
+                          or os.environ.get("CHITU_TPU_COORDINATOR")):
+        distributed.serve_local(overrides, ranks)
     serve_forever(cfg)
 
 

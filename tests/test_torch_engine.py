@@ -220,11 +220,17 @@ def test_unknown_quant_method_rejected():
 def test_unported_configurations_raise(override):
     # the DeepSeek card serves since slice 4 (its dense MLA path since
     # slice 5); what still raises there is the ring KV (multi-GPU).
-    # tp_size=2 serves since slice 13 (tests/test_torch_tp.py); pp_size=2
-    # still raises
+    # tp_size=2 serves since slice 13 (tests/test_torch_tp.py) and
+    # pp_size=2 since slice 14 (tests/test_torch_pp.py): on one process
+    # both ask for the ranks they need; dp_size=2 names the ring slice
     extra = ["infer.ring_kv=true"] if "deepseek" in override else []
     cfg = load_config(overrides=TINY + [override] + extra)
-    with pytest.raises(NotImplementedError, match="ROADMAP|slice"):
+    if override == "infer.pp_size=2":
+        with pytest.raises(ValueError, match="num_processes=2"):
+            Engine(cfg, device="cpu")
+        return
+    match = "A.3" if override == "infer.dp_size=2" else "ROADMAP|slice"
+    with pytest.raises(NotImplementedError, match=match):
         Engine(cfg, device="cpu")
 
 

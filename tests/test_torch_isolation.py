@@ -61,6 +61,18 @@ def test_walk_covers_the_tensor_parallel_and_awq_modules():
     } <= mods
 
 
+def test_walk_covers_the_pipeline_module():
+    """The module slice 14 added (the pipelined decode) is among those the
+    blocked-import walk above imports."""
+    import pkgutil
+
+    import chitu_tpu_torch
+
+    mods = {m.name for m in pkgutil.walk_packages(
+        chitu_tpu_torch.__path__, "chitu_tpu_torch.")}
+    assert "chitu_tpu_torch.parallel.pipeline" in mods
+
+
 def test_engine_without_device_never_runs_on_cpu():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

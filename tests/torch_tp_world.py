@@ -1,10 +1,14 @@
-"""One rank of a tensor-parallel test world of the port, on the CPU.
+"""One rank of a tensor- or pipeline-parallel test world of the port, on
+the CPU.
 
-`tests/test_torch_tp.py` starts N copies (`python tests/torch_tp_world.py
-SPEC RANK`) joined over gloo through a `file://` rendezvous; rank 0 runs
-each scenario of the spec's list through its engine and the other ranks
-follow it (`Engine.follow`). Weights and prompts come from the spec's
-`.npz` and JSON files; every rank writes what it saw to `out<rank>.json`.
+`tests/test_torch_tp.py` and `tests/test_torch_pp.py` start N copies
+(`python tests/torch_tp_world.py SPEC RANK`) joined over gloo through a
+`file://` rendezvous; rank 0 runs each scenario of the spec's list
+through its engine and the other ranks follow it (`Engine.follow`).
+Weights and prompts come from the spec's `.npz` and JSON files; every
+rank writes what it saw to `out<rank>.json`. A scenario may count the
+pipelined decode windows (`spy`), give requests frequency penalties
+(`pens`) or a stop token of their own (`stop`, on every rank's task).
 """
 
 import json
@@ -24,7 +28,10 @@ def save_tree(tree, path):
 
     def arr(a):
         a = np.asarray(a)
-        return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+        if a.dtype.name == "bfloat16":
+            return a.astype(np.float32)
+        # e4m3 crosses as its bytes (`qtensor_from_numpy` reads them so)
+        return a.view(np.uint8) if a.dtype.name.startswith("float8") else a
 
     def walk(t, prefix):
         if isinstance(t, dict):
@@ -72,6 +79,7 @@ def run(spec_path, rank):
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
     from chitu_tpu_torch.models.llama import params_from_numpy
+    from chitu_tpu_torch.parallel import pipeline
 
     with open(spec_path) as f:
         spec = json.load(f)
@@ -85,9 +93,38 @@ def run(spec_path, rank):
         if tree is not None:
             params = lambda m, t=tree: params_from_numpy(t, m.layout, sc.get("merge_tp", 1))
         eng = Engine(cfg, device="cpu", params=params)
+        m = eng.model
         res = dict(weight_bytes=eng.weight_bytes(), pool_bytes=eng.cache.bytes(),
-                   kv_tp_shard=eng.model.kv_tp_shard, merged=eng.model.merged,
-                   backend=eng.group.backend, windows=[], picks=[])
+                   kv_tp_shard=getattr(m, "kv_tp_shard", False),
+                   merged=getattr(m, "merged", True),
+                   backend=eng.group.backend, windows=[], picks=[],
+                   stage=eng.group.stage,
+                   leaves=sorted(k for k, v in m.params_tree().items()
+                                 if not isinstance(v, dict) or v),
+                   pools={k: list(v.shape) for k, v in eng.cache.arrays.items()})
+        decode_pipelined = pipeline.decode_pipelined
+        if sc.get("spy"):
+            res["pipelined"] = 0
+
+            def spy(*a, **k):
+                res["pipelined"] += 1
+                return decode_pipelined(*a, **k)
+
+            pipeline.decode_pipelined = spy
+        if sc.get("stop"):
+            stops = {tuple(p): t for p, t in zip(sc["prompts"], sc["stop"])
+                     if t is not None}
+            make = eng._make_task
+
+            def making(message, params, rid, prompt_tokens, priority, make=make):
+                req, task = make(message, params, rid, prompt_tokens, priority)
+                tok = stops.get(tuple(prompt_tokens or ()))
+                if tok is not None:
+                    task.stop_with_eos = True
+                    task.stop_tokens = frozenset({tok})
+                return req, task
+
+            eng._make_task = making
         if sc.get("kappa"):
             ex = eng.executor
             ex._kappa = sc["kappa"][rank]
@@ -104,13 +141,15 @@ def run(spec_path, rank):
             res["shards"] = {k: list(getattr(m, k).shape) for k in m._shapes()}
         if rank != 0:
             eng.follow()
+            pipeline.decode_pipelined = decode_pipelined
             out[sc["name"]] = res
             continue
         reqs = []
         if sc.get("http"):
             res["http"] = http_request(eng, cfg, sc["http"], reqs)
         for i, p in enumerate(sc.get("prompts", [])):
-            sp = SampleParams(temperature=0.0, max_new_tokens=sc["new"][i])
+            sp = SampleParams(temperature=0.0, max_new_tokens=sc["new"][i],
+                              frequency_penalty=sc.get("pens", [0.0] * 8)[i])
             reqs.append(eng.submit("", sp, prompt_tokens=p))
             if sc.get("one_by_one"):
                 eng.run_until_complete()
@@ -120,6 +159,7 @@ def run(spec_path, rank):
         alloc = eng.cache.allocator
         res["prefix_hits"] = getattr(alloc, "hits", 0)
         eng.terminate()
+        pipeline.decode_pipelined = decode_pipelined
         out[sc["name"]] = res
     with open(os.path.join(os.path.dirname(spec_path), f"out{rank}.json"), "w") as f:
         json.dump(out, f)
