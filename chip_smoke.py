@@ -250,8 +250,8 @@ Phases, each fatal on failure:
    alone); every divergence is printed with its gap, and later tokens are
    not compared.
    Then slice 13. Tensor parallelism of Llama-3-8B-Instruct at full width:
-   `tp2` (bf16, 32 layers), `tp2_soft_fp8` (`quant.method=soft_fp8
-   quant.quant_on_load=true`, 32 layers: B6 runs on the shards) and `tp4`
+   `tp2` (bf16, 8 layers), `tp2_soft_fp8` (`quant.method=soft_fp8
+   quant.quant_on_load=true`, 8 layers: B6 runs on the shards) and `tp4`
    (4 layers, 2 KV heads a rank). Each phase first serves a burst of eight
    greedy requests (prompts of 128-1,024 tokens, 64 new tokens each: seven
    through `Engine.submit`, one chat message) on a tp=1 engine from the
@@ -297,6 +297,32 @@ Phases, each fatal on failure:
    does, so its tokens are held to the largest share of the spread by
    which the one-rank engine's own streams lie below the top of its own
    teacher-forced rows, or 0.15 if larger.
+   Then slice 15. Expert parallelism, ranks sharing the card over gloo
+   (`EP_PHASES`, through `pp_phase`): `tp2_mixtral` (Mixtral-8x7B-Instruct
+   bf16, 8 layers: 4 experts a rank), `tp2_r1` (DeepSeek-R1 bf16, 4
+   layers, 3 dense and 1 MoE: 64 heads and 128 experts a rank),
+   `tp4_r1_soft_fp8` (the same in soft-fp8 on four ranks: 32 heads and 64
+   e4m3 experts a rank), `pp2_tp2_mixtral` (4 layers) and `pp2_tp2_r1` (5
+   layers, 3 dense and 2 MoE), each held as the PP phases are (bytes
+   from `stage_bytes`: experts and every other cut leaf / tp, the router,
+   norms and latent down-projections whole, DeepSeek's latent pools whole
+   over tp; B8 on every rank, and B9 and the latent B1 / B3 / B4 / B5 on
+   the R1 phases; the streams to the MoE limit), and besides: every
+   rank of a stage chose the same experts in every router call of the
+   shadowed steps (a crc32 of the selections a call), and at every
+   position the world's row lies within 3 sigma of the one-rank row
+   unless the world and the one-rank engine chose other experts for its
+   own token, or within NEIGHBOUR_SIGMAS when they did for one of the
+   FLIP_REACH tokens before it (a router near tie that the all-reduce's
+   summing order tips moves a row by a whole expert; every MoE layer's
+   choices for every teacher-forced token are recorded on both sides),
+   and the median row lies within 3 sigma. Phase
+   2 holds the ranks' geometries too: B8 on rank 0's E / 2 and E / 4
+   experts of DeepSeek-R1 (bf16 down, merged e4m3 gate / up) and
+   Mixtral-8x7B (bf16 gate, merged e4m3) at T 16 and 512, about
+   (tp - 1) / tp of the assignments on the dead expert; B9 at R1's 64
+   heads a rank (its 32 at tp 4 are deepseek-mid-bench's geometry); the
+   latent B4 / B1 and B5 at 64 heads.
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
@@ -304,7 +330,9 @@ Phases, each fatal on failure:
    dense, d64 from tiny-llama-debug, d32 from micro-llama-debug, B13 from
    the dense-kernel phase; slice 12's B3 verify geometry with B3's
    launches in the `spec_decode` phase, and its B2 from 1,024 with B2's
-   launches in the warm `prefix_cache` burst),
+   launches in the warm `prefix_cache` burst; slice 15's B8 at E / 2 and
+   E / 4 experts, B9 and the latent B1 / B5 at 64 heads, with rank 0's
+   launches in `tp2_r1` and `tp4_r1_soft_fp8`),
    then the card's name and power limit, then the device JSON as the last
    line.
 
@@ -865,14 +893,16 @@ def absorb_cases(torch, ab, dev):
     def randn(*shape, s=1.0):
         return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
 
-    for label, H in (("R1", 128), ("mid", 32)):
+    # R1 at tp 2 holds 64 heads a rank; at tp 4, 32: mid's geometry
+    for label, H, Ts in (("R1", 128, (16, 1, 128)), ("mid", 32, (16, 1, 128)),
+                         ("R1_tp2", 64, (16, 128))):
         half_bytes = C * H * dn * 2  # what one call reads of its layer
         L = cold_layers(torch, dev, half_bytes, 8)
         w = torch.empty((L, C, H * (dn + dv)), dtype=bf, device=dev)
         for l in range(L):
             w[l] = randn(C, H * (dn + dv), s=0.02)
         wl = w[1].view(C, H, dn + dv)
-        for T in (16, 1, 128):
+        for T in Ts:
             for kind in ("uk", "uv"):
                 # uk reads q_nope as the model passes it: a view of the
                 # [T, H, dn + rope] query rows
@@ -914,6 +944,8 @@ def absorb_cases(torch, ab, dev):
                     p = ab.gemm_plan(x, w, kind, dn, dv)
                     res.update(regime=p.regime, tile_rows=p.tn, blocks=p.blocks,
                                items_per_block=p.per_block)
+                if label == "R1_tp2":
+                    res["variant"] = "h64"
                 yield res
         del w, wl
     torch.cuda.empty_cache()
@@ -998,7 +1030,7 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16", split=True):
         return torch.cat([pool, latent_pool(layers - pool.shape[0], pool.shape[1])])
 
     def decode_cases(label, Hq, q, knew, seq, bts, pool_in, valid_f, lib=True,
-                     cold=True):
+                     cold=True, variant=variant):
         """B4 over the pool the plain append wrote, then B1 (fused), for
         rows of context seq[b] + 1 -> two result dicts (`cold`: with
         `ms_cold`)."""
@@ -1036,7 +1068,7 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16", split=True):
             device_ms(torch, run),
             call_ms(torch, lambda: plain.attend_decode(
                 q, *args, 1, QK, scale=R1_SCALE, split_kv=False), reps=5),
-            lib_ms, nbytes, flops, shape,
+            lib_ms, nbytes, flops, shape, variant=variant,
             replaces="chitu_tpu/ops/pallas_attention.py:327",
             ms_cold=device_ms_cold(torch, [
                 (lambda l=l: tk.attend_decode(q, stack, l, bts, seq, PAGE, **kw))
@@ -1062,7 +1094,7 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16", split=True):
             device_ms(torch, run),
             call_ms(torch, lambda: tk.attend_decode_fused_plain(
                 q, pool_p, *fargs, **kw), reps=5),
-            lib_ms, nbytes + Bn * M * esz, flops, shape,
+            lib_ms, nbytes + Bn * M * esz, flops, shape, variant=variant,
             replaces="chitu_tpu/ops/pallas_attention.py:727",
             ms_cold=device_ms_cold(torch, [
                 (lambda l=l: tk.attend_decode_fused(
@@ -1144,7 +1176,7 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16", split=True):
     del kg, qs, mask
 
     # ---- B5: a 512-token chunk at q_pos 512 ------------------------------
-    def chunk_case(label, Hq, qc):
+    def chunk_case(label, Hq, qc, variant=variant):
         start = 512
         totl = start + T
         bt = torch.arange(16, device=dev, dtype=torch.int32) + 100
@@ -1169,7 +1201,7 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16", split=True):
                 scale=R1_SCALE, enable_gqa=True)),
             totl * QK * esz + T * Hq * (QK + DV) * 2, 2.0 * Hq * (QK + DV) * pairs,
             f"T={T} q_pos0={start} total={totl} H={Hq} live={QK} value={DV}",
-            replaces="chitu_tpu/ops/pallas_attention.py:1137")
+            replaces="chitu_tpu/ops/pallas_attention.py:1137", variant=variant)
 
     yield chunk_case("R1", H, qp)
 
@@ -1203,6 +1235,12 @@ def mla_attention_cases(torch, tk, plain, dev, kv="bf16", split=True):
     yield from decode_cases("mid", 32, randn(B, 32, QK), knew, seq, bts, pool0,
                             valid_f, lib=False)
     yield chunk_case("mid", 32, randn(T, 32, QK))
+    if not fp8:
+        # ---- DeepSeek-R1 at tp 2: a rank's 64 heads (its latent pool whole;
+        # at tp 4 its 32 heads are mid's geometry above) -------------------
+        yield from decode_cases("R1_tp2", 64, randn(B, 64, QK), knew, seq, bts,
+                                pool0, valid_f, cold=False, variant="latent,h64")
+        yield chunk_case("R1_tp2", 64, randn(T, 64, QK), variant="latent,h64")
     qm = randn(T, 32, QK)
     pargs = (pool0, LAYER, bts_p, block_seg, block_q, total, PAGE)
     run = lambda: tk.attend_prefill_packed(qm, *pargs, **kw)
@@ -1961,6 +1999,17 @@ R1_MOE_STACKS = [
 ]
 
 
+# expert parallelism, rank 0's share: (label, experts of the whole model,
+# K, N, e4m3?, top-k, tp)
+EP_MOE_STACKS = [
+    ("R1", 256, 2048, 7168, False, 8, 2), ("R1", 256, 7168, 4096, True, 8, 4),
+    ("R1", 256, 7168, 4096, True, 8, 2),
+    ("mixtral", 8, 4096, 14336, False, 2, 2),
+    ("mixtral", 8, 4096, 28672, True, 2, 2),
+    ("mixtral", 8, 4096, 28672, True, 2, 4),
+]
+
+
 def check_grouped(torch, name, got, again, want, live_rows):
     """The limits every grouped-GEMM result is held to: every row of a
     live block within ROW_RTOL of the plain row's norm, every other row
@@ -2006,13 +2055,25 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
             sel = np.stack([rng.permutation(E)[:k] for _ in range(T)])
         return torch.tensor(sel, dtype=torch.int32, device=dev)
 
-    def case(label, w, T, layer=0, skewed=False, timed=True, tag="", k=2):
+    def case(label, w, T, layer=0, skewed=False, timed=True, tag="", k=2,
+             tp=1):
+        """`tp` > 1: the stack is rank 0's E / tp experts (expert
+        parallelism); the tokens route over all E = tp x its experts, and
+        the assignments of other ranks' experts go to the dead expert
+        E / tp, whose blocks are dead (`models.moe.moe_ffn_ep`)."""
         data = w.data if hasattr(w, "kind") else w
         fp8 = hasattr(w, "kind")
         E, K, N = data.shape[-3:]
-        bm, NB = moe.dispatch_geometry(T, k, E)
-        sel = routing(T, E, k, skewed)
-        row_assign, block_expert = moe.sorted_dispatch(sel, E, bm)
+        Ed = E + 1 if tp > 1 else E
+        bm, NB = moe.dispatch_geometry(T, k, Ed)
+        sel = routing(T, E * tp, k, skewed)
+        foreign = None
+        if tp > 1:
+            sel = moe.local_ids(sel, 0, E)
+            foreign = (sel == E).float().mean().item()
+            tag += f",ep{tp}"
+        row_assign, block_expert = moe.sorted_dispatch(sel, Ed, bm)
+        block_expert = torch.where(block_expert >= E, -1, block_expert)
         x = (torch.randn((T, K), generator=g, device=dev)).to(bf)
         A = T * k
         tok = torch.where(row_assign < A, row_assign.clamp(max=A - 1) // k, 0)
@@ -2036,7 +2097,9 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
         if fp8:
             wbytes += len(experts) * w.scale[0, 0].numel() * 4
         nbytes = wbytes + xs.numel() * 2 + NB * bm * N * 2
-        bnd, by = bound_ms(nbytes, 2.0 * A * K * N)
+        # the products this run needs: the rank's own assignments
+        mine = int((sel < E).sum().item()) if tp > 1 else A
+        bnd, by = bound_ms(nbytes, 2.0 * mine * K * N)
         res = dict(name=name, kernel="grouped_gemm", route="cuda",
                    source=MOE_SRC,
                    replaces="chitu_tpu/ops/pallas_moe_gemm.py:287",
@@ -2044,8 +2107,12 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
                    bound_by=by, ms=None, plain_ms=None, library_ms=None,
                    shape=f"T={T} k={k} E={E} bm={bm} NB={NB} live_blocks="
                          f"{len(live)} live_experts={len(experts)} K={K} N={N} "
-                         f"mode={mode} weight_bytes_read={wbytes}",
+                         f"mode={mode} weight_bytes_read={wbytes}"
+                         + (f" tp={tp} experts_of_all={E * tp} foreign_share="
+                            f"{foreign:.3f}" if tp > 1 else ""),
                    **plan_fields(mg.gemm_plan(xs, w, block_expert, bm)))
+        if tp > 1:
+            res["variant"] = f"ep{tp}"
         if timed:
             res["ms"] = device_ms_sized(torch, run)
             res["plain_ms"] = call_ms(
@@ -2094,6 +2161,16 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
         w = stack(1, E, K, N, fp8)
         for T in (16, 512, 1):
             yield case(label, w, T, k=8)
+        del w
+        torch.cuda.empty_cache()
+    # expert parallelism: rank 0's E / tp experts, about (tp - 1) / tp of
+    # the assignments another rank's (dead blocks); the first ep2 case is
+    # the tp2_r1 phase's bf16 down projection, the first ep4 one the
+    # tp4_r1_soft_fp8 phase's merged e4m3 gate / up
+    for label, E, K, N, fp8, k, tp in EP_MOE_STACKS:
+        w = stack(1, E // tp, K, N, fp8)
+        for T in (16, 512):
+            yield case(label, w, T, k=k, tp=tp)
         del w
         torch.cuda.empty_cache()
 
@@ -2654,6 +2731,13 @@ VARIANT_ROWS = [
     ("attend_prefill_packed[verify]", "spec_decode", "attend_prefill_packed"),
     ("attend_prefill_packed_fused[qstart1024]", "prefix_cache",
      "attend_prefill_packed_fused"),
+    # slice 15: the geometries of a rank under expert parallelism, with the
+    # launches of rank 0 of the phase that runs them
+    ("grouped_gemm[ep2]", "tp2_r1", "grouped_gemm"),
+    ("grouped_gemm[ep4]", "tp4_r1_soft_fp8", "grouped_gemm"),
+    ("absorb_matmul[h64]", "tp2_r1", "absorb_matmul"),
+    ("attend_decode_fused[latent,h64]", "tp2_r1", "attend_decode_fused[latent]"),
+    ("attend_prefill[latent,h64]", "tp2_r1", "attend_prefill[latent]"),
 ]
 
 
@@ -3240,6 +3324,17 @@ def load_phases(torch, np, tk, card, root):
 NEAR_TIE = 1e-2
 NOISE_SIGMAS = 3.0
 NEAR_TIE_MOE = 0.15
+# Under expert parallelism a router flip moves its own token's row by a
+# whole expert's output, and the rows of the tokens after it, less,
+# through attention. A teacher-forced row beyond NOISE_SIGMAS sigma of the
+# one-rank row passes only when its own token chose other experts in some
+# layer, or when one of the FLIP_REACH tokens before it did and the row is
+# within NEIGHBOUR_SIGMAS. Set from the readings (on an H100, of 211 such
+# rows in the five EP phases 209 had their own token flipped; 2 sat 1 and
+# 4 tokens after a flip, at 4.96 and 3.39 sigma): twice the farthest
+# reach, twice NOISE_SIGMAS.
+FLIP_REACH = 8
+NEIGHBOUR_SIGMAS = 6.0
 
 
 def slice12_kernel_cases(torch, tk, plain, dev):
@@ -3432,6 +3527,40 @@ def stream_rows(torch, tk, eng, prompt, stream, plain=False):
         eng.model.attn_route, eng.model.attn = route
         linear.set_op_impl(eng.cfg.infer.op_impl)
         alloc.free(rid)
+
+
+def routed_rows(torch, tk, eng, prompt, stream):
+    """`stream_rows` with the kernels, and the experts that the MoE
+    layers the rank holds chose for each token of it: [layers, tokens
+    (the prompt, then the stream but its last token), k], each token's
+    experts in ascending order (no layers on a dense model)."""
+    from chitu_tpu_torch.models import deepseek_v3, mixtral
+
+    calls = []
+    held = {m: m.route for m in (mixtral, deepseek_v3)}
+
+    def recording(f):
+        def rec(*a, **k):
+            w, sel = f(*a, **k)
+            calls.append(sel.to("cpu", torch.int64))
+            return w, sel
+        return rec
+
+    for m, f in held.items():
+        m.route = recording(f)
+    try:
+        rows = stream_rows(torch, tk, eng, prompt, stream)
+    finally:
+        for m, f in held.items():
+            m.route = f
+    # one call a layer a chunk; a chunk's bucket pads it past its tokens
+    chunks = [len(prompt)] + ([len(stream) - 1] if len(stream) > 1 else [])
+    per = len(calls) // len(chunks)
+    sel = torch.stack([torch.cat([calls[c * per + j][:n]
+                                  for c, n in enumerate(chunks)])
+                       for j in range(per)]) if per else torch.zeros(
+        0, sum(chunks), 0, dtype=torch.int64)
+    return rows, sel.sort(-1).values
 
 
 def teacher_forced_row(torch, tk, eng, tokens, plain=False):
@@ -4029,12 +4158,15 @@ def tp_world(label, n, overrides, prompts, base=TP_BASE, grid=None, **extra):
     rcs = [p.returncode for p in procs]
     if any(rcs):
         raise AssertionError(f"[{label}] ranks exited with {rcs}")
+    import torch
+
     out = []
     for r in range(n):
         with open(os.path.join(d, f"rank{r}.json")) as f:
             out.append(json.load(f))
-    import torch
-
+        routes = os.path.join(d, f"tf_routes{r}.pt")
+        if os.path.exists(routes):
+            out[r]["tf_routes"] = torch.load(routes)
     rows = torch.load(os.path.join(d, "tp_rows.pt"))
     import shutil
 
@@ -4095,8 +4227,9 @@ def tp_rank_main(spec_path):
           f"{res['pool_bytes'] / 2**30:.3f} GiB, bring-up "
           f"{res['bringup_s']:.1f} s", flush=True)
     # the burst's launches and pipelined windows on every rank, between
-    # rank 0's marks
-    windows, seen = [0], set()
+    # rank 0's marks; a checksum of every router call's selections in the
+    # shadowed steps, between two more marks
+    windows, seen, routes = [0], set(), []
     decode_pipelined = pipeline.decode_pipelined
 
     def counted(*a, **k):
@@ -4104,18 +4237,28 @@ def tp_rank_main(spec_path):
         return decode_pipelined(*a, **k)
 
     pipeline.decode_pipelined = counted
+    from chitu_tpu_torch.models import deepseek_v3, mixtral, moe
+
+    def routing(*a, **k):
+        w, sel = moe.route(*a, **k)
+        if "routes" in seen and "routes_end" not in seen:
+            routes.append(zlib.crc32(sel.cpu().numpy().tobytes()))
+        return w, sel
+
+    mixtral.route = deepseek_v3.route = routing
     apply = eng._apply
 
     def marking(msg):
         for op, arg in msg["ops"]:
-            if op == "mark" and arg == "burst":
+            if op != "mark":
+                continue
+            if arg == "burst":
                 tk.reset_launch_counts()
                 windows[0] = 0
-            elif op == "mark":
+            elif arg == "burst_end":
                 res["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
                 res["pipelined_windows"] = windows[0]
-            if op == "mark":
-                seen.add(arg)
+            seen.add(arg)
         apply(msg)
 
     eng._apply = marking
@@ -4186,12 +4329,16 @@ def tp_rank_main(spec_path):
         errs = {}
         rng = np.random.default_rng(5)
         p = [int(x) for x in rng.integers(1, cfg.models.vocab_size, 300)]
+        with eng._lock:  # every rank applies it before the first step
+            eng._outbox.append(("mark", "routes"))
         with torch.no_grad(), shadowed_attention(torch, tk, errs), \
                 shadowed(torch, errs):
             eng.submit("", SampleParams(temperature=0.0, max_new_tokens=2),
                        prompt_tokens=p)
             eng.step()
             eng.step()
+        with eng._lock:  # ... and this one before the next
+            eng._outbox.append(("mark", "routes_end"))
         eng.run_until_complete()
         res["shadowed_call_err_vs_plain"] = errs
         eng.terminate()
@@ -4201,11 +4348,21 @@ def tp_rank_main(spec_path):
     pairs = eng.group.decide(
         list(zip(spec["prompts"] + [res["http_prompt"], spec["prompts"][0][:64]],
                  res["api"] + [res["http"], res["lone"]])) if rank == 0 else None)
-    rows = [stream_rows(torch, tk, eng, p, a) for p, a in pairs if a]
+    rows, tf_routes = [], []
+    for p, a in pairs:
+        if a:
+            row, sel = routed_rows(torch, tk, eng, p, a)
+            rows.append(row)
+            tf_routes.append(sel)
+    res["routes"] = routes
     stage = eng.model.stage
     if stage is None or eng.group.world_rank == stage.sampler:
         torch.save([r.cpu() for r in rows],
                    os.path.join(spec["out"], "tp_rows.pt"))
+    if eng.group.rank == 0 and any(s.numel() for s in tf_routes):
+        # the stage's first TP rank: its layers' selections
+        torch.save(tf_routes, os.path.join(spec["out"],
+                                           f"tf_routes{eng.group.world_rank}.pt"))
     with open(os.path.join(spec["out"], f"rank{rank}.json"), "w") as f:
         json.dump(res, f)
     from chitu_tpu_torch.parallel import distributed
@@ -4273,7 +4430,7 @@ def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo"):
 
 
 def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
-                   tie=NEAR_TIE):
+                   tie=NEAR_TIE, world_routes=None):
     """Every decoded position of the TP world's streams against the tp=1
     engine, on teacher-forced rows of the same context (`stream_rows`: the
     tp=1 engine's with the kernels and plain, the world's own in
@@ -4284,11 +4441,37 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
     row, or a near tie on one of them (within NEAR_TIE of the row's spread
     or NOISE_SIGMAS sigma below its top). Prints the rows checked, the
     rms in sigma, and how many tokens sit below the top of which row and
-    by how much. -> those numbers."""
+    by how much. `world_routes` (an MoE card under tensor parallelism,
+    where a router near tie that the all-reduce's other summing order
+    tips moves a row by a whole expert's output): the world's experts of
+    each stream's teacher-forced tokens, every MoE layer (`routed_rows`),
+    against the tp=1 engine's; a row beyond NOISE_SIGMAS sigma passes
+    only when its own token's experts flipped, or within NEIGHBOUR_SIGMAS
+    sigma when a flip came at most FLIP_REACH tokens before it, and the
+    median shift is held within NOISE_SIGMAS sigma.
+    -> those numbers."""
     out = dict(rows=0, below_top={}, worst_spread={}, worst_sigma={})
+    if world_routes is not None:
+        out.update(rows_beyond=0, rows_own_flip=0, rows_after_a_neighbour=0,
+                   beyond_after_a_neighbour=[])
     shifts = []
     for i, (p, a, tp) in enumerate(zip(prompts, streams, tp_rows)):
-        k = stream_rows(torch, tk, eng, p, a)
+        if world_routes is None:
+            k = stream_rows(torch, tk, eng, p, a)
+        else:
+            k, sel = routed_rows(torch, tk, eng, p, a)
+            theirs = world_routes[i]
+            if sel.shape != theirs.shape or not sel.numel():
+                raise AssertionError(
+                    f"[{label}] stream {i}: the world's router selections "
+                    f"{tuple(theirs.shape)}, the tp=1 engine's {tuple(sel.shape)}")
+            # tokens from the last flip to each row's own token (row j
+            # predicts from token len(p) - 1 + j)
+            differs = (sel != theirs).any(-1).any(0)
+            at = torch.arange(len(differs))
+            last = torch.where(differs, at, torch.full_like(
+                at, -len(at) - FLIP_REACH - 1)).cummax(0).values
+            since = (at - last)[len(p) - 1:].to(k.device)
         pl = stream_rows(torch, tk, eng, p, a, plain=True)
         tp = tp.to(k.device)
         sigma = math.sqrt(2.0) * (k - pl).pow(2).mean(-1).sqrt()
@@ -4312,12 +4495,22 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
                 out["worst_sigma"][what] = max(out["worst_sigma"].get(what, 0.0),
                                                (gap / sigma)[below].max().item())
         far = shift > NOISE_SIGMAS
+        if world_routes is not None:
+            own = since == 0
+            after = (since > 0) & (since <= FLIP_REACH)
+            out["rows_beyond"] += int(far.sum())
+            out["rows_own_flip"] += int(own.sum())
+            out["rows_after_a_neighbour"] += int(after.sum())
+            for j in (far & ~own).nonzero().flatten().tolist():
+                out["beyond_after_a_neighbour"].append(
+                    [i, j, int(since[j]), shift[j].item()])
+            far = far & ~own & ~(after & (shift <= NEIGHBOUR_SIGMAS))
         if far.any():
             j = int(far.nonzero()[0])
             raise AssertionError(
                 f"[{label}] stream {i}, token {j}: the world's row differs from "
                 f"the tp=1 row by an rms of {shift[j].item():.3f} sigma (limit "
-                f"{NOISE_SIGMAS})")
+                f"{NOISE_SIGMAS}){'' if world_routes is None else ' and no router flip that allows it'}")
         off = ~(near["decoded_on_tp1"] | near["decoded_on_world"])
         if off.any():
             j = int(off.nonzero()[0])
@@ -4328,6 +4521,20 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
     shifts = torch.cat(shifts)
     out["tp_vs_tp1_rms_sigma"] = dict(median=shifts.median().item(),
                                       max=shifts.max().item())
+    if world_routes is not None:
+        if out["tp_vs_tp1_rms_sigma"]["median"] > NOISE_SIGMAS:
+            raise AssertionError(
+                f"[{label}] the world's rows differ from the tp=1 rows by a "
+                f"median rms of {out['tp_vs_tp1_rms_sigma']['median']:.3f} "
+                f"sigma (limit {NOISE_SIGMAS})")
+        print(f"[{label}] {out['rows_beyond']} of {out['rows']} rows beyond "
+              f"{NOISE_SIGMAS} sigma of the tp=1 rows; {out['rows_own_flip']} rows "
+              f"whose own token's experts flipped (not held), "
+              f"{out['rows_after_a_neighbour']} within {FLIP_REACH} tokens after "
+              f"a flip (held within {NEIGHBOUR_SIGMAS} sigma), the rest within "
+              f"{NOISE_SIGMAS}; beyond without a flip of their own [stream, row, "
+              f"tokens since the flip, sigma]: {out['beyond_after_a_neighbour']}",
+              flush=True)
     print(f"[{label}] every position: {out['rows']} rows; the world's rows "
           f"against tp=1's: rms {out['tp_vs_tp1_rms_sigma']} sigma (limit "
           f"{NOISE_SIGMAS}); tokens below the top {out['below_top']}, at most "
@@ -4339,8 +4546,12 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
 
 TP_PHASES = [
     # (label, ranks, overrides, kernels that must launch on rank 0)
-    ("tp2", 2, [], ATTN_KERNELS),
-    ("tp2_soft_fp8", 2, ["quant.method=soft_fp8", "quant.quant_on_load=true"],
+    # 8 of 32 layers: a 32-layer burst takes about two minutes through
+    # gloo, the bytes and streams hold at any depth, and
+    # scripts/torch_tp_cards.py runs all 32 on a card a rank
+    ("tp2", 2, ["models.n_layers=8"], ATTN_KERNELS),
+    ("tp2_soft_fp8", 2, ["models.n_layers=8", "quant.method=soft_fp8",
+                         "quant.quant_on_load=true"],
      ATTN_KERNELS + ("quant_gemm",)),
     ("tp4", 4, ["models.n_layers=4"], ATTN_KERNELS),
 ]
@@ -4361,18 +4572,35 @@ PP_PHASES = [
 ]
 
 
+def held_whole(layout, name):
+    """Does every TP rank of a stage hold the full leaf `name` whole (the
+    norms, the MoE router, the latent down-projections)? Read from the
+    model's layout (`TPLayout`, `MLALayout`): a spec with every entry None;
+    a merged leaf by its parts'."""
+    from chitu_tpu_torch.models import deepseek_v3, llama
+
+    parts = {**llama.MERGES, **deepseek_v3.MERGES}.get(name, (name,))
+    return all(e is None for n in parts for e in layout.part_spec(n, 4))
+
+
 def stage_bytes(eng, pp, tp):
     """Each rank's (weight bytes, pool bytes) in a pp x tp world, from the
-    one-rank engine's leaves: rank (p, t) holds (layers - norms) / (pp tp)
-    + norms / pp, plus embed / tp on stage 0 and head / tp + norm on the
-    last, and pool / (pp tp); DeepSeek (tp 1): the dense-first stack and
-    its pool on stage 0, the MoE stack and its pool / pp on each stage."""
+    one-rank engine's leaves: rank (p, t) holds of each stacked leaf its
+    stage's 1 / pp, of that 1 / tp (the whole of the leaves every rank
+    holds, `held_whole`), plus embed / tp on stage 0 and head / tp +
+    norm on the last, and pool / (pp tp); DeepSeek: the dense-first stack
+    and its pool on stage 0, the MoE stack and its pool / pp on each
+    stage, the latent pools whole over tp."""
     from chitu_tpu_torch.ops.qtensor import QTensor
 
     def size(t):
         if isinstance(t, dict):
             return sum(size(v) for v in t.values())
         return t.nbytes() if isinstance(t, QTensor) else t.numel() * t.element_size()
+
+    def share(leaves):
+        return sum(size(v) if held_whole(eng.model.layout, k) else size(v) // tp
+                   for k, v in leaves.items())
 
     tree = eng.model.params_tree()
     top = {k: size(tree.get(k, {})) for k in ("embed", "norm", "lm_head")}
@@ -4381,14 +4609,13 @@ def stage_bytes(eng, pp, tp):
     for r in range(pp * tp):
         p = r // tp
         if "moe_layers" in tree:
-            w = size(tree["moe_layers"]) // pp
+            w = share(tree["moe_layers"]) // pp
             pool = pools["kv_moe"] // pp
             if p == 0:
-                w += size(tree.get("dense_layers", {})) + top["embed"]
+                w += share(tree.get("dense_layers", {})) + top["embed"] // tp
                 pool += pools["kv_dense"]
         else:
-            norms = size({k: tree["layers"][k] for k in ("attn_norm", "ffn_norm")})
-            w = (size(tree["layers"]) - norms) // (pp * tp) + norms // pp
+            w = share(tree["layers"]) // pp
             w += top["embed"] // tp if p == 0 else 0
             pool = pools["kv"] // (pp * tp)
         if p == pp - 1:
@@ -4413,19 +4640,22 @@ def own_deviation(torch, tk, eng, prompts, streams):
 
 def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
              backend="gloo"):
-    """A PP phase: the world of pp x tp ranks first (they share the card
-    with nothing else), then the one-rank reference engine on the same
-    seed, fed the HTTP request's prompt tokens as the world saw them.
+    """A PP or EP phase: the world of pp x tp ranks first (they share the
+    card with nothing else), then the one-rank reference engine on the
+    same seed, fed the HTTP request's prompt tokens as the world saw them.
     Held: every rank's backend is `backend`; rank r's weight and pool
     bytes are its stage's share (`stage_bytes`); the kernels in `need`
-    launched on every rank in the burst, on the stage's own layers; rank
-    0 ran pipelined decode windows in the burst; its lone request (the
+    launched on every rank in the burst, on the stage's own layers; the
+    ranks of a stage chose the same experts in every router call of the
+    shadowed steps (a checksum a call); under pp rank 0 ran pipelined
+    decode windows in the burst; its lone request (the
     sequential path, the one-rank engine's shapes) gives the reference's
     tokens exactly, and its teacher-forced logits' largest difference from
     the reference's is printed; its burst streams, the HTTP one included,
     equal the reference's or part at a near tie, and hold at every
-    position (`every_position`); every shadowed call of rank 0 within its
-    limit."""
+    position (`every_position`; an MoE card under TP holds the median
+    row there); every shadowed call of rank 0 within its limit. -> rank
+    0's launches in the burst."""
     from chitu_tpu_torch import load_config
 
     base = [f"models={model}"] + TP_BASE[1:]
@@ -4457,8 +4687,23 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
             if res["launches"].get(k, 0) <= 0:
                 raise AssertionError(f"[{label}] kernel {k} did not launch on "
                                      f"rank {res['rank']} in the burst")
-    if r0["pipelined_windows"] <= 0:
+    if pp > 1 and r0["pipelined_windows"] <= 0:
         raise AssertionError(f"[{label}] the burst ran no pipelined window")
+    # every rank of a stage routed the shadowed steps' tokens to the same
+    # experts (the all-reduces hand each rank the same hidden state)
+    moe = model in (MIXTRAL, R1)
+    for p in range(pp):
+        stage = [res["routes"] for res in ranks if res["stage"] == p]
+        if moe and not all(stage):
+            raise AssertionError(f"[{label}] stage {p}: a rank recorded no "
+                                 f"router call: {[len(r) for r in stage]}")
+        if any(r != stage[0] for r in stage):
+            raise AssertionError(f"[{label}] stage {p}: the ranks' router "
+                                 f"checksums differ: {stage}")
+    routes = [len(res["routes"]) for res in ranks]
+    if moe:
+        print(f"[{label}] router checksums of the shadowed steps: {routes} "
+              "calls a rank, equal on every rank of a stage", flush=True)
     if r0["http"] is None or r0["http_usage"]["completion_tokens"] != TP_NEW:
         raise AssertionError(f"[{label}] the HTTP request: {r0['http_usage']}")
     # the lone request: the sequential path at the one-rank shapes, equal
@@ -4484,7 +4729,6 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
     # a whole expert's output): its tokens are held to the largest share of
     # the spread by which the one-rank engine's own streams lie below the
     # top of its own teacher-forced rows, or NEAR_TIE_MOE if larger
-    moe = model in (MIXTRAL, R1)
     own = own_deviation(torch, tk, ref_eng, all_prompts, want_streams) if moe else 0.0
     tie = max(NEAR_TIE_MOE, own) if moe else NEAR_TIE
     if moe:
@@ -4493,8 +4737,18 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
               f"MoE limit is {tie:.4g}", flush=True)
     div = near_tie(torch, tk, ref_eng, label, all_prompts, got, want_streams,
                    moe=moe, moe_limit=tie)
+    world_routes = None
+    if moe and tp > 1:
+        # the stage-first ranks' selections, layers in stage order
+        firsts = sorted((res for res in ranks if "tf_routes" in res),
+                        key=lambda res: res["stage"])
+        if [res["stage"] for res in firsts] != list(range(pp)):
+            raise AssertionError(f"[{label}] router selections came from stages "
+                                 f"{[res['stage'] for res in firsts]}")
+        world_routes = [torch.cat(s) for s in zip(*(res["tf_routes"]
+                                                     for res in firsts))]
     pos = every_position(torch, tk, ref_eng, label, all_prompts, got, rows,
-                         tie=tie)
+                         tie=tie, world_routes=world_routes)
     same = sum(a == b for a, b in zip(got, want_streams))
     ref_eng.terminate()
     del ref_eng
@@ -4520,9 +4774,33 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
         decode_tokens_per_s_batch1=r0["decode_tokens_per_s_batch1"],
         one_rank_decode_tokens_per_s_batch1=ref["decode_tokens_per_s_batch1"],
         rank_devices=[r["device"] for r in ranks],
+        router_calls_checked=routes,
         shadowed_call_err_vs_plain=r0["shadowed_call_err_vs_plain"])
     print("pp " + json.dumps(stats), flush=True)
-    return stats
+    return r0["launches"]
+
+
+# ---------------------------------------------------------------------------
+# Slice 15: expert parallelism (ranks sharing the card over gloo)
+# ---------------------------------------------------------------------------
+
+R1_EP_KERNELS = ("attend_decode_fused[latent]", "attend_prefill_packed[latent]",
+                 "attend_decode[latent]", "attend_prefill[latent]",
+                 "absorb_matmul", "grouped_gemm")
+EP_PHASES = [
+    # (label, model card, pp, tp, overrides, kernels that must launch on
+    # every rank in the burst). R1 at 4 layers is 3 dense and 1 MoE, at 5
+    # 3 and 2; each rank of tp2_r1 holds 64 heads and 128 experts, of
+    # tp4_r1_soft_fp8 32 heads and 64 experts in e4m3.
+    ("tp2_mixtral", MIXTRAL, 1, 2, ["models.n_layers=8"],
+     ATTN_KERNELS + ("grouped_gemm",)),
+    ("tp2_r1", R1, 1, 2, ["models.n_layers=4"], R1_EP_KERNELS),
+    ("tp4_r1_soft_fp8", R1, 1, 4, ["models.n_layers=4"] + SOFT,
+     R1_EP_KERNELS + ("quant_gemm",)),
+    ("pp2_tp2_mixtral", MIXTRAL, 2, 2, ["models.n_layers=4"],
+     ATTN_KERNELS + ("grouped_gemm",)),
+    ("pp2_tp2_r1", R1, 2, 2, ["models.n_layers=5"], R1_EP_KERNELS),
+]
 
 
 AWQ_CALIB = 512
@@ -4791,6 +5069,13 @@ def main():
     for label, model, pp, tp, ovr, need in PP_PHASES:
         pp_phase(torch, np, tk, card, label, model, pp, tp, ovr, need)
     print(f"slice 14 phases {time.time() - t0:.1f} s", flush=True)
+
+    # slice 15: expert parallelism over ranks sharing the card
+    t0 = time.time()
+    for label, model, pp, tp, ovr, need in EP_PHASES:
+        phase[label] = pp_phase(torch, np, tk, card, label, model, pp, tp,
+                                ovr, need)
+    print(f"slice 15 phases {time.time() - t0:.1f} s", flush=True)
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []

@@ -109,11 +109,18 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
             "dp_size > 1: data parallelism comes with the ring slice (ROADMAP "
             "A.3; in the JAX package dp carries the ring KV pool and ring "
             "prefill)")
-    if infer.tp_size > 1 and cfg.models.type not in ("hf-llama", "llama"):
-        under = f" under pp_size={infer.pp_size}" if infer.pp_size > 1 else ""
+    tp, moe = infer.tp_size, cfg.models.moe
+    if tp > 1 and moe is not None and (
+            moe.n_routed_experts % tp or cfg.models.n_heads % tp):
+        # the JAX package falls back to GSPMD's capacity einsum there
         todo.append(
-            f"tp_size > 1 for {cfg.models.type}{under}: expert parallelism "
-            "under TP (multi-GPU), the next slice (ROADMAP A.2)")
+            f"tp_size={tp} with {moe.n_routed_experts} routed experts "
+            f"and {cfg.models.n_heads} heads: expert "
+            "parallelism gives each rank an equal share of both (ROADMAP C)")
+    if (tp > 1 and cfg.models.type == "deepseek-v3"
+            and infer.mla_absorb == "none"):
+        todo.append("mla_absorb=none under tp_size > 1: the per-head K/V "
+                    "pool under tensor parallelism (ROADMAP A.6)")
     if infer.tp_size > 1 and KIND_BY_METHOD.get(quant.method) == QuantKind.W8A8:
         # a row-parallel input's per-token scale needs the whole row
         todo.append("W8A8 under tp_size > 1 (ROADMAP C)")
@@ -134,7 +141,8 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
         )
     if todo:
         raise NotImplementedError(
-            "not ported yet (see ROADMAP queue A): " + "; ".join(todo)
+            "not carried by the port (see the ROADMAP item each names): "
+            + "; ".join(todo)
         )
 
 
@@ -222,19 +230,19 @@ class Engine:
                 # the full weight's scales)
                 gen = torch.Generator(device=self.device)
                 gen.manual_seed(cfg.infer.seed)
-                if quantize and hasattr(self.model, "LAYER_LEAVES"):
-                    self.model.init_params(gen, _DTYPES[cfg.dtype],
-                                           transform=self._quantize_leaf)
-                    quantize = False
-                else:
-                    self.model.init_params(gen, _DTYPES[cfg.dtype])
+                self.model.init_params(
+                    gen, _DTYPES[cfg.dtype],
+                    transform=self._quantize_leaf if quantize else None)
+                quantize = False
             tree = self.model.params_tree(pop=True)
         if quantize:
             # destructive walk: each dense leaf is freed as it is replaced
             tree = quantize_params(tree, cfg.quant, self.model)
         # int4 storage packed on the device; one grouped GEMM per MoE
-        # layer for gate + up
-        self.model.load_params(merge_moe_gate_up(pack_int4_storage(tree)))
+        # layer for gate + up (a shared expert's pair only at tp 1: its
+        # columns are cut under tensor parallelism)
+        self.model.load_params(merge_moe_gate_up(pack_int4_storage(tree),
+                                                 tp=cfg.infer.tp_size))
         logger.info("params ready in %.1fs", time.time() - t0)
 
         spec = self.model.kv_cache_spec()
@@ -323,8 +331,9 @@ class Engine:
 
     def _quantize_leaf(self, name: str, t):
         """`quant.quant_on_load` of one full leaf (`quantize_params` on a
-        tree that holds just it)."""
-        under = name in self.model.LAYER_LEAVES
+        tree that holds just it, under a stack unless it is a top-level
+        leaf)."""
+        under = name not in ("embed", "norm", "lm_head")
         tree = {"layers": {name: t}} if under else {name: t}
         tree = quantize_params(tree, self.cfg.quant, self.model)
         return (tree["layers"] if under else tree)[name]

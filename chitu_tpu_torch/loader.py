@@ -318,6 +318,29 @@ def stage_layers(model, stack: str = "layers") -> List[int]:
     return list(range(*(r or (0, n))))
 
 
+def rank_view(lay, name: Optional[str], view: torch.Tensor,
+              transpose: bool = False) -> torch.Tensor:
+    """The rank's slice of a mapped view of one piece of the leaf `name`
+    (stored [out, in] when `transpose`) under the layout's tensor-parallel
+    cut, before it is copied; the view itself on one rank or without a
+    name."""
+    if lay is None or lay.tp <= 1 or name is None:
+        return view
+    spec = lay.part_spec(name, view.dim())
+    if transpose and view.dim() == 2:
+        spec = spec[::-1]
+    return shard_tensor(view, spec, lay.rank, lay.tp)
+
+
+def rank_experts(lay, n_experts: int) -> List[int]:
+    """The experts a rank holds under expert parallelism: [r E / tp,
+    (r + 1) E / tp)."""
+    tp = lay.tp if lay is not None else 1
+    per = n_experts // tp
+    r = lay.rank if tp > 1 else 0
+    return list(range(r * per, (r + 1) * per))
+
+
 def holds(model, name: str) -> bool:
     """Does the model's pipeline stage hold the top-level leaf `name`?"""
     lay = getattr(model, "layout", None)
@@ -392,13 +415,8 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
     n = len(layers)
 
     def take(key, dtype=None, transpose=False, name=None):
-        view = ck.get(key)
-        if cut and name is not None:
-            # the rank's slice of the mapped view, before it is copied
-            spec = lay.part_spec(name, view.dim())
-            if transpose and view.dim() == 2:
-                spec = spec[::-1]
-            view = shard_tensor(view, spec, lay.rank, lay.tp)
+        # the rank's slice of the mapped view, before it is copied
+        view = rank_view(lay, name, ck.get(key), transpose)
         return to_device(view, dev, dtype, transpose)
 
     def local(name, q):
@@ -634,7 +652,8 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
         ly = {k: out.pop(k) for k in list(out) if k in model.LAYER_LEAVES}
         tree = {**out, "layers": lay.assemble(ly)}
     elif cut:
-        # DeepSeek's two stacks: the stage's layers, then the device
+        # DeepSeek's two stacks: the stage's layers and the rank's slices
+        # (`MLALayout.tree`), then the device
         def dev(t):
             if isinstance(t, dict):
                 return {k: dev(v) for k, v in t.items()}
@@ -642,7 +661,7 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
                 return t.to(device).contiguous()
             return to_device(t, device)
 
-        tree = dev(lay.stage.tree(tree, ("dense_layers", "moe_layers")))
+        tree = dev(lay.tree(tree))
     elif "layers" in tree:
         merge_llama_leaves(tree["layers"], model)
     return tree

@@ -16,7 +16,11 @@ there one layer or one expert at a time from views of the mapped files,
 so the host never holds the weights, and a rank reads only its pipeline
 stage's layers (DeepSeek: the dense-first layers on stage 0, each stage
 its chunk of the MoE stack), the embedding on stage 0 and the norm and
-head on the last. The engine then merges the MoE gate/up pairs
+head on the last. Under tensor parallelism a Mixtral or DeepSeek rank
+reads only its experts (expert parallelism), and its slice of every
+other cut leaf: a bf16 view is cut before it is copied (`rank_view`), a
+native fp8 projection is assembled on the device, then cut (its scales
+with it). The engine then merges the MoE gate/up pairs
 (`quantize.merge_moe_gate_up`).
 """
 
@@ -35,6 +39,8 @@ from chitu_tpu_torch.loader import (
     fp8_qtensor,
     holds,
     merge_llama_leaves,
+    rank_experts,
+    rank_view,
     stage_layers,
     to_device,
 )
@@ -48,8 +54,8 @@ class _Staging:
     """Checkpoint keys by leaf name, flat or per layer, then stacked on
     the device."""
 
-    def __init__(self, ck: Checkpoint, device):
-        self.ck, self.device = ck, device
+    def __init__(self, ck: Checkpoint, device, layout=None):
+        self.ck, self.device, self.layout = ck, device, layout
         self.flat: Dict[str, str] = {}
         self.per_layer: Dict[str, Dict[int, Any]] = {}
 
@@ -59,8 +65,12 @@ class _Staging:
         else:
             self.per_layer.setdefault(name, {})[layer] = value
 
-    def take(self, key: str, transpose: bool = False, dtype=torch.bfloat16):
-        return to_device(self.ck.get(key), self.device, dtype, transpose)
+    def take(self, key: str, transpose: bool = False, dtype=torch.bfloat16,
+             name: Optional[str] = None):
+        """One stored tensor on the device; with the leaf's `name`, the
+        rank's tensor-parallel slice of it (cut before the copy)."""
+        view = rank_view(self.layout, name, self.ck.get(key), transpose)
+        return to_device(view, self.device, dtype, transpose)
 
     def slot(self, name: str, layers: List[int]) -> Dict[int, Any]:
         slot = self.per_layer.get(name)
@@ -89,7 +99,7 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
     dev = torch.device(device) if device is not None else model.device
     E = a.moe.n_routed_experts
     ck = Checkpoint(a.ckpt_dir)
-    st = _Staging(ck, dev)
+    st = _Staging(ck, dev, model.layout)
     experts: Dict[tuple, str] = {}  # (layer, e, kind) -> key
 
     for key in ck.keys():
@@ -128,26 +138,28 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
 
     t0 = time.time()
     layers = stage_layers(model)
-    take = lambda v: st.take(*v)
-    params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()
+    # the rank's experts; its slice of each other leaf the layout cuts
+    mine = rank_experts(model.layout, E)
+    take = lambda v, name=None: st.take(*v, name=name)  # noqa: E731
+    params: Dict[str, Any] = {k: take(v, k) for k, v in st.flat.items()
                               if holds(model, k)}
     ly: Dict[str, Any] = {}
     for name in ("attn_norm", "ffn_norm", "wq", "wk", "wv", "wo", "moe_gate"):
-        ly[name] = st.stack(name, layers, take)
+        ly[name] = st.stack(name, layers, lambda v, n=name: take(v, n))
     for kind in ("w_gate", "w_up", "w_down"):
         missing = [(i, e) for i in layers for e in range(E)
                    if (i, e, kind) not in experts]
         if missing:
             raise ValueError(f"checkpoint missing {kind} experts {missing[:8]}")
-        ly[kind] = fill_stacked(  # [L, E, ., .]
-            (len(layers), E),
+        ly[kind] = fill_stacked(  # [L, E / tp, ., .]
+            (len(layers), len(mine)),
             lambda idx, k=kind: st.take(
-                experts[(layers[idx[0]], idx[1], k)], True),
+                experts[(layers[idx[0]], mine[idx[1]], k)], True),
         )
     params["layers"] = merge_llama_leaves(ly, model)
     if ("lm_head" not in st.flat and not a.tie_word_embeddings
             and holds(model, "lm_head")):
-        params["lm_head"] = take(st.flat["embed"]).T.contiguous()
+        params["lm_head"] = take(st.flat["embed"], "embed").T.contiguous()
     logger.info("mixtral checkpoint: %.2f GB in %.1fs", ck.nbytes / 1e9,
                 time.time() - t0)
     return params
@@ -227,26 +239,31 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
     mo, ml = a.moe, a.mla
     E = mo.n_routed_experts
     ck = Checkpoint(a.ckpt_dir)
+    lay = model.layout
     scales = {
         k[: -len(".weight_scale_inv")]: k
         for k in ck.keys() if k.endswith(".weight_scale_inv")
     }
     t0 = time.time()
 
-    def take(key, transpose=False, dtype=torch.bfloat16):
-        return to_device(ck.get(key), dev, dtype, transpose)
+    def take(key, transpose=False, dtype=torch.bfloat16, leaf=None):
+        view = rank_view(lay, leaf, ck.get(key), transpose)
+        return to_device(view, dev, dtype, transpose)
 
-    def get(name, transpose=True):
-        """A bf16 leaf (1-D leaves are never transposed)."""
-        return take(name + ".weight", transpose)
+    def get(name, transpose=True, leaf=None):
+        """A bf16 leaf (1-D leaves are never transposed); the rank's slice
+        of the layout's leaf `leaf`, cut before the copy."""
+        return take(name + ".weight", transpose, leaf=leaf)
 
-    def _maybe_fp8(name):
-        """fp8 weight + blockwise scale_inv -> a SOFT_FP8 QTensor ([in, out]);
+    def _maybe_fp8(name, leaf=None):
+        """fp8 weight + blockwise scale_inv -> a SOFT_FP8 QTensor ([in, out]),
+        assembled on the device, then cut to the rank's slice of `leaf`;
         bf16 [in, out] otherwise."""
         if name not in scales:
-            return get(name)
-        return fp8_qtensor(take(name + ".weight", dtype=None),
-                           take(scales[name], dtype=None))
+            return get(name, leaf=leaf)
+        q = fp8_qtensor(take(name + ".weight", dtype=None),
+                        take(scales[name], dtype=None))
+        return lay.local(leaf, q).contiguous() if leaf and lay.tp > 1 else q
 
     def attn_tree(layers: List[int]) -> Dict[str, Any]:
         n = len(layers)
@@ -261,13 +278,13 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
         if ml.q_lora_rank > 0:
             out["wq_a"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.q_a_proj"))
             out["q_norm"] = stack(lambda p: get(f"{p}.self_attn.q_a_layernorm", False))
-            out["wq_b"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.q_b_proj"))
+            out["wq_b"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.q_b_proj", "wq_b"))
         else:
-            out["wq"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.q_proj"))
+            out["wq"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.q_proj", "wq"))
         out["wkv_a"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.kv_a_proj_with_mqa"))
         out["kv_norm"] = stack(lambda p: get(f"{p}.self_attn.kv_a_layernorm", False))
-        out["wkv_b"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.kv_b_proj"))
-        out["wo"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.o_proj"))
+        out["wkv_b"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.kv_b_proj", "wkv_b"))
+        out["wo"] = stack(lambda p: _maybe_fp8(f"{p}.self_attn.o_proj", "wo"))
         return out
 
     # the stage's layers: the dense-first ones on stage 0 only
@@ -283,7 +300,8 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
                      ("down_proj", "w_down")):
         dense[ours] = fill_stacked(
             (len(dense_layers),),
-            lambda idx, h=hf: _maybe_fp8(f"model.layers.{dense_layers[idx[0]]}.mlp.{h}"),
+            lambda idx, h=hf, o=ours: _maybe_fp8(
+                f"model.layers.{dense_layers[idx[0]]}.mlp.{h}", o),
         )
 
     moe_p = attn_tree(moe_layers)
@@ -305,21 +323,24 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
                          ("down_proj", "shared_down")):
             moe_p[ours] = fill_stacked(
                 (len(moe_layers),),
-                lambda idx, h=hf: _maybe_fp8(
-                    f"model.layers.{moe_layers[idx[0]]}.mlp.shared_experts.{h}"),
+                lambda idx, h=hf, o=ours: _maybe_fp8(
+                    f"model.layers.{moe_layers[idx[0]]}.mlp.shared_experts.{h}",
+                    o),
             )
-    # routed experts: [L, E, in, out], filled one expert at a time (the
-    # merge transform of reference: model_deepseek_v3.py:1167-1288)
+    # routed experts: [L, E / tp, in, out], the rank's experts only, filled
+    # one expert at a time (the merge transform of reference:
+    # model_deepseek_v3.py:1167-1288)
+    mine = rank_experts(lay, E)
     for hf, ours in (("gate_proj", "exp_gate"), ("up_proj", "exp_up"),
                      ("down_proj", "exp_down")):
         moe_p[ours] = fill_stacked(
-            (len(moe_layers), E),
+            (len(moe_layers), len(mine)),
             lambda idx, h=hf: _maybe_fp8(
-                f"model.layers.{moe_layers[idx[0]]}.mlp.experts.{idx[1]}.{h}"),
+                f"model.layers.{moe_layers[idx[0]]}.mlp.experts.{mine[idx[1]]}.{h}"),
         )
     top = {"embed": ("model.embed_tokens", False),
            "norm": ("model.norm", False), "lm_head": ("lm_head", True)}
-    out = {k: get(*v) for k, v in top.items() if holds(model, k)}
+    out = {k: get(*v, leaf=k) for k, v in top.items() if holds(model, k)}
     if dense_layers or model.pp == 1:
         out["dense_layers"] = dense
     out["moe_layers"] = moe_p

@@ -39,20 +39,37 @@ that head size (`_mla_dense`). The param tree is the absorb path's.
 Its checkpoints (bf16, or the published native fp8 with
 `weight_scale_inv`) load through `loaders_moe.load_deepseek_params`.
 
-Pipeline parallelism (`infer.pp_size`, at tp 1): the dense-first layers,
-their `kv_dense` pool and the embedding live on stage 0; every stage
-holds n_moe / pp MoE layers and that slice of `kv_moe`; the last stage
-the final norm and head. The JAX package replicates the dense stack and
-its pool over 'pp' and reconciles the pool once a window (a shard_map
-needs one layout on every device); here the stages that never read them
-do not hold them. The hidden state crosses each stage boundary once
+Tensor parallelism (`infer.tp_size`; `MLALayout`, the JAX package's
+`param_partition_specs`): the query projection (`wq` / `wq_b`) and
+`wkv_b` are cut by heads (columns), `wo` by heads (rows, then an f32
+all-reduce), the dense FFN and the shared expert by columns / rows, the
+routed experts by experts (expert parallelism: each rank dispatches its
+E / tp experts through B8, `models.moe.moe_ffn_ep`), the embedding by
+vocabulary rows and the head by vocabulary columns; the latent down-
+projections (`wq_a`, `wkv_a`, merged `wq_kv_a`), the norms and the router
+(`moe_gate`, `gate_bias`) stay whole, and so do both latent pools (a
+latent row is shared by every head). A rank runs MLA on its H / tp heads
+(the head count comes from the projection's width: B9 and the latent
+kernels at H / tp heads), and a MoE layer's shared and routed partials
+are summed in one all-reduce. `mla_absorb=none` under tp > 1 is refused,
+as the JAX pipeline refuses it (ROADMAP A.6).
+
+Pipeline parallelism (`infer.pp_size`, at any tp): the dense-first layers,
+their `kv_dense` pool and the embedding live on stage 0 (cut over stage
+0's TP group); every stage holds n_moe / pp MoE layers and that slice of
+`kv_moe`; the last stage the final norm and head. The JAX package
+replicates the dense stack and its pool over 'pp' and reconciles the pool
+once a window (a shard_map needs one layout on every device); here the
+stages that never read them do not hold them. The hidden state, whole on
+every TP rank after the all-reduces, crosses each stage boundary once
 (`_forward`, as the llama module's `_run_layers`). Not ported yet: the
-ring paths, and DeepSeek under TP (expert parallelism, ROADMAP A.2).
+ring paths.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
 import torch
@@ -66,7 +83,12 @@ from chitu_tpu_torch.models.common import (
     rms_norm,
     rope_tables,
 )
-from chitu_tpu_torch.models.llama import TPLayout, join_world
+from chitu_tpu_torch.models.llama import (
+    EXPERT_STACKS,
+    embed_rows,
+    head_logits,
+    join_world,
+)
 from chitu_tpu_torch.models.moe import moe_ffn_auto, route
 from chitu_tpu_torch.ops import attention as attn_ops
 from chitu_tpu_torch.ops import attention_kernels as kernels
@@ -75,16 +97,128 @@ from chitu_tpu_torch.ops.absorb_kernels import (
     absorb_kernel_ok,
     absorb_matmul,
 )
-from chitu_tpu_torch.ops.linear import (
-    linear,
-    matmul_out_dtype,
-    op_kernels,
-)
+from chitu_tpu_torch.ops.linear import linear, op_kernels
 from chitu_tpu_torch.ops.qtensor import QTensor
+from chitu_tpu_torch.parallel.sharding import (
+    StageSlice,
+    narrow_out,
+    owned,
+    shard_leaf,
+)
 from chitu_tpu_torch.utils import resolve_device
 
 STACKS = ("dense_layers", "moe_layers")
 POOLS = {"dense_layers": "kv_dense", "moe_layers": "kv_moe"}
+# the parts of each merged leaf, in their order along the out dim
+MERGES = {
+    "wq_kv_a": ("wq_a", "wkv_a"),
+    "shared_gu": ("shared_gate", "shared_up"),
+    "exp_gu": ("exp_gate", "exp_up"),
+}
+
+
+@dataclass(frozen=True)
+class MLALayout:
+    """One rank's view of DeepSeek's weights: its pipeline stage's layers
+    (`stage`) and its tensor-parallel slice of each leaf, the JAX
+    package's `param_partition_specs` (chitu_tpu/models/deepseek_v3.py:
+    236-286) as per-leaf specs (`parallel.sharding`): `wq` / `wq_b` and
+    `wkv_b` by query heads on their columns (each head's [nope | rope] or
+    [k_nope | v] columns stay together), `wo` by heads on its rows; the
+    dense FFN and the shared expert column / row; the expert stacks by
+    experts; `embed` by vocabulary rows and `lm_head` by vocabulary
+    columns; every other leaf whole. A merged `shared_gu` (tp 1 only, as
+    in the JAX package: a plain [gate | up] concatenation would be cut at
+    the wrong column) is split into its halves under tp > 1. `merged` is
+    read by `loader.load_preprocessed`: this layout merges nothing."""
+
+    rank: int = 0
+    tp: int = 1
+    n_heads: int = 0
+    stage: StageSlice = StageSlice()
+    merged: bool = True
+
+    def part_spec(self, name: str, ndim: int) -> tuple:
+        spec = [None] * ndim
+        heads = ("tp", self.n_heads)
+        if name in ("wq", "wq_b", "wkv_b"):
+            spec[-1] = heads
+        elif name == "wo":
+            spec[-2] = heads
+        elif name in ("w_gate", "w_up", "shared_gate", "shared_up", "lm_head"):
+            spec[-1] = "tp"
+        elif name in ("w_down", "shared_down"):
+            spec[-2] = "tp"
+        elif name in EXPERT_STACKS:
+            spec[-3] = "tp"
+        elif name == "embed":
+            spec[0] = "tp"
+        return tuple(spec)
+
+    def local(self, name: str, leaf):
+        """Rank's shard of one whole leaf."""
+        if self.tp <= 1:
+            return leaf
+        nd = leaf.data.dim() if isinstance(leaf, QTensor) else leaf.dim()
+        return shard_leaf(leaf, self.part_spec(name, nd), self.rank, self.tp,
+                          name)
+
+    def place(self, stack: str, name: str, leaf,
+              transform=None) -> Dict[str, Any]:
+        """One whole leaf of `stack` ("" for the top level) -> the rank's
+        leaves by name: the stage's layers, then the TP slice.
+        `transform(name, leaf)` (on-load quantization) sees each leaf
+        whole but for the expert stacks, whose rank's experts are cut
+        first (each (layer, expert) matrix quantizes on its own)."""
+        transform = transform or (lambda n, t: t)
+        if not stack and not self.stage.holds(name):
+            return {}
+        whole = leaf
+        if stack:  # a view: the TP cut or `owned` copies the rank's part
+            leaf = self.stage.cut(stack, leaf)
+        if name == "shared_gu" and self.tp > 1:
+            n = leaf.shape[-1] // 2
+            out = {**self.place("", "shared_gate", narrow_out(leaf, 0, n)),
+                   **self.place("", "shared_up", narrow_out(leaf, n, 2 * n))}
+        elif name in EXPERT_STACKS:
+            out = {name: transform(name, self.local(name, leaf))}
+        else:
+            out = {name: self.local(name, transform(name, leaf))}
+        return {k: owned(v, whole) for k, v in out.items()}
+
+    def tree(self, tree: Dict[str, Any]) -> Dict[str, Any]:
+        """A nested tree of whole leaves -> the rank's part of it."""
+        out: Dict[str, Any] = {}
+        for k, v in tree.items():
+            if k not in STACKS:
+                out.update(self.place("", k, v))
+                continue
+            if self.stage.holds(k):
+                out[k] = {}
+                for n, t in v.items():
+                    out[k].update(self.place(k, n, t))
+        return out
+
+
+def check_tp(args, infer):
+    """The tensor-parallel layouts this module refuses (before any world
+    is joined): heads or experts that tp does not divide (the JAX package
+    falls back to GSPMD's capacity einsum there; ROADMAP C), and the dense
+    per-head MLA under tp > 1 (ROADMAP A.6)."""
+    tp = infer.tp_size
+    if tp <= 1:
+        return
+    H, E = args.n_heads, args.moe.n_routed_experts
+    if H % tp or E % tp:
+        raise NotImplementedError(
+            f"tp_size={tp} with {H} heads and {E} routed experts: each rank "
+            "holds an equal share of both (the JAX package falls back to the "
+            "capacity einsum under GSPMD there; ROADMAP C)")
+    if infer.mla_absorb == "none":
+        raise NotImplementedError(
+            "mla_absorb=none under tp_size > 1: the per-head K/V pool under "
+            "tensor parallelism is not ported (ROADMAP A.6; the JAX pipeline "
+            "refuses it too)")
 
 
 @register_model("deepseek-v3")
@@ -94,12 +228,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         if args.mla is None or args.moe is None:
             raise ValueError("a deepseek-v3 model card needs mla and moe sections")
         infer = cfg.infer
-        if infer.tp_size > 1:
-            raise NotImplementedError(
-                "tp_size > 1 for DeepSeek (also under pp_size > 1): DeepSeek "
-                "under TP (multi-GPU, with expert parallelism) comes with the "
-                "next slice (ROADMAP A.2)"
-            )
+        check_tp(args, infer)
         self.args = args
         self.cfg = cfg
         # infer.attn_type: the CUDA kernels, or their plain versions
@@ -123,8 +252,16 @@ class DeepSeekV3ForCausalLM(nn.Module):
             first_only=("dense_layers",))
         self.n_local = {k: stage.count(k, n) for k, n in (
             ("dense_layers", self.n_dense), ("moe_layers", self.n_moe))}
-        # params_from_numpy and the loaders read the stage from it
-        self.layout = TPLayout(stage=stage)
+        # tensor parallelism: H / tp heads a rank; an FFN, shared expert or
+        # vocabulary that tp does not divide replicates (nothing summed)
+        tp = self.tp = infer.tp_size
+        mo = self.moe
+        self.ffn_tp = tp if args.inter_dim % tp == 0 else 1
+        self.shared_tp = tp if self._shared_dim() % tp == 0 else 1
+        self.vocab_tp = tp if args.vocab_size % tp == 0 else 1
+        self.e_local = mo.n_routed_experts // tp
+        # params_from_numpy and the loaders read the stage and the cuts
+        self.layout = MLALayout(self.rank, tp, args.n_heads, stage)
 
         # softmax scale with the YaRN mscale correction
         # (reference: model_deepseek_v3.py:1420-1445)
@@ -191,9 +328,13 @@ class DeepSeekV3ForCausalLM(nn.Module):
 
     # -- parameters ---------------------------------------------------------
 
-    def _attn_shapes(self, L: int) -> Dict[str, tuple]:
+    def _shared_dim(self) -> int:
+        mo = self.moe
+        return mo.moe_inter_dim * max(mo.n_shared_experts, 1)
+
+    def _attn_shapes(self, L: int, H: int) -> Dict[str, tuple]:
         a, m = self.args, self.mla
-        D, H = a.dim, a.n_heads
+        D = a.dim
         s = {
             "attn_norm": (L, D),
             "ffn_norm": (L, D),
@@ -216,29 +357,30 @@ class DeepSeekV3ForCausalLM(nn.Module):
         or (`local=False`) of the whole model; `merged` names the merged
         leaves present (`wq_kv_a`, `shared_gu`, `exp_gu`)."""
         a, mo = self.args, self.moe
-        D, V = a.dim, a.vocab_size
+        D, V, H, Fd = a.dim, a.vocab_size, a.n_heads, a.inter_dim
+        E, Fm, Fs = mo.n_routed_experts, mo.moe_inter_dim, self._shared_dim()
+        El = E  # the stacks' experts (the router's are all of them)
         Ld, Lm = ((self.n_local["dense_layers"], self.n_local["moe_layers"])
                   if local else (self.n_dense, self.n_moe))
-        dense = self._attn_shapes(Ld)
-        dense["w_gate"] = (Ld, D, a.inter_dim)
-        dense["w_up"] = (Ld, D, a.inter_dim)
-        dense["w_down"] = (Ld, a.inter_dim, D)
-        E, Fm = mo.n_routed_experts, mo.moe_inter_dim
-        Fs = Fm * max(mo.n_shared_experts, 1)
-        moe_l = self._attn_shapes(Lm)
+        if local:  # the rank's slices
+            H, El = H // self.tp, self.e_local
+            Fd, Fs, V = Fd // self.ffn_tp, Fs // self.shared_tp, V // self.vocab_tp
+        dense = self._attn_shapes(Ld, H)
+        dense["w_gate"] = (Ld, D, Fd)
+        dense["w_up"] = (Ld, D, Fd)
+        dense["w_down"] = (Ld, Fd, D)
+        moe_l = self._attn_shapes(Lm, H)
         moe_l["moe_gate"] = (Lm, D, E)
         moe_l["gate_bias"] = (Lm, E)
         if mo.n_shared_experts > 0:
             moe_l["shared_gate"] = (Lm, D, Fs)
             moe_l["shared_up"] = (Lm, D, Fs)
             moe_l["shared_down"] = (Lm, Fs, D)
-        moe_l["exp_gate"] = (Lm, E, D, Fm)
-        moe_l["exp_up"] = (Lm, E, D, Fm)
-        moe_l["exp_down"] = (Lm, E, Fm, D)
+        moe_l["exp_gate"] = (Lm, El, D, Fm)
+        moe_l["exp_up"] = (Lm, El, D, Fm)
+        moe_l["exp_down"] = (Lm, El, Fm, D)
         for stack in (dense, moe_l):
-            for a_, b_, name in (("wq_a", "wkv_a", "wq_kv_a"),
-                                 ("shared_gate", "shared_up", "shared_gu"),
-                                 ("exp_gate", "exp_up", "exp_gu")):
+            for name, (a_, b_) in MERGES.items():
                 if name in merged and a_ in stack:
                     sa, sb = stack.pop(a_), stack.pop(b_)
                     stack[name] = (*sa[:-1], sa[-1] + sb[-1])
@@ -256,16 +398,17 @@ class DeepSeekV3ForCausalLM(nn.Module):
 
     def init_params(
         self, generator: Optional[torch.Generator] = None,
-        dtype: torch.dtype = torch.bfloat16,
+        dtype: torch.dtype = torch.bfloat16, transform=None,
     ):
         """Random weights on the module's device (normal * 0.02, norms 1,
         `gate_bias` 0 in f32), drawn from `generator`; the JAX package's
         `init_params` layout and scales. Every leaf is drawn whole, in the
-        one-stage order, and the stage keeps its layers: the weights are
-        those of the pp-1 draw from the same seed, and no stage holds more
-        than one whole leaf beside its own."""
+        one-rank order, and the rank keeps its stage's layers and its TP
+        slice (`MLALayout.place`): the weights are those of the one-rank
+        draw from the same seed, and no rank holds more than one whole
+        leaf beside its own. `transform(name, leaf)` (on-load
+        quantization) sees each whole leaf first."""
         tree: Dict[str, Any] = {}
-        st = self.layout.stage
         held = self._shapes()
         for stack, shapes in self._shapes(local=False).items():
             leaves = {}
@@ -279,7 +422,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 else:
                     t.normal_(0.0, 0.02, generator=generator)
                 if name in held.get(stack, {}):
-                    leaves[name] = st.cut(stack, t) if stack else t
+                    leaves.update(self.layout.place(stack, name, t, transform))
                 del t
             if stack:
                 if stack in held:
@@ -294,7 +437,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         logical shape; split or merged leaves."""
         merged = {
             n for s in STACKS for n in tensors.get(s, {})
-            if n in ("wq_kv_a", "shared_gu", "exp_gu")
+            if n in MERGES
         }
         for stack, shapes in self._shapes(frozenset(merged)).items():
             given = tensors.get(stack, {}) if stack else tensors
@@ -367,7 +510,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
         else:
             q = linear(x, lp["wq"], layer=layer)
             kv_a = linear(x, lp["wkv_a"], layer=layer)
-        q = q.reshape(T, a.n_heads, self.qk_head_dim)
+        # the head count from the projection's width (H / tp on a rank)
+        q = q.reshape(T, -1, self.qk_head_dim)
         q_pe = apply_rope(q[..., dn:], cos, sin, self.rotary_layout)
         c_kv = rms_norm(kv_a[:, :dc], lp["kv_norm"][layer], eps)
         k_pe = apply_rope(kv_a[:, None, dc:], cos, sin, self.rotary_layout)[:, 0]
@@ -380,9 +524,9 @@ class DeepSeekV3ForCausalLM(nn.Module):
         [T, H, kv_lora_rank]."""
         m = self.mla
         T = x.shape[0]
-        H = self.args.n_heads
         dn, dv, dc = m.qk_nope_head_dim, m.v_head_dim, m.kv_lora_rank
         q_nope, q_pe, c_kv, k_pe = self._mla_qkv(x, lp, layer, cos, sin)
+        H = q_nope.shape[1]
 
         wkv_b = lp["wkv_b"]
         kernel = (
@@ -411,7 +555,9 @@ class DeepSeekV3ForCausalLM(nn.Module):
             v_out = absorb_matmul(o, wkv_b, layer, "uv", dn, dv)
         else:
             v_out = torch.einsum("thc,chd->thd", o, w_b[..., dn:])
-        return linear(v_out.reshape(T, H * dv), lp["wo"], layer=layer)
+        y = linear(v_out.reshape(T, H * dv), lp["wo"], layer=layer)
+        # the rank's heads' partial of wo, summed over the group
+        return y if self.group is None else self.group.all_reduce_f32(y)
 
     def _mla_dense(self, x, lp, layer: int, cos, sin, attend):
         """mla_absorb=none: per-head K/V through the whole `wkv_b`, then
@@ -447,20 +593,35 @@ class DeepSeekV3ForCausalLM(nn.Module):
     def _dense_ffn(self, x, lp, layer: int):
         gate = linear(x, lp["w_gate"], layer=layer)
         up = linear(x, lp["w_up"], layer=layer)
-        return linear((F.silu(gate) * up).to(x.dtype), lp["w_down"], layer=layer)
+        y = linear((F.silu(gate) * up).to(x.dtype), lp["w_down"], layer=layer)
+        if self.ffn_tp > 1:
+            y = self.group.all_reduce_f32(y)
+        return y
 
-    def _moe_ffn(self, x, lp, layer: int):
-        y = None
+    def _shared_expert(self, x, lp, layer: int):
+        """The shared expert's output (the rank's partial under tensor
+        parallelism), or None: no shared expert, or a rank other than 0
+        when tp does not divide it (rank 0 adds it whole)."""
+        if self.shared_tp == 1 and self.rank != 0:
+            return None
         if "shared_gu" in lp:
             gu = linear(x, lp["shared_gu"], layer=layer)
             Fs = gu.shape[-1] // 2
-            y = linear((F.silu(gu[:, :Fs]) * gu[:, Fs:]).to(x.dtype),
-                       lp["shared_down"], layer=layer)
-        elif "shared_gate" in lp:
+            return linear((F.silu(gu[:, :Fs]) * gu[:, Fs:]).to(x.dtype),
+                          lp["shared_down"], layer=layer)
+        if "shared_gate" in lp:
             gg = linear(x, lp["shared_gate"], layer=layer)
             u = linear(x, lp["shared_up"], layer=layer)
-            y = linear((F.silu(gg) * u).to(x.dtype), lp["shared_down"],
-                       layer=layer)
+            return linear((F.silu(gg) * u).to(x.dtype), lp["shared_down"],
+                          layer=layer)
+        return None
+
+    def _moe_ffn(self, x, lp, layer: int):
+        """The shared expert and the routed experts; under tensor
+        parallelism both are the rank's partials (the shared expert's
+        columns, its experts), summed in one all-reduce (the JAX package's
+        one psum, chitu_tpu/models/deepseek_v3.py:560-571)."""
+        y = self._shared_expert(x, lp, layer)
         weights, sel = route(
             x, lp["moe_gate"][layer], self.moe, gate_bias=lp["gate_bias"][layer]
         )
@@ -469,9 +630,11 @@ class DeepSeekV3ForCausalLM(nn.Module):
             else (lp["exp_gate"], lp["exp_up"])
         )
         routed = moe_ffn_auto(
-            x, gate_w, up_w, lp["exp_down"], weights, sel, self.moe, layer=layer
+            x, gate_w, up_w, lp["exp_down"], weights, sel, self.moe,
+            layer=layer, rank=self.rank, tp=self.tp,
         )
-        return routed if y is None else y + routed
+        y = routed if y is None else y + routed
+        return y if self.group is None else self.group.all_reduce_f32(y)
 
     # -- stacks -------------------------------------------------------------
 
@@ -514,12 +677,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         return h
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Embedding rows; on a stage after the first an empty buffer of
-        their shape, which the relay fills."""
-        if self.stage is not None and not self.stage.first:
-            return torch.empty((tokens.shape[0], self.args.dim),
-                               dtype=self.hidden_dtype, device=tokens.device)
-        return self.embed[tokens.long()]
+        return embed_rows(self, tokens)
 
     @property
     def hidden_dtype(self) -> torch.dtype:
@@ -539,9 +697,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         return self._logits(rms_norm(h, self.norm, self.args.norm_eps))
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
-        if isinstance(self.lm_head, QTensor):  # quant.quantize_head
-            return linear(h, self.lm_head, out_dtype=torch.float32)
-        return matmul_out_dtype(h, self.lm_head, torch.float32)
+        return head_logits(self, h, self.lm_head)
 
     def _rope_rows(self, pos: torch.Tensor):
         idx = torch.clamp(pos, 0, self.cos.shape[0] - 1).long()

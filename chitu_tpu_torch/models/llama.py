@@ -79,7 +79,12 @@ from chitu_tpu_torch.ops.qtensor import (
     QuantKind,
     unpack_int4,
 )
-from chitu_tpu_torch.parallel.sharding import StageSlice, narrow_out, shard_leaf
+from chitu_tpu_torch.parallel.sharding import (
+    StageSlice,
+    narrow_out,
+    owned,
+    shard_leaf,
+)
 from chitu_tpu_torch.utils import get_logger, resolve_device
 
 
@@ -203,6 +208,11 @@ def _cat_out(parts):
     return q
 
 
+# the expert stacks of the MoE families, [L, E, in, out]: expert
+# parallelism cuts them by experts
+EXPERT_STACKS = ("w_gate", "w_up", "w_gu", "w_down",
+                 "exp_gate", "exp_up", "exp_gu", "exp_down")
+
 # the parts of each merged leaf, in their order along the out dim
 MERGES = {
     "wqkv": ("wq", "wk", "wv"),
@@ -240,7 +250,10 @@ class TPLayout:
     the KV heads are fewer than the ranks), w_gate/w_up by columns and
     wo/w_down by rows (whole when the FFN does not divide: then the FFN
     replicates and nothing is summed), embed by vocab rows and lm_head by
-    vocab columns (whole when the vocabulary does not divide). Under
+    vocab columns (whole when the vocabulary does not divide). A MoE
+    layout (`moe`: Mixtral) cuts its expert stacks [L, E, in, out] by
+    experts, rank r holding experts [r E / tp, (r + 1) E / tp), and keeps
+    the router whole (expert parallelism, `models.moe.moe_ffn_ep`). Under
     pipeline parallelism `stage` says which layers and which ends of the
     model the rank's stage holds; a leaf is cut to those layers first."""
 
@@ -265,15 +278,18 @@ class TPLayout:
 
     def part_spec(self, name: str, ndim: int) -> tuple:
         spec = [None] * ndim
-        if name in ("wq", "bq"):
+        if self.moe and name in EXPERT_STACKS:
+            # expert parallelism: [L, E, in, out] by experts
+            spec[-3] = "tp"
+        elif name in ("wq", "bq"):
             spec[-1] = ("tp", self.n_heads)
         elif name in ("wk", "wv", "bk", "bv"):
             spec[-1] = ("tp", self.n_kv_heads)
         elif name == "wo":
             spec[-2] = ("tp", self.n_heads)
-        elif name in ("w_gate", "w_up") and not self.moe:
+        elif name in ("w_gate", "w_up"):
             spec[-1] = "tp"
-        elif name == "w_down" and not self.moe:
+        elif name == "w_down":
             spec[-2] = "tp"
         elif name == "embed":
             spec[0] = "tp"
@@ -301,8 +317,14 @@ class TPLayout:
         transform = transform or (lambda n, t: t)
         if not self.stage.holds(name):
             return {}
+        whole = leaf
         if name not in ("embed", "norm", "lm_head"):
+            # a view: the TP cut or `owned` copies the rank's part
             leaf = self.stage.cut("layers", leaf)
+        out = self._place(name, leaf, merge_tp, transform)
+        return {k: owned(v, whole) for k, v in out.items()}
+
+    def _place(self, name, leaf, merge_tp, transform):
         if name in MERGES and not (self.moe and name == "w_gate_up"):
             names = MERGES[name]
             if self.merged:
@@ -316,6 +338,10 @@ class TPLayout:
             parts = split_rank_major(leaf, self.widths[name], merge_tp)
             return {n: self.local(n, transform(n, p))
                     for n, p in zip(names, parts)}
+        if self.moe and name in EXPERT_STACKS:
+            # each (layer, expert) matrix quantizes on its own: the rank's
+            # experts are cut first
+            return {name: transform(name, self.local(name, leaf))}
         # an unmerged part (a merged layout joins it to its siblings in
         # `assemble`), or a leaf of its own
         return {name: self.local(name, transform(name, leaf))}
@@ -360,7 +386,8 @@ def params_from_numpy(tree: Dict[str, Any], layout: Optional[TPLayout] = None,
     quantized, split (`w_gate`, `w_up`) or merged (`w_gu`). A DeepSeek
     tree crosses leaf for leaf into the same nested form, `gate_bias` in
     f32, split or merged leaves (`wq_kv_a`, `shared_gu`, `exp_gu`) as
-    they are.
+    they are; its layout (`deepseek_v3.MLALayout`) keeps the stage's
+    layers and cuts the rank's slices.
 
     Without a `layout`, unmerged attention and dense-FFN leaves (wq/wk/wv,
     w_gate/w_up) are merged into the wqkv / w_gate_up leaves. With one
@@ -376,7 +403,8 @@ def params_from_numpy(tree: Dict[str, Any], layout: Optional[TPLayout] = None,
         out = {k: _leaf(tree[k]) for k in ("embed", "norm", "lm_head")}
         for stack in stacks:
             out[stack] = {k: _leaf(v) for k, v in tree[stack].items()}
-        return out if layout is None else layout.stage.tree(out, stacks)
+        # the model's `MLALayout`: the stage's layers, the rank's slices
+        return out if layout is None else layout.tree(out)
     layers = tree["layers"]
     flat = {k: tree[k] for k in ("embed", "norm", "lm_head") if k in tree}
     flat.update(layers)
@@ -725,34 +753,11 @@ class LlamaForCausalLM(nn.Module):
         return self._logits(h if idx is None else h[idx])
 
     def _embed(self, tokens: torch.Tensor) -> torch.Tensor:
-        """Embedding rows of `tokens`; vocab-parallel: each rank looks up
-        the tokens in its vocab slice, zeros the rest, and the rows are
-        summed over the group (exact: one nonzero term). A stage after the
-        first gets an empty buffer of the rows' shape, which the relay
-        fills."""
-        if self.stage is not None and not self.stage.first:
-            return torch.empty((tokens.shape[0], self.args.dim),
-                               dtype=self.hidden_dtype, device=tokens.device)
-        if self.vocab_tp == 1:
-            return self.embed[tokens.long()]
-        n = self.embed.shape[0]
-        t = tokens.long() - self.rank * n
-        held = (t >= 0) & (t < n)
-        rows = self.embed[t.clamp(0, n - 1)] * held[:, None].to(self.embed.dtype)
-        return self.group.all_reduce_f32(rows)
+        return embed_rows(self, tokens)
 
     def _logits(self, h: torch.Tensor) -> torch.Tensor:
         head = self.embed.T if self.args.tie_word_embeddings else self.lm_head
-        if isinstance(head, QTensor):  # quant.quantize_head
-            y = linear(h, head, out_dtype=torch.float32)
-        else:
-            y = matmul_out_dtype(h, head, torch.float32)
-        if self.vocab_tp == 1:
-            return y
-        # every rank gets the whole row: sampling, penalties, stop checks
-        # and draft acceptance see the same logits everywhere
-        n = y.shape[-1]
-        return self.group.gather_last(y, self.rank * n, self.args.vocab_size)
+        return head_logits(self, h, head)
 
     def _rope_rows(self, pos: torch.Tensor):
         idx = torch.clamp(pos, 0, self.cos.shape[0] - 1).long()
@@ -971,6 +976,39 @@ class LlamaForCausalLM(nn.Module):
         attend = self._decode_attend(cache, seq_lens, block_tables, valid,
                                      page_size)
         return self._local_layers(h, cos, sin, attend)
+
+
+def embed_rows(model, tokens: torch.Tensor) -> torch.Tensor:
+    """Embedding rows of `tokens`; vocab-parallel (`model.vocab_tp` > 1):
+    each rank looks up the tokens in its vocab slice, zeros the rest, and
+    the rows are summed over the group (exact: one nonzero term). A stage
+    after the first gets an empty buffer of the rows' shape, which the
+    relay fills."""
+    if model.stage is not None and not model.stage.first:
+        return torch.empty((tokens.shape[0], model.args.dim),
+                           dtype=model.hidden_dtype, device=tokens.device)
+    if model.vocab_tp == 1:
+        return model.embed[tokens.long()]
+    n = model.embed.shape[0]
+    t = tokens.long() - model.rank * n
+    held = (t >= 0) & (t < n)
+    rows = model.embed[t.clamp(0, n - 1)] * held[:, None].to(model.embed.dtype)
+    return model.group.all_reduce_f32(rows)
+
+
+def head_logits(model, h: torch.Tensor, head) -> torch.Tensor:
+    """f32 logits of a normed hidden state through `head` [D, V / vocab_tp]
+    (dense, or quantized under quant.quantize_head); vocab-parallel: every
+    rank gets the whole row, so sampling, penalties, stop checks and draft
+    acceptance see the same logits everywhere."""
+    if isinstance(head, QTensor):
+        y = linear(h, head, out_dtype=torch.float32)
+    else:
+        y = matmul_out_dtype(h, head, torch.float32)
+    if model.vocab_tp == 1:
+        return y
+    n = y.shape[-1]
+    return model.group.gather_last(y, model.rank * n, model.args.vocab_size)
 
 
 def join_world(model, infer, stacks, tied=False, first_only=()):

@@ -11,10 +11,16 @@ dispatch through the grouped GEMM kernel for bf16 and e4m3 experts, the
 capacity route for the stacks that kernel does not take.
 
 Its attention takes the llama module's layouts, merged or unmerged
-(`infer.merge_qkv_gate_up=off`). Its HF checkpoints load through
-`loaders_moe.load_mixtral_params`. Pipeline parallelism is the llama
-module's (each stage holds its layers' expert stacks `[L / pp, E, ...]`).
-Not ported yet: expert parallelism under TP (ROADMAP A.2).
+(`infer.merge_qkv_gate_up=off`), and its tensor-parallel attention. Under
+tensor parallelism the experts are sharded over the group (expert
+parallelism, the JAX package's `param_partition_specs` P('pp', 'tp', ..)
+on the expert stacks): rank r holds experts [r E / tp, (r + 1) E / tp) of
+every stack and the whole router; every rank routes its copy of the
+hidden state, dispatches its own experts (`models.moe.moe_ffn_ep`) and
+the partial combines are summed in one f32 all-reduce a layer. Its HF
+checkpoints load through `loaders_moe.load_mixtral_params`. Pipeline
+parallelism is the llama module's (each stage holds its layers' expert
+stacks `[L / pp, E / tp, ...]`).
 """
 
 from __future__ import annotations
@@ -41,15 +47,19 @@ class MixtralForCausalLM(LlamaForCausalLM):
     def __init__(self, args, cfg, device=None):
         if args.moe is None:
             raise ValueError("a mixtral model card needs its moe section")
-        if cfg.infer.tp_size > 1:
-            raise NotImplementedError(
-                "tp_size > 1 for Mixtral (also under pp_size > 1): expert "
-                "parallelism under TP comes with the next slice (ROADMAP A.2)"
-            )
         super().__init__(args, cfg, device=device)
         self.moe = args.moe
         # gate and up experts in one [.., D, 2F] stack (`w_gu`)
         self.merged_gu = False
+
+    def _init_tp(self, infer):
+        E = self.args.moe.n_routed_experts
+        if E % infer.tp_size:
+            raise NotImplementedError(
+                f"tp_size={infer.tp_size} does not divide the {E} experts: "
+                "each rank holds an equal expert range (the JAX package runs "
+                "the capacity einsum under GSPMD there; ROADMAP C)")
+        super()._init_tp(infer)
 
     def _shapes(self, local: bool = True, merged=None) -> Dict[str, tuple]:
         a, m = self.args, self.moe
@@ -60,6 +70,7 @@ class MixtralForCausalLM(LlamaForCausalLM):
         L, D = self.n_local if local else a.n_layers, a.dim
         E, Fd = m.n_routed_experts, m.moe_inter_dim or self.inter_dim
         shapes["moe_gate"] = (L, D, E)
+        E = E // self.tp if local else E
         if self.merged_gu:
             shapes["w_gu"] = (L, E, D, 2 * Fd)
         else:
@@ -85,6 +96,9 @@ class MixtralForCausalLM(LlamaForCausalLM):
         gate_w, up_w = (
             (self.w_gu, None) if self.merged_gu else (self.w_gate, self.w_up)
         )
-        return h + moe_ffn_auto(
-            x, gate_w, up_w, self.w_down, weights, sel, self.moe, layer=layer
-        )
+        y = moe_ffn_auto(x, gate_w, up_w, self.w_down, weights, sel,
+                         self.moe, layer=layer, rank=self.rank, tp=self.tp)
+        if self.group is not None:
+            # the ranks' partial combines: one all-reduce a layer
+            y = self.group.all_reduce_f32(y)
+        return h + y

@@ -31,9 +31,21 @@ rows through the inverse of `row_assign` and sums them in choice order:
 `index_add_` on CUDA adds in an order that changes from run to run, and
 greedy decoding must repeat bit for bit.
 
-Not ported yet: `moe_ffn_manual_ep` and `_moe_ffn_ep` (expert parallelism
-over a mesh, with the multi-GPU slice); `moe_ffn_sorted` keeps `e_dispatch`
-and the dead-block rule for ids >= `n_experts` that they need.
+Expert parallelism (`moe_ffn_ep`, the counterpart of `moe_ffn_manual_ep`
+and of `_moe_ffn_ep` under a mesh) is the JAX package's all-to-all-free
+formulation: the tokens are replicated over the tensor-parallel group and
+expert e lives on rank e // (E / tp); every rank routes its own copy of
+the hidden state with the replicated router (global ids), maps the ids
+outside its range to a dead expert El = E / tp, dispatches its experts
+through the grouped kernel with `e_dispatch = El + 1` (the dead expert's
+blocks read no weight and write zeros) and returns its partial combine,
+which the caller sums over the group in one f32 all-reduce (with the
+shared expert's partial, for DeepSeek). The JAX package's `_pp_composable`
+and its stage gate (non-owning stages mark every assignment dead) have no
+counterpart: a pipeline stage of the port holds only its own layers
+(`parallel.sharding.StageSlice`), so every layer it runs is its own.
+Stacks the grouped kernel does not take run the capacity route on the
+local experts, the foreign assignments in a dead one-hot column.
 """
 
 from __future__ import annotations
@@ -289,6 +301,52 @@ def _warn_capacity_fallback(T: int, E: int, cap: int):
     )
 
 
+def local_ids(sel: torch.Tensor, rank: int, n_local: int) -> torch.Tensor:
+    """Global expert ids -> this rank's local ids: expert e lives on rank
+    e // n_local; ids of other ranks' experts map to the dead id
+    `n_local`."""
+    sl = sel - rank * n_local
+    return torch.where((sl < 0) | (sl >= n_local),
+                       torch.full_like(sl, n_local), sl)
+
+
+def _n_experts(w) -> int:
+    """Experts of a stack [(L,) E, K, N], dense or quantized."""
+    return (w.data if isinstance(w, QTensor) else w).shape[-3]
+
+
+def moe_ffn_ep(
+    x: torch.Tensor,  # [T, D], the same on every rank of the group
+    w_gate,  # the rank's [(L,) E / tp, K, N] stack, or merged [gate | up]
+    w_up,  # None when w_gate holds the merged stack
+    w_down,
+    weights: torch.Tensor,  # [T, k]
+    sel: torch.Tensor,  # [T, k] GLOBAL expert ids
+    rank: int,
+    tp: int,
+    layer=None,
+    moe=None,  # MoEArgs: the capacity route's slot count
+) -> torch.Tensor:
+    """This rank's partial combine of an expert-parallel MoE layer (the
+    JAX package's `moe_ffn_manual_ep`): its experts' contributions, in
+    x's dtype; the caller sums it over the group. Stacks the grouped
+    kernel takes dispatch through it with one dead expert for the
+    assignments of other ranks; the others take the capacity route on
+    the local experts."""
+    El = _n_experts(w_down)
+    if moe is not None and El * tp != moe.n_routed_experts:
+        raise ValueError(f"{El} local experts a rank do not make "
+                         f"{moe.n_routed_experts} over {tp} ranks")
+    sl = local_ids(sel, rank, El)
+    if _sorted_eligible((w_gate, w_up, w_down)):
+        return moe_ffn_sorted(
+            x, w_gate, w_up, w_down, weights, sl, El, layer=layer,
+            e_dispatch=El + 1,
+        )
+    return _capacity_route(x, w_gate, w_up, w_down, weights, sl, moe, layer,
+                           El * tp)
+
+
 def moe_ffn_auto(
     x: torch.Tensor,
     w_gate,
@@ -298,16 +356,32 @@ def moe_ffn_auto(
     sel: torch.Tensor,
     moe,  # MoEArgs
     layer=None,
+    rank: int = 0,
+    tp: int = 1,
 ) -> torch.Tensor:
-    """Pick the MoE execution path on one device: the exact sorted
-    dispatch + grouped kernel when every stack is eligible for it, else
-    the capacity-einsum route (quantized experts dequantize there)."""
+    """Pick the MoE execution path: under tensor parallelism (tp > 1, the
+    stacks the rank's E / tp experts) the rank's partial of the expert-
+    parallel layer (`moe_ffn_ep`, summed by the caller); on one device
+    the exact sorted dispatch + grouped kernel when every stack is
+    eligible for it, else the capacity-einsum route (quantized experts
+    dequantize there)."""
+    if tp > 1:
+        return moe_ffn_ep(x, w_gate, w_up, w_down, weights, sel, rank, tp,
+                          layer=layer, moe=moe)
     E = moe.n_routed_experts
     if _sorted_eligible((w_gate, w_up, w_down)):
         return moe_ffn_sorted(
             x, w_gate, w_up, w_down, weights, sel, E, layer=layer
         )
-    cap = expert_capacity(
+    return _capacity_route(x, w_gate, w_up, w_down, weights, sel, moe, layer, E)
+
+
+def _capacity_route(x, w_gate, w_up, w_down, weights, sel, moe, layer, E):
+    """The capacity-einsum route on the stacks' experts; `E` the model's
+    expert count (the capacity is per expert of the whole model; without
+    `moe`, every token's slot: exact). Ids at or beyond the stacks' expert
+    count (other ranks' experts) take no slot."""
+    cap = x.shape[0] if moe is None else expert_capacity(
         x.shape[0], E, moe.n_activated_experts, moe.capacity_factor
     )
     _warn_capacity_fallback(x.shape[0], E, cap)
@@ -341,7 +415,7 @@ def moe_ffn(
     w_up,  # [E, D, F]
     w_down,  # [E, F, D]
     weights: torch.Tensor,  # [T, k]
-    sel: torch.Tensor,  # [T, k]
+    sel: torch.Tensor,  # [T, k] ids; >= E marks an assignment dropped
     capacity: int,
 ) -> torch.Tensor:
     """Capacity-dispatch MoE SwiGLU. Returns [T, D]."""
@@ -349,7 +423,8 @@ def moe_ffn(
     E = w_gate.shape[0]
     k = sel.shape[-1]
 
-    onehot = F.one_hot(sel.long(), E)  # [T, k, E] int64
+    # [T, k, E] int64; an id >= E (another rank's expert) has no column
+    onehot = F.one_hot(sel.long(), E + 1)[..., :E]
     flat = onehot.reshape(T * k, E)
     # slot index = rank of this (token, choice) among the expert's tokens
     pos = flat.cumsum(dim=0) - flat  # exclusive cumsum [T*k, E]

@@ -24,9 +24,14 @@ The port's tensor parallelism is always what the JAX package calls
 "manual" (each rank holds its shard and calls its collectives), so its
 "auto" mode (GSPMD inside the shard_map) has no counterpart, and the
 layouts that the JAX package replicates through GSPMD (a stack that pp
-does not divide) are refused when the model is built. Attention is B1 on
-the stage's pool with the group's block tables at `seq0 + k`, the kernel
-a one-stage engine runs.
+does not divide) are refused when the model is built. Every family runs
+it at pp x tp: Mixtral and DeepSeek with their experts over the stage's
+TP group (the JAX package's manual-TP dual stack,
+chitu_tpu/parallel/pipeline.py:138-194,447-481; DeepSeek's dense-first
+layers on stage 0, cut over its group), the hidden state relayed whole
+(every TP rank holds it after the layer's all-reduces). Attention is B1
+on the stage's pool with the group's block tables at `seq0 + k`, the
+kernel a one-stage engine runs.
 """
 
 from __future__ import annotations
@@ -37,10 +42,12 @@ from chitu_tpu_torch import sampling
 
 
 def supports_pipeline(model) -> bool:
-    """The pipelined decode applies: the model runs as one stage of pp > 1.
-    The JAX package's other conditions hold by construction: every stack
-    is cut into equal stage ranges (a layout that is not is refused when
-    the model is built) and dp is 1 (refused by the engine)."""
+    """The pipelined decode applies: the model runs as one stage of pp > 1
+    (any family, at any tp). The JAX package's other conditions hold by
+    construction: every stack is cut into equal stage ranges (a layout
+    that is not is refused when the model is built), a leaf that tp does
+    not divide is held whole and never summed (where `_manual_tp_ok`
+    falls back to GSPMD), and dp is 1 (refused by the engine)."""
     return getattr(model, "stage", None) is not None
 
 

@@ -32,7 +32,7 @@ from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 
-from chitu_tpu_torch.ops.qtensor import QTensor, unpack_int4
+from chitu_tpu_torch.ops.qtensor import TENSOR_FIELDS, QTensor, unpack_int4
 from chitu_tpu_torch.utils import get_logger
 
 Spec = Tuple[Any, ...]
@@ -203,6 +203,27 @@ def narrow_out(leaf, start: int, stop: int, name: str = ""):
     )
 
 
+def _tensors(t):
+    if isinstance(t, QTensor):
+        return [x for x in (getattr(t, n) for n in TENSOR_FIELDS) if x is not None]
+    return [t]
+
+
+def owned(part, whole):
+    """`part`, each tensor of it copied that is a view into `whole`'s
+    memory (a stage's layers, a rank's slice): the caller keeps it and
+    lets the whole leaf go. A tensor of `whole` itself is kept as it is."""
+    mine = {id(x) for x in _tensors(whole)}
+    held = {x.untyped_storage().data_ptr() for x in _tensors(whole)}
+
+    def keep(t):
+        if id(t) in mine or t.untyped_storage().data_ptr() not in held:
+            return t
+        return t.clone()
+
+    return part._map(keep) if isinstance(part, QTensor) else keep(part)
+
+
 def shard_leaf(leaf, spec: Spec, rank: int, tp: int, name: str = ""):
     """Rank's shard of one leaf, dense or quantized, made contiguous (it
     owns its storage: the full leaf can go)."""
@@ -258,7 +279,11 @@ class StageSlice:
         return n if r is None else r[1] - r[0]
 
     def holds(self, name: str) -> bool:
-        """Does this stage hold the top-level leaf `name`?"""
+        """Does this stage hold the top-level leaf or the stack `name` (any
+        of its layers)?"""
+        if name in self.ranges:
+            start, stop = self.ranges[name]
+            return stop > start
         if name == "embed":
             return self.embed
         if name in ("norm", "lm_head"):
@@ -267,24 +292,9 @@ class StageSlice:
 
     def cut(self, stack: str, leaf):
         """The stage's layers of one stacked leaf (a QTensor's every field
-        along its leading layer dim), copied when they are not all of it:
-        the whole leaf can go."""
+        along its leading layer dim): a view, which the caller copies its
+        slice of (`owned`) so that the whole leaf can go."""
         r = self.ranges.get(stack)
         if r is None or r == (0, leaf.shape[0]):
             return leaf
-        part = leaf[r[0]:r[1]]
-        return part._map(torch.clone) if isinstance(part, QTensor) else part.clone()
-
-    def tree(self, tree: Dict[str, Any], stacks: Sequence[str]) -> Dict[str, Any]:
-        """A nested tree ({top-level leaves, stack: {name: stacked leaf}})
-        -> the stage's part of it: the top-level leaves it holds, and its
-        layers of each stack it holds any of."""
-        out = {}
-        for k, v in tree.items():
-            if k in stacks:
-                r = self.ranges.get(k)
-                if r is None or r[1] > r[0]:
-                    out[k] = {n: self.cut(k, t) for n, t in v.items()}
-            elif self.holds(k):
-                out[k] = v
-        return out
+        return leaf[r[0]:r[1]]

@@ -14,8 +14,12 @@ Phases (all by default):
 - `qwen`: Qwen2-72B-Instruct (80 layers, 145.4 GB in bf16: no card holds
   it) in three worlds of four ranks on the same weights, drawn layer by
   layer on each rank (`chip_smoke.seeded_params`): tp4 (slice 13's
-  layout), pp4 and pp2 x tp2. The pp worlds' streams (the burst's eight
-  and the lone request) are held against the tp4 world's: equal, or
+  layout), pp4 and pp2 x tp2.
+- `mixtral`: Mixtral-8x7B-Instruct at its full 32 layers in bf16 (about
+  93 GB: no card holds it), expert parallelism in two worlds on the same
+  seeded weights: tp4 (two experts a rank) and tp2 (four).
+The later worlds' streams (the burst's eight and the lone request) are
+held against the first world's (tp4): equal, or
   parting at a near tie on the tp4 world's own teacher-forced row (the
   two tokens within 1e-2 of the row's spread or within 3 sigma, sigma
   the rms difference between the two worlds' rows of that position: no
@@ -38,44 +42,49 @@ QWEN = "Qwen2-72B-Instruct"
 QWEN_BASE = [f"models={QWEN}", "infer.stop_with_eos=false",
              "infer.max_seq_len=2048", "infer.max_reqs=16"]
 QWEN_GRIDS = (("qwen_tp4", 1, 4), ("qwen_pp4", 4, 1), ("qwen_pp2_tp2", 2, 2))
+MIXTRAL_BASE = ["models=Mixtral-8x7B-Instruct-v0.1", "infer.stop_with_eos=false",
+                "infer.max_seq_len=2048", "infer.max_reqs=16"]
+MIXTRAL_GRIDS = (("mixtral_tp4", 1, 4), ("mixtral_tp2", 1, 2))
 
 
-def predicted_bytes(cfg, pp, tp):
+def predicted_bytes(cs, cfg, pp, tp):
     """Each rank's weight bytes in a pp x tp world of a bf16 Llama-family
-    card, from the full leaf shapes: (layers - norms) / (pp tp) + norms /
-    pp, the embedding / tp on stage 0, the head / tp and the norm on the
-    last."""
+    or Mixtral card, from the full leaf shapes: of each stacked leaf 1 /
+    (pp tp) (1 / pp of the leaves every rank of a stage holds whole,
+    `chip_smoke.held_whole`: the norms, the router), the embedding / tp on
+    stage 0, the head / tp and the norm on the last."""
     import math
 
     from chitu_tpu_torch.models import build_model
 
     m = build_model(cfg.models, cfg, device="cpu")
     size = {k: 2 * math.prod(v) for k, v in m._shapes(local=False).items()}
-    norms = size["attn_norm"] + size["ffn_norm"]
-    layers = sum(v for k, v in size.items() if k in m.LAYER_LEAVES)
+    layers = sum(v if cs.held_whole(m.layout, k) else v // tp
+                 for k, v in size.items() if k in m.LAYER_LEAVES)
     out = []
     for r in range(pp * tp):
         p = r // tp
-        w = (layers - norms) // (pp * tp) + norms // pp
+        w = layers // pp
         w += size["embed"] // tp if p == 0 else 0
         w += size["lm_head"] // tp + size["norm"] if p == pp - 1 else 0
         out.append(w)
     return out
 
 
-def qwen_phase(torch, np, cs, card):
+def seeded_phase(torch, np, cs, card, base, grids):
+    """Worlds of one card on seeded weights, each held to the first."""
     from chitu_tpu_torch import load_config
 
-    cfg = load_config(overrides=QWEN_BASE)
+    cfg = load_config(overrides=base)
     prompts = cs.tp_prompts(np, cfg.models.vocab_size)
     worlds = {}
-    for label, pp, tp in QWEN_GRIDS:
+    for label, pp, tp in grids:
         t0 = time.time()
-        ranks, rows = cs.tp_world(label, pp * tp, [], prompts, base=QWEN_BASE,
+        ranks, rows = cs.tp_world(label, pp * tp, [], prompts, base=base,
                                   grid=[f"infer.pp_size={pp}", f"infer.tp_size={tp}"],
                                   seeded=True, batch=16)
         worlds[label] = (ranks, rows)
-        want = predicted_bytes(cfg, pp, tp)
+        want = predicted_bytes(cs, cfg, pp, tp)
         r0 = ranks[0]
         for res, wb in zip(ranks, want):
             print(f"[{label}] rank {res['rank']} stage {res['stage']} on "
@@ -92,10 +101,11 @@ def qwen_phase(torch, np, cs, card):
               f"batch 1 {r0['decode_tokens_per_s_batch1']:.2f}, at batch 16 "
               f"{r0['decode_tokens_per_s_batch16']:.2f}; world {time.time() - t0:.1f} s",
               flush=True)
-    t_ranks, t_rows = worlds["qwen_tp4"]
+    first = grids[0][0]
+    t_ranks, t_rows = worlds[first]
     t0 = t_ranks[0]
     want = t0["api"] + [t0["http"], t0["lone"]]
-    for label in ("qwen_pp4", "qwen_pp2_tp2"):
+    for label, _, _ in grids[1:]:
         ranks, rows = worlds[label]
         r0 = ranks[0]
         if r0["http_prompt"] != t0["http_prompt"]:
@@ -119,15 +129,15 @@ def qwen_phase(torch, np, cs, card):
             rel = gap / (ref[j].max() - ref[j].min()).item()
             sigma = (row[j] - ref[j]).pow(2).mean().sqrt().item()
             own = (row[j, a[j]] - row[j, b[j]]).item()
-            print(f"[{label}] stream {i} parts from tp4's at token {j} of "
+            print(f"[{label}] stream {i} parts from {first}'s at token {j} of "
                   f"{len(b)}: {a[j]} against {b[j]}, gap {gap:.5g} = {rel:.3e} "
-                  f"of tp4's row spread (limit {cs.NEAR_TIE}) = "
+                  f"of {first}'s row spread (limit {cs.NEAR_TIE}) = "
                   f"{gap / sigma:.3f} sigma (sigma {sigma:.5g}, the two worlds' "
                   f"rows apart; limit {cs.NOISE_SIGMAS}); the world's own row "
                   f"prefers its token by {own:.5g}", flush=True)
             if rel > cs.NEAR_TIE and gap > cs.NOISE_SIGMAS * sigma:
                 far.append(i)
-        print(f"[{label}] streams equal to tp4's: {same} of {len(got)}; rows' "
+        print(f"[{label}] streams equal to {first}'s: {same} of {len(got)}; rows' "
               f"rms difference over the common prefix, largest {max(rms):.3e} of "
               f"the spread", flush=True)
         if far:
@@ -148,7 +158,7 @@ def main():
     if sys.argv[1:2] == ["--tp-rank"]:
         cs.tp_rank_main(sys.argv[2])
         return
-    want = sys.argv[1:] or ["pp2_nccl", "pp2_tp2_nccl", "qwen"]
+    want = sys.argv[1:] or ["pp2_nccl", "pp2_tp2_nccl", "qwen", "mixtral"]
     if torch.cuda.device_count() < 4:
         raise SystemExit(f"needs 4 cards, have {torch.cuda.device_count()}")
     # the ranks run this file (`--tp-rank`), which hands them to the smoke
@@ -169,10 +179,12 @@ def main():
             cs.pp_phase(torch, np, tk, card, label, cs.LLAMA, pp, tp, [],
                         cs.ATTN_KERNELS, backend="nccl")
             print(f"{label} {time.time() - t1:.1f} s", flush=True)
-    if "qwen" in want:
-        t1 = time.time()
-        qwen_phase(torch, np, cs, card)
-        print(f"qwen {time.time() - t1:.1f} s", flush=True)
+    for name, base, grids in (("qwen", QWEN_BASE, QWEN_GRIDS),
+                              ("mixtral", MIXTRAL_BASE, MIXTRAL_GRIDS)):
+        if name in want:
+            t1 = time.time()
+            seeded_phase(torch, np, cs, card, base, grids)
+            print(f"{name} {time.time() - t1:.1f} s", flush=True)
     print(f"total {time.time() - t0:.1f} s", flush=True)
 
 

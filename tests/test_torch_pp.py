@@ -281,8 +281,9 @@ def test_per_rank_bytes_are_the_stage_share(worlds, world, tp):
 
 def test_supports_pipeline_and_refusals():
     """pp must divide the layers (the JAX package replicates otherwise);
-    dp > 1 names the ring slice, Mixtral or DeepSeek at pp x tp the
-    expert-parallel one."""
+    dp > 1 names the ring slice; Mixtral and DeepSeek serve pp x tp
+    (tests/test_torch_ep.py), but for experts tp does not divide
+    (ROADMAP C) and DeepSeek's dense MLA under tp (A.6)."""
     with pytest.raises(NotImplementedError, match="ROADMAP C"):
         StageSlice.of(0, 2, {"layers": 3})
     s = StageSlice.of(1, 2, {"dense_layers": 1, "moe_layers": 4},
@@ -294,8 +295,9 @@ def test_supports_pipeline_and_refusals():
     one = Engine(load_config(overrides=BASE), device="cpu")
     assert not pipeline.supports_pipeline(one.model)
     for ovr, match in ((["infer.dp_size=2"], "A.3"),
-                       (MIXTRAL + PP2 + ["infer.tp_size=2"], "A.2"),
-                       (DEEPSEEK + PP2 + ["infer.tp_size=2"], "A.2")):
+                       (MIXTRAL + PP2 + ["infer.tp_size=3"], "ROADMAP C"),
+                       (DEEPSEEK + PP2 + ["infer.tp_size=2",
+                                          "infer.mla_absorb=none"], "A.6")):
         with pytest.raises(NotImplementedError, match=match):
             Engine(load_config(overrides=BASE + ovr), device="cpu")
 

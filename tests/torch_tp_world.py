@@ -8,12 +8,15 @@ through its engine and the other ranks follow it (`Engine.follow`).
 Weights and prompts come from the spec's `.npz` and JSON files; every
 rank writes what it saw to `out<rank>.json`. A scenario may count the
 pipelined decode windows (`spy`), give requests frequency penalties
-(`pens`) or a stop token of their own (`stop`, on every rank's task).
+(`pens`) or a stop token of their own (`stop`, on every rank's task),
+forbid the MoE capacity route (`nocap`: it raises on every rank) and
+record a checksum of every router's selections (`routes`).
 """
 
 import json
 import os
 import sys
+import zlib
 
 import numpy as np
 import torch
@@ -78,6 +81,7 @@ def run(spec_path, rank):
     torch.set_num_threads(1)
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
+    from chitu_tpu_torch.models import deepseek_v3, mixtral, moe
     from chitu_tpu_torch.models.llama import params_from_numpy
     from chitu_tpu_torch.parallel import pipeline
 
@@ -95,6 +99,7 @@ def run(spec_path, rank):
         eng = Engine(cfg, device="cpu", params=params)
         m = eng.model
         res = dict(weight_bytes=eng.weight_bytes(), pool_bytes=eng.cache.bytes(),
+                   leaf_bytes=leaf_bytes(m.params_tree()),
                    kv_tp_shard=getattr(m, "kv_tp_shard", False),
                    merged=getattr(m, "merged", True),
                    backend=eng.group.backend, windows=[], picks=[],
@@ -103,6 +108,21 @@ def run(spec_path, rank):
                                  if not isinstance(v, dict) or v),
                    pools={k: list(v.shape) for k, v in eng.cache.arrays.items()})
         decode_pipelined = pipeline.decode_pipelined
+        moe_ffn, routers = moe.moe_ffn, (mixtral.route, deepseek_v3.route)
+        if sc.get("nocap"):
+            def capacity(*a, **k):
+                raise AssertionError("the MoE capacity route ran")
+
+            moe.moe_ffn = capacity
+        if sc.get("routes"):
+            res["routes"] = []
+
+            def routing(*a, **k):
+                w, sel = moe.route(*a, **k)
+                res["routes"].append(zlib.crc32(sel.numpy().tobytes()))
+                return w, sel
+
+            mixtral.route = deepseek_v3.route = routing
         if sc.get("spy"):
             res["pipelined"] = 0
 
@@ -139,9 +159,14 @@ def run(spec_path, rank):
         if sc.get("shards"):
             m = eng.model
             res["shards"] = {k: list(getattr(m, k).shape) for k in m._shapes()}
+        def restore():
+            pipeline.decode_pipelined = decode_pipelined
+            moe.moe_ffn = moe_ffn
+            mixtral.route, deepseek_v3.route = routers
+
         if rank != 0:
             eng.follow()
-            pipeline.decode_pipelined = decode_pipelined
+            restore()
             out[sc["name"]] = res
             continue
         reqs = []
@@ -159,13 +184,26 @@ def run(spec_path, rank):
         alloc = eng.cache.allocator
         res["prefix_hits"] = getattr(alloc, "hits", 0)
         eng.terminate()
-        pipeline.decode_pipelined = decode_pipelined
+        restore()
         out[sc["name"]] = res
     with open(os.path.join(os.path.dirname(spec_path), f"out{rank}.json"), "w") as f:
         json.dump(out, f)
     from chitu_tpu_torch.parallel import distributed
 
     distributed.shutdown()
+
+
+def leaf_bytes(tree, prefix=""):
+    """{"stack/name" or "name": bytes} of a model's parameter tree."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(leaf_bytes(v, f"{prefix}{k}/"))
+        elif hasattr(v, "nbytes") and callable(v.nbytes):
+            out[prefix + k] = v.nbytes()
+        else:
+            out[prefix + k] = v.numel() * v.element_size()
+    return out
 
 
 def http_request(eng, cfg, msg, reqs):
