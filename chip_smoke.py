@@ -250,11 +250,12 @@ Phases, each fatal on failure:
    alone); every divergence is printed with its gap, and later tokens are
    not compared.
    Then slice 13. Tensor parallelism of Llama-3-8B-Instruct at full width:
-   `tp2` (bf16, 8 layers), `tp2_soft_fp8` (`quant.method=soft_fp8
-   quant.quant_on_load=true`, 8 layers: B6 runs on the shards) and `tp4`
-   (4 layers, 2 KV heads a rank). Each phase first serves a burst of eight
-   greedy requests (prompts of 128-1,024 tokens, 64 new tokens each: seven
-   through `Engine.submit`, one chat message) on a tp=1 engine from the
+   `tp2` (bf16, 4 layers), `tp2_soft_fp8` (`quant.method=soft_fp8
+   quant.quant_on_load=true`, 4 layers: B6 runs on the shards) and `tp4`
+   (2 layers, 2 KV heads a rank). Each phase first serves a burst of eight
+   greedy requests (prompts of 128-1,024 tokens, `TP_NEW` = 64 new tokens
+   each: seven through `Engine.submit`, one chat message) on a tp=1
+   engine from the
    same seed, then starts N ranks of this script (`--tp-rank`) through the
    port's launcher (`parallel.distributed.spawn_ranks`), all on the one
    card over gloo (the backend is printed); every rank draws each leaf
@@ -269,16 +270,19 @@ Phases, each fatal on failure:
    or part at a near tie (the rule above, on the tp=1 engine's rows; the
    two engines batch the HTTP request differently and sum the row-parallel
    products in another order). A world is killed, every rank, when one
-   fails or after 900 s. `awq`: Llama-3-8B-Instruct at 32 layers, random
-   bf16 weights with 5 % of the embedding columns x 8 (the JAX test's
-   planted outliers), `awq_quantize_llama_params` on 512 calibration
-   tokens (wall seconds printed), the AWQ tree and RTN W4A16 of the same
-   weights served through the engine (B7's int4 mode must launch), and
-   against the bf16 model's teacher-forced logits over 256 held-out tokens
-   AWQ MSE <= 1.2 x RTN MSE.
+   fails or after 900 s. Every multi-rank phase's ranks start while the
+   phase before it runs (`start_world`): they import and wait, touching
+   nothing on the card, until that phase has ended. `awq`:
+   Llama-3-8B-Instruct at 32 layers, random bf16 weights with 5 % of the
+   embedding columns x 8 (the JAX test's planted outliers),
+   `awq_quantize_llama_params` on 512 calibration tokens (wall seconds
+   printed), the AWQ tree and RTN W4A16 of the same weights served
+   through the engine (B7's int4 mode must launch), and against the bf16
+   model's teacher-forced logits over 256 held-out tokens AWQ MSE <= 1.2
+   x RTN MSE.
    Then slice 14. Pipeline parallelism, ranks sharing the card over gloo
-   (`PP_PHASES`): `pp2` (Llama-3-8B-Instruct bf16, 32 layers), `pp2_tp2`
-   (4 layers, four ranks), `pp2_mixtral` (Mixtral-8x7B bf16, 4 layers)
+   (`PP_PHASES`): `pp2` (Llama-3-8B-Instruct bf16, 8 layers), `pp2_tp2`
+   (2 layers, four ranks), `pp2_mixtral` (Mixtral-8x7B bf16, 4 layers)
    and `pp2_r1` (DeepSeek-R1 bf16, 5 layers: 3 dense, 2 MoE). Each phase
    starts its world first (the ranks come up one after another, each
    drawing every leaf whole and keeping its stage's layers), serves the
@@ -323,6 +327,23 @@ Phases, each fatal on failure:
    (tp - 1) / tp of the assignments on the dead expert; B9 at R1's 64
    heads a rank (its 32 at tp 4 are deepseek-mid-bench's geometry); the
    latent B4 / B1 and B5 at 64 heads.
+   Then slice 16. Data parallelism, ranks sharing the card over gloo
+   (`RING_PHASES`, through `pp_phase` with dp 2): `dp2_ring_kv`
+   (Llama-3-8B-Instruct bf16, 32 layers, the ring KV pool),
+   `dp2_ring_prefill` (32 layers, whole prompts of 2,048 and 4,096 tokens
+   prefilled sequence-parallel over the two replicas), `dp2_tp2_ring_kv`
+   and `dp2_pp2_ring_kv` (8 layers, four ranks) and `dp2_ring_kv_r1`
+   (DeepSeek-R1 bf16, 4 layers: 3 dense, 1 MoE, whose tokens split over
+   the replicas). Held as the PP phases are, and besides: each rank's
+   weight bytes are those of its (stage, TP index) in one replica and,
+   under the ring KV pool, its pool bytes that share over 2; no pipelined
+   window ran; B1's partials mode and the decode merge launched on every
+   rank of the Llama ring KV phases (their shadowed steps hold the
+   partials against the plain partials mode, the appends byte-equal, and
+   the merge of both ranks' splits against its plain version). Phase 2
+   holds B1's partials mode and the merge of both ranks' splits on a ring
+   rank's pages (`ring_kernel_cases`: the B1 batch, its pages striped
+   over two ranks).
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
@@ -332,7 +353,9 @@ Phases, each fatal on failure:
    launches in the `spec_decode` phase, and its B2 from 1,024 with B2's
    launches in the warm `prefix_cache` burst; slice 15's B8 at E / 2 and
    E / 4 experts, B9 and the latent B1 / B5 at 64 heads, with rank 0's
-   launches in `tp2_r1` and `tp4_r1_soft_fp8`),
+   launches in `tp2_r1` and `tp4_r1_soft_fp8`; slice 16's B1 partials
+   mode on a ring rank's pages and the merge of both ranks' splits, with
+   rank 0's launches in `dp2_ring_kv`),
    then the card's name and power limit, then the device JSON as the last
    line.
 
@@ -341,6 +364,7 @@ CUDA device, and fails when run outside a checkout of the repository.
 """
 
 import contextlib
+import functools
 import gc
 import json
 import math
@@ -355,6 +379,7 @@ import zlib
 HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 BF16_FLOP_PER_S = 989e12  # H100 SXM, dense
+F32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 INT8_OP_PER_S = 1979e12  # H100 SXM, dense
 ROW_RTOL = 1e-2
 LOGITS_RTOL = 2e-2  # engine phases: kernels against plain versions
@@ -2325,9 +2350,56 @@ def shadowed_attention(torch, tk, errs):
             errs.get("dense_matmul_stacked", 0.0), e)
         return got
 
+    def partials_both(q, pool, layer, k, v, block_tables, seq_lens, valid,
+                      page_size, kv_heads, head_dim, scale=None, window=0,
+                      softcap=0.0, fused=True):
+        # the ring KV decode's B1 partials on a rank's local table: the
+        # plain partials at the kernel's split, on a copy of the layer
+        copy = pool[layer:layer + 1].clone()
+        o, ml = real_partials(q, pool, layer, k, v, block_tables, seq_lens,
+                              valid, page_size, kv_heads, head_dim, scale,
+                              window, softcap, fused)
+        _, chunk = tk.decode_split(q.shape[0], kv_heads, block_tables.shape[1],
+                                   page_size, tk._sm_count(q.device))
+        op, mlp = tk.attend_decode_partials_plain(
+            q, copy, 0, k, v, block_tables, seq_lens, valid, page_size,
+            kv_heads, head_dim, scale, window, softcap, fused, S=o.shape[2],
+            chunk=chunk)
+        if fused and not torch.equal(pool[layer], copy[0]):
+            raise AssertionError("attend_decode_partials in the model: pool "
+                                 "bytes differ from the plain append")
+        rows = (valid if fused else torch.ones_like(valid))[:, None, None, None]
+        live = ((mlp[..., 1] > 0) & rows).flatten()
+        if bool(live.any()):
+            D = o.shape[-1]
+            _, e = compare_rows(
+                torch, "attend_decode_partials in the model",
+                (o / ml[..., 1:].clamp_min(1e-30)).reshape(-1, D),
+                (op / mlp[..., 1:].clamp_min(1e-30)).reshape(-1, D), live)
+            errs["attend_decode_partials"] = max(
+                errs.get("attend_decode_partials", 0.0), e)
+        return o, ml
+
+    def merge_both(part_o, part_ml, out_dtype=torch.bfloat16):
+        # the ring KV decode's merge of every rank's splits, at the shape
+        # the model gives it, against its plain version
+        out = real_merge(part_o, part_ml, out_dtype)
+        want = tk.decode_merge_plain(part_o, part_ml, out_dtype).reshape(
+            out.shape)
+        live = (part_ml[..., 1] > 0).any(2).reshape(out.shape[:2])
+        if bool(live.any()):
+            _, e = compare_rows(torch, "decode_merge in the model", out, want,
+                                live)
+            errs["decode_merge"] = max(errs.get("decode_merge", 0.0), e)
+        return out
+
     old = {n: getattr(tk, n) for n in ATTN_WRAPPERS}
     real_dense = linear.dense_matmul_stacked
+    real_partials = tk.attend_decode_partials
+    real_merge = tk.decode_merge
     try:
+        tk.attend_decode_partials = partials_both
+        tk.decode_merge = merge_both
         for n in ATTN_WRAPPERS:
             setattr(tk, n, shim(n))
         linear.dense_matmul_stacked = dense_both
@@ -2336,6 +2408,8 @@ def shadowed_attention(torch, tk, errs):
         for n, fn in old.items():
             setattr(tk, n, fn)
         linear.dense_matmul_stacked = real_dense
+        tk.attend_decode_partials = real_partials
+        tk.decode_merge = real_merge
 
 
 def shadow_serve(torch, np, tk, eng, label):
@@ -2738,6 +2812,10 @@ VARIANT_ROWS = [
     ("absorb_matmul[h64]", "tp2_r1", "absorb_matmul"),
     ("attend_decode_fused[latent,h64]", "tp2_r1", "attend_decode_fused[latent]"),
     ("attend_prefill[latent,h64]", "tp2_r1", "attend_prefill[latent]"),
+    # slice 16: B1's partials mode on a ring rank's pages, with the
+    # launches of rank 0 of the dp 2 ring KV phase
+    ("attend_decode_partials[ring]", "dp2_ring_kv", "attend_decode_partials"),
+    ("decode_merge[ring]", "dp2_ring_kv", "decode_merge"),
 ]
 
 
@@ -3993,7 +4071,7 @@ def row_key(res):
 # ---------------------------------------------------------------------------
 
 TP_LENS = (128, 256, 384, 512, 640, 768, 1024)  # the burst's API prompts
-TP_NEW = 64
+TP_NEW = 64  # new tokens a stream of the multi-rank phases' bursts
 TP_MSG = "Tensor parallel serving over HTTP to rank 0. " * 5  # ~250 bytes
 TP_TIMEOUT = 900  # a world's whole run, killed past it
 TP_BASE = [f"models={LLAMA}", "infer.stop_with_eos=false",
@@ -4006,18 +4084,18 @@ def tp_prompts(np, V):
 
 
 def tp_reference(torch, np, label, overrides, base=TP_BASE,
-                 http_prompt=None):
+                 http_prompt=None, prompts=None):
     """The tp=1 engine of a TP or PP phase (same seed, same weights): the
-    streams of the burst's seven API prompts and its chat message, with
-    the message's prompt tokens (`http_prompt`: those tokens, as the world
-    recorded them), and of a lone request; its weight, pool and norm
-    bytes. -> (engine, result)."""
+    streams of the burst's API prompts (`prompts`, else the seven of
+    `tp_prompts`) and its chat message, with the message's prompt tokens
+    (`http_prompt`: those tokens, as the world recorded them), and of a
+    lone request; its weight, pool and norm bytes. -> (engine, result)."""
     from chitu_tpu_torch import SampleParams, load_config
     from chitu_tpu_torch.engine import Engine
     from chitu_tpu_torch.ops.qtensor import QTensor
 
     eng = Engine(load_config(overrides=base + list(overrides)))
-    prompts = tp_prompts(np, eng.cfg.models.vocab_size)
+    prompts = prompts or tp_prompts(np, eng.cfg.models.vocab_size)
     greedy = SampleParams(temperature=0.0, max_new_tokens=TP_NEW)
     torch.cuda.synchronize()
     t0 = time.time()
@@ -4052,15 +4130,16 @@ def tp_reference(torch, np, label, overrides, base=TP_BASE,
 
 
 def lone_decode_rate(eng, prompt):
-    """A lone greedy request of 65 new tokens -> its decode rate at batch 1
-    (64 tokens over the time from its first token to its last), and its
-    tokens."""
+    """A lone greedy request of TP_NEW + 1 new tokens -> its decode rate at
+    batch 1 (TP_NEW tokens over the time from its first token to its
+    last), and its tokens."""
     from chitu_tpu_torch import SampleParams
 
-    r = eng.submit("", SampleParams(temperature=0.0, max_new_tokens=65),
+    r = eng.submit("", SampleParams(temperature=0.0, max_new_tokens=TP_NEW + 1),
                    prompt_tokens=prompt)
     eng.run_until_complete()
-    return 64 / (r.finish_time - r.prefill_end_time), list(r.async_stream.tokens)
+    return (TP_NEW / (r.finish_time - r.prefill_end_time),
+            list(r.async_stream.tokens))
 
 
 def batch_decode_rate(eng, prompts, n):
@@ -4121,16 +4200,20 @@ def seeded_params(model, seed=0):
     return out
 
 
-def tp_world(label, n, overrides, prompts, base=TP_BASE, grid=None, **extra):
+GO = "go"  # the file that lets a started world's ranks go
+
+
+def start_world(label, n, overrides, prompts, base=TP_BASE, grid=None,
+                **extra):
     """Start n ranks of this script (`--tp-rank`) through the port's
     launcher (`parallel.distributed.spawn_ranks`, the one
     `python -m chitu_tpu_torch infer.tp_size=N` uses), rank 0 included,
     on the grid's overrides (`infer.tp_size=n` by default); ranks that
-    share the card do so over gloo. Killed, all of them, when one fails or
-    TP_TIMEOUT passes; `extra` goes to the ranks (`seeded`: weights from
-    `seeded_params`; `batch`: also time a decode batch of that many
-    rows). -> (each rank's result, the sampling rank's teacher-forced rows
-    of rank 0's streams and its lone request)."""
+    share the card do so over gloo. They import and then wait, touching
+    nothing on the card, until `join_world` lets them go: the phase before
+    runs meanwhile (`run_worlds`). `extra` goes to the ranks (`seeded`:
+    weights from `seeded_params`; `batch`: also time a decode batch of
+    that many rows). -> the world."""
     from chitu_tpu_torch.parallel import distributed
 
     d = tempfile.mkdtemp(prefix=f"chitu_{label}_")
@@ -4140,10 +4223,36 @@ def tp_world(label, n, overrides, prompts, base=TP_BASE, grid=None, **extra):
         json.dump(dict(label=label, overrides=base + list(overrides)
                        + grid + ["serve.port=0"],
                        prompts=prompts, out=d, **extra), f)
-    t0 = time.time()
     procs = distributed.spawn_ranks(
         [sys.executable, os.path.abspath(__file__), "--tp-rank", spec], n,
         distributed.local_coordinator(), first=0)
+    return dict(label=label, n=n, out=d, procs=procs, started=time.time())
+
+
+def stop_world(world):
+    """Kill a world's ranks that are still running and remove its
+    directory."""
+    import shutil
+
+    for p in world["procs"]:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    shutil.rmtree(world["out"], ignore_errors=True)
+
+
+def join_world(world):
+    """Let a started world's ranks go, with a rendezvous picked now, and
+    wait for them. Killed, all of them, when one fails or TP_TIMEOUT
+    passes. -> (each rank's result, the sampling rank's teacher-forced
+    rows of rank 0's streams and its lone request)."""
+    from chitu_tpu_torch.parallel import distributed
+
+    label, n, d, procs = world["label"], world["n"], world["out"], world["procs"]
+    t0 = time.time()
+    with open(os.path.join(d, GO + ".tmp"), "w") as f:
+        f.write(distributed.local_coordinator())
+    os.replace(os.path.join(d, GO + ".tmp"), os.path.join(d, GO))
     try:
         while any(p.poll() is None for p in procs):
             if time.time() - t0 > TP_TIMEOUT or any(
@@ -4157,6 +4266,7 @@ def tp_world(label, n, overrides, prompts, base=TP_BASE, grid=None, **extra):
             p.wait()
     rcs = [p.returncode for p in procs]
     if any(rcs):
+        stop_world(world)
         raise AssertionError(f"[{label}] ranks exited with {rcs}")
     import torch
 
@@ -4168,11 +4278,41 @@ def tp_world(label, n, overrides, prompts, base=TP_BASE, grid=None, **extra):
         if os.path.exists(routes):
             out[r]["tf_routes"] = torch.load(routes)
     rows = torch.load(os.path.join(d, "tp_rows.pt"))
-    import shutil
-
-    shutil.rmtree(d, ignore_errors=True)
-    print(f"[{label}] world of {n} ranks: {time.time() - t0:.1f} s", flush=True)
+    stop_world(world)
+    print(f"[{label}] world of {n} ranks: {time.time() - t0:.1f} s (started "
+          f"{t0 - world['started']:.1f} s before)", flush=True)
     return out, rows
+
+
+def tp_world(label, n, overrides, prompts, base=TP_BASE, grid=None, **extra):
+    """`start_world`, then `join_world` at once."""
+    return join_world(start_world(label, n, overrides, prompts, base=base,
+                                  grid=grid, **extra))
+
+
+def run_worlds(phases):
+    """The multi-rank phases in order: (slice, label, start, run), where
+    start() starts the phase's world (`start_world`; None for a phase of
+    this process alone) and run(world=world) runs the phase on it. Each
+    world's ranks start while the phase before it runs, so their start-up
+    (about 10 s a process: the interpreter, torch, the port) overlaps that
+    phase's work; they wait at their gate until it has ended. Prints each
+    slice's time. -> {label: run's result}."""
+    out, world, pending, t0 = {}, None, None, time.time()
+    try:
+        for i, (sl, label, start, run) in enumerate(phases):
+            world = pending or (start() if start is not None else None)
+            nxt = phases[i + 1] if i + 1 < len(phases) else None
+            pending = nxt[2]() if nxt is not None and nxt[2] is not None else None
+            out[label] = run(world=world)
+            if nxt is None or nxt[0] != sl:
+                print(f"slice {sl} phases {time.time() - t0:.1f} s", flush=True)
+                t0 = time.time()
+    finally:
+        for w in (world, pending):
+            if w is not None:
+                stop_world(w)
+    return out
 
 
 def tp_rank_main(spec_path):
@@ -4187,7 +4327,8 @@ def tp_rank_main(spec_path):
     and end in its step stream, which every rank applies in lockstep.
     Then every rank runs the teacher-forced prefills of rank 0's streams
     (`stream_rows`), and the sampling rank (rank 0 under TP alone, the
-    last stage's first rank under PP) keeps the rows."""
+    last stage's first rank under PP, of replica 0 under DP) keeps the
+    rows."""
     import numpy as np
     import torch
     import torch.distributed as dist
@@ -4201,6 +4342,15 @@ def tp_rank_main(spec_path):
 
     with open(spec_path) as f:
         spec = json.load(f)
+    # wait, touching nothing on the card, until the phase before has
+    # ended (`join_world`), or this script has
+    go, parent = os.path.join(spec["out"], GO), os.getppid()
+    while not os.path.exists(go):
+        if os.getppid() != parent:
+            sys.exit(3)
+        time.sleep(0.05)
+    with open(go) as f:
+        os.environ["CHITU_TPU_COORDINATOR"] = f.read()
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = load_config(overrides=spec["overrides"])
     t0 = time.time()
@@ -4217,7 +4367,8 @@ def tp_rank_main(spec_path):
         if shared:
             dist.barrier()
     rank = eng.rank
-    res.update(rank=rank, stage=eng.group.stage, backend=eng.group.backend,
+    res.update(rank=rank, stage=eng.group.stage, replica=eng.group.replica,
+               backend=eng.group.backend,
                device=str(eng.device), weight_bytes=eng.weight_bytes(),
                pool_bytes=eng.cache.bytes(),
                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -4229,7 +4380,7 @@ def tp_rank_main(spec_path):
     # the burst's launches and pipelined windows on every rank, between
     # rank 0's marks; a checksum of every router call's selections in the
     # shadowed steps, between two more marks
-    windows, seen, routes = [0], set(), []
+    windows, seen, routes, rings = [0], set(), [], [0]
     decode_pipelined = pipeline.decode_pipelined
 
     def counted(*a, **k):
@@ -4237,6 +4388,13 @@ def tp_rank_main(spec_path):
         return decode_pipelined(*a, **k)
 
     pipeline.decode_pipelined = counted
+    prefill_ring = getattr(eng.model, "_prefill_ring", None)
+    if prefill_ring is not None:
+        def ringed(*a, **k):
+            rings[0] += 1
+            return prefill_ring(*a, **k)
+
+        eng.model._prefill_ring = ringed
     from chitu_tpu_torch.models import deepseek_v3, mixtral, moe
 
     def routing(*a, **k):
@@ -4254,10 +4412,11 @@ def tp_rank_main(spec_path):
                 continue
             if arg == "burst":
                 tk.reset_launch_counts()
-                windows[0] = 0
+                windows[0] = rings[0] = 0
             elif arg == "burst_end":
                 res["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
                 res["pipelined_windows"] = windows[0]
+                res["ring_prefills"] = rings[0]
             seen.add(arg)
         apply(msg)
 
@@ -4355,11 +4514,11 @@ def tp_rank_main(spec_path):
             rows.append(row)
             tf_routes.append(sel)
     res["routes"] = routes
-    stage = eng.model.stage
-    if stage is None or eng.group.world_rank == stage.sampler:
+    if eng.group.world_rank == eng.group.sampler:
         torch.save([r.cpu() for r in rows],
                    os.path.join(spec["out"], "tp_rows.pt"))
-    if eng.group.rank == 0 and any(s.numel() for s in tf_routes):
+    if (eng.group.rank == 0 and eng.group.replica == 0
+            and any(s.numel() for s in tf_routes)):
         # the stage's first TP rank: its layers' selections
         torch.save(tf_routes, os.path.join(spec["out"],
                                            f"tf_routes{eng.group.world_rank}.pt"))
@@ -4370,7 +4529,8 @@ def tp_rank_main(spec_path):
     distributed.shutdown()
 
 
-def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo"):
+def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo",
+             world=None):
     """A TP phase: the tp=1 reference engine, then the world of n ranks on
     the same seed. Held: every rank's backend is `backend` (gloo: the ranks
     share one card; nccl: a card each, `scripts/torch_tp_cards.py`); rank r's weight bytes are (total - norms) / n + norms and
@@ -4380,9 +4540,10 @@ def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo"):
     teacher-forced row stays within the noise of the tp=1 engine's and the
     decoded token is a near tie (`every_position`); the kernels
     in `need` launched on rank 0 in the burst; every shadowed call within
-    its limit."""
+    its limit. `world`: the phase's world, started (`start_world`)."""
     ref_eng, ref = tp_reference(torch, np, label, overrides)
-    ranks, tp_rows = tp_world(label, n, overrides, ref["prompts"])
+    ranks, tp_rows = join_world(
+        world or start_world(label, n, overrides, ref["prompts"]))
     r0 = ranks[0]
     for res in ranks:
         if res["backend"] != backend:
@@ -4546,14 +4707,15 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
 
 TP_PHASES = [
     # (label, ranks, overrides, kernels that must launch on rank 0)
-    # 8 of 32 layers: a 32-layer burst takes about two minutes through
-    # gloo, the bytes and streams hold at any depth, and
-    # scripts/torch_tp_cards.py runs all 32 on a card a rank
-    ("tp2", 2, ["models.n_layers=8"], ATTN_KERNELS),
-    ("tp2_soft_fp8", 2, ["models.n_layers=8", "quant.method=soft_fp8",
+    # 4 of 32 layers, tp4 2 (8 and 4 until the slice 16 phases came): a
+    # 32-layer burst takes about two minutes through gloo, the bytes and
+    # streams hold at any depth, and scripts/torch_tp_cards.py runs all 32
+    # on a card a rank
+    ("tp2", 2, ["models.n_layers=4"], ATTN_KERNELS),
+    ("tp2_soft_fp8", 2, ["models.n_layers=4", "quant.method=soft_fp8",
                          "quant.quant_on_load=true"],
      ATTN_KERNELS + ("quant_gemm",)),
-    ("tp4", 4, ["models.n_layers=4"], ATTN_KERNELS),
+    ("tp4", 4, ["models.n_layers=2"], ATTN_KERNELS),
 ]
 # ---------------------------------------------------------------------------
 # Slice 14: pipeline parallelism (ranks sharing the card over gloo)
@@ -4561,9 +4723,12 @@ TP_PHASES = [
 
 PP_PHASES = [
     # (label, model card, pp, tp, overrides, kernels that must launch on
-    # every rank in the burst: each stage runs them on its own layers)
-    ("pp2", LLAMA, 2, 1, [], ATTN_KERNELS),
-    ("pp2_tp2", LLAMA, 2, 2, ["models.n_layers=4"], ATTN_KERNELS),
+    # every rank in the burst: each stage runs them on its own layers).
+    # pp2 at 8 of 32 layers and pp2_tp2 at 2 since the slice 16 phases
+    # came (32 and 4 before; scripts/torch_pp_cards.py runs all 32 on a
+    # card a rank)
+    ("pp2", LLAMA, 2, 1, ["models.n_layers=8"], ATTN_KERNELS),
+    ("pp2_tp2", LLAMA, 2, 2, ["models.n_layers=2"], ATTN_KERNELS),
     ("pp2_mixtral", MIXTRAL, 2, 1, ["models.n_layers=4"],
      ATTN_KERNELS + ("grouped_gemm",)),
     ("pp2_r1", R1, 2, 1, ["models.n_layers=5"],
@@ -4638,8 +4803,30 @@ def own_deviation(torch, tk, eng, prompts, streams):
     return worst
 
 
+def pp_world_args(np, model, pp, tp, overrides, dp=1, lens=None):
+    """A PP, EP or ring phase's world: -> (the ranks' base overrides, the
+    burst's API prompts, the grid's overrides)."""
+    from chitu_tpu_torch import load_config
+
+    base = [f"models={model}"] + TP_BASE[1:]
+    V = load_config(overrides=base + list(overrides)).models.vocab_size
+    prompts = tp_prompts(np, V)
+    if lens:
+        rng = np.random.default_rng(16)
+        prompts = [[int(x) for x in rng.integers(1, V, size=n)] for n in lens]
+    grid = [f"infer.dp_size={dp}", f"infer.pp_size={pp}", f"infer.tp_size={tp}"]
+    return base, prompts, grid
+
+
+def start_pp_world(np, label, model, pp, tp, overrides, dp=1, lens=None):
+    """`start_world` for `pp_phase`."""
+    base, prompts, grid = pp_world_args(np, model, pp, tp, overrides, dp, lens)
+    return start_world(label, dp * pp * tp, overrides, prompts, base=base,
+                       grid=grid)
+
+
 def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
-             backend="gloo"):
+             backend="gloo", dp=1, lens=None, world=None):
     """A PP or EP phase: the world of pp x tp ranks first (they share the
     card with nothing else), then the one-rank reference engine on the
     same seed, fed the HTTP request's prompt tokens as the world saw them.
@@ -4654,21 +4841,29 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
     the reference's is printed; its burst streams, the HTTP one included,
     equal the reference's or part at a near tie, and hold at every
     position (`every_position`; an MoE card under TP holds the median
-    row there); every shadowed call of rank 0 within its limit. -> rank
-    0's launches in the burst."""
-    from chitu_tpu_torch import load_config
-
-    base = [f"models={model}"] + TP_BASE[1:]
-    prompts = tp_prompts(np, load_config(overrides=base + list(overrides))
-                         .models.vocab_size)
-    grid = [f"infer.pp_size={pp}", f"infer.tp_size={tp}"]
-    ranks, rows = tp_world(label, pp * tp, overrides, prompts, base=base,
-                           grid=grid)
+    row there); every shadowed call of rank 0 within its limit. Under dp
+    (the slice 16 phases: `lens`, the burst's prompt lengths, else
+    TP_LENS): dp x pp x tp ranks, each replica's rank holding the bytes
+    of its (stage, TP index), its pool over dp under the ring KV pool; no
+    pipelined window (the JAX package runs dp x pp in sequence); the
+    ranks of a (replica, stage) routed alike; the lone request's tokens
+    equal the reference's unless tp > 1 or the ring pool merges the
+    attention partials in another order. `world`: the phase's world,
+    started (`start_pp_world`). -> rank 0's launches in the burst."""
+    base, prompts, _ = pp_world_args(np, model, pp, tp, overrides, dp, lens)
+    ring_kv = dp > 1 and "infer.ring_kv=true" in overrides
+    ring_prefill = dp > 1 and "infer.ring_prefill=true" in overrides
+    ranks, rows = join_world(world or start_pp_world(
+        np, label, model, pp, tp, overrides, dp, lens))
     free_memory(torch)
     r0 = ranks[0]
     ref_eng, ref = tp_reference(torch, np, label, overrides, base=base,
-                                http_prompt=r0["http_prompt"])
-    want = stage_bytes(ref_eng, pp, tp)
+                                http_prompt=r0["http_prompt"], prompts=prompts)
+    want = stage_bytes(ref_eng, pp, tp) * dp
+    if ring_kv:
+        if any(pb % dp for _, pb in want):
+            raise AssertionError(f"[{label}] a pool does not stripe over {dp}")
+        want = [(wb, pb // dp) for wb, pb in want]
     for res, (wb, pb) in zip(ranks, want):
         print(f"[{label}] rank {res['rank']} stage {res['stage']}: weights "
               f"{res['weight_bytes']} bytes ({res['weight_bytes'] / 2**30:.3f} "
@@ -4687,19 +4882,26 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
             if res["launches"].get(k, 0) <= 0:
                 raise AssertionError(f"[{label}] kernel {k} did not launch on "
                                      f"rank {res['rank']} in the burst")
-    if pp > 1 and r0["pipelined_windows"] <= 0:
+    if pp > 1 and dp == 1 and r0["pipelined_windows"] <= 0:
         raise AssertionError(f"[{label}] the burst ran no pipelined window")
+    if dp > 1 and any(res["pipelined_windows"] for res in ranks):
+        raise AssertionError(f"[{label}] a pipelined window ran under dp")
+    if ring_prefill and not all(res["ring_prefills"] for res in ranks):
+        raise AssertionError(f"[{label}] a rank ran no ring prefill in the "
+                             f"burst: {[r['ring_prefills'] for r in ranks]}")
     # every rank of a stage routed the shadowed steps' tokens to the same
     # experts (the all-reduces hand each rank the same hidden state)
     moe = model in (MIXTRAL, R1)
-    for p in range(pp):
-        stage = [res["routes"] for res in ranks if res["stage"] == p]
-        if moe and not all(stage):
-            raise AssertionError(f"[{label}] stage {p}: a rank recorded no "
-                                 f"router call: {[len(r) for r in stage]}")
-        if any(r != stage[0] for r in stage):
-            raise AssertionError(f"[{label}] stage {p}: the ranks' router "
-                                 f"checksums differ: {stage}")
+    for d in range(dp):
+        for p in range(pp):
+            stage = [res["routes"] for res in ranks
+                     if (res["replica"], res["stage"]) == (d, p)]
+            if moe and not all(stage):
+                raise AssertionError(f"[{label}] stage {p}: a rank recorded no "
+                                     f"router call: {[len(r) for r in stage]}")
+            if any(r != stage[0] for r in stage):
+                raise AssertionError(f"[{label}] stage {p}: the ranks' router "
+                                     f"checksums differ: {stage}")
     routes = [len(res["routes"]) for res in ranks]
     if moe:
         print(f"[{label}] router checksums of the shadowed steps: {routes} "
@@ -4711,17 +4913,21 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
     lone_prompt = prompts[0][:64]
     lone_ref = stream_rows(torch, tk, ref_eng, lone_prompt, r0["lone"])
     lone_diff = (rows[-1].to(lone_ref.device) - lone_ref).abs().max().item()
+    # the sequential path at the one-rank shapes runs the same arithmetic
+    # only without a ring: the ring pool merges the partials in another
+    # order, ring prefill attends in plain PyTorch
+    exact = tp == 1 and not ring_kv and not ring_prefill
     print(f"[{label}] lone request: {len(r0['lone'])} tokens, equal to the "
           f"one-rank engine's: {r0['lone'] == ref['lone']}; teacher-forced "
           f"logits' largest difference {lone_diff} (predicted "
-          f"{0 if tp == 1 else 'the TP sums noise'})", flush=True)
-    if tp == 1 and r0["lone"] != ref["lone"]:
+          f"{0 if exact else 'the TP sums or ring merge noise'})", flush=True)
+    if exact and r0["lone"] != ref["lone"]:
         raise AssertionError(f"[{label}] the lone request's tokens differ from "
                              "the one-rank engine's")
     got = r0["api"] + [r0["http"]]
     want_streams = ref["api"] + [ref["http"]]
     all_prompts = prompts + [r0["http_prompt"]]
-    if tp > 1:
+    if not exact:
         got, want_streams = got + [r0["lone"]], want_streams + [ref["lone"]]
         all_prompts = all_prompts + [lone_prompt]
     # an MoE card's decode routes some tokens to other experts than its
@@ -4738,7 +4944,7 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
     div = near_tie(torch, tk, ref_eng, label, all_prompts, got, want_streams,
                    moe=moe, moe_limit=tie)
     world_routes = None
-    if moe and tp > 1:
+    if moe and (tp > 1 or dp > 1):
         # the stage-first ranks' selections, layers in stage order
         firsts = sorted((res for res in ranks if "tf_routes" in res),
                         key=lambda res: res["stage"])
@@ -4754,13 +4960,17 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
     del ref_eng
     free_memory(torch)
     stats = dict(
-        phase=label, card=card, model=model, pp=pp, tp=tp,
+        phase=label, card=card, model=model, dp=dp, pp=pp, tp=tp,
+        ring_kv=ring_kv, ring_prefill=ring_prefill,
+        rank_ring_prefills=[r.get("ring_prefills") for r in ranks],
+        prompt_lens=[len(p) for p in prompts],
         layers=ref["layers"], backend=r0["backend"], streams_equal=same,
         streams=len(got), divergences=div, every_position=pos,
         moe_limit=tie if moe else None, one_rank_own_deviation=own,
         lone_tokens_equal=r0["lone"] == ref["lone"],
         lone_logits_max_abs_diff=lone_diff,
         rank_stage=[r["stage"] for r in ranks],
+        rank_replica=[r["replica"] for r in ranks],
         rank_weight_bytes=[r["weight_bytes"] for r in ranks],
         rank_pool_bytes=[r["pool_bytes"] for r in ranks],
         predicted_rank_bytes=want,
@@ -4791,7 +5001,8 @@ EP_PHASES = [
     # (label, model card, pp, tp, overrides, kernels that must launch on
     # every rank in the burst). R1 at 4 layers is 3 dense and 1 MoE, at 5
     # 3 and 2; each rank of tp2_r1 holds 64 heads and 128 experts, of
-    # tp4_r1_soft_fp8 32 heads and 64 experts in e4m3.
+    # tp4_r1_soft_fp8 32 heads and 64 experts in e4m3. tp2_mixtral stays
+    # at 8 layers: at 4 a decoded token left the near-tie rule's reach.
     ("tp2_mixtral", MIXTRAL, 1, 2, ["models.n_layers=8"],
      ATTN_KERNELS + ("grouped_gemm",)),
     ("tp2_r1", R1, 1, 2, ["models.n_layers=4"], R1_EP_KERNELS),
@@ -4800,6 +5011,168 @@ EP_PHASES = [
     ("pp2_tp2_mixtral", MIXTRAL, 2, 2, ["models.n_layers=4"],
      ATTN_KERNELS + ("grouped_gemm",)),
     ("pp2_tp2_r1", R1, 2, 2, ["models.n_layers=5"], R1_EP_KERNELS),
+]
+
+
+# ---------------------------------------------------------------------------
+# Slice 16: data parallelism, the ring KV pool and ring prefill (ranks
+# sharing the card over gloo)
+# ---------------------------------------------------------------------------
+
+RING_DP = 2
+
+
+def ring_kernel_cases(torch, tk, dev):
+    """B1 in its partials mode on the ring KV pool: the Llama-3-8B decode
+    batch of the B1 case (16 rows, 32 query heads on 8 KV heads, pages of
+    64, contexts up to 2,047, a row that is not valid and a padded bucket
+    row), its 528 pages shuffled and striped over 2 ranks (global page g
+    on rank g // 264). Each rank's launch on its local table (the other
+    rank's pages masked) appends the new rows it owns and writes its split
+    partials; the two ranks' partials joined on the split axis and merged
+    by `decode_merge` are held against the same in plain PyTorch (row
+    limit ROW_RTOL; each rank's pool bytes equal) and against the
+    whole-pool plain decode; two runs give equal bits. Times: one rank's
+    partials launch (`ms`), the plain partials of one rank, and SDPA over
+    that rank's gathered owned K/V; the bound counts the pool rows one
+    rank owns in the rows' contexts. A second row: the merge of both
+    ranks' 2 x S splits (the ring KV decode's shape: rank r's split s as
+    split r * S + s) against its plain version on the same partials, its
+    bound the partials read and the output written."""
+    import torch.nn.functional as F
+
+    from chitu_tpu_torch.ops import attention as plain
+    from chitu_tpu_torch.ops.attention_ring import ring_local_block_table
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    H, KV, D, PAGE, L, LAYER, B, MP = 32, 8, 128, 64, 2, 1, 16, 33
+    M, G, P = 2 * KV * D, H // KV, B * MP
+    PL = P // RING_DP
+    scale = D ** -0.5
+    bf = torch.bfloat16
+
+    def randn(*shape, s=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
+
+    pool0 = randn(L, P, PAGE, M, s=0.5)
+    bts = torch.randperm(P, generator=g, device=dev).to(torch.int32).reshape(B, MP)
+    seq = torch.randint(1, MP * PAGE - PAGE, (B,), generator=g,
+                        device=dev).to(torch.int32)
+    seq[0] = 2047
+    valid = torch.ones(B, dtype=torch.bool, device=dev)
+    valid[3] = False
+    valid[B - 1] = False
+    bts[B - 1] = -1
+    seq[B - 1] = 0
+    q, k, v = randn(B, H, D), randn(B, KV, D), randn(B, KV, D)
+    ranks = [(pool0[:, r * PL:(r + 1) * PL].contiguous(),
+              ring_local_block_table(bts, PL, r)) for r in range(RING_DP)]
+
+    def kernel(pools):
+        parts = [tk.attend_decode_partials(q, p, LAYER, k, v, lbt, seq, valid,
+                                           PAGE, KV, D, scale=scale)
+                 for p, (_, lbt) in zip(pools, ranks)]
+        return parts, tk.decode_merge(torch.cat([o for o, _ in parts], 2),
+                                      torch.cat([m for _, m in parts], 2))
+
+    name = "attend_decode_partials"
+    pools_k = [lp.clone() for lp, _ in ranks]
+    parts, out_k = kernel(pools_k)
+    S = parts[0][0].shape[2]
+    _, chunk = tk.decode_split(B, KV, MP, PAGE, tk._sm_count(dev))
+    pools_p = [lp.clone() for lp, _ in ranks]
+    parts_p = [tk.attend_decode_partials_plain(
+        q, pp, LAYER, k, v, lbt, seq, valid, PAGE, KV, D, scale=scale, S=S,
+        chunk=chunk) for pp, (_, lbt) in zip(pools_p, ranks)]
+    out_p = tk.decode_merge_plain(torch.cat([o for o, _ in parts_p], 2),
+                                  torch.cat([m for _, m in parts_p], 2)
+                                  ).reshape(B, H, D)
+    for r in range(RING_DP):
+        if not torch.equal(pools_k[r], pools_p[r]):
+            raise AssertionError(f"{name}: rank {r}'s pool bytes differ from "
+                                 "the plain owner-write append")
+    err, rel = compare_rows(torch, name, out_k, out_p, valid)
+    whole = tk.attend_decode_fused_plain(q, pool0.clone(), LAYER, k, v, bts,
+                                         seq, valid, PAGE, KV, D, scale=scale)
+    _, rel_whole = compare_rows(torch, f"{name} (whole pool)", out_k, whole,
+                                valid)
+    bit_equal(torch, name, out_k, kernel([lp.clone() for lp, _ in ranks])[1])
+    p0, lbt0 = pools_k[0], ranks[0][1]
+    args = (LAYER, k, v, lbt0, seq, valid, PAGE, KV, D)
+    ms = device_ms(torch, lambda: tk.attend_decode_partials(q, p0, *args,
+                                                            scale=scale))
+    o_all = torch.cat([o for o, _ in parts], 2)
+    ml_all = torch.cat([m for _, m in parts], 2)
+    plain_ms = call_ms(torch, lambda: tk.attend_decode_partials_plain(
+        q, pools_p[0], *args, scale=scale, S=S, chunk=chunk))
+    # library: SDPA over rank 0's gathered owned K/V (its context rows)
+    kg, vg = plain.unpack_pool(plain._gather(p0, LAYER, lbt0), KV, D)
+    kg, vg = kg.transpose(1, 2).contiguous(), vg.transpose(1, 2).contiguous()
+    cols = torch.arange(kg.shape[2], device=dev)[None, :]
+    owned = (lbt0 >= 0).repeat_interleave(PAGE, dim=1)
+    mask = (cols <= seq[:, None].long()) & owned
+    lib_ms = device_ms(torch, lambda: F.scaled_dot_product_attention(
+        q[:, :, None, :], kg, vg, attn_mask=mask[:, None, None, :],
+        scale=scale, enable_gqa=True))
+    ctx = int(mask[:B - 1].sum().item())  # rank 0's pool rows read
+    n_live = int(valid.sum().item())
+    nbytes = (ctx * 2 * KV * D * 2 + q.numel() * 2 + 2 * k.numel() * 2
+              + n_live * M * 2 + o_all.numel() * 4 // RING_DP
+              + ml_all.numel() * 4 // RING_DP)
+    bnd, by = bound_ms(nbytes, 4 * H * D * (ctx + B))
+    yield dict(name=name, kernel=name, variant="ring", route="cuda",
+               source=ATTN_SRC, replaces="chitu_tpu/ops/pallas_attention.py:727",
+               max_abs_err=err, max_row_rel_err=rel,
+               max_row_rel_err_vs_whole_pool=rel_whole, ms=ms,
+               plain_ms=plain_ms, bound_ms=bnd,
+               bound_by=by, library_ms=lib_ms,
+               shape=f"B={B} H={H} KV={KV} D={D} page={PAGE} mp={MP} "
+                     f"ranks={RING_DP} pages_a_rank={PL} splits={S} "
+                     f"rank0_ctx_rows={ctx}")
+
+    name = "decode_merge"
+    merged = tk.decode_merge(o_all, ml_all)
+    live = (ml_all[..., 1] > 0).any(2).reshape(B, H)
+    m_err, m_rel = compare_rows(
+        torch, name, merged,
+        tk.decode_merge_plain(o_all, ml_all).reshape(B, H, D), live)
+    bit_equal(torch, name, merged, tk.decode_merge(o_all, ml_all))
+    m_ms = device_ms(torch, lambda: tk.decode_merge(o_all, ml_all))
+    m_plain = call_ms(torch, lambda: tk.decode_merge_plain(o_all, ml_all))
+    m_bytes = o_all.numel() * 4 + ml_all.numel() * 4 + merged.numel() * 2
+    m_bnd, m_by = bound_ms(m_bytes, 3 * o_all.numel(), F32_FLOP_PER_S)
+    yield dict(name=name, kernel=name, variant="ring", route="cuda",
+               source=ATTN_SRC, replaces="chitu_tpu/ops/pallas_attention.py:727",
+               max_abs_err=m_err, max_row_rel_err=m_rel, ms=m_ms,
+               plain_ms=m_plain, bound_ms=m_bnd, bound_by=m_by,
+               library_ms=None,
+               shape=f"B={B} KV={KV} splits={RING_DP}x{S} G={G} D={D}")
+
+
+RING_KERNELS = ("attend_decode_partials", "decode_merge")
+RING_PHASES = [
+    # (label, model card, dp, pp, tp, overrides, kernels that must launch on
+    # every rank in the burst, the burst's prompt lengths (None: TP_LENS)).
+    # Llama-3-8B at its 32 layers on two replicas; at 8 with four ranks
+    # (ranks sharing the card wait about 1.3 ms a gloo all-reduce, one a
+    # layer a decode step; scripts/torch_gloo_exchange.py).
+    # R1 ring KV: the latent row's ring decode and every ring prefill are
+    # plain PyTorch in this slice; its MoE layers split their tokens over
+    # the two replicas
+    ("dp2_ring_kv", LLAMA, RING_DP, 1, 1,
+     ["models.n_layers=32", "infer.ring_kv=true"], RING_KERNELS, None),
+    ("dp2_ring_prefill", LLAMA, RING_DP, 1, 1,
+     ["models.n_layers=32", "infer.ring_prefill=true",
+      "infer.max_seq_len=4224", "infer.prefill_chunk=4096"],
+     ("attend_decode_fused",), (2048, 4096)),
+    ("dp2_tp2_ring_kv", LLAMA, RING_DP, 1, 2,
+     ["models.n_layers=8", "infer.ring_kv=true"], RING_KERNELS, None),
+    ("dp2_pp2_ring_kv", LLAMA, RING_DP, 2, 1,
+     ["models.n_layers=8", "infer.ring_kv=true"], RING_KERNELS, None),
+    ("dp2_ring_kv_r1", R1, RING_DP, 1, 1,
+     ["models.n_layers=4", "infer.ring_kv=true"],
+     ("absorb_matmul", "grouped_gemm"), None),
 ]
 
 
@@ -4928,6 +5301,8 @@ def main():
     from chitu_tpu_torch.ops.qtensor import QuantKind
     from chitu_tpu_torch.quantize import transforms as qt
 
+    from chitu_tpu_torch import load_config
+
     t_main = time.time()
     name = torch.cuda.get_device_name(0)
     card = card_line()
@@ -4963,7 +5338,8 @@ def main():
                       kernel_cases(torch, tk, plain, dev,
                                    geom=(4, 2, 32, "d32")),
                       dense_gemm_cases(torch, dg, dev),
-                      slice12_kernel_cases(torch, tk, plain, dev)):
+                      slice12_kernel_cases(torch, tk, plain, dev),
+                      ring_kernel_cases(torch, tk, dev)):
             for res in cases:
                 res["card"] = card
                 if res.get("bound_by") == "bytes" and any(
@@ -5057,25 +5433,28 @@ def main():
     torch.cuda.empty_cache()
     print(f"slice 12 phases {time.time() - t0:.1f} s", flush=True)
 
-    # slice 13: tensor parallelism over ranks sharing the card, then AWQ
-    t0 = time.time()
+    # slices 13-16: tensor parallelism (then AWQ), pipeline parallelism,
+    # expert parallelism, data parallelism with the ring KV pool and ring
+    # prefill, over ranks sharing the card
+    worlds = []
     for label, n, ovr, need in TP_PHASES:
-        tp_phase(torch, np, tk, card, label, n, ovr, need)
-    awq_phase(torch, np, tk, card)
-    print(f"slice 13 phases {time.time() - t0:.1f} s", flush=True)
-
-    # slice 14: pipeline parallelism over ranks sharing the card
-    t0 = time.time()
-    for label, model, pp, tp, ovr, need in PP_PHASES:
-        pp_phase(torch, np, tk, card, label, model, pp, tp, ovr, need)
-    print(f"slice 14 phases {time.time() - t0:.1f} s", flush=True)
-
-    # slice 15: expert parallelism over ranks sharing the card
-    t0 = time.time()
-    for label, model, pp, tp, ovr, need in EP_PHASES:
-        phase[label] = pp_phase(torch, np, tk, card, label, model, pp, tp,
-                                ovr, need)
-    print(f"slice 15 phases {time.time() - t0:.1f} s", flush=True)
+        worlds.append((13, label, functools.partial(
+            start_world, label, n, ovr,
+            tp_prompts(np, load_config(overrides=TP_BASE + ovr).models.vocab_size)),
+            functools.partial(tp_phase, torch, np, tk, card, label, n, ovr, need)))
+    worlds.append((13, "awq", None,
+                   lambda world: awq_phase(torch, np, tk, card)))
+    for sl, table in ((14, PP_PHASES), (15, EP_PHASES), (16, RING_PHASES)):
+        for label, model, *rest in table:
+            dp, pp, tp, ovr, need, lens = (
+                (1, *rest, None) if sl < 16 else rest)
+            worlds.append((sl, label, functools.partial(
+                start_pp_world, np, label, model, pp, tp, ovr, dp, lens),
+                functools.partial(pp_phase, torch, np, tk, card, label, model,
+                                  pp, tp, ovr, need, dp=dp, lens=lens)))
+    got = run_worlds(worlds)
+    phase.update({label: got[label] for _, table in
+                  ((15, EP_PHASES), (16, RING_PHASES)) for label, *_ in table})
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []

@@ -553,10 +553,19 @@ __device__ __forceinline__ void store_bf16x8(bf16* p, const float (&v)[8],
 // 0 appends the row after its reads (no block reads slot tot from the
 // pool). Not fused (B4): every row from the pool, the new token's
 // included. A split that starts beyond its row's context writes an empty
-// partial (m = -inf, l = 0).
+// partial (m = -inf, l = 0). PARTIALS (a template parameter, so the
+// other instantiations compile to the kernel without it; the ring KV
+// decode on a rank's local table): a table entry < 0 is a masked page:
+// its keys count nowhere (the new token's too, fused) and the tile that
+// holds it takes the masked path; the local tables mark the pages another
+// rank owns so. Every split then writes its partial (m in base 2, l,
+// unnormalized O) even at S = 1 and no merge follows: the ring merges
+// the dp ranks' splits (`decode_merge_kernel`). Without it an entry < 0
+// reads page 0, its keys masked by position alone (a padded bucket row
+// attends page 0's first key).
 // ---------------------------------------------------------------------------
 
-template <int D, typename PT>
+template <int D, typename PT, bool PARTIALS>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
 decode_kernel(const bf16* __restrict__ q, PT* __restrict__ pool,
               const bf16* __restrict__ knew, const bf16* __restrict__ vnew,
@@ -596,10 +605,11 @@ decode_kernel(const bf16* __restrict__ q, PT* __restrict__ pool,
 #pragma unroll
     for (int e = 0; e < 4; ++e) o[dn][e] = 0.f;
 
-  // page id of key position pos (-1: beyond the split: zeros)
+  // page id of key position pos (-1: beyond the split or, PARTIALS, a
+  // masked page: zeros, and the key counts nowhere)
   auto pid_of = [&](int pos) {
     const int pi = pos / page;
-    return pos >= end ? -1 : pi < mp ? max(bt[pi], 0) : 0;
+    return pos >= end ? -1 : pi < mp ? (PARTIALS ? bt[pi] : max(bt[pi], 0)) : 0;
   };
   // the copies of tile i, from the page ids in its slot
   auto issue = [&](int i) {
@@ -646,15 +656,21 @@ decode_kernel(const bf16* __restrict__ q, PT* __restrict__ pool,
     // the page ids of tile i + NST: loaded now, stored after the compute
     const int nxt = tid < BK ? pid_of(start + (i + NST) * BK + tid) : 0;
     const int t0 = start + i * BK;
-    // every key in range and in the table (fused: slot tot needs none)
+    // every key in range, in the table (fused: slot tot needs none) and,
+    // PARTIALS, on a page that is not masked
     const int last = t0 + BK - 1;
-    const bool full =
-        last < end && min(last, fused ? tot - 1 : tot) / page < mp;
+    const int* pid = ring.ptab(i);
+    static_assert(BK == 64, "a lane checks two page ids of a tile");
+    bool full = last < end && min(last, fused ? tot - 1 : tot) / page < mp;
+    if constexpr (PARTIALS)
+      full = __all_sync(0xffffffffu,
+                        full && pid[lane] >= 0 && pid[lane + 32] >= 0);
     warp_tile<D, 16>(
         qa, ring.ktile(st), ring.vtile(st), warp * 16, full, scale, softcap,
         [&](int j, int) {
           const int kp = t0 + j;
-          return kp < end && ((fused && kp == tot) || kp / page < mp);
+          return kp < end && (!PARTIALS || pid[j] >= 0) &&
+                 ((fused && kp == tot) || kp / page < mp);
         },
         o, m, l, lane);
     if (tid < BK) ring.ptab(i + NST)[tid] = nxt;
@@ -668,7 +684,7 @@ decode_kernel(const bf16* __restrict__ q, PT* __restrict__ pool,
     const int rr = e / (D / 8), c = e % (D / 8);
     float Mx, L, acc[8];
     merge_row<D, ATT_WARPS>(stash, 0, 1, ATT_WARPS, rr, c, Mx, L, acc);
-    if (S == 1) {
+    if (S == 1 && !PARTIALS) {
       store_bf16x8(out + (int64_t(b) * H + h * G + rr) * D + c * 8, acc,
                    L > 0.f ? 1.f / L : 0.f);
     } else {
@@ -974,7 +990,7 @@ int launch_prefill(const void* q, const void* pool, const void* bts,
       stream);
 }
 
-template <int D, typename PT>
+template <int D, typename PT, bool PARTIALS = false>
 int launch_decode(const void* q, void* pool, const void* k, const void* v,
                   const void* block_tables, const void* seq_lens,
                   const void* valid, void* out, void* part_o, void* part_ml,
@@ -983,9 +999,10 @@ int launch_decode(const void* q, void* pool, const void* k, const void* v,
                   int S, int chunk, cudaStream_t stream) {
   static bool attr_set = false;
   const size_t smem = Ring<D, PT, DEC_STAGES, ATT_WARPS>::SMEM;
-  if (const int e = set_smem(decode_kernel<D, PT>, smem, attr_set)) return e;
+  if (const int e = set_smem(decode_kernel<D, PT, PARTIALS>, smem, attr_set))
+    return e;
   dim3 grid(B, KV, S);
-  decode_kernel<D, PT><<<grid, ATT_WARPS * 32, smem, stream>>>(
+  decode_kernel<D, PT, PARTIALS><<<grid, ATT_WARPS * 32, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<PT*>(pool),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const int*>(block_tables), static_cast<const int*>(seq_lens),
@@ -993,7 +1010,7 @@ int launch_decode(const void* q, void* pool, const void* k, const void* v,
       static_cast<float*>(part_o), static_cast<float2*>(part_ml), fused,
       layer, P, page, M, mp, KV, G, scale, window, softcap, chunk);
   if (const cudaError_t e = cudaGetLastError()) return int(e);
-  if (S > 1)
+  if (S > 1 && !PARTIALS)
     decode_merge_kernel<<<B * KV * G, 64, 0, stream>>>(
         static_cast<const float*>(part_o),
         static_cast<const float2*>(part_ml), static_cast<bf16*>(out), G, D,
@@ -1650,6 +1667,43 @@ extern "C" int chitu_attend_decode(
           static_cast<cudaStream_t>(stream));
     });
   });
+}
+
+// B1 (fused 1) or B4 (fused 0) in its partials mode: every split's partial
+// into part_o [B, KV, S, G, D] f32 and part_ml [B, KV, S, G] (m in base 2,
+// l), S = 1 included; no merge. The ring KV decode runs it on a rank's
+// local table (entries < 0: pages of other ranks).
+extern "C" int chitu_attend_decode_partials(
+    const void* q, void* pool, const void* k, const void* v,
+    const void* block_tables, const void* seq_lens, const void* valid,
+    void* part_o, void* part_ml, int fused, int B, int layer, int P,
+    int page, int M, int mp, int KV, int G, int D, float scale, int window,
+    float softcap, int fp8, int S, int chunk, void* stream) {
+  if (!decode_ok(G, S, chunk, part_o, part_ml) || !part_o || !part_ml ||
+      (fused && !(k && v && valid)))
+    return kUnsupported;
+  return with_pool(fp8, [&](auto pt) {
+    using PT = typename decltype(pt)::type;
+    return with_head_dim(D, [&](auto d) {
+      return launch_decode<decltype(d)::value, PT, true>(
+          q, pool, k, v, block_tables, seq_lens, valid, nullptr, part_o,
+          part_ml, fused, B, layer, P, page, M, mp, KV, G, scale, window,
+          softcap, S, chunk, static_cast<cudaStream_t>(stream));
+    });
+  });
+}
+
+// S partials of each of the rows (b, h) x G merged in split order ->
+// out [rows, G, D] bf16 (the second launch of B1 / B4, alone: the ring
+// KV decode's merge of every dp rank's splits).
+extern "C" int chitu_decode_merge(const void* part_o, const void* part_ml,
+                                  void* out, int rows, int G, int D, int S,
+                                  void* stream) {
+  if (rows < 1 || G < 1 || G > 16 || S < 1 || D % 8) return kUnsupported;
+  decode_merge_kernel<<<rows * G, 64, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(part_o), static_cast<const float2*>(part_ml),
+      static_cast<bf16*>(out), G, D, S);
+  return int(cudaGetLastError());
 }
 
 extern "C" int chitu_attend_prefill(const void* q, const void* pool,

@@ -23,19 +23,22 @@ The engine runs on CUDA unless `device="cpu"` is passed; with no GPU and
 no explicit device it raises. Configurations that later work brings raise
 NotImplementedError naming the ROADMAP queue A item.
 
-Tensor and pipeline parallelism (`infer.tp_size` = N, the Llama family;
-`infer.pp_size` = P, every family, at tp 1 for Mixtral and DeepSeek):
-P x N processes, one engine each, joined by
-`parallel.distributed.maybe_initialize`; rank r = p * N + t runs on
-`cuda:(r % device_count)` and holds its stage's layers (stage p), its
-shard of them and of their KV heads (TP index t). Every rank runs the
-same host state machine. Requests enter at rank 0, the controller
-(`submit`, `cancel`); each `step` of rank 0 broadcasts what arrived
-since the last one, with its clock and flags, and every rank applies it
-before it schedules, so all ranks launch the same programs. The other
-ranks run `follow` until rank 0 terminates; a step that fails on any
-rank ends the world (`distributed.end_world` under the server, the
-process's own error elsewhere).
+Tensor, pipeline and data parallelism (`infer.tp_size` = N,
+`infer.pp_size` = P, `infer.dp_size` = D, every family): D x P x N
+processes, one engine each, joined by
+`parallel.distributed.maybe_initialize`; rank r = (d * P + p) * N + t
+runs on `cuda:(r % device_count)` and holds its stage's layers (stage
+p), its shard of them and of their KV heads (TP index t), the same as
+every other replica d. With `infer.ring_kv` the pool's pages stripe over
+the replicas (each holds num_pages / D of them, `kvcache.PagedKVCache`);
+with `infer.ring_prefill` a whole prompt's tokens do (`parallel.ring`).
+Every rank runs the same host state machine. Requests enter at rank 0,
+the controller (`submit`, `cancel`); each `step` of rank 0 broadcasts
+what arrived since the last one, with its clock and flags, and every
+rank applies it before it schedules, so all ranks launch the same
+programs. The other ranks run `follow` until rank 0 terminates; a step
+that fails on any rank ends the world (`distributed.end_world` under the
+server, the process's own error elsewhere).
 """
 
 from __future__ import annotations
@@ -104,11 +107,6 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
         raise ValueError(
             f"infer.op_impl={infer.op_impl!r}: expected one of {OP_IMPLS}")
     todo = []
-    if infer.dp_size > 1:
-        todo.append(
-            "dp_size > 1: data parallelism comes with the ring slice (ROADMAP "
-            "A.3; in the JAX package dp carries the ring KV pool and ring "
-            "prefill)")
     tp, moe = infer.tp_size, cfg.models.moe
     if tp > 1 and moe is not None and (
             moe.n_routed_experts % tp or cfg.models.n_heads % tp):
@@ -124,8 +122,22 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
     if infer.tp_size > 1 and KIND_BY_METHOD.get(quant.method) == QuantKind.W8A8:
         # a row-parallel input's per-token scale needs the whole row
         todo.append("W8A8 under tp_size > 1 (ROADMAP C)")
-    if infer.ring_prefill or infer.ring_kv:
-        todo.append("ring prefill / ring KV: the ring slice (ROADMAP A.3)")
+    if infer.ring_kv and infer.dp_size > 1:
+        # the JAX engine's ring pool checks (chitu_tpu/engine.py:236-258);
+        # the model-dependent ones follow in Engine.__init__
+        if infer.pp_size > 1 and cfg.models.n_layers % infer.pp_size:
+            raise ValueError(
+                "ring_kv with pp needs n_layers divisible by pp_size "
+                "(the pool's layer dim shards contiguously over 'pp')"
+            )
+        if infer.ring_prefill:
+            raise ValueError(
+                "ring_kv and ring_prefill both ride the 'dp' axis; "
+                "enable one"
+            )
+    if infer.ring_prefill and infer.dp_size > 1 and infer.pp_size > 1:
+        todo.append("ring_prefill under pp_size > 1: each stage would relay "
+                    "its slice of the prompt (ROADMAP A.7)")
     if (
         quant.method not in ("none", "")
         and not quant.quant_on_load
@@ -148,7 +160,7 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
 
 class Engine:
     """One inference engine instance on one device (one rank's, under
-    tensor or pipeline parallelism). `params`: named tensors
+    tensor, pipeline or data parallelism). `params`: named tensors
     (`params_from_numpy`), or a function of the model that gives them
     (each rank its own stage and shard: `lambda m: params_from_numpy(tree,
     m.layout)`)."""
@@ -164,23 +176,23 @@ class Engine:
         set_fp8_act(cfg.quant.fp8_act)
         set_op_impl(cfg.infer.op_impl)
         self.group = None
-        pp, tp = cfg.infer.pp_size, cfg.infer.tp_size
+        dp, pp, tp = cfg.infer.dp_size, cfg.infer.pp_size, cfg.infer.tp_size
         if distributed.maybe_initialize(cfg, device):
             self.group = distributed.tp_group()
             mesh_from_config(cfg, self.group.world_size)
-            if self.group.world_size != pp * tp:
+            if self.group.world_size != dp * pp * tp:
                 raise NotImplementedError(
-                    f"{self.group.world_size} processes for pp_size={pp} x "
-                    f"tp_size={tp}: the world is one rank a (stage, TP "
-                    "index); replicas (dp) come with ROADMAP A.3")
+                    f"{self.group.world_size} processes for dp_size={dp} x "
+                    f"pp_size={pp} x tp_size={tp}: the world is one rank a "
+                    "(replica, stage, TP index)")
             device = self.group.device
             init_logger(rank=self.group.world_rank)
-        elif pp * tp > 1:
+        elif dp * pp * tp > 1:
             raise ValueError(
-                f"pp_size={pp} x tp_size={tp} needs num_processes={pp * tp} "
-                "and a coordinator (one process a rank; `python -m "
-                "chitu_tpu_torch infer.pp_size=P infer.tp_size=N` starts "
-                "them on one host)")
+                f"dp_size={dp} x pp_size={pp} x tp_size={tp} needs "
+                f"num_processes={dp * pp * tp} and a coordinator (one process "
+                "a rank; `python -m chitu_tpu_torch infer.dp_size=D "
+                "infer.pp_size=P infer.tp_size=N` starts them on one host)")
         # rank 0 of the world is the controller
         self.rank = self.group.world_rank if self.group is not None else 0
         # rank 0's requests and controls since its last step, and the
@@ -282,6 +294,23 @@ class Engine:
                 "prefix_cache requires cache_type=paged (got %s); disabled",
                 cache_type,
             )
+        ring = cfg.infer.ring_kv and dp > 1
+        if cfg.infer.ring_kv and not ring:
+            logger.warning("ring_kv requested but dp_size <= 1; disabled")
+        if ring:
+            # the ring pool (ops/attention_ring.py): pages stripe over the
+            # replicas; composes with tp (whole KV heads a rank) and pp (a
+            # stage's pool holds its own layers)
+            if not getattr(self.model, "supports_ring_kv", False):
+                raise ValueError(
+                    "ring_kv: model family lacks a ring-shardable pool"
+                )
+            if tp > 1 and not getattr(self.model, "kv_tp_shard", False):
+                raise ValueError(
+                    "ring_kv with tp > 1 needs a TP-shardable KV pool "
+                    "(n_kv_heads divisible by tp, 128-lane-aligned shards)"
+                )
+            num_pages = (num_pages + dp - 1) // dp * dp
         self.cache = PagedKVCache(
             spec["n_layers"],
             num_pages,
@@ -299,14 +328,16 @@ class Engine:
             # shared — disabled loudly above instead of a cache that never
             # hits
             prefix_cache=cfg.infer.prefix_cache and cache_type == "paged",
+            ring=dp if ring else 1,
         )
         if cache_type == "nop":
             from chitu_tpu_torch.kvcache import NopAllocator
 
             self.cache.allocator = NopAllocator(page_size)
         logger.info(
-            "KV cache: %d pages x %d tokens (%.1f MiB)",
+            "KV cache: %d pages x %d tokens (%.1f MiB%s)",
             num_pages, cfg.infer.page_size, self.cache.bytes() / 1e6,
+            f" on this rank, {self.cache.local_pages} pages" if ring else "",
         )
 
         self.pool = TaskPool()

@@ -20,6 +20,14 @@ batch of two or more rows takes the microbatch-pipelined window
 (`_decode_pipelined`, `parallel/pipeline.py`), as the JAX executor
 decides.
 
+Under data parallelism (`infer.dp_size`) every replica runs the same
+steps, and replica 0's sampling rank is the sampler of record: its
+tokens go to every rank. On the ring KV pool (`infer.ring_kv`) each
+prompt takes the per-request chunked prefill, and no hybrid, packed or
+speculative step runs, as in the JAX executor; with `infer.ring_prefill`
+a whole prompt in one chunk prefills sequence-parallel over the replicas
+(`_ring_ok`).
+
 PyTorch runs eagerly, so the JAX package's jit caches and first-call
 timers are gone. The shapes stay bucketed exactly as there (prefill
 length and table-width buckets, decode batch buckets, the fixed packed
@@ -120,11 +128,12 @@ class Executor:
         # the rank's world (None on one device): decisions that read the
         # host clock are rank 0's (`parallel.distributed`)
         self.group = getattr(model, "world", None)
-        # the pipeline relay (None under one stage): the last stage samples
-        self.stage = getattr(model, "stage", None)
         self.page = cfg.infer.page_size
         self.max_reqs = cfg.infer.max_reqs
         self.mp_full = cfg.infer.max_seq_len // self.page + 1
+        # the ring KV pool: pages stripe over the replicas (the JAX
+        # executor's `ring_kv_axis`); the engine validates the layout
+        self.ring_kv_axis = "dp" if getattr(model, "ring_kv", False) else ""
 
         vocab = model.args.vocab_size
         self.counts = torch.zeros(
@@ -224,15 +233,17 @@ class Executor:
             )
             toks = sampling.sample_tokens(logits, self.generator, temps, tks,
                                           tps)
+        toks = self._relay_tokens(toks, temps.shape[0])
+        if logits is not None:
             sampling.update_counts(self.counts, slots, toks, valid)
-        return self._relay_tokens(toks, temps.shape[0])
+        return toks
 
     def _relay_tokens(self, toks, n: int) -> torch.Tensor:
-        """The sampling stage's tokens [n] on every rank (the tokens
-        themselves on one stage)."""
-        if self.stage is None:
+        """The sampler of record's tokens [n] on every rank (the tokens
+        themselves under one stage and one replica)."""
+        if self.group is None or not self.group.needs_relay:
             return toks
-        return self.stage.from_last(toks, (n,), torch.int32, self.device)
+        return self.group.from_sampler(toks, (n,), torch.int32, self.device)
 
     # -- steps --------------------------------------------------------------
 
@@ -258,7 +269,28 @@ class Executor:
             self.decode_step(decodes)
 
     def _hybrid_ok(self) -> bool:
-        return hasattr(self.model, "step_hybrid") and self.cfg.infer.hybrid_step
+        return (
+            hasattr(self.model, "step_hybrid")
+            and not self.ring_kv_axis
+            and self.cfg.infer.hybrid_step
+        )
+
+    def _ring_ok(self, pos: int, T: int) -> bool:
+        """Sequence-parallel ring prefill applies to a whole-prompt chunk
+        (start 0, bucket T split evenly over the replicas) of the Llama
+        family with no sliding window and no softcap
+        (`parallel/ring.py`: full-causal, uncapped scores)."""
+        group = getattr(self.model, "dp_group", None)
+        if not self.cfg.infer.ring_prefill or group is None:
+            return False
+        a = self.model.args
+        return (
+            pos == 0
+            and T % group.size == 0
+            and getattr(self.model, "supports_ring_prefill", False)
+            and getattr(a, "sliding_window", 0) == 0
+            and getattr(a, "attn_softcap", 0.0) == 0.0
+        )
 
     def prefill_step(
         self, tasks: List[Task], piggyback: Optional[List[Task]] = None
@@ -331,7 +363,10 @@ class Executor:
         packable: List[Task] = []
         for t in admitted:
             n_tok = len(t.tokens) - t.prefilled_len
-            if n_tok <= chunk_cap and (n_tok + Tq - 1) // Tq * Tq <= slab:
+            # the ring KV pool: the packed kernel reads pages locally, so
+            # every prompt takes the (ring-aware) per-request prefill
+            if (not self.ring_kv_axis and n_tok <= chunk_cap
+                    and (n_tok + Tq - 1) // Tq * Tq <= slab):
                 packable.append(t)
             else:
                 logits_by_task[t.task_id] = self._prefill_one(t)
@@ -511,9 +546,10 @@ class Executor:
             chunk = np.zeros((T,), np.int32)
             chunk[:n] = tokens[pos : pos + n]
             bt = self.cache.allocator.block_table([t.task_id], mp)[0]
+            ring = self._ring_ok(pos, T) and pos + n == len(tokens)
             logits, _ = self.model.prefill(
                 cache, self._tensor(chunk), self._tensor(bt), pos, n,
-                page_size=self.page,
+                page_size=self.page, **({"ring": True} if ring else {}),
             )
             pos += n
         t.prefilled_len = pos
@@ -601,9 +637,9 @@ class Executor:
                 new = sampling.sample_tokens(
                     logits, self.generator, temps, tks, tps, greedy_all=greedy
                 )
-                if not nopen:
-                    sampling.update_counts(self.counts, slots, new, live)
             new = self._relay_tokens(new, tokens.shape[0])
+            if logits is not None and not nopen:
+                sampling.update_counts(self.counts, slots, new, live)
             is_stop = check_stop & torch.any(new[:, None] == stop_ids, dim=-1)
             live_i = live.to(torch.int32)
             remaining = remaining - live_i
@@ -899,6 +935,7 @@ class Executor:
             self.spec_enabled
             and self.cfg.infer.spec_decode == "ngram"
             and hasattr(self.model, "verify_draft")
+            and not self.ring_kv_axis
             and all(
                 t.req.params.top_k == 1
                 and t.req.params.frequency_penalty == 0.0

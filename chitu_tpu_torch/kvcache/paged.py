@@ -318,6 +318,14 @@ class PagedKVCache:
     `max_slots` (the engine's `infer.max_reqs`) bounds the native
     allocator's request handles; `prefix_cache` picks the prefix-caching
     allocator (`_make_allocator`).
+
+    The ring KV pool (`ring` = dp > 1, `infer.ring_kv`): the allocator
+    hands out global page ids 0..num_pages-1, the same on every rank of
+    the world (every rank runs the same schedule), and global page g
+    lives on replica g // P_local at local index g % P_local of that
+    replica's arrays, which hold P_local = num_pages / ring pages
+    (`ops/attention_ring.ring_local_block_table`). Prefix sharing stays
+    page-granular on the global ids.
     """
 
     def __init__(
@@ -333,9 +341,14 @@ class PagedKVCache:
         layer_groups: Optional[Dict[str, int]] = None,
         max_slots: int = 0,
         prefix_cache: bool = False,
+        ring: int = 1,
     ):
+        if num_pages % ring:
+            raise ValueError(f"{num_pages} pages do not stripe over {ring} ranks")
         self.n_layers = n_layers
         self.num_pages = num_pages
+        self.ring = ring
+        self.local_pages = num_pages // ring
         self.page_size = page_size
         self.kv_heads = kv_heads
         self.head_dim = head_dim
@@ -351,7 +364,7 @@ class PagedKVCache:
         groups = layer_groups or {"kv": n_layers}
         self.arrays = {
             name: torch.zeros(
-                (n, num_pages, page_size, self.minor), dtype=dtype,
+                (n, self.local_pages, page_size, self.minor), dtype=dtype,
                 device=device,
             )
             for name, n in groups.items()

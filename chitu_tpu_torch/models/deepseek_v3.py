@@ -62,8 +62,15 @@ replicates the dense stack and its pool over 'pp' and reconciles the pool
 once a window (a shard_map needs one layout on every device); here the
 stages that never read them do not hold them. The hidden state, whole on
 every TP rank after the all-reduces, crosses each stage boundary once
-(`_forward`, as the llama module's `_run_layers`). Not ported yet: the
-ring paths.
+(`_forward`, as the llama module's `_run_layers`).
+
+Data parallelism (`infer.dp_size`): replicas of the same layout; a MoE
+layer splits its tokens over them where the count divides. With
+`infer.ring_kv` both latent pools stripe their pages over the replicas
+(`ops/attention_ring.py`): owner-write appends and a plain partial over
+the rank's pages, combined over the dp group (on the dense MLA path, at
+tp 1, decode runs B1's partials mode as the llama module does). Ring
+prefill is the Llama family's only, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -92,6 +99,7 @@ from chitu_tpu_torch.models.llama import (
 from chitu_tpu_torch.models.moe import moe_ffn_auto, route
 from chitu_tpu_torch.ops import attention as attn_ops
 from chitu_tpu_torch.ops import attention_kernels as kernels
+from chitu_tpu_torch.ops import attention_ring as ring_ops
 from chitu_tpu_torch.ops.absorb_kernels import (
     MAX_T,
     absorb_kernel_ok,
@@ -223,6 +231,8 @@ def check_tp(args, infer):
 
 @register_model("deepseek-v3")
 class DeepSeekV3ForCausalLM(nn.Module):
+    supports_ring_kv = True  # infer.ring_kv (ops/attention_ring.py)
+
     def __init__(self, args, cfg, device=None):
         super().__init__()
         if args.mla is None or args.moe is None:
@@ -631,7 +641,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         )
         routed = moe_ffn_auto(
             x, gate_w, up_w, lp["exp_down"], weights, sel, self.moe,
-            layer=layer, rank=self.rank, tp=self.tp,
+            layer=layer, rank=self.rank, tp=self.tp, dp=self.dp_group,
         )
         y = routed if y is None else y + routed
         return y if self.group is None else self.group.all_reduce_f32(y)
@@ -734,7 +744,20 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 q, pool, layer, block_table, q_pos, total_len, page_size, **kw
             )
 
-        h = self._forward(cache, h, cos, sin, attend)
+        def attend_ring_kv(pool, q, k, v, layer):
+            group = self.dp_group
+            ring_ops.append_prefill_ring(pool, layer, k, v, block_table, pos,
+                                         valid_len, page_size, group)
+            if start_pos == 0:
+                return ring_ops.attend_prefill_fresh(
+                    q, k, v, q_pos, valid_len, pool.dtype, kw["scale"],
+                    v_dim=kw.get("v_dim"))
+            return ring_ops.attend_prefill_ring(
+                q, pool, layer, block_table, q_pos, total_len, page_size,
+                group=group, **kw)
+
+        h = self._forward(cache, h, cos, sin,
+                          attend_ring_kv if self.ring_kv else attend)
         if return_all_logits:
             return self._head(h), cache
         return self._head(h, max(valid_len - 1, 0)), cache
@@ -844,7 +867,12 @@ class DeepSeekV3ForCausalLM(nn.Module):
                 page_size, **kw,
             )
 
-        return attend
+        def attend_ring_kv(pool, q, k, v, layer):
+            return ring_ops.attend_decode_fused_ring(
+                self.attn, q, pool, layer, k, v, block_tables, seq_lens,
+                valid, page_size, group=self.dp_group, **kw)
+
+        return attend_ring_kv if self.ring_kv else attend
 
     def decode_local(self, cache, h, seq_lens, block_tables, valid,
                      page_size):

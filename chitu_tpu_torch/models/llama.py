@@ -42,8 +42,20 @@ state crosses each stage boundary once (`_run_layers`, over
 decode (`parallel/pipeline.py`) calls the stage's pieces itself:
 `_embed`, `decode_local` and `final_logits`.
 
-Checkpoints load through `loader.load_checkpoint`. Not ported yet: the
-ring paths.
+Data parallelism (`infer.dp_size`): each replica holds the same weights
+and runs the same batch. With `infer.ring_kv` its pool holds 1 / dp of
+the pages (`ops/attention_ring.py`): `prefill` appends a chunk's rows to
+the pages the rank owns and attends them with the other ranks' partials
+combined over the dp group, and `decode` runs B1 in its partials mode on
+the rank's own pages, the dp ranks' partials merged by the decode merge.
+With `infer.ring_prefill` a whole prompt's tokens split over the
+replicas (`prefill(..., ring=True)`): each rank carries its slice through
+every layer, ring attention (`parallel/ring.py`) passes the K/V slices
+around, each rank appends every slice into its pool as it passes, and
+the rank that holds the last valid token sends its hidden row to the
+others for the logits.
+
+Checkpoints load through `loader.load_checkpoint`.
 """
 
 from __future__ import annotations
@@ -62,6 +74,7 @@ from chitu_tpu_torch.models import register_model
 from chitu_tpu_torch.models.common import apply_rope, rms_norm, rope_tables
 from chitu_tpu_torch.ops import attention as attn_ops
 from chitu_tpu_torch.ops import attention_kernels as kernels
+from chitu_tpu_torch.ops import attention_ring as ring_ops
 from chitu_tpu_torch.ops.linear import (
     linear,
     matmul_out_dtype,
@@ -434,6 +447,8 @@ class LlamaForCausalLM(nn.Module):
     overrides `_ffn`."""
 
     LAYER_LEAVES = _LAYER_LEAVES
+    supports_ring_kv = True  # infer.ring_kv (ops/attention_ring.py)
+    supports_ring_prefill = True  # infer.ring_prefill (`_prefill_ring`)
 
     def __init__(self, args, cfg, device=None):
         super().__init__()
@@ -638,10 +653,13 @@ class LlamaForCausalLM(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def _layer(self, h: torch.Tensor, layer: int, cos, sin, attend):
+    def _layer(self, h: torch.Tensor, layer: int, cos, sin, attend,
+               token_split: bool = True):
         """One decoder layer; `attend(q, k, v, layer)` appends the fresh
         K/V and returns the attention output [T, H, Dh] (this rank's
-        heads)."""
+        heads). `token_split`: the MoE FFN may split the tokens over the
+        replicas (not inside a sequence-parallel prefill, whose hidden
+        state differs from replica to replica)."""
         T = h.shape[0]
         H, KV, Dh = self.h_local, self.kv_local, self.head_dim
         if self.merged:
@@ -665,7 +683,7 @@ class LlamaForCausalLM(nn.Module):
         k = apply_rope(k, cos, sin, self.rotary_layout)
         o = attend(q, k, v, layer)
         h = h + self._row_linear(o.reshape(T, -1), self.wo, layer)
-        return self._ffn(h, layer)
+        return self._ffn(h, layer, token_split)
 
     def _row_linear(self, x, w, layer: int, sharded: bool = True):
         """A row-parallel projection: this rank's partial product, summed
@@ -682,7 +700,8 @@ class LlamaForCausalLM(nn.Module):
             w = w.without("in_perm")
         return self.group.all_reduce_f32(linear(x, w, layer=layer))
 
-    def _ffn(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, layer: int,
+             token_split: bool = True) -> torch.Tensor:
         """The FFN half of a layer, norm and residual included: SwiGLU
         here; the MoE families override it."""
         if self.merged:
@@ -717,19 +736,19 @@ class LlamaForCausalLM(nn.Module):
             return x
         return (quant_acts if op_kernels() else quant_acts_plain)(x.contiguous())
 
-    def _local_layers(self, h, cos, sin, attend):
+    def _local_layers(self, h, cos, sin, attend, token_split=True):
         for layer in range(self.n_local):
-            h = self._layer(h, layer, cos, sin, attend)
+            h = self._layer(h, layer, cos, sin, attend, token_split)
         return h
 
-    def _run_layers(self, h, cos, sin, attend):
+    def _run_layers(self, h, cos, sin, attend, token_split=True):
         """The stage's layers between the relay's links -> the normed
         hidden state on the last stage, None on the others (the reference
         PP stage loop, executor.py:179-299)."""
         st = self.stage
         if st is not None and not st.first:
             h = st.recv_prev(h)
-        h = self._local_layers(h, cos, sin, attend)
+        h = self._local_layers(h, cos, sin, attend, token_split)
         if st is not None and not st.last:
             st.send_next(h.to(self.hidden_dtype))
             return None
@@ -780,11 +799,17 @@ class LlamaForCausalLM(nn.Module):
         valid_len: int,  # valid tokens in this chunk
         page_size: int,
         return_all_logits: bool = False,
+        ring: bool = False,
     ):
         """One request's prefill chunk -> (last-token logits [V], cache):
         a plain indexed append of the chunk's K/V, then the B5 kernel
         (reference: Transformer.prefill_single_device,
-        models/model.py:450-465)."""
+        models/model.py:450-465). On the ring KV pool: the owner-write
+        append and the ring attention of `ops/attention_ring.py`. `ring`:
+        the sequence-parallel prefill of a whole prompt (`_prefill_ring`)."""
+        if ring:
+            return self._prefill_ring(cache, tokens, block_table, valid_len,
+                                      page_size)
         T = tokens.shape[0]
         dev = tokens.device
         ar = torch.arange(T, dtype=torch.int32, device=dev)
@@ -804,10 +829,64 @@ class LlamaForCausalLM(nn.Module):
                 q, pool, layer, block_table, q_pos, total_len, page_size, **kw
             )
 
-        h = self._run_layers(h, cos, sin, attend)
+        def attend_ring_kv(q, k, v, layer):
+            group = self.dp_group
+            ring_ops.append_prefill_ring(pool, layer, k, v, block_table, pos,
+                                         valid_len, page_size, group)
+            if start_pos == 0:
+                return ring_ops.attend_prefill_fresh(
+                    q, k, v, q_pos, valid_len, pool.dtype, kw["scale"],
+                    kw["window"], kw["softcap"])
+            return ring_ops.attend_prefill_ring(
+                q, pool, layer, block_table, q_pos, total_len, page_size,
+                group=group, **kw)
+
+        h = self._run_layers(h, cos, sin,
+                             attend_ring_kv if self.ring_kv else attend)
         if return_all_logits:
             return self._head(h), cache
         return self._head(h, max(valid_len - 1, 0)), cache
+
+    def _prefill_ring(self, cache, tokens, block_table, valid_len: int,
+                      page_size: int):
+        """Sequence-parallel prefill of a whole prompt (start 0) over the
+        dp group -> (its last valid token's logits [V], cache). Replica d
+        carries tokens [d T / dp, (d + 1) T / dp) through every layer;
+        attention is `parallel.ring.ring_attention`, and every slice of
+        K/V that passes a rank lands in its pool (replicated: each rank
+        appends all T rows). The MoE layers take no token split here
+        (each rank's rows are its own). The last valid token's hidden row
+        goes from the rank that holds it to the others, which all take
+        the logits of it."""
+        from chitu_tpu_torch.parallel.ring import ring_attention
+
+        group = self.dp_group
+        T = tokens.shape[0]
+        n = T // group.size
+        d = group.rank
+        dev = tokens.device
+        pos = torch.arange(d * n, (d + 1) * n, dtype=torch.int32, device=dev)
+        ring_pos = torch.where(pos < valid_len, pos, torch.full_like(pos, -1))
+        pool = cache["kv"]
+        bts = block_table[None, :]
+        seg = torch.zeros((n,), dtype=torch.int32, device=dev)
+        h = self._embed(tokens[d * n:(d + 1) * n])
+        cos, sin = self._rope_rows(pos)
+
+        def attend(q, k, v, layer):
+            def append(kb, vb, pb):
+                attn_ops.append_prefill_packed(pool, layer, kb, vb, bts, seg,
+                                               pb, page_size)
+
+            return ring_attention(q, k, v, ring_pos, group,
+                                  scale=self.attn_scale, on_block=append)
+
+        h = self._run_layers(h, cos, sin, attend, token_split=False)
+        owner, row = divmod(max(valid_len - 1, 0), n)
+        last = h[row:row + 1].contiguous() if d == owner else torch.empty(
+            (1, h.shape[1]), dtype=h.dtype, device=dev)
+        last = group.broadcast_from(last, owner)
+        return self._logits(last)[0], cache
 
     def prefill_packed(
         self,
@@ -933,9 +1012,10 @@ class LlamaForCausalLM(nn.Module):
         logits = self._head(h)
         greedy = None if logits is None else torch.argmax(
             logits, dim=-1).to(torch.int32)
-        if self.stage is not None:
-            # the drafts' acceptance runs on every rank
-            greedy = self.stage.from_last(greedy, (B * K1,), torch.int32, dev)
+        if self.world is not None and self.world.needs_relay:
+            # the drafts' acceptance runs on every rank, on the sampler's
+            greedy = self.world.from_sampler(greedy, (B * K1,), torch.int32,
+                                             dev)
         return greedy.reshape(B, K1), cache
 
     def decode(
@@ -965,7 +1045,12 @@ class LlamaForCausalLM(nn.Module):
                 page_size, **kw,
             )
 
-        return attend
+        def attend_ring_kv(q, k, v, layer):
+            return ring_ops.attend_decode_fused_ring(
+                self.attn, q, pool, layer, k, v, block_tables, seq_lens,
+                valid, page_size, group=self.dp_group, **kw)
+
+        return attend_ring_kv if self.ring_kv else attend
 
     def decode_local(self, cache, h, seq_lens, block_tables, valid,
                      page_size):
@@ -1015,22 +1100,27 @@ def join_world(model, infer, stacks, tied=False, first_only=()):
     """Set a model's place in the world: `world` (the rank's
     `parallel.distributed.TPGroup`, None on one device), `group` (the same
     when tp > 1: the tensor-parallel collectives), `stage` (the relay when
-    pp > 1), `rank` (its TP index), `pp`; -> its `StageSlice` over
-    `stacks` ({name: layers})."""
+    pp > 1), `dp_group` (the replicas of its (stage, TP index) when
+    dp > 1), `ring_kv` (the pool's pages stripe over them), `rank` (its TP
+    index), `pp`; -> its `StageSlice` over `stacks` ({name: layers})."""
     from chitu_tpu_torch.parallel.distributed import tp_group
 
-    tp, pp = infer.tp_size, infer.pp_size
-    world = tp_group() if tp * pp > 1 else None
-    if tp * pp > 1 and (world is None or world.size != tp or world.pp != pp):
+    dp, tp, pp = infer.dp_size, infer.tp_size, infer.pp_size
+    n = dp * tp * pp
+    world = tp_group() if n > 1 else None
+    if n > 1 and (world is None or world.size != tp or world.pp != pp
+                  or world.dp != dp):
         raise RuntimeError(
-            f"pp_size={pp} x tp_size={tp} needs a process group of "
-            f"{pp * tp} ranks (parallel.distributed.maybe_initialize; the "
+            f"dp_size={dp} x pp_size={pp} x tp_size={tp} needs a process "
+            f"group of {n} ranks (parallel.distributed.maybe_initialize; the "
             "engine joins it from infer.coordinator / num_processes / "
             "process_id)"
         )
     model.world, model.pp = world, pp
     model.group = world if tp > 1 else None
     model.stage = world.relay if pp > 1 else None
+    model.dp_group = world.dp_group if dp > 1 else None
+    model.ring_kv = bool(infer.ring_kv) and dp > 1
     model.rank = world.rank if world is not None else 0
     if pp <= 1:
         return StageSlice()

@@ -90,14 +90,16 @@ class MixtralForCausalLM(LlamaForCausalLM):
             self.merged_gu = merged
         return super().load_params(tensors)
 
-    def _ffn(self, h: torch.Tensor, layer: int) -> torch.Tensor:
+    def _ffn(self, h: torch.Tensor, layer: int,
+             token_split: bool = True) -> torch.Tensor:
         x = rms_norm(h, self.ffn_norm[layer], self.args.norm_eps)
         weights, sel = route(x, self.moe_gate[layer], self.moe)
         gate_w, up_w = (
             (self.w_gu, None) if self.merged_gu else (self.w_gate, self.w_up)
         )
         y = moe_ffn_auto(x, gate_w, up_w, self.w_down, weights, sel,
-                         self.moe, layer=layer, rank=self.rank, tp=self.tp)
+                         self.moe, layer=layer, rank=self.rank, tp=self.tp,
+                         dp=self.dp_group if token_split else None)
         if self.group is not None:
             # the ranks' partial combines: one all-reduce a layer
             y = self.group.all_reduce_f32(y)

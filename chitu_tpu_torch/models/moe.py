@@ -358,13 +358,25 @@ def moe_ffn_auto(
     layer=None,
     rank: int = 0,
     tp: int = 1,
+    dp=None,
 ) -> torch.Tensor:
     """Pick the MoE execution path: under tensor parallelism (tp > 1, the
     stacks the rank's E / tp experts) the rank's partial of the expert-
     parallel layer (`moe_ffn_ep`, summed by the caller); on one device
     the exact sorted dispatch + grouped kernel when every stack is
     eligible for it, else the capacity-einsum route (quantized experts
-    dequantize there)."""
+    dequantize there). `dp` (the replicas' `DPGroup`, while every replica
+    holds the same tokens): the JAX package's token split over 'dp'
+    (chitu_tpu/models/moe.py:492-495) where the grouped kernel serves and
+    the token count divides: each replica runs its T / dp tokens, and
+    the rows are gathered over the group."""
+    if (dp is not None and x.shape[0] % dp.size == 0
+            and _sorted_eligible((w_gate, w_up, w_down))):
+        n = x.shape[0] // dp.size
+        rows = slice(dp.rank * n, (dp.rank + 1) * n)
+        y = moe_ffn_auto(x[rows], w_gate, w_up, w_down, weights[rows],
+                         sel[rows], moe, layer=layer, rank=rank, tp=tp)
+        return dp.gather(y).reshape(x.shape[0], -1).to(y.dtype)
     if tp > 1:
         return moe_ffn_ep(x, w_gate, w_up, w_down, weights, sel, rank, tp,
                           layer=layer, moe=moe)

@@ -70,7 +70,8 @@ from chitu_tpu_torch.ops.cuda_build import stream as _stream
 
 for _name in (
     "attend_decode_fused", "attend_prefill_packed_fused", "attend_prefill",
-    "attend_prefill_packed", "attend_decode",
+    "attend_prefill_packed", "attend_decode", "attend_decode_partials",
+    "decode_merge",
 ):
     LAUNCHES.setdefault(_name, 0)
 
@@ -181,6 +182,10 @@ def _lib():
         lib.chitu_attend_latent.argtypes = (
             [I] + [P] * 9 + [I] + [P] * 3 + [I] * 9 + [F, I, F, I, I, I, P]
         )
+        lib.chitu_attend_decode_partials.argtypes = (
+            [P] * 9 + [I] * 10 + [F, I, F, I, I, I, P]
+        )
+        lib.chitu_decode_merge.argtypes = [P] * 3 + [I] * 4 + [P]
         for fn in (
             lib.chitu_attend_decode_fused,
             lib.chitu_attend_prefill,
@@ -188,6 +193,8 @@ def _lib():
             lib.chitu_attend_decode,
             lib.chitu_attend_prefill_packed,
             lib.chitu_attend_latent,
+            lib.chitu_attend_decode_partials,
+            lib.chitu_decode_merge,
         ):
             fn.restype = ctypes.c_int
         _LIB = lib
@@ -589,6 +596,155 @@ def attend_decode(
 
 
 # ---------------------------------------------------------------------------
+# B1 / B4 in the partials mode (the ring KV decode): a rank's own pages
+# ---------------------------------------------------------------------------
+
+LOG2E = 1.4426950408889634
+
+
+def attend_decode_partials_plain(
+    q, pool, layer, k, v, block_tables, seq_lens, valid, page_size,
+    kv_heads, head_dim, scale=None, window=0, softcap=0.0, fused=True, S=1,
+    chunk=None,
+):
+    """The partials mode of the split decode in plain PyTorch: (fused) the
+    append of each valid row's new token where its table has a page, then
+    each split's partial over the keys of [s * chunk, (s + 1) * chunk)
+    that lie in the row's context and on a page of the table (entries < 0
+    are masked pages) -> (part_o [B, KV, S, G, D] f32, unnormalized;
+    part_ml [B, KV, S, G, 2] f32: m in base 2, as the kernel keeps its
+    scores, and l). An empty split has m = -inf, l = 0, O = 0."""
+    if fused:
+        plain.append_decode(pool, layer, k, v, block_tables, seq_lens, valid,
+                            page_size)
+    kk, vv = plain.unpack_pool(plain._gather(pool, layer, block_tables),
+                               kv_heads, head_dim)
+    B, H, D = q.shape
+    G = H // kv_heads
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    x = torch.einsum("bkgd,bskd->bkgs",
+                     q.reshape(B, kv_heads, G, D).float(), kk.float()) * scale
+    if softcap > 0.0:
+        x = torch.tanh(x / softcap) * softcap
+    cols = torch.arange(x.shape[-1], device=q.device)[None, :]
+    owned = (block_tables >= 0).repeat_interleave(page_size, dim=1)
+    live = (cols <= seq_lens[:, None]) & owned
+    if window > 0:
+        live = live & (cols > seq_lens[:, None] - window)
+    chunk = chunk or x.shape[-1]
+    ninf = x.new_tensor(-math.inf)
+    os_, ms, ls = [], [], []
+    for s in range(S):
+        inside = (live & (cols >= s * chunk) & (cols < (s + 1) * chunk))[:, None, None]
+        m = torch.where(inside, x, ninf).amax(-1)
+        p = torch.where(inside, torch.exp(x - m[..., None]), x.new_zeros(()))
+        os_.append(torch.einsum("bkgs,bskd->bkgd", p, vv.float()))
+        ms.append(m * LOG2E)
+        ls.append(p.sum(-1))
+    part_o = torch.stack(os_, dim=2)
+    part_ml = torch.stack([torch.stack(ms, 2), torch.stack(ls, 2)], dim=-1)
+    return part_o, part_ml
+
+
+def decode_merge_plain(part_o, part_ml, out_dtype=torch.bfloat16):
+    """`decode_merge_kernel` in plain PyTorch: part_o [R, S, G, D], part_ml
+    [R, S, G, 2] (m in base 2, l; leading dims of the rows (b, h) flattened
+    or not) merged over S in split order -> out [R, G, D] (0 where
+    nothing was attended)."""
+    m, l = part_ml[..., 0], part_ml[..., 1]
+    mx = m.amax(-2, keepdim=True)
+    f = torch.where(m == -math.inf, torch.zeros_like(m), torch.exp2(m - mx))
+    L = (f * l).sum(-2)
+    O = (f[..., None] * part_o).sum(-3)
+    out = torch.where(L[..., None] > 0, O / L.clamp_min(1e-30)[..., None],
+                      torch.zeros_like(O))
+    return out.to(out_dtype)
+
+
+def attend_decode_partials(
+    q: torch.Tensor,  # [B, H, D]
+    pool: torch.Tensor,  # [L, P, page, M] (fused: updated in place)
+    layer: int,
+    k: Optional[torch.Tensor],  # [B, KV, D] new token K (fused only)
+    v: Optional[torch.Tensor],  # [B, KV, D] new token V (fused only)
+    block_tables: torch.Tensor,  # [B, mp] int32, < 0: masked page
+    seq_lens: torch.Tensor,  # [B] int32 (context excluding the new token)
+    valid: Optional[torch.Tensor],  # [B] bool (fused only)
+    page_size: int,
+    kv_heads: int,
+    head_dim: int,
+    scale: Optional[float] = None,
+    window: int = 0,
+    softcap: float = 0.0,
+    fused: bool = True,
+):
+    """B1 (`fused`) or B4 in the partials mode, split layout: every split
+    of the `decode_split` plan writes its partial, S = 1 included, and no
+    merge runs -> (part_o [B, KV, S, G, D] f32, part_ml [B, KV, S, G, 2]
+    f32: m in base 2, l). Table entries < 0 are masked pages (the ring KV
+    pool's pages of other ranks): their keys count nowhere, and fused, a
+    row's new token counts and is appended only where its page is in the
+    table. `decode_merge` merges the partials (of several ranks, joined
+    on the split axis)."""
+    B, H, D = q.shape
+    L, P, page, M = pool.shape
+    assert page == page_size and D == head_dim
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    if not q.is_cuda:
+        return attend_decode_partials_plain(
+            q, pool, layer, k, v, block_tables, seq_lens, valid, page_size,
+            kv_heads, head_dim, scale, window, softcap, fused,
+        )
+    dev = q.device
+    _check_geometry(D, M, kv_heads, H)
+    mp = block_tables.shape[1]
+    _check("q", q, torch.bfloat16, dev)
+    fp8 = _check_pool(pool, dev)
+    _check("block_tables", block_tables, torch.int32, dev, (B, mp))
+    _check("seq_lens", seq_lens, torch.int32, dev, (B,))
+    if fused:
+        _check("k", k, torch.bfloat16, dev, (B, kv_heads, D))
+        _check("v", v, torch.bfloat16, dev, (B, kv_heads, D))
+        _check("valid", valid, torch.bool, dev, (B,))
+    G = H // kv_heads
+    S, chunk = decode_split(B, kv_heads, mp, page, _sm_count(dev))
+    part_o = torch.empty((B, kv_heads, S, G, D), dtype=torch.float32, device=dev)
+    part_ml = torch.empty((B, kv_heads, S, G, 2), dtype=torch.float32, device=dev)
+    rc = _lib().chitu_attend_decode_partials(
+        _ptr(q), _ptr(pool), _ptr(k) if fused else None,
+        _ptr(v) if fused else None, _ptr(block_tables), _ptr(seq_lens),
+        _ptr(valid) if fused else None, _ptr(part_o), _ptr(part_ml),
+        int(fused), B, int(layer), P, page, M, mp, kv_heads, G, D,
+        float(scale), int(window), float(softcap), fp8, S, chunk, _stream(dev),
+    )
+    _raise_on(rc, "attend_decode_partials")
+    _count("attend_decode_partials", pool, D, True)
+    return part_o, part_ml
+
+
+def decode_merge(part_o: torch.Tensor, part_ml: torch.Tensor,
+                 out_dtype=torch.bfloat16) -> torch.Tensor:
+    """`decode_merge_kernel` alone: part_o [B, KV, S, G, D] f32, part_ml
+    [B, KV, S, G, 2] f32 (m in base 2, l) -> out [B, KV * G, D] (bf16 on
+    the card), the S partials of each row merged in split order."""
+    B, KV, S, G, D = part_o.shape
+    if not part_o.is_cuda:
+        return decode_merge_plain(part_o, part_ml, out_dtype).reshape(
+            B, KV * G, D)
+    dev = part_o.device
+    if out_dtype != torch.bfloat16:
+        raise TypeError(f"the decode merge writes bf16, not {out_dtype}")
+    _check("part_o", part_o, torch.float32, dev, (B, KV, S, G, D))
+    _check("part_ml", part_ml, torch.float32, dev, (B, KV, S, G, 2))
+    out = torch.empty((B, KV * G, D), dtype=torch.bfloat16, device=dev)
+    rc = _lib().chitu_decode_merge(_ptr(part_o), _ptr(part_ml), _ptr(out),
+                                   B * KV, G, D, S, _stream(dev))
+    _raise_on(rc, "decode_merge")
+    LAUNCHES["decode_merge"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
 # B5: one sequence's prefill chunk against its paged context
 # ---------------------------------------------------------------------------
 
@@ -840,6 +996,9 @@ PLAIN = types.SimpleNamespace(
     attend_prefill=attend_prefill_plain,
     attend_prefill_packed=attend_prefill_packed_plain,
     attend_prefill_packed_fused=attend_prefill_packed_fused_plain,
+    attend_decode_partials=attend_decode_partials_plain,
+    decode_merge=lambda o, ml, out_dtype=torch.bfloat16: decode_merge_plain(
+        o, ml, out_dtype).reshape(o.shape[0], -1, o.shape[-1]),
 )
 
 

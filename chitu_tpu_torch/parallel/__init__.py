@@ -2,13 +2,13 @@
 collectives, and the sharding rules that cut a full parameter tree into
 one rank's shard.
 
-Counterpart of `chitu_tpu/parallel/`. Ported: tensor parallelism of the
-Llama family and pipeline parallelism of every family (`mesh`,
-`distributed`, `sharding`, `pipeline`: the stage relay and the
-microbatch-pipelined decode). Not ported yet, in the order later slices
-take them: expert parallelism for Mixtral and DeepSeek under TP, then
-ring prefill and ring KV with data parallelism (`ring.py`,
-`ops/attention_ring.py`), and streamed loads (`loader_streaming.py`).
+Counterpart of `chitu_tpu/parallel/`. Ported: tensor parallelism of
+every family (expert parallelism for Mixtral and DeepSeek), pipeline
+parallelism (`mesh`, `distributed`, `sharding`, `pipeline`: the stage
+relay and the microbatch-pipelined decode), and data parallelism with
+the ring KV pool and ring prefill (`distributed.DPGroup`, `ring`,
+`ops/attention_ring.py`). Not ported yet: streamed loads
+(`loader_streaming.py`).
 """
 
 from chitu_tpu_torch.parallel.mesh import (  # noqa: F401

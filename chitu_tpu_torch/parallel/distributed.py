@@ -1,5 +1,5 @@
-"""Multi-process bring-up, the collectives of tensor parallelism and the
-pipeline's stage relay.
+"""Multi-process bring-up, the collectives of tensor parallelism, the
+pipeline's stage relay and the data-parallel replicas' ring.
 
 Counterpart of `chitu_tpu/parallel/distributed.py` (reference:
 chitu/backend.py:88-89 init_process_group, script/srun_multi_node.sh;
@@ -8,25 +8,35 @@ program over a global mesh and lets XLA insert the collectives; here
 every rank is a process that holds its shard of the weights and calls
 the collectives itself, over `torch.distributed`.
 
-The world is pp x tp ranks, rank = p * tp + t (`parallel.mesh`): stage p
-holds a range of the layers, and its tp ranks form one tensor-parallel
-group (`dist.new_group`; every rank creates every group, in one order).
-The control plane stays what the JAX package describes: every rank runs
-the same host state machine, so every rank derives the same schedule
-from the same request stream. Rank 0 (stage 0, t 0: the controller)
-takes the requests and broadcasts them, step by step, over the world,
-with every decision that reads the host clock (`TPGroup.decide`): ranks
-that launched different programs would deadlock in the next collective.
+The world is dp x pp x tp ranks, rank = (d * pp + p) * tp + t
+(`parallel.mesh`): replica d is a whole copy of the pp x tp layout,
+stage p of it holds a range of the layers, and its tp ranks form one
+tensor-parallel group (`dist.new_group`; every rank creates every group,
+in one order). The dp ranks of one (stage, TP index) form its dp group
+(`DPGroup`): the ring KV pool merges its decode partials there, the
+MoE layer gathers its token split there, and ring prefill passes K/V
+slices around it. The control plane stays what the JAX package
+describes: every rank runs the same host state machine, so every rank
+derives the same schedule from the same request stream. Rank 0 (replica
+0, stage 0, t 0: the controller) takes the requests and broadcasts them,
+step by step, over the world, with every decision that reads the host
+clock (`TPGroup.decide`): ranks that launched different programs would
+deadlock in the next collective. Replica 0's sampling rank is the one
+sampler of record: its tokens go to every rank (`TPGroup.from_sampler`),
+so no replica's stream parts from another's.
 
 The backend follows the device map: `nccl` when every rank has a card of
 its own, `gloo` when ranks share a card or run on the CPU. Both carry
 every collective used here on CUDA tensors: an all-reduce (the f32 sum
-after row-parallel projections, and the gathers, done as the sum of
-zero-padded buffers, which is exact), a broadcast (the stage relay and
+after row-parallel projections, and the TP group's gathers, done as the
+sum of zero-padded buffers, which is exact), an all-gather (the dp
+group's: the ring KV decode's partials, the MoE token split's rows), a
+broadcast (the stage relay and
 the tokens of the sampling stage), and an object broadcast on a CPU
 group. gloo has no point-to-point `send` / `recv` of CUDA tensors, so
 the relay is a broadcast inside a two-rank group {(p, t), (p + 1, t)}
-(`StageRelay`), the same call on either backend.
+(`StageRelay`), the same call on either backend, and so is each link of
+the dp ring (`DPGroup.pass_on`).
 """
 
 from __future__ import annotations
@@ -123,11 +133,11 @@ def maybe_initialize(cfg, device=None) -> bool:
             backend, init_method=url, world_size=n_proc, rank=pid,
             timeout=datetime.timedelta(seconds=DEFAULT_TIMEOUT_S),
         )
-    _GROUP = TPGroup(dev, cfg.infer.pp_size)
-    logger.info("rank %d of %d (stage %d of %d, TP rank %d of %d) on %s, "
-                "backend %s", _GROUP.world_rank, _GROUP.world_size,
-                _GROUP.stage, _GROUP.pp, _GROUP.rank, _GROUP.size, dev,
-                _GROUP.backend)
+    _GROUP = TPGroup(dev, cfg.infer.pp_size, cfg.infer.dp_size)
+    logger.info("rank %d of %d (replica %d of %d, stage %d of %d, TP rank "
+                "%d of %d) on %s, backend %s", _GROUP.world_rank,
+                _GROUP.world_size, _GROUP.replica, _GROUP.dp, _GROUP.stage,
+                _GROUP.pp, _GROUP.rank, _GROUP.size, dev, _GROUP.backend)
     return True
 
 
@@ -155,23 +165,28 @@ def process_count() -> int:
 
 class TPGroup:
     """This rank's place in the world: its tensor-parallel group (the tp
-    ranks of its pipeline stage; the whole world when pp is 1), the
-    collectives the model and the engine call, and, under pp > 1, the
-    stage relay (`relay`). `rank` and `size` are the rank's index in its
-    TP group and that group's size; `world_rank` is its rank in the
-    world."""
+    ranks of its replica's pipeline stage; the whole world when dp and pp
+    are 1), the collectives the model and the engine call, under pp > 1
+    the stage relay (`relay`), and under dp > 1 the dp group of its
+    (stage, TP index) (`dp_group`). `rank` and `size` are the rank's index
+    in its TP group and that group's size; `stage` its pipeline stage,
+    `replica` its dp index; `world_rank` is its rank in the world."""
 
-    def __init__(self, device: torch.device, pp: int = 1):
+    def __init__(self, device: torch.device, pp: int = 1, dp: int = 1):
         self.world_rank = dist.get_rank()
         self.world_size = dist.get_world_size()
-        if pp < 1 or self.world_size % pp:
+        if pp < 1 or dp < 1 or self.world_size % (pp * dp):
             raise ValueError(
-                f"a world of {self.world_size} ranks cannot hold {pp} "
-                "pipeline stages of equal tensor-parallel groups")
-        self.pp = pp
-        self.size = self.world_size // pp
+                f"a world of {self.world_size} ranks cannot hold {dp} "
+                f"replicas of {pp} pipeline stages of equal "
+                "tensor-parallel groups")
+        self.pp, self.dp = pp, dp
+        self.size = self.world_size // (pp * dp)
         self.rank = self.world_rank % self.size
-        self.stage = self.world_rank // self.size
+        self.stage = self.world_rank // self.size % pp
+        self.replica = self.world_rank // (self.size * pp)
+        # replica 0's sampling rank (its last stage's first TP rank)
+        self.sampler = (pp - 1) * self.size
         self.backend = dist.get_backend()
         self.device = device
         # host objects travel on a CPU group: gloo itself, or a gloo
@@ -179,16 +194,35 @@ class TPGroup:
         self.obj_group = (
             None if self.backend == "gloo" else dist.new_group(backend="gloo")
         )
-        # the stage's TP group (None: the world, when it is the only
-        # stage); every rank makes every stage's group, in stage order
+        # the TP group of this replica's stage (None: the world, when it
+        # is the only one); every rank makes every (replica, stage)'s
+        # group, in rank order
         self.pg = None
-        if pp > 1 and self.size > 1:
-            for p in range(pp):
-                g = dist.new_group(ranks=list(range(p * self.size,
-                                                    (p + 1) * self.size)))
-                if p == self.stage:
+        if pp * dp > 1 and self.size > 1:
+            for ds in range(pp * dp):
+                g = dist.new_group(ranks=list(range(ds * self.size,
+                                                    (ds + 1) * self.size)))
+                if ds == self.world_rank // self.size:
                     self.pg = g
         self.relay = StageRelay(self) if pp > 1 else None
+        self.dp_group = DPGroup(self) if dp > 1 else None
+
+    @property
+    def needs_relay(self) -> bool:
+        """Do the sampler's tokens have to reach other ranks (another
+        stage, another replica)? Under tp alone every rank samples the
+        same logits."""
+        return self.pp > 1 or self.dp > 1
+
+    def from_sampler(self, x: Optional[torch.Tensor], shape, dtype,
+                     device) -> torch.Tensor:
+        """Replica 0's sampling-stage tensor on every rank of the world:
+        `x` where the rank samples (its values are replaced by the
+        sampler's), a buffer of `shape` elsewhere."""
+        buf = x.contiguous() if x is not None else torch.empty(
+            shape, dtype=dtype, device=device)
+        dist.broadcast(buf, src=self.sampler)
+        return buf
 
     def all_reduce_f32(self, x: torch.Tensor) -> torch.Tensor:
         """Sum over the TP group in f32 (the JAX package's `psum_f32`:
@@ -231,23 +265,26 @@ class StageRelay:
     phase takes them in that order, so no cycle of waits can form."""
 
     def __init__(self, world: TPGroup):
-        pp, tp, t = world.pp, world.size, world.rank
+        pp, tp, t, d = world.pp, world.size, world.rank, world.replica
         self.pp, self.tp, self.stage = pp, tp, world.stage
         self.first, self.last = world.stage == 0, world.stage == pp - 1
         self.world_rank = world.world_rank
-        # the world rank of stage p at this TP index
-        self.at = lambda p: p * tp + t
-        # the sampling stage's first rank: the source of the tokens
-        self.sampler = (pp - 1) * tp
+        self.world = world
+        # the world rank of stage p of this replica at this TP index
+        self.at = lambda p: (d * pp + p) * tp + t
+        # replica 0's sampling stage's first rank: the source of the tokens
+        self.sampler = world.sampler
         edges = [(a, a + 1) for a in range(pp - 1)]
         if pp > 2:
             edges.append((pp - 1, 0))
         self.links = {}
-        for ti in range(tp):
-            for a, b in edges:
-                g = dist.new_group(ranks=sorted((a * tp + ti, b * tp + ti)))
-                if ti == t:
-                    self.links[(a, b)] = g
+        for di in range(world.dp):
+            for ti in range(tp):
+                for a, b in edges:
+                    at = lambda p: (di * pp + p) * tp + ti  # noqa: E731
+                    g = dist.new_group(ranks=sorted((at(a), at(b))))
+                    if (di, ti) == (d, t):
+                        self.links[(a, b)] = g
         # pp 2: the ring's closing link is the one forward link
         self.back = self.links[(pp - 1, 0) if pp > 2 else (0, 1)]
 
@@ -271,15 +308,87 @@ class StageRelay:
         dist.broadcast(buf, src=self.at(self.pp - 1), group=self.back)
         return buf
 
-    def from_last(self, x: Optional[torch.Tensor], shape, dtype,
-                  device) -> torch.Tensor:
-        """The sampling stage's tensor on every rank of the world: `x` on
-        the last stage (all its TP ranks hold the same values), a buffer
-        of `shape` elsewhere."""
-        buf = x.contiguous() if x is not None else torch.empty(
-            shape, dtype=dtype, device=device)
-        dist.broadcast(buf, src=self.sampler)
-        return buf
+
+class DPGroup:
+    """The dp ranks of one (stage, TP index): rank (d * pp + p) * tp + t
+    for d in 0..dp-1, `rank` = d (the JAX package's 'dp' mesh axis, as
+    the ring ops see it). Its collectives: the all-reduces of the ring KV
+    decode's combine (`max_`, `sum_`), the gather of the MoE token split
+    and of decode partials (`gather`), a broadcast from one replica
+    (`broadcast_from`), and the ring link of ring prefill (`pass_on`):
+    replica d's held slice to replica d + 1 (mod dp). Each link is a
+    broadcast in a two-rank group, taken in one fixed order, links
+    (0, 1), (1, 2), ..., (dp - 1, 0): replica 0 sends on its first link
+    and then receives on its last, every other replica receives first and
+    then sends, so the waits form a chain, never a cycle."""
+
+    def __init__(self, world: TPGroup):
+        dp, pp, tp = world.dp, world.pp, world.size
+        p, t = world.stage, world.rank
+        self.size, self.rank = dp, world.replica
+        self.at = lambda d: (d * pp + p) * tp + t
+        self.pg = None
+        for pi in range(pp):
+            for ti in range(tp):
+                g = dist.new_group(ranks=[(d * pp + pi) * tp + ti
+                                          for d in range(dp)])
+                if (pi, ti) == (p, t):
+                    self.pg = g
+        edges = [(a, a + 1) for a in range(dp - 1)]
+        if dp > 2:
+            edges.append((dp - 1, 0))
+        links = {}
+        for pi in range(pp):
+            for ti in range(tp):
+                for a, b in edges:
+                    at = lambda d: (d * pp + pi) * tp + ti  # noqa: E731
+                    g = dist.new_group(ranks=sorted((at(a), at(b))))
+                    if (pi, ti) == (p, t):
+                        links[(a, b)] = g
+        # dp 2: one link carries both directions
+        link = lambda a, b: links.get((a, b)) or links[(b, a)]  # noqa: E731
+        d = self.rank
+        self.fwd = link(d, (d + 1) % dp)
+        self.back = link((d - 1) % dp, d)
+
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.pg)
+        return x
+
+    def sum_(self, x: torch.Tensor) -> torch.Tensor:
+        dist.all_reduce(x, group=self.pg)
+        return x
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """Every replica's `x` -> [dp, *x.shape] f32 on every rank of the
+        group, in replica order (one all-gather: each rank sends its own
+        part once, where an all-reduce of zero-padded buffers would move
+        all dp parts)."""
+        x = x.float().contiguous()
+        parts = [torch.empty_like(x) for _ in range(self.size)]
+        dist.all_gather(parts, x, group=self.pg)
+        return torch.stack(parts)
+
+    def broadcast_from(self, x: torch.Tensor, d: int) -> torch.Tensor:
+        """Replica d's `x` (a buffer of its shape elsewhere) on every rank
+        of the group, in place."""
+        dist.broadcast(x, src=self.at(d), group=self.pg)
+        return x
+
+    def pass_on(self, held: torch.Tensor, incoming: torch.Tensor
+                ) -> torch.Tensor:
+        """One ring step: `held` to replica d + 1, replica d - 1's held
+        slice into `incoming` (its own buffer: no rank overwrites a slice
+        before it has passed it on) -> incoming."""
+        d, n = self.rank, self.size
+        prev, nxt = (d - 1) % n, (d + 1) % n
+        if d == 0:
+            dist.broadcast(held, src=self.at(d), group=self.fwd)
+            dist.broadcast(incoming, src=self.at(prev), group=self.back)
+        else:
+            dist.broadcast(incoming, src=self.at(prev), group=self.back)
+            dist.broadcast(held, src=self.at(d), group=self.fwd)
+        return incoming
 
 
 # ---------------------------------------------------------------------------
@@ -341,9 +450,9 @@ def _watch(procs: List[subprocess.Popen]):
 
 def serve_local(argv: List[str], n: int):
     """`python -m chitu_tpu_torch infer.tp_size=N ...` (or
-    `infer.pp_size=P`, N = P x tp_size) on one host: start
-    ranks 1..N-1 as copies of this command and become rank 0, which ends
-    when one of them fails."""
+    `infer.pp_size=P`, `infer.dp_size=D`: n = D x P x tp_size) on one
+    host: start ranks 1..n-1 as copies of this command and become rank 0,
+    which ends when one of them fails."""
     coord = local_coordinator()
     procs = spawn_ranks([sys.executable, "-m", "chitu_tpu_torch", *argv], n,
                         coord)

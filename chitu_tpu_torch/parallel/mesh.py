@@ -4,25 +4,17 @@ Counterpart of `chitu_tpu/parallel/mesh.py`. A JAX mesh names the axes
 of a device array; here the same axes name a grid of processes, one
 rank a process, rank = (d * pp + p) * tp + t, so the ranks of one
 tensor-parallel group are consecutive:
-- "dp": data parallel (replicas);
+- "dp": data parallel (replicas; the ring KV pool stripes its pages over
+  them, ring prefill its prompt's tokens);
 - "pp": pipeline stages (the layer stack, cut into pp equal ranges);
-- "tp": tensor parallel (weight shards; expert parallelism will live on
-  the same axis, as it does in the JAX package).
-
-`pp` and `tp` are served; `dp` above 1 raises and names the slice that
-brings it (in the JAX package it carries the ring KV pool and ring
-prefill, which come together).
+- "tp": tensor parallel (weight shards; expert parallelism lives on the
+  same axis, as it does in the JAX package).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 from typing import Optional
-
-NEXT_SLICE = {
-    "dp": "data parallelism comes with the ring slice (ROADMAP A.3): in the "
-          "JAX package dp carries the ring KV pool and ring prefill",
-}
 
 
 @dataclass(frozen=True)
@@ -50,8 +42,6 @@ def make_mesh(dp: int = 1, pp: int = 1, tp: int = 1,
         raise ValueError(
             f"need {need} devices for dp={dp} pp={pp} tp={tp}, have {ranks}"
         )
-    if dp > 1:
-        raise NotImplementedError(f"dp_size={dp}: {NEXT_SLICE['dp']}")
     return RankGrid(dp, pp, tp)
 
 

@@ -43,12 +43,15 @@ from chitu_tpu_torch import sampling
 
 def supports_pipeline(model) -> bool:
     """The pipelined decode applies: the model runs as one stage of pp > 1
-    (any family, at any tp). The JAX package's other conditions hold by
-    construction: every stack is cut into equal stage ranges (a layout
-    that is not is refused when the model is built), a leaf that tp does
-    not divide is held whole and never summed (where `_manual_tp_ok`
-    falls back to GSPMD), and dp is 1 (refused by the engine)."""
-    return getattr(model, "stage", None) is not None
+    (any family, at any tp) and dp is 1 (the JAX package refuses dp > 1,
+    chitu_tpu/parallel/pipeline.py:200: dp x pp runs the layers in
+    sequence). The JAX package's other conditions hold by construction:
+    every stack is cut into equal stage ranges (a layout that is not is
+    refused when the model is built), and a leaf that tp does not divide
+    is held whole and never summed (where `_manual_tp_ok` falls back to
+    GSPMD)."""
+    return (getattr(model, "stage", None) is not None
+            and getattr(model, "dp_group", None) is None)
 
 
 def decode_pipelined(
@@ -130,4 +133,4 @@ def decode_pipelined(
             tok_in, done_in = buf[0], buf[1] > 0
         if st.last and live and rel + P < span:
             st.send_first(torch.stack([new, done.to(torch.int32)]))
-    return st.from_last(outs, (window, S, Bg), torch.int32, dev)
+    return st.world.from_sampler(outs, (window, S, Bg), torch.int32, dev)

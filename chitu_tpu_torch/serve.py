@@ -476,9 +476,10 @@ def serve_forever(cfg: EngineConfig, warmup: bool = True, device=None):
 
 def main(argv: Optional[List[str]] = None):
     """`python -m chitu_tpu_torch key=value ...` (reference hydra entry:
-    serve.py:215-218); serves on the CUDA device. With `infer.tp_size=N`
-    and / or `infer.pp_size=P` and no coordinator, the command starts
-    ranks 1..P*N-1 as copies of itself on this host and serves as rank 0; with `infer.coordinator`,
+    serve.py:215-218); serves on the CUDA device. With `infer.tp_size=N`,
+    `infer.pp_size=P` and / or `infer.dp_size=D` and no coordinator, the
+    command starts ranks 1..D*P*N-1 as copies of itself on this host and
+    serves as rank 0; with `infer.coordinator`,
     `infer.num_processes` and `infer.process_id` (or the CHITU_TPU_*
     variables) it is one rank of a world started elsewhere, one process
     a host."""
@@ -489,7 +490,7 @@ def main(argv: Optional[List[str]] = None):
 
     overrides = list(argv if argv is not None else sys.argv[1:])
     cfg = load_config(overrides=overrides)
-    ranks = cfg.infer.tp_size * cfg.infer.pp_size
+    ranks = cfg.infer.tp_size * cfg.infer.pp_size * cfg.infer.dp_size
     if ranks > 1 and not (cfg.infer.coordinator
                           or os.environ.get("CHITU_TPU_COORDINATOR")):
         distributed.serve_local(overrides, ranks)

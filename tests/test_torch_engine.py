@@ -218,19 +218,27 @@ def test_unknown_quant_method_rejected():
     ],
 )
 def test_unported_configurations_raise(override):
-    # the DeepSeek card serves since slice 4 (its dense MLA path since
-    # slice 5); what still raises there is the ring KV (multi-GPU).
-    # tp_size=2 serves since slice 13 (tests/test_torch_tp.py) and
-    # pp_size=2 since slice 14 (tests/test_torch_pp.py): on one process
-    # both ask for the ranks they need; dp_size=2 names the ring slice
+    # tp_size=2 serves since slice 13 (tests/test_torch_tp.py), pp_size=2
+    # since slice 14 (tests/test_torch_pp.py) and dp_size=2 since slice 16
+    # (tests/test_torch_ring.py): on one process each asks for the ranks
+    # it needs. ring_prefill, and the DeepSeek card's ring KV, at dp 1
+    # serve the default tokens (the JAX engine disables them there).
+    # What still raises: a quant method on random weights without
+    # quant_on_load
     extra = ["infer.ring_kv=true"] if "deepseek" in override else []
     cfg = load_config(overrides=TINY + [override] + extra)
-    if override == "infer.pp_size=2":
+    if override in ("infer.pp_size=2", "infer.dp_size=2"):
         with pytest.raises(ValueError, match="num_processes=2"):
             Engine(cfg, device="cpu")
         return
-    match = "A.3" if override == "infer.dp_size=2" else "ROADMAP|slice"
-    with pytest.raises(NotImplementedError, match=match):
+    if override in ("infer.ring_prefill=true", "models=tiny-deepseek-debug"):
+        plain = load_config(overrides=TINY + [override])
+        want = Engine(plain, device="cpu").generate("hello world", GREEDY)
+        eng = Engine(cfg, device="cpu")
+        assert eng.executor.ring_kv_axis == ""
+        assert eng.generate("hello world", GREEDY) == want
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP|slice"):
         Engine(cfg, device="cpu")
 
 

@@ -1232,3 +1232,130 @@ def test_int8_gemm_cp_async_path(dev, T, K, N):
     p = qg.int8_gemm_plan(xq, q.data)
     assert not (p.tma_x and p.tma_w)
     assert torch.equal(qg.int8_matmul(xq, q.data), qg.int8_matmul_plain(xq, q.data))
+
+
+# ---------------------------------------------------------------------------
+# B1 / B4 in the partials mode on a ring rank's local table (masked pages)
+# ---------------------------------------------------------------------------
+
+
+def _ring_case(dev, H, KV, D, page, seed, ranks=2):
+    """Rows of mixed context whose pages (a shuffle of the global pool)
+    stripe over `ranks`: the global pool, each rank's local pool and
+    local table, the rows' inputs."""
+    from chitu_tpu_torch.ops.attention_ring import ring_local_block_table
+
+    rand = _gen(dev, seed)
+    B, mp = 6, 8
+    P = B * mp
+    pool = _pool(rand, KV, D, page, P)
+    g = torch.Generator(device="cpu")
+    g.manual_seed(seed)
+    bt = torch.randperm(P, generator=g).to(torch.int32).reshape(B, mp).to(dev)
+    seq = torch.tensor([0, 5, page, 3 * page + 1, 5 * page + 7, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    bt[0, 1:] = -1  # a short row's table ends early
+    valid = torch.tensor([True, True, False, True, True, True], device=dev)
+    q, k, v = rand(B, H, D), rand(B, KV, D), rand(B, KV, D)
+    pl = P // ranks
+    local = [(pool[:, r * pl:(r + 1) * pl].contiguous(),
+              ring_local_block_table(bt, pl, r)) for r in range(ranks)]
+    return pool, local, bt, seq, valid, q, k, v
+
+
+@pytest.mark.parametrize("fused", [True, False])
+@pytest.mark.parametrize("window,softcap", WS)
+@pytest.mark.parametrize("H,KV,D,page", GEOMS + [(16, 16, 192, 64),
+                                                 (4, 2, 64, 16)])
+def test_decode_partials_on_masked_pages(dev, H, KV, D, page, window, softcap,
+                                         fused):
+    """Each rank's partials (every split, S = 1 included) against the
+    plain partials mode at the kernel's own split, on its pool of
+    striped pages; the fused append writes only the rank's own pages (its
+    pool equals the plain one); the ranks' partials joined on the split
+    axis and merged (`decode_merge`) against the whole pool's plain
+    decode."""
+    from chitu_tpu_torch.ops.attention_kernels import decode_split, _sm_count
+
+    pool, local, bt, seq, valid, q, k, v = _ring_case(dev, H, KV, D, page, 3)
+    kw = dict(window=window, softcap=softcap)
+    whole = pool.clone()
+    if fused:
+        want = tk.attend_decode_fused_plain(q, whole, 1, k, v, bt, seq, valid,
+                                            page, KV, D, **kw)
+    else:
+        want = tk.attend_decode_plain(q, whole, 1, bt, seq, page, KV, D, **kw)
+    S, chunk = decode_split(q.shape[0], KV, bt.shape[1], page, _sm_count(dev))
+    parts = []
+    n0 = tk.LAUNCHES["attend_decode_partials"]
+    for lp, lbt in local:
+        pk, pp = lp.clone(), lp.clone()
+        o, ml = tk.attend_decode_partials(q, pk, 1, k, v, lbt, seq, valid,
+                                          page, KV, D, fused=fused, **kw)
+        op, mlp = tk.attend_decode_partials_plain(
+            q, pp, 1, k, v, lbt, seq, valid, page, KV, D, fused=fused, S=S,
+            chunk=chunk, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(pk, pp)
+        assert o.shape == (q.shape[0], KV, S, H // KV, D)
+        # fused: a row that is not valid attends its new token from k / v
+        # in the kernel and from the pool (not appended) in the plain
+        # version; its output is never read
+        rows = valid if fused else torch.ones_like(valid)
+        live = (mlp[..., 1] > 0) & rows[:, None, None, None]
+        assert torch.equal(live, (ml[..., 1] > 0) & rows[:, None, None, None])
+        # the same partial up to the order of the sums: a row's normalized
+        # partial, and its log-sum-exp in base 2
+        _check((o / ml[..., 1:].clamp_min(1e-30))[live],
+               (op / mlp[..., 1:].clamp_min(1e-30))[live])
+        lse = ml[..., 0] + torch.log2(ml[..., 1].clamp_min(1e-30))
+        lse_p = mlp[..., 0] + torch.log2(mlp[..., 1].clamp_min(1e-30))
+        assert (lse - lse_p)[live].abs().max().item() < 1e-2
+        parts.append((o, ml))
+    assert tk.LAUNCHES["attend_decode_partials"] == n0 + len(local)
+    n1 = tk.LAUNCHES["decode_merge"]
+    out = tk.decode_merge(torch.cat([o for o, _ in parts], 2),
+                          torch.cat([m for _, m in parts], 2))
+    torch.cuda.synchronize()
+    assert tk.LAUNCHES["decode_merge"] == n1 + 1
+    _check(out, want, rows)
+
+
+@pytest.mark.parametrize("H,KV,D,page", GEOMS)
+def test_decode_unmasked_tables_unchanged(dev, H, KV, D, page):
+    """Outside the partials mode the kernel masks no page: a row whose
+    table ends in -1 entries past its context gives the bits it gives with
+    those entries filled with real pages; the partials mode (which masks
+    them) merged is the split decode's own output, bit for bit where the
+    plan splits the context (S > 1: the same merge; at S = 1 the decode
+    normalizes in the block, by a reciprocal)."""
+    from chitu_tpu_torch.ops.attention_kernels import decode_split, _sm_count
+
+    rand = _gen(dev, 5)
+    B, mp = 5, 8
+    pool = _pool(rand, KV, D, page, B * mp)
+    full = torch.arange(B * mp, device=dev, dtype=torch.int32).reshape(B, mp)
+    seq = torch.tensor([0, 3, page, 3 * page + 5, mp * page - 1],
+                       device=dev, dtype=torch.int32)
+    used = torch.arange(mp, device=dev)[None, :] <= (seq[:, None] // page)
+    bt = torch.where(used, full, torch.full_like(full, -1))
+    valid = torch.ones((B,), dtype=torch.bool, device=dev)
+    q, k, v = rand(B, H, D), rand(B, KV, D), rand(B, KV, D)
+    for fused in (True, False):
+        def run(table):
+            p = pool.clone()
+            if fused:
+                return tk.attend_decode_fused(q, p, 1, k, v, table, seq, valid,
+                                              page, KV, D), p
+            return tk.attend_decode(q, p, 1, table, seq, page, KV, D), p
+
+        out, p1 = run(bt)
+        out_full, p2 = run(full)
+        assert torch.equal(out, out_full) and torch.equal(p1, p2)
+        o, ml = tk.attend_decode_partials(q, pool.clone(), 1, k, v, bt, seq,
+                                          valid, page, KV, D, fused=fused)
+        S, _ = decode_split(B, KV, mp, page, _sm_count(dev))
+        if S > 1:
+            assert torch.equal(tk.decode_merge(o, ml), out)
+        else:
+            _check(tk.decode_merge(o, ml), out)

@@ -281,7 +281,7 @@ def test_per_rank_bytes_are_the_stage_share(worlds, world, tp):
 
 def test_supports_pipeline_and_refusals():
     """pp must divide the layers (the JAX package replicates otherwise);
-    dp > 1 names the ring slice; Mixtral and DeepSeek serve pp x tp
+    dp > 1 on one process asks for its ranks; Mixtral and DeepSeek serve pp x tp
     (tests/test_torch_ep.py), but for experts tp does not divide
     (ROADMAP C) and DeepSeek's dense MLA under tp (A.6)."""
     with pytest.raises(NotImplementedError, match="ROADMAP C"):
@@ -294,8 +294,10 @@ def test_supports_pipeline_and_refusals():
 
     one = Engine(load_config(overrides=BASE), device="cpu")
     assert not pipeline.supports_pipeline(one.model)
-    for ovr, match in ((["infer.dp_size=2"], "A.3"),
-                       (MIXTRAL + PP2 + ["infer.tp_size=3"], "ROADMAP C"),
+    # replicas serve since slice 16: on one process dp asks for its ranks
+    with pytest.raises(ValueError, match="num_processes=2"):
+        Engine(load_config(overrides=BASE + ["infer.dp_size=2"]), device="cpu")
+    for ovr, match in ((MIXTRAL + PP2 + ["infer.tp_size=3"], "ROADMAP C"),
                        (DEEPSEEK + PP2 + ["infer.tp_size=2",
                                           "infer.mla_absorb=none"], "A.6")):
         with pytest.raises(NotImplementedError, match=match):

@@ -486,10 +486,11 @@ def test_sharding_rules():
 def test_mesh_and_process_group_errors():
     with pytest.raises(ValueError, match="need 4 devices"):
         tmake_mesh(tp=4, ranks=2)
-    # pipeline stages serve since slice 14; replicas name the ring slice
+    # pipeline stages serve since slice 14, replicas since slice 16
     assert tmake_mesh(pp=2, ranks=2).size == 2
-    with pytest.raises(NotImplementedError, match="A.3"):
-        tmake_mesh(dp=2, ranks=2)
+    assert tmake_mesh(dp=2, ranks=2).size == 2
+    with pytest.raises(ValueError, match="need 4 devices"):
+        tmake_mesh(dp=2, tp=2, ranks=2)
     cfg = load_config(overrides=BASE + ["infer.num_processes=2"])
     with pytest.raises(ValueError, match="no coordinator"):
         distributed.maybe_initialize(cfg, "cpu")

@@ -10,7 +10,9 @@ rank writes what it saw to `out<rank>.json`. A scenario may count the
 pipelined decode windows (`spy`), give requests frequency penalties
 (`pens`) or a stop token of their own (`stop`, on every rank's task),
 forbid the MoE capacity route (`nocap`: it raises on every rank) and
-record a checksum of every router's selections (`routes`).
+record a checksum of every router's selections (`routes`). Every rank
+counts its sequence-parallel ring prefills (`ring_prefills`) and, under
+dp, the gathers over its dp group (`dp_gathers`).
 """
 
 import json
@@ -156,6 +158,24 @@ def run(spec_path, rank):
                 raise RuntimeError("a step fails on this rank alone")
 
             eng.executor.step = failing
+        ring = getattr(m, "_prefill_ring", None)
+        if ring is not None:
+            res["ring_prefills"] = 0
+
+            def ringing(*a, ring=ring, **k):
+                res["ring_prefills"] += 1
+                return ring(*a, **k)
+
+            m._prefill_ring = ringing
+        if getattr(m, "dp_group", None) is not None:
+            res["dp_gathers"] = 0
+            gather = m.dp_group.gather
+
+            def gathering(x, gather=gather):
+                res["dp_gathers"] += 1
+                return gather(x)
+
+            m.dp_group.gather = gathering
         if sc.get("shards"):
             m = eng.model
             res["shards"] = {k: list(getattr(m, k).shape) for k in m._shapes()}
