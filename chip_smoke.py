@@ -1413,14 +1413,15 @@ def sdpa_segments_ms(torch, F, q, pool, layer, bts, segs, tq, kv_heads, d,
 
 
 def split_head_cases(torch, tk, plain, dev, label, H, KV, D, kernels,
-                     scale=None):
+                     scale=None, variant=None):
     """B1 (fused), B4, B5 and B3 (those named in `kernels`) on the split
     layout at head size D: 16 decode rows of context up to 2047 (pages of
     64), a 512-token chunk at q_pos 512, and a packed slab of three prompts
     (256 tokens: the plain version gathers K and V a token at a time, 13 GB
     in f32 at 128 heads of 192). At DeepSeek's dense MLA (D 192) V lives in
     the first 128 of 192 lanes and the rest are zero, as the model pads
-    it. Limits and yardsticks as in phase 2."""
+    it. Limits and yardsticks as in phase 2. `variant` names the rows
+    (default `d<D>`)."""
     import torch.nn.functional as F
 
     g = torch.Generator(device=dev)
@@ -1432,7 +1433,7 @@ def split_head_cases(torch, tk, plain, dev, label, H, KV, D, kernels,
     G = H // KV
     scale = scale or D ** -0.5
     dv = 128 if D == 192 else D  # live value lanes
-    variant = f"d{D}"
+    variant = variant or f"d{D}"
 
     def randn(*shape, s=1.0):
         return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
@@ -1684,16 +1685,24 @@ def _row_rel(torch, name, got, want, limit):
     return err, rel
 
 
-def int8_cases(torch, qg, dev):
-    """B10 at Llama-3-8B's W8A8 projection shapes, T 16, 1, 512, 64 and 65
-    (the first case, T 16 `[4096 -> 28672]`, is the one reported in the
-    kernels line): the int32 sums equal the plain product's exactly, the
-    scaled f32 output within 1e-5 of the plain row's norm (the same f32
-    arithmetic), a bf16 output with a bias within 1e-2; each checked
-    output on memory filled with 7.0, two launches and a CUDA-graph replay
-    bit-equal. Times warm and cold as B9's (`absorb_cases`): the weights of
-    a stack of W8A8 layers sized by `cold_layers`. Library yardstick:
-    `torch._int_mm` (more than 16 rows only), warm and cold."""
+# B10 on a tp2 rank's slices of Llama-3-8B's row-parallel W8A8 inputs:
+# wo [2048 -> 4096], w_down [7168 -> 4096]
+PROJ_TP2 = [(2048, 4096), (7168, 4096)]
+
+
+def int8_cases(torch, qg, dev, proj=None, ts=None, variant=None):
+    """B10 at Llama-3-8B's W8A8 projection shapes (`proj`, default PROJ),
+    T 16, 1, 512, 64 and 65 (`ts`; the first case, T 16 `[4096 -> 28672]`,
+    is the one reported in the kernels line; `variant` names the rows of
+    another set of shapes): the int32 sums equal the plain product's
+    exactly, the scaled f32 output within 1e-5 of the plain row's norm
+    (the same f32 arithmetic), a bf16 output with a bias within 1e-2; each
+    checked output on memory filled with 7.0, two launches and a
+    CUDA-graph replay bit-equal. Times warm and cold as B9's
+    (`absorb_cases`): the weights of a stack of W8A8 layers sized by
+    `cold_layers`. Library yardstick: `torch._int_mm`, warm and cold; it
+    takes more than 16 rows only, so at T <= 16 it runs on the rows
+    padded with zeros to 32 (`library_padded_to`)."""
     from chitu_tpu_torch.ops import norm_quant as nq
     from chitu_tpu_torch.ops.qtensor import QuantKind
     from chitu_tpu_torch.quantize import transforms as qt
@@ -1705,13 +1714,13 @@ def int8_cases(torch, qg, dev):
     def randn(*shape, s=1.0):
         return (torch.randn(shape, generator=g, device=dev) * s).to(bf)
 
-    for K, N in PROJ:
+    for K, N in proj or PROJ:
         L = cold_layers(torch, dev, K * N, 2)
         ws = [qt.quantize_weight(randn(K, N, s=0.02), QuantKind.W8A8)
               for _ in range(L)]
         w8 = ws[1]
-        for T in TS + [64, 65]:
-            name = f"int8_gemm[T={T},{K}->{N}]"
+        for T in ts or TS + [64, 65]:
+            name = f"int8_gemm[T={T},{K}->{N}{',' + variant if variant else ''}]"
             xa = nq.quant_acts_plain(randn(T, K))
             run_acc = lambda: qg.int8_matmul(xa.data, w8.data)
             acc, acc_p = run_acc(), qg.int8_matmul_plain(xa.data, w8.data)
@@ -1732,11 +1741,12 @@ def int8_cases(torch, qg, dev):
                      qg.int8_gemm_plain(xa.data, xa.scale, w8, bias, bf), ROW_RTOL)
             nbytes = w8.nbytes() + T * K + T * 4 + T * N * 4
             bnd, by = bound_ms(nbytes, 2.0 * T * K * N, INT8_OP_PER_S)
-            lib = lib_cold = None
-            if T > 16:  # torch._int_mm takes more than 16 rows only
-                lib = device_ms_sized(torch, lambda: torch._int_mm(xa.data, w8.data))
-                lib_cold = device_ms_cold(torch, [
-                    (lambda w=w: torch._int_mm(xa.data, w.data)) for w in ws])
+            # torch._int_mm takes more than 16 rows only
+            xl = xa.data if T > 16 else torch.cat([xa.data, torch.zeros(
+                (32 - T, K), dtype=torch.int8, device=dev)])
+            lib = device_ms_sized(torch, lambda: torch._int_mm(xl, w8.data))
+            lib_cold = device_ms_cold(torch, [
+                (lambda w=w: torch._int_mm(xl, w.data)) for w in ws])
             res = dict(
                 name=name, kernel="int8_gemm", route="cuda", source=QGEMM_SRC,
                 replaces="chitu_tpu/ops/pallas_quant_gemm.py:501",
@@ -1748,6 +1758,7 @@ def int8_cases(torch, qg, dev):
                     torch, lambda: qg.int8_gemm_plain(xa.data, xa.scale, w8),
                     reps=5),
                 bound_ms=bnd, bound_by=by, library_ms=lib, library_ms_cold=lib_cold,
+                library_padded_to=None if T > 16 else 32, variant=variant,
                 shape=f"T={T} K={K} N={N} layers={L} layer=1")
             if hasattr(qg, "int8_gemm_plan"):
                 res.update(plan_fields(qg.int8_gemm_plan(xa.data, w8.data)))
@@ -1846,6 +1857,7 @@ def quant_kernel_cases(torch, qg, qt, QuantKind, dev):
     torch.cuda.empty_cache()
 
     yield from int8_cases(torch, qg, dev)
+    yield from int8_cases(torch, qg, dev, PROJ_TP2, [16, 512], "tp2")
 
 
 # ---------------------------------------------------------------------------
@@ -1995,11 +2007,92 @@ def acts_cases(torch, nq, dev):
     ties, flips = tie_rows(torch, 16, 14336)
     assert flips > 0
     yield case("quant_acts", 16, 14336, "F", ties.to(dev), f",ties={flips}")
+    if hasattr(nq, "quant_acts_given"):
+        for K, label in ((2048, "D"), (7168, "F")):  # wo's, w_down's at tp2
+            for T in ACTS_TS[:2] + ACTS_TS[-1:]:
+                yield from row_parallel_acts_cases(torch, nq, dev, g, T, K, label)
+        # rows of ties, split over the two ranks
+        yield from row_parallel_acts_cases(torch, nq, dev, g, 16, 7168, "F",
+                                           whole=ties.to(dev),
+                                           tag=f",ties={flips}")
     one = torch.zeros(1, device=dev)
     yield dict(name="launch_floor", kernel="launch_floor",
                ms=device_ms(torch, lambda: one.add_(1.0)),
                shape="one f32 element added in place")
     torch.cuda.empty_cache()
+
+
+def row_parallel_acts_cases(torch, nq, dev, g, T, K, label, whole=None,
+                            tag=""):
+    """B12's row-parallel modes at one of the tp2 slices of Llama-3-8B's
+    W8A8 row-parallel inputs (K of a [T, 2K] row: wo's 2048 of 4096,
+    w_down's 7168 of 14336): `acts_absmax` on each half equals its plain
+    version (a max, exact), and the max of the halves' is the whole row's;
+    `quant_acts_given` on rank 0's half under that absmax is bit-equal to
+    its plain version and to `quant_acts` (the one-rank B12) on the whole
+    row, cut to the half: int8 values and scales, on memory filled with
+    7.0; two launches and a CUDA-graph replay bit-equal. Times warm (the
+    input was written just before on the main path)."""
+    bf = torch.bfloat16
+    if whole is None:
+        whole = torch.randn((T, 2 * K), generator=g, device=dev).to(bf)
+    halves = [whole[:, :K].contiguous(), whole[:, K:].contiguous()]
+    x = halves[0]
+    shape = f"T={T} {label}={K} of {2 * K}{tag}"
+    poison(torch, (2 * T,), dev)
+    parts = [nq.acts_absmax(h) for h in halves]
+    for h, a in zip(halves, parts):
+        if not torch.equal(a, nq.acts_absmax_plain(h)):
+            raise AssertionError(f"acts_absmax[{shape}]: differs from plain")
+    amax = torch.maximum(*parts)
+    if not torch.equal(amax, nq.acts_absmax_plain(whole)):
+        raise AssertionError(f"acts_absmax[{shape}]: the halves' max is not "
+                             "the whole row's")
+    run_a = lambda: nq.acts_absmax(x)  # noqa: E731
+    bit_equal(torch, f"acts_absmax[{shape}]", parts[0], run_a())
+    replay_equal(torch, f"acts_absmax[{shape}]", run_a, parts[0])
+    bnd, by = bound_ms(T * K * 2 + T * 4, 0.0)
+    yield dict(
+        name=f"acts_absmax[{shape}]", kernel="acts_absmax", route="cuda",
+        source=NQ_SRC, replaces="chitu_tpu/ops/pallas_norm_quant.py:107",
+        max_abs_err=0.0, bit_equal_plain=True,
+        ms=device_ms(torch, run_a),
+        plain_ms=call_ms(torch, lambda: nq.acts_absmax_plain(x)),
+        host_us=host_us(torch, run_a), bound_ms=bnd, bound_by=by,
+        library_ms=device_ms(torch, lambda: torch.linalg.vector_norm(
+            x, float("inf"), dim=-1, dtype=torch.float32)),
+        shape=shape)
+
+    def pack(a):
+        return torch.cat([a.data.view(-1), a.scale.view(torch.int8)])
+
+    run = lambda: nq.quant_acts_given(x, amax)  # noqa: E731
+    poison(torch, (-(-T * K // 2),), dev)
+    poison(torch, (2 * T,), dev)
+    got = run()
+    acts_equal(torch, f"quant_acts_given[{shape}]", got,
+               nq.quant_acts_given_plain(x, amax))
+    one = nq.quant_acts(whole)
+    acts_equal(torch, f"quant_acts_given[{shape}] against the whole row", got,
+               nq.QuantizedActs(data=one.data[:, :K].contiguous(),
+                                scale=one.scale))
+    bit_equal(torch, f"quant_acts_given[{shape}]", pack(got), pack(run()))
+    replay_equal(torch, f"quant_acts_given[{shape}]", lambda: pack(run()),
+                 pack(got))
+    bnd, by = bound_ms(T * K * 3 + T * 8, 0.0)
+    res = dict(
+        name=f"quant_acts_given[{shape}]", kernel="quant_acts_given",
+        route="cuda", source=NQ_SRC,
+        replaces="chitu_tpu/ops/pallas_norm_quant.py:107",
+        max_abs_err=0.0, bit_equal_plain=True, bit_equal_whole_row=True,
+        ms=device_ms(torch, run),
+        plain_ms=call_ms(torch, lambda: nq.quant_acts_given_plain(x, amax)),
+        host_us=host_us(torch, run), bound_ms=bnd, bound_by=by,
+        library_ms=None, shape=shape)
+    p = nq.plan_for(x)
+    res.update(regime=p.regime, cluster=p.cluster, threads=p.threads,
+               rows=p.rows, vecs=p.vecs, grid=p.grid)
+    yield res
 
 
 # ---------------------------------------------------------------------------
@@ -2226,6 +2319,8 @@ def _swap_targets():
         (linear, "quant_acts", norm_quant.quant_acts_plain),
         (llama, "quant_acts", norm_quant.quant_acts_plain),
         (llama, "rms_norm_quant", norm_quant.rms_norm_quant_plain),
+        (linear, "acts_absmax", norm_quant.acts_absmax_plain),
+        (linear, "quant_acts_given", norm_quant.quant_acts_given_plain),
     ]
 
 
@@ -2252,26 +2347,62 @@ def plain_versions():
     return _swapped(lambda kernel_fn, plain_fn, name: plain_fn)
 
 
+TIE_EPS = 1e-4  # a quotient this close to k + 0.5 is a rounding tie
+
+
+def off_at_ties(torch, name, args, want, off):
+    """The largest distance from a rounding tie (k + 0.5) of the plain
+    version's quotient |y / s| over the values `off` marks (0 if none):
+    y is the plain version's f32 row (B11: RMSNorm times w; B12: x), s its
+    scale."""
+    if not off.any():
+        return 0.0
+    x = args[0].float()
+    if name == "rms_norm_quant":
+        w, eps = args[1], args[2]
+        x = x * torch.rsqrt((x * x).mean(dim=-1, keepdim=True) + eps) * w.float()
+    q = (x / want.scale[:, None]).abs()
+    return ((q - q.floor() - 0.5).abs()[off]).max().item()
+
+
 def shadowed(torch, errs):
     """Every call into one of this slice's kernels also runs the plain
     version on the same inputs and is held to the kernel cases' limits;
     the kernel's result goes on. `errs[name]` collects the largest error
-    (GEMM: row relative; quantizers: share of int8 values off by one)."""
+    (GEMM: row relative; quantizers: share of int8 values off by one).
+    B11 / B12 (whole rows): scales within 1e-6, int8 values at most one
+    step apart, and a value one step off only where the plain version's
+    quotient y / s lies within TIE_EPS of a rounding tie (`off_at_ties`):
+    the kernel cases' cap of 0.1 % of the values is a share over random
+    rows of 16, and one row of a decode call may hold more values at a
+    tie than that (a row of 4096 in `tp2_w8a8`'s shadowed decode had 6
+    values one step off, 0.146 %)."""
 
     def make(kernel_fn, plain_fn, name):
         def both(*args, **kw):
             got, want = kernel_fn(*args, **kw), plain_fn(*args, **kw)
-            if name.endswith(("gemm", "matmul")):
+            if name in ("acts_absmax", "quant_acts_given"):
+                # B12's row-parallel modes: bit-equal to their plain versions
+                same = torch.equal(got, want) if name == "acts_absmax" else (
+                    torch.equal(got.data, want.data)
+                    and torch.equal(got.scale, want.scale))
+                if not same:
+                    raise AssertionError(f"{name} in the model differs from "
+                                         "its plain version")
+                e = 0.0
+            elif name.endswith(("gemm", "matmul")):
                 limit = 1e-5 if name == "int8_gemm" else ROW_RTOL
                 _, e = _row_rel(torch, f"{name} in the model", got, want, limit)
             else:
                 rel = ((got.scale - want.scale).abs() / want.scale).max().item()
                 d = (got.data.int() - want.data.int()).abs()
                 e = (d != 0).float().mean().item()
-                if not (rel <= 1e-6 and d.max().item() <= 1 and e <= 1e-3):
+                far = off_at_ties(torch, name, args, want, d != 0)
+                if not (rel <= 1e-6 and d.max().item() <= 1 and far <= TIE_EPS):
                     raise AssertionError(
                         f"{name} in the model: scale rel err {rel}, max int8 "
-                        f"diff {d.max().item()}, share off by one {e}"
+                        f"diff {d.max().item()}, share off by one {e}, a value "
+                        f"off by one {far} from a rounding tie (limit {TIE_EPS})"
                     )
             errs[name] = max(errs.get(name, 0.0), e)
             return got
@@ -2816,6 +2947,16 @@ VARIANT_ROWS = [
     # launches of rank 0 of the dp 2 ring KV phase
     ("attend_decode_partials[ring]", "dp2_ring_kv", "attend_decode_partials"),
     ("decode_merge[ring]", "dp2_ring_kv", "decode_merge"),
+    # slice 17: a rank's geometries under the layouts it serves, with the
+    # launches of rank 0 of the phase that runs them: the dense MLA's
+    # split kernels at 64 heads, B10 on the tp2 slices of wo's and
+    # w_down's inputs, B12's row-parallel modes
+    *((f"{k}[d192,h64]", "tp2_r1_dense", f"{k}[d192]") for k in (
+        "attend_decode_fused", "attend_prefill_packed", "attend_decode",
+        "attend_prefill")),
+    ("int8_gemm[tp2]", "tp2_w8a8", "int8_gemm"),
+    ("acts_absmax", "tp2_w8a8"),
+    ("quant_acts_given", "tp2_w8a8"),
 ]
 
 
@@ -4274,9 +4415,13 @@ def join_world(world):
     for r in range(n):
         with open(os.path.join(d, f"rank{r}.json")) as f:
             out.append(json.load(f))
-        routes = os.path.join(d, f"tf_routes{r}.pt")
-        if os.path.exists(routes):
-            out[r]["tf_routes"] = torch.load(routes)
+        for key, name in (("tf_routes", f"tf_routes{r}.pt"),
+                          ("acts", f"acts{r}.pt")):
+            path = os.path.join(d, name)
+            if os.path.exists(path):
+                out[r][key] = torch.load(path)
+    if os.path.exists(os.path.join(d, "decode_routes.pt")):
+        out[0]["decode_routes"] = torch.load(os.path.join(d, "decode_routes.pt"))
     rows = torch.load(os.path.join(d, "tp_rows.pt"))
     stop_world(world)
     print(f"[{label}] world of {n} ranks: {time.time() - t0:.1f} s (started "
@@ -4315,13 +4460,102 @@ def run_worlds(phases):
     return out
 
 
+def record_decode_routes(torch, eng, seen, route_watchers):
+    """On rank 0 of a world of one stage: the experts that every MoE layer
+    of the burst's decode steps (windows and the decode rows of hybrid
+    steps) chose for each live row, kept by request id and the position
+    of the token fed ({rid: {pos: [layers, k] ascending}}). A row's
+    request is found by its block table's first page after the step,
+    while the request still holds it."""
+    model, ex = eng.model, eng.executor
+    cur, pending, out = [], [], {}
+
+    def watching(fn, rows):
+        def call(*a, **k):
+            live = "burst" in seen and "burst_end" not in seen
+            if live:
+                route_watchers.append(cur.append)
+            try:
+                return fn(*a, **k)
+            finally:
+                if live:
+                    route_watchers.remove(cur.append)
+                    tables, seq, valid = rows(*a)
+                    B = tables.shape[0]
+                    if cur:
+                        pending.append((tables[:, 0].clone(), seq.clone(),
+                                        valid.clone(),
+                                        torch.stack([c[:B] for c in cur])))
+                    cur.clear()
+        return call
+
+    # decode(cache, tokens, seq_lens, tables, valid); step_hybrid(cache,
+    # tokens, seq_lens, tables, valid, <the prefill rows>)
+    model.decode = watching(model.decode, lambda *a: (a[3], a[2], a[4]))
+    model.step_hybrid = watching(model.step_hybrid, lambda *a: (a[3], a[2], a[4]))
+    step = ex.step
+
+    def stepping(tasks):
+        got = step(tasks)
+        if pending:
+            page0 = {}
+            for t in tasks:
+                first = int(eng.cache.allocator.block_table([t.task_id], 1)[0, 0])
+                if first >= 0:
+                    page0[first] = t.req.request_id
+            for first, seq, valid, sel in pending:
+                sel = sel.sort(-1).values.to("cpu", torch.int64)
+                for i, (f, q, v) in enumerate(zip(first.tolist(), seq.tolist(),
+                                                  valid.tolist())):
+                    if v and f in page0:
+                        out.setdefault(page0[f], {})[q] = sel[:, i]
+            pending.clear()
+        return got
+
+    ex.step = stepping
+    return out
+
+
+def record_sliced_acts(eng, seen):
+    """Every W8A8 quantization of a row-parallel input slice (`linear`'s
+    `quant_acts_rows` with the group's `row_max`) in the shadowed steps:
+    [(the slice, its int8 values, its scales)] on the host."""
+    from chitu_tpu_torch.models import llama
+    from chitu_tpu_torch.ops import linear
+
+    kept = []
+    rows = linear.quant_acts_rows
+
+    def keeping(x, row_max=None):
+        q = rows(x, row_max)
+        if row_max is not None and "routes" in seen and "routes_end" not in seen:
+            kept.append((x.cpu(), q.data.cpu(), q.scale.cpu()))
+        return q
+
+    linear.quant_acts_rows = llama.quant_acts_rows = keeping
+    return kept
+
+
+PPL_WINDOW = 512  # a perplexity window; the stride is the window
+
+
+def ppl_tokens(V):
+    """The fixed token sequence a world's and the one-rank engine's
+    perplexities are measured on: 1,200 tokens, three windows."""
+    import numpy as np
+
+    rng = np.random.default_rng(17)
+    return [int(x) for x in rng.integers(1, V, size=1200)]
+
+
 def tp_rank_main(spec_path):
     """One rank of a TP or PP phase. Ranks that share the card come up one
     after another (each draws every leaf whole before it keeps its part).
     Rank 0 serves the burst: its chat message over HTTP to the server on
     its engine and the seven prompts through `Engine.submit`, all at once;
-    then a lone request and one prefill and one decode step with every
-    kernel call shadowed by its plain version. The other ranks follow it
+    then a lone request, and a prefill, a hybrid and a decode step with
+    every kernel call shadowed by its plain version (and, where the spec
+    asks, a perplexity through the lockstep). The other ranks follow it
     (`Engine.follow`). Every rank counts its kernel launches and its
     pipelined decode windows in the burst: rank 0 marks the burst's start
     and end in its step stream, which every rank applies in lockstep.
@@ -4380,7 +4614,7 @@ def tp_rank_main(spec_path):
     # the burst's launches and pipelined windows on every rank, between
     # rank 0's marks; a checksum of every router call's selections in the
     # shadowed steps, between two more marks
-    windows, seen, routes, rings = [0], set(), [], [0]
+    windows, seen, routes, rings, route_watchers = [0], set(), [], [0], []
     decode_pipelined = pipeline.decode_pipelined
 
     def counted(*a, **k):
@@ -4401,9 +4635,15 @@ def tp_rank_main(spec_path):
         w, sel = moe.route(*a, **k)
         if "routes" in seen and "routes_end" not in seen:
             routes.append(zlib.crc32(sel.cpu().numpy().tobytes()))
+        for keep in route_watchers:
+            keep(sel)
         return w, sel
 
     mixtral.route = deepseek_v3.route = routing
+    if spec.get("decode_routes") and rank == 0:
+        decode_routes = record_decode_routes(torch, eng, seen, route_watchers)
+    if spec.get("acts"):
+        acts = record_sliced_acts(eng, seen)
     apply = eng._apply
 
     def marking(msg):
@@ -4479,27 +4719,41 @@ def tp_rank_main(spec_path):
             res[f"decode_tokens_per_s_batch{spec['batch']}"] = batch_decode_rate(
                 eng, spec["prompts"], spec["batch"])
         msg = [r for r in reqs if r not in api]
+        reqs_all = api + msg[:1]
         res["api"] = [list(r.async_stream.tokens) for r in api]
         res["http"] = list(msg[0].async_stream.tokens) if len(msg) == 1 else None
         res["http_prompt"] = prompt_of[msg[0].request_id] if len(msg) == 1 else None
         res["http_usage"] = http["resp"]["usage"]
-        # one prefill step and one decode step, every kernel call of rank
-        # 0 shadowed by its plain version on equal inputs
+        # a prefill step, a hybrid step (the first request's decode row
+        # beside a second request's prefill: B4 and B3 where the family
+        # takes them) and a decode step, every kernel call of rank 0
+        # shadowed by its plain version on equal inputs
         errs = {}
         rng = np.random.default_rng(5)
         p = [int(x) for x in rng.integers(1, cfg.models.vocab_size, 300)]
+        q = [int(x) for x in rng.integers(1, cfg.models.vocab_size, 200)]
         with eng._lock:  # every rank applies it before the first step
             eng._outbox.append(("mark", "routes"))
         with torch.no_grad(), shadowed_attention(torch, tk, errs), \
                 shadowed(torch, errs):
-            eng.submit("", SampleParams(temperature=0.0, max_new_tokens=2),
-                       prompt_tokens=p)
+            two = SampleParams(temperature=0.0, max_new_tokens=2)
+            eng.submit("", two, prompt_tokens=p)
+            eng.step()
+            eng.submit("", two, prompt_tokens=q)
             eng.step()
             eng.step()
         with eng._lock:  # ... and this one before the next
             eng._outbox.append(("mark", "routes_end"))
         eng.run_until_complete()
         res["shadowed_call_err_vs_plain"] = errs
+        if spec.get("ppl"):
+            # through the world's lockstep: every rank runs its part
+            from chitu_tpu_torch import evals
+
+            t1 = time.time()
+            res["ppl"] = evals.perplexity_from_tokens(
+                eng, ppl_tokens(cfg.models.vocab_size), window=PPL_WINDOW)
+            res["ppl_s"] = time.time() - t1
         eng.terminate()
     pipeline.decode_pipelined = decode_pipelined
     # every decoded position of rank 0's streams and its lone request,
@@ -4514,6 +4768,18 @@ def tp_rank_main(spec_path):
             rows.append(row)
             tf_routes.append(sel)
     res["routes"] = routes
+    if spec.get("decode_routes") and rank == 0:
+        # each stream's experts in the world's decode, by the position of
+        # the token fed (the streams as `pairs` orders them)
+        streams = []
+        for r in reqs_all:
+            got = decode_routes.get(r.request_id, {})
+            n = len(prompt_of[r.request_id])
+            toks = list(r.async_stream.tokens)
+            streams.append([got.get(n + m) for m in range(len(toks) - 1)])
+        torch.save(streams, os.path.join(spec["out"], "decode_routes.pt"))
+    if spec.get("acts"):
+        torch.save(acts, os.path.join(spec["out"], f"acts{rank}.pt"))
     if eng.group.world_rank == eng.group.sampler:
         torch.save([r.cpu() for r in rows],
                    os.path.join(spec["out"], "tp_rows.pt"))
@@ -4591,7 +4857,7 @@ def tp_phase(torch, np, tk, card, label, n, overrides, need, backend="gloo",
 
 
 def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
-                   tie=NEAR_TIE, world_routes=None):
+                   tie=NEAR_TIE, world_routes=None, own_routes=None):
     """Every decoded position of the TP world's streams against the tp=1
     engine, on teacher-forced rows of the same context (`stream_rows`: the
     tp=1 engine's with the kernels and plain, the world's own in
@@ -4609,12 +4875,25 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
     against the tp=1 engine's; a row beyond NOISE_SIGMAS sigma passes
     only when its own token's experts flipped, or within NEIGHBOUR_SIGMAS
     sigma when a flip came at most FLIP_REACH tokens before it, and the
-    median shift is held within NOISE_SIGMAS sigma.
+    median shift is held within NOISE_SIGMAS sigma. `own_routes` (a world
+    of one stage): each stream's experts in the world's own decode, by
+    the token fed (`record_decode_routes`), against the world's own
+    teacher-forced prefill (`world_routes`): a decoded token that is no
+    near tie of either row passes only when the world's decode routed the
+    token it was predicted from to other experts than the world's
+    prefill did (its teacher-forced row is then not what the decode saw),
+    or, within NEIGHBOUR_SIGMAS sigma of the top of the world's row, when
+    such a flip came at most FLIP_REACH tokens before it: the world held
+    to its own decode-against-prefill deviation, as the one-rank engine
+    is (`own_deviation`). Each such token is printed with the routes on
+    both sides.
     -> those numbers."""
     out = dict(rows=0, below_top={}, worst_spread={}, worst_sigma={})
     if world_routes is not None:
         out.update(rows_beyond=0, rows_own_flip=0, rows_after_a_neighbour=0,
                    beyond_after_a_neighbour=[])
+    if own_routes is not None:
+        out.update(decode_positions=0, decode_flips=0, tokens_by_own_flip=[])
     shifts = []
     for i, (p, a, tp) in enumerate(zip(prompts, streams, tp_rows)):
         if world_routes is None:
@@ -4673,6 +4952,43 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
                 f"the tp=1 row by an rms of {shift[j].item():.3f} sigma (limit "
                 f"{NOISE_SIGMAS}){'' if world_routes is None else ' and no router flip that allows it'}")
         off = ~(near["decoded_on_tp1"] | near["decoded_on_world"])
+        if own_routes is not None and own_routes[i] is not None:
+            # the world's decode against its own prefill, by row: row j
+            # was predicted from stream token j - 1 (fed at len(p) + j - 1)
+            prefill = world_routes[i][:, len(p):]
+            flip = torch.zeros(len(a), dtype=torch.bool)
+            flipped = {}
+            for m, sel_m in enumerate(own_routes[i]):
+                if sel_m is None:
+                    continue
+                out["decode_positions"] += 1
+                if not torch.equal(sel_m, prefill[:, m]):
+                    flip[m + 1] = True
+                    layers = (sel_m != prefill[:, m]).any(-1).nonzero().flatten()
+                    flipped[m + 1] = [[int(ly), sel_m[ly].tolist(),
+                                       prefill[ly, m].tolist()] for ly in layers]
+            out["decode_flips"] += int(flip.sum())
+            at_c = torch.arange(len(a))
+            last = torch.where(flip, at_c, torch.full_like(
+                at_c, -len(at_c) - FLIP_REACH - 1)).cummax(0).values
+            since_w = (at_c - last).to(k.device)
+            top_w = tp.max(-1).values
+            gap_w = top_w - tp[at, dec]
+            spread_w = top_w - tp.min(-1).values
+            gap_k = k.max(-1).values - k[at, dec]
+            spread_k = k.max(-1).values - k.min(-1).values
+            ok = off & ((since_w == 0) | (
+                (since_w <= FLIP_REACH) & (gap_w <= NEIGHBOUR_SIGMAS * sigma)))
+            for j in ok.nonzero().flatten().tolist():
+                f = j - int(since_w[j])
+                out["tokens_by_own_flip"].append(dict(
+                    stream=i, token=j, tokens_since_the_flip=int(since_w[j]),
+                    share_of_spread_world=(gap_w[j] / spread_w[j]).item(),
+                    share_of_spread_tp1=(gap_k[j] / spread_k[j]).item(),
+                    sigma_world=(gap_w[j] / sigma[j]).item(),
+                    flip_at_token=f,
+                    routes_decode_vs_prefill=flipped.get(f)))
+            off = off & ~ok
         if off.any():
             j = int(off.nonzero()[0])
             raise AssertionError(
@@ -4695,6 +5011,15 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
               f"a flip (held within {NEIGHBOUR_SIGMAS} sigma), the rest within "
               f"{NOISE_SIGMAS}; beyond without a flip of their own [stream, row, "
               f"tokens since the flip, sigma]: {out['beyond_after_a_neighbour']}",
+              flush=True)
+    if own_routes is not None:
+        print(f"[{label}] the world's own decode against its own prefill: "
+              f"{out['decode_flips']} of {out['decode_positions']} decoded "
+              "positions routed to other experts; decoded tokens no near tie "
+              "of either row, passed by such a flip [stream, token, tokens "
+              "since the flip, share of the world row's spread, of the tp=1 "
+              "row's, sigma on the world row, [layer, decode's experts, "
+              f"prefill's experts]]: {[[t['stream'], t['token'], t['tokens_since_the_flip'], round(t['share_of_spread_world'], 4), round(t['share_of_spread_tp1'], 4), round(t['sigma_world'], 2), t['routes_decode_vs_prefill']] for t in out['tokens_by_own_flip']]}",
               flush=True)
     print(f"[{label}] every position: {out['rows']} rows; the world's rows "
           f"against tp=1's: rms {out['tp_vs_tp1_rms_sigma']} sigma (limit "
@@ -4724,10 +5049,10 @@ TP_PHASES = [
 PP_PHASES = [
     # (label, model card, pp, tp, overrides, kernels that must launch on
     # every rank in the burst: each stage runs them on its own layers).
-    # pp2 at 8 of 32 layers and pp2_tp2 at 2 since the slice 16 phases
-    # came (32 and 4 before; scripts/torch_pp_cards.py runs all 32 on a
-    # card a rank)
-    ("pp2", LLAMA, 2, 1, ["models.n_layers=8"], ATTN_KERNELS),
+    # pp2 at 4 of 32 layers (8 in PR 16) and pp2_tp2 at 2 since the later
+    # slices' phases came (32 and 4 before; scripts/torch_pp_cards.py runs
+    # all 32 on a card a rank)
+    ("pp2", LLAMA, 2, 1, ["models.n_layers=4"], ATTN_KERNELS),
     ("pp2_tp2", LLAMA, 2, 2, ["models.n_layers=2"], ATTN_KERNELS),
     ("pp2_mixtral", MIXTRAL, 2, 1, ["models.n_layers=4"],
      ATTN_KERNELS + ("grouped_gemm",)),
@@ -4751,41 +5076,100 @@ def held_whole(layout, name):
 def stage_bytes(eng, pp, tp):
     """Each rank's (weight bytes, pool bytes) in a pp x tp world, from the
     one-rank engine's leaves: rank (p, t) holds of each stacked leaf its
-    stage's 1 / pp, of that 1 / tp (the whole of the leaves every rank
-    holds, `held_whole`), plus embed / tp on stage 0 and head / tp +
-    norm on the last, and pool / (pp tp); DeepSeek: the dense-first stack
-    and its pool on stage 0, the MoE stack and its pool / pp on each
-    stage, the latent pools whole over tp."""
+    stage's layers (`StageSlice`: L // pp, the first L % pp stages one
+    more), of those 1 / tp (the whole of the leaves every rank holds,
+    `held_whole`), plus embed / tp on stage 0 and head / tp + norm on the
+    last, and its layers' pool / tp; DeepSeek: the dense-first stack and
+    its pool on stage 0, the stage's MoE layers and their pool on each
+    stage, the latent pools whole over tp (the dense MLA's per-head pools
+    / tp)."""
     from chitu_tpu_torch.ops.qtensor import QTensor
+    from chitu_tpu_torch.parallel.sharding import StageSlice
 
     def size(t):
         if isinstance(t, dict):
             return sum(size(v) for v in t.values())
         return t.nbytes() if isinstance(t, QTensor) else t.numel() * t.element_size()
 
+    def part(k, v):
+        # a row-parallel weight's per-out-channel scale stays whole
+        # (`sharding.qtensor_aux_spec`): W8A16 and W8A8 `wo`, `w_down`
+        lay = eng.model.layout
+        if held_whole(lay, k):
+            return size(v)
+        if isinstance(v, QTensor) and v.scale.dim() < v.data.dim():
+            spec = lay.part_spec(k, v.data.dim())
+            if spec[-2] is not None and spec[-1] is None:
+                sc = v.scale.numel() * v.scale.element_size()
+                return (size(v) - sc) // tp + sc
+        return size(v) // tp
+
     def share(leaves):
-        return sum(size(v) if held_whole(eng.model.layout, k) else size(v) // tp
-                   for k, v in leaves.items())
+        return sum(part(k, v) for k, v in leaves.items())
 
     tree = eng.model.params_tree()
     top = {k: size(tree.get(k, {})) for k in ("embed", "norm", "lm_head")}
     pools = {k: size(v) for k, v in eng.cache.arrays.items()}
+    m = eng.model
     out = []
     for r in range(pp * tp):
         p = r // tp
         if "moe_layers" in tree:
-            w = share(tree["moe_layers"]) // pp
-            pool = pools["kv_moe"] // pp
+            n = m.n_moe
+            held = StageSlice.of(p, pp, {"moe_layers": n}).count("moe_layers", n)
+            # the latent pools are whole on every TP rank, the dense
+            # MLA's per-head pools cut by heads
+            ptp = 1 if m.absorb else tp
+            w = share(tree["moe_layers"]) // n * held
+            pool = pools["kv_moe"] // n * held // ptp
             if p == 0:
                 w += share(tree.get("dense_layers", {})) + top["embed"] // tp
-                pool += pools["kv_dense"]
+                pool += pools["kv_dense"] // ptp
         else:
-            w = share(tree["layers"]) // pp
+            n = m.args.n_layers
+            held = StageSlice.of(p, pp, {"layers": n}).count("layers", n)
+            w = share(tree["layers"]) // n * held
             w += top["embed"] // tp if p == 0 else 0
-            pool = pools["kv"] // (pp * tp)
+            pool = pools["kv"] // n * held // tp
         if p == pp - 1:
             w += top["lm_head"] // tp + top["norm"]
         out.append((w, pool))
+    return out
+
+
+def sliced_acts_check(torch, label, ranks, tp):
+    """W8A8 under TP: every row-parallel input slice that rank r quantized
+    in the shadowed steps (B12's PARTIAL and GIVEN modes around the
+    group's MAX all-reduce) equals, bit for bit, the one-rank B12 kernel
+    (`quant_acts`) on the whole row, the ranks' slices joined in rank
+    order, cut to rank r's columns: int8 values and scales. -> counts."""
+    from chitu_tpu_torch.ops import norm_quant as nq
+
+    calls = [res.get("acts") for res in ranks]
+    if not calls[0] or any(len(c or ()) != len(calls[0]) for c in calls):
+        raise AssertionError(f"[{label}] row-parallel W8A8 inputs a rank: "
+                             f"{[len(c) for c in calls]}")
+    widths, rows = set(), 0
+    for parts in zip(*calls):
+        whole = torch.cat([x for x, _, _ in parts], dim=-1).cuda()
+        want = nq.quant_acts(whole)
+        k0 = 0
+        for r, (x, q, sc) in enumerate(parts):
+            k = x.shape[-1]
+            if not (torch.equal(q.cuda(), want.data[:, k0:k0 + k])
+                    and torch.equal(sc.cuda(), want.scale)):
+                raise AssertionError(
+                    f"[{label}] rank {r}'s int8 slice of a [{whole.shape[0]}, "
+                    f"{whole.shape[1]}] row-parallel input differs from the "
+                    "one-rank B12 on the whole row")
+            k0 += k
+        widths.add(whole.shape[1])
+        rows += whole.shape[0]
+    out = dict(calls=len(calls[0]), rows=rows, widths=sorted(widths),
+               bit_equal=True)
+    print(f"[{label}] W8A8 row-parallel inputs: {out['calls']} calls a rank "
+          f"({rows} rows, widths {out['widths']}), every rank's slice bit-equal "
+          "to the one-rank B12 on the whole row", flush=True)
     return out
 
 
@@ -4818,11 +5202,23 @@ def pp_world_args(np, model, pp, tp, overrides, dp=1, lens=None):
     return base, prompts, grid
 
 
+def world_extras(label, model, pp, tp, overrides, dp=1):
+    """What a `pp_phase` world's ranks record beyond the burst: an MoE
+    card's decode routes in a world of one stage under TP
+    (`record_decode_routes`), W8A8 row-parallel slices under TP
+    (`record_sliced_acts`), a perplexity (`PPL_PHASES`)."""
+    return dict(
+        decode_routes=model in (MIXTRAL, R1) and pp == 1 and dp == 1 and tp > 1,
+        acts="quant.method=w8a8" in overrides and tp > 1,
+        ppl=label in PPL_PHASES)
+
+
 def start_pp_world(np, label, model, pp, tp, overrides, dp=1, lens=None):
     """`start_world` for `pp_phase`."""
     base, prompts, grid = pp_world_args(np, model, pp, tp, overrides, dp, lens)
     return start_world(label, dp * pp * tp, overrides, prompts, base=base,
-                       grid=grid)
+                       grid=grid, **world_extras(label, model, pp, tp,
+                                                 overrides, dp))
 
 
 def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
@@ -4943,7 +5339,7 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
               f"MoE limit is {tie:.4g}", flush=True)
     div = near_tie(torch, tk, ref_eng, label, all_prompts, got, want_streams,
                    moe=moe, moe_limit=tie)
-    world_routes = None
+    world_routes = own_routes = None
     if moe and (tp > 1 or dp > 1):
         # the stage-first ranks' selections, layers in stage order
         firsts = sorted((res for res in ranks if "tf_routes" in res),
@@ -4953,8 +5349,29 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
                                  f"{[res['stage'] for res in firsts]}")
         world_routes = [torch.cat(s) for s in zip(*(res["tf_routes"]
                                                      for res in firsts))]
+    extras = world_extras(label, model, pp, tp, overrides, dp)
+    if extras["decode_routes"]:
+        own_routes = r0["decode_routes"] + [None] * (len(got) - len(
+            r0["decode_routes"]))
     pos = every_position(torch, tk, ref_eng, label, all_prompts, got, rows,
-                         tie=tie, world_routes=world_routes)
+                         tie=tie, world_routes=world_routes,
+                         own_routes=own_routes)
+    acts = sliced_acts_check(torch, label, ranks, tp) if extras["acts"] else None
+    ppl = None
+    if extras["ppl"]:
+        from chitu_tpu_torch import evals
+
+        want_ppl = evals.perplexity_from_tokens(
+            ref_eng, ppl_tokens(ref_eng.cfg.models.vocab_size), window=PPL_WINDOW)
+        ppl = dict(world=r0["ppl"], one_rank=want_ppl, world_s=r0["ppl_s"],
+                   rel=abs(r0["ppl"] - want_ppl) / want_ppl)
+        print(f"[{label}] perplexity of {len(ppl_tokens(2))} tokens "
+              f"(windows of {PPL_WINDOW}): the world's {r0['ppl']} in "
+              f"{r0['ppl_s']:.2f} s, the one-rank engine's {want_ppl}, "
+              f"relative {ppl['rel']:.3g} (limit {PPL_RTOL})", flush=True)
+        if not ppl["rel"] <= PPL_RTOL:
+            raise AssertionError(f"[{label}] the world's perplexity "
+                                 f"{r0['ppl']} against {want_ppl}")
     same = sum(a == b for a, b in zip(got, want_streams))
     ref_eng.terminate()
     del ref_eng
@@ -4984,7 +5401,7 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
         decode_tokens_per_s_batch1=r0["decode_tokens_per_s_batch1"],
         one_rank_decode_tokens_per_s_batch1=ref["decode_tokens_per_s_batch1"],
         rank_devices=[r["device"] for r in ranks],
-        router_calls_checked=routes,
+        router_calls_checked=routes, sliced_acts=acts, perplexity=ppl,
         shadowed_call_err_vs_plain=r0["shadowed_call_err_vs_plain"])
     print("pp " + json.dumps(stats), flush=True)
     return r0["launches"]
@@ -5001,9 +5418,10 @@ EP_PHASES = [
     # (label, model card, pp, tp, overrides, kernels that must launch on
     # every rank in the burst). R1 at 4 layers is 3 dense and 1 MoE, at 5
     # 3 and 2; each rank of tp2_r1 holds 64 heads and 128 experts, of
-    # tp4_r1_soft_fp8 32 heads and 64 experts in e4m3. tp2_mixtral stays
-    # at 8 layers: at 4 a decoded token left the near-tie rule's reach.
-    ("tp2_mixtral", MIXTRAL, 1, 2, ["models.n_layers=8"],
+    # tp4_r1_soft_fp8 32 heads and 64 experts in e4m3. tp2_mixtral at 4
+    # layers (8 in PR 15 and 16, ROADMAP C.3): its tokens are held to the
+    # world's own decode-against-prefill routes too (`every_position`).
+    ("tp2_mixtral", MIXTRAL, 1, 2, ["models.n_layers=4"],
      ATTN_KERNELS + ("grouped_gemm",)),
     ("tp2_r1", R1, 1, 2, ["models.n_layers=4"], R1_EP_KERNELS),
     ("tp4_r1_soft_fp8", R1, 1, 4, ["models.n_layers=4"] + SOFT,
@@ -5154,26 +5572,49 @@ RING_KERNELS = ("attend_decode_partials", "decode_merge")
 RING_PHASES = [
     # (label, model card, dp, pp, tp, overrides, kernels that must launch on
     # every rank in the burst, the burst's prompt lengths (None: TP_LENS)).
-    # Llama-3-8B at its 32 layers on two replicas; at 8 with four ranks
-    # (ranks sharing the card wait about 1.3 ms a gloo all-reduce, one a
-    # layer a decode step; scripts/torch_gloo_exchange.py).
+    # Llama-3-8B at 8 of its 32 layers on two replicas, at 4 with four
+    # ranks (32 and 8 in PR 16; the slice 17 phases took the time: ranks
+    # sharing the card wait about 1.3 ms a gloo all-reduce, one a layer a
+    # decode step; scripts/torch_gloo_exchange.py).
     # R1 ring KV: the latent row's ring decode and every ring prefill are
     # plain PyTorch in this slice; its MoE layers split their tokens over
     # the two replicas
     ("dp2_ring_kv", LLAMA, RING_DP, 1, 1,
-     ["models.n_layers=32", "infer.ring_kv=true"], RING_KERNELS, None),
+     ["models.n_layers=8", "infer.ring_kv=true"], RING_KERNELS, None),
     ("dp2_ring_prefill", LLAMA, RING_DP, 1, 1,
-     ["models.n_layers=32", "infer.ring_prefill=true",
+     ["models.n_layers=8", "infer.ring_prefill=true",
       "infer.max_seq_len=4224", "infer.prefill_chunk=4096"],
      ("attend_decode_fused",), (2048, 4096)),
     ("dp2_tp2_ring_kv", LLAMA, RING_DP, 1, 2,
-     ["models.n_layers=8", "infer.ring_kv=true"], RING_KERNELS, None),
+     ["models.n_layers=4", "infer.ring_kv=true"], RING_KERNELS, None),
     ("dp2_pp2_ring_kv", LLAMA, RING_DP, 2, 1,
-     ["models.n_layers=8", "infer.ring_kv=true"], RING_KERNELS, None),
+     ["models.n_layers=4", "infer.ring_kv=true"], RING_KERNELS, None),
     ("dp2_ring_kv_r1", R1, RING_DP, 1, 1,
      ["models.n_layers=4", "infer.ring_kv=true"],
      ("absorb_matmul", "grouped_gemm"), None),
 ]
+
+
+# ---------------------------------------------------------------------------
+# Slice 17: the layouts the port refused (ranks sharing the card over gloo)
+# ---------------------------------------------------------------------------
+
+ROW_ACTS = ("acts_absmax", "quant_acts_given")
+SLICE17_PHASES = [
+    # (label, model card, pp, tp, overrides, kernels that must launch on
+    # every rank in the burst). Full width, depth cut: R1 at 4 layers is 3
+    # dense and 1 MoE, each rank 64 heads of the per-head pool; Llama-3-8B
+    # W8A8 (wo's and w_down's inputs row-parallel: B12's PARTIAL and GIVEN
+    # modes); Llama-3-8B at 8 layers over 3 stages (3 / 3 / 2), with a
+    # perplexity measured through the world's lockstep
+    ("tp2_r1_dense", R1, 1, 2, ["models.n_layers=4", "infer.mla_absorb=none"],
+     D192 + ("grouped_gemm",)),
+    ("tp2_w8a8", LLAMA, 1, 2, ["models.n_layers=4", "quant.method=w8a8",
+                               "quant.quant_on_load=true"],
+     ATTN_KERNELS + ("int8_gemm", "rms_norm_quant") + ROW_ACTS),
+    ("pp3", LLAMA, 3, 1, ["models.n_layers=8"], ATTN_KERNELS),
+]
+PPL_PHASES = ("pp3",)
 
 
 AWQ_CALIB = 512
@@ -5332,6 +5773,10 @@ def main():
                       mla_attention_cases(torch, tk, plain, dev, kv="e4m3"),
                       split_head_cases(torch, tk, plain, dev, "R1", 128, 128,
                                        192, ATTN_WRAPPERS, scale=R1_SCALE),
+                      # slice 17: a tp2 rank's 64 heads of R1's dense MLA
+                      split_head_cases(torch, tk, plain, dev, "R1 tp2", 64, 64,
+                                       192, ATTN_WRAPPERS, scale=R1_SCALE,
+                                       variant="d192,h64"),
                       split_head_cases(torch, tk, plain, dev,
                                        "tiny-llama-debug", 32, 4, 64,
                                        ("attend_decode_fused", "attend_prefill")),
@@ -5356,6 +5801,7 @@ def main():
     # the launches reported for a kernel are those of the phase that is its
     # main path: bf16 serving for the attention kernels, soft-fp8 serving
     # for the dequant GEMM, W8A8 serving for the int8 GEMM and quantizers
+    t0 = time.time()
     launches = engine_phase(torch, np, tk, card)
     quant = ["quant.quant_on_load=true"]
     soft = engine_phase(
@@ -5414,8 +5860,10 @@ def main():
                                         need=need, model=model, shadow=True)
         finally:
             linear.set_dense_kernel(False)
+    print(f"slices 1-10 phases {time.time() - t0:.1f} s", flush=True)
 
     # slice 11: checkpoints read from disk, in a directory deleted after
+    t0 = time.time()
     root = tempfile.mkdtemp(prefix="chitu_ckpt_")
     try:
         phase.update(load_phases(torch, np, tk, card, root))
@@ -5423,6 +5871,7 @@ def main():
         import shutil
 
         shutil.rmtree(root, ignore_errors=True)
+    print(f"slice 11 phases {time.time() - t0:.1f} s", flush=True)
 
     # slice 12: the prefix cache, then spec decode on the same weights
     t0 = time.time()
@@ -5444,17 +5893,19 @@ def main():
             functools.partial(tp_phase, torch, np, tk, card, label, n, ovr, need)))
     worlds.append((13, "awq", None,
                    lambda world: awq_phase(torch, np, tk, card)))
-    for sl, table in ((14, PP_PHASES), (15, EP_PHASES), (16, RING_PHASES)):
+    for sl, table in ((14, PP_PHASES), (15, EP_PHASES), (16, RING_PHASES),
+                      (17, SLICE17_PHASES)):
         for label, model, *rest in table:
             dp, pp, tp, ovr, need, lens = (
-                (1, *rest, None) if sl < 16 else rest)
+                rest if sl == 16 else (1, *rest, None))
             worlds.append((sl, label, functools.partial(
                 start_pp_world, np, label, model, pp, tp, ovr, dp, lens),
                 functools.partial(pp_phase, torch, np, tk, card, label, model,
                                   pp, tp, ovr, need, dp=dp, lens=lens)))
     got = run_worlds(worlds)
-    phase.update({label: got[label] for _, table in
-                  ((15, EP_PHASES), (16, RING_PHASES)) for label, *_ in table})
+    phase.update({label: got[label] for table in
+                  (EP_PHASES, RING_PHASES, SLICE17_PHASES)
+                  for label, *_ in table})
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)
     rows = []

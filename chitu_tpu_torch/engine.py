@@ -33,10 +33,11 @@ every other replica d. With `infer.ring_kv` the pool's pages stripe over
 the replicas (each holds num_pages / D of them, `kvcache.PagedKVCache`);
 with `infer.ring_prefill` a whole prompt's tokens do (`parallel.ring`).
 Every rank runs the same host state machine. Requests enter at rank 0,
-the controller (`submit`, `cancel`); each `step` of rank 0 broadcasts
-what arrived since the last one, with its clock and flags, and every
-rank applies it before it schedules, so all ranks launch the same
-programs. The other ranks run `follow` until rank 0 terminates; a step
+the controller (`submit`, `cancel`, and the controls `calibrate` and
+`perplexity`, which every rank runs when it applies them); each `step`
+of rank 0 broadcasts what arrived since the last one, with its clock and
+flags, and every rank applies it before it schedules, so all ranks
+launch the same programs. The other ranks run `follow` until rank 0 terminates; a step
 that fails on any rank ends the world (`distributed.end_world` under the
 server, the process's own error elsewhere).
 """
@@ -58,7 +59,6 @@ from chitu_tpu_torch.loader import load_checkpoint
 from chitu_tpu_torch.models import build_model
 from chitu_tpu_torch.ops.attention_kernels import ATTN_TYPES
 from chitu_tpu_torch.ops.linear import OP_IMPLS, set_fp8_act, set_op_impl
-from chitu_tpu_torch.ops.qtensor import QuantKind
 from chitu_tpu_torch.parallel import distributed, mesh_from_config
 from chitu_tpu_torch.quantize.transforms import (
     KIND_BY_METHOD,
@@ -115,13 +115,6 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
             f"tp_size={tp} with {moe.n_routed_experts} routed experts "
             f"and {cfg.models.n_heads} heads: expert "
             "parallelism gives each rank an equal share of both (ROADMAP C)")
-    if (tp > 1 and cfg.models.type == "deepseek-v3"
-            and infer.mla_absorb == "none"):
-        todo.append("mla_absorb=none under tp_size > 1: the per-head K/V "
-                    "pool under tensor parallelism (ROADMAP A.6)")
-    if infer.tp_size > 1 and KIND_BY_METHOD.get(quant.method) == QuantKind.W8A8:
-        # a row-parallel input's per-token scale needs the whole row
-        todo.append("W8A8 under tp_size > 1 (ROADMAP C)")
     if infer.ring_kv and infer.dp_size > 1:
         # the JAX engine's ring pool checks (chitu_tpu/engine.py:236-258);
         # the model-dependent ones follow in Engine.__init__
@@ -525,6 +518,10 @@ class Engine:
                 self._cancel_now(arg)
             elif op == "calibrate":
                 self.executor.calibrate_dispatch()
+            elif op == "perplexity":
+                from chitu_tpu_torch.evals import world_perplexity
+
+                self._perplexity = world_perplexity(self, **arg)
 
     def follow(self):
         """The worker loop of ranks other than 0 (the JAX package's
@@ -543,6 +540,20 @@ class Engine:
             self._apply(msg)
             if msg["step"]:
                 self._step()
+
+    def perplexity(self, tokens: List[int], window: int,
+                   stride: Optional[int]) -> float:
+        """Rank 0 of a world: `evals.perplexity_from_tokens` on every rank
+        in lockstep. The windows go out as a control in the step broadcast,
+        every rank runs `evals.world_perplexity` when it applies it, and
+        the number comes back from the sampling rank."""
+        if self.group is None or self.rank != 0:
+            raise RuntimeError("perplexity over a world starts at rank 0")
+        with self._lock:
+            self._outbox.append(("perplexity", dict(
+                tokens=tokens, window=window, stride=stride)))
+        self._sync(step=False)
+        return self._perplexity
 
     def calibrate(self):
         """Seed the adaptive-window cost model (`calibrate_dispatch`) on

@@ -15,6 +15,7 @@ ground truth; that needs `transformers`, which the GPU machine lacks.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional
 
@@ -39,12 +40,59 @@ def perplexity_from_tokens(
     Each window is prefilled teacher-forced, padded to a power-of-two
     bucket, into a KV pool of its own (the engine's pool and requests are
     untouched); the loss counts the predictions over the part of each
-    window the previous one did not cover (standard strided eval)."""
+    window the previous one did not cover (standard strided eval).
+
+    Under tensor, pipeline or data parallelism the engine is rank 0 of a
+    world (the controller): the windows go to every rank as a control in
+    the step broadcast (`Engine.perplexity`), every rank of replica 0 runs
+    the same prefills on its shard and stage (`world_perplexity`), and the
+    number is the sampling rank's (the last stage holds the logits)."""
+    if getattr(engine, "group", None) is not None:
+        return engine.perplexity(list(tokens), window, stride)
+    nll, count = _windows_nll(engine, tokens, window, stride)
+    return math.exp(nll / max(count, 1))
+
+
+def world_perplexity(engine, tokens: List[int], window: int,
+                     stride: Optional[int]) -> float:
+    """Every rank's part of `perplexity_from_tokens` in a world, run by
+    `Engine._apply` on each rank: replica 0's ranks prefill the windows
+    (its TP ranks each on its shard, its stages in relay), with no
+    collective over the replicas (`replica_local`); the other replicas
+    wait. The sampling rank's (sum of NLL, count) then goes to every rank.
+    -> the perplexity, on every rank."""
+    world = engine.group
+    got = (0.0, 0)
+    if world.replica == 0:
+        with replica_local(engine.model):
+            got = _windows_nll(engine, tokens, window, stride)
+    buf = None
+    if world.world_rank == world.sampler:
+        buf = torch.tensor(got, dtype=torch.float64, device=engine.device)
+    nll, count = world.from_sampler(buf, (2,), torch.float64,
+                                    engine.device).tolist()
+    return math.exp(nll / max(count, 1))
+
+
+@contextlib.contextmanager
+def replica_local(model):
+    """The model's forwards without the replicas' collectives: no ring KV
+    attention, no MoE token split over the dp group (a replica runs them
+    alone, in a pool of its own)."""
+    held = model.dp_group, model.ring_kv
+    model.dp_group, model.ring_kv = None, False
+    try:
+        yield model
+    finally:
+        model.dp_group, model.ring_kv = held
+
+
+def _windows_nll(engine, tokens: List[int], window: int,
+                 stride: Optional[int]):
+    """(sum of the NLL, predictions counted) over the windows; (0, 0) on
+    a pipeline stage that holds no logits (it runs the same prefills)."""
     from chitu_tpu_torch.kvcache import PagedKVCache
 
-    if getattr(engine, "group", None) is not None:
-        # the model is called directly here, which the followers do not see
-        raise NotImplementedError("perplexity runs at tp_size=1 and pp_size=1")
     model = engine.model
     cfg = engine.cfg
     dev = engine.device
@@ -77,18 +125,19 @@ def perplexity_from_tokens(
             logits, _ = model.prefill(
                 cache.arrays, tok, bt, 0, n, page, return_all_logits=True
             )
-            logp = torch.log_softmax(logits[: n - 1].float(), dim=-1)
-            target = torch.tensor(chunk[1:], dtype=torch.long, device=dev)
-            nll = -logp.gather(-1, target[:, None])[:, 0]
-            # only count fresh positions (beyond the previous window's coverage)
-            fresh_from = max(prev_end - start - 1, 0)
-            piece = nll[fresh_from:]
-            total_nll += float(piece.double().sum())
-            total_count += piece.numel()
+            if logits is not None:
+                logp = torch.log_softmax(logits[: n - 1].float(), dim=-1)
+                target = torch.tensor(chunk[1:], dtype=torch.long, device=dev)
+                nll = -logp.gather(-1, target[:, None])[:, 0]
+                # only count fresh positions (beyond the previous window's
+                # coverage)
+                fresh_from = max(prev_end - start - 1, 0)
+                piece = nll[fresh_from:]
+                total_nll += float(piece.double().sum())
+                total_count += piece.numel()
             prev_end = end
             start += stride
-
-    return math.exp(total_nll / max(total_count, 1))
+    return total_nll, total_count
 
 
 def perplexity_from_text(engine, text: str, window: int = 512) -> float:

@@ -318,6 +318,24 @@ def stage_layers(model, stack: str = "layers") -> List[int]:
     return list(range(*(r or (0, n))))
 
 
+def layers_to_read(model) -> Tuple[List[int], bool]:
+    """(the layers of the "layers" stack to read, whether the stage holds
+    any): a pipeline stage that holds none (fewer layers than stages)
+    reads layer 0 for its leaves' shapes and cuts them to none after
+    (`no_layers`)."""
+    layers = stage_layers(model)
+    return (layers, True) if layers else ([0], False)
+
+
+def no_layers(leaves: Dict[str, Any]) -> Dict[str, Any]:
+    """Each stacked leaf cut to none of its layers, owning no storage."""
+    def cut(t):
+        return t[:0].clone()
+
+    return {k: v._map(cut) if isinstance(v, QTensor) else cut(v)
+            for k, v in leaves.items()}
+
+
 def rank_view(lay, name: Optional[str], view: torch.Tensor,
               transpose: bool = False) -> torch.Tensor:
     """The rank's slice of a mapped view of one piece of the leaf `name`
@@ -411,7 +429,7 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
 
     lay = getattr(model, "layout", None)
     cut = lay is not None and lay.tp > 1
-    layers = stage_layers(model)
+    layers, held = layers_to_read(model)
     n = len(layers)
 
     def take(key, dtype=None, transpose=False, name=None):
@@ -484,6 +502,8 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
     logger.info("read %d tensors (%.2f GB) in %.1fs", len(ck.keys()),
                 ck.nbytes / 1e9, time.time() - t0)
     merge_llama_leaves(ly, model)
+    if not held:
+        params["layers"] = no_layers(ly)
     return params
 
 

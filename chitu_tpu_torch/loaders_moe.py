@@ -38,7 +38,9 @@ from chitu_tpu_torch.loader import (
     fill_stacked,
     fp8_qtensor,
     holds,
+    layers_to_read,
     merge_llama_leaves,
+    no_layers,
     rank_experts,
     rank_view,
     stage_layers,
@@ -137,7 +139,7 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
                 experts[(i, int(me.group(1)), kind)] = key
 
     t0 = time.time()
-    layers = stage_layers(model)
+    layers, held = layers_to_read(model)
     # the rank's experts; its slice of each other leaf the layout cuts
     mine = rank_experts(model.layout, E)
     take = lambda v, name=None: st.take(*v, name=name)  # noqa: E731
@@ -157,6 +159,8 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
                 experts[(layers[idx[0]], mine[idx[1]], k)], True),
         )
     params["layers"] = merge_llama_leaves(ly, model)
+    if not held:
+        params["layers"] = no_layers(params["layers"])
     if ("lm_head" not in st.flat and not a.tie_word_embeddings
             and holds(model, "lm_head")):
         params["lm_head"] = take(st.flat["embed"], "embed").T.contiguous()
@@ -202,7 +206,7 @@ def load_glm4_params(model, cfg, device=None) -> Dict[str, Any]:
             name, tr = per_layer[m.group(2)]
             st.put(name, int(m.group(1)), (key, tr))
 
-    layers = stage_layers(model)
+    layers, held = layers_to_read(model)
     take = lambda v: st.take(*v)
     lay = model.layout
     names = ["attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down"]
@@ -212,6 +216,8 @@ def load_glm4_params(model, cfg, device=None) -> Dict[str, Any]:
                               if holds(model, k)}
     if lay.tp <= 1 and lay.merged:
         params["layers"] = {n: st.stack(n, layers, take) for n in names}
+        if not held:
+            params["layers"] = no_layers(params["layers"])
         return params
     # another layout: each fused layer is split into its parts and cut to
     # the rank's slice on the device (one layer: no stage cut), then the
@@ -225,6 +231,8 @@ def load_glm4_params(model, cfg, device=None) -> Dict[str, Any]:
         for k in pieces[0]:
             ly[k] = torch.stack([p[k] for p in pieces])
     params["layers"] = lay.assemble(ly)
+    if not held:
+        params["layers"] = no_layers(params["layers"])
     return params
 
 
@@ -341,9 +349,12 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
     top = {"embed": ("model.embed_tokens", False),
            "norm": ("model.norm", False), "lm_head": ("lm_head", True)}
     out = {k: get(*v, leaf=k) for k, v in top.items() if holds(model, k)}
+    # a stage after the first holds no dense-first layer; with fewer MoE
+    # layers than stages, a stage may hold none of those either
     if dense_layers or model.pp == 1:
         out["dense_layers"] = dense
-    out["moe_layers"] = moe_p
+    if moe_layers or model.pp == 1:
+        out["moe_layers"] = moe_p
     logger.info("deepseek checkpoint: %.2f GB in %.1fs", ck.nbytes / 1e9,
                 time.time() - t0)
     return out

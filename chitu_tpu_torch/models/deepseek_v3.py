@@ -51,13 +51,18 @@ projections (`wq_a`, `wkv_a`, merged `wq_kv_a`), the norms and the router
 latent row is shared by every head). A rank runs MLA on its H / tp heads
 (the head count comes from the projection's width: B9 and the latent
 kernels at H / tp heads), and a MoE layer's shared and routed partials
-are summed in one all-reduce. `mla_absorb=none` under tp > 1 is refused,
-as the JAX pipeline refuses it (ROADMAP A.6).
+are summed in one all-reduce. Under `mla_absorb=none` a rank holds its
+H / tp heads of the per-head K / V pool (the JAX package's
+`kv_cache_partition_spec` of the dense path) and runs `_mla_dense` on
+them. A W8A8 row-parallel input (`wo`, the dense FFN's and the shared
+expert's `*_down`) is quantized under the whole row's per-token scale
+(`linear`'s `row_max`).
 
 Pipeline parallelism (`infer.pp_size`, at any tp): the dense-first layers,
 their `kv_dense` pool and the embedding live on stage 0 (cut over stage
-0's TP group); every stage holds n_moe / pp MoE layers and that slice of
-`kv_moe`; the last stage the final norm and head. The JAX package
+0's TP group); every stage holds its contiguous range of the MoE layers
+(n_moe // pp, the first n_moe % pp stages one more, perhaps none) and
+that slice of `kv_moe`; the last stage the final norm and head. The JAX package
 replicates the dense stack and its pool over 'pp' and reconciles the pool
 once a window (a shard_map needs one layout on every device); here the
 stages that never read them do not hold them. The hidden state, whole on
@@ -211,8 +216,7 @@ class MLALayout:
 def check_tp(args, infer):
     """The tensor-parallel layouts this module refuses (before any world
     is joined): heads or experts that tp does not divide (the JAX package
-    falls back to GSPMD's capacity einsum there; ROADMAP C), and the dense
-    per-head MLA under tp > 1 (ROADMAP A.6)."""
+    falls back to GSPMD's capacity einsum there; ROADMAP C)."""
     tp = infer.tp_size
     if tp <= 1:
         return
@@ -222,11 +226,6 @@ def check_tp(args, infer):
             f"tp_size={tp} with {H} heads and {E} routed experts: each rank "
             "holds an equal share of both (the JAX package falls back to the "
             "capacity einsum under GSPMD there; ROADMAP C)")
-    if infer.mla_absorb == "none":
-        raise NotImplementedError(
-            "mla_absorb=none under tp_size > 1: the per-head K/V pool under "
-            "tensor parallelism is not ported (ROADMAP A.6; the JAX pipeline "
-            "refuses it too)")
 
 
 @register_model("deepseek-v3")
@@ -306,10 +305,11 @@ class DeepSeekV3ForCausalLM(nn.Module):
                   if n or self.pp == 1}
         n_layers = sum(groups.values())
         if not self.absorb:
-            # dense MLA: per-head K/V rows (V padded to qk_head_dim)
+            # dense MLA: per-head K/V rows (V padded to qk_head_dim) of
+            # the rank's heads
             return dict(
                 n_layers=n_layers,
-                kv_heads=self.args.n_heads,
+                kv_heads=self.args.n_heads // self.tp,
                 head_dim=self.qk_head_dim,
                 kv_dim=0,
                 layer_groups=groups,
@@ -565,33 +565,44 @@ class DeepSeekV3ForCausalLM(nn.Module):
             v_out = absorb_matmul(o, wkv_b, layer, "uv", dn, dv)
         else:
             v_out = torch.einsum("thc,chd->thd", o, w_b[..., dn:])
-        y = linear(v_out.reshape(T, H * dv), lp["wo"], layer=layer)
-        # the rank's heads' partial of wo, summed over the group
+        return self._wo(v_out.reshape(T, H * dv), lp, layer)
+
+    def _row_max(self, sharded: bool = True):
+        """The group's MAX all-reduce for a W8A8 row-parallel input's
+        per-token absmax (`linear`'s `row_max`), or None."""
+        return self.group.max_ if sharded and self.group is not None else None
+
+    def _wo(self, o, lp, layer: int):
+        """`wo` on the rank's heads' outputs [T, H / tp * dv]: its partial,
+        summed over the group."""
+        y = linear(o, lp["wo"], layer=layer, row_max=self._row_max())
         return y if self.group is None else self.group.all_reduce_f32(y)
 
     def _mla_dense(self, x, lp, layer: int, cos, sin, attend):
         """mla_absorb=none: per-head K/V through the whole `wkv_b`, then
         multi-head attention at qk_head_dim (reference dense paths:
-        model_deepseek_v3.py:612-670). `attend(q, k, v, layer)` gets
-        q, k [T, H, dn + dr] and V padded to [T, H, dn + dr], and returns
-        [T, H, dn + dr], of which the first v_head_dim lanes are live."""
+        model_deepseek_v3.py:612-670) on the rank's H / tp heads (its
+        columns of `wkv_b`, its rows of `wo`). `attend(q, k, v, layer)`
+        gets q, k [T, H, dn + dr] and V padded to [T, H, dn + dr], and
+        returns [T, H, dn + dr], of which the first v_head_dim lanes are
+        live."""
         m = self.mla
         T = x.shape[0]
-        H = self.args.n_heads
         dn, dr, dv = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim
         q_nope, q_pe, c_kv, k_pe = self._mla_qkv(x, lp, layer, cos, sin)
+        H = q_nope.shape[1]
         q = torch.cat([q_nope, q_pe], dim=-1)
         kv = linear(c_kv, lp["wkv_b"], layer=layer).reshape(T, H, dn + dv)
         k = torch.cat([kv[..., :dn], k_pe[:, None, :].expand(T, H, dr)], dim=-1)
         v_pad = F.pad(kv[..., dn:], (0, self.qk_head_dim - dv))
         o = attend(q, k, v_pad, layer)[..., :dv]
-        return linear(o.reshape(T, H * dv), lp["wo"], layer=layer)
+        return self._wo(o.reshape(T, H * dv), lp, layer)
 
     def _attn_kw(self):
         if not self.absorb:
             return dict(
-                kv_heads=self.args.n_heads, head_dim=self.qk_head_dim,
-                scale=self.attn_scale,
+                kv_heads=self.args.n_heads // self.tp,
+                head_dim=self.qk_head_dim, scale=self.attn_scale,
             )
         return dict(
             kv_heads=1, head_dim=self.kv_dim, scale=self.attn_scale,
@@ -603,7 +614,8 @@ class DeepSeekV3ForCausalLM(nn.Module):
     def _dense_ffn(self, x, lp, layer: int):
         gate = linear(x, lp["w_gate"], layer=layer)
         up = linear(x, lp["w_up"], layer=layer)
-        y = linear((F.silu(gate) * up).to(x.dtype), lp["w_down"], layer=layer)
+        y = linear((F.silu(gate) * up).to(x.dtype), lp["w_down"], layer=layer,
+                   row_max=self._row_max(self.ffn_tp > 1))
         if self.ffn_tp > 1:
             y = self.group.all_reduce_f32(y)
         return y
@@ -623,7 +635,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
             gg = linear(x, lp["shared_gate"], layer=layer)
             u = linear(x, lp["shared_up"], layer=layer)
             return linear((F.silu(gg) * u).to(x.dtype), lp["shared_down"],
-                          layer=layer)
+                          layer=layer, row_max=self._row_max(self.shared_tp > 1))
         return None
 
     def _moe_ffn(self, x, lp, layer: int):
@@ -691,9 +703,16 @@ class DeepSeekV3ForCausalLM(nn.Module):
 
     @property
     def hidden_dtype(self) -> torch.dtype:
-        """The dtype of the hidden state that crosses a stage boundary
-        (the weights', which every stage holds a MoE layer of)."""
-        return self.moe_layers["attn_norm"].dtype
+        """The dtype of the hidden state that crosses a stage boundary:
+        the weights' (a stack's norms, else the embedding's or the final
+        norm's), or the configured dtype on a stage that holds no weight
+        (fewer MoE layers than stages)."""
+        for t in (self.moe_layers.get("attn_norm"),
+                  self.dense_layers.get("attn_norm"),
+                  getattr(self, "embed", None), getattr(self, "norm", None)):
+            if t is not None:
+                return t.dtype
+        return getattr(torch, self.cfg.dtype)
 
     def _head(self, h, idx=None):
         """Logits of the rows `idx` of the normed hidden state, or None on

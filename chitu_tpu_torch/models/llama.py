@@ -79,6 +79,7 @@ from chitu_tpu_torch.ops.linear import (
     linear,
     matmul_out_dtype,
     op_kernels,
+    quant_acts_rows,
 )
 from chitu_tpu_torch.ops.norm_quant import (
     quant_acts,
@@ -689,7 +690,8 @@ class LlamaForCausalLM(nn.Module):
         """A row-parallel projection: this rank's partial product, summed
         over the group in f32 (reference RowParallelLinear,
         tensor_parallel.py:157-169). An act-order weight's rows index the
-        whole input, so its input is gathered first."""
+        whole input, so its input is gathered first; a W8A8 weight's
+        per-token scale is the whole row's (`linear`'s `row_max`)."""
         if self.group is None or not sharded:
             return linear(x, w, layer=layer)
         if isinstance(w, QTensor) and w.in_perm is not None:
@@ -698,7 +700,8 @@ class LlamaForCausalLM(nn.Module):
             full = self.group.gather_last(x, k0, w.in_perm.shape[-1])
             x = full.to(x.dtype)[..., w.in_perm[layer, k0:k0 + k].long()]
             w = w.without("in_perm")
-        return self.group.all_reduce_f32(linear(x, w, layer=layer))
+        return self.group.all_reduce_f32(
+            linear(x, w, layer=layer, row_max=self.group.max_))
 
     def _ffn(self, h: torch.Tensor, layer: int,
              token_split: bool = True) -> torch.Tensor:
@@ -714,9 +717,9 @@ class LlamaForCausalLM(nn.Module):
             gate = linear(x, self.w_gate, layer=layer)
             up = linear(x, self.w_up, layer=layer)
         hid = (F.silu(gate) * up).to(h.dtype)
-        hid = self._maybe_quant_acts(hid, self.w_down)
-        return h + self._row_linear(hid, self.w_down, layer,
-                                    sharded=self.ffn_tp > 1)
+        sharded = self.ffn_tp > 1
+        hid = self._maybe_quant_acts(hid, self.w_down, sharded)
+        return h + self._row_linear(hid, self.w_down, layer, sharded)
 
     @staticmethod
     def _w8a8(proj_w) -> bool:
@@ -730,10 +733,14 @@ class LlamaForCausalLM(nn.Module):
             return fused(h, norm_w, self.args.norm_eps)
         return rms_norm(h, norm_w, self.args.norm_eps)
 
-    def _maybe_quant_acts(self, x, proj_w):
-        """Mid-FFN activation quantization feeding a W8A8 down-projection."""
+    def _maybe_quant_acts(self, x, proj_w, sharded: bool = False):
+        """Mid-FFN activation quantization feeding a W8A8 down-projection;
+        `sharded`: x is the rank's slice of the FFN's columns, quantized
+        under the whole row's absmax."""
         if not self._w8a8(proj_w):
             return x
+        if sharded and self.group is not None:
+            return quant_acts_rows(x.contiguous(), self.group.max_)
         return (quant_acts if op_kernels() else quant_acts_plain)(x.contiguous())
 
     def _local_layers(self, h, cos, sin, attend, token_split=True):

@@ -13,6 +13,11 @@ CPU. `infer.op_impl=xla` (`set_op_impl`) sends what the JAX package's
 `get_op_impl()` governs to the plain versions on the card too: these
 GEMMs, B13, the W8A8 activation quantizers and the MLA absorb
 projections (the grouped expert GEMM ignores it, as in the JAX package).
+
+A W8A8 product whose input is one rank's slice of each row (a
+row-parallel projection under tensor parallelism) takes `row_max`, the
+group's in-place MAX all-reduce: the per-token scale is then the whole
+row's, as on one device (`quant_acts_rows`).
 """
 
 from __future__ import annotations
@@ -25,7 +30,11 @@ import torch
 from chitu_tpu_torch.ops.dense_gemm_kernels import dense_matmul_stacked
 from chitu_tpu_torch.ops.norm_quant import (
     QuantizedActs,
+    acts_absmax,
+    acts_absmax_plain,
     quant_acts,
+    quant_acts_given,
+    quant_acts_given_plain,
     quant_acts_plain,
 )
 from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
@@ -111,25 +120,41 @@ def _at(t, layer, stacked_dim):
     return t
 
 
+def quant_acts_rows(x: torch.Tensor, row_max=None) -> QuantizedActs:
+    """Per-token int8 of [T, K] activations for a W8A8 product (B12): each
+    row under its own absmax, or, with `row_max` (x is this rank's slice
+    of rows split over a tensor-parallel group), under the whole row's:
+    the slice's absmax [T] f32 goes through `row_max`, the group's
+    in-place MAX all-reduce, before the slice is quantized."""
+    k = op_kernels()
+    if row_max is None:
+        return (quant_acts if k else quant_acts_plain)(x)
+    amax = row_max((acts_absmax if k else acts_absmax_plain)(x))
+    return (quant_acts_given if k else quant_acts_given_plain)(x, amax)
+
+
 def linear(
     x: Union[torch.Tensor, QuantizedActs],
     w: Union[torch.Tensor, QTensor],
     bias: Optional[torch.Tensor] = None,
     out_dtype: Optional[torch.dtype] = None,
     layer: Optional[int] = None,
+    row_max=None,
 ) -> torch.Tensor:
     """y = x @ w (+ bias). x: [..., in] or per-token int8 `QuantizedActs`;
     w: [in, out] or stacked [L, in, out] with `layer` selecting the slice
     (a view, no copy), dense or quantized. A quantized product is summed in
     f32, the bias added in f32, and the result rounded once to
-    `out_dtype` (default: x's dtype, bf16 for int8 activations)."""
+    `out_dtype` (default: x's dtype, bf16 for int8 activations).
+    `row_max`: x is a rank's slice of row-parallel rows (`quant_acts_rows`;
+    read by a W8A8 weight only)."""
     bias = _at(bias, layer, 2)
     if isinstance(w, QTensor):
         if out_dtype is None:
             out_dtype = (
                 torch.bfloat16 if isinstance(x, QuantizedActs) else x.dtype
             )
-        return _quantized_matmul(x, w, layer, bias, out_dtype)
+        return _quantized_matmul(x, w, layer, bias, out_dtype, row_max)
     if isinstance(x, QuantizedActs):
         # dense weight: reconstruct bf16 activations
         x = x.dequantize(torch.bfloat16)
@@ -152,7 +177,8 @@ def linear(
     return y
 
 
-def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype) -> torch.Tensor:
+def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype,
+                      row_max=None) -> torch.Tensor:
     if w.oc_idx is not None:
         # LLM.int8 outlier decomposition: a small dense product over the
         # few outlier input channels (their int8 rows are zero), in f32
@@ -188,12 +214,9 @@ def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype) -> torch.Tensor:
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     if w.kind == QuantKind.W8A8:
         # dynamic per-token int8 activations, then the int8 GEMM
-        if op_kernels():
-            xa = quant_acts(x2)
-            y = int8_gemm(xa.data, xa.scale, w, bias, out_dtype)
-        else:
-            xa = quant_acts_plain(x2)
-            y = int8_gemm_plain(xa.data, xa.scale, w, bias, out_dtype)
+        xa = quant_acts_rows(x2, row_max)
+        gemm = int8_gemm if op_kernels() else int8_gemm_plain
+        y = gemm(xa.data, xa.scale, w, bias, out_dtype)
     else:
         y = (quant_gemm if op_kernels() else quant_gemm_plain)(
             x2, w, bias, out_dtype)

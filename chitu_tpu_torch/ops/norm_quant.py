@@ -9,14 +9,21 @@ Counterpart of `chitu_tpu/ops/pallas_norm_quant.py`:
   one pass, and the int8 GEMM takes (values, scales) directly.
 - `quant_acts` (B12): per-token symmetric int8 of x as it is (mid-FFN
   activations, and the attention output in front of a W8A8 `wo`).
+- `acts_absmax` + `quant_acts_given` (B12 on a row-parallel input under
+  tensor parallelism): each rank holds a slice of every row, so the
+  per-token scale must come from the whole row. The first gives each
+  row's absmax of the slice, the caller takes the max over the group,
+  and the second quantizes the slice under that absmax: bit for bit the
+  whole row's B12, cut to the slice (a max does not round).
 
 Both in f32: `amax = max(|y|)` floored at 1e-8, `s = amax / 127`,
 `q = clip(rint(y / s), -127, 127)` with round-half-to-even and a true
 division of y by s. (On the card `amax / 127.0` is amax times the f32
 reciprocal of 127, in the kernel as in PyTorch's CUDA division by a
 scalar and in XLA's compiled TPU kernel; on the CPU PyTorch divides.) A wrapper runs its plain version only for tensors on the CPU;
-for CUDA tensors it launches its kernel or raises. Both wrappers launch
-one kernel, `norm_quant_kernel`, planned from shapes by `acts_plan`.
+for CUDA tensors it launches its kernel or raises. Every wrapper launches
+one kernel, `norm_quant_kernel` (the row-parallel ones in its PARTIAL and
+GIVEN modes), planned from shapes by `acts_plan`.
 """
 
 from __future__ import annotations
@@ -31,7 +38,8 @@ from chitu_tpu_torch.ops import cuda_build
 from chitu_tpu_torch.ops.cuda_build import LAUNCHES
 from chitu_tpu_torch.ops.gemm_plan import sm_count
 
-for _name in ("rms_norm_quant", "quant_acts"):
+for _name in ("rms_norm_quant", "quant_acts", "acts_absmax",
+              "quant_acts_given"):
     LAUNCHES.setdefault(_name, 0)
 
 
@@ -50,9 +58,14 @@ class QuantizedActs:
         return (self.data.float() * self.scale[:, None]).to(dtype)
 
 
-def _quantize_rows(y: torch.Tensor) -> QuantizedActs:
-    amax = y.abs().amax(dim=-1, keepdim=True).clamp_min(1e-8)
-    s = amax / 127.0
+def _quantize_rows(y: torch.Tensor, amax=None) -> QuantizedActs:
+    """Per-token int8 of f32 rows under each row's absmax, or under
+    `amax` [T] when given (the whole rows' of a slice)."""
+    if amax is None:
+        amax = y.abs().amax(dim=-1, keepdim=True)
+    else:
+        amax = amax.float()[:, None]
+    s = amax.clamp_min(1e-8) / 127.0
     q = torch.round(y / s).clamp(-127, 127).to(torch.int8)
     return QuantizedActs(data=q, scale=s[:, 0])
 
@@ -67,6 +80,14 @@ def rms_norm_quant_plain(
 
 def quant_acts_plain(x: torch.Tensor) -> QuantizedActs:
     return _quantize_rows(x.float())
+
+
+def acts_absmax_plain(x: torch.Tensor) -> torch.Tensor:
+    return x.float().abs().amax(dim=-1)
+
+
+def quant_acts_given_plain(x: torch.Tensor, amax: torch.Tensor) -> QuantizedActs:
+    return _quantize_rows(x.float(), amax)
 
 
 # ---------------------------------------------------------------------------
@@ -159,6 +180,8 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.chitu_norm_quant.argtypes = [P, P, P, P, I, I, F] + [I] * 6 + [P]
         lib.chitu_norm_quant.restype = ctypes.c_int
+        lib.chitu_quant_rowmax.argtypes = [P, P, P, P, I, I] + [I] * 7 + [P]
+        lib.chitu_quant_rowmax.restype = ctypes.c_int
         _LIB = lib
     return _LIB
 
@@ -182,6 +205,50 @@ def _launch(kernel: str, x: torch.Tensor, w, eps: float) -> QuantizedActs:
     cuda_build.raise_on(rc, kernel)
     LAUNCHES[kernel] += 1
     return QuantizedActs(data=xq, scale=s)
+
+
+# the row-parallel modes of `chitu_quant_rowmax`
+PARTIAL, GIVEN = 1, 2
+
+
+def _launch_rowmax(kernel: str, x: torch.Tensor, amax, mode: int):
+    if x.dim() != 2:
+        raise ValueError(f"x must be [T, D], got {tuple(x.shape)}")
+    T, D = x.shape
+    dev = x.device
+    cuda_build.check("x", x, torch.bfloat16, dev, align=2)
+    plan = plan_for(x)
+    if mode == GIVEN:
+        cuda_build.check("amax", amax, torch.float32, dev, (T,))
+        xq = torch.empty((T, D), dtype=torch.int8, device=dev)
+        s = torch.empty((T,), dtype=torch.float32, device=dev)
+    else:
+        amax = torch.empty((T,), dtype=torch.float32, device=dev)
+        xq = s = None
+    rc = _lib().chitu_quant_rowmax(
+        cuda_build.ptr(x), cuda_build.ptr(amax), cuda_build.ptr(xq),
+        cuda_build.ptr(s), T, D, mode, plan.cluster, plan.threads,
+        plan.rows, plan.vecs, plan.slice, plan.grid, cuda_build.stream(dev),
+    )
+    cuda_build.raise_on(rc, kernel)
+    LAUNCHES[kernel] += 1
+    return amax if mode == PARTIAL else QuantizedActs(data=xq, scale=s)
+
+
+def acts_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Each row's absmax [T] f32 of [T, D] activations (a rank's slice of
+    row-parallel rows), unfloored."""
+    if not x.is_cuda:
+        return acts_absmax_plain(x)
+    return _launch_rowmax("acts_absmax", x, None, PARTIAL)
+
+
+def quant_acts_given(x: torch.Tensor, amax: torch.Tensor) -> QuantizedActs:
+    """Per-token int8 of [T, D] activations under a given absmax [T] f32
+    a row (the whole rows', of which x holds a slice)."""
+    if not x.is_cuda:
+        return quant_acts_given_plain(x, amax)
+    return _launch_rowmax("quant_acts_given", x, amax, GIVEN)
 
 
 def rms_norm_quant(

@@ -28,8 +28,9 @@ so no replica's stream parts from another's.
 The backend follows the device map: `nccl` when every rank has a card of
 its own, `gloo` when ranks share a card or run on the CPU. Both carry
 every collective used here on CUDA tensors: an all-reduce (the f32 sum
-after row-parallel projections, and the TP group's gathers, done as the
-sum of zero-padded buffers, which is exact), an all-gather (the dp
+after row-parallel projections, the max of a W8A8 row-parallel input's
+per-token absmax, and the TP group's gathers, done as the sum of
+zero-padded buffers, which is exact), an all-gather (the dp
 group's: the ring KV decode's partials, the MoE token split's rows), a
 broadcast (the stage relay and
 the tokens of the sampling stage), and an object broadcast on a CPU
@@ -117,6 +118,11 @@ def maybe_initialize(cfg, device=None) -> bool:
             "infer.coordinator=host:port (or CHITU_TPU_COORDINATOR)"
         )
     if _GROUP is not None and _GROUP.world_size == n_proc:
+        if (_GROUP.pp, _GROUP.dp) != (cfg.infer.pp_size, cfg.infer.dp_size):
+            # another layout of the same world (a later engine of these
+            # processes): every rank makes its groups anew, in one order
+            _GROUP = TPGroup(_GROUP.device, cfg.infer.pp_size,
+                             cfg.infer.dp_size)
         return True
     dev = rank_device(device, pid)
     backend = backend_for(dev, n_proc)
@@ -230,6 +236,13 @@ class TPGroup:
         y = x.to(torch.float32, copy=True)
         dist.all_reduce(y, group=self.pg)
         return y.to(x.dtype)
+
+    def max_(self, x: torch.Tensor) -> torch.Tensor:
+        """The elementwise max over the TP group, in place (a row-parallel
+        input's per-token absmax, [T] f32: each rank holds a slice of the
+        row, and a max is exact in any order)."""
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=self.pg)
+        return x
 
     def gather_last(self, local: torch.Tensor, start: int,
                     total: int) -> torch.Tensor:

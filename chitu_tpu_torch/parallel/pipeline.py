@@ -7,7 +7,9 @@ PipeTensorExecutor stage relay). The JAX package runs one program under
 same phase loop over its own stage (`decode_pipelined`):
 
 - each stage holds its layer range of the stacked weights and of the KV
-  pool (`parallel.sharding.StageSlice`);
+  pool (`parallel.sharding.StageSlice`): L // pp layers, the first
+  L % pp stages one more, so a stage may hold none and relays the
+  hidden state as it came;
 - S = pp microbatch groups stream through the stages: in phase q, stage s
   works on group (q - s) mod pp at decode step (q - s) // pp, so in steady
   state every stage holds a different group;
@@ -22,9 +24,9 @@ same phase loop over its own stage (`decode_pipelined`):
 
 The port's tensor parallelism is always what the JAX package calls
 "manual" (each rank holds its shard and calls its collectives), so its
-"auto" mode (GSPMD inside the shard_map) has no counterpart, and the
-layouts that the JAX package replicates through GSPMD (a stack that pp
-does not divide) are refused when the model is built. Every family runs
+"auto" mode (GSPMD inside the shard_map) has no counterpart. A stack
+that pp does not divide, which the JAX package replicates and runs in
+sequence, is cut into uneven ranges here and pipelined. Every family runs
 it at pp x tp: Mixtral and DeepSeek with their experts over the stage's
 TP group (the JAX package's manual-TP dual stack,
 chitu_tpu/parallel/pipeline.py:138-194,447-481; DeepSeek's dense-first
@@ -45,11 +47,11 @@ def supports_pipeline(model) -> bool:
     """The pipelined decode applies: the model runs as one stage of pp > 1
     (any family, at any tp) and dp is 1 (the JAX package refuses dp > 1,
     chitu_tpu/parallel/pipeline.py:200: dp x pp runs the layers in
-    sequence). The JAX package's other conditions hold by construction:
-    every stack is cut into equal stage ranges (a layout that is not is
-    refused when the model is built), and a leaf that tp does not divide
-    is held whole and never summed (where `_manual_tp_ok` falls back to
-    GSPMD)."""
+    sequence). The JAX package's other conditions hold by construction or
+    do not apply: a stack that pp does not divide is cut into uneven stage
+    ranges (where the JAX package runs in sequence), and a leaf that tp
+    does not divide is held whole and never summed (where `_manual_tp_ok`
+    falls back to GSPMD)."""
     return (getattr(model, "stage", None) is not None
             and getattr(model, "dp_group", None) is None)
 

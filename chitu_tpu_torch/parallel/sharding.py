@@ -2,9 +2,10 @@
 
 Pipeline stages first (`StageSlice`, the `'pp'` entry on the layer dim of
 every stacked leaf in the JAX package's `param_partition_specs`): stage
-p of pp holds layers [p * L / pp, (p + 1) * L / pp) of every stack, its
-QTensor scales, zeros, permutations and outlier rows cut along the same
-layer dim; stage 0 holds the embedding, the last stage the final norm and
+p of pp holds a contiguous range of L // pp layers of every stack (the
+first L % pp stages one more; a stage may hold none), its QTensor
+scales, zeros, permutations and outlier rows cut along the same layer
+dim; stage 0 holds the embedding, the last stage the final norm and
 the head (and the embedding again when the head is tied to it). Then the
 tensor-parallel cut of each leaf:
 
@@ -250,25 +251,20 @@ class StageSlice:
     def of(cls, stage: int, pp: int, stacks: Dict[str, int],
            tied: bool = False, first_only: Sequence[str] = ()):
         """Stage `stage` of `pp` over `stacks` ({name: layers}): each stack
-        cut into pp equal ranges, but those in `first_only`, held whole on
-        stage 0 and not at all elsewhere; refused when pp does not divide
-        a stack (the JAX package replicates it through GSPMD then)."""
+        cut into pp contiguous ranges, the first n % pp of them one layer
+        longer (8 layers over 3 stages: 3, 3, 2; 1 over 2: 1, 0), but
+        those in `first_only`, held whole on stage 0 and not at all
+        elsewhere. A stage may hold no layer of a stack: it relays the
+        hidden state as it came (the JAX package replicates such a stack
+        and runs it in sequence, chitu_tpu/parallel/pipeline.py:195-221)."""
         ranges = {}
         for name, n in stacks.items():
             if name in first_only:
                 ranges[name] = (0, n) if stage == 0 else (0, 0)
                 continue
-            if n % pp:
-                raise NotImplementedError(
-                    f"pp_size={pp} does not divide the {n} layers of "
-                    f"{name!r}: each stage holds an equal layer range (the "
-                    "JAX package replicates such a stack; ROADMAP C)")
-            per = n // pp
-            if not per:
-                raise NotImplementedError(
-                    f"pp_size={pp} is more stages than the {n} layers of "
-                    f"{name!r}")
-            ranges[name] = (stage * per, (stage + 1) * per)
+            per, extra = divmod(n, pp)
+            start = stage * per + min(stage, extra)
+            ranges[name] = (start, start + per + (stage < extra))
         last = stage == pp - 1
         return cls(stage, pp, ranges, embed=stage == 0 or (tied and last),
                    head=last)

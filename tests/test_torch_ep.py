@@ -479,5 +479,12 @@ def test_loader_reads_the_rank_slices(tmp_path, fmt, tp):
     (DEEPSEEK + PP2TP2 + ["infer.mla_absorb=none"], "A.6"),
 ])
 def test_refusals(ovr, match):
+    """Experts or heads that tp does not divide are refused (ROADMAP C);
+    the dense MLA under tp (A.6) serves since slice 17
+    (tests/test_torch_layouts.py): on one process it asks for its ranks."""
+    if match == "A.6":
+        with pytest.raises(ValueError, match="num_processes"):
+            Engine(load_config(overrides=ovr), device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=match):
         Engine(load_config(overrides=ovr), device="cpu")

@@ -429,6 +429,38 @@ def test_quant_acts_every_bf16_value(dev, T):
     _acts_equal(nq.quant_acts(x), nq.quant_acts_plain(x))
 
 
+@pytest.mark.parametrize("parts", [2, 4])
+@pytest.mark.parametrize("T,D", [(16, 4096), (1, 14336), (512, 14336),
+                                 (16, 29568), (64, 65536), (5, 4100)])
+def test_quant_acts_given_absmax_is_the_whole_row(dev, T, D, parts):
+    """B12's row-parallel modes (a row split over `parts` ranks, as a
+    row-parallel W8A8 input lies over a tensor-parallel group):
+    `acts_absmax` of each slice equals its plain version, the slices' max
+    is the whole row's, and `quant_acts_given` of each slice under it is
+    bit-equal to its plain version and to `quant_acts` (the whole-row
+    B12) cut to the slice; a zero row takes the 1e-8 floor. Slices of
+    29568 / 2 and of 65536 split over a cluster; 4100 / 4 starts odd."""
+    rand = _gen(dev, 13)
+    x = rand(T, D)
+    x[0] = 0
+    k = D // parts
+    whole = nq.quant_acts(x)
+    slices = [x[:, i * k:(i + 1) * k].contiguous() for i in range(parts)]
+    amax = torch.zeros(T, device=dev)
+    for sl in slices:
+        a = nq.acts_absmax(sl)
+        torch.cuda.synchronize()
+        assert torch.equal(a, nq.acts_absmax_plain(sl))
+        amax = torch.maximum(amax, a)
+    assert torch.equal(amax, nq.acts_absmax_plain(x))
+    for i, sl in enumerate(slices):
+        got = nq.quant_acts_given(sl, amax)
+        _acts_equal(got, nq.quant_acts_given_plain(sl, amax))
+        _acts_equal(got, nq.QuantizedActs(
+            data=whole.data[:, i * k:(i + 1) * k].contiguous(),
+            scale=whole.scale))
+
+
 @pytest.mark.parametrize("T,D", [(16, 4096), (16, 14336), (512, 4096)])
 def test_norm_quant_launches_and_replay_bit_equal(dev, T, D):
     rand = _gen(dev, 9)

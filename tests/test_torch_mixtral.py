@@ -244,12 +244,11 @@ def test_engine_generates_with_every_expert_layout(method, act, merged, capacity
 
 def test_deepseek_still_raises():
     """The DeepSeek card serves since slice 4 (its dense MLA path since
-    slice 5), under tensor parallelism since slice 15 (in a world of
-    ranks: alone it asks for one); its dense MLA split over two GPUs still
-    raises, naming its ROADMAP item (A.6)."""
+    slice 5), under tensor parallelism since slice 15 and its dense MLA
+    split over two GPUs since slice 17 (tests/test_torch_layouts.py): in
+    a world of ranks, so alone each asks for one."""
     base = ["models=tiny-deepseek-debug", "infer.max_seq_len=128",
             "infer.tp_size=2"]
-    with pytest.raises(NotImplementedError, match="A.6"):
-        Engine(tload(overrides=base + ["infer.mla_absorb=none"]), device="cpu")
-    with pytest.raises(ValueError, match="num_processes=2"):
-        Engine(tload(overrides=base), device="cpu")
+    for extra in (["infer.mla_absorb=none"], []):
+        with pytest.raises(ValueError, match="num_processes=2"):
+            Engine(tload(overrides=base + extra), device="cpu")

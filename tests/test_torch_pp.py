@@ -280,12 +280,14 @@ def test_per_rank_bytes_are_the_stage_share(worlds, world, tp):
 
 
 def test_supports_pipeline_and_refusals():
-    """pp must divide the layers (the JAX package replicates otherwise);
-    dp > 1 on one process asks for its ranks; Mixtral and DeepSeek serve pp x tp
-    (tests/test_torch_ep.py), but for experts tp does not divide
-    (ROADMAP C) and DeepSeek's dense MLA under tp (A.6)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP C"):
-        StageSlice.of(0, 2, {"layers": 3})
+    """A stack pp does not divide takes uneven contiguous ranges since
+    slice 17 (the JAX package replicates it; tests/test_torch_layouts.py
+    serves them); dp > 1 on one process asks for its ranks; Mixtral and
+    DeepSeek serve pp x tp (tests/test_torch_ep.py), DeepSeek's dense MLA
+    too since slice 17 (on one process it asks for its ranks), but not
+    experts that tp does not divide (ROADMAP C)."""
+    assert [StageSlice.of(p, 2, {"layers": 3}).ranges["layers"]
+            for p in range(2)] == [(0, 2), (2, 3)]
     s = StageSlice.of(1, 2, {"dense_layers": 1, "moe_layers": 4},
                       first_only=("dense_layers",))
     assert s.ranges == {"dense_layers": (0, 0), "moe_layers": (2, 4)}
@@ -297,11 +299,12 @@ def test_supports_pipeline_and_refusals():
     # replicas serve since slice 16: on one process dp asks for its ranks
     with pytest.raises(ValueError, match="num_processes=2"):
         Engine(load_config(overrides=BASE + ["infer.dp_size=2"]), device="cpu")
-    for ovr, match in ((MIXTRAL + PP2 + ["infer.tp_size=3"], "ROADMAP C"),
-                       (DEEPSEEK + PP2 + ["infer.tp_size=2",
-                                          "infer.mla_absorb=none"], "A.6")):
-        with pytest.raises(NotImplementedError, match=match):
-            Engine(load_config(overrides=BASE + ovr), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+        Engine(load_config(overrides=BASE + MIXTRAL + PP2 + ["infer.tp_size=3"]),
+               device="cpu")
+    with pytest.raises(ValueError, match="num_processes=4"):
+        Engine(load_config(overrides=BASE + DEEPSEEK + PP2 + [
+            "infer.tp_size=2", "infer.mla_absorb=none"]), device="cpu")
 
 
 @pytest.mark.parametrize("fmt", ["hf_llama_bf16", "gptq_act_order"])

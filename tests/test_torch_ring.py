@@ -21,7 +21,9 @@ total (/ tp, / pp) without it. Covered: dp 2 ring KV with chunked
 prefill and a burst, ring prefill of whole prompts (Llama and Mixtral),
 Mixtral's and DeepSeek's ring pools with the MoE token split, dp without a ring
 (the replicated batch, as `test_dp2_tp4_batch`), dp 2 x tp 2 and dp 2 x
-pp 2 ring KV, and four replicas (ring KV, ring prefill).
+pp 2 ring KV, and four replicas (ring KV, ring prefill); a perplexity
+measured by rank 0 of the dp 2 (Llama, DeepSeek) and dp 2 x pp 2 worlds
+equals the one-rank engine's.
 """
 
 import functools
@@ -39,7 +41,7 @@ from chitu_tpu.ops import attention as jattn
 from chitu_tpu.ops import attention_ring as jring
 from chitu_tpu.parallel import make_mesh
 from chitu_tpu.parallel.ring import ring_attention as jring_attention
-from chitu_tpu_torch import SampleParams, load_config
+from chitu_tpu_torch import SampleParams, evals, load_config
 from chitu_tpu_torch.engine import Engine
 from chitu_tpu_torch.ops import attention as tattn
 from chitu_tpu_torch.ops import attention_kernels as tk
@@ -470,6 +472,7 @@ DP2 = ["infer.dp_size=2"]
 RKV = DP2 + ["infer.ring_kv=true"]
 CHUNK = ["infer.prefill_chunk=16"]
 RP_MIX = [rng.integers(1, 1024, n).tolist() for n in (37, 20)]
+PPL = dict(tokens=rng.integers(1, 512, 60).tolist(), window=32, stride=20)
 
 
 @pytest.fixture(scope="module")
@@ -490,14 +493,15 @@ def worlds(tmp_path_factory):
     off = ["infer.merge_qkv_gate_up=off"]
     sc2 = [
         dict(name="ring_kv", overrides=BASE + off + RKV + CHUNK,
-             tree=paths["U"], prompts=PROMPTS + [LONG], new=NEW + [6]),
+             tree=paths["U"], prompts=PROMPTS + [LONG], new=NEW + [6],
+             ppl=PPL),
         dict(name="ring_prefill", overrides=BASE + off + DP2 + [
             "infer.ring_prefill=true", "infer.prefill_chunk=128"],
             tree=paths["U"], prompts=RP, new=[6, 6], one_by_one=True),
         dict(name="replicas", overrides=BASE + off + DP2, tree=paths["U"],
              prompts=PROMPTS, new=NEW),
         dict(name="ds_ring_kv", overrides=DEEPSEEK + RKV, tree=paths["ds"],
-             prompts=ep.PROMPTS, new=ep.NEW, nocap=True),
+             prompts=ep.PROMPTS, new=ep.NEW, nocap=True, ppl=PPL),
         dict(name="mix_ring_kv", overrides=MIXTRAL + RKV, tree=paths["mix"],
              prompts=ep.PROMPTS, new=ep.NEW, nocap=True),
         dict(name="mix_ring_prefill", overrides=MIXTRAL + DP2 + [
@@ -508,7 +512,8 @@ def worlds(tmp_path_factory):
     stp = [dict(name="ring_kv_tp2", overrides=BASE + off + RKV + CHUNK + [
         "infer.tp_size=2"], tree=paths["U"], prompts=PROMPTS, new=NEW)]
     spp = [dict(name="ring_kv_pp2", overrides=BASE + off + RKV + [
-        "infer.pp_size=2"], tree=paths["U"], prompts=PROMPTS, new=NEW)]
+        "infer.pp_size=2"], tree=paths["U"], prompts=PROMPTS, new=NEW,
+        ppl=PPL)]
     dp4 = ["infer.dp_size=4"]
     s4 = [dict(name="ring_kv_dp4", overrides=BASE + off + dp4 + CHUNK + [
               "infer.ring_kv=true"], tree=paths["U"], prompts=PROMPTS, new=NEW),
@@ -528,6 +533,7 @@ def worlds(tmp_path_factory):
         one = _port(off, U)
         ref["port"] = _port_tokens(one, PROMPTS, NEW)
         ref["pool"] = one.cache.bytes()
+        ref["ppl"] = evals.perplexity_from_tokens(one, **PPL)
         ref["port_long"] = _port_tokens(_port(off + CHUNK, U), PROMPTS + [LONG],
                                         NEW + [6])
         ref["port_rp"] = _port_tokens(_port(off + ["infer.prefill_chunk=128"], U),
@@ -538,6 +544,7 @@ def worlds(tmp_path_factory):
         ref["mix_kv"], ref["mix_pool"] = ep._tokens(mix), mix.cache.bytes()
         ds = ep._port(DEEPSEEK, ds_tree)
         ref["ds"], ref["ds_pool"] = ep._tokens(ds), ds.cache.bytes()
+        ref["ds_ppl"] = evals.perplexity_from_tokens(ds, **PPL)
         ref["mix"] = _port_tokens(
             ep._port(MIXTRAL + ["infer.prefill_chunk=128"], mix_tree), RP_MIX,
             [5, 5], one_by_one=True)
@@ -624,3 +631,15 @@ def test_ring_kv_composes(worlds, world, name):
     assert ranks[0][name]["tokens"] == ref["port"]
     for r in ranks:
         assert r[name]["pool_bytes"] * 4 == ref["pool"]
+
+
+@pytest.mark.parametrize("world,name,want", [
+    ("dp2", "ring_kv", "ppl"), ("dp2", "ds_ring_kv", "ds_ppl"),
+    ("pp", "ring_kv_pp2", "ppl")])
+def test_perplexity_under_dp(worlds, world, name, want):
+    """`evals.perplexity_from_tokens` on rank 0 of a dp world (the ring
+    pool's engines, DeepSeek's MoE token split among them): replica 0's
+    ranks run the windows in pools of their own, without the replicas'
+    collectives, and the number equals the one-rank engine's (1e-5)."""
+    got, ref = worlds[world][0][name]["ppl"], worlds["ref"][want]
+    assert abs(got - ref) / ref < 1e-5, (got, ref)

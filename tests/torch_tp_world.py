@@ -10,9 +10,13 @@ rank writes what it saw to `out<rank>.json`. A scenario may count the
 pipelined decode windows (`spy`), give requests frequency penalties
 (`pens`) or a stop token of their own (`stop`, on every rank's task),
 forbid the MoE capacity route (`nocap`: it raises on every rank) and
-record a checksum of every router's selections (`routes`). Every rank
-counts its sequence-parallel ring prefills (`ring_prefills`) and, under
-dp, the gathers over its dp group (`dp_gathers`).
+record a checksum of every router's selections (`routes`), keep every
+W8A8 activation quantization of a row-parallel input, its input slice
+and its int8 values and scales (`acts`, in `acts<rank>.pt`), and have
+rank 0 measure a perplexity after its requests (`ppl`: tokens, window,
+stride; every rank runs its part). Every rank counts its
+sequence-parallel ring prefills (`ring_prefills`) and, under dp, the
+gathers over its dp group (`dp_gathers`).
 """
 
 import json
@@ -81,16 +85,18 @@ def load_tree(path):
 def run(spec_path, rank):
     sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     torch.set_num_threads(1)
-    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch import SampleParams, evals, load_config
     from chitu_tpu_torch.engine import Engine
-    from chitu_tpu_torch.models import deepseek_v3, mixtral, moe
+    from chitu_tpu_torch.models import deepseek_v3, llama, mixtral, moe
+    from chitu_tpu_torch.ops import linear
     from chitu_tpu_torch.models.llama import params_from_numpy
     from chitu_tpu_torch.parallel import pipeline
 
     with open(spec_path) as f:
         spec = json.load(f)
     world = spec["world"]
-    out = {}
+    out, acts = {}, {}
+    quant_acts_rows = linear.quant_acts_rows
     for sc in spec["scenarios"]:
         ovr = list(sc["overrides"]) + world[str(rank)]
         cfg = load_config(overrides=ovr)
@@ -125,6 +131,16 @@ def run(spec_path, rank):
                 return w, sel
 
             mixtral.route = deepseek_v3.route = routing
+        if sc.get("acts"):
+            kept = acts[sc["name"]] = []
+
+            def keeping(x, row_max=None):
+                q = quant_acts_rows(x, row_max)
+                if row_max is not None:
+                    kept.append((x.clone(), q.data.clone(), q.scale.clone()))
+                return q
+
+            linear.quant_acts_rows = llama.quant_acts_rows = keeping
         if sc.get("spy"):
             res["pipelined"] = 0
 
@@ -183,6 +199,7 @@ def run(spec_path, rank):
             pipeline.decode_pipelined = decode_pipelined
             moe.moe_ffn = moe_ffn
             mixtral.route, deepseek_v3.route = routers
+            linear.quant_acts_rows = llama.quant_acts_rows = quant_acts_rows
 
         if rank != 0:
             eng.follow()
@@ -200,6 +217,8 @@ def run(spec_path, rank):
                 eng.run_until_complete()
         eng.run_until_complete()
         res["tokens"] = [list(r.async_stream.tokens) for r in reqs]
+        if sc.get("ppl"):
+            res["ppl"] = evals.perplexity_from_tokens(eng, **sc["ppl"])
         res["spec_stats"] = list(eng.executor._spec_stats)
         alloc = eng.cache.allocator
         res["prefix_hits"] = getattr(alloc, "hits", 0)
@@ -208,6 +227,9 @@ def run(spec_path, rank):
         out[sc["name"]] = res
     with open(os.path.join(os.path.dirname(spec_path), f"out{rank}.json"), "w") as f:
         json.dump(out, f)
+    if acts:
+        torch.save(acts, os.path.join(os.path.dirname(spec_path),
+                                      f"acts{rank}.pt"))
     from chitu_tpu_torch.parallel import distributed
 
     distributed.shutdown()
