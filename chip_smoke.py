@@ -253,7 +253,7 @@ Phases, each fatal on failure:
    `tp2` (bf16, 4 layers), `tp2_soft_fp8` (`quant.method=soft_fp8
    quant.quant_on_load=true`, 4 layers: B6 runs on the shards) and `tp4`
    (2 layers, 2 KV heads a rank). Each phase first serves a burst of eight
-   greedy requests (prompts of 128-1,024 tokens, `TP_NEW` = 64 new tokens
+   greedy requests (prompts of 128-1,024 tokens, `TP_NEW` new tokens
    each: seven through `Engine.submit`, one chat message) on a tp=1
    engine from the
    same seed, then starts N ranks of this script (`--tp-rank`) through the
@@ -344,6 +344,27 @@ Phases, each fatal on failure:
    holds B1's partials mode and the merge of both ranks' splits on a ring
    rank's pages (`ring_kernel_cases`: the B1 batch, its pages striped
    over two ranks).
+   Then slice 17 (`SLICE17_PHASES`: R1's dense MLA and Llama-3-8B W8A8
+   at tp2, Llama-3-8B at pp3) and slice 18, the last layouts the port
+   refused (`SLICE18_PHASES`, `SLICE18_RING`, through `pp_phase`):
+   `tp2_qwen72_fp8` (Qwen2-72B-Instruct soft-fp8, 4 layers: each rank's
+   `w_down`, gate and up cut inside block 115 of 128 rows, held to the
+   whole blocks' bytes, `block_cut_bytes`), then on the same world rank
+   0's server answers `/stop`, an `/init` of twice the world's ranks
+   (400) and an `/init` of 2 bf16 layers that every rank builds
+   (`world_reinit`), its streams held to the one-rank engine's on those
+   overrides; `tp3_mixtral` and `tp3_r1` (Mixtral-8x7B and DeepSeek-R1,
+   4 layers, three ranks: attention and its pool whole on every rank,
+   experts 3 / 3 / 2 and 86 / 85 / 85); `dp2_pp2_ring_prefill`
+   (Llama-3-8B, 4 layers, ring prefill of 2,048 and 4,096-token prompts
+   on two replicas of two stages). Phase 2 holds B6 on a tp2 rank's
+   whole-block slice of Qwen2-72B's `w_down` (`straddle_cases`: `[14848
+   -> 8192]`, 64 zero rows of padding, T 16 and 512, both ranks' partials
+   summed against one rank's product) and B8 on rank 0's uneven range
+   (`EP3_MOE_STACKS`: 86 of 256 and 3 of 8 experts). Since slice 18 the
+   multi-rank bursts decode `TP_NEW` = 32 tokens a stream and the earlier
+   worlds run shallower (the phase tables say which), to hold the smoke
+   within its limit.
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
@@ -355,7 +376,8 @@ Phases, each fatal on failure:
    E / 4 experts, B9 and the latent B1 / B5 at 64 heads, with rank 0's
    launches in `tp2_r1` and `tp4_r1_soft_fp8`; slice 16's B1 partials
    mode on a ring rank's pages and the merge of both ranks' splits, with
-   rank 0's launches in `dp2_ring_kv`),
+   rank 0's launches in `dp2_ring_kv`; slice 17's and slice 18's
+   geometries with rank 0's launches in the phase that runs them),
    then the card's name and power limit, then the device JSON as the last
    line.
 
@@ -1860,6 +1882,78 @@ def quant_kernel_cases(torch, qg, qt, QuantKind, dev):
     yield from int8_cases(torch, qg, dev, PROJ_TP2, [16, 512], "tp2")
 
 
+QWEN72_DOWN = (29568, 8192)  # Qwen2-72B's w_down, [inter -> dim]
+
+
+def straddle_cases(torch, qg, qt, QuantKind, dev):
+    """Slice 18: B6 on a tp2 rank's slice of Qwen2-72B's soft-fp8 `w_down`
+    [29568 -> 8192], whose cut at row 14,784 falls inside block 115 of
+    128 rows: each rank holds the 116 whole blocks over its rows,
+    [14848 -> 8192], and its input is padded with 64 zeros over the rows
+    it does not own (`ops.linear`; rank 1's zeros in front, rank 0's at
+    the back). At T 16 and 512, the wrapper on rank 1's padded input and
+    stored blocks against its plain version (ROW_RTOL a row, two launches
+    and a graph replay bit-equal), and both ranks' partial products
+    through `linear`, summed, against the one-rank product through B6
+    (ROW_RTOL a row: the products' sums run in another order). Bound:
+    the stored slice's bytes, x's and y's, against 2 T x 14848 x 8192
+    operations (the kernel multiplies the padded rows too). Library:
+    `torch.matmul` on the stored slice dequantized beforehand."""
+    from chitu_tpu_torch.ops import linear
+    from chitu_tpu_torch.parallel.sharding import shard_qtensor
+
+    g = torch.Generator(device=dev)
+    g.manual_seed(18)
+    bf = torch.bfloat16
+    K, N = QWEN72_DOWN
+    w = (torch.randn((K, N), generator=g, device=dev) * 0.02).to(bf)
+    q = qt.quantize_weight(w, QuantKind.SOFT_FP8)
+    del w
+    ranks = [shard_qtensor(q, ("tp", None), r, 2).contiguous() for r in range(2)]
+    k = K // 2
+    for T in (16, 512):
+        x = torch.randn((T, K), generator=g, device=dev).to(bf)
+        name = f"quant_gemm[e4m3_straddled,T={T},{k}+64->{N}]"
+        parts = [linear.linear(x[:, r * k:(r + 1) * k], ranks[r],
+                               out_dtype=torch.float32) for r in range(2)]
+        whole = qg.quant_gemm(x, q)
+        _row_rel(torch, name + " ranks summed", parts[0] + parts[1], whole,
+                 ROW_RTOL)
+        s = ranks[1]
+        if s.rows != (64, 64 + k) or s.data.shape[-2] != k + 64:
+            raise AssertionError(f"{name}: rank 1 holds rows {s.rows} of "
+                                 f"{s.data.shape[-2]}")
+        xp = torch.nn.functional.pad(x[:, k:], (64, 0)).contiguous()
+        st = s.stored()
+        poison(torch, (T, 2 * N), dev)
+        got = qg.quant_gemm(xp, st)
+        want = qg.quant_gemm_plain(xp, st)
+        err, rel = _row_rel(torch, name, got, want, ROW_RTOL)
+        bit_equal(torch, name, got, qg.quant_gemm(xp, st))
+        replay_equal(torch, name, lambda: qg.quant_gemm(xp, st), got)
+        Ks = st.data.shape[-2]
+        nbytes = st.nbytes() + xp.numel() * 2 + T * N * 4
+        bnd, by = bound_ms(nbytes, 2.0 * T * Ks * N)
+        res = dict(name=name, kernel="quant_gemm", variant=f"straddled,T{T}",
+                   route="cuda", source=QGEMM_SRC,
+                   replaces="chitu_tpu/ops/pallas_quant_gemm.py:282",
+                   max_abs_err=err, max_row_rel_err=rel, bound_ms=bnd,
+                   bound_by=by,
+                   shape=f"T={T} K={Ks} (rows {s.rows[0]}:{s.rows[1]} the "
+                         f"rank's) N={N} mode=e4m3_blockwise "
+                         f"weight_bytes={st.nbytes()}",
+                   **plan_fields(qg.gemm_plan(xp, st)))
+        res["ms"] = device_ms_sized(torch, lambda: qg.quant_gemm(xp, st))
+        res["plain_ms"] = call_ms(torch, lambda: qg.quant_gemm_plain(xp, st),
+                                  reps=5)
+        wd = st.dequantize(bf)
+        res["library_ms"] = device_ms_sized(torch, lambda: torch.matmul(xp, wd))
+        del wd, parts, whole
+        yield res
+    del q, ranks
+    torch.cuda.empty_cache()
+
+
 # ---------------------------------------------------------------------------
 # phase 2b': the activation quantizers (B11, B12)
 # ---------------------------------------------------------------------------
@@ -2128,6 +2222,13 @@ EP_MOE_STACKS = [
 ]
 
 
+# tp3: rank 0's uneven expert range (86 of 256, 3 of 8)
+EP3_MOE_STACKS = [
+    ("R1", 256, 2048, 7168, False, 8, 3),
+    ("mixtral", 8, 4096, 14336, False, 2, 3),
+]
+
+
 def check_grouped(torch, name, got, again, want, live_rows):
     """The limits every grouped-GEMM result is held to: every row of a
     live block within ROW_RTOL of the plain row's norm, every other row
@@ -2145,6 +2246,8 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
     """One result dict per case of `grouped_gemm`; the first (the merged
     e4m3 gate/up stack of Mixtral-8x7B at the 16-token decode geometry) is
     the one reported in the kernels line."""
+    from chitu_tpu_torch.parallel.sharding import even_range
+
     g = torch.Generator(device=dev)
     g.manual_seed(2)
     rng = np.random.default_rng(2)
@@ -2174,17 +2277,20 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
         return torch.tensor(sel, dtype=torch.int32, device=dev)
 
     def case(label, w, T, layer=0, skewed=False, timed=True, tag="", k=2,
-             tp=1):
-        """`tp` > 1: the stack is rank 0's E / tp experts (expert
-        parallelism); the tokens route over all E = tp x its experts, and
-        the assignments of other ranks' experts go to the dead expert
-        E / tp, whose blocks are dead (`models.moe.moe_ffn_ep`)."""
+             tp=1, e_all=None):
+        """`tp` > 1: the stack is rank 0's experts (expert parallelism),
+        E / tp of them, or, when tp does not divide the model's `e_all`,
+        its range of the first E % tp ranks' (3 of 8 at tp3, 86 of 256);
+        the tokens route over all of them, and the assignments of other
+        ranks' experts go to the dead expert, the stack's E, whose blocks
+        are dead (`models.moe.moe_ffn_ep`)."""
         data = w.data if hasattr(w, "kind") else w
         fp8 = hasattr(w, "kind")
         E, K, N = data.shape[-3:]
         Ed = E + 1 if tp > 1 else E
         bm, NB = moe.dispatch_geometry(T, k, Ed)
-        sel = routing(T, E * tp, k, skewed)
+        e_all = e_all or E * tp
+        sel = routing(T, e_all, k, skewed)
         foreign = None
         if tp > 1:
             sel = moe.local_ids(sel, 0, E)
@@ -2226,11 +2332,12 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
                    shape=f"T={T} k={k} E={E} bm={bm} NB={NB} live_blocks="
                          f"{len(live)} live_experts={len(experts)} K={K} N={N} "
                          f"mode={mode} weight_bytes_read={wbytes}"
-                         + (f" tp={tp} experts_of_all={E * tp} foreign_share="
+                         + (f" tp={tp} experts_of_all={e_all} foreign_share="
                             f"{foreign:.3f}" if tp > 1 else ""),
                    **plan_fields(mg.gemm_plan(xs, w, block_expert, bm)))
         if tp > 1:
-            res["variant"] = f"ep{tp}"
+            res["variant"] = f"ep{tp}" + (
+                "" if e_all == E * tp else f",{E}of{e_all}")
         if timed:
             res["ms"] = device_ms_sized(torch, run)
             res["plain_ms"] = call_ms(
@@ -2289,6 +2396,14 @@ def moe_kernel_cases(torch, np, mg, moe, qt, QuantKind, dev):
         w = stack(1, E // tp, K, N, fp8)
         for T in (16, 512):
             yield case(label, w, T, k=k, tp=tp)
+        del w
+        torch.cuda.empty_cache()
+    # slice 18: rank 0's uneven range at tp3, the tp3_r1 phase's bf16 down
+    # projection (86 of 256) and the tp3_mixtral phase's bf16 gate (3 of 8)
+    for label, E, K, N, fp8, k, tp in EP3_MOE_STACKS:
+        w = stack(1, len(range(*even_range(E, 0, tp))), K, N, fp8)
+        for T in (16, 512):
+            yield case(label, w, T, k=k, tp=tp, e_all=E)
         del w
         torch.cuda.empty_cache()
 
@@ -2957,6 +3072,13 @@ VARIANT_ROWS = [
     ("int8_gemm[tp2]", "tp2_w8a8", "int8_gemm"),
     ("acts_absmax", "tp2_w8a8"),
     ("quant_acts_given", "tp2_w8a8"),
+    # slice 18: B6 on a rank's whole-block slice of Qwen2-72B's w_down, B8
+    # on rank 0's uneven expert range at tp3, with the launches of rank 0
+    # of the phase that runs them
+    ("quant_gemm[straddled,T16]", "tp2_qwen72_fp8", "quant_gemm"),
+    ("quant_gemm[straddled,T512]", "tp2_qwen72_fp8", "quant_gemm"),
+    ("grouped_gemm[ep3,86of256]", "tp3_r1", "grouped_gemm"),
+    ("grouped_gemm[ep3,3of8]", "tp3_mixtral", "grouped_gemm"),
 ]
 
 
@@ -4212,7 +4334,9 @@ def row_key(res):
 # ---------------------------------------------------------------------------
 
 TP_LENS = (128, 256, 384, 512, 640, 768, 1024)  # the burst's API prompts
-TP_NEW = 64  # new tokens a stream of the multi-rank phases' bursts
+TP_NEW = 32  # new tokens a stream of the multi-rank phases' bursts (64
+# until slice 18 brought its phases: the earlier worlds' bursts decode half
+# as long since)
 TP_MSG = "Tensor parallel serving over HTTP to rank 0. " * 5  # ~250 bytes
 TP_TIMEOUT = 900  # a world's whole run, killed past it
 TP_BASE = [f"models={LLAMA}", "infer.stop_with_eos=false",
@@ -4783,6 +4907,8 @@ def tp_rank_main(spec_path):
     if eng.group.world_rank == eng.group.sampler:
         torch.save([r.cpu() for r in rows],
                    os.path.join(spec["out"], "tp_rows.pt"))
+    if spec.get("reinit"):
+        res["reinit"] = world_reinit(eng, cfg, spec["reinit"])
     if (eng.group.rank == 0 and eng.group.replica == 0
             and any(s.numel() for s in tf_routes)):
         # the stage's first TP rank: its layers' selections
@@ -5032,12 +5158,13 @@ def every_position(torch, tk, eng, label, prompts, streams, tp_rows,
 
 TP_PHASES = [
     # (label, ranks, overrides, kernels that must launch on rank 0)
-    # 4 of 32 layers, tp4 2 (8 and 4 until the slice 16 phases came): a
+    # 2 of 32 layers (4 until the slice 18 phases came, 8 before slice 16),
+    # tp4 2: a
     # 32-layer burst takes about two minutes through gloo, the bytes and
     # streams hold at any depth, and scripts/torch_tp_cards.py runs all 32
     # on a card a rank
-    ("tp2", 2, ["models.n_layers=4"], ATTN_KERNELS),
-    ("tp2_soft_fp8", 2, ["models.n_layers=4", "quant.method=soft_fp8",
+    ("tp2", 2, ["models.n_layers=2"], ATTN_KERNELS),
+    ("tp2_soft_fp8", 2, ["models.n_layers=2", "quant.method=soft_fp8",
                          "quant.quant_on_load=true"],
      ATTN_KERNELS + ("quant_gemm",)),
     ("tp4", 4, ["models.n_layers=2"], ATTN_KERNELS),
@@ -5049,12 +5176,13 @@ TP_PHASES = [
 PP_PHASES = [
     # (label, model card, pp, tp, overrides, kernels that must launch on
     # every rank in the burst: each stage runs them on its own layers).
-    # pp2 at 4 of 32 layers (8 in PR 16) and pp2_tp2 at 2 since the later
-    # slices' phases came (32 and 4 before; scripts/torch_pp_cards.py runs
-    # all 32 on a card a rank)
-    ("pp2", LLAMA, 2, 1, ["models.n_layers=4"], ATTN_KERNELS),
+    # pp2 at 2 of 32 layers (4 until slice 18, 8 in PR 16), pp2_mixtral at
+    # 2 (4 until slice 18) and pp2_tp2 at 2 since the later slices' phases
+    # came (32 and 4 before; scripts/torch_pp_cards.py runs all 32 on a
+    # card a rank)
+    ("pp2", LLAMA, 2, 1, ["models.n_layers=2"], ATTN_KERNELS),
     ("pp2_tp2", LLAMA, 2, 2, ["models.n_layers=2"], ATTN_KERNELS),
-    ("pp2_mixtral", MIXTRAL, 2, 1, ["models.n_layers=4"],
+    ("pp2_mixtral", MIXTRAL, 2, 1, ["models.n_layers=2"],
      ATTN_KERNELS + ("grouped_gemm",)),
     ("pp2_r1", R1, 2, 1, ["models.n_layers=5"],
      ("attend_decode_fused[latent]", "attend_prefill_packed[latent]",
@@ -5083,58 +5211,119 @@ def stage_bytes(eng, pp, tp):
     its pool on stage 0, the stage's MoE layers and their pool on each
     stage, the latent pools whole over tp (the dense MLA's per-head pools
     / tp)."""
+    from chitu_tpu_torch.models import deepseek_v3, llama
     from chitu_tpu_torch.ops.qtensor import QTensor
-    from chitu_tpu_torch.parallel.sharding import StageSlice
+    from chitu_tpu_torch.parallel.sharding import StageSlice, safe_spec
 
     def size(t):
         if isinstance(t, dict):
             return sum(size(v) for v in t.values())
         return t.nbytes() if isinstance(t, QTensor) else t.numel() * t.element_size()
 
-    def part(k, v):
+    # the one-rank engine's layout at the world's tp: which leaves cut
+    import dataclasses
+
+    lay = dataclasses.replace(eng.model.layout, tp=tp)
+
+    def part(k, v, t):
         # a row-parallel weight's per-out-channel scale stays whole
-        # (`sharding.qtensor_aux_spec`): W8A16 and W8A8 `wo`, `w_down`
-        lay = eng.model.layout
+        # (`sharding.narrow_rows`): W8A16 and W8A8 `wo`, `w_down`
         if held_whole(lay, k):
             return size(v)
+        nd = v.data.dim() if isinstance(v, QTensor) else v.dim()
+        parts = {**llama.MERGES, **deepseek_v3.MERGES}.get(k, (k,))
+        widths = getattr(lay, "widths", {}).get(k)
+        shape = list(v.shape)
+        if widths:
+            shape[-1] = widths[0]
+        # a dim tp does not divide stays whole (`sharding.safe_spec`)
+        spec = safe_spec(lay.part_spec(parts[0], nd), shape, tp)
+        if all(e is None for e in spec):
+            return size(v)
+        if "ep" in spec:
+            # experts in contiguous ranges, the first E % tp ranks one more
+            E = v.shape[spec.index("ep")]
+            return size(v) // E * (E // tp + (t < E % tp))
         if isinstance(v, QTensor) and v.scale.dim() < v.data.dim():
-            spec = lay.part_spec(k, v.data.dim())
             if spec[-2] is not None and spec[-1] is None:
                 sc = v.scale.numel() * v.scale.element_size()
                 return (size(v) - sc) // tp + sc
+        if isinstance(v, QTensor) and v.scale.dim() == v.data.dim():
+            cut = block_cut_bytes(v, spec, t, tp, widths)
+            if cut is not None:
+                return cut
         return size(v) // tp
 
-    def share(leaves):
-        return sum(part(k, v) for k, v in leaves.items())
+    def share(leaves, t):
+        return sum(part(k, v, t) for k, v in leaves.items())
 
     tree = eng.model.params_tree()
     top = {k: size(tree.get(k, {})) for k in ("embed", "norm", "lm_head")}
     pools = {k: size(v) for k, v in eng.cache.arrays.items()}
     m = eng.model
     out = []
+    # heads that tp does not divide: attention and its pool replicate
+    htp = tp if lay.heads_split else 1
+    V = m.args.vocab_size
+    vtp = tp if V % tp == 0 else 1
     for r in range(pp * tp):
-        p = r // tp
+        p, t = r // tp, r % tp
         if "moe_layers" in tree:
             n = m.n_moe
             held = StageSlice.of(p, pp, {"moe_layers": n}).count("moe_layers", n)
             # the latent pools are whole on every TP rank, the dense
             # MLA's per-head pools cut by heads
-            ptp = 1 if m.absorb else tp
-            w = share(tree["moe_layers"]) // n * held
+            ptp = 1 if m.absorb else htp
+            w = share(tree["moe_layers"], t) // n * held
             pool = pools["kv_moe"] // n * held // ptp
             if p == 0:
-                w += share(tree.get("dense_layers", {})) + top["embed"] // tp
+                w += share(tree.get("dense_layers", {}), t) + top["embed"] // vtp
                 pool += pools["kv_dense"] // ptp
         else:
             n = m.args.n_layers
             held = StageSlice.of(p, pp, {"layers": n}).count("layers", n)
-            w = share(tree["layers"]) // n * held
-            w += top["embed"] // tp if p == 0 else 0
-            pool = pools["kv"] // n * held // tp
+            w = share(tree["layers"], t) // n * held
+            w += top["embed"] // vtp if p == 0 else 0
+            pool = pools["kv"] // n * held // htp
         if p == pp - 1:
-            w += top["lm_head"] // tp + top["norm"]
+            w += top["lm_head"] // vtp + top["norm"]
         out.append((w, pool))
     return out
+
+
+def block_cut_bytes(v, spec, t, tp, widths=None):
+    """Bytes of TP rank t's cut of a quantized [L, K, N] leaf with
+    blockwise or groupwise scales along the cut dim (e4m3 [K/B, N/B] or
+    [K/B, N], int4 [K/G, N] with zeros), when a cut falls inside a block:
+    the whole blocks over the rank's equal slice of each part (`widths`:
+    a merged leaf's parts along the columns, each cut on its own), which
+    are its share plus the overlap, and those blocks' scales (and zeros).
+    The plain arithmetic of the sharding rule; None when every cut falls
+    on a block edge (then the rank holds 1 / tp)."""
+    if v.data.dim() != 3 or (spec[-2] is None) == (spec[-1] is None):
+        return None
+    L, K, N = v.data.shape
+    b, item = v.block, v.data.element_size()
+    aux = [a for a in (v.scale, v.zeros) if a is not None]
+    per_col = aux[0].shape[-1] == N  # rowwise / groupwise: a scale a column
+
+    def cover(n):
+        per = n // tp
+        a, e = t * per // b * b, (t + 1) * per
+        return min(-(-e // b) * b, n) - a
+
+    if spec[-2] is not None:  # rows
+        if K % (tp * b) == 0:
+            return None
+        rows = cover(K)
+        return (L * rows * N * item
+                + len(aux) * L * -(-rows // b) * aux[0].shape[-1] * 4)
+    ws = widths or (N,)
+    if per_col or all(w % (tp * b) == 0 for w in ws):
+        return None  # a scale a column cuts exactly; so do block edges
+    cols = [cover(w) for w in ws]
+    return (L * K * sum(cols) * item
+            + len(aux) * L * aux[0].shape[-2] * sum(-(-c // b) for c in cols) * 4)
 
 
 def sliced_acts_check(torch, label, ranks, tp):
@@ -5216,9 +5405,135 @@ def world_extras(label, model, pp, tp, overrides, dp=1):
 def start_pp_world(np, label, model, pp, tp, overrides, dp=1, lens=None):
     """`start_world` for `pp_phase`."""
     base, prompts, grid = pp_world_args(np, model, pp, tp, overrides, dp, lens)
+    extra = world_extras(label, model, pp, tp, overrides, dp)
+    if label in REINIT:
+        # after the phase, rank 0 serves /stop and /init on the same world
+        # (`world_reinit`): one of another world size, then REINIT's
+        ovr = base + REINIT[label] + grid + ["serve.port=0"]
+        extra["reinit"] = dict(
+            overrides=ovr, bad=ovr + [f"infer.tp_size={2 * tp}"],
+            prompts=[p[:REINIT_LEN] for p in prompts[:REINIT_STREAMS]])
     return start_world(label, dp * pp * tp, overrides, prompts, base=base,
-                       grid=grid, **world_extras(label, model, pp, tp,
-                                                 overrides, dp))
+                       grid=grid, **extra)
+
+
+# /init's overrides after a phase, on the same world (bf16, 2 layers)
+REINIT = {"tp2_qwen72_fp8": ["models.n_layers=2"]}
+REINIT_STREAMS, REINIT_LEN = 3, 256
+
+
+def world_reinit(eng, cfg, spec):
+    """Slice 18, on every rank of a world whose engine has stopped: rank 0
+    serves `/stop`, an `/init` whose layout has another world size (it
+    must answer 400), then `/init` with `spec["overrides"]` through the
+    port's own HTTP handlers (`serve.ServerContext.rebuild`: every rank
+    builds the new engine), greedy streams of `spec["prompts"]` through
+    the new engine, `/stop` and the end of the world's served life
+    (`end_world`); the other ranks wait in `serve.follow_world`, the
+    served world's follower loop. -> rank 0's answers, streams and bytes,
+    or the other ranks' bytes."""
+    import urllib.error
+    import urllib.request
+
+    from chitu_tpu_torch import SampleParams
+    from chitu_tpu_torch.serve import (
+        BackgroundServer,
+        ServerContext,
+        follow_world,
+    )
+
+    t0 = time.time()
+    if eng.rank != 0:
+        ctx = ServerContext(cfg)
+        ctx.engine = eng
+        follow_world(ctx)
+        new = ctx.engine
+        return dict(weight_bytes=new.weight_bytes(),
+                    pool_bytes=new.cache.bytes())
+    srv = BackgroundServer(cfg, engine=eng)
+    port = srv.start()
+
+    def post(path, body):
+        req = urllib.request.Request(
+            f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+            headers={"Content-Type": "application/json"})
+        try:
+            with urllib.request.urlopen(req, timeout=TP_TIMEOUT) as r:
+                return r.status, json.loads(r.read())
+        except urllib.error.HTTPError as e:
+            return e.code, json.loads(e.read())
+
+    out = dict(stop=post("/stop", {})[0])
+    out["bad"] = post("/init", {"overrides": spec["bad"]})
+    t1 = time.time()
+    out["init"] = post("/init", {"overrides": spec["overrides"]})[0]
+    out["init_s"] = time.time() - t1
+    new = srv.ctx.engine
+    greedy = SampleParams(temperature=0.0, max_new_tokens=TP_NEW)
+    reqs = [new.submit("", greedy, prompt_tokens=p) for p in spec["prompts"]]
+    srv.ctx.wake.set()
+    while any(r.finish_reason is None for r in reqs):
+        time.sleep(0.01)
+    out.update(tokens=[list(r.async_stream.tokens) for r in reqs],
+               weight_bytes=new.weight_bytes(), pool_bytes=new.cache.bytes(),
+               layers=new.cfg.models.n_layers, quant=new.cfg.quant.method)
+    out["stop2"] = post("/stop", {})[0]
+    srv._loop.call_soon_threadsafe(srv._loop.stop)
+    srv._thread.join(timeout=5)
+    srv.ctx.end_world()
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+def reinit_check(torch, np, tk, label, ranks, spec_overrides, prompts, tp):
+    """The /init part of a phase: the world-size change answered 400 and
+    named both sizes; the rebuilt world's per-rank bytes are the one-rank
+    engine's share (`stage_bytes`), and rank 0's streams equal the
+    one-rank engine's on the same overrides (same seed, same weights) or
+    part at a near tie. -> the record."""
+    from chitu_tpu_torch import SampleParams, load_config
+    from chitu_tpu_torch.engine import Engine
+
+    r0 = ranks[0]["reinit"]
+    status, body = r0["bad"]
+    detail = body.get("detail", "")
+    print(f"[{label}] /stop {r0['stop']}; /init of {2 * tp} ranks on {tp}: "
+          f"{status} {detail!r}; /init {r0['init']} in {r0['init_s']:.1f} s "
+          f"({r0['layers']} layers, quant {r0['quant']}); /stop {r0['stop2']}",
+          flush=True)
+    if (r0["stop"], r0["init"], r0["stop2"]) != (200, 200, 200):
+        raise AssertionError(f"[{label}] /stop, /init, /stop answered "
+                             f"{r0['stop']}, {r0['init']}, {r0['stop2']}")
+    if status != 400 or f"{2 * tp} ranks" not in detail or (
+            f"{tp} process" not in detail):
+        raise AssertionError(f"[{label}] the world-size change: {status} "
+                             f"{detail!r}")
+    ovr = [o for o in spec_overrides if not o.startswith(
+        ("infer.tp_size", "infer.pp_size", "infer.dp_size"))]
+    ref = Engine(load_config(overrides=ovr))
+    greedy = SampleParams(temperature=0.0, max_new_tokens=TP_NEW)
+    reqs = [ref.submit("", greedy, prompt_tokens=p) for p in prompts]
+    ref.run_until_complete()
+    want = [list(r.async_stream.tokens) for r in reqs]
+    wb = stage_bytes(ref, 1, tp)
+    got_b = [(r0["weight_bytes"], r0["pool_bytes"])] + [
+        (res["reinit"]["weight_bytes"], res["reinit"]["pool_bytes"])
+        for res in ranks[1:]]
+    print(f"[{label}] rebuilt world: rank bytes {got_b}, predicted {wb}",
+          flush=True)
+    if got_b != wb:
+        raise AssertionError(f"[{label}] the rebuilt world's rank bytes "
+                             f"{got_b}, not {wb}")
+    div = near_tie(torch, tk, ref, label + " /init", prompts, r0["tokens"],
+                   want)
+    same = sum(a == b for a, b in zip(r0["tokens"], want))
+    ref.terminate()
+    del ref
+    free_memory(torch)
+    return dict(status_world_size_change=status, detail=detail,
+                init_s=r0["init_s"], wall_s=r0["wall_s"],
+                layers=r0["layers"], streams_equal=same,
+                streams=len(want), divergences=div, rank_bytes=got_b)
 
 
 def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
@@ -5376,8 +5691,14 @@ def pp_phase(torch, np, tk, card, label, model, pp, tp, overrides, need,
     ref_eng.terminate()
     del ref_eng
     free_memory(torch)
+    reinit = None
+    if label in REINIT:
+        ovr = base + REINIT[label] + ["serve.port=0"]
+        reinit = reinit_check(torch, np, tk, label, ranks, ovr,
+                              [p[:REINIT_LEN] for p in prompts[:REINIT_STREAMS]],
+                              tp)
     stats = dict(
-        phase=label, card=card, model=model, dp=dp, pp=pp, tp=tp,
+        phase=label, card=card, model=model, dp=dp, pp=pp, tp=tp, reinit=reinit,
         ring_kv=ring_kv, ring_prefill=ring_prefill,
         rank_ring_prefills=[r.get("ring_prefills") for r in ranks],
         prompt_lens=[len(p) for p in prompts],
@@ -5418,15 +5739,17 @@ EP_PHASES = [
     # (label, model card, pp, tp, overrides, kernels that must launch on
     # every rank in the burst). R1 at 4 layers is 3 dense and 1 MoE, at 5
     # 3 and 2; each rank of tp2_r1 holds 64 heads and 128 experts, of
-    # tp4_r1_soft_fp8 32 heads and 64 experts in e4m3. tp2_mixtral at 4
-    # layers (8 in PR 15 and 16, ROADMAP C.3): its tokens are held to the
-    # world's own decode-against-prefill routes too (`every_position`).
-    ("tp2_mixtral", MIXTRAL, 1, 2, ["models.n_layers=4"],
+    # tp4_r1_soft_fp8 32 heads and 64 experts in e4m3. tp2_mixtral and
+    # pp2_tp2_mixtral at 2 layers (4 until slice 18, whose tp3_mixtral runs
+    # expert parallelism at 4; 8 in PR 15 and 16, ROADMAP C.3): its tokens
+    # are held to the world's own decode-against-prefill routes too
+    # (`every_position`).
+    ("tp2_mixtral", MIXTRAL, 1, 2, ["models.n_layers=2"],
      ATTN_KERNELS + ("grouped_gemm",)),
     ("tp2_r1", R1, 1, 2, ["models.n_layers=4"], R1_EP_KERNELS),
     ("tp4_r1_soft_fp8", R1, 1, 4, ["models.n_layers=4"] + SOFT,
      R1_EP_KERNELS + ("quant_gemm",)),
-    ("pp2_tp2_mixtral", MIXTRAL, 2, 2, ["models.n_layers=4"],
+    ("pp2_tp2_mixtral", MIXTRAL, 2, 2, ["models.n_layers=2"],
      ATTN_KERNELS + ("grouped_gemm",)),
     ("pp2_tp2_r1", R1, 2, 2, ["models.n_layers=5"], R1_EP_KERNELS),
 ]
@@ -5572,17 +5895,17 @@ RING_KERNELS = ("attend_decode_partials", "decode_merge")
 RING_PHASES = [
     # (label, model card, dp, pp, tp, overrides, kernels that must launch on
     # every rank in the burst, the burst's prompt lengths (None: TP_LENS)).
-    # Llama-3-8B at 8 of its 32 layers on two replicas, at 4 with four
-    # ranks (32 and 8 in PR 16; the slice 17 phases took the time: ranks
+    # Llama-3-8B at 4 of its 32 layers (8 until slice 18, 32 in PR 16; the
+    # later slices' phases took the time: ranks
     # sharing the card wait about 1.3 ms a gloo all-reduce, one a layer a
     # decode step; scripts/torch_gloo_exchange.py).
     # R1 ring KV: the latent row's ring decode and every ring prefill are
     # plain PyTorch in this slice; its MoE layers split their tokens over
     # the two replicas
     ("dp2_ring_kv", LLAMA, RING_DP, 1, 1,
-     ["models.n_layers=8", "infer.ring_kv=true"], RING_KERNELS, None),
+     ["models.n_layers=4", "infer.ring_kv=true"], RING_KERNELS, None),
     ("dp2_ring_prefill", LLAMA, RING_DP, 1, 1,
-     ["models.n_layers=8", "infer.ring_prefill=true",
+     ["models.n_layers=4", "infer.ring_prefill=true",
       "infer.max_seq_len=4224", "infer.prefill_chunk=4096"],
      ("attend_decode_fused",), (2048, 4096)),
     ("dp2_tp2_ring_kv", LLAMA, RING_DP, 1, 2,
@@ -5605,16 +5928,47 @@ SLICE17_PHASES = [
     # every rank in the burst). Full width, depth cut: R1 at 4 layers is 3
     # dense and 1 MoE, each rank 64 heads of the per-head pool; Llama-3-8B
     # W8A8 (wo's and w_down's inputs row-parallel: B12's PARTIAL and GIVEN
-    # modes); Llama-3-8B at 8 layers over 3 stages (3 / 3 / 2), with a
+    # modes); Llama-3-8B at 5 layers over 3 stages (2 / 2 / 1; 8 until
+    # slice 18), with a
     # perplexity measured through the world's lockstep
     ("tp2_r1_dense", R1, 1, 2, ["models.n_layers=4", "infer.mla_absorb=none"],
      D192 + ("grouped_gemm",)),
     ("tp2_w8a8", LLAMA, 1, 2, ["models.n_layers=4", "quant.method=w8a8",
                                "quant.quant_on_load=true"],
      ATTN_KERNELS + ("int8_gemm", "rms_norm_quant") + ROW_ACTS),
-    ("pp3", LLAMA, 3, 1, ["models.n_layers=8"], ATTN_KERNELS),
+    ("pp3", LLAMA, 3, 1, ["models.n_layers=5"], ATTN_KERNELS),
 ]
 PPL_PHASES = ("pp3",)
+
+
+# ---------------------------------------------------------------------------
+# Slice 18: the last layouts the port refused (ranks sharing the card over
+# gloo)
+# ---------------------------------------------------------------------------
+
+QWEN72 = "Qwen2-72B-Instruct"
+SLICE18_PHASES = [
+    # (label, model card, pp, tp, overrides, kernels that must launch on
+    # every rank in the burst). Full width, depth cut. Qwen2-72B in
+    # soft-fp8 at tp2: each rank's w_down (and gate, up) cut inside block
+    # 115 of 128 rows, then /stop and /init on the same world (REINIT);
+    # Mixtral-8x7B at tp3: 8 heads of KV replicate (32 query heads a
+    # rank), experts 3 / 3 / 2; R1 at tp3 (3 dense, 1 MoE layer): 128
+    # MLA heads a rank, experts 86 / 85 / 85
+    ("tp2_qwen72_fp8", QWEN72, 1, 2, ["models.n_layers=4"] + SOFT,
+     ATTN_KERNELS + ("quant_gemm",)),
+    ("tp3_mixtral", MIXTRAL, 1, 3, ["models.n_layers=4"],
+     ATTN_KERNELS + ("grouped_gemm",)),
+    ("tp3_r1", R1, 1, 3, ["models.n_layers=4"], R1_EP_KERNELS),
+]
+# ring prefill under pp: Llama-3-8B on two replicas of two stages, the
+# prompts of dp2_ring_prefill (dp, pp, tp, overrides, need, lens)
+SLICE18_RING = [
+    ("dp2_pp2_ring_prefill", LLAMA, RING_DP, 2, 1,
+     ["models.n_layers=4", "infer.ring_prefill=true",
+      "infer.max_seq_len=4224", "infer.prefill_chunk=4096"],
+     ("attend_decode_fused",), (2048, 4096)),
+]
 
 
 AWQ_CALIB = 512
@@ -5784,7 +6138,8 @@ def main():
                                    geom=(4, 2, 32, "d32")),
                       dense_gemm_cases(torch, dg, dev),
                       slice12_kernel_cases(torch, tk, plain, dev),
-                      ring_kernel_cases(torch, tk, dev)):
+                      ring_kernel_cases(torch, tk, dev),
+                      straddle_cases(torch, qg, qt, QuantKind, dev)):
             for res in cases:
                 res["card"] = card
                 if res.get("bound_by") == "bytes" and any(
@@ -5894,17 +6249,20 @@ def main():
     worlds.append((13, "awq", None,
                    lambda world: awq_phase(torch, np, tk, card)))
     for sl, table in ((14, PP_PHASES), (15, EP_PHASES), (16, RING_PHASES),
-                      (17, SLICE17_PHASES)):
+                      (17, SLICE17_PHASES), (18, SLICE18_PHASES),
+                      (18, SLICE18_RING)):
         for label, model, *rest in table:
             dp, pp, tp, ovr, need, lens = (
-                rest if sl == 16 else (1, *rest, None))
+                rest if table in (RING_PHASES, SLICE18_RING)
+                else (1, *rest, None))
             worlds.append((sl, label, functools.partial(
                 start_pp_world, np, label, model, pp, tp, ovr, dp, lens),
                 functools.partial(pp_phase, torch, np, tk, card, label, model,
                                   pp, tp, ovr, need, dp=dp, lens=lens)))
     got = run_worlds(worlds)
     phase.update({label: got[label] for table in
-                  (EP_PHASES, RING_PHASES, SLICE17_PHASES)
+                  (EP_PHASES, RING_PHASES, SLICE17_PHASES, SLICE18_PHASES,
+                   SLICE18_RING)
                   for label, *_ in table})
 
     print(f"chip_smoke total {time.time() - t_main:.1f} s", flush=True)

@@ -37,9 +37,11 @@ the controller (`submit`, `cancel`, and the controls `calibrate` and
 `perplexity`, which every rank runs when it applies them); each `step`
 of rank 0 broadcasts what arrived since the last one, with its clock and
 flags, and every rank applies it before it schedules, so all ranks
-launch the same programs. The other ranks run `follow` until rank 0 terminates; a step
-that fails on any rank ends the world (`distributed.end_world` under the
-server, the process's own error elsewhere).
+launch the same programs. The other ranks run `follow` until rank 0
+terminates (a served world then waits for rank 0's next engine,
+`serve.follow_world`); a step that fails on any rank ends the world
+(`distributed.end_world` under the server, the process's own error
+elsewhere).
 """
 
 from __future__ import annotations
@@ -107,14 +109,6 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
         raise ValueError(
             f"infer.op_impl={infer.op_impl!r}: expected one of {OP_IMPLS}")
     todo = []
-    tp, moe = infer.tp_size, cfg.models.moe
-    if tp > 1 and moe is not None and (
-            moe.n_routed_experts % tp or cfg.models.n_heads % tp):
-        # the JAX package falls back to GSPMD's capacity einsum there
-        todo.append(
-            f"tp_size={tp} with {moe.n_routed_experts} routed experts "
-            f"and {cfg.models.n_heads} heads: expert "
-            "parallelism gives each rank an equal share of both (ROADMAP C)")
     if infer.ring_kv and infer.dp_size > 1:
         # the JAX engine's ring pool checks (chitu_tpu/engine.py:236-258);
         # the model-dependent ones follow in Engine.__init__
@@ -128,9 +122,6 @@ def check_supported(cfg: EngineConfig, have_params: bool = False):
                 "ring_kv and ring_prefill both ride the 'dp' axis; "
                 "enable one"
             )
-    if infer.ring_prefill and infer.dp_size > 1 and infer.pp_size > 1:
-        todo.append("ring_prefill under pp_size > 1: each stage would relay "
-                    "its slice of the prompt (ROADMAP A.7)")
     if (
         quant.method not in ("none", "")
         and not quant.quant_on_load
@@ -526,10 +517,12 @@ class Engine:
     def follow(self):
         """The worker loop of ranks other than 0 (the JAX package's
         non-controller hosts, serve.py:525-535): take rank 0's step
-        messages and run the same steps, until it terminates. A step that
-        fails raises out of it: a rank that stepped on would issue other
-        collectives than the rest, so its process ends, and the world
-        with it."""
+        messages and run the same steps, until it terminates this engine.
+        The world of processes outlives it: a server's followers then wait
+        for rank 0's next control (`serve.follow_world`: another engine,
+        or the end). A step that fails raises out of it: a rank that
+        stepped on would issue other collectives than the rest, so its
+        process ends, and the world with it."""
         if self.group is None or self.rank == 0:
             raise RuntimeError("follow() runs on ranks other than 0")
         while True:

@@ -39,7 +39,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 import torch
 
 from chitu_tpu_torch.ops.qtensor import TENSOR_FIELDS, QTensor, QuantKind
-from chitu_tpu_torch.parallel.sharding import shard_tensor
+from chitu_tpu_torch.parallel.sharding import even_range, shard_tensor
 from chitu_tpu_torch.utils import get_logger
 from chitu_tpu_torch.utils.safetensors import Reader, save_file
 
@@ -351,12 +351,12 @@ def rank_view(lay, name: Optional[str], view: torch.Tensor,
 
 
 def rank_experts(lay, n_experts: int) -> List[int]:
-    """The experts a rank holds under expert parallelism: [r E / tp,
-    (r + 1) E / tp)."""
-    tp = lay.tp if lay is not None else 1
-    per = n_experts // tp
-    r = lay.rank if tp > 1 else 0
-    return list(range(r * per, (r + 1) * per))
+    """The experts a rank holds under expert parallelism: its contiguous
+    range, E // tp of them, the first E % tp ranks one more
+    (`sharding.even_range`)."""
+    if lay is None or lay.tp <= 1:
+        return list(range(n_experts))
+    return list(range(*even_range(n_experts, lay.rank, lay.tp)))
 
 
 def holds(model, name: str) -> bool:

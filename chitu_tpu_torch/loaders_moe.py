@@ -153,7 +153,7 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
                    if (i, e, kind) not in experts]
         if missing:
             raise ValueError(f"checkpoint missing {kind} experts {missing[:8]}")
-        ly[kind] = fill_stacked(  # [L, E / tp, ., .]
+        ly[kind] = fill_stacked(  # [L, E_r, ., .]: the rank's experts
             (len(layers), len(mine)),
             lambda idx, k=kind: st.take(
                 experts[(layers[idx[0]], mine[idx[1]], k)], True),
@@ -335,7 +335,7 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
                     f"model.layers.{moe_layers[idx[0]]}.mlp.shared_experts.{h}",
                     o),
             )
-    # routed experts: [L, E / tp, in, out], the rank's experts only, filled
+    # routed experts: [L, E_r, in, out], the rank's experts only, filled
     # one expert at a time (the merge transform of reference:
     # model_deepseek_v3.py:1167-1288)
     mine = rank_experts(lay, E)

@@ -44,11 +44,16 @@ Tensor parallelism (`infer.tp_size`; `MLALayout`, the JAX package's
 `wkv_b` are cut by heads (columns), `wo` by heads (rows, then an f32
 all-reduce), the dense FFN and the shared expert by columns / rows, the
 routed experts by experts (expert parallelism: each rank dispatches its
-E / tp experts through B8, `models.moe.moe_ffn_ep`), the embedding by
+range of experts through B8, `models.moe.moe_ffn_ep`), the embedding by
 vocabulary rows and the head by vocabulary columns; the latent down-
 projections (`wq_a`, `wkv_a`, merged `wq_kv_a`), the norms and the router
 (`moe_gate`, `gate_bias`) stay whole, and so do both latent pools (a
-latent row is shared by every head). A rank runs MLA on its H / tp heads
+latent row is shared by every head). Heads that tp does not divide (R1's
+128 at tp3) leave the head-cut leaves and the dense MLA's per-head pool
+whole on every rank (`MLALayout.heads_split`), and nothing is summed
+after wo; experts that tp does not divide take contiguous ranges, the
+first E % tp ranks one more (86 / 85 / 85 of 256 at tp3). A rank runs
+MLA on its H / tp heads
 (the head count comes from the projection's width: B9 and the latent
 kernels at H / tp heads), and a MoE layer's shared and routed partials
 are summed in one all-reduce. Under `mla_absorb=none` a rank holds its
@@ -114,6 +119,7 @@ from chitu_tpu_torch.ops.linear import linear, op_kernels
 from chitu_tpu_torch.ops.qtensor import QTensor
 from chitu_tpu_torch.parallel.sharding import (
     StageSlice,
+    even_range,
     narrow_out,
     owned,
     shard_leaf,
@@ -151,9 +157,15 @@ class MLALayout:
     stage: StageSlice = StageSlice()
     merged: bool = True
 
+    @property
+    def heads_split(self) -> bool:
+        """Does MLA split over the group (tp divides the heads)? Else every
+        rank holds the head-cut leaves whole and runs every head."""
+        return self.n_heads % self.tp == 0
+
     def part_spec(self, name: str, ndim: int) -> tuple:
         spec = [None] * ndim
-        heads = ("tp", self.n_heads)
+        heads = ("tp", self.n_heads) if self.heads_split else None
         if name in ("wq", "wq_b", "wkv_b"):
             spec[-1] = heads
         elif name == "wo":
@@ -163,7 +175,7 @@ class MLALayout:
         elif name in ("w_down", "shared_down"):
             spec[-2] = "tp"
         elif name in EXPERT_STACKS:
-            spec[-3] = "tp"
+            spec[-3] = "ep"
         elif name == "embed":
             spec[0] = "tp"
         return tuple(spec)
@@ -173,8 +185,7 @@ class MLALayout:
         if self.tp <= 1:
             return leaf
         nd = leaf.data.dim() if isinstance(leaf, QTensor) else leaf.dim()
-        return shard_leaf(leaf, self.part_spec(name, nd), self.rank, self.tp,
-                          name)
+        return shard_leaf(leaf, self.part_spec(name, nd), self.rank, self.tp)
 
     def place(self, stack: str, name: str, leaf,
               transform=None) -> Dict[str, Any]:
@@ -213,21 +224,6 @@ class MLALayout:
         return out
 
 
-def check_tp(args, infer):
-    """The tensor-parallel layouts this module refuses (before any world
-    is joined): heads or experts that tp does not divide (the JAX package
-    falls back to GSPMD's capacity einsum there; ROADMAP C)."""
-    tp = infer.tp_size
-    if tp <= 1:
-        return
-    H, E = args.n_heads, args.moe.n_routed_experts
-    if H % tp or E % tp:
-        raise NotImplementedError(
-            f"tp_size={tp} with {H} heads and {E} routed experts: each rank "
-            "holds an equal share of both (the JAX package falls back to the "
-            "capacity einsum under GSPMD there; ROADMAP C)")
-
-
 @register_model("deepseek-v3")
 class DeepSeekV3ForCausalLM(nn.Module):
     supports_ring_kv = True  # infer.ring_kv (ops/attention_ring.py)
@@ -237,7 +233,6 @@ class DeepSeekV3ForCausalLM(nn.Module):
         if args.mla is None or args.moe is None:
             raise ValueError("a deepseek-v3 model card needs mla and moe sections")
         infer = cfg.infer
-        check_tp(args, infer)
         self.args = args
         self.cfg = cfg
         # infer.attn_type: the CUDA kernels, or their plain versions
@@ -268,9 +263,15 @@ class DeepSeekV3ForCausalLM(nn.Module):
         self.ffn_tp = tp if args.inter_dim % tp == 0 else 1
         self.shared_tp = tp if self._shared_dim() % tp == 0 else 1
         self.vocab_tp = tp if args.vocab_size % tp == 0 else 1
-        self.e_local = mo.n_routed_experts // tp
+        # the rank's contiguous expert range (uneven where tp does not
+        # divide the experts)
+        self.e_local = len(range(*even_range(mo.n_routed_experts, self.rank,
+                                             tp)))
         # params_from_numpy and the loaders read the stage and the cuts
         self.layout = MLALayout(self.rank, tp, args.n_heads, stage)
+        # heads that tp does not divide: MLA and its pools replicate, and
+        # nothing is summed after wo
+        self.attn_tp = tp if self.layout.heads_split else 1
 
         # softmax scale with the YaRN mscale correction
         # (reference: model_deepseek_v3.py:1420-1445)
@@ -309,7 +310,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
             # the rank's heads
             return dict(
                 n_layers=n_layers,
-                kv_heads=self.args.n_heads // self.tp,
+                kv_heads=self.args.n_heads // self.attn_tp,
                 head_dim=self.qk_head_dim,
                 kv_dim=0,
                 layer_groups=groups,
@@ -373,7 +374,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
         Ld, Lm = ((self.n_local["dense_layers"], self.n_local["moe_layers"])
                   if local else (self.n_dense, self.n_moe))
         if local:  # the rank's slices
-            H, El = H // self.tp, self.e_local
+            H, El = H // self.attn_tp, self.e_local
             Fd, Fs, V = Fd // self.ffn_tp, Fs // self.shared_tp, V // self.vocab_tp
         dense = self._attn_shapes(Ld, H)
         dense["w_gate"] = (Ld, D, Fd)
@@ -574,9 +575,10 @@ class DeepSeekV3ForCausalLM(nn.Module):
 
     def _wo(self, o, lp, layer: int):
         """`wo` on the rank's heads' outputs [T, H / tp * dv]: its partial,
-        summed over the group."""
-        y = linear(o, lp["wo"], layer=layer, row_max=self._row_max())
-        return y if self.group is None else self.group.all_reduce_f32(y)
+        summed over the group (whole when the heads replicate)."""
+        split = self.attn_tp > 1
+        y = linear(o, lp["wo"], layer=layer, row_max=self._row_max(split))
+        return self.group.all_reduce_f32(y) if split else y
 
     def _mla_dense(self, x, lp, layer: int, cos, sin, attend):
         """mla_absorb=none: per-head K/V through the whole `wkv_b`, then
@@ -601,7 +603,7 @@ class DeepSeekV3ForCausalLM(nn.Module):
     def _attn_kw(self):
         if not self.absorb:
             return dict(
-                kv_heads=self.args.n_heads // self.tp,
+                kv_heads=self.args.n_heads // self.attn_tp,
                 head_dim=self.qk_head_dim, scale=self.attn_scale,
             )
         return dict(

@@ -26,7 +26,13 @@ masked lookup, summed). The merged leaves of a rank are its own
 (q_r | k_r | v_r) and (g_r | u_r): the shard of the JAX package's
 rank-major layout. Attention runs the same kernels on the rank's heads,
 and the pool holds the rank's KV heads (all of them replicated by
-tp / KV ranks each when there are fewer KV heads than ranks). The logits
+tp / KV ranks each when there are fewer KV heads than ranks); heads that
+tp does not divide (Qwen2-7B's 28 at tp8, any card at tp3) leave
+attention whole on every rank (`TPLayout.heads_split`, as the JAX
+package's `safe_named_sharding` replicates them): all heads, the whole
+pool, nothing summed after wo. A quantized leaf cut inside its blocks
+(an FFN of 29,568 at tp2) holds the whole blocks over its slice
+(`parallel.sharding`, `ops.linear`). The logits
 are gathered to the full vocabulary on every rank of the group, so
 sampling sees the same row everywhere.
 
@@ -53,7 +59,8 @@ replicas (`prefill(..., ring=True)`): each rank carries its slice through
 every layer, ring attention (`parallel/ring.py`) passes the K/V slices
 around, each rank appends every slice into its pool as it passes, and
 the rank that holds the last valid token sends its hidden row to the
-others for the logits.
+others for the logits; under pp each stage does so on its layers, the
+relay passing the replica's slice from stage to stage.
 
 Checkpoints load through `loader.load_checkpoint`.
 """
@@ -195,6 +202,15 @@ def _cat_out(parts):
             )
     repack = all(p.packed for p in parts)
     parts = [unpack_int4(p) if p.packed else p for p in parts]
+    cols, at = [], 0
+    for p in parts:  # each part's kept stored columns, in the merged leaf
+        w = p.data.shape[-1]
+        for a, b in p.cols or ((0, w),):
+            if cols and cols[-1][1] == at + a:
+                cols[-1] = (cols[-1][0], at + b)
+            else:
+                cols.append((at + a, at + b))
+        at += w
     blockwise = (
         q0.kind in (QuantKind.SOFT_FP8, QuantKind.FP8)
         and q0.scale.shape[-1] != q0.data.shape[-1]
@@ -214,6 +230,7 @@ def _cat_out(parts):
         kind=q0.kind, block=q0.block, in_perm=q0.in_perm,
         oc_idx=q0.oc_idx,
         oc_w=cat("oc_w") if q0.oc_w is not None else None,
+        rows=q0.rows, cols=None if cols == [(0, at)] else tuple(cols),
     )
     if repack:
         from chitu_tpu_torch.quantize.transforms import pack_int4_storage
@@ -266,8 +283,11 @@ class TPLayout:
     replicates and nothing is summed), embed by vocab rows and lm_head by
     vocab columns (whole when the vocabulary does not divide). A MoE
     layout (`moe`: Mixtral) cuts its expert stacks [L, E, in, out] by
-    experts, rank r holding experts [r E / tp, (r + 1) E / tp), and keeps
-    the router whole (expert parallelism, `models.moe.moe_ffn_ep`). Under
+    experts, rank r holding a contiguous range of E // tp of them (the
+    first E % tp ranks one more, `sharding.even_range`), and keeps
+    the router whole (expert parallelism, `models.moe.moe_ffn_ep`).
+    Query or KV heads that tp does not divide (`heads_split` false)
+    leave q, k, v and wo whole on every rank. Under
     pipeline parallelism `stage` says which layers and which ends of the
     model the rank's stage holds; a leaf is cut to those layers first."""
 
@@ -290,11 +310,25 @@ class TPLayout:
         qkv = (H * Dh, KV * Dh, KV * Dh)
         return {"wqkv": qkv, "b_qkv": qkv, "w_gate_up": (Fd, Fd)}
 
+    @property
+    def heads_split(self) -> bool:
+        """Does attention split over the group? Each rank must hold whole
+        query heads of one KV group: tp divides the query heads, and the
+        KV heads divide or are divided by tp. Else every rank holds the
+        attention leaves whole and runs every head (the JAX package's
+        `safe_named_sharding` replicates what does not divide)."""
+        H, KV, tp = self.n_heads, self.n_kv_heads, self.tp
+        return H % tp == 0 and (KV % tp == 0 or tp % KV == 0)
+
     def part_spec(self, name: str, ndim: int) -> tuple:
         spec = [None] * ndim
         if self.moe and name in EXPERT_STACKS:
-            # expert parallelism: [L, E, in, out] by experts
-            spec[-3] = "tp"
+            # expert parallelism: [L, E, in, out] by contiguous expert
+            # ranges (uneven where tp does not divide E)
+            spec[-3] = "ep"
+        elif name in ("wq", "bq", "wk", "wv", "bk", "bv", "wo") and (
+                not self.heads_split):
+            pass  # attention whole on every rank
         elif name in ("wq", "bq"):
             spec[-1] = ("tp", self.n_heads)
         elif name in ("wk", "wv", "bk", "bv"):
@@ -316,8 +350,7 @@ class TPLayout:
         if self.tp <= 1:
             return part
         nd = part.data.dim() if isinstance(part, QTensor) else part.dim()
-        return shard_leaf(part, self.part_spec(name, nd), self.rank, self.tp,
-                          name)
+        return shard_leaf(part, self.part_spec(name, nd), self.rank, self.tp)
 
     def place(self, name: str, leaf, merge_tp: int = 1,
               transform=None) -> Dict[str, Any]:
@@ -483,11 +516,13 @@ class LlamaForCausalLM(nn.Module):
         stage = join_world(self, infer, {"layers": a.n_layers},
                            tied=a.tie_word_embeddings)
         self.n_local = stage.count("layers", a.n_layers)
-        if H % tp or not (KV % tp == 0 or tp % KV == 0):
-            raise NotImplementedError(
-                f"tp_size={tp} with {H} query and {KV} KV heads: each rank "
-                "must hold whole query heads of one KV group (ROADMAP C)"
-            )
+        self.layout = TPLayout(
+            self.rank, tp, H, KV, self.head_dim, Fd, V,
+            moe=getattr(a, "moe", None) is not None, stage=stage,
+        )
+        # heads that tp does not divide: attention replicates, every rank
+        # runs all heads on the whole pool and nothing is summed after wo
+        self.attn_tp = tp if self.layout.heads_split else 1
         div = H % tp == 0 and KV % tp == 0 and Fd % tp == 0
         mq = infer.merge_qkv_gate_up
         if mq not in ("auto", "on", "off"):
@@ -500,15 +535,13 @@ class LlamaForCausalLM(nn.Module):
         # also asks for 128-lane shards, a TPU layout matter: ROADMAP C);
         # fewer KV heads than ranks: each rank holds the one its queries
         # read
-        self.kv_tp_shard = tp > 1 and KV % tp == 0
-        self.h_local = H // tp
-        self.kv_local = KV // tp if self.kv_tp_shard else (1 if tp > 1 else KV)
+        at = self.attn_tp
+        self.kv_tp_shard = at > 1 and KV % at == 0
+        self.h_local = H // at
+        self.kv_local = KV // at if self.kv_tp_shard else (1 if at > 1 else KV)
         self.ffn_tp = tp if Fd % tp == 0 else 1
         self.vocab_tp = tp if V % tp == 0 else 1
-        self.layout = TPLayout(
-            self.rank, tp, H, KV, self.head_dim, Fd, V, merged=self.merged,
-            moe=getattr(a, "moe", None) is not None, stage=stage,
-        )
+        self.layout = dataclasses.replace(self.layout, merged=self.merged)
 
     # -- cache geometry -----------------------------------------------------
 
@@ -683,7 +716,8 @@ class LlamaForCausalLM(nn.Module):
         q = apply_rope(q, cos, sin, self.rotary_layout)
         k = apply_rope(k, cos, sin, self.rotary_layout)
         o = attend(q, k, v, layer)
-        h = h + self._row_linear(o.reshape(T, -1), self.wo, layer)
+        h = h + self._row_linear(o.reshape(T, -1), self.wo, layer,
+                                 self.attn_tp > 1)
         return self._ffn(h, layer, token_split)
 
     def _row_linear(self, x, w, layer: int, sharded: bool = True):
@@ -864,7 +898,12 @@ class LlamaForCausalLM(nn.Module):
         appends all T rows). The MoE layers take no token split here
         (each rank's rows are its own). The last valid token's hidden row
         goes from the rank that holds it to the others, which all take
-        the logits of it."""
+        the logits of it. Under pp each stage runs its layers over the
+        replica's slice, which the relay passes from stage to stage of the
+        same replica (`_run_layers`); ring attention runs over the stage's
+        dp group, each stage's pool takes its own layers' rows, and the
+        logits are the last stage's (None on the others: the executor's
+        sampler of record, replica 0's last stage, relays the token)."""
         from chitu_tpu_torch.parallel.ring import ring_attention
 
         group = self.dp_group
@@ -889,6 +928,8 @@ class LlamaForCausalLM(nn.Module):
                                   scale=self.attn_scale, on_block=append)
 
         h = self._run_layers(h, cos, sin, attend, token_split=False)
+        if h is None:  # a stage before the last: the logits are not here
+            return None, cache
         owner, row = divmod(max(valid_len - 1, 0), n)
         last = h[row:row + 1].contiguous() if d == owner else torch.empty(
             (1, h.shape[1]), dtype=h.dtype, device=dev)

@@ -14,8 +14,11 @@ Its attention takes the llama module's layouts, merged or unmerged
 (`infer.merge_qkv_gate_up=off`), and its tensor-parallel attention. Under
 tensor parallelism the experts are sharded over the group (expert
 parallelism, the JAX package's `param_partition_specs` P('pp', 'tp', ..)
-on the expert stacks): rank r holds experts [r E / tp, (r + 1) E / tp) of
-every stack and the whole router; every rank routes its copy of the
+on the expert stacks): rank r holds a contiguous range of E // tp experts
+of every stack (the first E % tp ranks one more: 3 / 3 / 2 of 8 at tp3,
+where the JAX package falls back to GSPMD's capacity einsum) and the
+whole router; attention whose heads tp does not divide replicates (the
+llama module's); every rank routes its copy of the
 hidden state, dispatches its own experts (`models.moe.moe_ffn_ep`) and
 the partial combines are summed in one f32 all-reduce a layer. Its HF
 checkpoints load through `loaders_moe.load_mixtral_params`. Pipeline
@@ -33,6 +36,7 @@ from chitu_tpu_torch.models import register_model
 from chitu_tpu_torch.models.common import rms_norm
 from chitu_tpu_torch.models.llama import _LAYER_LEAVES, LlamaForCausalLM
 from chitu_tpu_torch.models.moe import moe_ffn_auto, route
+from chitu_tpu_torch.parallel.sharding import even_range
 
 _FFN_LEAVES = ("w_gate_up", "w_gate", "w_up", "w_down")
 _MOE_LEAVES = ("moe_gate", "w_gate", "w_up", "w_gu", "w_down")
@@ -52,15 +56,6 @@ class MixtralForCausalLM(LlamaForCausalLM):
         # gate and up experts in one [.., D, 2F] stack (`w_gu`)
         self.merged_gu = False
 
-    def _init_tp(self, infer):
-        E = self.args.moe.n_routed_experts
-        if E % infer.tp_size:
-            raise NotImplementedError(
-                f"tp_size={infer.tp_size} does not divide the {E} experts: "
-                "each rank holds an equal expert range (the JAX package runs "
-                "the capacity einsum under GSPMD there; ROADMAP C)")
-        super()._init_tp(infer)
-
     def _shapes(self, local: bool = True, merged=None) -> Dict[str, tuple]:
         a, m = self.args, self.moe
         shapes = {
@@ -70,7 +65,8 @@ class MixtralForCausalLM(LlamaForCausalLM):
         L, D = self.n_local if local else a.n_layers, a.dim
         E, Fd = m.n_routed_experts, m.moe_inter_dim or self.inter_dim
         shapes["moe_gate"] = (L, D, E)
-        E = E // self.tp if local else E
+        if local:  # the rank's contiguous expert range
+            E = len(range(*even_range(E, self.rank, self.tp)))
         if self.merged_gu:
             shapes["w_gu"] = (L, E, D, 2 * Fd)
         else:

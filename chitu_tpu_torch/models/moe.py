@@ -59,6 +59,7 @@ from torch.nn import functional as F
 from chitu_tpu_torch.ops.linear import linear, maybe_fp8_act
 from chitu_tpu_torch.ops.moe_gemm_kernels import grouped_matmul, kernel_eligible
 from chitu_tpu_torch.ops.qtensor import QTensor
+from chitu_tpu_torch.parallel.sharding import even_range
 from chitu_tpu_torch.utils import get_logger
 
 
@@ -301,11 +302,11 @@ def _warn_capacity_fallback(T: int, E: int, cap: int):
     )
 
 
-def local_ids(sel: torch.Tensor, rank: int, n_local: int) -> torch.Tensor:
-    """Global expert ids -> this rank's local ids: expert e lives on rank
-    e // n_local; ids of other ranks' experts map to the dead id
-    `n_local`."""
-    sl = sel - rank * n_local
+def local_ids(sel: torch.Tensor, start: int, n_local: int) -> torch.Tensor:
+    """Global expert ids -> this rank's local ids: the rank holds experts
+    [start, start + n_local); ids of other ranks' experts map to the dead
+    id `n_local`."""
+    sl = sel - start
     return torch.where((sl < 0) | (sl >= n_local),
                        torch.full_like(sl, n_local), sl)
 
@@ -328,23 +329,28 @@ def moe_ffn_ep(
     moe=None,  # MoEArgs: the capacity route's slot count
 ) -> torch.Tensor:
     """This rank's partial combine of an expert-parallel MoE layer (the
-    JAX package's `moe_ffn_manual_ep`): its experts' contributions, in
+    JAX package's `moe_ffn_manual_ep`; the rank's experts are its
+    contiguous range, `sharding.even_range`, uneven where tp does not
+    divide E, which the JAX package leaves to GSPMD's capacity einsum
+    instead): its experts' contributions, in
     x's dtype; the caller sums it over the group. Stacks the grouped
     kernel takes dispatch through it with one dead expert for the
     assignments of other ranks; the others take the capacity route on
     the local experts."""
     El = _n_experts(w_down)
-    if moe is not None and El * tp != moe.n_routed_experts:
-        raise ValueError(f"{El} local experts a rank do not make "
-                         f"{moe.n_routed_experts} over {tp} ranks")
-    sl = local_ids(sel, rank, El)
+    E = moe.n_routed_experts if moe is not None else El * tp
+    start, stop = even_range(E, rank, tp)
+    if stop - start != El:
+        raise ValueError(f"{El} local experts on rank {rank} are not its "
+                         f"range [{start}, {stop}) of {E} over {tp} ranks")
+    sl = local_ids(sel, start, El)
     if _sorted_eligible((w_gate, w_up, w_down)):
         return moe_ffn_sorted(
             x, w_gate, w_up, w_down, weights, sl, El, layer=layer,
             e_dispatch=El + 1,
         )
     return _capacity_route(x, w_gate, w_up, w_down, weights, sl, moe, layer,
-                           El * tp)
+                           E)
 
 
 def moe_ffn_auto(

@@ -18,6 +18,13 @@ A W8A8 product whose input is one rank's slice of each row (a
 row-parallel projection under tensor parallelism) takes `row_max`, the
 group's in-place MAX all-reduce: the per-token scale is then the whole
 row's, as on one device (`quant_acts_rows`).
+
+A quantized weight whose tensor-parallel cut falls inside its
+quantization blocks holds the whole blocks over the cut, with a view of
+its own rows and columns (`QTensor.rows` / `cols`): its input is padded
+with zeros over the rows it does not own (0 * w adds +0 to each sum), so
+the rank's partial product holds exactly its rows' terms, and the
+view's columns are kept of the product. The kernels see whole blocks.
 """
 
 from __future__ import annotations
@@ -212,6 +219,8 @@ def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype,
     w = w[layer] if layer is not None and w.data.dim() == 3 else w
     lead = x.shape[:-1]
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    if w.viewed:
+        return _viewed_matmul(x2, w, bias, out_dtype).reshape(*lead, -1)
     if w.kind == QuantKind.W8A8:
         # dynamic per-token int8 activations, then the int8 GEMM
         xa = quant_acts_rows(x2, row_max)
@@ -221,6 +230,25 @@ def _quantized_matmul(x, w: QTensor, layer, bias, out_dtype,
         y = (quant_gemm if op_kernels() else quant_gemm_plain)(
             x2, w, bias, out_dtype)
     return y.reshape(*lead, y.shape[-1])
+
+
+def _viewed_matmul(x2, w: QTensor, bias, out_dtype) -> torch.Tensor:
+    """x2 [T, k] @ a rank's view of a weight stored in whole blocks: x2
+    padded with zeros to the stored rows, the GEMM on the stored weight,
+    the view's columns kept (the bias added to them in f32, then one
+    rounding)."""
+    if w.rows is not None:
+        x2 = torch.nn.functional.pad(
+            x2, (w.rows[0], w.data.shape[-2] - w.rows[1]))
+    gemm = quant_gemm if op_kernels() else quant_gemm_plain
+    if w.cols is None:
+        return gemm(x2, w.stored(), bias, out_dtype)
+    y = gemm(x2, w.stored(), None,
+             torch.float32 if bias is not None else out_dtype)
+    y = torch.cat([y[:, a:b] for a, b in w.cols], dim=-1)
+    if bias is not None:
+        y = y + bias.float()
+    return y.to(out_dtype)
 
 
 def matmul_out_dtype(

@@ -11,7 +11,7 @@ fp8 storage is `torch.float8_e4m3fn`.
 from __future__ import annotations
 
 import enum
-from dataclasses import dataclass, fields
+from dataclasses import dataclass, fields, replace
 from typing import Optional, Tuple
 
 import torch
@@ -56,6 +56,15 @@ class QTensor:
     and x is gathered by it before the GEMM. `oc_idx` [(L,) K_o] and
     `oc_w` [(L,) K_o, out]: LLM.int8 outlier input channels kept dense
     (their int8 rows are zero), y = gemm(x) + x[:, oc_idx] @ oc_w.
+
+    `rows` and `cols`: a tensor-parallel rank's view of a weight whose cut
+    falls inside a quantization block (`parallel.sharding`). The stored
+    rows and columns are the whole blocks that cover the rank's slice;
+    the logical weight is stored rows [rows[0], rows[1]) and the
+    concatenation of the stored column ranges in `cols` (None: all of
+    them). `ops.linear` feeds zeros to the stored rows outside the view
+    and keeps the view's columns of the product; `shape` and
+    `dequantize` are the logical ones, `data` and `nbytes` the stored.
     """
 
     data: torch.Tensor
@@ -66,6 +75,16 @@ class QTensor:
     in_perm: Optional[torch.Tensor] = None
     oc_idx: Optional[torch.Tensor] = None
     oc_w: Optional[torch.Tensor] = None
+    rows: Optional[Tuple[int, int]] = None
+    cols: Optional[Tuple[Tuple[int, int], ...]] = None
+
+    @property
+    def viewed(self) -> bool:
+        return self.rows is not None or self.cols is not None
+
+    def stored(self) -> "QTensor":
+        """The weight as stored: the view dropped."""
+        return replace(self, rows=None, cols=None) if self.viewed else self
 
     @property
     def packed(self) -> bool:
@@ -78,11 +97,16 @@ class QTensor:
     def shape(self) -> Tuple[int, ...]:
         """Logical [(L,) in, out] shape (packed int4 counts both nibbles)."""
         s = tuple(self.data.shape)
-        return s[:-1] + (s[-1] * 2,) if self.packed else s
+        s = s[:-1] + (s[-1] * 2,) if self.packed else s
+        if self.rows is not None:
+            s = s[:-2] + (self.rows[1] - self.rows[0], s[-1])
+        if self.cols is not None:
+            s = s[:-1] + (sum(b - a for a, b in self.cols),)
+        return s
 
     @property
     def in_features(self) -> int:
-        return self.data.shape[-2]
+        return self.shape[-2]
 
     @property
     def out_features(self) -> int:
@@ -121,6 +145,13 @@ class QTensor:
     def dequantize(self, dtype=torch.bfloat16) -> torch.Tensor:
         """Dense [(L,) in, out] weight in `dtype`: the f32 product of the
         stored values and their scales, rounded once."""
+        if self.viewed:
+            w = self.stored().dequantize(dtype)
+            if self.rows is not None:
+                w = w[..., self.rows[0]:self.rows[1], :]
+            if self.cols is not None:
+                w = torch.cat([w[..., a:b] for a, b in self.cols], dim=-1)
+            return w
         if self.oc_idx is not None:
             base = self.without("oc_idx", "oc_w").dequantize(dtype)
             # the dense outlier rows go back where their int8 rows are 0

@@ -17,12 +17,20 @@ global array over a mesh; here the same spec cuts rank r's slice out of
 a full tensor, and the rank holds nothing else.
 
 A spec is a tuple with one entry a dim: None (whole), "tp" (tp equal
-slices), or ("tp", units): the dim is `units` equal units (heads) and
-rank r takes units [r * units / tp, (r + 1) * units / tp) when tp
-divides them; when units divide tp instead, each unit is held by
-tp / units consecutive ranks (KV heads fewer than ranks: rank r holds
-head r * units // tp). A dim the spec cannot split replicates, with a
-loud warning on large arrays (`safe_spec`).
+slices), "ep" (contiguous ranges of an expert dim that tp need not
+divide: the first E % tp ranks hold one expert more), or ("tp", units):
+the dim is `units` equal units (heads) and rank r takes units
+[r * units / tp, (r + 1) * units / tp) when tp divides them; when units
+divide tp instead, each unit is held by tp / units consecutive ranks (KV
+heads fewer than ranks: rank r holds head r * units // tp). A dim the
+spec cannot split replicates, with a loud warning on large arrays
+(`safe_spec`).
+
+A quantized weight whose cut falls inside a quantization block (Qwen2-72B's
+`w_down` at tp2: 14,784 rows a rank, 115.5 blocks of 128) keeps the
+whole blocks over its slice and a view of its own rows or columns
+(`QTensor.rows` / `cols`, read by `ops.linear`); the JAX package keeps
+the data sharded and replicates the scale there instead.
 """
 
 from __future__ import annotations
@@ -44,6 +52,14 @@ Spec = Tuple[Any, ...]
 _REPLICATE_WARN_ELEMS = 1 << 22
 
 
+def even_range(n: int, index: int, parts: int) -> Tuple[int, int]:
+    """Part `index` of n items cut into `parts` contiguous ranges, the
+    first n % parts of them one longer (8 over 3: 3, 3, 2)."""
+    per, extra = divmod(n, parts)
+    start = index * per + min(index, extra)
+    return start, start + per + (index < extra)
+
+
 def _units(entry, size: int) -> Optional[int]:
     if entry is None:
         return None
@@ -56,7 +72,11 @@ def _units(entry, size: int) -> Optional[int]:
 
 def dim_range(size: int, entry, rank: int, tp: int):
     """(start, stop) of rank's slice of a dim under one spec entry, or None
-    when the dim stays whole."""
+    when the dim stays whole. "ep" (the experts of an expert stack): a
+    contiguous range of size // tp, the first size % tp ranks one more
+    (`even_range`)."""
+    if entry == "ep":
+        return even_range(size, rank, tp) if tp > 1 else None
     units = _units(entry, size)
     if units is None or tp <= 1 or size % units:
         return None
@@ -90,18 +110,6 @@ def safe_spec(spec: Spec, shape: Sequence[int], tp: int) -> Spec:
     return tuple(fixed)
 
 
-def qtensor_aux_spec(data_ndim: int, spec: Spec, aux_ndim: int) -> Spec:
-    """Spec of a QTensor's scale / zeros from its data's: blockwise and
-    groupwise auxiliaries have the data's rank and dims; per-out-channel
-    ones (W8A16 / W8A8 [.., out]) drop the in dim, so a row-parallel
-    weight replicates its scale."""
-    entries = (list(spec) + [None] * data_ndim)[:data_ndim]
-    if aux_ndim >= data_ndim:
-        return tuple(entries)
-    dropped = entries[:-2] + [entries[-1]]
-    return tuple(dropped[:aux_ndim])
-
-
 def shard_tensor(t: torch.Tensor, spec: Spec, rank: int, tp: int) -> torch.Tensor:
     """Rank's slice of a dense tensor (a view)."""
     for dim, entry in enumerate(safe_spec(spec, t.shape, tp)):
@@ -111,97 +119,123 @@ def shard_tensor(t: torch.Tensor, spec: Spec, rank: int, tp: int) -> torch.Tenso
     return t
 
 
-def _aux_range(r, data_size: int, aux_size: int, what: str):
-    """The aux dim's slice under a data dim's slice: the same one when the
-    aux is per element, else whole blocks (refused when a shard boundary
-    falls inside a quantization block)."""
-    if r is None:
-        return None
-    if aux_size == data_size:
-        return r
-    b = -(-data_size // aux_size)
-    start, stop = r
-    if start % b or (stop % b and stop != data_size):
-        raise NotImplementedError(
-            f"{what}: a shard boundary at rows/columns {start}:{stop} falls "
-            f"inside a quantization block of {b}; this tensor-parallel "
-            "degree cannot split it"
-        )
-    return start // b, -(-stop // b)
+def _block(q: QTensor, t, dim: int) -> int:
+    """The quantization block of the aux `t` (scale or zeros) along the
+    data's dim `dim` (-2 rows, -1 columns): 1 when the aux is per element
+    there, 0 when it has no such dim (a per-out-channel scale's rows)."""
+    if t is None:
+        return 1
+    if t.dim() < q.data.dim():
+        return 0 if dim == -2 else 1
+    return 1 if t.shape[dim] == q.data.shape[dim] else q.block
 
 
-def shard_qtensor(q: QTensor, spec: Spec, rank: int, tp: int,
-                  name: str = "") -> QTensor:
-    """Rank's shard of a quantized weight [(L,) in, out]: data by the spec;
-    blockwise / groupwise scales and zeros with it, per-out-channel scales
-    along the out dim only; packed int4 is unpacked first (the engine
-    packs the shard again). `in_perm` (act-order GPTQ) stays whole: a
-    row-parallel act-order weight gathers its input over the group first
-    (`LlamaForCausalLM._row_linear`). The LLM.int8 outlier rows stay
-    whole in count: under a column split `oc_w` loses the columns the
-    rank does not hold; under a row split each rank keeps only the
-    outlier channels it holds (the others' rows zeroed, their indices
-    made local), so the partial outlier term is summed by the same
+def _cover(q: QTensor, dim: int, start: int, stop: int):
+    """Stored rows / columns [start, stop) -> the whole blocks over them:
+    (a, z), the data range, and the aux's range of each field."""
+    n = q.data.shape[dim]
+    b = max(_block(q, q.scale, dim), _block(q, q.zeros, dim), 1)
+    a, z = start // b * b, min(-(-stop // b) * b, n)
+    aux = {}
+    for f in ("scale", "zeros"):
+        t = getattr(q, f)
+        if t is None or _block(q, t, dim) == 0:
+            continue
+        bt = _block(q, t, dim)
+        aux[f] = (a // bt, -(-z // bt))
+    return a, z, aux
+
+
+def _narrowed(q: QTensor, dim: int, a: int, z: int, aux) -> dict:
+    out = dict(data=q.data.narrow(dim, a, z - a))
+    for f, (s, e) in aux.items():
+        out[f] = getattr(q, f).narrow(dim, s, e - s)
+    return out
+
+
+def narrow_rows(q: QTensor, start: int, stop: int) -> QTensor:
+    """Logical rows [start, stop) of a [(L,) in, out] quantized weight:
+    the whole blocks over them, viewed (`QTensor.rows`) when the cut falls
+    inside a block. The LLM.int8 outlier rows stay whole in count: the
+    channels outside the cut have their rows zeroed and their indices
+    made local, so the partial outlier term is summed by the same
     all-reduce as the GEMM's."""
-    q = unpack_int4(q) if q.packed else q
-    nd = q.data.dim()
-    spec = safe_spec(spec, q.data.shape, tp)
-    ranges = [dim_range(q.data.shape[d], spec[d], rank, tp) for d in range(nd)]
-
-    def aux(t, what):
-        if t is None:
-            return None
-        # the data dim each aux dim follows (a per-out-channel aux has no
-        # in dim)
-        dims = list(range(nd)) if t.dim() == nd else (
-            list(range(nd - 2)) + [nd - 1])
-        for ad, entry in enumerate(qtensor_aux_spec(nd, spec, t.dim())):
-            if entry is None:
-                continue
-            dd = dims[ad]
-            r = _aux_range(ranges[dd], q.data.shape[dd], t.shape[ad],
-                           f"{name} {what}")
-            t = t.narrow(ad, r[0], r[1] - r[0])
-        return t
-
-    out = replace(
-        q, data=shard_tensor(q.data, spec, rank, tp),
-        scale=aux(q.scale, "scale"), zeros=aux(q.zeros, "zeros"),
-    )
+    r0 = q.rows[0] if q.rows is not None else 0
+    ps, pe = r0 + start, r0 + stop
+    a, z, aux = _cover(q, -2, ps, pe)
+    view = (ps - a, pe - a)
+    out = replace(q, **_narrowed(q, -2, a, z, aux),
+                  rows=None if view == (0, z - a) else view)
     if q.oc_idx is not None:
         idx, ocw = q.oc_idx, q.oc_w
-        rin, rout = ranges[nd - 2], ranges[nd - 1]
-        if rin is not None:
-            held = (idx >= rin[0]) & (idx < rin[1])
-            idx = torch.where(held, idx - rin[0], torch.zeros_like(idx))
-            ocw = torch.where(held[..., None], ocw, torch.zeros_like(ocw))
-        if rout is not None:
-            ocw = ocw.narrow(-1, rout[0], rout[1] - rout[0])
+        held = (idx >= a) & (idx < z)
+        idx = torch.where(held, idx - a, torch.zeros_like(idx))
+        ocw = torch.where(held[..., None], ocw, torch.zeros_like(ocw))
         out = replace(out, oc_idx=idx, oc_w=ocw)
     return out
 
 
-def narrow_out(leaf, start: int, stop: int, name: str = ""):
+def narrow_cols(q: QTensor, start: int, stop: int) -> QTensor:
+    """Logical columns [start, stop) of a [(L,) in, out] quantized weight:
+    the whole blocks over them, viewed (`QTensor.cols`) when a cut falls
+    inside a block (or the weight is a concatenation of such views);
+    `oc_w` keeps the stored columns."""
+    segs = q.cols or ((0, q.data.shape[-1]),)
+    keep, at = [], 0
+    for u, v in segs:
+        lo, hi = max(start, at), min(stop, at + v - u)
+        if lo < hi:
+            keep.append((u + lo - at, u + hi - at))
+        at += v - u
+    a, z, aux = _cover(q, -1, keep[0][0], max(e for _, e in keep))
+    keep = tuple((u - a, v - a) for u, v in keep)
+    kw = _narrowed(q, -1, a, z, aux)
+    if q.oc_w is not None:
+        kw["oc_w"] = q.oc_w.narrow(-1, a, z - a)
+    return replace(q, **kw, cols=None if keep == ((0, z - a),) else keep)
+
+
+def shard_qtensor(q: QTensor, spec: Spec, rank: int, tp: int) -> QTensor:
+    """Rank's shard of a quantized weight [(L,) in, out]: its leading dims
+    (layers, experts) cut exactly; its rows and columns through
+    `narrow_rows` / `narrow_cols` (whole quantization blocks over the
+    rank's slice: a cut inside a block costs at most a block on each cut
+    edge, and the rank's product is exactly its slice's); blockwise and
+    groupwise scales and zeros with the blocks, per-out-channel scales
+    along the out dim only; packed int4 is unpacked first (the engine
+    packs the shard again). `in_perm` (act-order GPTQ) stays whole: a
+    row-parallel act-order weight gathers its input over the group first
+    (`LlamaForCausalLM._row_linear`)."""
+    q = unpack_int4(q) if q.packed else q
+    nd = q.data.dim()
+    shape = q.shape
+    spec = safe_spec(spec, shape, tp)
+    for d in range(nd - 2):
+        r = dim_range(shape[d], spec[d], rank, tp)
+        if r is None:
+            continue
+        kw = dict(data=q.data.narrow(d, r[0], r[1] - r[0]))
+        for f in ("scale", "zeros"):
+            t = getattr(q, f)
+            if t is not None:
+                kw[f] = t.narrow(d, r[0], r[1] - r[0])
+        q = replace(q, **kw)
+    r = dim_range(shape[-2], spec[-2], rank, tp)
+    if r is not None:
+        q = narrow_rows(q, *r)
+    r = dim_range(shape[-1], spec[-1], rank, tp)
+    if r is not None:
+        q = narrow_cols(q, *r)
+    return q
+
+
+def narrow_out(leaf, start: int, stop: int):
     """Columns [start, stop) of a [(L,) in, out] weight, dense or quantized
-    (a view; packed int4 unpacked first): scales and zeros with them,
-    blockwise scales only on whole blocks; `in_perm` and `oc_idx` stay
-    whole, `oc_w` keeps the columns."""
+    (`narrow_cols`: views; packed int4 unpacked first); `in_perm` and
+    `oc_idx` stay whole, `oc_w` keeps the columns."""
     if not isinstance(leaf, QTensor):
         return leaf.narrow(-1, start, stop - start)
-    q = unpack_int4(leaf) if leaf.packed else leaf
-    n = q.data.shape[-1]
-
-    def aux(t, what):
-        if t is None:
-            return None
-        r = _aux_range((start, stop), n, t.shape[-1], f"{name} {what}")
-        return t.narrow(-1, r[0], r[1] - r[0])
-
-    return replace(
-        q, data=q.data.narrow(-1, start, stop - start),
-        scale=aux(q.scale, "scale"), zeros=aux(q.zeros, "zeros"),
-        oc_w=None if q.oc_w is None else q.oc_w.narrow(-1, start, stop - start),
-    )
+    return narrow_cols(unpack_int4(leaf) if leaf.packed else leaf, start, stop)
 
 
 def _tensors(t):
@@ -225,11 +259,11 @@ def owned(part, whole):
     return part._map(keep) if isinstance(part, QTensor) else keep(part)
 
 
-def shard_leaf(leaf, spec: Spec, rank: int, tp: int, name: str = ""):
+def shard_leaf(leaf, spec: Spec, rank: int, tp: int):
     """Rank's shard of one leaf, dense or quantized, made contiguous (it
     owns its storage: the full leaf can go)."""
     if isinstance(leaf, QTensor):
-        return shard_qtensor(leaf, spec, rank, tp, name).contiguous()
+        return shard_qtensor(leaf, spec, rank, tp).contiguous()
     return shard_tensor(leaf, spec, rank, tp).contiguous()
 
 
@@ -262,9 +296,7 @@ class StageSlice:
             if name in first_only:
                 ranges[name] = (0, n) if stage == 0 else (0, 0)
                 continue
-            per, extra = divmod(n, pp)
-            start = stage * per + min(stage, extra)
-            ranges[name] = (start, start + per + (stage < extra))
+            ranges[name] = even_range(n, stage, pp)
         last = stage == pp - 1
         return cls(stage, pp, ranges, embed=stage == 0 or (tied and last),
                    head=last)

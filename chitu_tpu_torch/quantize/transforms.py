@@ -200,11 +200,8 @@ def pack_int4_storage(params: Any) -> Any:
             return q
         tiles = q.data.view(torch.uint8).reshape(*lead, K, N // t, t)
         packed = tiles[..., : t // 2] | (tiles[..., t // 2 :] << 4)
-        return QTensor(
-            data=packed.reshape(*lead, K, N // 2).view(torch.int8),
-            scale=q.scale, zeros=q.zeros, kind=q.kind, block=q.block,
-            in_perm=q.in_perm,
-        )
+        return replace(
+            q, data=packed.reshape(*lead, K, N // 2).view(torch.int8))
 
     return _walk(params, leaf)
 
@@ -333,6 +330,7 @@ def merge_moe_gate_up(params: Any, tp: int = 1) -> Any:
             and a.data.dim() == ndim
             and a.in_perm is None and b.in_perm is None
             and a.oc_idx is None and b.oc_idx is None
+            and not a.viewed and not b.viewed
             and (
                 a.scale.dim() < a.data.dim()  # per-channel: exact concat
                 or a.data.shape[-1] % a.block == 0

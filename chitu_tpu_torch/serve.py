@@ -4,7 +4,12 @@ Counterpart of `chitu_tpu/serve.py` (reference: chitu/serve.py:1-237):
 `/v1/chat/completions` (streaming SSE + full JSON), `/ping` `/health`
 `/status` `/load_status` for load balancers, admission rejection on
 overload (403), engine warmup before serving, a worker thread driving the
-engine loop, and quiet access logs for probe endpoints.
+engine loop, quiet access logs for probe endpoints, and `/stop` then
+`/init` (a new engine from config overrides). On a world of ranks
+(tensor, pipeline or data parallelism) rank 0 serves HTTP and the others
+follow it (`follow_world`); the world outlives an engine: `/stop` stops
+every rank's, `/init` builds the next one on every rank, and overrides of
+another world size are refused with 400.
 
 aiohttp and pydantic are imported only when a server is built, so the
 engine and the rest of the package run without them.
@@ -78,6 +83,23 @@ def chat_request_model():
     return ChatRequest
 
 
+class WorldSizeError(ValueError):
+    """`/init` overrides whose dp x pp x tp differs from the world's
+    process count."""
+
+
+def world_config(cfg: EngineConfig, overrides: List[str]) -> EngineConfig:
+    """The config of `overrides` on this process's world: its rendezvous
+    settings (`infer.coordinator`, `num_processes`, `process_id`) carried
+    over from `cfg`, so each rank keeps its place."""
+    import dataclasses
+
+    new = load_config(overrides=overrides)
+    keep = {k: getattr(cfg.infer, k)
+            for k in ("coordinator", "num_processes", "process_id")}
+    return dataclasses.replace(new, infer=dataclasses.replace(new.infer, **keep))
+
+
 class ServerContext:
     """Engine + worker-thread lifecycle shared by the endpoints."""
 
@@ -101,6 +123,48 @@ class ServerContext:
         now = time.time()
         n = sum(1 for t in self.done_times if now - t <= window_s)
         return n / window_s
+
+    def rebuild(self, overrides: List[str], warmup: bool = False):
+        """`/init`: a new engine from `overrides` (rank 0). On a world of
+        ranks every rank builds it: the overrides go out as a control in
+        the world's broadcast, which the followers wait for after the old
+        engine stopped (`follow_world`). A layout of another world size is
+        refused (`WorldSizeError`) before anything is sent."""
+        cfg = world_config(self.cfg, overrides)
+        n = cfg.infer.dp_size * cfg.infer.pp_size * cfg.infer.tp_size
+        from chitu_tpu_torch.parallel import distributed
+
+        have = distributed.process_count()
+        if n != have:
+            raise WorldSizeError(
+                f"dp_size x pp_size x tp_size = {n} ranks, but this server's "
+                f"world has {have} process(es): /init keeps the world's size")
+        world = self.engine is not None and self.engine.group is not None
+        if world:
+            self.engine.group.decide(dict(control="init",
+                                          overrides=list(overrides)))
+        self.cfg = cfg
+        self._drop_engine()
+        self.start(warmup=warmup)
+
+    def end_world(self):
+        """Rank 0 of a world of ranks: let the followers' processes end
+        (`follow_world`) once the engine has stopped."""
+        eng = self.engine
+        if eng is not None and eng.group is not None and eng.rank == 0:
+            eng.group.decide(dict(control="end"))
+
+    def _drop_engine(self):
+        """Let the old engine's weights and pool go before a new one is
+        built (both would not fit a card)."""
+        import gc
+
+        import torch
+
+        self.engine = None
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
 
     def start(self, warmup: bool = True, engine: Optional[Engine] = None):
         """Bring the engine up (or take `engine`) and start its worker
@@ -364,26 +428,23 @@ def build_app(ctx: ServerContext):
         return web.json_response({"message": "stopped"})
 
     async def init(request):
-        """(Re)build the engine from config overrides
-        (reference: serve.py /init endpoint)."""
+        """(Re)build the engine from config overrides after `/stop`
+        (reference: serve.py /init endpoint). On a world of ranks every
+        rank builds it (`ServerContext.rebuild`); overrides of another
+        world size are refused with 400 and the world stays stopped."""
         if ctx.engine is not None and ctx.engine.state == EngineState.RUNNING:
             return _json_error(409, "engine already running")
-        if ctx.engine is not None and ctx.engine.group is not None:
-            # the other ranks' engines are gone with rank 0's
-            return _json_error(409, "no rebuild under tensor or pipeline "
-                                    "parallelism")
         try:
             body = await request.json() if request.can_read_body else {}
         except json.JSONDecodeError:
             body = {}
         overrides = body.get("overrides", [])
         loop = asyncio.get_running_loop()
-
-        def boot():
-            ctx.cfg = load_config(overrides=overrides)
-            ctx.start(warmup=body.get("warmup", False))
-
-        await loop.run_in_executor(None, boot)
+        try:
+            await loop.run_in_executor(
+                None, lambda: ctx.rebuild(overrides, body.get("warmup", False)))
+        except WorldSizeError as e:
+            return _json_error(400, str(e))
         return web.json_response({"message": "initialized"})
 
     app.router.add_post("/v1/chat/completions", create_chat_completion)
@@ -462,8 +523,7 @@ def serve_forever(cfg: EngineConfig, warmup: bool = True, device=None):
         # the other ranks run the engine loop only; rank 0 serves HTTP
         # (reference: rank-0 uvicorn + all-rank worker loops,
         # serve.py:215-233)
-        logger.info("rank %d: following rank 0", ctx.engine.rank)
-        ctx.engine.follow()
+        follow_world(ctx)
         return
     logging.getLogger("aiohttp.access").addFilter(_ProbeFilter())
     app = build_app(ctx)
@@ -472,6 +532,26 @@ def serve_forever(cfg: EngineConfig, warmup: bool = True, device=None):
         app, host=cfg.serve.host, port=cfg.serve.port, print=None
     )
     ctx.stop()
+    ctx.end_world()
+
+
+def follow_world(ctx: ServerContext):
+    """A rank other than 0 of a served world: follow rank 0's engine
+    (`Engine.follow`); when rank 0 stops it (`/stop`), wait for rank 0's
+    next control: `/init` builds the next engine from its overrides on
+    this rank too (`ServerContext.rebuild`), the end of rank 0's server
+    (`end_world`) returns."""
+    while True:
+        logger.info("rank %d: following rank 0", ctx.engine.rank)
+        group = ctx.engine.group
+        if ctx.engine.state == EngineState.RUNNING:
+            ctx.engine.follow()
+        ctl = group.decide(None)
+        if ctl.get("control") != "init":
+            return
+        ctx.cfg = world_config(ctx.cfg, ctl["overrides"])
+        ctx._drop_engine()
+        ctx.start(warmup=False)
 
 
 def main(argv: Optional[List[str]] = None):

@@ -28,7 +28,8 @@ tokens compare exactly):
   DeepSeek's latent pools are whole at pp 1, Mixtral's pool total / tp;
 - the checkpoint loaders give each rank its experts and head slices of
   the one-rank tree (Mixtral HF bf16, DeepSeek native fp8);
-- E % tp, H % tp and `mla_absorb=none` under tp > 1 are refused.
+- E % tp, H % tp and `mla_absorb=none` under tp > 1 pass the engine's
+  checks (a world of ranks serves them: tests/test_torch_layouts.py).
 """
 
 import jax
@@ -49,7 +50,7 @@ from chitu_tpu.quantize import transforms as jqt
 from chitu_tpu.task import SampleParams as JSampleParams
 from chitu_tpu_torch import SampleParams, load_config
 from chitu_tpu_torch.config import MoEArgs
-from chitu_tpu_torch.engine import Engine
+from chitu_tpu_torch.engine import Engine, check_supported
 from chitu_tpu_torch.models import moe as tmoe
 from chitu_tpu_torch.models.deepseek_v3 import MLALayout
 from chitu_tpu_torch.models.common import kv_pool_minor
@@ -415,7 +416,8 @@ def test_moe_ffn_ep_sums_to_the_one_rank_layer(mode, tp):
                 interpret=True, e_dispatch=El + 1)
             assert rel(parts[r].float().numpy(), np.asarray(
                 want.astype(jnp.float32))) < (1e-2 if mode == "bf16" else 2e-2)
-    assert tmoe.local_ids(st, 1, El).max() == El  # foreign ids: the dead id
+    # rank 1 holds experts [El, 2 El): foreign ids take the dead id
+    assert tmoe.local_ids(st, El, El).max() == El
 
 
 def test_moe_ffn_auto_takes_the_ep_path_under_tp():
@@ -479,12 +481,11 @@ def test_loader_reads_the_rank_slices(tmp_path, fmt, tp):
     (DEEPSEEK + PP2TP2 + ["infer.mla_absorb=none"], "A.6"),
 ])
 def test_refusals(ovr, match):
-    """Experts or heads that tp does not divide are refused (ROADMAP C);
-    the dense MLA under tp (A.6) serves since slice 17
-    (tests/test_torch_layouts.py): on one process it asks for its ranks."""
-    if match == "A.6":
-        with pytest.raises(ValueError, match="num_processes"):
-            Engine(load_config(overrides=ovr), device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match=match):
+    """Layouts refused until they were served: experts or heads that tp
+    does not divide (ROADMAP C until slice 18: uneven expert ranges and
+    replicated attention, tests/test_torch_layouts.py) and the dense MLA
+    under tp (A.6, slice 17). Each passes `check_supported` and on one
+    process asks for its ranks."""
+    check_supported(load_config(overrides=ovr))
+    with pytest.raises(ValueError, match="num_processes"):
         Engine(load_config(overrides=ovr), device="cpu")

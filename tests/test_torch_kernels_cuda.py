@@ -6,7 +6,10 @@ query head per KV head, as DeepSeek's dense MLA; 64 and 32) and the int8
 pools of e4m3 bits on every attention kernel, the appends fed ties,
 subnormals, +-448, +-464 and values beyond; the MLA latent row (576 live
 lanes, 512 value lanes) at 16, 32 and 128 heads; B9 at 4 and 32 heads, T 1
-to 128; B13 at decode and slab row counts. Pool bytes must be
+to 128; B13 at decode and slab row counts; B6 / B7 on a rank's
+whole-block slice of a weight cut inside its blocks (zero-padded input)
+and B8 on uneven expert ranges (3 / 3 / 2 of 8, 86 / 85 / 85 of 256).
+Pool bytes must be
 equal; every (token, head) output row must satisfy
 ||kernel - plain|| <= 1e-2 * ||plain|| in bf16 (the kernels sum in f32 in
 another order; bf16 rounding alone leaves about 2e-3).
@@ -1391,3 +1394,89 @@ def test_decode_unmasked_tables_unchanged(dev, H, KV, D, page):
             assert torch.equal(tk.decode_merge(o, ml), out)
         else:
             _check(tk.decode_merge(o, ml), out)
+
+
+# ---------------------------------------------------------------------------
+# slice 18: a rank's whole-block slice of a weight cut inside its blocks;
+# uneven expert ranges
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("T", [1, 16, 512])
+@pytest.mark.parametrize("tp", [2, 3, 4])
+@pytest.mark.parametrize("mode", ["fp8_block", "fp8_row", "w4a16"])
+def test_quant_gemm_straddled_slices(dev, mode, tp, T):
+    """A [384, 576] weight cut into tp row slices and tp column slices,
+    inside its blocks where tp does not divide the block count: each
+    rank's B6 / B7 launch on its zero-padded input and its stored whole
+    blocks against the plain version on the same inputs (ROW_RTOL a row),
+    and the ranks' partial products through `linear` (rows summed,
+    columns joined) against the whole weight's product through the
+    kernel."""
+    from chitu_tpu_torch.ops.linear import linear
+    from chitu_tpu_torch.parallel.sharding import shard_qtensor
+
+    K, N = 384, 576
+    rand = _gen(dev, 18)
+    q = _qweight(dev, mode, K, N, seed=18)
+    x = rand(T, K)
+    whole = qg.quant_gemm(x, q)
+    k, n = K // tp, N // tp
+    rows, cols = [], []
+    for r in range(tp):
+        s = shard_qtensor(q, ("tp", None), r, tp)
+        rows.append(linear(x[:, r * k:(r + 1) * k], s, out_dtype=torch.float32))
+        if s.rows is not None:
+            xp = torch.nn.functional.pad(
+                x[:, r * k:(r + 1) * k],
+                (s.rows[0], s.data.shape[-2] - s.rows[1])).contiguous()
+            n0 = tk.LAUNCHES["quant_gemm"]
+            got = qg.quant_gemm(xp, s.stored())
+            assert tk.LAUNCHES["quant_gemm"] == n0 + 1
+            assert _row_rel(got, qg.quant_gemm_plain(xp, s.stored())) <= ROW_RTOL
+        c = shard_qtensor(q, (None, "tp"), r, tp)
+        cols.append(linear(x, c, out_dtype=torch.float32))
+    torch.cuda.synchronize()
+    assert _row_rel(sum(rows), whole) <= ROW_RTOL
+    assert _row_rel(torch.cat(cols, dim=-1), whole) <= ROW_RTOL
+
+
+@pytest.mark.parametrize("T", [1, 16, 512])
+@pytest.mark.parametrize("E,tp", [(8, 3), (256, 3), (16, 3)])
+@pytest.mark.parametrize("mode", ["bf16", "e4m3_blockwise"])
+def test_grouped_gemm_uneven_expert_ranges(dev, mode, E, tp, T):
+    """Expert parallelism where tp does not divide the experts (3 / 3 / 2
+    of 8, 86 / 85 / 85 of 256): each rank's `moe_ffn_ep` on its contiguous
+    range dispatches its assignments through B8 with the dead expert for
+    the rest; the ranks' partial combines, summed, equal the one-device
+    sorted path on every expert (ROW_RTOL a row), and each rank launched
+    its kernel."""
+    from chitu_tpu_torch.config import MoEArgs
+    from chitu_tpu_torch.models import moe
+    from chitu_tpu_torch.parallel.sharding import even_range
+
+    K, N, k = 256, 128, 8 if E == 256 else 2
+    rand = _gen(dev, 19)
+    ws = [(rand(1, E, *shape).float() * 0.05).to(torch.bfloat16)
+          for shape in ((K, N), (K, N), (N, K))]
+    if mode != "bf16":
+        ws = [qt.quantize_stacked(
+            w, lambda t: qt.quantize_weight(t, QuantKind.SOFT_FP8)) for w in ws]
+    g = torch.Generator(device=dev)
+    g.manual_seed(19)
+    sel = torch.stack([torch.randperm(E, generator=g, device=dev)[:k]
+                       for _ in range(T)]).to(torch.int32)
+    weights = torch.rand((T, k), generator=g, device=dev)
+    x = rand(T, K)
+    args = MoEArgs(n_routed_experts=E, n_activated_experts=k)
+    whole = moe.moe_ffn_sorted(x, *ws, weights, sel, E, layer=0)
+    parts = []
+    for r in range(tp):
+        a, b = even_range(E, r, tp)
+        mine = [w[:, a:b] for w in ws]
+        n0 = tk.LAUNCHES["grouped_gemm"]
+        parts.append(moe.moe_ffn_ep(x, *mine, weights, sel, r, tp, layer=0,
+                                    moe=args).float())
+        assert tk.LAUNCHES["grouped_gemm"] > n0
+    torch.cuda.synchronize()
+    assert _row_rel(sum(parts), whole) <= ROW_RTOL

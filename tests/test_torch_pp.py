@@ -284,8 +284,8 @@ def test_supports_pipeline_and_refusals():
     slice 17 (the JAX package replicates it; tests/test_torch_layouts.py
     serves them); dp > 1 on one process asks for its ranks; Mixtral and
     DeepSeek serve pp x tp (tests/test_torch_ep.py), DeepSeek's dense MLA
-    too since slice 17 (on one process it asks for its ranks), but not
-    experts that tp does not divide (ROADMAP C)."""
+    too since slice 17 and experts that tp does not divide since slice 18
+    (on one process each asks for its ranks)."""
     assert [StageSlice.of(p, 2, {"layers": 3}).ranges["layers"]
             for p in range(2)] == [(0, 2), (2, 3)]
     s = StageSlice.of(1, 2, {"dense_layers": 1, "moe_layers": 4},
@@ -299,7 +299,8 @@ def test_supports_pipeline_and_refusals():
     # replicas serve since slice 16: on one process dp asks for its ranks
     with pytest.raises(ValueError, match="num_processes=2"):
         Engine(load_config(overrides=BASE + ["infer.dp_size=2"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP C"):
+    # experts that tp does not divide take uneven ranges since slice 18
+    with pytest.raises(ValueError, match="num_processes=6"):
         Engine(load_config(overrides=BASE + MIXTRAL + PP2 + ["infer.tp_size=3"]),
                device="cpu")
     with pytest.raises(ValueError, match="num_processes=4"):

@@ -21,7 +21,8 @@ total (/ tp, / pp) without it. Covered: dp 2 ring KV with chunked
 prefill and a burst, ring prefill of whole prompts (Llama and Mixtral),
 Mixtral's and DeepSeek's ring pools with the MoE token split, dp without a ring
 (the replicated batch, as `test_dp2_tp4_batch`), dp 2 x tp 2 and dp 2 x
-pp 2 ring KV, and four replicas (ring KV, ring prefill); a perplexity
+pp 2 ring KV, ring prefill at dp 2 x pp 2 (since slice 18), and four
+replicas (ring KV, ring prefill); a perplexity
 measured by rank 0 of the dp 2 (Llama, DeepSeek) and dp 2 x pp 2 worlds
 equals the one-rank engine's.
 """
@@ -469,6 +470,7 @@ NEW = [6, 6, 6, 6]
 LONG = rng.integers(1, 512, 70).tolist()  # 5 chunks of 16
 RP = [rng.integers(1, 512, n).tolist() for n in (61, 19)]  # whole-prompt rings
 DP2 = ["infer.dp_size=2"]
+PP2 = ["infer.pp_size=2"]
 RKV = DP2 + ["infer.ring_kv=true"]
 CHUNK = ["infer.prefill_chunk=16"]
 RP_MIX = [rng.integers(1, 1024, n).tolist() for n in (37, 20)]
@@ -513,7 +515,10 @@ def worlds(tmp_path_factory):
         "infer.tp_size=2"], tree=paths["U"], prompts=PROMPTS, new=NEW)]
     spp = [dict(name="ring_kv_pp2", overrides=BASE + off + RKV + [
         "infer.pp_size=2"], tree=paths["U"], prompts=PROMPTS, new=NEW,
-        ppl=PPL)]
+        ppl=PPL),
+        dict(name="ring_prefill_pp2", overrides=BASE + off + DP2 + PP2 + [
+            "infer.ring_prefill=true", "infer.prefill_chunk=128"],
+            tree=paths["U"], prompts=RP, new=[6, 6], one_by_one=True)]
     dp4 = ["infer.dp_size=4"]
     s4 = [dict(name="ring_kv_dp4", overrides=BASE + off + dp4 + CHUNK + [
               "infer.ring_kv=true"], tree=paths["U"], prompts=PROMPTS, new=NEW),
@@ -529,7 +534,10 @@ def worlds(tmp_path_factory):
         ref = dict(jax=_jax_tokens(off, U, PROMPTS, NEW),
                    jax_long=_jax_tokens(off + CHUNK, U, PROMPTS + [LONG],
                                         NEW + [6]),
-                   jax_rp=_jax_tokens(off, U, RP, [6, 6]))
+                   jax_rp=_jax_tokens(off, U, RP, [6, 6]),
+                   jax_rp_pp2=_jax_tokens(off + DP2 + PP2 + [
+                       "infer.ring_prefill=true", "infer.prefill_chunk=128"],
+                       U, RP, [6, 6]))
         one = _port(off, U)
         ref["port"] = _port_tokens(one, PROMPTS, NEW)
         ref["pool"] = one.cache.bytes()
@@ -583,6 +591,16 @@ def test_ring_prefill_tokens_match(worlds):
     # four replicas: the prompts' buckets split four ways
     r4 = worlds["dp4"][0]["ring_prefill_dp4"]
     assert r4["tokens"] == ref["port_rp"] and r4["ring_prefills"] == 2
+    # dp 2 x pp 2: each stage's replicas ring over their slice of the
+    # prompt, the relay passes it on; the JAX engine's tokens at dp 2 x
+    # pp 2 with ring prefill, the one-rank engine's, and each stage's pool
+    # its layers' share
+    assert ref["jax_rp_pp2"] == ref["port_rp"]
+    for r in worlds["pp"]:
+        res = r["ring_prefill_pp2"]
+        assert res["ring_prefills"] == 2
+        assert res["pool_bytes"] * 2 == ref["pool"]
+    assert worlds["pp"][0]["ring_prefill_pp2"]["tokens"] == ref["port_rp"]
 
 
 def test_deepseek_ring_kv_with_token_split(worlds):

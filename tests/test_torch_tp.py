@@ -52,10 +52,10 @@ from chitu_tpu.task import SampleParams as JSampleParams
 from chitu_tpu_torch import SampleParams, load_config
 from chitu_tpu_torch.engine import Engine
 from chitu_tpu_torch.models.llama import TPLayout, params_from_numpy
-from chitu_tpu_torch.ops.qtensor import QTensor
+from chitu_tpu_torch.ops.qtensor import QTensor, QuantKind
 from chitu_tpu_torch.parallel import distributed, make_mesh as tmake_mesh
 from chitu_tpu_torch.parallel.sharding import (
-    dim_range, qtensor_aux_spec, safe_spec,
+    dim_range, safe_spec, shard_qtensor,
 )
 
 import test_torch_loader as tl
@@ -478,9 +478,14 @@ def test_sharding_rules():
     assert safe_spec((None, "tp"), (6, 8), 4) == (None, "tp")
     assert dim_range(128, ("tp", 2), 3, 4) == (64, 128)  # 2 heads, 4 ranks
     assert dim_range(128, ("tp", 4), 1, 2) == (64, 128)
-    assert qtensor_aux_spec(3, (None, "tp", None), 3) == (None, "tp", None)
-    assert qtensor_aux_spec(3, (None, "tp", None), 2) == (None, None)
-    assert qtensor_aux_spec(3, (None, None, "tp"), 2) == (None, "tp")
+    block = QTensor(data=torch.zeros(1, 256, 512, dtype=torch.int8),
+                    scale=torch.ones(1, 2, 4), kind=QuantKind.SOFT_FP8)
+    chan = QTensor(data=torch.zeros(1, 256, 512, dtype=torch.int8),
+                   scale=torch.ones(1, 512), kind=QuantKind.W8A16)
+    assert shard_qtensor(block, (None, "tp", None), 1, 2).scale.shape == (1, 1, 4)
+    assert shard_qtensor(block, (None, None, "tp"), 1, 2).scale.shape == (1, 2, 2)
+    assert shard_qtensor(chan, (None, "tp", None), 1, 2).scale.shape == (1, 512)
+    assert shard_qtensor(chan, (None, None, "tp"), 1, 2).scale.shape == (1, 256)
 
 
 def test_mesh_and_process_group_errors():

@@ -14,7 +14,9 @@ record a checksum of every router's selections (`routes`), keep every
 W8A8 activation quantization of a row-parallel input, its input slice
 and its int8 values and scales (`acts`, in `acts<rank>.pt`), and have
 rank 0 measure a perplexity after its requests (`ppl`: tokens, window,
-stride; every rank runs its part). Every rank counts its
+stride; every rank runs its part), and have rank 0 serve `/stop` and
+`/init` through its HTTP server afterwards (`reinit`: the world rebuilt
+with other overrides, and a world-size change refused). Every rank counts its
 sequence-parallel ring prefills (`ring_prefills`) and, under dp, the
 gathers over its dp group (`dp_gathers`).
 """
@@ -22,6 +24,7 @@ gathers over its dp group (`dp_gathers`).
 import json
 import os
 import sys
+import time
 import zlib
 
 import numpy as np
@@ -202,7 +205,19 @@ def run(spec_path, rank):
             linear.quant_acts_rows = llama.quant_acts_rows = quant_acts_rows
 
         if rank != 0:
-            eng.follow()
+            if sc.get("reinit"):
+                # follow this engine, then the one rank 0's /init builds,
+                # until rank 0 ends the world's served life
+                from chitu_tpu_torch.serve import ServerContext, follow_world
+
+                ctx = ServerContext(cfg, device="cpu")
+                ctx.engine = eng
+                if sc["reinit"].get("stopped"):
+                    eng.follow()  # rank 0 stops it before its server starts
+                follow_world(ctx)
+                res["reinit_pool_bytes"] = ctx.engine.cache.bytes()
+            else:
+                eng.follow()
             restore()
             out[sc["name"]] = res
             continue
@@ -222,7 +237,12 @@ def run(spec_path, rank):
         res["spec_stats"] = list(eng.executor._spec_stats)
         alloc = eng.cache.allocator
         res["prefix_hits"] = getattr(alloc, "hits", 0)
-        eng.terminate()
+        if sc.get("reinit"):
+            if sc["reinit"].get("stopped"):
+                eng.terminate()
+            res["reinit"] = reinit(eng, cfg, sc["reinit"])
+        else:
+            eng.terminate()
         restore()
         out[sc["name"]] = res
     with open(os.path.join(os.path.dirname(spec_path), f"out{rank}.json"), "w") as f:
@@ -246,6 +266,51 @@ def leaf_bytes(tree, prefix=""):
         else:
             out[prefix + k] = v.numel() * v.element_size()
     return out
+
+
+def _post(port, path, body):
+    """-> (status, the JSON answer) of one POST to rank 0's server."""
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=json.dumps(body).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def reinit(eng, cfg, spec):
+    """Rank 0's server on this engine (running, or stopped already when
+    `spec["stopped"]`): `/stop`, an `/init` whose layout has another world
+    size (refused), an `/init` with `spec["overrides"]` that every rank
+    builds, `spec["prompts"]` through the new engine, then `/stop` and the
+    end of the world's served life."""
+    from chitu_tpu_torch import SampleParams
+    from chitu_tpu_torch.serve import BackgroundServer
+
+    srv = BackgroundServer(cfg, engine=eng, device="cpu")
+    port = srv.start()
+    got = dict(stop=_post(port, "/stop", {})[0])
+    got["bad"] = _post(port, "/init", {"overrides": spec["bad"]})
+    got["init"] = _post(port, "/init", {"overrides": spec["overrides"]})[0]
+    new = srv.ctx.engine
+    reqs = [new.submit("", SampleParams(temperature=0.0, max_new_tokens=n),
+                       prompt_tokens=p)
+            for p, n in zip(spec["prompts"], spec["new"])]
+    srv.ctx.wake.set()
+    while any(r.finish_reason is None for r in reqs):
+        time.sleep(0.01)
+    got["tokens"] = [list(r.async_stream.tokens) for r in reqs]
+    got["pool_bytes"] = new.cache.bytes()
+    got["stop2"] = _post(port, "/stop", {})[0]
+    srv._loop.call_soon_threadsafe(srv._loop.stop)
+    srv._thread.join(timeout=5)
+    srv.ctx.end_world()
+    return got
 
 
 def http_request(eng, cfg, msg, reqs):
