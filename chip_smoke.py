@@ -365,6 +365,23 @@ Phases, each fatal on failure:
    multi-rank bursts decode `TP_NEW` = 32 tokens a stream and the earlier
    worlds run shallower (the phase tables say which), to hold the smoke
    within its limit.
+   Slice 19, the streamed shard loads (`SLICE19_LOADS`): a tp2 world of
+   two ranks sharing the card (`--load-rank`, started with slice 11's
+   phases) serves, one engine after another, slice 11's AWQ, GPTQ and
+   DeepSeek-R1 fp8 checkpoints before each directory is deleted, then
+   two of its own, written from the same seeded draws: Qwen2-72B AWQ at
+   2 layers (its `w_down` cut inside group 115) and Llama-3-8B as a Meta
+   mp2 `.pth` checkpoint at 4. Each checkpoint's loads are metered
+   (`load_meter`: seconds, device peak above the load's start and
+   resident after it, host peak, `placement_stats`) on the one-rank
+   engine and on each rank. Held: every rank's leaves byte-equal to its
+   cut of the written tree (`rank_cut`); each rank's bytes read and
+   largest copy exactly `predicted_reads` (the rank's share of every
+   tensor's stored rows, rounded out to a word, a group or a 128-row
+   block, from the files' shapes alone), the one-rank engine's too; the
+   table's kernels launched on both ranks in rank 0's greedy burst of
+   three prompts; its streams equal to the one-rank engine's, or parting
+   at a near tie. One `load19` line a checkpoint.
 4. One `kernels` JSON line (B1-B13: the first case of each kernel, B3, B4
    and B9 with the launches of the DeepSeek-R1 bf16 burst, then one row
    for each variant with the launches of the phase that is its main path:
@@ -3012,6 +3029,7 @@ MLA_PHASES = [
 # cards' head sizes (64, 32) and B13. Full width; R1 at the depth 80 GB
 # holds (the dense MLA pool is 96 KiB a token a layer: 13 GiB at 4 layers).
 LLAMA = "Llama-3-8B-Instruct"
+QWEN72 = "Qwen2-72B-Instruct"
 E4M3 = ("attend_decode_fused[e4m3]", "attend_prefill_packed_fused[e4m3]",
         "attend_prefill[e4m3]")
 LATENT_E4M3 = tuple(f"{k}[latent,e4m3]" for k in (
@@ -3201,8 +3219,11 @@ def _stack(torch, items):
 def llama_ckpt(torch, dev, m, fmt):
     """A Llama checkpoint in HF naming as (name, make) groups in file
     order (make() -> its tensors), and the tree the loader should build
-    from it (merged q/k/v and gate/up)."""
-    V, D, H, KV, F = m.vocab_size, m.dim, m.n_heads, m.n_kv_heads, m.inter_dim
+    from it (merged q/k/v and gate/up; their bf16 biases where the card
+    has them, Qwen2's)."""
+    from chitu_tpu_torch.models.llama import _ffn_dim
+
+    V, D, H, KV, F = m.vocab_size, m.dim, m.n_heads, m.n_kv_heads, _ffn_dim(m)
     Dh = m.head_dim or D // H
     groups = [("model.embed_tokens.weight", lambda: {
         "model.embed_tokens.weight": draw(torch, dev, "model.embed_tokens.weight", (V, D), "w")})]
@@ -3221,6 +3242,10 @@ def llama_ckpt(torch, dev, m, fmt):
                 groups.append((f"{p}.{blk}.{x}_proj", lambda a=(
                     f"{p}.{blk}.{x}_proj", out, inp, fmt, g_key):
                     proj_tensors(torch, dev, *a)))
+                if m.attn_bias and x in "qkv":
+                    k = f"{p}.{blk}.{x}_proj.bias"
+                    groups.append((k, lambda k=k, n=out: {
+                        k: draw(torch, dev, k, (n,), "w")}))
     groups += [("model.norm.weight", lambda: {
         "model.norm.weight": draw(torch, dev, "model.norm.weight", (D,), "norm")}),
                ("lm_head.weight", lambda: {
@@ -3238,11 +3263,15 @@ def llama_ckpt(torch, dev, m, fmt):
         L = range(m.n_layers)
         norm = lambda n: torch.stack([draw(torch, dev, f"model.layers.{i}.{n}.weight",
                                            (D,), "norm") for i in L])
+        bias = {} if not m.attn_bias else {"b_qkv": torch.stack([torch.cat([
+            draw(torch, dev, f"model.layers.{i}.self_attn.{x}_proj.bias",
+                 ((H if x == "q" else KV) * Dh,), "w") for x in "qkv"]) for i in L])}
         return {
             "embed": draw(torch, dev, "model.embed_tokens.weight", (V, D), "w"),
             "norm": draw(torch, dev, "model.norm.weight", (D,), "norm"),
             "lm_head": draw(torch, dev, "lm_head.weight", (V, D), "w").T.contiguous(),
             "layers": {
+                **bias,
                 "attn_norm": norm("input_layernorm"),
                 "ffn_norm": norm("post_attention_layernorm"),
                 "wqkv": _stack(torch, [_cat(torch, [leaf(i, "self_attn", x) for x in "qkv"])
@@ -3400,7 +3429,8 @@ def _leaf_equal(torch, got, want):
     from chitu_tpu_torch.ops.qtensor import TENSOR_FIELDS, QTensor, unpack_int4
 
     if isinstance(want, QTensor):
-        if not isinstance(got, QTensor) or (got.kind, got.block) != (want.kind, want.block):
+        if not isinstance(got, QTensor) or (got.kind, got.block, got.rows, got.cols) != (
+                want.kind, want.block, want.rows, want.cols):
             return False
         got = unpack_int4(got) if got.packed else got
         return all(
@@ -3446,6 +3476,9 @@ def loaded_leaves_equal(torch, got, want, path=""):
     return bad
 
 
+GREEDY_LENS = (30, 90, 200)
+
+
 def greedy_tokens(np, eng, vocab):
     """Greedy tokens of three prompts (16 new each) submitted together."""
     from chitu_tpu_torch import SampleParams
@@ -3453,7 +3486,7 @@ def greedy_tokens(np, eng, vocab):
     rng = np.random.default_rng(23)
     reqs = [eng.submit("", SampleParams(temperature=0.0, max_new_tokens=16),
                        prompt_tokens=[int(x) for x in rng.integers(1, vocab, size=n)])
-            for n in (30, 90, 200)]
+            for n in GREEDY_LENS]
     eng.run_until_complete()
     return [list(r.async_stream.tokens) for r in reqs]
 
@@ -3518,7 +3551,7 @@ LOAD_PHASES = [
 ]
 
 
-def load_phases(torch, np, tk, card, root):
+def load_phases(torch, np, tk, card, root, serve=None):
     """Slice 11's phases: each writes a checkpoint from seeded draws with
     the port's writer into `root`, serves it through `engine_phase` with
     `infer.do_load=true models.ckpt_dir=<dir>` and checks that every
@@ -3526,7 +3559,10 @@ def load_phases(torch, np, tk, card, root):
     greedy tokens equal those of an engine handed the same tree in memory
     (`Engine(cfg, params=...)`); then the AWQ engine's tree is dumped with
     `save_preprocessed` and served again with `skip_preprocess=true`, and
-    the evals phase runs on the HF Llama engine. -> launches by phase."""
+    the evals phase runs on the HF Llama engine. `serve(label, model,
+    overrides, fmt, dir, tokens, one-rank load stats)`: slice 19's tp2
+    world on the same directory, before it is deleted. -> launches by
+    phase."""
     import shutil
 
     from chitu_tpu_torch import load_config
@@ -3594,8 +3630,9 @@ def load_phases(torch, np, tk, card, root):
             print("load " + json.dumps(dict(phase=label, card=card, **stats)), flush=True)
             return stats
 
-        out[label] = engine_phase(torch, np, tk, card, label, ovr + load, need=need,
-                                  model=model, after=after)
+        with load_meter(torch) as meter:
+            out[label] = engine_phase(torch, np, tk, card, label, ovr + load,
+                                      need=need, model=model, after=after)
         # the same tree handed over in memory
         cfg = load_config(overrides=[f"models={model}", "infer.stop_with_eos=false", *ovr])
         eng = Engine(cfg, params=tree())
@@ -3637,7 +3674,550 @@ def load_phases(torch, np, tk, card, root):
             out["load_preprocessed"] = engine_phase(
                 torch, np, tk, card, "load_preprocessed", pre, need=need, model=model,
                 after=after_pre)
+        if serve is not None:
+            serve(label, model, ovr, fmt, d, tokens[label], meter)
         shutil.rmtree(d, ignore_errors=True)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Slice 19: streamed shard loads (a tp2 world of ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+SLICE19_TP = 2
+SLICE19_TIMEOUT = 600  # one checkpoint's loads and burst in the world
+META_LLAMA = "Meta-Llama-3-8B-Instruct-original"
+LOAD_ATTN = ("attend_decode_fused", "attend_prefill_packed_fused")
+SLICE19_LOADS = [
+    # (label, model card, overrides, checkpoint format, kernels every rank
+    # launches in its burst). The first three are slice 11's checkpoints
+    # (LOAD_PHASES: its directories, served before they are deleted; R1's
+    # may be deepseek-mid-bench where the disk lacks room); the last two
+    # are written here: Qwen2-72B AWQ at 2 layers, whose w_down cut at
+    # tp2 falls inside group 115 of 128 rows, and Llama-3-8B as Meta
+    # consolidated.00.pth / .01.pth (mp 2)
+    ("load_llama_awq", LLAMA, ["models.n_layers=4", "quant.method=w4a16"], "awq",
+     LOAD_ATTN + ("quant_gemm",)),
+    ("load_llama_gptq", LLAMA, ["models.n_layers=4", "quant.method=w4a16"], "gptq",
+     LOAD_ATTN + ("quant_gemm",)),
+    ("load_r1_fp8", R1, ["models.n_layers=4"], "fp8",
+     ("attend_decode_fused[latent]", "attend_prefill_packed[latent]",
+      "quant_gemm", "grouped_gemm")),
+    ("qwen72_awq", QWEN72, ["models.n_layers=2", "quant.method=w4a16"], "awq",
+     LOAD_ATTN + ("quant_gemm",)),
+    ("llama_pth_mp2", META_LLAMA, ["models.n_layers=4"], "pth", LOAD_ATTN),
+]
+
+# HF names -> Meta's (a consolidated .pth checkpoint)
+META_TOP = {"model.embed_tokens.weight": "tok_embeddings.weight",
+            "model.norm.weight": "norm.weight", "lm_head.weight": "output.weight"}
+META_LAYER = {"input_layernorm": "attention_norm",
+              "post_attention_layernorm": "ffn_norm",
+              "self_attn.q_proj": "attention.wq", "self_attn.k_proj": "attention.wk",
+              "self_attn.v_proj": "attention.wv", "self_attn.o_proj": "attention.wo",
+              "mlp.gate_proj": "feed_forward.w1", "mlp.up_proj": "feed_forward.w3",
+              "mlp.down_proj": "feed_forward.w2"}
+
+
+def meta_name(key):
+    if key in META_TOP:
+        return META_TOP[key]
+    i, rest = key.split(".")[2], ".".join(key.split(".")[3:-1])
+    return f"layers.{i}.{META_LAYER[rest]}.weight"
+
+
+def write_pth(torch, groups, d, mp):
+    """The groups' bf16 tensors (HF names) as a Meta checkpoint of `mp`
+    files, `consolidated.NN.pth`: each tensor split along its family's mp
+    dim (`loader._meta_mp_dim`; norms whole in every file), each part
+    owning its storage. -> bytes written."""
+    from chitu_tpu_torch.loader import _meta_mp_dim
+
+    os.makedirs(d, exist_ok=True)
+    parts = [{} for _ in range(mp)]
+    for _, make in groups:
+        for k, v in make().items():
+            name = meta_name(k)
+            dim = _meta_mp_dim(name)
+            v = v.cpu()
+            for f in range(mp):
+                parts[f][name] = (v if dim is None else v.chunk(mp, dim)[f]).clone()
+            del v
+    total = 0
+    for f, sd in enumerate(parts):
+        path = os.path.join(d, f"consolidated.{f:02d}.pth")
+        torch.save(sd, path)
+        total += os.path.getsize(path)
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            os.fsync(fd)
+            os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+        finally:
+            os.close(fd)
+    del parts
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return total
+
+
+@contextlib.contextmanager
+def load_meter(torch):
+    """Measure the checkpoint load inside the engines built in the body
+    (`engine.load_checkpoint`, the last one's): its seconds, the device's
+    peak above what was allocated when it began and what it left
+    resident, the host's peak resident set, and the loader's
+    `placement_stats` (`total_bytes` read, `max_shard_bytes` the largest
+    copy). -> the dict they land in."""
+    from chitu_tpu_torch import engine
+    from chitu_tpu_torch.loader_streaming import placement_stats, reset_placement_stats
+
+    out, load = {}, engine.load_checkpoint
+
+    def metered(*a, **k):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_placement_stats()
+        host = {}
+        t0 = time.time()
+        with host_peak(host):
+            tree = load(*a, **k)
+            torch.cuda.synchronize()
+        out.update(load_s=time.time() - t0,
+                   load_peak_gib=(torch.cuda.max_memory_allocated() - base) / 2**30,
+                   resident_gib=(torch.cuda.memory_allocated() - base) / 2**30,
+                   host_start_gib=host["host_start_gib"],
+                   host_peak_gib=host["host_peak_gib"], **placement_stats())
+        out["read_gbps"] = out["total_bytes"] / 1e9 / out["load_s"]
+        return tree
+
+    engine.load_checkpoint = metered
+    try:
+        yield out
+    finally:
+        engine.load_checkpoint = load
+
+
+def stored_tensors(torch, d):
+    """(file, key) -> (shape, bytes) of every tensor of a checkpoint
+    directory, from the safetensors headers or the mapped .pth files."""
+    from chitu_tpu_torch.utils.safetensors import read_header
+
+    out = {}
+    for f in sorted(os.listdir(d)):
+        p = os.path.join(d, f)
+        if f.endswith(".safetensors"):
+            for k, e in read_header(p)[0].items():
+                out[(f, k)] = (tuple(e.shape), e.nbytes)
+        elif f.endswith(".pth"):
+            for k, t in torch.load(p, map_location="cpu", mmap=True,
+                                   weights_only=True).items():
+                out[(f, k)] = (tuple(t.shape), t.numel() * t.element_size())
+    return out
+
+
+COL_PROJ = ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj", "q_b_proj",
+            "kv_b_proj", "attention.wq", "attention.wk", "attention.wv",
+            "feed_forward.w1", "feed_forward.w3")
+ROW_PROJ = ("o_proj", "down_proj", "attention.wo", "feed_forward.w2")
+WHOLE = ("norm", "q_a_proj", "kv_a_proj", "mlp.gate.", "g_idx")
+VOCAB = ("embed_tokens", "lm_head", "tok_embeddings", "output.")
+
+
+def copy_of(key, shape, n):
+    """(bytes, the largest single copy) of reading `n` bytes of a stored
+    tensor whose read slice has `shape`: one copy, or, for a transposed
+    read (a 2-D weight or its scales, not an embedding) above
+    `loader_streaming.CHUNK_BYTES`, chunks of whole stored rows."""
+    from chitu_tpu_torch.loader_streaming import CHUNK_BYTES
+
+    if (len(shape) != 2 or not key.endswith(("weight", "weight_scale_inv"))
+            or any(v in key for v in ("embed_tokens", "tok_embeddings"))
+            or n <= CHUNK_BYTES):
+        return n, n
+    row = n // shape[0]
+    return n, max(1, CHUNK_BYTES // row) * row
+
+
+def rank_reads(tensors, fmt, m, rank, tp):
+    """What rank `rank` of a tp world should read of a checkpoint, from
+    its tensors' shapes alone (`tensors`: (file, key) -> (shape, bytes),
+    `stored_tensors`; every dim the layout cuts divides by tp in these
+    cards): (file, key) -> (bytes, largest copy), `copy_of`. A replicated
+    tensor whole; an expert whole on the rank that holds it; a cut one
+    the stored rows over the rank's even share of its logical dim,
+    rounded out to the cover unit: a 128-row block of e4m3 and of its
+    scales, an AWQ / GPTQ group on a row cut, a packed word of 8 nibbles;
+    the Meta mp files (tp == mp): a projection from the rank's own file,
+    the embedding's vocabulary rows from each, the norms from file 0."""
+    from chitu_tpu_torch.parallel.sharding import even_range
+
+    out = {}
+    for (f, key), (shape, n) in tensors.items():
+        if fmt == "pth":
+            if "norm" in key:
+                n = n if f.endswith("00.pth") else 0
+            elif key.startswith("tok_embeddings"):
+                n, shape = n // tp, (shape[0] // tp, shape[1])
+            elif f != f"consolidated.{rank:02d}.pth" and tp > 1:
+                n = 0
+            out[(f, key)] = copy_of(key, shape, n)
+            continue
+        if ".experts." in key:
+            e = int(key.split(".experts.")[1].split(".")[0])
+            lo, hi = even_range(m.moe.n_routed_experts, rank, tp)
+            out[(f, key)] = copy_of(key, shape, n if lo <= e < hi else 0)
+            continue
+        if any(w in key for w in WHOLE):
+            out[(f, key)] = copy_of(key, shape, n)
+            continue
+        part = key.rsplit(".", 1)[1]
+        col = any(p in key for p in COL_PROJ) or any(v in key for v in VOCAB)
+        if not col and not any(p in key for p in ROW_PROJ):
+            raise KeyError(f"no slice 19 rule for {key}")
+        base = key.rsplit(".", 1)[0]
+        G = GROUP
+        # (stored dim, logical units a stored row holds, cover unit, the
+        # logical length along the dim)
+        if part == "qweight":
+            if fmt == "awq":  # [in, out/8]
+                dim, per, cover = (1, 8, 1) if col else (0, 1, G)
+            else:  # gptq [in/8, out]
+                dim, per, cover = (1, 1, 1) if col else (0, 8, G)
+            length = shape[dim] * per
+        elif part in ("qzeros", "scales"):  # [in/G, out/8] / [in/G, out]
+            words = 8 if part == "qzeros" else 1
+            dim, per, cover = (1, words, 1) if col else (0, G, G)
+            length = shape[1] * words if col else shape[0] * G
+        elif part == "weight_scale_inv":  # [out/128, in/128]
+            w = tensors[(f, base + ".weight")][0]
+            dim, per, cover = (0 if col else 1), 128, 128
+            length = w[dim]
+        elif part == "bias":
+            dim, per, cover, length = 0, 1, 1, shape[0]
+        else:  # a weight [out, in], bf16 or e4m3 (its 128 x 128 blocks)
+            dim = 0 if col else 1
+            per, cover = 1, (128 if fmt == "fp8" else 1)
+            length = shape[dim]
+        if length % tp:
+            raise ValueError(f"{key}: {length} does not divide by {tp}")
+        a, b = rank * length // tp, (rank + 1) * length // tp
+        a, b = a // cover * cover, min(-(-b // cover) * cover, length)
+        rows = -(-b // per) - a // per
+        cut = list(shape)
+        cut[dim] = rows
+        out[(f, key)] = copy_of(key, cut, rows * (n // shape[dim]))
+    return out
+
+
+def predicted_reads(tensors, fmt, m, tp):
+    """Each rank's predicted (total_bytes, max_shard_bytes) of a
+    checkpoint's `tensors` (`stored_tensors`), rank 0 first, and the
+    one-rank engine's (the Meta files: every part, the norms of file
+    0)."""
+    def total(reads):
+        return (sum(n for n, _ in reads.values()),
+                max(c for _, c in reads.values()))
+
+    return ([total(rank_reads(tensors, fmt, m, r, tp)) for r in range(tp)],
+            total(rank_reads(tensors, fmt, m, 0, 1)))
+
+
+META_KINDS = {"w": "bfloat16", "norm": "bfloat16", "f32": "float32",
+              "e4m3": "float8_e4m3fn", "scale_inv": "float32", "nibble": "int8",
+              "zero": "float32", "wscale": "float32", "gidx": "int64"}
+
+
+def planned_tensors(torch, groups, fmt, mp=SLICE19_TP):
+    """A checkpoint's tensors as `stored_tensors` would read them back,
+    from its groups drawn on the meta device (shapes only: `draw` swapped
+    for empty tensors of each kind's dtype), the Meta format cut into its
+    `mp` files. -> (file, key) -> (shape, bytes)."""
+    global draw
+    from chitu_tpu_torch.loader import _meta_mp_dim
+
+    real = draw
+    draw = lambda torch, dev, name, shape, kind: torch.empty(  # noqa: E731
+        shape, dtype=getattr(torch, META_KINDS[kind]), device="meta")
+    try:
+        out = {}
+        for _, make in groups:
+            for k, v in make().items():
+                n = v.numel() * v.element_size()
+                if fmt != "pth":
+                    out[("", k)] = (tuple(v.shape), n)
+                    continue
+                name, dim = meta_name(k), _meta_mp_dim(meta_name(k))
+                for f in range(mp):
+                    shape = list(v.shape)
+                    if dim is not None:
+                        shape[dim] //= mp
+                    out[(f"consolidated.{f:02d}.pth", name)] = (
+                        tuple(shape), n if dim is None else n // mp)
+        return out
+    finally:
+        draw = real
+
+
+def rank_cut(tree, lay):
+    """The written tree (whole leaves, q/k/v and gate/up merged) cut to a
+    rank's layout, as `params_from_numpy` cuts: a DeepSeek tree through
+    `MLALayout.tree`, a llama one leaf by leaf (`TPLayout.place`) and
+    merged again."""
+    if "dense_layers" in tree:
+        return lay.tree(tree)
+    flat = {k: v for k, v in tree.items() if k != "layers"}
+    flat.update(tree["layers"])
+    out = {}
+    for k in list(flat):
+        out.update(lay.place(k, flat.pop(k), 1))
+    layers = {k: out.pop(k) for k in list(out) if k not in ("embed", "norm", "lm_head")}
+    return {**out, "layers": lay.assemble(layers)}
+
+
+def written_tree(torch, dev, m, fmt):
+    """The tree a checkpoint of this slice was written from, drawn again."""
+    if fmt == "fp8":
+        return r1_ckpt(torch, dev, m)[1]()
+    return llama_ckpt(torch, dev, m, "bf16" if fmt == "pth" else fmt)[1]()
+
+
+def load_cfg(ld):
+    from chitu_tpu_torch import load_config
+
+    return load_config(overrides=[
+        f"models={ld['model']}", "infer.stop_with_eos=false", *ld["overrides"],
+        "infer.do_load=true", f"models.ckpt_dir={ld['dir']}", *ld.get("grid", [])])
+
+
+def load_rank_main(spec_path):
+    """One rank of slice 19's world. It waits for each checkpoint the main
+    process hands over (`go<i>.json`), then, with the other rank: brings
+    up the tp2 engine on it (the ranks one after another, each load
+    metered: `load_meter`); checks its leaves against the written tree
+    cut to its layout, byte for byte (one rank at a time: each draws the
+    whole tree); serves rank 0's greedy burst (`greedy_tokens`; the other
+    rank follows) with its launches counted; and leaves its results in
+    `rank<r>.<i>.json`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from chitu_tpu_torch.engine import Engine
+    from chitu_tpu_torch.ops import attention_kernels as tk
+    from chitu_tpu_torch.parallel import distributed
+
+    with open(spec_path) as f:
+        out = json.load(f)["out"]
+    parent = os.getppid()
+
+    def wait(name):
+        path = os.path.join(out, name)
+        while not os.path.exists(path):
+            if os.getppid() != parent:
+                sys.exit(3)
+            time.sleep(0.05)
+        with open(path) as f:
+            return f.read()
+
+    os.environ["CHITU_TPU_COORDINATOR"] = wait(GO)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    i = 0
+    while True:
+        ld = json.loads(wait(f"go{i}.json"))
+        if ld.get("end"):
+            break
+        cfg = load_cfg(ld)
+        distributed.maybe_initialize(cfg)
+        rank, world = dist.get_rank(), dist.get_world_size()
+        for r in range(world):
+            if r == rank:
+                t0 = time.time()
+                with load_meter(torch) as meter:
+                    eng = Engine(cfg)
+                    torch.cuda.synchronize()
+                res = dict(rank=rank, bringup_s=time.time() - t0, **meter)
+                free_memory(torch)
+            dist.barrier()
+        for r in range(world):
+            if r == rank:
+                want = rank_cut(written_tree(torch, eng.device, eng.cfg.models,
+                                             ld["fmt"]), eng.model.layout)
+                res["leaves_differ"] = loaded_leaves_equal(
+                    torch, eng.model.params_tree(), want)
+                del want
+                free_memory(torch)
+            dist.barrier()
+        res["weight_bytes"] = eng.weight_bytes()
+        tk.reset_launch_counts()
+        if rank == 0:
+            res["tokens"] = greedy_tokens(np, eng, cfg.models.vocab_size)
+            eng.terminate()
+        else:
+            eng.follow()
+        res["launches"] = {k: v for k, v in tk.LAUNCHES.items() if v}
+        with open(os.path.join(out, f"rank{rank}.{i}.json.tmp"), "w") as f:
+            json.dump(res, f)
+        os.replace(os.path.join(out, f"rank{rank}.{i}.json.tmp"),
+                   os.path.join(out, f"rank{rank}.{i}.json"))
+        del eng
+        free_memory(torch)
+        i += 1
+    distributed.shutdown()
+
+
+def start_load_world():
+    """Slice 19's world: SLICE19_TP ranks of this script (`--load-rank`),
+    started while the phases before it run; they wait for their first
+    checkpoint."""
+    world = start_world("slice19_loads", SLICE19_TP, [], [], flag="--load-rank")
+    world["next"] = 0
+    return world
+
+
+def hand_over(world, ld):
+    """Hand one checkpoint (or the end: `ld` None) to the load world's
+    ranks and wait for their results (or their exit). Killed, all of
+    them, when one fails or SLICE19_TIMEOUT passes."""
+    from chitu_tpu_torch.parallel import distributed
+
+    d, procs, i = world["out"], world["procs"], world["next"]
+    if i == 0:
+        with open(os.path.join(d, GO + ".tmp"), "w") as f:
+            f.write(distributed.local_coordinator())
+        os.replace(os.path.join(d, GO + ".tmp"), os.path.join(d, GO))
+    with open(os.path.join(d, f"go{i}.json.tmp"), "w") as f:
+        json.dump(ld or {"end": True}, f)
+    os.replace(os.path.join(d, f"go{i}.json.tmp"), os.path.join(d, f"go{i}.json"))
+    world["next"] += 1
+    names = [os.path.join(d, f"rank{r}.{i}.json") for r in range(world["n"])]
+    t0 = time.time()
+    while not (all(map(os.path.exists, names)) if ld else all(
+            p.poll() is not None for p in procs)):
+        if time.time() - t0 > SLICE19_TIMEOUT or any(
+                p.poll() not in (None, 0) for p in procs):
+            rcs = [p.poll() for p in procs]
+            stop_world(world)
+            raise AssertionError(f"[slice19] the load world's ranks: {rcs} "
+                                 f"(load {i}, {time.time() - t0:.0f} s)")
+        time.sleep(0.1)
+    if ld is None:
+        rcs = [p.returncode for p in procs]
+        stop_world(world)
+        if any(rcs):
+            raise AssertionError(f"[slice19] the load world's ranks exited {rcs}")
+        return None
+    out = []
+    for name in names:
+        with open(name) as f:
+            out.append(json.load(f))
+    return out
+
+
+def slice19_serve(torch, np, tk, card, world, label, model, ovr, fmt, d, tokens,
+                  one):
+    """Serve one checkpoint directory on slice 19's tp2 world and hold it:
+    every rank's leaves byte-equal to its cut of the written tree; its
+    `total_bytes` and `max_shard_bytes` exactly `predicted_reads`; the
+    kernels in the table launched on every rank in the burst; rank 0's
+    greedy streams equal to the one-rank engine's (`tokens`, its load
+    stats in `one`) or parting at a near tie (judged on a one-rank engine
+    on the same directory). Prints one `load19` line. -> rank 0's
+    launches."""
+    from chitu_tpu_torch import load_config
+    from chitu_tpu_torch.engine import Engine
+
+    need = next(row[4] for row in SLICE19_LOADS if row[0] == label)
+    m = load_config(overrides=[f"models={model}", *ovr]).models
+    ranks_want, one_want = predicted_reads(stored_tensors(torch, d), fmt, m,
+                                           SLICE19_TP)
+    print(f"[{label}] slice 19 predicted reads: ranks {ranks_want} (total_bytes, "
+          f"max_shard_bytes), one rank {one_want}", flush=True)
+    if (one["total_bytes"], one["max_shard_bytes"]) != one_want:
+        raise AssertionError(f"[{label}] the one-rank load read "
+                             f"{one['total_bytes']}, {one['max_shard_bytes']}, "
+                             f"not {one_want}")
+    t0 = time.time()
+    ranks = hand_over(world, dict(label=label, model=model, overrides=ovr, fmt=fmt,
+                                  dir=d, grid=[f"infer.tp_size={SLICE19_TP}",
+                                               "serve.port=0"]))
+    wall = time.time() - t0
+    for res, want in zip(ranks, ranks_want):
+        r = res["rank"]
+        print(f"[{label}] rank {r}: read {res['total_bytes']} bytes (predicted "
+              f"{want[0]}), largest copy {res['max_shard_bytes']} (predicted "
+              f"{want[1]}), load {res['load_s']:.2f} s at {res['read_gbps']:.2f} "
+              f"GB/s, peak during it {res['load_peak_gib']:.3f} GiB, resident after "
+              f"{res['resident_gib']:.3f} GiB, host peak {res['host_peak_gib']:.2f} "
+              f"GiB; launches {res['launches']}", flush=True)
+        if res["leaves_differ"]:
+            raise AssertionError(f"[{label}] rank {r}'s leaves differ from its cut "
+                                 f"of the written tree: {res['leaves_differ']}")
+        if (res["total_bytes"], res["max_shard_bytes"]) != tuple(want):
+            raise AssertionError(f"[{label}] rank {r} read {res['total_bytes']} "
+                                 f"bytes, largest copy {res['max_shard_bytes']}; "
+                                 f"predicted {want}")
+        for k in need:
+            if res["launches"].get(k, 0) <= 0:
+                raise AssertionError(f"[{label}] kernel {k} did not launch on "
+                                     f"rank {r} in the burst")
+    got = ranks[0]["tokens"]
+    div = []
+    if got != tokens:
+        rng = np.random.default_rng(23)
+        eng = Engine(load_cfg(dict(model=model, overrides=ovr, dir=d)))
+        prompts = [[int(x) for x in rng.integers(1, m.vocab_size, size=n)]
+                   for n in GREEDY_LENS]
+        div = near_tie(torch, tk, eng, label, prompts, got, tokens, moe=fmt == "fp8")
+        eng.terminate()
+        del eng
+        free_memory(torch)
+    keys = ("load_s", "read_gbps", "total_bytes", "max_shard_bytes",
+            "load_peak_gib", "resident_gib", "host_peak_gib")
+    stats = dict(phase=label, card=card, model=m.name, layers=m.n_layers, fmt=fmt,
+                 tp=SLICE19_TP, world_s=wall, streams_equal=sum(
+                     a == b for a, b in zip(got, tokens)), streams=len(tokens),
+                 divergences=div, predicted=ranks_want, one_rank_predicted=one_want,
+                 rank_weight_bytes=[r["weight_bytes"] for r in ranks],
+                 rank_bringup_s=[r["bringup_s"] for r in ranks],
+                 rank_launches=[r["launches"] for r in ranks],
+                 **{f"rank_{k}": [r[k] for r in ranks] for k in keys},
+                 **{f"one_rank_{k}": one[k] for k in keys})
+    print("load19 " + json.dumps(stats), flush=True)
+    return ranks[0]["launches"]
+
+
+def slice19_phases(torch, np, tk, card, world, root):
+    """The two checkpoints slice 19 writes (`SLICE19_LOADS` after slice
+    11's): each written, served by a one-rank engine (load metered,
+    greedy tokens), then by the tp2 world (`slice19_serve`), then
+    deleted. Ends the world. -> launches by phase."""
+    import shutil
+
+    from chitu_tpu_torch import load_config
+    from chitu_tpu_torch.engine import Engine
+
+    dev = torch.device("cuda", 0)
+    out = {}
+    for label, model, ovr, fmt, _ in SLICE19_LOADS[3:]:
+        m = load_config(overrides=[f"models={model}", *ovr]).models
+        groups, _ = llama_ckpt(torch, dev, m, "bf16" if fmt == "pth" else fmt)
+        d = os.path.join(root, label)
+        t0 = time.time()
+        nbytes = (write_pth(torch, groups, d, SLICE19_TP) if fmt == "pth"
+                  else write_checkpoint(torch, groups, d))
+        print(f"[{label}] wrote {nbytes / 1e9:.2f} GB in {time.time() - t0:.1f} s "
+              f"({d})", flush=True)
+        with load_meter(torch) as one:
+            eng = Engine(load_cfg(dict(model=model, overrides=ovr, dir=d)))
+        tokens = greedy_tokens(np, eng, m.vocab_size)
+        eng.terminate()
+        del eng
+        free_memory(torch)
+        out[label] = slice19_serve(torch, np, tk, card, world, label, model, ovr,
+                                   fmt, d, tokens, one)
+        shutil.rmtree(d, ignore_errors=True)
+    hand_over(world, None)
     return out
 
 
@@ -4469,14 +5049,15 @@ GO = "go"  # the file that lets a started world's ranks go
 
 
 def start_world(label, n, overrides, prompts, base=TP_BASE, grid=None,
-                **extra):
+                flag="--tp-rank", **extra):
     """Start n ranks of this script (`--tp-rank`) through the port's
     launcher (`parallel.distributed.spawn_ranks`, the one
     `python -m chitu_tpu_torch infer.tp_size=N` uses), rank 0 included,
     on the grid's overrides (`infer.tp_size=n` by default); ranks that
     share the card do so over gloo. They import and then wait, touching
     nothing on the card, until `join_world` lets them go: the phase before
-    runs meanwhile (`run_worlds`). `extra` goes to the ranks (`seeded`:
+    runs meanwhile (`run_worlds`). `flag`: the ranks' entry (`--tp-rank`,
+    or slice 19's `--load-rank`). `extra` goes to the ranks (`seeded`:
     weights from `seeded_params`; `batch`: also time a decode batch of
     that many rows). -> the world."""
     from chitu_tpu_torch.parallel import distributed
@@ -4489,7 +5070,7 @@ def start_world(label, n, overrides, prompts, base=TP_BASE, grid=None,
                        + grid + ["serve.port=0"],
                        prompts=prompts, out=d, **extra), f)
     procs = distributed.spawn_ranks(
-        [sys.executable, os.path.abspath(__file__), "--tp-rank", spec], n,
+        [sys.executable, os.path.abspath(__file__), flag, spec], n,
         distributed.local_coordinator(), first=0)
     return dict(label=label, n=n, out=d, procs=procs, started=time.time())
 
@@ -5946,7 +6527,6 @@ PPL_PHASES = ("pp3",)
 # gloo)
 # ---------------------------------------------------------------------------
 
-QWEN72 = "Qwen2-72B-Instruct"
 SLICE18_PHASES = [
     # (label, model card, pp, tp, overrides, kernels that must launch on
     # every rank in the burst). Full width, depth cut. Qwen2-72B in
@@ -6083,6 +6663,9 @@ def main():
     if sys.argv[1:2] == ["--tp-rank"]:
         tp_rank_main(sys.argv[2])
         return
+    if sys.argv[1:2] == ["--load-rank"]:
+        load_rank_main(sys.argv[2])
+        return
     from chitu_tpu_torch.models import moe
     from chitu_tpu_torch.ops import absorb_kernels as ab
     from chitu_tpu_torch.ops import attention as plain
@@ -6217,16 +6800,32 @@ def main():
             linear.set_dense_kernel(False)
     print(f"slices 1-10 phases {time.time() - t0:.1f} s", flush=True)
 
-    # slice 11: checkpoints read from disk, in a directory deleted after
+    # slice 11: checkpoints read from disk, in a directory deleted after;
+    # slice 19's tp2 world serves three of them before they go, then two
+    # of its own
     t0 = time.time()
     root = tempfile.mkdtemp(prefix="chitu_ckpt_")
+    world19, s19 = start_load_world(), [0.0]
+
+    def serve(label, model, ovr, fmt, d, toks, one):
+        if label in (row[0] for row in SLICE19_LOADS):
+            t1 = time.time()
+            phase[f"{label}_tp2"] = slice19_serve(torch, np, tk, card, world19, label,
+                                                  model, ovr, fmt, d, toks, one)
+            s19[0] += time.time() - t1
+
     try:
-        phase.update(load_phases(torch, np, tk, card, root))
+        phase.update(load_phases(torch, np, tk, card, root, serve))
+        print(f"slice 11 phases {time.time() - t0 - s19[0]:.1f} s", flush=True)
+        t1 = time.time()
+        phase.update(slice19_phases(torch, np, tk, card, world19, root))
+        print(f"slice 19 phases {time.time() - t1 + s19[0]:.1f} s ({s19[0]:.1f} s of "
+              "them on slice 11's checkpoints)", flush=True)
     finally:
         import shutil
 
+        stop_world(world19)
         shutil.rmtree(root, ignore_errors=True)
-    print(f"slice 11 phases {time.time() - t0:.1f} s", flush=True)
 
     # slice 12: the prefix cache, then spec decode on the same weights
     t0 = time.time()

@@ -8,23 +8,31 @@ blockwise-fp8 projections as QTensors, and the preprocessed dump
 (`save_preprocessed` / `load_preprocessed`, reference:
 script/preprocess_and_save.py).
 
-Every checkpoint tensor stays a view of its mapped file until a leaf
-takes it: each stacked leaf is allocated on the device once and filled
-there one layer (or one expert) at a time, transposed and cast on the
-device, so the host holds no copy of the weights. The tree is the one
-`models.llama.params_from_numpy` gives for the JAX loader's tree:
-{"embed", "norm", "lm_head", "layers": {...}} with the projections
-merged (`wqkv`, `w_gate_up`, `b_qkv`), since the port takes the merged
-layout only.
+Every checkpoint tensor stays a reader of its mapped file
+(`loader_streaming`) until a leaf takes it: each stacked leaf is
+allocated on the device once and filled there one layer (or one expert)
+at a time, transposed, cast and unpacked on the device, so the host holds
+no copy of the weights. The loads stream per rank (the counterpart of the
+JAX `_load_*_streaming` paths): under a tensor-parallel layout a rank
+reads and copies only its own slice of every leaf the layout cuts, in
+every format. A bf16 view is narrowed before the copy; an AWQ / GPTQ
+projection copies the packed words over its slice and unpacks them on
+the device (act-order GPTQ: `loader_streaming.LazyGather`); a native fp8
+projection copies the whole 128 x 128 blocks over its slice; a Meta
+`.pth` slice reads only the mp files it overlaps (`LazyConcat`: at tp ==
+mp a rank's column- and row-parallel leaves come from its own file).
+There is no eager path to fall back to: a cut the readers cannot make
+raises. The tree is the one `models.llama.params_from_numpy` gives for
+the JAX loader's tree: {"embed", "norm", "lm_head", "layers": {...}}
+with the projections merged (`wqkv`, `w_gate_up`, `b_qkv`) where the
+layout merges.
 
 dtype: every float leaf that is not fp8 becomes bfloat16. The JAX
 loader keeps f16 leaves as f16 under `keep_dtype_in_checkpoint` and
 lets `jnp.dot` promote f16 x bf16; `torch.matmul` takes no mixed dtypes,
 so the port casts them (ROADMAP C records the difference).
 
-Not ported here: the streamed shard loads (`loader_streaming.py` and the
-`_load_*_streaming` paths, ROADMAP A), which exist for multi-device
-bring-up.
+`placement_stats` (`loader_streaming`) counts each rank's copies.
 """
 
 from __future__ import annotations
@@ -38,8 +46,17 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
 
 import torch
 
+from chitu_tpu_torch.loader_streaming import (
+    Lazy,
+    LazyConcat,
+    LazySlice,
+    load,
+    placement_stats,
+    to_device,
+    w4a16,
+)
 from chitu_tpu_torch.ops.qtensor import TENSOR_FIELDS, QTensor, QuantKind
-from chitu_tpu_torch.parallel.sharding import even_range, shard_tensor
+from chitu_tpu_torch.parallel.sharding import even_range, shard_qtensor, shard_tensor
 from chitu_tpu_torch.utils import get_logger
 from chitu_tpu_torch.utils.safetensors import Reader, save_file
 
@@ -72,13 +89,14 @@ class Checkpoint:
     """Every tensor of a checkpoint directory by name, read lazily: the
     `*.safetensors` files through mapped views, else Meta
     `consolidated*.pth` files through `torch.load(mmap=True)`, whose mp
-    shards join along each family's parallel dim. `nbytes` counts the
-    stored bytes of every tensor handed out."""
+    shards join along each family's parallel dim (`reader`: a
+    `LazyConcat` that reads only the files a slice overlaps; `get`: the
+    whole tensor, joined on the host)."""
 
     def __init__(self, ckpt_dir: str):
-        self.nbytes = 0
         self._st: Optional[Reader] = None
         self._pth: List[Dict[str, torch.Tensor]] = []
+        self._files: List[str] = []
         if any(f.endswith(".safetensors") for f in os.listdir(ckpt_dir)):
             self._st = Reader(ckpt_dir)
             return
@@ -90,6 +108,7 @@ class Checkpoint:
             raise FileNotFoundError(
                 f"no .safetensors or consolidated*.pth under {ckpt_dir}"
             )
+        self._files = files
         self._pth = [
             torch.load(os.path.join(ckpt_dir, f), map_location="cpu",
                        mmap=True, weights_only=True)
@@ -105,20 +124,33 @@ class Checkpoint:
     def shape(self, key: str) -> Tuple[int, ...]:
         if self._st is not None:
             return self._st.info(key).shape
-        return tuple(self.get(key, count=False).shape)
+        return self.reader(key).shape
 
-    def get(self, key: str, count: bool = True) -> torch.Tensor:
-        """The stored tensor on the host (a view of its mapped pages where
-        the format allows: drop it once copied), in its stored dtype."""
+    def get(self, key: str) -> torch.Tensor:
+        """The whole stored tensor on the host (a view of its mapped pages
+        where the format allows), in its stored dtype."""
         if self._st is not None:
-            t = self._st.get_tensor(key)
-        elif len(self._pth) == 1 or _meta_mp_dim(key) is None:
-            t = self._pth[0][key]
-        else:
-            t = torch.cat([sd[key] for sd in self._pth], dim=_meta_mp_dim(key))
-        if count:
-            self.nbytes += t.numel() * t.element_size()
-        return t
+            return self._st.get_tensor(key)
+        if len(self._pth) == 1 or _meta_mp_dim(key) is None:
+            return self._pth[0][key]
+        return torch.cat([sd[key] for sd in self._pth], dim=_meta_mp_dim(key))
+
+    def reader(self, key: str, transpose: bool = False,
+               dtype: Optional[torch.dtype] = None) -> Lazy:
+        """A reader of the tensor (`loader_streaming`), nothing read yet:
+        presented [in, out] when `transpose` (2-D only), in `dtype`. An mp
+        tensor of a Meta checkpoint is its files' parts side by side; a
+        replicated one (norms) is file 0's."""
+        if self._st is not None:
+            return LazySlice(self._st.get_tensor(key), transpose, dtype,
+                             self._st.index[key], key)
+        dim = _meta_mp_dim(key)
+        if len(self._pth) == 1 or dim is None:
+            return LazySlice(self._pth[0][key], transpose, dtype, self._files[0], key)
+        parts = [LazySlice(sd[key], transpose, dtype, f, key)
+                 for sd, f in zip(self._pth, self._files)]
+        # the presented dims: a transposed 2-D tensor's are reversed
+        return LazyConcat(parts, 1 - dim if parts[0].transpose else dim)
 
 
 def iter_checkpoint(ckpt_dir: str) -> Iterator[Tuple[str, torch.Tensor]]:
@@ -197,32 +229,6 @@ def _target_dtype(cfg, name: str) -> torch.dtype:
 # ---------------------------------------------------------------------------
 
 
-def to_device(t: torch.Tensor, device, dtype: Optional[torch.dtype] = None,
-              transpose: bool = False) -> torch.Tensor:
-    """One stored tensor onto the device as it is stored, then transposed
-    (2-D only) and cast there. fp8 moves and transposes as its bytes."""
-    fp8 = t.dtype == torch.float8_e4m3fn
-    x = (t.view(torch.uint8) if fp8 else t).to(device)
-    if transpose and x.dim() == 2:
-        x = x.T
-    x = x.contiguous()
-    if fp8:
-        x = x.view(torch.float8_e4m3fn)
-    if dtype is not None and x.dtype != dtype and x.is_floating_point():
-        x = x.to(dtype)
-    if x.numel() and x.data_ptr() == t.data_ptr():
-        # still the mapped file's pages (a CPU load): a leaf owns its memory
-        x = x.clone()
-    return x
-
-
-def as_e4m3(t: torch.Tensor) -> torch.Tensor:
-    """fp8 weight bytes as stored (e4m3, or their uint8 lanes) -> e4m3."""
-    if t.dtype == torch.uint8:
-        return t.view(torch.float8_e4m3fn)
-    return t.to(torch.float8_e4m3fn)
-
-
 def _bytes(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
 
@@ -276,14 +282,15 @@ def fill_stacked(lead: Tuple[int, ...], make: Callable[[tuple], Any]):
     return out
 
 
-def fp8_qtensor(data: torch.Tensor, scale_inv: torch.Tensor) -> QTensor:
-    """A blockwise-fp8 projection on the device: e4m3 [out, in] + its
-    `weight_scale_inv` [out/128, in/128] -> a SOFT_FP8 QTensor, data
-    [in, out], scale [in/128, out/128] f32 (`_maybe_fp8` of the JAX
-    loader)."""
+def fp8_qtensor(ck: "Checkpoint", key: str, scale_key: str) -> QTensor:
+    """A blockwise-fp8 projection's readers: e4m3 `key` [out, in] + its
+    `weight_scale_inv` [out/128, in/128] -> a SOFT_FP8 QTensor of
+    readers, data [in, out], scale [in/128, out/128] f32 (`_maybe_fp8` of
+    the JAX loader). A rank's cut keeps the whole 128 x 128 blocks over
+    its slice (`narrow_rows` / `narrow_cols`) before anything is read."""
     return QTensor(
-        data=to_device(as_e4m3(data), scale_inv.device, transpose=True),
-        scale=scale_inv.float().T.contiguous(),
+        data=ck.reader(key, True, torch.float8_e4m3fn),
+        scale=ck.reader(scale_key, True, torch.float32),
         kind=QuantKind.SOFT_FP8,
         block=128,
     )
@@ -336,18 +343,19 @@ def no_layers(leaves: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in leaves.items()}
 
 
-def rank_view(lay, name: Optional[str], view: torch.Tensor,
-              transpose: bool = False) -> torch.Tensor:
-    """The rank's slice of a mapped view of one piece of the leaf `name`
-    (stored [out, in] when `transpose`) under the layout's tensor-parallel
-    cut, before it is copied; the view itself on one rank or without a
-    name."""
+def rank_view(lay, name: Optional[str], piece):
+    """The rank's slice of one piece of the leaf `name` under the layout's
+    tensor-parallel cut, before anything is read: a reader narrowed
+    (`shard_tensor`), or a QTensor of readers cut to the whole
+    quantization blocks over the slice (`shard_qtensor`: `narrow_rows` /
+    `narrow_cols` views where a cut falls inside a block, as on a loaded
+    leaf); the piece itself on one rank or without a name."""
     if lay is None or lay.tp <= 1 or name is None:
-        return view
-    spec = lay.part_spec(name, view.dim())
-    if transpose and view.dim() == 2:
-        spec = spec[::-1]
-    return shard_tensor(view, spec, lay.rank, lay.tp)
+        return piece
+    if isinstance(piece, QTensor):
+        spec = lay.part_spec(name, piece.data.dim())
+        return shard_qtensor(piece, spec, lay.rank, lay.tp)
+    return shard_tensor(piece, lay.part_spec(name, piece.dim()), lay.rank, lay.tp)
 
 
 def rank_experts(lay, n_experts: int) -> List[int]:
@@ -369,9 +377,7 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
     """Assemble the llama-family parameter tree from `model.args.ckpt_dir`
     on `device` (the model's by default): the layers of the model's
     pipeline stage, and the embedding, norm and head where it holds
-    them."""
-    from chitu_tpu_torch.quantize.packed import unpack_awq, unpack_gptq
-
+    them, each the rank's slice, read and copied alone."""
     a = model.args
     dev = torch.device(device) if device is not None else model.device
     ck = Checkpoint(a.ckpt_dir)
@@ -428,18 +434,13 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
             staged.setdefault(path[1], [None] * L)[layer] = (key, transpose)
 
     lay = getattr(model, "layout", None)
-    cut = lay is not None and lay.tp > 1
     layers, held = layers_to_read(model)
     n = len(layers)
+    read0 = placement_stats()["total_bytes"]
 
     def take(key, dtype=None, transpose=False, name=None):
-        # the rank's slice of the mapped view, before it is copied
-        view = rank_view(lay, name, ck.get(key), transpose)
-        return to_device(view, dev, dtype, transpose)
-
-    def local(name, q):
-        # a quantized layer is assembled on the device, then cut
-        return lay.local(name, q).contiguous() if cut else q
+        # the rank's slice, cut before it is read
+        return load(rank_view(lay, name, ck.reader(key, transpose, dtype)), dev)
 
     params: Dict[str, Any] = {"layers": {}}
     ly = params["layers"]
@@ -454,20 +455,17 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
 
     if packed:
         # offline-quantized checkpoint (AWQ / GPTQ; reference load paths:
-        # backend.py:321-347): unpacked on the device into W4A16 QTensors
+        # backend.py:321-347): W4A16 QTensors, each rank's cut of the
+        # packed words copied and unpacked on the device
         by_name: Dict[str, List[Optional[Dict[str, str]]]] = {}
         for (layer, name), parts in packed.items():
             by_name.setdefault(name, [None] * L)[layer] = parts
 
-        def unpack(parts):
-            qw, sc = take(parts["qweight"]), take(parts["scales"])
-            qz = take(parts["qzeros"])
-            # AWQ packs the out dim ([in, out/8]); GPTQ the in dim ([in/8, out])
-            if qw.shape[1] * 8 == sc.shape[1]:
-                return unpack_awq(qw, qz, sc, group_size=qw.shape[0] // sc.shape[0])
-            g_idx = take(parts["g_idx"]) if "g_idx" in parts else None
-            return unpack_gptq(qw, qz, sc, group_size=qw.shape[0] * 8 // sc.shape[0],
-                               g_idx=g_idx)
+        def unpack(parts, name):
+            g_idx = ck.reader(parts["g_idx"]) if "g_idx" in parts else None
+            q = w4a16(ck.reader(parts["qweight"]), ck.reader(parts["qzeros"]),
+                      ck.reader(parts["scales"], dtype=torch.float32), g_idx)
+            return load(rank_view(lay, name, q), dev)
 
         for name, vals in by_name.items():
             missing = [i for i in layers if vals[i] is None]
@@ -475,8 +473,7 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
                 raise ValueError(f"packed ckpt missing {name} layers {missing}")
             staged.pop(name, None)
             ly[name] = fill_stacked(
-                (n,), lambda idx, v=vals, nm=name: local(
-                    nm, unpack(v[layers[idx[0]]])))
+                (n,), lambda idx, v=vals, nm=name: unpack(v[layers[idx[0]]], nm))
 
     fp8_names = {name for (_, name) in fp8_scales}
     for name, pieces in staged.items():
@@ -492,15 +489,17 @@ def load_llama_params(model, cfg, device=None) -> Dict[str, Any]:
                     f"fp8 checkpoint missing {name} scales for layers "
                     f"{sc_missing}"
                 )
-            ly[name] = fill_stacked((n,), lambda idx, nm=name, p=pieces: local(
-                nm, fp8_qtensor(take(p[layers[idx[0]]][0]),
-                                take(fp8_scales[(layers[idx[0]], nm)]))))
+            ly[name] = fill_stacked((n,), lambda idx, nm=name, p=pieces: load(
+                rank_view(lay, nm, fp8_qtensor(
+                    ck, p[layers[idx[0]]][0], fp8_scales[(layers[idx[0]], nm)])),
+                dev))
             continue
         ly[name] = fill_stacked(
             (n,), lambda idx, p=pieces, nm=name: take(
                 p[layers[idx[0]]][0], bf16, p[layers[idx[0]]][1], nm))
-    logger.info("read %d tensors (%.2f GB) in %.1fs", len(ck.keys()),
-                ck.nbytes / 1e9, time.time() - t0)
+    logger.info("read %.2f GB of %d tensors in %.1fs",
+                (placement_stats()["total_bytes"] - read0) / 1e9, len(ck.keys()),
+                time.time() - t0)
     merge_llama_leaves(ly, model)
     if not held:
         params["layers"] = no_layers(ly)
@@ -598,6 +597,13 @@ def save_preprocessed(
         json.dump(meta, f)
 
 
+def _to_device(leaf, device):
+    """A host leaf (a tensor or a QTensor of them) through `to_device`."""
+    if isinstance(leaf, QTensor):
+        return leaf._map(lambda t: to_device(t, device))
+    return to_device(leaf, device)
+
+
 def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
     """Load a preprocessed tree (this package's dump or the JAX
     package's), each leaf straight to `device` (the model's, else the
@@ -667,8 +673,7 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
         out: Dict[str, Any] = {}
         for k in list(flat):
             for n, v in lay.place(k, flat.pop(k), saved_mtp).items():
-                out[n] = (v.to(device).contiguous() if isinstance(v, QTensor)
-                          else to_device(v, device))
+                out[n] = _to_device(v, device)
         ly = {k: out.pop(k) for k in list(out) if k in model.LAYER_LEAVES}
         tree = {**out, "layers": lay.assemble(ly)}
     elif cut:
@@ -677,9 +682,7 @@ def load_preprocessed(out_dir: str, model=None, device=None) -> Dict[str, Any]:
         def dev(t):
             if isinstance(t, dict):
                 return {k: dev(v) for k, v in t.items()}
-            if isinstance(t, QTensor):
-                return t.to(device).contiguous()
-            return to_device(t, device)
+            return _to_device(t, device)
 
         tree = dev(lay.tree(tree))
     elif "layers" in tree:

@@ -1,32 +1,34 @@
 """Checkpoint adapters for the MoE families (Mixtral, DeepSeek-V3) and the
 GLM-4 fused layout.
 
-Counterpart of `chitu_tpu/loaders_moe.py`, the eager paths (reference:
-chitu/models/model_hf_mixtral.py:171-178, chitu/backend.py:449-477,
-model_deepseek_v3.py:1167-1288, model_hf_llama.py:577-596):
+Counterpart of `chitu_tpu/loaders_moe.py`, its eager and streamed paths
+in one (reference: chitu/models/model_hf_mixtral.py:171-178,
+chitu/backend.py:449-477, model_deepseek_v3.py:1167-1288,
+model_hf_llama.py:577-596):
 - Mixtral w1/w3/w2 -> gate/up/down and the expert stacks [L, E, in, out];
 - GLM-4 fused query_key_value / dense_h_to_4h, which in the port's merged
-  layout are `wqkv` / `w_gate_up` already (merge_tp 1);
+  layout are `wqkv` / `w_gate_up` already (merge_tp 1); under another
+  layout each fused view is split into its q / k / v or gate / up
+  windows, each cut to the rank's slice before it is read;
 - DeepSeek-V3 / R1, bf16 or native fp8: e4m3 weights with their
   `weight_scale_inv` blockwise scales load as SOFT_FP8 QTensors
   (`_maybe_fp8`), stored fp8 and computed in bf16.
 
 As in `loader.py`, every leaf is allocated on the device once and filled
-there one layer or one expert at a time from views of the mapped files,
-so the host never holds the weights, and a rank reads only its pipeline
-stage's layers (DeepSeek: the dense-first layers on stage 0, each stage
-its chunk of the MoE stack), the embedding on stage 0 and the norm and
-head on the last. Under tensor parallelism a Mixtral or DeepSeek rank
-reads only its experts (expert parallelism), and its slice of every
-other cut leaf: a bf16 view is cut before it is copied (`rank_view`), a
-native fp8 projection is assembled on the device, then cut (its scales
-with it). The engine then merges the MoE gate/up pairs
-(`quantize.merge_moe_gate_up`).
+there one layer or one expert at a time from readers of the mapped files
+(`loader_streaming`), so the host never holds the weights, and a rank
+reads only its pipeline stage's layers (DeepSeek: the dense-first layers
+on stage 0, each stage its chunk of the MoE stack), the embedding on
+stage 0 and the norm and head on the last. Under tensor parallelism a
+Mixtral or DeepSeek rank reads only its experts (expert parallelism),
+and its slice of every other cut leaf, cut before it is read
+(`rank_view`): a bf16 view narrowed, a native fp8 projection cut to the
+whole 128 x 128 blocks over its slice, its scales with it. The engine
+then merges the MoE gate/up pairs (`quantize.merge_moe_gate_up`).
 """
 
 from __future__ import annotations
 
-import dataclasses
 import re
 import time
 from typing import Any, Dict, List, Optional
@@ -44,9 +46,9 @@ from chitu_tpu_torch.loader import (
     rank_experts,
     rank_view,
     stage_layers,
-    to_device,
 )
-from chitu_tpu_torch.parallel.sharding import StageSlice
+from chitu_tpu_torch.loader_streaming import load, placement_stats
+from chitu_tpu_torch.models.llama import MERGES, _cat_out
 from chitu_tpu_torch.utils import get_logger
 
 logger = get_logger()
@@ -70,9 +72,9 @@ class _Staging:
     def take(self, key: str, transpose: bool = False, dtype=torch.bfloat16,
              name: Optional[str] = None):
         """One stored tensor on the device; with the leaf's `name`, the
-        rank's tensor-parallel slice of it (cut before the copy)."""
-        view = rank_view(self.layout, name, self.ck.get(key), transpose)
-        return to_device(view, self.device, dtype, transpose)
+        rank's tensor-parallel slice of it (cut before it is read)."""
+        reader = self.ck.reader(key, transpose, dtype)
+        return load(rank_view(self.layout, name, reader), self.device)
 
     def slot(self, name: str, layers: List[int]) -> Dict[int, Any]:
         slot = self.per_layer.get(name)
@@ -138,7 +140,7 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
                 kind = {"w1": "w_gate", "w3": "w_up", "w2": "w_down"}[me.group(2)]
                 experts[(i, int(me.group(1)), kind)] = key
 
-    t0 = time.time()
+    t0, read0 = time.time(), placement_stats()["total_bytes"]
     layers, held = layers_to_read(model)
     # the rank's experts; its slice of each other leaf the layout cuts
     mine = rank_experts(model.layout, E)
@@ -164,8 +166,8 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
     if ("lm_head" not in st.flat and not a.tie_word_embeddings
             and holds(model, "lm_head")):
         params["lm_head"] = take(st.flat["embed"], "embed").T.contiguous()
-    logger.info("mixtral checkpoint: %.2f GB in %.1fs", ck.nbytes / 1e9,
-                time.time() - t0)
+    logger.info("mixtral checkpoint: read %.2f GB in %.1fs",
+                (placement_stats()["total_bytes"] - read0) / 1e9, time.time() - t0)
     return params
 
 
@@ -177,11 +179,16 @@ def load_mixtral_params(model, cfg, device=None) -> Dict[str, Any]:
 def load_glm4_params(model, cfg, device=None) -> Dict[str, Any]:
     """The fused [(H + 2KV) * Dh, D] query_key_value and [2F, D]
     dense_h_to_4h tensors, transposed, are the merged `wqkv` and
-    `w_gate_up` columns [q | k | v] and [gate | up] as they stand."""
+    `w_gate_up` columns [q | k | v] and [gate | up] as they stand. Under
+    tp, or unmerged, each fused reader is split into its parts' windows
+    (`TPLayout.widths`), each window cut to the rank's slice and read
+    alone, and the rank's parts are merged again where the layout
+    merges; the embedding and head take the rank's vocabulary slice."""
     a = model.args
     dev = torch.device(device) if device is not None else model.device
     ck = Checkpoint(a.ckpt_dir)
-    st = _Staging(ck, dev)
+    lay = model.layout
+    st = _Staging(ck, dev, lay)
     top = {
         "transformer.embedding.word_embeddings.weight": ("embed", False),
         "transformer.encoder.final_layernorm.weight": ("norm", False),
@@ -207,32 +214,34 @@ def load_glm4_params(model, cfg, device=None) -> Dict[str, Any]:
             st.put(name, int(m.group(1)), (key, tr))
 
     layers, held = layers_to_read(model)
-    take = lambda v: st.take(*v)
-    lay = model.layout
     names = ["attn_norm", "ffn_norm", "wqkv", "wo", "w_gate_up", "w_down"]
     if a.attn_bias:
         names.append("b_qkv")
-    params: Dict[str, Any] = {k: take(v) for k, v in st.flat.items()
+    params: Dict[str, Any] = {k: st.take(*v, name=k) for k, v in st.flat.items()
                               if holds(model, k)}
-    if lay.tp <= 1 and lay.merged:
-        params["layers"] = {n: st.stack(n, layers, take) for n in names}
-        if not held:
-            params["layers"] = no_layers(params["layers"])
-        return params
-    # another layout: each fused layer is split into its parts and cut to
-    # the rank's slice on the device (one layer: no stage cut), then the
-    # layers are stacked
-    one = dataclasses.replace(lay, stage=StageSlice())
-    params = {n: v for k, t in params.items() for n, v in one.place(k, t).items()}
+    whole = lay.tp <= 1 and lay.merged
+
+    def parts(name, v):
+        """The rank's slices of a fused layer's parts, as readers."""
+        reader, at, out = st.ck.reader(*v, torch.bfloat16), 0, []
+        for part, w in zip(MERGES[name], lay.widths[name]):
+            out.append((part, rank_view(lay, part, reader.narrow(-1, at, w))))
+            at += w
+        return out
+
     ly: Dict[str, Any] = {}
     for n in names:
         slot = st.slot(n, layers)
-        pieces = [one.place(n, take(slot[i])) for i in layers]
-        for k in pieces[0]:
-            ly[k] = torch.stack([p[k] for p in pieces])
-    params["layers"] = lay.assemble(ly)
-    if not held:
-        params["layers"] = no_layers(params["layers"])
+        if n not in MERGES or whole:
+            ly[n] = st.stack(n, layers, lambda v, n=n: st.take(*v, name=n))
+        elif lay.merged:  # the rank's parts side by side
+            ly[n] = st.stack(n, layers, lambda v, n=n: _cat_out(
+                [load(r, dev) for _, r in parts(n, v)]))
+        else:
+            for j, part in enumerate(MERGES[n]):
+                ly[part] = fill_stacked((len(layers),), lambda idx, n=n, j=j: load(
+                    parts(n, slot[layers[idx[0]]])[j][1], dev))
+    params["layers"] = no_layers(ly) if not held else ly
     return params
 
 
@@ -252,26 +261,24 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
         k[: -len(".weight_scale_inv")]: k
         for k in ck.keys() if k.endswith(".weight_scale_inv")
     }
-    t0 = time.time()
+    t0, read0 = time.time(), placement_stats()["total_bytes"]
 
     def take(key, transpose=False, dtype=torch.bfloat16, leaf=None):
-        view = rank_view(lay, leaf, ck.get(key), transpose)
-        return to_device(view, dev, dtype, transpose)
+        return load(rank_view(lay, leaf, ck.reader(key, transpose, dtype)), dev)
 
     def get(name, transpose=True, leaf=None):
         """A bf16 leaf (1-D leaves are never transposed); the rank's slice
-        of the layout's leaf `leaf`, cut before the copy."""
+        of the layout's leaf `leaf`, cut before it is read."""
         return take(name + ".weight", transpose, leaf=leaf)
 
     def _maybe_fp8(name, leaf=None):
         """fp8 weight + blockwise scale_inv -> a SOFT_FP8 QTensor ([in, out]),
-        assembled on the device, then cut to the rank's slice of `leaf`;
-        bf16 [in, out] otherwise."""
+        the rank's slice of `leaf` (the whole 128 x 128 blocks over it)
+        cut before it is read; bf16 [in, out] otherwise."""
         if name not in scales:
             return get(name, leaf=leaf)
-        q = fp8_qtensor(take(name + ".weight", dtype=None),
-                        take(scales[name], dtype=None))
-        return lay.local(leaf, q).contiguous() if leaf and lay.tp > 1 else q
+        q = fp8_qtensor(ck, name + ".weight", scales[name])
+        return load(rank_view(lay, leaf, q), dev)
 
     def attn_tree(layers: List[int]) -> Dict[str, Any]:
         n = len(layers)
@@ -355,6 +362,6 @@ def load_deepseek_params(model, cfg, device=None) -> Dict[str, Any]:
         out["dense_layers"] = dense
     if moe_layers or model.pp == 1:
         out["moe_layers"] = moe_p
-    logger.info("deepseek checkpoint: %.2f GB in %.1fs", ck.nbytes / 1e9,
-                time.time() - t0)
+    logger.info("deepseek checkpoint: read %.2f GB in %.1fs",
+                (placement_stats()["total_bytes"] - read0) / 1e9, time.time() - t0)
     return out

@@ -7,8 +7,8 @@ every family (expert parallelism for Mixtral and DeepSeek), pipeline
 parallelism (`mesh`, `distributed`, `sharding`, `pipeline`: the stage
 relay and the microbatch-pipelined decode), and data parallelism with
 the ring KV pool and ring prefill (`distributed.DPGroup`, `ring`,
-`ops/attention_ring.py`). Not ported yet: streamed loads
-(`loader_streaming.py`).
+`ops/attention_ring.py`). The streamed loads, each rank reading only its
+own slice of a checkpoint, are `chitu_tpu_torch/loader_streaming.py`.
 """
 
 from chitu_tpu_torch.parallel.mesh import (  # noqa: F401

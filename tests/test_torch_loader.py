@@ -44,6 +44,7 @@ from chitu_tpu.models import build_model as jbuild
 from chitu_tpu.quantize import packed as jpacked
 from chitu_tpu.task import SampleParams as JSampleParams
 from chitu_tpu_torch import SampleParams, load_config
+from chitu_tpu_torch import loader_streaming as ls
 from chitu_tpu_torch.engine import Engine
 from chitu_tpu_torch.kvcache import PagedKVCache
 from chitu_tpu_torch.loader import (
@@ -170,6 +171,15 @@ def _same_q(a: QTensor, b: QTensor):
             _same(x, y)
 
 
+def unpack(qweight, qzeros, scales, g_idx=None):
+    """The loader's AWQ / GPTQ readers (`loader_streaming.w4a16`) over
+    whole host tensors, read on the CPU."""
+    r = ls.LazySlice
+    q = ls.w4a16(r(qweight), r(qzeros), r(scales, dtype=torch.float32),
+                 None if g_idx is None else r(g_idx))
+    return ls.load(q, "cpu")
+
+
 @pytest.mark.parametrize("fmt", ["awq", "gptq", "gptq_act_order"])
 def test_unpack_matches_jax(fmt):
     rng = np.random.default_rng(1)
@@ -179,14 +189,13 @@ def test_unpack_matches_jax(fmt):
     if fmt == "awq":
         args = (words(K, N // 8), words(K // G, N // 8), scales)
         want = jpacked.unpack_awq(*args, group_size=G)
-        got = packed.unpack_awq(*map(torch.from_numpy, args), group_size=G)
+        got = unpack(*map(torch.from_numpy, args))
     else:
         g = np.arange(K) // G
         g = (rng.permutation(g) if fmt == "gptq_act_order" else g).astype(np.int32)
         args = (words(K // 8, N), words(K // G, N // 8), scales)
         want = jpacked.unpack_gptq(*args, group_size=G, g_idx=g)
-        got = packed.unpack_gptq(*map(torch.from_numpy, args), group_size=G,
-                                 g_idx=torch.from_numpy(g))
+        got = unpack(*map(torch.from_numpy, args), torch.from_numpy(g))
         assert (got.in_perm is not None) == (fmt == "gptq_act_order")
     _same_q(_jq_to_torch(want), got)
 
@@ -203,10 +212,10 @@ def test_pack_awq_and_gptq_invert_the_unpack():
                                           scale=scales.numpy()))
     for k in ("qweight", "qzeros", "scales"):
         _same(torch.from_numpy(jp[k]), p[k])
-    _same_q(q, packed.unpack_awq(p["qweight"], p["qzeros"], p["scales"], G))
+    _same_q(q, unpack(p["qweight"], p["qzeros"], p["scales"]))
     g = torch.from_numpy((rng.permutation(K) % (K // G)).astype(np.int32))
     p = packed.pack_gptq(data, zeros, scales, g_idx=g)
-    got = packed.unpack_gptq(p["qweight"], p["qzeros"], p["scales"], G, g_idx=p["g_idx"])
+    got = unpack(p["qweight"], p["qzeros"], p["scales"], p["g_idx"])
     perm = torch.argsort(g.long(), stable=True)
     _same(data[perm], got.data)
     _same(zeros, got.zeros)

@@ -332,9 +332,11 @@ def test_act_order_checkpoint_at_tp2(worlds):
 
 @pytest.mark.parametrize("fmt", ["hf_llama_bf16", "gptq_act_order", "glm4"])
 def test_loader_cuts_rank_slices(tmp_path, fmt):
-    """The checkpoint loader under a tp=2 layout (each mapped view cut
-    before its copy; a quantized layer assembled, then cut) gives each rank
-    the slices of the JAX loader's tree that `params_from_numpy` cuts."""
+    """The checkpoint loader under a tp=2 layout (every reader cut before
+    it is read: a bf16 view narrowed, a quantized layer's packed words or
+    blocks over the rank's slice copied and unpacked on the device) gives
+    each rank the slices of the JAX loader's tree that `params_from_numpy`
+    cuts."""
     ovr, d = tl.checkpoint(fmt, tmp_path)
     jcfg, cfg = tl._cfgs(ovr, d)
     jtree = jax.tree_util.tree_map(
